@@ -10,16 +10,21 @@ printing no result, where either is missing or any phase fails.
   2. holds every kernel against its plain PyTorch version on the card, at the
      shapes of full-width ResNet-9 (the 2,359,296-element layer3 residual
      conv and the 6,573,120-element entire model): histogram counts and
-     thresholds exactly equal, fused sparsify bitwise; then times each kernel
-     (CUDA events, after warm-up, inputs cycled past the 50 MB L2) beside its
-     plain version, its memory bound and a library call;
+     thresholds exactly equal, fused sparsify bitwise; Philox uniforms, QSGD
+     and TernGrad levels bitwise (NaN, +-Inf and a zero vector included),
+     uniforms on the 2^-24 grid with mean 0.5 +- 1e-3, both quantizers
+     unbiased within 3 sigma; then times each kernel (CUDA events, after
+     warm-up, inputs cycled past the 50 MB L2) beside its plain version, its
+     bound and a library call;
   3. trains full-width ResNet-9 through the port's DAWNBench entry point
-     (``harness.dawn.main``), 4 steps of batch 512 with Top-K 1 % + EF at
-     layerwise and at entiremodel granularity on a 1-rank NCCL group, with
-     every kernel's launch counter zeroed just before each run and read just
-     after; checks finite loss, the kept fraction and that every kernel ran;
-  4. times steady-state steps and the gradient sync alone (dense,
-     layerwise, entiremodel);
+     (``harness.dawn.main``), 4 steps of batch 512 on a 1-rank NCCL group,
+     at layerwise and at entiremodel granularity, with Top-K 1 % + EF,
+     Random-K 1 % + EF, Threshold-V + EF, Adaptive-Threshold + EF, TernGrad
+     and QSGD (s = 255); every kernel's launch counter is zeroed just before
+     each run and read just after; checks finite loss, the billed sent and
+     wire fractions and that the run's kernels ran;
+  4. times steady-state steps and the gradient sync alone (dense, Top-K,
+     Random-K, TernGrad and QSGD at both granularities), with a profile;
   5. prints the kernels' JSON line, the ``nvidia-smi`` name/power line and,
      last, ``{"ok": true, "device": {...}}``.
 
@@ -39,6 +44,13 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12      # H100 SXM fp32 rate outside the tensor cores
+# integer issue ceiling: each SM issues at most one warp instruction per
+# scheduler per clock (128 lanes), the lanes the fp32 rate counts (an FMA as
+# two operations): 67e12 / 2.  Integer multiplies run on those FMA lanes.
+INT_OPS_PER_S = 33.5e12
+# Philox4x32-10 per element: 10 rounds of 2 32x32->64 multiplies and 4 xors
+# per 4 words (the key schedule is the same for every element)
+PHILOX_OPS_PER_ELEM = 15.0
 FULL_LEAF = 2_359_296       # layer3 residual conv, the largest ResNet-9 leaf
 FULL_MODEL = 6_573_120      # every ResNet-9 parameter, the entire-model group
 RATIO = 0.01
@@ -76,8 +88,8 @@ def time_ms(fn, inputs, *, reps: int = 15, inner: int = 10) -> float:
     return samples[len(samples) // 2]
 
 
-def bound_ms(bytes_moved: float, ops: float):
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+def bound_ms(bytes_moved: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -217,44 +229,221 @@ def phase_kernels(kernels, compressors, torch, record):
     return err, rows
 
 
-def phase_train(kernels, dawn, torch, record):
-    """The main path: dawn at full width, layerwise and entiremodel."""
+def raw_dither(kernels, torch, n: int, seed: int):
+    """The dither kernels' C entry points with outputs allocated once
+    (timing only; these launches are not counted)."""
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = kernels._lib("dither")
+    u = torch.empty(n, device=dev)
+    q = torch.empty(n, dtype=torch.int16, device=dev)
+    t = torch.empty(n, dtype=torch.int8, device=dev)
+
+    def check(rc, name):
+        if rc:
+            raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+
+    return (lambda _: check(lib.tcdp_uniform(u.data_ptr(), n, seed, stream), "uniform"),
+            lambda xi: check(lib.tcdp_qsgd_levels(xi[0].data_ptr(), n, xi[1].data_ptr(), seed,
+                                                  255, q.data_ptr(), stream), "qsgd"),
+            lambda xi: check(lib.tcdp_terngrad_levels(xi[0].data_ptr(), n, xi[1].data_ptr(),
+                                                      seed, t.data_ptr(), stream), "terngrad"))
+
+
+def _within_3_sigma(torch, est, g, p, scale, what):
+    """Mean of ``est - g`` against 3 sigma of the dither's own variance:
+    each element rounds up with probability ``p`` by one level of
+    ``scale``."""
+    err = (est.double() - g.double()).mean().item()
+    sigma = (scale.double() ** 2 * (p * (1 - p))).sum().sqrt().item() / g.numel()
+    if not abs(err) <= 3 * sigma:
+        raise AssertionError(f"{what} is biased: mean error {err:.3e} vs 3 sigma {3 * sigma:.3e}")
+    return err, sigma
+
+
+def phase_dither(kernels, torch, record):
+    """Philox uniforms and the QSGD / TernGrad kernels vs their plain
+    versions on the card, their contracts, then timings."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    err = {"uniform": 0.0, "qsgd": 0.0, "terngrad": 0.0}
+    rows, checks = {}, {}
+    seed = 0x243F6A8885A308D3
+    for n in (FULL_LEAF, FULL_MODEL):
+        u = kernels.uniform(seed, n, dev)
+        if not torch.equal(u, kernels.uniform(seed, n, dev)):
+            raise AssertionError(f"uniform is not deterministic in its seed at n={n}")
+        if torch.equal(u, kernels.uniform(seed + 1, n, dev)):
+            raise AssertionError(f"uniform ignores its seed at n={n}")
+        d = (u - kernels.uniform_plain(seed, n, dev)).abs().max().item()
+        err["uniform"] = max(err["uniform"], d)
+        if d != 0 or not torch.equal(u, kernels.uniform_plain(seed, n, dev)):
+            raise AssertionError(f"uniform differs from plain at n={n}")
+        scaled = u * (1 << 24)
+        mean = u.double().mean().item()
+        if not (torch.equal(scaled, scaled.floor()) and u.min().item() >= 0.0
+                and u.max().item() < 1.0 and abs(mean - 0.5) <= 1e-3):
+            raise AssertionError(f"uniform off its 24-bit grid or mean {mean} at n={n}")
+        g = torch.randn(n, generator=gen, device=dev) * 1e-2
+        poisoned = g.clone()
+        poisoned[::997] = float("nan")
+        poisoned[1::1009] = float("inf")
+        poisoned[2::1013] = -float("inf")
+        zeros = torch.zeros(n, device=dev)
+        for what, x in (("finite", g), ("nan/inf", poisoned), ("zeros", zeros)):
+            finite = torch.where(torch.isfinite(x), x, 0.0)
+            invs = (kernels._safe_inv(torch.linalg.vector_norm(finite)),
+                    kernels._safe_inv(finite.abs().max()),
+                    torch.ones((), device=dev))
+            for inv in invs:
+                for route, got, want in (
+                        ("qsgd", kernels.qsgd_levels_kernel(x, inv, seed, 255),
+                         kernels.qsgd_levels_plain(x, inv, seed, 255)),
+                        ("terngrad", kernels.terngrad_levels_kernel(x, inv, seed),
+                         kernels.terngrad_levels_plain(x, inv, seed))):
+                    d = (got.int() - want.int()).abs().max().item()
+                    err[route] = max(err[route], float(d))
+                    if d != 0:
+                        raise AssertionError(f"{route} differs from plain at n={n} ({what})")
+        # unbiased: scale * levels - g has mean 0 within 3 sigma
+        levels, scale = kernels.qsgd_quantize(g, seed)
+        v = g.double().abs() / torch.linalg.vector_norm(g).double() * 255
+        q_err = _within_3_sigma(torch, scale * levels.float(), g, v - v.floor(), scale, "qsgd")
+        levels, gmax = kernels.terngrad_quantize(g, seed)
+        p = (g.double().abs() / gmax.double())
+        t_err = _within_3_sigma(torch, gmax * levels.float(), g, p, gmax, "terngrad")
+        checks[n] = {"uniform_mean": mean, "qsgd_mean_err_sigma": q_err,
+                     "terngrad_mean_err_sigma": t_err}
+        log(f"dither n={n}: uniform, qsgd and terngrad bitwise == plain (finite, nan/inf, "
+            f"zeros); uniform mean {mean:.6f}; qsgd mean err {q_err[0]:.3e} (sigma "
+            f"{q_err[1]:.3e}), terngrad {t_err[0]:.3e} (sigma {t_err[1]:.3e})")
+
+        copies = max(2, math.ceil(120e6 / (4 * n)))
+        xs = [torch.randn(n, generator=gen, device=dev) for _ in range(copies)]
+        pairs = [(x, kernels._safe_inv(torch.linalg.vector_norm(x))) for x in xs]
+        raw_u, raw_q, raw_t = raw_dither(kernels, torch, n, seed)
+        rand_gen = torch.Generator(device=dev).manual_seed(2)
+        ops = PHILOX_OPS_PER_ELEM * n
+        row = {
+            "uniform": {
+                "ms": time_ms(raw_u, [None]),
+                "wrapper_ms": time_ms(lambda _: kernels.uniform(seed, n, dev), [None]),
+                "plain_ms": time_ms(lambda _: kernels.uniform_plain(seed, n, dev), [None], reps=5,
+                                    inner=2),
+                "bound": bound_ms(4 * n, ops, INT_OPS_PER_S),
+                "library_ms": time_ms(lambda _: torch.rand(n, generator=rand_gen, device=dev),
+                                      [None])},
+            "qsgd": {
+                "ms": time_ms(raw_q, pairs),
+                "wrapper_ms": time_ms(lambda p: kernels.qsgd_levels_kernel(p[0], p[1], seed, 255),
+                                      pairs),
+                "plain_ms": time_ms(lambda p: kernels.qsgd_levels_plain(p[0], p[1], seed, 255),
+                                    pairs, reps=5, inner=2),
+                "bound": bound_ms(6 * n + 4, ops, INT_OPS_PER_S), "library_ms": None},
+            "terngrad": {
+                "ms": time_ms(raw_t, pairs),
+                "wrapper_ms": time_ms(lambda p: kernels.terngrad_levels_kernel(p[0], p[1], seed),
+                                      pairs),
+                "plain_ms": time_ms(lambda p: kernels.terngrad_levels_plain(p[0], p[1], seed),
+                                    pairs, reps=5, inner=2),
+                "bound": bound_ms(5 * n + 4, ops, INT_OPS_PER_S), "library_ms": None},
+        }
+        rows[n] = row
+        for name in ("uniform", "qsgd", "terngrad"):
+            r = row[name]
+            lib_txt = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+            log(f"time n={n} {name}: {r['ms']:.4f} ms (wrapper {r['wrapper_ms']:.4f} ms, "
+                f"plain {r['plain_ms']:.4f} ms, "
+                f"bound {r['bound'][0]:.4f} ms by {r['bound'][1]}, library {lib_txt})")
+        del xs, pairs
+    record["dither_errors"] = err
+    record["dither_checks"] = {str(n): c for n, c in checks.items()}
+    record["dither_times"] = {str(n): r for n, r in rows.items()}
+    return err, rows
+
+
+# phase 3's runs: label -> (dawn flags, the kernels the run must launch)
+TOPK_KERNELS = ("count_ge", "count_edges", "fused_sparsify")
+TRAIN_RUNS = {
+    "topk": (["--method", "topk", "--ratio", str(RATIO), "--error_feedback"], TOPK_KERNELS),
+    "randomk": (["--method", "randomk", "--ratio", str(RATIO), "--error_feedback"],
+                ("uniform",)),
+    "thresholdv": (["--method", "thresholdv", "--error_feedback"], ("fused_sparsify",)),
+    "adaptivethreshold": (["--method", "adaptivethreshold", "--error_feedback"],
+                          ("fused_sparsify",)),
+    "terngrad": (["--method", "terngrad"], ("terngrad",)),
+    "randomdithering": (["--method", "randomdithering", "--qstates", "255"], ("qsgd",)),
+}
+
+
+def expected_sent(compressors, dp, gran: str) -> float:
+    """Random-K's billed sent fraction: the summed per-group keep counts
+    over the dense count, for full-width ResNet-9's leaves."""
+    from tpu_compressed_dp_torch.models.resnet9 import ResNet9, param_leaves
+
+    sizes = [p.numel() for p in param_leaves(ResNet9(seed=0, device="cpu")).values()]
+    groups = dp.make_leaf_groups([4 * s for s in sizes], gran, 25.0 * dp.BUCKET_MB)
+    kept = sum(compressors.randomk_keep_count(sum(sizes[i] for i in g), RATIO) for g in groups)
+    return kept / sum(sizes)
+
+
+def phase_train(kernels, compressors, dawn, torch, record):
+    """The main path: dawn at full width, every method at layerwise and
+    entiremodel."""
+    from tpu_compressed_dp_torch.parallel import dp
+
     card = record["card"]
     runs = {}
-    for gran in ("layerwise", "entiremodel"):
-        argv = ["--network", "resnet9", "--synthetic", "--synthetic_n", "2048",
-                "--batch_size", "512", "--epochs", "1", "--compress", gran,
-                "--method", "topk", "--ratio", str(RATIO), "--error_feedback",
-                "--mode", "simulate", "--device", "cuda", "--seed", "0", "--log_dir", ""]
-        kernels.reset_launches()
-        t0 = time.perf_counter()
-        summary = dawn.main(argv)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = dict(kernels.LAUNCHES)
-        steps = summary["steps"]
-        loss = summary["train loss"]
-        sent = summary["sent frac"]
-        if not math.isfinite(loss) or not math.isfinite(summary["test loss"]):
-            raise AssertionError(f"{gran}: non-finite loss {loss}")
-        if abs(sent - RATIO) > 0.1 * RATIO:
-            raise AssertionError(f"{gran}: sent frac {sent} is not ~{RATIO}")
-        if min(launches.values()) <= 0:
-            raise AssertionError(f"{gran}: a kernel never launched: {launches}")
-        ms = summary["train time"] * 1e3 / steps
-        log(f"train {gran}: {steps} steps, loss {loss:.4f}, sent frac {sent:.5f}, "
-            f"{ms:.2f} ms/step, {summary['img/s']} img/s (first epoch, warm-up included) "
-            f"on {card}, run wall {wall:.2f} s, launches {launches}")
-        runs[gran] = {"summary": summary, "launches": launches, "ms_per_step": ms}
-    if runs["entiremodel"]["launches"]["count_edges"] < runs["entiremodel"]["summary"]["steps"]:
+    for label, (flags, must) in TRAIN_RUNS.items():
+        for gran in ("layerwise", "entiremodel"):
+            argv = ["--network", "resnet9", "--synthetic", "--synthetic_n", "2048",
+                    "--batch_size", "512", "--epochs", "1", "--compress", gran, *flags,
+                    "--mode", "simulate", "--device", "cuda", "--seed", "0", "--log_dir", ""]
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            summary = dawn.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+            steps = summary["steps"]
+            loss = summary["train loss"]
+            sent, wire = summary["sent frac"], summary["wire frac"]
+            name = f"{label} {gran}"
+            if not math.isfinite(loss) or not math.isfinite(summary["test loss"]):
+                raise AssertionError(f"{name}: non-finite loss {loss}")
+            if label == "topk" and abs(sent - RATIO) > 0.1 * RATIO:
+                raise AssertionError(f"{name}: sent frac {sent} is not ~{RATIO}")
+            want_sent = expected_sent(compressors, dp, gran) if label == "randomk" else sent
+            if sent != want_sent:
+                raise AssertionError(f"{name}: sent frac {sent} is not the billed keep count "
+                                     f"{want_sent}")
+            want_wire = {"terngrad": 2 / 32, "randomdithering": 9 / 32}.get(label)
+            if want_wire is not None and abs(wire - want_wire) > 1e-6 * want_wire:
+                raise AssertionError(f"{name}: wire frac {wire} is not {want_wire}")
+            if min(launches[k] for k in must) <= 0:
+                raise AssertionError(f"{name}: a kernel of the run never launched: {launches}")
+            ms = summary["train time"] * 1e3 / steps
+            log(f"train {name}: {steps} steps, loss {loss:.4f}, sent frac {sent:.6f}, wire frac "
+                f"{wire:.6f}, {ms:.2f} ms/step (first epoch, warm-up included) on {card}, run "
+                f"wall {wall:.2f} s, launches {launches}")
+            runs[name] = {"summary": summary, "launches": launches, "ms_per_step": ms}
+    em = runs["topk entiremodel"]
+    if em["launches"]["count_edges"] < em["summary"]["steps"]:
         raise AssertionError("entiremodel did not take the sampled first round every step")
+    # entire-model TernGrad quantises 4 chunks of 2^21 through the prescaled
+    # call: one launch per step
+    if (compressors.terngrad_num_chunks(FULL_MODEL, 1 << 21) != 4
+            or runs["terngrad entiremodel"]["launches"]["terngrad"]
+            != runs["terngrad entiremodel"]["summary"]["steps"]):
+        raise AssertionError("entiremodel TernGrad did not take the chunked, prescaled call")
     record["train"] = runs
     return runs
 
 
 def _category(name: str) -> str:
     low = name.lower()
-    if "count_ge_edges_kernel" in name or "fused_sparsify_kernel" in name:
+    if any(k in name for k in ("count_ge_edges_kernel", "fused_sparsify_kernel",
+                                "uniform_kernel", "qsgd_kernel", "terngrad_kernel")):
         return "port CUDA kernels"
     if "sort" in low or "topk" in low or "radix" in low:
         return "torch.topk (exact threshold, small leaves)"
@@ -325,10 +514,12 @@ def phase_steady(torch, record):
     apply_fn = make_normalizing_apply_fn(np.asarray(data.CIFAR10_MEAN) * 255.0,
                                          np.asarray(data.CIFAR10_STD) * 255.0)
     out = {}
-    for label, method, gran in (("dense", None, "layerwise"), ("layerwise", "topk", "layerwise"),
-                                ("entiremodel", "topk", "entiremodel")):
+    rows = [("dense", None, "layerwise")]
+    for method in ("topk", "randomk", "terngrad", "qsgd"):
+        rows += [(f"{method} {gran}", method, gran) for gran in ("layerwise", "entiremodel")]
+    for label, method, gran in rows:
         cfg = CompressionConfig(method=method, granularity=gran, ratio=RATIO,
-                                error_feedback=method is not None)
+                                error_feedback=method in ("topk", "randomk"))
         model = ResNet9(seed=0, device=dev)
         params = param_leaves(model)
         opt = SGD(lr=1e-4, momentum=0.9, nesterov=True, weight_decay=0.256)
@@ -355,7 +546,7 @@ def phase_steady(torch, record):
         grads = {k: torch.randn(p.shape, device=dev) * 1e-2 for k, p in params.items()}
         sync = make_grad_sync(cfg)
         ef = init_ef_state(params, cfg)
-        sync_ms = time_ms(lambda g: sync(g, ef), [grads], reps=10, inner=5)
+        sync_ms = time_ms(lambda g: sync(g, ef, 0), [grads], reps=10, inner=5)
         out[label] = {"step_ms": step_ms, "img_s": 512 / step_ms * 1e3, "sync_ms": sync_ms,
                       "profile": prof}
         log(f"steady {label}: {step_ms:.3f} ms/step ({512 / step_ms * 1e3:.0f} img/s), "
@@ -390,25 +581,38 @@ def main(argv=None) -> int:
     log(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
     record["card"] = smi
     build_s = kernels.build()
+    record["nvcc"] = {}
     for name, text in kernels.BUILD_LOG.items():
-        for line in text.splitlines():
-            if "registers" in line or "error" in line.lower():
-                log(f"nvcc {name}: {line.strip()}")
+        lines = [line.strip() for line in text.splitlines()
+                 if "registers" in line or "error" in line.lower()]
+        record["nvcc"][name] = lines
+        for line in lines:
+            log(f"nvcc {name}: {line}")
     log(f"kernels built in {build_s:.2f} s")
     record["build_s"] = build_s
 
     err, rows = phase_kernels(kernels, compressors, torch, record)
-    runs = phase_train(kernels, dawn, torch, record)
+    d_err, d_rows = phase_dither(kernels, torch, record)
+    err.update(d_err)
+    for n, row in d_rows.items():
+        rows[n].update(row)
+    runs = phase_train(kernels, compressors, dawn, torch, record)
     phase_steady(torch, record)
 
     replaces = {"count_ge": "tpu_compressed_dp/ops/kernels.py:173",
                 "count_edges": "tpu_compressed_dp/ops/kernels.py:206",
-                "fused_sparsify": "tpu_compressed_dp/ops/kernels.py:487"}
+                "fused_sparsify": "tpu_compressed_dp/ops/kernels.py:487",
+                "uniform": "tpu_compressed_dp/ops/kernels.py:1555",
+                "qsgd": "tpu_compressed_dp/ops/kernels.py:1241",
+                "terngrad": "tpu_compressed_dp/ops/kernels.py:1249"}
     source = {"count_ge": "tpu_compressed_dp_torch/csrc/count_ge_edges.cu",
               "count_edges": "tpu_compressed_dp_torch/csrc/count_ge_edges.cu",
-              "fused_sparsify": "tpu_compressed_dp_torch/csrc/fused_sparsify.cu"}
+              "fused_sparsify": "tpu_compressed_dp_torch/csrc/fused_sparsify.cu",
+              "uniform": "tpu_compressed_dp_torch/csrc/dither.cu",
+              "qsgd": "tpu_compressed_dp_torch/csrc/dither.cu",
+              "terngrad": "tpu_compressed_dp_torch/csrc/dither.cu"}
     line = {"kernels": []}
-    for name in ("count_ge", "count_edges", "fused_sparsify"):
+    for name in replaces:
         r = rows[FULL_MODEL][name]
         line["kernels"].append({
             "name": name, "route": "cuda", "source": source[name],

@@ -113,7 +113,7 @@ class TestTopK:
     def test_unported_methods_raise(self):
         assert tc.canonical_name("Topk") == "topk"
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tc.get_compressor("randomk")
+            tc.get_compressor("powersgd")
         with pytest.raises(ValueError):
             tc.get_compressor("nonsense")
 
@@ -172,7 +172,8 @@ class TestDispatch:
         mag = torch.from_numpy(_mag(300000, 11))
         tk.topk_threshold(mag, 3000)
         tk.fused_sparsify(mag, torch.tensor(1.0))
-        assert tk.LAUNCHES == {"count_ge": 0, "count_edges": 0, "fused_sparsify": 0}
+        assert tk.LAUNCHES == {"count_ge": 0, "count_edges": 0, "fused_sparsify": 0,
+                               "uniform": 0, "qsgd": 0, "terngrad": 0}
 
 
 @pytest.mark.cuda

@@ -291,9 +291,66 @@ def test_dawn_cpu_smoke():
     assert abs(summary["sent frac"] - 0.01) < 0.001
 
 
+def _billed(method: str, gran: str, bucket_mb: float, ratio: float):
+    """(sent frac, wire frac) the sync bills for one step of the scaled
+    ResNet-9, from its leaf sizes and the JAX package's counting rules."""
+    from tpu_compressed_dp.ops import compressors as jc
+
+    sizes = [p.numel() for p in tres.param_leaves(
+        tres.ResNet9(channels=tres.scaled_channels(SCALE), seed=0, device="cpu")).values()]
+    groups = jdp.make_leaf_groups([4 * n for n in sizes], gran, bucket_mb * jdp.BUCKET_MB)
+    dense = sum(sizes)
+    sent = bits = 0.0
+    for g in groups:
+        n = sum(sizes[i] for i in g)
+        if method == "randomk":
+            k = jc.randomk_keep_count(n, ratio)
+            sent, bits = sent + k, bits + 64.0 * k
+        elif method == "blocktopk":
+            kb = jc.blocktopk_keep_blocks(n, ratio, 256)
+            k = min(kb * 256, n)
+            sent, bits = sent + k, bits + k * (32.0 if kb * 256 >= n else 32.0 + 32.0 / 256)
+        else:
+            width = {"terngrad": 2.0, "randomdithering": 9.0}[method]
+            sent, bits = sent + n, bits + width * n
+    return sent / dense, bits / (32.0 * dense)
+
+
+@pytest.mark.parametrize("granularity", ["layerwise", "entiremodel", "bucketed"])
+@pytest.mark.parametrize("method", ["randomk", "thresholdv", "adaptivethreshold", "terngrad",
+                                    "randomdithering", "blocktopk"])
+def test_dawn_cpu_drive_every_method(method, granularity):
+    from tpu_compressed_dp_torch.harness import dawn
+
+    ef = ["--error_feedback"] if method in ("randomk", "thresholdv", "adaptivethreshold",
+                                            "blocktopk") else []
+    summary = dawn.main(["--synthetic", "--synthetic_n", "64", "--batch_size", "32",
+                         "--epochs", "1", "--compress", granularity, "--method", method,
+                         "--ratio", "0.01", "--bucket_mb", "0.1", "--device", "cpu",
+                         "--channels_scale", "0.125", "--log_dir", "", *ef])
+    assert summary["steps"] == 2 and np.isfinite(summary["train loss"])
+    sent, wire = summary["sent frac"], summary["wire frac"]
+    if method in ("thresholdv", "adaptivethreshold"):
+        # a (value, index) pair per surviving coordinate
+        assert 0.0 < sent <= 1.0 and wire == 2.0 * sent
+    else:
+        want_sent, want_wire = _billed(method, granularity, 0.1, 0.01)
+        assert sent == pytest.approx(want_sent, rel=1e-12)
+        assert wire == pytest.approx(want_wire, rel=1e-12)
+
+
+@pytest.mark.parametrize("flag", ["--clip_sent_norm", "--ratio_warmup_epochs", "--lr_schedule",
+                                  "--synthetic_hard"])
+def test_dawn_deferred_protocol_flags_raise(flag):
+    from tpu_compressed_dp_torch.harness import dawn
+
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 16"):
+        dawn.main([flag, "1", "--device", "cpu", "--synthetic"])
+
+
 @pytest.mark.parametrize("argv", [["--transport", "sharded"], ["--dtype=bfloat16"],
                                   ["--guard"], ["--network", "vgg16"],
-                                  ["--compress", "bucketed", "--method", "topk"]])
+                                  ["--clip_sent_norm", "0.5"]])
 def test_dawn_unported_flags_raise(argv):
     from tpu_compressed_dp_torch.harness import dawn
 

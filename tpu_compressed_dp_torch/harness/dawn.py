@@ -1,9 +1,11 @@
 """CIFAR-10 DAWNBench harness on PyTorch: ResNet-9 with compressed DP SGD.
 
 PyTorch-port counterpart of :mod:`tpu_compressed_dp.harness.dawn`, cut to the
-flags of the Top-K slice: ``--network resnet9 --compress --method --ratio
---error_feedback --mode simulate --epochs --batch_size --peak_lr --momentum
---clip_norm --synthetic --synthetic_n --seed`` plus ``--device``.  Protocol
+flags of the ported compressors: ``--network resnet9 --compress
+{layerwise,entiremodel,bucketed} --method --ratio --threshold --qstates
+--block_size --bucket_mb --error_feedback --mode simulate --epochs
+--batch_size --peak_lr --momentum --clip_norm --synthetic --synthetic_n
+--seed`` plus ``--device``.  Protocol
 as in the JAX harness: ``PiecewiseLinear([0, 5, epochs], [0, peak, 0])`` at
 fractional epochs divided by the batch size, weight decay ``5e-4 *
 batch_size``, Nesterov when momentum > 0, Crop/FlipLR/Cutout augmentation,
@@ -42,9 +44,8 @@ from tpu_compressed_dp_torch.utils.timer import Timer, device_sync
 _ITEM = "ROADMAP.md queue 1, item {}"
 # flags of the JAX harness, by the ROADMAP item that ports them
 _LATER_FLAGS = {
-    **dict.fromkeys(("--threshold", "--qstates", "--block_size", "--bucket_mb",
-                     "--clip_sent_norm", "--ratio_warmup_epochs", "--lr_schedule",
-                     "--synthetic_hard"), 6),
+    **dict.fromkeys(("--clip_sent_norm", "--ratio_warmup_epochs", "--lr_schedule",
+                     "--synthetic_hard"), 16),
     "--wire_cap_ratio": 7,
     **dict.fromkeys(("--transport", "--dp_pods", "--hier_route_factor_ici",
                      "--hier_route_factor_dcn"), 8),
@@ -75,6 +76,12 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["none", "layerwise", "entiremodel", "bucketed"])
     p.add_argument("--method", type=str, default="none")
     p.add_argument("--ratio", "-K", type=float, default=0.5)
+    p.add_argument("--threshold", "-V", type=float, default=0.001)
+    p.add_argument("--qstates", "-Q", type=int, default=255)
+    p.add_argument("--block_size", type=int, default=256,
+                   help="blocktopk: elements per contiguous block")
+    p.add_argument("--bucket_mb", type=float, default=25.0,
+                   help="bucketed granularity: capacity per bucket")
     p.add_argument("--momentum", type=float, default=0.0)
     p.add_argument("--clip_norm", type=float, default=0.0,
                    help="local-gradient L2 clip (mean-loss units; 0 = off)")
@@ -117,7 +124,8 @@ def _check_slice(args) -> None:
     if args.network != "resnet9":
         raise ValueError(f"unknown network {args.network!r}")
     if args.method.lower() != "none" and args.compress == "none":
-        raise ValueError(f"--method {args.method} requires --compress layerwise|entiremodel "
+        raise ValueError(f"--method {args.method} requires --compress "
+                         "layerwise|entiremodel|bucketed "
                          "(the reference silently trained dense here; we refuse instead)")
 
 
@@ -139,6 +147,10 @@ def run(args) -> dict:
         granularity=args.compress if args.compress != "none" else "layerwise",
         mode=args.mode,
         ratio=args.ratio,
+        threshold=args.threshold,
+        qstates=args.qstates,
+        block_size=args.block_size,
+        bucket_mb=args.bucket_mb,
         error_feedback=args.error_feedback,
     )
     made_group = not torch.distributed.is_initialized()

@@ -1,7 +1,7 @@
-"""Hand-written CUDA kernels for the Top-K compression hot path, and their glue.
+"""Hand-written CUDA kernels for the compression hot path, and their glue.
 
-PyTorch/H100 counterpart of the Top-K part of
-:mod:`tpu_compressed_dp.ops.kernels`.  Three Pallas TPU kernels there have a
+PyTorch/H100 counterpart of the simulate-mode part of
+:mod:`tpu_compressed_dp.ops.kernels`.  Six Pallas TPU kernels there have a
 CUDA C++ kernel here (sources in ``tpu_compressed_dp_torch/csrc``, built for
 ``sm_90a`` by ``nvcc`` on first use into ``build/torch_kernels/`` and loaded
 with ``ctypes``):
@@ -12,7 +12,13 @@ with ``ctypes``):
     round): cumulative int32 counts at 17 edges read from device memory;
   * ``fused_sparsify`` (``csrc/fused_sparsify.cu``) replaces
     ``_fused_sparsify_kernel``: threshold, EF residual and nonzero-survivor
-    count in one pass.
+    count in one pass;
+  * ``dither`` (``csrc/dither.cu``) replaces ``_uniform_kernel``
+    (:func:`uniform`), ``_qsgd_kernel`` (:func:`qsgd_levels_kernel`) and
+    ``_terngrad_kernel`` (:func:`terngrad_levels_kernel`).  The TPU's
+    hardware PRNG becomes Philox4x32-10 keyed by a 64-bit seed, with element
+    ``i`` taking word ``i % 4`` at counter ``i // 4``: the stream depends on
+    ``(seed, i)`` only, and :func:`philox4x32_plain` gives the same bits.
 
 Every kernel has a plain PyTorch version beside it (``*_plain``).  A wrapper
 runs the plain version only because the tensor it was given lies on the CPU;
@@ -49,6 +55,17 @@ __all__ = [
     "use_fused_sparsify",
     "count_ge_edges",
     "count_ge_edges_plain",
+    "uniform",
+    "uniform_plain",
+    "philox4x32_plain",
+    "qsgd_levels_kernel",
+    "qsgd_levels_plain",
+    "terngrad_levels_kernel",
+    "terngrad_levels_plain",
+    "qsgd_quantize",
+    "terngrad_quantize",
+    "terngrad_quantize_prescaled",
+    "use_quant_kernels",
     "build",
     "LAUNCHES",
     "MIN_PALLAS_ELEMS",
@@ -62,7 +79,8 @@ _INT32_MAX = (1 << 31) - 1
 _FP32_MAX = torch.finfo(torch.float32).max
 
 #: kernel launches per route since the last reset; only a CUDA launch counts
-LAUNCHES: Dict[str, int] = {"count_ge": 0, "count_edges": 0, "fused_sparsify": 0}
+LAUNCHES: Dict[str, int] = {"count_ge": 0, "count_edges": 0, "fused_sparsify": 0,
+                            "uniform": 0, "qsgd": 0, "terngrad": 0}
 
 
 def reset_launches() -> None:
@@ -97,7 +115,7 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
     "build", "torch_kernels")
-_SOURCES = ("count_ge_edges", "fused_sparsify")
+_SOURCES = ("count_ge_edges", "fused_sparsify", "dither")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -114,10 +132,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    src = os.path.join(_CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(_NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(_BUILD_DIR, f"{name}-{digest[:12]}.so")
+    h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+    # the source and every shared header it may include
+    for fname in [f"{name}.cu"] + sorted(f for f in os.listdir(_CSRC) if f.endswith(".cuh")):
+        with open(os.path.join(_CSRC, fname), "rb") as f:
+            h.update(f.read())
+    return os.path.join(_BUILD_DIR, f"{name}-{h.hexdigest()[:12]}.so")
 
 
 def build() -> float:
@@ -147,13 +167,17 @@ def build() -> float:
 
 
 def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
-    p, ll = ctypes.c_void_p, ctypes.c_longlong
-    if name == "count_ge_edges":
-        lib.tcdp_count_ge_edges.argtypes = [p, ll, p, p, p]
-        lib.tcdp_count_ge_edges.restype = ctypes.c_int
-    else:
-        lib.tcdp_fused_sparsify.argtypes = [p, ll, p, p, p, p, p]
-        lib.tcdp_fused_sparsify.restype = ctypes.c_int
+    p, ll, u64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_ulonglong, ctypes.c_int
+    argtypes = {
+        "count_ge_edges": {"tcdp_count_ge_edges": [p, ll, p, p, p]},
+        "fused_sparsify": {"tcdp_fused_sparsify": [p, ll, p, p, p, p, p]},
+        "dither": {"tcdp_uniform": [p, ll, u64, p],
+                   "tcdp_qsgd_levels": [p, ll, p, u64, i32, p, p],
+                   "tcdp_terngrad_levels": [p, ll, p, u64, p, p]},
+    }[name]
+    for fn, types in argtypes.items():
+        getattr(lib, fn).argtypes = types
+        getattr(lib, fn).restype = ctypes.c_int
     return lib
 
 
@@ -424,4 +448,196 @@ def fused_sparsify(acc: torch.Tensor, t: torch.Tensor, *, want_ef: bool = True):
 def use_fused_sparsify(n: int, device) -> bool:
     """Whether the fused epilogue serves an ``n``-element tensor on ``device``
     (int32 positions and counts cap it at 2^31 - 1 elements)."""
+    return _dispatch_to_kernel(n, torch.device(device))
+
+
+# ---------------------------------------------------------------------------
+# Philox uniforms and the dither quantizers
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+
+
+def _seed64(seed: int) -> int:
+    seed = int(seed)
+    if not 0 <= seed < (1 << 64):
+        raise ValueError(f"seed must be an unsigned 64-bit integer, got {seed}")
+    return seed
+
+
+def _mulhilo(a: torch.Tensor, m: int):
+    """``(hi, lo)`` 32-bit halves of ``a * m`` for uint32 values held in int64
+    ``a``, multiplied in 16-bit pieces so that no partial product leaves
+    int64 (``m * 2^32`` alone would)."""
+    a_lo, a_hi = a & 0xFFFF, a >> 16
+    m_lo, m_hi = m & 0xFFFF, m >> 16
+    ll, lh, hl = a_lo * m_lo, a_lo * m_hi, a_hi * m_lo
+    mid = (ll >> 16) + (lh & 0xFFFF) + (hl & 0xFFFF)
+    lo = ((mid & 0xFFFF) << 16) | (ll & 0xFFFF)
+    hi = a_hi * m_hi + (lh >> 16) + (hl >> 16) + (mid >> 16)
+    return hi, lo
+
+
+def philox4x32_plain(c0, c1, c2, c3, seed: int):
+    """Philox4x32-10 (Random123's ``philox4x32``) on int64 tensors holding
+    uint32 counter words, keyed by the 64-bit ``seed``; returns the four
+    output words, as ``csrc/philox.cuh`` computes them."""
+    seed = _seed64(seed)
+    k0, k1 = seed & _M32, seed >> 32
+    for r in range(10):
+        if r:
+            k0, k1 = (k0 + _PHILOX_W[0]) & _M32, (k1 + _PHILOX_W[1]) & _M32
+        hi0, lo0 = _mulhilo(c0, _PHILOX_M[0])
+        hi1, lo1 = _mulhilo(c2, _PHILOX_M[1])
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def uniform_plain(seed: int, n: int, device="cpu") -> torch.Tensor:
+    """The uniform kernel's draws by PyTorch ops: element ``i`` is word
+    ``i % 4`` of Philox at counter ``i // 4``, its 24 high bits times 2^-24."""
+    j = torch.arange((n + 3) // 4, dtype=torch.int64, device=device)
+    zero = torch.zeros_like(j)
+    words = torch.stack(philox4x32_plain(j & _M32, j >> 32, zero, zero, seed), dim=1)
+    return (words.reshape(-1)[:n] >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+def uniform(seed: int, n: int, device) -> torch.Tensor:
+    """``n`` float32 uniforms in [0, 1) at 24-bit resolution, a function of
+    ``(seed, index)`` only: every rank given the same seed draws the same
+    values (the shared-mask premise of Random-K).
+
+    Replaces ``_uniform_kernel``/``_uniform_pallas`` of
+    ``tpu_compressed_dp/ops/kernels.py``, whose TPU stream (reseeded per
+    block with ``seed + program_id``) cannot be reproduced here.  On a CUDA
+    device the kernel serves every size.  Bound: 4n bytes written (the 15
+    integer operations per element of Philox take less at the card's issue
+    rate); see ``csrc/dither.cu``."""
+    device = torch.device(device)
+    seed = _seed64(seed)
+    if device.type == "cpu":
+        return uniform_plain(seed, n, device)
+    if device.type != "cuda":
+        raise ValueError(f"uniform runs on CUDA or CPU devices, got {device}")
+    out = torch.empty(n, dtype=torch.float32, device=device)
+    if n == 0:
+        return out
+    rc = _lib("dither").tcdp_uniform(out.data_ptr(), n, seed,
+                                     torch.cuda.current_stream(device).cuda_stream)
+    _check_launch(rc, "uniform")
+    LAUNCHES["uniform"] += 1
+    return out
+
+
+def _select_sign(x: torch.Tensor) -> torch.Tensor:
+    """``(x > 0) - (x < 0)`` in float32: the TPU kernels' ``_sign``; NaN -> 0."""
+    return (x > 0).to(torch.float32) - (x < 0).to(torch.float32)
+
+
+def _to_int(f: torch.Tensor, dtype) -> torch.Tensor:
+    """Float to ``dtype`` as XLA converts: saturating, NaN -> 0."""
+    info = torch.iinfo(dtype)
+    return torch.where(torch.isnan(f), 0.0, f).clamp(info.min, info.max).to(dtype)
+
+
+def qsgd_levels_plain(x: torch.Tensor, inv: torch.Tensor, seed: int, qstates: int,
+                      u: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """int16 ``sign(x) * floor((|x| * inv) * s + u)`` by separate PyTorch ops;
+    ``u`` defaults to :func:`uniform_plain` of ``seed`` (a test may inject
+    its own draws)."""
+    if u is None:
+        u = uniform_plain(seed, x.shape[0], x.device)
+    m = torch.floor(x.abs() * inv * float(qstates) + u)
+    return _to_int(_select_sign(x) * m, torch.int16)
+
+
+def terngrad_levels_plain(x: torch.Tensor, inv: torch.Tensor, seed: int,
+                          u: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """int8 ``sign(x) * (u < |x| * inv)`` by separate PyTorch ops."""
+    if u is None:
+        u = uniform_plain(seed, x.shape[0], x.device)
+    keep = (u < x.abs() * inv).to(torch.float32)
+    return _to_int(_select_sign(x) * keep, torch.int8)
+
+
+def _launch_quant(route: str, x: torch.Tensor, inv: torch.Tensor, seed: int, dtype,
+                  *extra) -> torch.Tensor:
+    if x.device.type != "cuda":
+        raise ValueError(f"the {route} kernel runs on CUDA or CPU tensors, got {x.device}")
+    _check_f32_vector(x, "x")
+    inv = inv.to(torch.float32).reshape(()).contiguous()
+    if inv.device != x.device:
+        raise ValueError("inv must lie on x's device")
+    out = torch.empty(x.shape[0], dtype=dtype, device=x.device)
+    if x.numel() == 0:
+        return out
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    lib = _lib("dither")
+    if route == "qsgd":
+        rc = lib.tcdp_qsgd_levels(x.data_ptr(), x.numel(), inv.data_ptr(), _seed64(seed),
+                                  *extra, out.data_ptr(), stream)
+    else:
+        rc = lib.tcdp_terngrad_levels(x.data_ptr(), x.numel(), inv.data_ptr(),
+                                      _seed64(seed), out.data_ptr(), stream)
+    _check_launch(rc, route)
+    LAUNCHES[route] += 1
+    return out
+
+
+def qsgd_levels_kernel(x: torch.Tensor, inv: torch.Tensor, seed: int,
+                       qstates: int) -> torch.Tensor:
+    """int16 QSGD levels ``sign(x) * floor((|x| * inv) * s + u)`` with the
+    dither ``u`` drawn inside the kernel from the Philox stream of ``seed``.
+
+    Replaces ``_qsgd_kernel`` of ``tpu_compressed_dp/ops/kernels.py``.
+    Bound: 6n bytes (read 4n, write 2n) and the Philox integer work."""
+    if not 0 < qstates < (1 << 24):
+        raise ValueError(f"qstates must be in [1, 2^24), got {qstates}")
+    if x.device.type == "cpu":
+        return qsgd_levels_plain(x, inv, seed, qstates)
+    return _launch_quant("qsgd", x, inv, seed, torch.int16, qstates)
+
+
+def terngrad_levels_kernel(x: torch.Tensor, inv: torch.Tensor, seed: int) -> torch.Tensor:
+    """int8 TernGrad levels ``sign(x) * (u < |x| * inv)``, dither drawn in
+    the kernel.  Replaces ``_terngrad_kernel``.  Bound: 5n bytes and the
+    Philox integer work."""
+    if x.device.type == "cpu":
+        return terngrad_levels_plain(x, inv, seed)
+    return _launch_quant("terngrad", x, inv, seed, torch.int8)
+
+
+def _safe_inv(v: torch.Tensor) -> torch.Tensor:
+    return torch.where(v > 0, 1.0 / torch.where(v > 0, v, 1.0), 0.0)
+
+
+def qsgd_quantize(flat: torch.Tensor, seed: int, *, qstates: int = 255):
+    """``(int16 levels in [-s, s], float32 scale)`` with ``scale =
+    ||g|| / s`` (0 for a zero vector), as ``qsgd_quantize`` of the JAX
+    package; the norm is a plain reduction outside the kernel."""
+    flat = flat.to(torch.float32).contiguous()
+    norm = torch.linalg.vector_norm(flat)
+    levels = qsgd_levels_kernel(flat, _safe_inv(norm), seed, qstates)
+    return levels, torch.where(norm > 0, norm, 0.0) / qstates
+
+
+def terngrad_quantize(flat: torch.Tensor, seed: int):
+    """``(int8 levels in {-1, 0, 1}, float32 scale = max|g|)``."""
+    flat = flat.to(torch.float32).contiguous()
+    gmax = flat.abs().max()
+    return terngrad_levels_kernel(flat, _safe_inv(gmax), seed), gmax
+
+
+def terngrad_quantize_prescaled(scaled: torch.Tensor, seed: int) -> torch.Tensor:
+    """TernGrad levels of an already chunk-normalised input (unit scale)."""
+    scaled = scaled.to(torch.float32).contiguous()
+    one = torch.ones((), dtype=torch.float32, device=scaled.device)
+    return terngrad_levels_kernel(scaled, one, seed)
+
+
+def use_quant_kernels(n: int, device) -> bool:
+    """Whether the dither kernels serve an ``n``-element tensor on ``device``
+    (the JAX package's ``use_quant_kernels``)."""
     return _dispatch_to_kernel(n, torch.device(device))

@@ -1,12 +1,13 @@
 """Compressed data-parallel gradient synchronisation (simulate mode).
 
-PyTorch counterpart of :mod:`tpu_compressed_dp.parallel.dp` for the Top-K
-slice: per reduction group (one parameter tensor for ``layerwise``, the whole
-flattened gradient for ``entiremodel``) the local gradient plus the EF
-residual is compressed, kept dense with zeros at dropped coordinates, and
-averaged over the workers with ``dist.all_reduce(comp) / world`` (the JAX
-engine's ``lax.psum(comp) / world``).  Bytes on the wire are accounted
-analytically in the same stat keys as the JAX engine.
+PyTorch counterpart of :mod:`tpu_compressed_dp.parallel.dp`: per reduction
+group (one parameter tensor for ``layerwise``, the whole flattened gradient
+for ``entiremodel``, contiguous leaves packed into ``bucket_mb`` buckets for
+``bucketed``) the local gradient plus the EF residual is compressed, kept
+dense with zeros at dropped coordinates, and averaged over the workers with
+``dist.all_reduce(comp) / world`` (the JAX engine's ``lax.psum(comp) /
+world``).  Bytes on the wire are accounted analytically in the same stat
+keys as the JAX engine.
 
 Gradients, EF residuals and outputs are ordered dicts of tensors keyed by
 parameter path, in the JAX package's leaf order (see
@@ -38,8 +39,8 @@ BUCKET_MB = 1024.0 * 1024.0
 @dataclasses.dataclass(frozen=True)
 class CompressionConfig:
     """The JAX package's ``CompressionConfig`` fields and defaults
-    (``tpu_compressed_dp/parallel/dp.py``).  This slice runs ``method`` none
-    or topk, ``granularity`` layerwise or entiremodel, ``mode='simulate'``,
+    (``tpu_compressed_dp/parallel/dp.py``).  The port runs every method but
+    ``powersgd``, every granularity, ``mode='simulate'``,
     ``transport='allgather'`` and ``sync_overlap=1``; :func:`make_grad_sync`
     raises ``NotImplementedError`` for the rest, naming the ROADMAP item."""
 
@@ -89,6 +90,18 @@ class CompressionConfig:
         if not (0.0 < self.wire_cap_ratio <= 1.0):
             raise ValueError(f"wire_cap_ratio must be in (0, 1], got {self.wire_cap_ratio}")
 
+    @property
+    def resolved_shared_mask(self) -> bool:
+        if self.shared_mask is not None:
+            return self.shared_mask
+        return self.mode == "wire"
+
+    @property
+    def resolved_terngrad_chunk(self) -> int:
+        if self.terngrad_chunk >= 0:
+            return self.terngrad_chunk
+        return 0 if self.granularity == "layerwise" else 1 << 21
+
 
 def _check_ported(cfg: CompressionConfig) -> None:
     """Refuse the parts of the config this slice does not carry."""
@@ -97,19 +110,24 @@ def _check_ported(cfg: CompressionConfig) -> None:
         later.append("mode='wire' (ROADMAP.md queue 1, item 7)")
     if cfg.transport != "allgather":
         later.append(f"transport={cfg.transport!r} (ROADMAP.md queue 1, item 8)")
-    if cfg.granularity == "bucketed":
-        later.append("granularity='bucketed' (ROADMAP.md queue 1, item 6)")
     if cfg.sync_overlap != 1:
         later.append("sync_overlap > 1 (ROADMAP.md queue 1, item 9)")
     if later:
         raise NotImplementedError("not ported yet: " + "; ".join(later))
 
 
-def wire_transport(name: str) -> str:
-    """Which collective the method's wire form rides (the psum/allgather
-    billing split): dense psum-reduces; Top-K's worker-distinct (value,
-    index) pairs ride an all_gather."""
-    return "psum" if name == "none" else "allgather"
+def wire_transport(name: str, n: int, cfg: CompressionConfig) -> str:
+    """Which collective the method's wire form rides for an ``n``-element
+    group (the psum/allgather billing split): dense, shared-seed Random-K
+    and keep-all Block-Top-K psum-reduce a buffer; every other payload is
+    worker-distinct (indices or quantizer scales) and rides an all_gather."""
+    if name == "none" or (name == "randomk" and cfg.resolved_shared_mask):
+        return "psum"
+    if name == "blocktopk":
+        kb = compressors.blocktopk_keep_blocks(n, cfg.ratio, cfg.block_size)
+        if kb * cfg.block_size >= n:
+            return "psum"
+    return "allgather"
 
 
 def init_ef_state(grads_like: Tree, cfg: CompressionConfig) -> Any:
@@ -159,20 +177,67 @@ def group_split(flat, leaves, idxs, out, dtype=None) -> None:
 
 
 def make_grad_sync(cfg: CompressionConfig):
-    """Build ``sync(grads, ef) -> (synced, new_ef, stats)`` over the default
-    process group.
+    """Build ``sync(grads, ef, seed) -> (synced, new_ef, stats)`` over the
+    default process group.
 
     ``grads`` are this rank's gradients at the scale the reference compresses
-    (see ``train/step.py``); ``synced`` is the world mean.  ``stats`` are 0-d
-    float32 tensors on the gradients' device, keyed as in the JAX engine
-    (``sent_elems``, ``sent_bits`` and its per-collective split,
-    ``dense_elems``, ``num_collectives``)."""
+    (see ``train/step.py``); ``synced`` is the world mean.  ``seed`` is the
+    step's 64-bit compression seed (the JAX ``key``); group ``gi`` draws from
+    ``leaf_seed(seed, gi)``, with the rank folded in where the workers' draws
+    must differ.  ``stats`` are 0-d float32 tensors on the gradients'
+    device, keyed as in the JAX engine (``sent_elems``, ``sent_bits`` and its
+    per-collective split, ``dense_elems``, ``num_collectives``)."""
     _check_ported(cfg)
-    comp = compressors.get_compressor(cfg.method, ratio=cfg.ratio)
-    bits_per_elem = compressors.payload_bits_per_elem(comp.name)
+    comp = compressors.get_compressor(
+        cfg.method, ratio=cfg.ratio, threshold=cfg.threshold, qstates=cfg.qstates,
+        block_size=cfg.block_size, terngrad_chunk=cfg.resolved_terngrad_chunk, rank=cfg.rank)
+    per_worker_rng = not cfg.resolved_shared_mask
+    bits_per_elem = compressors.payload_bits_per_elem(
+        comp.name, qstates=cfg.qstates, shared_mask=cfg.resolved_shared_mask,
+        block_size=cfg.block_size)
+    threshold32 = compressors.float32_value(cfg.threshold)
 
-    def sync(grads: Tree, ef: Any) -> Tuple[Tree, Any, Dict[str, torch.Tensor]]:
+    def sent_count(n: int, comp_flat: torch.Tensor) -> torch.Tensor:
+        # sparsifiers transmit the surviving coordinates; quantizers and
+        # identity every element, at the width bits_per_elem accounts
+        if comp.name == "randomk":
+            # the wire form carries exactly `keep` value slots, a selected
+            # zero included
+            sent = compressors.randomk_keep_count(n, cfg.ratio)
+        elif comp.name == "blocktopk":
+            # whole blocks travel, capped at n
+            sent = min(compressors.blocktopk_keep_blocks(n, cfg.ratio, cfg.block_size)
+                       * cfg.block_size, n)
+        elif not comp.is_sparsifier:
+            sent = n
+        else:
+            return torch.count_nonzero(comp_flat).to(torch.float32)
+        return torch.full((), float(sent), dtype=torch.float32, device=comp_flat.device)
+
+    def bits_width(n: int) -> float:
+        # keep-all Block-Top-K groups psum dense: no block indices travel
+        if comp.name == "blocktopk" and wire_transport(comp.name, n, cfg) == "psum":
+            return 32.0
+        return bits_per_elem
+
+    def fused_threshold(acc: torch.Tensor) -> Optional[torch.Tensor]:
+        """The ``|acc| >= t`` threshold where the fused epilogue serves this
+        group: Top-K's histogram threshold, Threshold-V's V, Adaptive's
+        max/2 (``2|g| >= max`` is ``|g| >= max/2`` exactly in binary fp)."""
+        n = acc.shape[0]
+        if acc.dtype != torch.float32 or not kernels.use_fused_sparsify(n, acc.device):
+            return None
+        if comp.name == "topk":
+            return kernels.topk_threshold(acc.abs(), compressors.topk_keep_count(n, cfg.ratio))
+        if comp.name == "thresholdv":
+            return torch.full((), threshold32, dtype=torch.float32, device=acc.device)
+        if comp.name == "adaptive_threshold":
+            return 0.5 * acc.abs().max()
+        return None
+
+    def sync(grads: Tree, ef: Any, seed: int) -> Tuple[Tree, Any, Dict[str, torch.Tensor]]:
         world = mesh.world()
+        rank = mesh.rank() if per_worker_rng and comp.needs_rng else None
         names = list(grads)
         leaves = [grads[k] for k in names]
         use_ef = cfg.error_feedback
@@ -189,37 +254,30 @@ def make_grad_sync(cfg: CompressionConfig):
         zero = torch.zeros((), dtype=torch.float32, device=device)
         sent_total, bits_total, bits_psum, bits_ag = zero, zero, zero, zero
         dense_total = 0.0
-        for idxs in groups:
+        for gi, idxs in enumerate(groups):
             flat = group_concat(leaves, idxs)
             acc = flat + group_concat(ef_leaves, idxs) if use_ef else flat
             n_g = flat.shape[0]
-            fuse_t = None
-            if (acc.dtype == torch.float32 and comp.name == "topk"
-                    and kernels.use_fused_sparsify(n_g, acc.device)):
-                keep = compressors.topk_keep_count(n_g, cfg.ratio)
-                fuse_t = kernels.topk_threshold(acc.abs(), keep)
+            fuse_t = fused_threshold(acc)
             if fuse_t is not None:
                 comp_flat, new_ef_flat, group_sent = kernels.fused_sparsify(
                     acc.contiguous(), fuse_t, want_ef=use_ef)
             else:
-                comp_flat = comp.fn(acc)
+                comp_flat = comp.fn(acc, compressors.leaf_seed(seed, gi, rank))
                 new_ef_flat = acc - comp_flat if use_ef else None
-                if comp.is_sparsifier:
-                    group_sent = torch.count_nonzero(comp_flat).to(torch.float32)
-                else:
-                    group_sent = torch.full((), float(n_g), dtype=torch.float32,
-                                            device=device)
+                group_sent = sent_count(n_g, comp_flat)
+                if comp.name == "none":
                     # all_reduce works in place and the dense payload may
                     # alias the caller's gradient
                     comp_flat = comp_flat.clone()
-            group_bits = group_sent * bits_per_elem
+            group_bits = group_sent * bits_width(n_g)
             if world > 1:
                 dist.all_reduce(comp_flat)
             reduced = comp_flat / world
             group_split(reduced, leaves, idxs, out_leaves)
             if use_ef:
                 group_split(new_ef_flat, leaves, idxs, new_ef_leaves, dtype=torch.float32)
-            if wire_transport(comp.name) == "psum":
+            if wire_transport(comp.name, n_g, cfg) == "psum":
                 bits_psum = bits_psum + group_bits
             else:
                 bits_ag = bits_ag + group_bits

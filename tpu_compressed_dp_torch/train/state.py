@@ -23,7 +23,8 @@ class TrainState:
     model: nn.Module     # parameters (fp32) and BatchNorm running stats
     opt_state: Any       # optimizer buffers ({"momentum": {...}})
     ef: Any              # error-feedback residual, or () when off
-    seed: int = 0        # base seed of the run
+    seed: int = 0        # base seed of the run; each step's compression seed is
+                         # compressors.fold_in(seed, step)
 
     @classmethod
     def create(cls, model: nn.Module, opt_state: Any, ef: Any, seed: int = 0) -> "TrainState":

@@ -4,9 +4,11 @@ PyTorch-port counterpart of :mod:`tpu_compressed_dp.train.step`.  Each
 process is one data-parallel worker: it computes the gradient of its local
 mean loss, scales it by ``grad_scale`` (the harness passes the batch size,
 so the compressor sees the reference's summed-loss gradient), optionally
-clips it, and hands it to the compressed sync, whose world-mean result
-drives SGD.  BatchNorm running statistics come from the local batch and are
-averaged over the workers after the step, like the JAX step's ``pmean``.
+clips it, and hands it to the compressed sync with the step's compression
+seed (derived on the host from the run's seed and the step), whose
+world-mean result drives SGD.  BatchNorm running statistics come from the
+local batch and are averaged over the workers after the step, like the JAX
+step's ``pmean``.
 
 Metrics stay on the device (0-d tensors) so a step never waits for the
 host; ``harness/loop.py`` fetches them once per epoch.
@@ -21,6 +23,7 @@ import torch
 import torch.distributed as dist
 
 from tpu_compressed_dp_torch.models.resnet9 import param_leaves
+from tpu_compressed_dp_torch.ops.compressors import fold_in
 from tpu_compressed_dp_torch.parallel import mesh
 from tpu_compressed_dp_torch.parallel.dp import CompressionConfig, make_grad_sync
 from tpu_compressed_dp_torch.train.optim import SGD, _value
@@ -75,7 +78,8 @@ def make_train_step(apply_fn: ApplyFn, optimizer: SGD, comp_cfg: CompressionConf
             factor = torch.clamp(clip_norm * grad_scale / torch.clamp(gnorm, min=1e-20),
                                  max=1.0)
             scaled = {k: g * factor for k, g in scaled.items()}
-        synced, new_ef, comm = grad_sync(scaled, state.ef)
+        # the step's compression seed: fold_in(state.rng, step) of the JAX step
+        synced, new_ef, comm = grad_sync(scaled, state.ef, fold_in(state.seed, state.step))
         new_step = state.step + 1
         optimizer.apply(params, synced, state.opt_state, new_step)
 
