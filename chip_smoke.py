@@ -13,18 +13,25 @@ printing no result, where either is missing or any phase fails.
      thresholds exactly equal, fused sparsify bitwise; Philox uniforms, QSGD
      and TernGrad levels bitwise (NaN, +-Inf and a zero vector included),
      uniforms on the 2^-24 grid with mean 0.5 +- 1e-3, both quantizers
-     unbiased within 3 sigma; then times each kernel (CUDA events, after
-     warm-up, inputs cycled past the 50 MB L2) beside its plain version, its
-     bound and a library call;
+     unbiased within 3 sigma; the wire kernels bitwise: select+pack on a
+     Top-K threshold, Threshold-V capacities that overflow and underfill,
+     Block-Top-K scores, a Random-K mask, NaN / +-Inf and zeros; TernGrad and
+     QSGD quantize+pack, whose unpacked bytes are the level kernels' levels;
+     then times each kernel (CUDA events, after warm-up, inputs cycled past
+     the 50 MB L2) beside its plain version, its bound and a library call;
   3. trains full-width ResNet-9 through the port's DAWNBench entry point
      (``harness.dawn.main``), 4 steps of batch 512 on a 1-rank NCCL group,
-     at layerwise and at entiremodel granularity, with Top-K 1 % + EF,
-     Random-K 1 % + EF, Threshold-V + EF, Adaptive-Threshold + EF, TernGrad
-     and QSGD (s = 255); every kernel's launch counter is zeroed just before
-     each run and read just after; checks finite loss, the billed sent and
-     wire fractions and that the run's kernels ran;
+     at layerwise and at entiremodel granularity, in simulate mode with
+     Top-K 1 % + EF, Random-K 1 % + EF, Threshold-V + EF,
+     Adaptive-Threshold + EF, TernGrad and QSGD (s = 255), and in wire mode
+     with those and Block-Top-K, at bucketed granularity (25 MB) too; every
+     kernel's launch counter is zeroed just
+     before each run and read just after; checks finite loss, the sent and
+     wire fractions (wire mode: exactly the payload layout's, from the leaf
+     sizes) and that the run's kernels ran;
   4. times steady-state steps and the gradient sync alone (dense, Top-K,
-     Random-K, TernGrad and QSGD at both granularities), with a profile;
+     Random-K, TernGrad and QSGD at both granularities, and wire Top-K + EF,
+     TernGrad and QSGD), with a profile;
   5. prints the kernels' JSON line, the ``nvidia-smi`` name/power line and,
      last, ``{"ok": true, "device": {...}}``.
 
@@ -362,6 +369,188 @@ def phase_dither(kernels, torch, record):
     return err, rows
 
 
+def raw_wire(kernels, torch, n: int, keep: int, seed: int):
+    """The wire kernels' C entry points with outputs allocated once (timing
+    only; these launches are not counted)."""
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    sel = kernels._lib("select_pack").tcdp_select_pack
+    qp = kernels._lib("quant_pack")
+    vals = torch.empty(keep, device=dev)
+    idx = torch.empty(keep, dtype=torch.int32, device=dev)
+    count = torch.empty(1, dtype=torch.int32, device=dev)
+    scratch = torch.empty(2, -(-n // 4096), dtype=torch.int32, device=dev)
+    tern = torch.empty(-(-n // 4), dtype=torch.uint8, device=dev)
+    mags = torch.empty(n, dtype=torch.uint8, device=dev)
+    signs = torch.empty(-(-n // 8), dtype=torch.uint8, device=dev)
+
+    def check(rc, name):
+        if rc:
+            raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+
+    return (lambda xt: check(sel(xt[0].data_ptr(), n, xt[1].data_ptr(), keep, vals.data_ptr(),
+                                 idx.data_ptr(), count.data_ptr(), scratch[0].data_ptr(),
+                                 scratch[1].data_ptr(), stream), "select_pack"),
+            lambda xi: check(qp.tcdp_terngrad_pack(xi[0].data_ptr(), n, xi[1].data_ptr(), seed,
+                                                   tern.data_ptr(), stream), "terngrad_pack"),
+            lambda xi: check(qp.tcdp_qsgd_pack(xi[0].data_ptr(), n, xi[1].data_ptr(), seed, 255,
+                                               mags.data_ptr(), signs.data_ptr(), stream),
+                             "qsgd_pack"))
+
+
+def _bits_equal(torch, a, b) -> bool:
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def phase_wire_kernels(kernels, compressors, wire, torch, record):
+    """Select+pack and quantize+pack vs their plain versions on the card,
+    their contracts, then timings."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    err = {"select_pack": 0.0, "terngrad_pack": 0.0, "qsgd_pack": 0.0}
+    rows, cases = {}, {}
+    seed = 0x13198A2E03707344
+    for n in (FULL_LEAF, FULL_MODEL):
+        x = torch.randn(n, generator=gen, device=dev)
+        keep = compressors.topk_keep_count(n, RATIO)
+        cap = int(round(0.05 * n))
+        kb = compressors.blocktopk_keep_blocks(n, RATIO, 256)
+        scores = compressors.blocktopk_scores(x, 256)
+        poisoned = x.clone()
+        poisoned[::997] = float("nan")
+        poisoned[1::1009] = float("inf")
+        poisoned[2::1013] = -float("inf")
+        finite_mag = torch.where(torch.isfinite(poisoned), poisoned.abs(), 0.0)
+        zeros = torch.zeros(n, device=dev)
+        mask = compressors.randomk_mask(seed, n, keep, dev).to(torch.float32)
+        full = lambda v: torch.full((), v, device=dev)  # noqa: E731
+        sel_cases = [
+            ("topk", x, kernels.topk_threshold(x.abs(), keep), keep),
+            ("thresholdv overflow", x, full(1.5), cap),
+            ("thresholdv underfull", x, full(3.0), cap),
+            ("blocktopk scores", scores, kernels.topk_threshold(scores, kb), kb),
+            ("randomk mask", mask, full(0.5), keep),
+            ("nan/inf", poisoned, kernels.topk_threshold(finite_mag, keep), keep),
+            ("zeros t=0", zeros, full(0.0), keep),
+            ("zeros t=1", zeros, full(1.0), keep),
+        ]
+        counts = {}
+        for label, v, t, k in sel_cases:
+            got = kernels.fused_select_pack(v, t, k)
+            want = kernels.fused_select_pack_plain(v, t, k)
+            # equal slots count 0, so an Inf value matched by an Inf is no NaN
+            d = max(torch.where(a == b, 0.0, (a.double() - b.double()).abs()).max().item()
+                    for a, b in zip(got, want))
+            err["select_pack"] = max(err["select_pack"], d)
+            if not all(_bits_equal(torch, a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"select_pack differs from plain at n={n} ({label})")
+            counts[label] = (int(got[2].item()), k)
+        (c_over, k_over), (c_under, k_under) = (counts["thresholdv overflow"],
+                                                 counts["thresholdv underfull"])
+        if not (c_over > k_over and c_under < k_under and counts["randomk mask"][0] == keep):
+            raise AssertionError(f"select_pack cases miss their regime at n={n}: {counts}")
+        log(f"select_pack n={n}: vals, idx and count bitwise == plain in {len(sel_cases)} cases "
+            f"(survivors/slots: {counts})")
+
+        g = x * 1e-2
+        pg = poisoned * 1e-2
+        for what, v in (("finite", g), ("nan/inf", pg), ("zeros", zeros)):
+            fin = torch.where(torch.isfinite(v), v, 0.0)
+            for inv in (kernels._safe_inv(torch.linalg.vector_norm(fin)),
+                        kernels._safe_inv(fin.abs().max()), torch.ones((), device=dev)):
+                tp = kernels.terngrad_pack_kernel(v, inv, seed)
+                tp2 = kernels.terngrad_pack_plain(v, inv, seed)
+                err["terngrad_pack"] = max(err["terngrad_pack"],
+                                           float((tp.int() - tp2.int()).abs().max().item()))
+                if not torch.equal(tp, tp2):
+                    raise AssertionError(f"terngrad_pack differs from plain at n={n} ({what})")
+                if not torch.equal(wire.unpack_ternary(tp, n),
+                                   kernels.terngrad_levels_kernel(v, inv, seed)):
+                    raise AssertionError(f"terngrad_pack does not unpack to the levels ({what})")
+                qp, qp2 = (kernels.qsgd_pack_kernel(v, inv, seed, 255),
+                           kernels.qsgd_pack_plain(v, inv, seed, 255))
+                err["qsgd_pack"] = max(err["qsgd_pack"], *(
+                    float((a.int() - b.int()).abs().max().item()) for a, b in zip(qp, qp2)))
+                if not all(torch.equal(a, b) for a, b in zip(qp, qp2)):
+                    raise AssertionError(f"qsgd_pack differs from plain at n={n} ({what})")
+                # a level fits the byte layout where |level| <= 255 (always at
+                # QSGD's own scale, inv = 1 / ||g||, on finite input)
+                lv = kernels.qsgd_levels_kernel(v, inv, seed, 255)
+                fits = lv.int().abs() <= 255
+                if not torch.equal(wire.qsgd_wire_unpack(qp, n, 255)[fits], lv[fits].float()):
+                    raise AssertionError(f"qsgd_pack does not unpack to the levels ({what})")
+        # the wire path's wrappers: the bytes of the quantizers' levels
+        packed, gmax = kernels.terngrad_pack(g, seed)
+        lv, gmax2 = kernels.terngrad_quantize(g, seed)
+        mags, signs, scale = kernels.qsgd_pack(g, seed)
+        lq, scale2 = kernels.qsgd_quantize(g, seed)
+        if not (torch.equal(packed, wire.pack_ternary(lv)) and torch.equal(gmax, gmax2)
+                and all(torch.equal(a, b) for a, b in zip((mags, signs),
+                                                          wire.qsgd_wire_pack(lq, 255)))
+                and torch.equal(scale, scale2)):
+            raise AssertionError(f"quantize+pack differs from levels + pack at n={n}")
+        log(f"terngrad_pack, qsgd_pack n={n}: bitwise == plain (finite, nan/inf, zeros, three "
+            "inverse scales); unpacked == the level kernels' levels")
+        cases[n] = counts
+
+        copies = max(2, math.ceil(120e6 / (4 * n)))
+        xs = [torch.randn(n, generator=gen, device=dev) for _ in range(copies)]
+        t_top = kernels.topk_threshold(xs[0].abs(), keep)
+        pairs = [(v, t_top) for v in xs]
+        capped = [(v, full(1.5)) for v in xs]
+        invs = [(v * 1e-2, kernels._safe_inv(torch.linalg.vector_norm(v * 1e-2))) for v in xs]
+        raw_sel, raw_tern, raw_qsgd = raw_wire(kernels, torch, n, keep, seed)
+        raw_cap = raw_wire(kernels, torch, n, cap, seed)[0]
+        ops = PHILOX_OPS_PER_ELEM * n
+        row = {
+            "select_pack": {
+                "ms": time_ms(raw_sel, pairs),
+                "wrapper_ms": time_ms(lambda p: kernels.fused_select_pack(p[0], p[1], keep),
+                                      pairs),
+                "plain_ms": time_ms(lambda p: kernels.fused_select_pack_plain(p[0], p[1], keep),
+                                    pairs, reps=5, inner=2),
+                "bound": bound_ms(4 * n + 4 + 8 * keep + 4, n),
+                "library_ms": time_ms(lambda p: torch.nonzero(p[0].abs() >= p[1]), pairs),
+                "cap_ms": time_ms(raw_cap, capped),
+                "cap_bound": bound_ms(4 * n + 4 + 8 * cap + 4, n)},
+            "terngrad_pack": {
+                "ms": time_ms(raw_tern, invs),
+                "wrapper_ms": time_ms(lambda p: kernels.terngrad_pack_kernel(p[0], p[1], seed),
+                                      invs),
+                "plain_ms": time_ms(lambda p: kernels.terngrad_pack_plain(p[0], p[1], seed),
+                                    invs, reps=5, inner=2),
+                "bound": bound_ms(4 * n + 4 + -(-n // 4), ops, INT_OPS_PER_S), "library_ms": None},
+            "qsgd_pack": {
+                "ms": time_ms(raw_qsgd, invs),
+                "wrapper_ms": time_ms(lambda p: kernels.qsgd_pack_kernel(p[0], p[1], seed, 255),
+                                      invs),
+                "plain_ms": time_ms(lambda p: kernels.qsgd_pack_plain(p[0], p[1], seed, 255),
+                                    invs, reps=5, inner=2),
+                "bound": bound_ms(4 * n + 4 + n + -(-n // 8), ops, INT_OPS_PER_S),
+                "library_ms": None},
+        }
+        rows[n] = row
+        for name in ("select_pack", "terngrad_pack", "qsgd_pack"):
+            r = row[name]
+            lib_txt = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+            log(f"time n={n} {name}: {r['ms']:.4f} ms (wrapper {r['wrapper_ms']:.4f} ms, "
+                f"plain {r['plain_ms']:.4f} ms, "
+                f"bound {r['bound'][0]:.4f} ms by {r['bound'][1]}, library {lib_txt})")
+        r = row["select_pack"]
+        log(f"time n={n} select_pack at the Threshold-V capacity {cap}: {r['cap_ms']:.4f} ms "
+            f"(bound {r['cap_bound'][0]:.4f} ms); library = torch.nonzero(|x| >= t), which "
+            "syncs the host")
+        del xs, pairs, capped, invs
+    record["wire_kernel_errors"] = err
+    record["wire_kernel_cases"] = {str(n): c for n, c in cases.items()}
+    record["wire_kernel_times"] = {str(n): r for n, r in rows.items()}
+    return err, rows
+
+
 # phase 3's runs: label -> (dawn flags, the kernels the run must launch)
 TOPK_KERNELS = ("count_ge", "count_edges", "fused_sparsify")
 TRAIN_RUNS = {
@@ -374,17 +563,66 @@ TRAIN_RUNS = {
     "terngrad": (["--method", "terngrad"], ("terngrad",)),
     "randomdithering": (["--method", "randomdithering", "--qstates", "255"], ("qsgd",)),
 }
+# wire mode: Block-Top-K's scores (<= 25,677 at full width) stay below the
+# kernels' dispatch size, so its run uses none of them
+WIRE_RUNS = {
+    "topk": (["--method", "topk", "--ratio", str(RATIO), "--error_feedback"],
+             TOPK_KERNELS[:2] + ("select_pack",)),
+    "randomk": (["--method", "randomk", "--ratio", str(RATIO), "--error_feedback"],
+                ("uniform", "count_ge", "select_pack")),
+    "blocktopk": (["--method", "blocktopk", "--ratio", str(RATIO), "--error_feedback"], ()),
+    "thresholdv": (["--method", "thresholdv", "--error_feedback"], ("select_pack",)),
+    "adaptivethreshold": (["--method", "adaptivethreshold", "--error_feedback"],
+                          ("select_pack",)),
+    "terngrad": (["--method", "terngrad"], ("terngrad_pack",)),
+    "randomdithering": (["--method", "randomdithering", "--qstates", "255"], ("qsgd_pack",)),
+}
+
+
+def _group_sizes(dp, gran: str):
+    """Full-width ResNet-9's reduction groups, as element counts."""
+    from tpu_compressed_dp_torch.models.resnet9 import ResNet9, param_leaves
+
+    sizes = [p.numel() for p in param_leaves(ResNet9(seed=0, device="cpu")).values()]
+    groups = dp.make_leaf_groups([4 * s for s in sizes], gran, 25.0 * dp.BUCKET_MB)
+    return [sum(sizes[i] for i in g) for g in groups]
 
 
 def expected_sent(compressors, dp, gran: str) -> float:
     """Random-K's billed sent fraction: the summed per-group keep counts
     over the dense count, for full-width ResNet-9's leaves."""
-    from tpu_compressed_dp_torch.models.resnet9 import ResNet9, param_leaves
+    ns = _group_sizes(dp, gran)
+    return sum(compressors.randomk_keep_count(n, RATIO) for n in ns) / sum(ns)
 
-    sizes = [p.numel() for p in param_leaves(ResNet9(seed=0, device="cpu")).values()]
-    groups = dp.make_leaf_groups([4 * s for s in sizes], gran, 25.0 * dp.BUCKET_MB)
-    kept = sum(compressors.randomk_keep_count(sum(sizes[i] for i in g), RATIO) for g in groups)
-    return kept / sum(sizes)
+
+def wire_layout(compressors, dp, label: str, gran: str):
+    """(sent fraction or None, wire fraction) of one wire step: the payload
+    layout's bits, group by group, over a dense fp32 all-reduce's."""
+    ns = _group_sizes(dp, gran)
+    chunk = dp.CompressionConfig(granularity=gran).resolved_terngrad_chunk
+    sent = bits = 0
+    for n in ns:
+        if label == "topk":
+            k = compressors.topk_keep_count(n, RATIO)
+            sent, bits = sent + k, bits + 64 * k
+        elif label == "randomk":
+            k = compressors.randomk_keep_count(n, RATIO)
+            sent, bits = sent + k, bits + 32 * k
+        elif label == "blocktopk":
+            kb = compressors.blocktopk_keep_blocks(n, RATIO, 256)
+            k = min(kb * 256, n)
+            sent, bits = sent + k, bits + (32 * n if k >= n else 32 * k + 32 * kb)
+        elif label in ("thresholdv", "adaptivethreshold"):
+            bits += 64 * max(1, int(round(0.05 * n)))
+        elif label == "terngrad":
+            sent += n
+            bits += 8 * -(-n // 4) + 32 * compressors.terngrad_num_chunks(n, chunk)
+        else:  # randomdithering, s = 255
+            sent += n
+            bits += 8 * n + 8 * -(-n // 8) + 32
+    dense = sum(ns)
+    return (None if label in ("thresholdv", "adaptivethreshold") else sent / dense,
+            bits / (32 * dense))
 
 
 def phase_train(kernels, compressors, dawn, torch, record):
@@ -394,11 +632,14 @@ def phase_train(kernels, compressors, dawn, torch, record):
 
     card = record["card"]
     runs = {}
-    for label, (flags, must) in TRAIN_RUNS.items():
-        for gran in ("layerwise", "entiremodel"):
+    plan = [(label, flags, must, "simulate") for label, (flags, must) in TRAIN_RUNS.items()]
+    plan += [(label, flags, must, "wire") for label, (flags, must) in WIRE_RUNS.items()]
+    for label, flags, must, mode in plan:
+        grans = ("layerwise", "entiremodel") + (("bucketed",) if mode == "wire" else ())
+        for gran in grans:
             argv = ["--network", "resnet9", "--synthetic", "--synthetic_n", "2048",
                     "--batch_size", "512", "--epochs", "1", "--compress", gran, *flags,
-                    "--mode", "simulate", "--device", "cuda", "--seed", "0", "--log_dir", ""]
+                    "--mode", mode, "--device", "cuda", "--seed", "0", "--log_dir", ""]
             kernels.reset_launches()
             t0 = time.perf_counter()
             summary = dawn.main(argv)
@@ -408,19 +649,28 @@ def phase_train(kernels, compressors, dawn, torch, record):
             steps = summary["steps"]
             loss = summary["train loss"]
             sent, wire = summary["sent frac"], summary["wire frac"]
-            name = f"{label} {gran}"
+            name = f"{label} {gran}" if mode == "simulate" else f"wire {label} {gran}"
             if not math.isfinite(loss) or not math.isfinite(summary["test loss"]):
                 raise AssertionError(f"{name}: non-finite loss {loss}")
             if label == "topk" and abs(sent - RATIO) > 0.1 * RATIO:
                 raise AssertionError(f"{name}: sent frac {sent} is not ~{RATIO}")
-            want_sent = expected_sent(compressors, dp, gran) if label == "randomk" else sent
-            if sent != want_sent:
-                raise AssertionError(f"{name}: sent frac {sent} is not the billed keep count "
-                                     f"{want_sent}")
-            want_wire = {"terngrad": 2 / 32, "randomdithering": 9 / 32}.get(label)
-            if want_wire is not None and abs(wire - want_wire) > 1e-6 * want_wire:
-                raise AssertionError(f"{name}: wire frac {wire} is not {want_wire}")
-            if min(launches[k] for k in must) <= 0:
+            if mode == "wire":
+                # the measured bits of the payload tensors are the layout's
+                want_sent, want_wire = wire_layout(compressors, dp, label, gran)
+                if want_sent is None:
+                    want_sent = sent if 0 < sent <= want_wire / 2 else math.nan
+                if sent != want_sent or abs(wire - want_wire) > 1e-12 * want_wire:
+                    raise AssertionError(f"{name}: sent frac {sent} / wire frac {wire} are not "
+                                         f"the layout's {want_sent} / {want_wire}")
+            else:
+                want_sent = expected_sent(compressors, dp, gran) if label == "randomk" else sent
+                if sent != want_sent:
+                    raise AssertionError(f"{name}: sent frac {sent} is not the billed keep "
+                                         f"count {want_sent}")
+                want_wire = {"terngrad": 2 / 32, "randomdithering": 9 / 32}.get(label)
+                if want_wire is not None and abs(wire - want_wire) > 1e-6 * want_wire:
+                    raise AssertionError(f"{name}: wire frac {wire} is not {want_wire}")
+            if must and min(launches[k] for k in must) <= 0:
                 raise AssertionError(f"{name}: a kernel of the run never launched: {launches}")
             ms = summary["train time"] * 1e3 / steps
             log(f"train {name}: {steps} steps, loss {loss:.4f}, sent frac {sent:.6f}, wire frac "
@@ -443,7 +693,9 @@ def phase_train(kernels, compressors, dawn, torch, record):
 def _category(name: str) -> str:
     low = name.lower()
     if any(k in name for k in ("count_ge_edges_kernel", "fused_sparsify_kernel",
-                                "uniform_kernel", "qsgd_kernel", "terngrad_kernel")):
+                                "uniform_kernel", "qsgd_kernel", "terngrad_kernel",
+                                "count_kernel", "scan_kernel", "scatter_kernel",
+                                "terngrad_pack_kernel", "qsgd_pack_kernel")):
         return "port CUDA kernels"
     if "sort" in low or "topk" in low or "radix" in low:
         return "torch.topk (exact threshold, small leaves)"
@@ -514,11 +766,15 @@ def phase_steady(torch, record):
     apply_fn = make_normalizing_apply_fn(np.asarray(data.CIFAR10_MEAN) * 255.0,
                                          np.asarray(data.CIFAR10_STD) * 255.0)
     out = {}
-    rows = [("dense", None, "layerwise")]
+    rows = [("dense", None, "layerwise", "simulate")]
     for method in ("topk", "randomk", "terngrad", "qsgd"):
-        rows += [(f"{method} {gran}", method, gran) for gran in ("layerwise", "entiremodel")]
-    for label, method, gran in rows:
-        cfg = CompressionConfig(method=method, granularity=gran, ratio=RATIO,
+        rows += [(f"{method} {gran}", method, gran, "simulate")
+                 for gran in ("layerwise", "entiremodel")]
+    for method in ("topk", "terngrad", "qsgd"):
+        rows += [(f"wire {method} {gran}", method, gran, "wire")
+                 for gran in ("layerwise", "entiremodel")]
+    for label, method, gran, mode in rows:
+        cfg = CompressionConfig(method=method, granularity=gran, ratio=RATIO, mode=mode,
                                 error_feedback=method in ("topk", "randomk"))
         model = ResNet9(seed=0, device=dev)
         params = param_leaves(model)
@@ -574,7 +830,7 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, HERE)
     from tpu_compressed_dp_torch.harness import dawn
-    from tpu_compressed_dp_torch.ops import compressors, kernels
+    from tpu_compressed_dp_torch.ops import compressors, kernels, wire
 
     record = {}
     smi = nvidia_smi()
@@ -596,6 +852,10 @@ def main(argv=None) -> int:
     err.update(d_err)
     for n, row in d_rows.items():
         rows[n].update(row)
+    w_err, w_rows = phase_wire_kernels(kernels, compressors, wire, torch, record)
+    err.update(w_err)
+    for n, row in w_rows.items():
+        rows[n].update(row)
     runs = phase_train(kernels, compressors, dawn, torch, record)
     phase_steady(torch, record)
 
@@ -604,13 +864,19 @@ def main(argv=None) -> int:
                 "fused_sparsify": "tpu_compressed_dp/ops/kernels.py:487",
                 "uniform": "tpu_compressed_dp/ops/kernels.py:1555",
                 "qsgd": "tpu_compressed_dp/ops/kernels.py:1241",
-                "terngrad": "tpu_compressed_dp/ops/kernels.py:1249"}
+                "terngrad": "tpu_compressed_dp/ops/kernels.py:1249",
+                "select_pack": "tpu_compressed_dp/ops/kernels.py:1073",
+                "terngrad_pack": "tpu_compressed_dp/ops/kernels.py:1439",
+                "qsgd_pack": "tpu_compressed_dp/ops/kernels.py:1448"}
     source = {"count_ge": "tpu_compressed_dp_torch/csrc/count_ge_edges.cu",
               "count_edges": "tpu_compressed_dp_torch/csrc/count_ge_edges.cu",
               "fused_sparsify": "tpu_compressed_dp_torch/csrc/fused_sparsify.cu",
               "uniform": "tpu_compressed_dp_torch/csrc/dither.cu",
               "qsgd": "tpu_compressed_dp_torch/csrc/dither.cu",
-              "terngrad": "tpu_compressed_dp_torch/csrc/dither.cu"}
+              "terngrad": "tpu_compressed_dp_torch/csrc/dither.cu",
+              "select_pack": "tpu_compressed_dp_torch/csrc/select_pack.cu",
+              "terngrad_pack": "tpu_compressed_dp_torch/csrc/quant_pack.cu",
+              "qsgd_pack": "tpu_compressed_dp_torch/csrc/quant_pack.cu"}
     line = {"kernels": []}
     for name in replaces:
         r = rows[FULL_MODEL][name]

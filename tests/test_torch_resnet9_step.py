@@ -7,9 +7,9 @@ numpy-seeded uint8 batches of 32.  Tolerances, and why:
   * dense: logits, loss, gradients, BatchNorm statistics and the parameters
     after 3 SGD steps to rtol 1e-4 / atol 1e-5 -- the two frameworks sum
     convolutions and reductions in different orders;
-  * Top-K + EF: loss to rtol 1e-3 and at most 0.1 % of the kept coordinates
-    differing after 3 steps -- a coordinate within rounding of the threshold
-    may flip between the two runs.
+  * Top-K + EF, in simulate and in wire mode: loss to rtol 1e-3 and at most
+    0.1 % of the kept coordinates differing after 3 steps -- a coordinate
+    within rounding of the threshold may flip between the two runs.
 
 The JAX side computes its gradients in float64 (``jax.enable_x64``, the
 module at ``dtype=float64``; the step still compresses and reduces in
@@ -188,10 +188,7 @@ def test_dense_three_steps_match():
     assert state_t.step == int(state_j.step) == 3
 
 
-@pytest.mark.parametrize("granularity", ["layerwise", "entiremodel"])
-def test_topk_ef_three_steps_match(granularity):
-    state_j, state_t, trace = _run_both(dict(method="topk", ratio=0.05,
-                                             granularity=granularity, error_feedback=True))
+def _check_topk_ef_run(state_j, state_t, trace):
     for m_j, m_t in trace:
         np.testing.assert_allclose(float(m_t["loss"]), float(m_j["loss"]), rtol=1e-3)
         sent_t, sent_j = float(m_t["comm/sent_elems"]), float(m_j["comm/sent_elems"])
@@ -203,6 +200,23 @@ def test_topk_ef_three_steps_match(granularity):
     kept_t = np.concatenate([(ef_t[k] == 0).ravel() for k in ef_j])
     assert kept_j.sum() > 0
     assert (kept_j != kept_t).sum() <= 0.001 * kept_j.sum()
+
+
+@pytest.mark.parametrize("granularity", ["layerwise", "entiremodel"])
+def test_topk_ef_three_steps_match(granularity):
+    _check_topk_ef_run(*_run_both(dict(method="topk", ratio=0.05, granularity=granularity,
+                                       error_feedback=True)))
+
+
+@pytest.mark.parametrize("granularity", ["layerwise", "entiremodel"])
+def test_wire_topk_ef_three_steps_match(granularity):
+    # the wire sync's (value, index) payload at world 1; its measured bits
+    # are the JAX run's exactly
+    state_j, state_t, trace = _run_both(dict(method="topk", ratio=0.05, mode="wire",
+                                             granularity=granularity, error_feedback=True))
+    _check_topk_ef_run(state_j, state_t, trace)
+    for m_j, m_t in trace:
+        assert float(m_t["comm/sent_bits"]) == float(m_j["comm/sent_bits"]) > 0
 
 
 def test_ef_and_momentum_trees_carry_over():
@@ -357,3 +371,60 @@ def test_dawn_unported_flags_raise(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item"):
         dawn.main(argv + ["--device", "cpu", "--synthetic", "--synthetic_n", "64",
                           "--batch_size", "32", "--epochs", "1", "--channels_scale", "0.125"])
+
+
+def _wire_billed(method: str, gran: str, bucket_mb: float, ratio: float, cap: float):
+    """(sent frac, wire frac) of one wire step of the scaled ResNet-9, from
+    its leaf sizes and the byte layout of each method's payload."""
+    from tpu_compressed_dp.ops import compressors as jc
+
+    sizes = [p.numel() for p in tres.param_leaves(
+        tres.ResNet9(channels=tres.scaled_channels(SCALE), seed=0, device="cpu")).values()]
+    groups = jdp.make_leaf_groups([4 * n for n in sizes], gran, bucket_mb * jdp.BUCKET_MB)
+    chunk = jdp.CompressionConfig(granularity=gran).resolved_terngrad_chunk
+    dense = sum(sizes)
+    sent = bits = 0.0
+    for g in groups:
+        n = sum(sizes[i] for i in g)
+        if method == "topk":
+            k = jc.topk_keep_count(n, ratio)
+            sent, bits = sent + k, bits + 64.0 * k
+        elif method == "randomk":  # values only: the shared seed implies the indices
+            k = jc.randomk_keep_count(n, ratio)
+            sent, bits = sent + k, bits + 32.0 * k
+        elif method == "blocktopk":
+            kb = jc.blocktopk_keep_blocks(n, ratio, 256)
+            k = min(kb * 256, n)
+            sent, bits = sent + k, bits + (32.0 * n if k >= n else 32.0 * k + 32.0 * kb)
+        elif method in ("thresholdv", "adaptivethreshold"):  # the whole capacity buffer
+            bits += 64.0 * max(1, int(round(cap * n)))
+        elif method == "terngrad":
+            sent += n
+            bits += 8.0 * (-(-n // 4)) + 32.0 * jc.terngrad_num_chunks(n, chunk)
+        else:  # randomdithering, qstates 255: byte magnitudes + sign bitmap + norm
+            sent += n
+            bits += 8.0 * n + 8.0 * (-(-n // 8)) + 32.0
+    return sent / dense, bits / (32.0 * dense)
+
+
+@pytest.mark.parametrize("granularity", ["layerwise", "entiremodel", "bucketed"])
+@pytest.mark.parametrize("method", ["topk", "randomk", "blocktopk", "thresholdv",
+                                    "adaptivethreshold", "terngrad", "randomdithering"])
+def test_dawn_cpu_wire_drive_every_method(method, granularity):
+    from tpu_compressed_dp_torch.harness import dawn
+
+    ef = [] if method in ("terngrad", "randomdithering") else ["--error_feedback"]
+    summary = dawn.main(["--synthetic", "--synthetic_n", "64", "--batch_size", "32",
+                         "--epochs", "1", "--compress", granularity, "--method", method,
+                         "--ratio", "0.01", "--bucket_mb", "0.1", "--mode", "wire",
+                         "--wire_cap_ratio", "0.02", "--device", "cpu",
+                         "--channels_scale", "0.125", "--log_dir", "", *ef])
+    assert summary["steps"] == 2 and np.isfinite(summary["train loss"])
+    want_sent, want_wire = _wire_billed(method, granularity, 0.1, 0.01, 0.02)
+    # the measured bits of the payload tensors are the layout's, exactly
+    assert summary["wire frac"] == pytest.approx(want_wire, rel=1e-12)
+    if method in ("thresholdv", "adaptivethreshold"):
+        # the survivors that travelled, at most the capacity (64 bits a slot)
+        assert 0.0 < summary["sent frac"] <= want_wire / 2
+    else:
+        assert summary["sent frac"] == pytest.approx(want_sent, rel=1e-12)

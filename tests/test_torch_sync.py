@@ -20,6 +20,18 @@ every stat must agree bitwise:
 
 QSGD's norm is summed in another order too, so its outputs and EF agree to
 one quantisation level on a few elements (stats stay exact).
+
+The wire rows (``mode='wire'``, ids ``wire-...``) hold the port's allgather
+wire engine to the JAX one the same way: the gathered payloads are
+scatter-added one rank row after another in both, and the mean of two
+decoded rows is order-free, so synced gradients, EF residuals and every
+stat (``sent_bits`` measured from the payload tensors,
+``threshold_overflow``, ``topk_surplus_dropped``, ``sync_agree``) agree
+bitwise; QSGD by the contract above.  Top-K runs in ``off`` (exact
+threshold, mask -> packed indices -> gather) and ``force`` (histogram
+threshold, fused select+pack; the Pallas interpreter against the port's
+plain version); TernGrad and QSGD s = 255 in ``force`` reach the fused
+quantize+pack with a zero dither on both sides.
 """
 
 import itertools
@@ -54,6 +66,12 @@ def _cfg(method, gran, mode, ef=True, draws=None, **kw):
                 draws=draws, kw=kw)
 
 
+def _wire(method, gran, mode, ef=True, draws=None, **kw):
+    c = _cfg(method, gran, mode, ef, draws, **kw)
+    c["kw"]["mode"] = "wire"
+    return c
+
+
 CONFIGS = (
     [_cfg("topk", g, m, ef) for g, ef, m in itertools.product(
         ("layerwise", "entiremodel"), (True, False), ("off", "force"))]
@@ -68,18 +86,44 @@ CONFIGS = (
     + [_cfg("qsgd", g, "auto", ef=False, draws="jax", qstates=s) for s in (127, 255)
        for g in GRANS]
     + [_cfg("blocktopk", g, "auto", block_size=64) for g in GRANS]
+    # wire mode, allgather transport
+    + [_wire("topk", g, m, ef) for g, ef, m in itertools.product(
+        GRANS, (True, False), ("off", "force"))]
+    # |g| >= 1.5 keeps ~13 % of a standard normal: the default 5 % capacity
+    # overflows, 20 % does not; Adaptive (|g| >= max/2) keeps ~1 %
+    + [_wire(meth, g, m, threshold=1.5) for meth in ("thresholdv", "adaptive_threshold")
+       for m in ("auto", "force") for g in GRANS]
+    + [_wire("thresholdv", "layerwise", "force", threshold=1.5, wire_cap_ratio=0.2),
+       _wire("thresholdv", "entiremodel", "auto", ef=False, threshold=1.5),
+       _wire("adaptive_threshold", "entiremodel", "force", wire_cap_ratio=0.002)]
+    + [_wire("randomk", g, "auto", draws="jax", check_sync=True) for g in GRANS]
+    + [_wire("randomk", "layerwise", "auto", ef=False, draws="jax")]
+    + [_wire("blocktopk", g, "auto", block_size=bs) for bs in (64, 256) for g in GRANS]
+    + [_wire("terngrad", g, "auto", ef=False, draws="jax", **kw)
+       for kw in ({}, {"terngrad_chunk": 1000}) for g in GRANS]
+    + [_wire("terngrad", "layerwise", "force", ef=False, draws="zero"),
+       _wire("terngrad", "entiremodel", "force", ef=False, draws="zero", terngrad_chunk=1000)]
+    + [_wire("qsgd", g, "auto", ef=False, draws="jax", qstates=s) for s in (127, 255)
+       for g in GRANS]
+    + [_wire("qsgd", g, "force", ef=False, draws="zero", qstates=255)
+       for g in ("layerwise", "entiremodel")]
 )
 
 
 def _config_id(c):
-    if c["method"] == "topk":  # the Top-K rows keep their ids
+    wire = c["kw"].get("mode") == "wire"
+    if c["method"] == "topk" and not wire:  # the simulate Top-K rows keep their ids
         return f"{c['granularity']}-{c['error_feedback']}-{c['mode']}"
-    extra = "-".join(f"{k}={v}" for k, v in c["kw"].items() if k != "bucket_mb")
-    return "-".join(x for x in (c["method"], c["granularity"], c["mode"], extra) if x)
+    extra = "-".join(f"{k}={v}" for k, v in c["kw"].items() if k not in ("bucket_mb", "mode"))
+    if c["method"] in ("topk", "randomk", "thresholdv") and wire:
+        extra = "-".join(x for x in (f"ef={c['error_feedback']}", extra) if x)
+    return "-".join(x for x in ("wire" if wire else "", c["method"], c["granularity"],
+                                c["mode"], extra) if x)
 
 
 def _per_worker(c) -> bool:
-    return c["method"] in ("randomk", "terngrad", "qsgd") and not c["kw"].get("shared_mask")
+    shared = jdp.CompressionConfig(**c["kw"]).resolved_shared_mask
+    return c["method"] in ("randomk", "terngrad", "qsgd") and not shared
 
 
 def _groups(c):
@@ -251,8 +295,9 @@ def test_leaf_groups_and_config_surface():
     jf = {f.name: f.default for f in dataclasses.fields(jdp.CompressionConfig)}
     tf = {f.name: f.default for f in dataclasses.fields(tdp.CompressionConfig)}
     assert tf == jf
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tdp.make_grad_sync(tdp.CompressionConfig(method="topk", mode="wire"))
+    with pytest.raises(NotImplementedError, match="item 8"):
+        tdp.make_grad_sync(tdp.CompressionConfig(method="topk", mode="wire",
+                                                 transport="sharded"))
     with pytest.raises(NotImplementedError, match="item 9"):
         tdp.make_grad_sync(tdp.CompressionConfig(method="powersgd"))
     with pytest.raises(ValueError):

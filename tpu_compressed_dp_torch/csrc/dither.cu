@@ -8,12 +8,10 @@
 // u_i is Philox4x32-10 word i % 4 at counter i / 4 under the 64-bit seed
 // (philox.cuh), so the stream depends on (seed, i) only, never on the grid,
 // and the quantizers draw it in registers: the dither never touches device
-// memory, as on the TPU.  sign is the select form (x > 0) - (x < 0), so NaN
-// has sign 0; the float level converts to the integer type saturating, with
-// NaN -> 0 (XLA's convert).  Every product and sum is rounded on its own
-// (__fmul_rn, __fadd_rn), in the JAX kernel's order: nvcc would otherwise
-// contract (|x| * inv) * s + u into an FMA and move floor boundaries.  inv is
-// read from device memory, so the caller never syncs the host on the norm.
+// memory, as on the TPU.  The per-element arithmetic (select-form sign,
+// saturating conversion, no FMA contraction) is in quant.cuh, shared with the
+// quantize+pack kernels.  inv is read from device memory, so the caller never
+// syncs the host on the norm.
 //
 // Bound: bytes 4n (uniform), 6n (qsgd), 5n (terngrad); 7.85 / 11.8 / 9.81 us at
 // n = 6,573,120 and 3.35 TB/s.  Philox adds 15 integer operations per element
@@ -29,25 +27,14 @@
 #include <cstdint>
 
 #include "philox.cuh"
+#include "quant.cuh"
 
 namespace {
 
+using tcdp::qsgd1;
+using tcdp::tern1;
+
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ float sign_sel(float x) {
-  return (x > 0.0f ? 1.0f : 0.0f) - (x < 0.0f ? 1.0f : 0.0f);
-}
-
-__device__ __forceinline__ short qsgd1(float x, float inv, float s, float u) {
-  const float m = floorf(__fadd_rn(__fmul_rn(__fmul_rn(fabsf(x), inv), s), u));
-  const float f = __fmul_rn(sign_sel(x), m);
-  if (isnan(f)) return 0;
-  return static_cast<short>(fminf(fmaxf(f, -32768.0f), 32767.0f));
-}
-
-__device__ __forceinline__ signed char tern1(float x, float inv, float u) {
-  return u < __fmul_rn(fabsf(x), inv) ? static_cast<signed char>(sign_sel(x)) : 0;
-}
 
 __global__ void __launch_bounds__(kThreads)
 uniform_kernel(float* __restrict__ out, long long n, unsigned long long seed) {

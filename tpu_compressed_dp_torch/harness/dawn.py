@@ -3,9 +3,9 @@
 PyTorch-port counterpart of :mod:`tpu_compressed_dp.harness.dawn`, cut to the
 flags of the ported compressors: ``--network resnet9 --compress
 {layerwise,entiremodel,bucketed} --method --ratio --threshold --qstates
---block_size --bucket_mb --error_feedback --mode simulate --epochs
---batch_size --peak_lr --momentum --clip_norm --synthetic --synthetic_n
---seed`` plus ``--device``.  Protocol
+--block_size --bucket_mb --error_feedback --mode {simulate,wire}
+--wire_cap_ratio --epochs --batch_size --peak_lr --momentum --clip_norm
+--synthetic --synthetic_n --seed`` plus ``--device``.  Protocol
 as in the JAX harness: ``PiecewiseLinear([0, 5, epochs], [0, peak, 0])`` at
 fractional epochs divided by the batch size, weight decay ``5e-4 *
 batch_size``, Nesterov when momentum > 0, Crop/FlipLR/Cutout augmentation,
@@ -46,7 +46,6 @@ _ITEM = "ROADMAP.md queue 1, item {}"
 _LATER_FLAGS = {
     **dict.fromkeys(("--clip_sent_norm", "--ratio_warmup_epochs", "--lr_schedule",
                      "--synthetic_hard"), 16),
-    "--wire_cap_ratio": 7,
     **dict.fromkeys(("--transport", "--dp_pods", "--hier_route_factor_ici",
                      "--hier_route_factor_dcn"), 8),
     **dict.fromkeys(("--rank", "--overlap", "--dtype"), 9),
@@ -86,6 +85,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--clip_norm", type=float, default=0.0,
                    help="local-gradient L2 clip (mean-loss units; 0 = off)")
     p.add_argument("--mode", type=str, default="simulate", choices=["simulate", "wire"])
+    p.add_argument("--wire_cap_ratio", type=float, default=0.05,
+                   help="wire thresholdv/adaptivethreshold: payload capacity as a "
+                        "fraction of each group")
     p.add_argument("--error_feedback", action="store_true")
     p.add_argument("--epochs", type=int, default=None, help="override the 24/40 rule")
     p.add_argument("--batch_size", type=int, default=512, help="global batch size")
@@ -151,6 +153,7 @@ def run(args) -> dict:
         qstates=args.qstates,
         block_size=args.block_size,
         bucket_mb=args.bucket_mb,
+        wire_cap_ratio=args.wire_cap_ratio,
         error_feedback=args.error_feedback,
     )
     made_group = not torch.distributed.is_initialized()

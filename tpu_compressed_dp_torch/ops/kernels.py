@@ -1,10 +1,10 @@
 """Hand-written CUDA kernels for the compression hot path, and their glue.
 
-PyTorch/H100 counterpart of the simulate-mode part of
-:mod:`tpu_compressed_dp.ops.kernels`.  Six Pallas TPU kernels there have a
-CUDA C++ kernel here (sources in ``tpu_compressed_dp_torch/csrc``, built for
-``sm_90a`` by ``nvcc`` on first use into ``build/torch_kernels/`` and loaded
-with ``ctypes``):
+PyTorch/H100 counterpart of the simulate-mode and allgather wire-mode part
+of :mod:`tpu_compressed_dp.ops.kernels`.  Nine Pallas TPU kernels there have
+a CUDA C++ kernel here (sources in ``tpu_compressed_dp_torch/csrc``, built
+for ``sm_90a`` by ``nvcc`` on first use into ``build/torch_kernels/`` and
+loaded with ``ctypes``):
 
   * ``count_ge_edges`` (``csrc/count_ge_edges.cu``) serves both
     ``_count_ge_kernel`` (an equispaced refinement round of the histogram
@@ -18,7 +18,16 @@ with ``ctypes``):
     ``_terngrad_kernel`` (:func:`terngrad_levels_kernel`).  The TPU's
     hardware PRNG becomes Philox4x32-10 keyed by a 64-bit seed, with element
     ``i`` taking word ``i % 4`` at counter ``i // 4``: the stream depends on
-    ``(seed, i)`` only, and :func:`philox4x32_plain` gives the same bits.
+    ``(seed, i)`` only, and :func:`philox4x32_plain` gives the same bits;
+  * ``select_pack`` (``csrc/select_pack.cu``) replaces
+    ``_select_pack_kernel`` and its epilogue (:func:`fused_select_pack`):
+    the wire payload of the index-carrying sparsifiers, the coordinates with
+    ``|x| >= t`` in ascending order in exactly ``keep`` slots;
+  * ``quant_pack`` (``csrc/quant_pack.cu``) replaces
+    ``_terngrad_pack_kernel`` and ``_qsgd_pack_kernel``
+    (:func:`terngrad_pack`, :func:`terngrad_pack_prescaled`,
+    :func:`qsgd_pack`): the dither kernels' levels, bit-packed to the wire
+    bytes in the same pass.
 
 Every kernel has a plain PyTorch version beside it (``*_plain``).  A wrapper
 runs the plain version only because the tensor it was given lies on the CPU;
@@ -66,6 +75,18 @@ __all__ = [
     "terngrad_quantize",
     "terngrad_quantize_prescaled",
     "use_quant_kernels",
+    "fused_select_pack",
+    "fused_select_pack_plain",
+    "first_set_indices",
+    "use_select_pack",
+    "terngrad_pack",
+    "terngrad_pack_prescaled",
+    "terngrad_pack_kernel",
+    "terngrad_pack_plain",
+    "qsgd_pack",
+    "qsgd_pack_kernel",
+    "qsgd_pack_plain",
+    "use_quant_pack",
     "build",
     "LAUNCHES",
     "MIN_PALLAS_ELEMS",
@@ -80,7 +101,8 @@ _FP32_MAX = torch.finfo(torch.float32).max
 
 #: kernel launches per route since the last reset; only a CUDA launch counts
 LAUNCHES: Dict[str, int] = {"count_ge": 0, "count_edges": 0, "fused_sparsify": 0,
-                            "uniform": 0, "qsgd": 0, "terngrad": 0}
+                            "uniform": 0, "qsgd": 0, "terngrad": 0, "select_pack": 0,
+                            "terngrad_pack": 0, "qsgd_pack": 0}
 
 
 def reset_launches() -> None:
@@ -115,7 +137,7 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
     "build", "torch_kernels")
-_SOURCES = ("count_ge_edges", "fused_sparsify", "dither")
+_SOURCES = ("count_ge_edges", "fused_sparsify", "dither", "select_pack", "quant_pack")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -174,6 +196,9 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         "dither": {"tcdp_uniform": [p, ll, u64, p],
                    "tcdp_qsgd_levels": [p, ll, p, u64, i32, p, p],
                    "tcdp_terngrad_levels": [p, ll, p, u64, p, p]},
+        "select_pack": {"tcdp_select_pack": [p, ll, p, i32, p, p, p, p, p, p]},
+        "quant_pack": {"tcdp_terngrad_pack": [p, ll, p, u64, p, p],
+                       "tcdp_qsgd_pack": [p, ll, p, u64, i32, p, p, p]},
     }[name]
     for fn, types in argtypes.items():
         getattr(lib, fn).argtypes = types
@@ -640,4 +665,184 @@ def terngrad_quantize_prescaled(scaled: torch.Tensor, seed: int) -> torch.Tensor
 def use_quant_kernels(n: int, device) -> bool:
     """Whether the dither kernels serve an ``n``-element tensor on ``device``
     (the JAX package's ``use_quant_kernels``)."""
+    return _dispatch_to_kernel(n, torch.device(device))
+
+
+# ---------------------------------------------------------------------------
+# Fused select+pack (the wire payload of the index-carrying sparsifiers)
+# ---------------------------------------------------------------------------
+
+_SEG = 4096  # elements per segment of csrc/select_pack.cu
+
+
+def first_set_indices(mask: torch.Tensor, keep: int) -> torch.Tensor:
+    """int32 ascending indices of the first ``keep`` set positions of
+    ``mask``, ranks past its count 0: rank ``r`` lands at the first position
+    whose inclusive count reaches ``r`` (one cumsum and one
+    ``searchsorted``, on the device)."""
+    pos = torch.cumsum(mask, 0, dtype=torch.int64)
+    ranks = torch.arange(1, keep + 1, dtype=torch.int64, device=mask.device)
+    idx = torch.searchsorted(pos, ranks)
+    return torch.where(idx < mask.shape[0], idx, 0).to(torch.int32)
+
+
+def fused_select_pack_plain(flat: torch.Tensor, t: torch.Tensor, keep: int):
+    """``(vals [keep], idx [keep] int32, count int32)`` by PyTorch ops: the
+    coordinates with ``|flat| >= t`` (fp32 compare) in ascending order,
+    slots past the survivor count padded with value 0 / index 0."""
+    mask = flat.abs().to(torch.float32) >= t
+    count = mask.sum(dtype=torch.int32)
+    idx = first_set_indices(mask, keep)
+    valid = torch.arange(keep, device=flat.device) < count
+    vals = torch.where(valid, flat[idx.long()], torch.zeros((), dtype=flat.dtype,
+                                                            device=flat.device))
+    return vals, idx, count
+
+
+def fused_select_pack(flat: torch.Tensor, t: torch.Tensor, keep: int):
+    """``(vals [keep], idx [keep] int32, count int32 0-d)``: the coordinates
+    with ``|flat| >= t`` by ascending index, their values, and the total
+    survivor count; an underfull mask pads value 0 / index 0.
+
+    Replaces ``_select_pack_kernel`` + ``_select_pack_payload``
+    (``fused_select_pack``) of ``tpu_compressed_dp/ops/kernels.py``.  Bitwise
+    equal to ``mask -> packed_indices_from_mask -> gather`` whenever
+    ``count >= keep``.  Bound: 4n bytes read, 8 keep written; see
+    ``csrc/select_pack.cu``."""
+    keep = int(keep)
+    if keep < 1:
+        raise ValueError(f"fused_select_pack needs keep >= 1, got {keep}")
+    if flat.device.type == "cpu":
+        return fused_select_pack_plain(flat, t, keep)
+    if flat.device.type != "cuda":
+        raise ValueError(f"fused_select_pack runs on CUDA or CPU tensors, got {flat.device}")
+    _check_f32_vector(flat, "flat")
+    t = t.to(torch.float32).reshape(()).contiguous()
+    if t.device != flat.device:
+        raise ValueError("the threshold must lie on flat's device")
+    n = flat.numel()
+    dev = flat.device
+    vals = torch.empty(keep, dtype=torch.float32, device=dev)
+    idx = torch.empty(keep, dtype=torch.int32, device=dev)
+    if n == 0:
+        return vals.zero_(), idx.zero_(), torch.zeros((), dtype=torch.int32, device=dev)
+    count = torch.empty(1, dtype=torch.int32, device=dev)
+    scratch = torch.empty(2, -(-n // _SEG), dtype=torch.int32, device=dev)
+    rc = _lib("select_pack").tcdp_select_pack(
+        flat.data_ptr(), n, t.data_ptr(), keep, vals.data_ptr(), idx.data_ptr(),
+        count.data_ptr(), scratch[0].data_ptr(), scratch[1].data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _check_launch(rc, "select_pack")
+    LAUNCHES["select_pack"] += 1
+    return vals, idx, count.reshape(())
+
+
+def use_select_pack(n: int, keep: int, device) -> bool:
+    """Whether the fused select+pack serves an ``n``-element tensor on
+    ``device`` (the JAX package's ``use_select_pack``)."""
+    return _dispatch_to_kernel(n, torch.device(device)) and keep >= 1
+
+
+# ---------------------------------------------------------------------------
+# Fused quantize+pack (TernGrad 2-bit codes, QSGD magnitudes + sign bitmap)
+# ---------------------------------------------------------------------------
+
+
+# The plain versions pack with the wire module's byte layouts, which import
+# this module: hence the imports inside them.
+
+
+def terngrad_pack_plain(x: torch.Tensor, inv: torch.Tensor, seed: int,
+                        u: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """uint8 ``[ceil(n/4)]``: :func:`terngrad_levels_plain` through
+    ``wire.pack_ternary`` (codes ``level + 1``, four to a byte)."""
+    from tpu_compressed_dp_torch.ops import wire
+
+    return wire.pack_ternary(terngrad_levels_plain(x, inv, seed, u))
+
+
+def qsgd_pack_plain(x: torch.Tensor, inv: torch.Tensor, seed: int, qstates: int,
+                    u: Optional[torch.Tensor] = None):
+    """``(uint8 mags [n], uint8 signs [ceil(n/8)])``: :func:`qsgd_levels_plain`
+    through ``wire.qsgd_wire_pack``'s ``qstates <= 255`` layout."""
+    from tpu_compressed_dp_torch.ops import wire
+
+    return wire.qsgd_wire_pack(qsgd_levels_plain(x, inv, seed, qstates, u), 255)
+
+
+def _launch_pack(route: str, x: torch.Tensor, inv: torch.Tensor, seed: int, *outs, qstates=None):
+    if x.device.type != "cuda":
+        raise ValueError(f"the {route} kernel runs on CUDA or CPU tensors, got {x.device}")
+    _check_f32_vector(x, "x")
+    inv = inv.to(torch.float32).reshape(()).contiguous()
+    if inv.device != x.device:
+        raise ValueError("inv must lie on x's device")
+    if x.numel() == 0:
+        return
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    lib = _lib("quant_pack")
+    ptrs = [o.data_ptr() for o in outs]
+    if route == "qsgd_pack":
+        rc = lib.tcdp_qsgd_pack(x.data_ptr(), x.numel(), inv.data_ptr(), _seed64(seed),
+                                qstates, *ptrs, stream)
+    else:
+        rc = lib.tcdp_terngrad_pack(x.data_ptr(), x.numel(), inv.data_ptr(), _seed64(seed),
+                                    *ptrs, stream)
+    _check_launch(rc, route)
+    LAUNCHES[route] += 1
+
+
+def terngrad_pack_kernel(x: torch.Tensor, inv: torch.Tensor, seed: int) -> torch.Tensor:
+    """uint8 ``[ceil(n/4)]``: the TernGrad levels ``sign(x) * (u < |x| *
+    inv)`` of :func:`terngrad_levels_kernel`, packed to 2-bit codes in the
+    same pass.  Replaces ``_terngrad_pack_kernel``.  Bound: 4.25n bytes."""
+    if x.device.type == "cpu":
+        return terngrad_pack_plain(x, inv, seed)
+    out = torch.empty(-(-x.shape[0] // 4), dtype=torch.uint8, device=x.device)
+    _launch_pack("terngrad_pack", x, inv, seed, out)
+    return out
+
+
+def qsgd_pack_kernel(x: torch.Tensor, inv: torch.Tensor, seed: int, qstates: int):
+    """``(uint8 mags [n], uint8 signs [ceil(n/8)])``: the QSGD levels of
+    :func:`qsgd_levels_kernel` in the ``qstates <= 255`` wire layout, packed
+    in the same pass.  Replaces ``_qsgd_pack_kernel``.  Bound: 5.125n
+    bytes."""
+    if not 0 < qstates <= 255:
+        raise ValueError(f"qsgd_pack packs uint8 magnitudes; qstates={qstates}")
+    if x.device.type == "cpu":
+        return qsgd_pack_plain(x, inv, seed, qstates)
+    mags = torch.empty(x.shape[0], dtype=torch.uint8, device=x.device)
+    signs = torch.empty(-(-x.shape[0] // 8), dtype=torch.uint8, device=x.device)
+    _launch_pack("qsgd_pack", x, inv, seed, mags, signs, qstates=qstates)
+    return mags, signs
+
+
+def terngrad_pack(flat: torch.Tensor, seed: int):
+    """``(uint8 wire bytes [ceil(n/4)], float32 scale = max|g|)``: the
+    JAX package's ``terngrad_pack``, dither drawn from ``seed``."""
+    flat = flat.to(torch.float32).contiguous()
+    gmax = flat.abs().max()
+    return terngrad_pack_kernel(flat, _safe_inv(gmax), seed), gmax
+
+
+def terngrad_pack_prescaled(scaled: torch.Tensor, seed: int) -> torch.Tensor:
+    """Quantize+pack of an already chunk-normalised input (unit scale)."""
+    scaled = scaled.to(torch.float32).contiguous()
+    one = torch.ones((), dtype=torch.float32, device=scaled.device)
+    return terngrad_pack_kernel(scaled, one, seed)
+
+
+def qsgd_pack(flat: torch.Tensor, seed: int, *, qstates: int = 255):
+    """``(uint8 mags [n], uint8 signs [ceil(n/8)], float32 scale = ||g|| /
+    s)`` for ``0 < qstates <= 255``, as the JAX package's ``qsgd_pack``."""
+    flat = flat.to(torch.float32).contiguous()
+    norm = torch.linalg.vector_norm(flat)
+    mags, signs = qsgd_pack_kernel(flat, _safe_inv(norm), seed, qstates)
+    return mags, signs, torch.where(norm > 0, norm, 0.0) / qstates
+
+
+def use_quant_pack(n: int, device) -> bool:
+    """Whether the quantize+pack kernels serve an ``n``-element tensor on
+    ``device`` (the JAX package's ``use_quant_pack``)."""
     return _dispatch_to_kernel(n, torch.device(device))

@@ -1,13 +1,18 @@
-"""Compressed data-parallel gradient synchronisation (simulate mode).
+"""Compressed data-parallel gradient synchronisation.
 
 PyTorch counterpart of :mod:`tpu_compressed_dp.parallel.dp`: per reduction
 group (one parameter tensor for ``layerwise``, the whole flattened gradient
 for ``entiremodel``, contiguous leaves packed into ``bucket_mb`` buckets for
-``bucketed``) the local gradient plus the EF residual is compressed, kept
-dense with zeros at dropped coordinates, and averaged over the workers with
-``dist.all_reduce(comp) / world`` (the JAX engine's ``lax.psum(comp) /
-world``).  Bytes on the wire are accounted analytically in the same stat
-keys as the JAX engine.
+``bucketed``) the local gradient plus the EF residual is compressed and
+averaged over the workers.  In ``mode='simulate'`` (the paper's protocol) the
+compressed gradient stays dense with zeros at dropped coordinates and is
+averaged with ``dist.all_reduce(comp) / world`` (the JAX engine's
+``lax.psum(comp) / world``); bytes on the wire are accounted analytically.
+In ``mode='wire'`` :func:`make_grad_sync` hands a compressing method to
+:func:`tpu_compressed_dp_torch.ops.wire.make_wire_grad_sync`, whose payloads
+really shrink and whose bits are measured; dense falls through to the
+simulate path, whose all-reduce is its wire form.  The stat keys are the JAX
+engine's.
 
 Gradients, EF residuals and outputs are ordered dicts of tensors keyed by
 parameter path, in the JAX package's leaf order (see
@@ -40,9 +45,9 @@ BUCKET_MB = 1024.0 * 1024.0
 class CompressionConfig:
     """The JAX package's ``CompressionConfig`` fields and defaults
     (``tpu_compressed_dp/parallel/dp.py``).  The port runs every method but
-    ``powersgd``, every granularity, ``mode='simulate'``,
-    ``transport='allgather'`` and ``sync_overlap=1``; :func:`make_grad_sync`
-    raises ``NotImplementedError`` for the rest, naming the ROADMAP item."""
+    ``powersgd``, every granularity, both modes, ``transport='allgather'``
+    and ``sync_overlap=1``; :func:`make_grad_sync` raises
+    ``NotImplementedError`` for the rest, naming the ROADMAP item."""
 
     method: Optional[str] = None
     granularity: str = "layerwise"
@@ -106,8 +111,6 @@ class CompressionConfig:
 def _check_ported(cfg: CompressionConfig) -> None:
     """Refuse the parts of the config this slice does not carry."""
     later = []
-    if cfg.mode != "simulate":
-        later.append("mode='wire' (ROADMAP.md queue 1, item 7)")
     if cfg.transport != "allgather":
         later.append(f"transport={cfg.transport!r} (ROADMAP.md queue 1, item 8)")
     if cfg.sync_overlap != 1:
@@ -191,6 +194,10 @@ def make_grad_sync(cfg: CompressionConfig):
     comp = compressors.get_compressor(
         cfg.method, ratio=cfg.ratio, threshold=cfg.threshold, qstates=cfg.qstates,
         block_size=cfg.block_size, terngrad_chunk=cfg.resolved_terngrad_chunk, rank=cfg.rank)
+    if cfg.mode == "wire" and comp.name != "none":
+        from tpu_compressed_dp_torch.ops import wire
+
+        return wire.make_wire_grad_sync(cfg)
     per_worker_rng = not cfg.resolved_shared_mask
     bits_per_elem = compressors.payload_bits_per_elem(
         comp.name, qstates=cfg.qstates, shared_mask=cfg.resolved_shared_mask,

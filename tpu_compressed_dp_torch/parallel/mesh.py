@@ -18,7 +18,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["resolve_device", "init_process_group", "world", "rank", "free_port",
-           "destroy"]
+           "all_gather", "destroy"]
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -71,6 +71,21 @@ def world() -> int:
 
 def rank() -> int:
     return dist.get_rank() if dist.is_initialized() else 0
+
+
+def all_gather(t: torch.Tensor) -> torch.Tensor:
+    """Every rank's ``t`` stacked in rank order, ``[world, *t.shape]``: the
+    JAX package's ``all_gather`` over the data axis, as one
+    ``all_gather_into_tensor``.  Without a group of more than one rank it is
+    ``t[None]``."""
+    w = world()
+    if w == 1:
+        return t.unsqueeze(0)
+    out = torch.empty(w * t.numel(), dtype=t.dtype, device=t.device)
+    # all_gather_single is the newer name of all_gather_into_tensor
+    gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+    gather(out, t.reshape(-1).contiguous())
+    return out.reshape((w,) + tuple(t.shape))
 
 
 def destroy() -> None:
