@@ -17,8 +17,12 @@ printing no result, where either is missing or any phase fails.
      Top-K threshold, Threshold-V capacities that overflow and underfill,
      Block-Top-K scores, a Random-K mask, NaN / +-Inf and zeros; TernGrad and
      QSGD quantize+pack, whose unpacked bytes are the level kernels' levels;
-     then times each kernel (CUDA events, after warm-up, inputs cycled past
-     the 50 MB L2) beside its plain version, its bound and a library call;
+     the sharded transport's bucket route bitwise (values as bits) at the
+     full-width geometries (entire-model Top-K at W = 2 / 4 / 8, the
+     hierarchical Threshold-V slab across 2 pods), with a dump-bucket tail,
+     overflowing and empty buckets, -0.0, NaN and +-Inf; then times each
+     kernel (CUDA events, after warm-up, inputs cycled past the 50 MB L2)
+     beside its plain version, its bound and a library call;
   3. trains full-width ResNet-9 through the port's DAWNBench entry point
      (``harness.dawn.main``), 4 steps of batch 512 on a 1-rank NCCL group,
      at layerwise and at entiremodel granularity, in simulate mode with
@@ -32,7 +36,22 @@ printing no result, where either is missing or any phase fails.
   4. times steady-state steps and the gradient sync alone (dense, Top-K,
      Random-K, TernGrad and QSGD at both granularities, and wire Top-K + EF,
      TernGrad and QSGD), with a profile;
-  5. prints the kernels' JSON line, the ``nvidia-smi`` name/power line and,
+  5. runs W = 2 and then W = 4 ranks on the one card: worker processes
+     (this script with ``--rank_worker``) joined by gloo, which takes CUDA
+     tensors (NCCL refuses two ranks on one device).  Each world syncs
+     seeded full-width ResNet-9 gradients (different per rank) with Top-K
+     1 % + EF, Threshold-V + EF and Block-Top-K 1 % + EF at layerwise and
+     entiremodel over the allgather, sharded and hierarchical (2 pods)
+     transports: at lossless capacity factors sharded equals allgather
+     bitwise and hierarchical within 1e-6 with no clips; at the default
+     factors the clips show in ``shard_overflow`` and the world mean of
+     ``acc - new_ef`` is the synced gradient; the measured ``sent_bits_*``
+     are the analytic ones.  It times the sync alone (gloo through host
+     memory on one card: not a link timing), then trains 2 full-width
+     steps through ``dawn.main``: wire Top-K sharded at W = 2, wire
+     Threshold-V hierarchical (2 pods) at W = 4, each with a finite loss,
+     the analytic wire fraction and the bucket-route kernel launched;
+  6. prints the kernels' JSON line, the ``nvidia-smi`` name/power line and,
      last, ``{"ok": true, "device": {...}}``.
 
 ``--record FILE`` also writes the full record (every timing, the profiles)
@@ -551,6 +570,139 @@ def phase_wire_kernels(kernels, compressors, wire, torch, record):
     return err, rows
 
 
+def _route_payload(torch, gen, n: int, k: int, world: int, *, span: float = 1.0,
+                   nvalid=None):
+    """A bucket-route input on the card: ``k`` slots of ascending distinct
+    indices drawn from the first ``span`` of ``[0, n)`` (the first
+    ``nvalid`` valid, the rest a zero tail bound for the dump bucket),
+    values with -0.0, NaN and +-Inf planted, and their destinations."""
+    dev = torch.device("cuda")
+    nv = k if nvalid is None else nvalid
+    pick = torch.randperm(int(n * span), generator=gen, device=dev)[:nv].sort().values
+    idx = torch.cat([pick, torch.zeros(k - nv, dtype=pick.dtype, device=dev)]).to(torch.int32)
+    vals = torch.randn(k, generator=gen, device=dev)
+    vals[::7] = -0.0
+    vals[1::11] = float("nan")
+    vals[2::13] = float("inf")
+    vals[3::17] = -float("inf")
+    vals[nv:] = 0.0
+    shard_n = -(-n // world)
+    dest = torch.clamp(idx // shard_n, max=world - 1).to(torch.int32)
+    if nvalid is not None:
+        dest = torch.where(torch.arange(k, device=dev) < nv, dest, world).to(torch.int32)
+    return vals, idx, dest, shard_n
+
+
+def device_kernel_ms(torch, fn, name: str, n: int = 50):
+    """Mean device duration (CUPTI, through torch.profiler) of the kernels
+    named ``name`` over ``n`` calls of ``fn``: what a kernel takes on the
+    card once the host's enqueue of back-to-back launches is out of the
+    way.  None where the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn(None)
+        torch.cuda.synchronize()
+    us = [e.time_range.end - e.time_range.start for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
+    return sum(us) / len(us) / 1e3 if us else None
+
+
+def phase_route_kernel(kernels, torch, record):
+    """The bucket route vs its plain version on the card at the main path's
+    geometries, then timings."""
+    from tpu_compressed_dp_torch.ops import wire_sharded
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    k_top = 65_732                                    # entire-model Top-K 1 %
+    hp = wire_sharded.make_hier_plan(FULL_MODEL, int(round(0.05 * FULL_MODEL)), 4, 2,
+                                     1.25, 1.25)
+    cases = [(f"topk W={w}", k_top, w,
+              wire_sharded.make_shard_plan(FULL_MODEL, k_top, w, 1, 1.25, 1.25).cap_dest, 1.0,
+              None) for w in (2, 4, 8)]
+    # the hierarchical Threshold-V slab: the first survivors of a ~92 %
+    # dense gradient, so every slot is bound for the first pod's shard
+    # (an overflowing bucket and an empty one)
+    cases.append(("hier thresholdv slab", hp.slab, 2, hp.dcn.cap_dest, 0.034, None))
+    cases.append(("dump-bucket tail", hp.slab, 2, hp.dcn.cap_dest, 1.0, 150_000))
+    caps = [c[3] for c in cases]
+    if caps[:4] != [41_083, 20_542, 10_271, 128_381] or hp.slab != 205_410:
+        raise AssertionError(f"bucket route geometry moved: caps {caps}, slab {hp.slab}")
+    err, rows, counts = 0.0, {}, {}
+    lib = kernels._lib("bucket_route").tcdp_bucket_route
+    stream = torch.cuda.current_stream().cuda_stream
+    for label, k, w, cap, span, nvalid in cases:
+        vals, idx, dest, shard_n = _route_payload(torch, gen, FULL_MODEL, k, w, span=span,
+                                                  nvalid=nvalid)
+        got = kernels.fused_bucket_route(vals, idx, dest, w, cap, shard_n)
+        want = kernels.fused_bucket_route_plain(vals, idx, dest, w, cap, shard_n)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            # bit-for-bit: two NaNs with one payload are equal here
+            bad = a.view(torch.int32) != b.view(torch.int32)
+            d = torch.where(bad, (a.double() - b.double()).abs(), 0.0).max().item()
+            err = max(err, d if d == d else math.inf)
+        if not all(_bits_equal(torch, a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"bucket_route differs from plain ({label})")
+        starts = kernels.route_starts(dest, w)
+        per = torch.clamp(starts[1:] - starts[:-1], max=cap)
+        neg0 = int(((got[0] == 0) & torch.signbit(got[0])).sum().item())
+        if neg0 == 0:
+            raise AssertionError(f"bucket_route lost every -0.0 ({label})")
+        counts[label] = {"k": k, "W": w, "cap": cap, "taken": per.tolist(),
+                         "counts": (starts[1:] - starts[:-1]).tolist(), "neg_zero_kept": neg0}
+        log(f"bucket_route {label}: k={k} W={w} cap={cap}: buckets and indices bitwise == "
+            f"plain; window counts {counts[label]['counts']}, taken {per.tolist()}, "
+            f"{neg0} -0.0 kept")
+        if nvalid is not None:
+            continue
+        # timings: "ms" through the C entry with outputs and starts
+        # allocated once; the payload is a few MB, in L2 as its producer
+        # (select+pack) leaves it, so the inputs are not cycled
+        bv = torch.empty(w, cap, device=dev)
+        bi = torch.empty(w, cap, dtype=torch.int32, device=dev)
+
+        def raw(_):
+            rc = lib(vals.data_ptr(), idx.data_ptr(), starts.data_ptr(), w, cap, shard_n,
+                     bv.data_ptr(), bi.data_ptr(), stream)
+            if rc:
+                raise RuntimeError(f"bucket_route launch failed: cudaError {rc}")
+
+        rank = torch.arange(k, dtype=torch.int32, device=dev) - starts[dest.long()]
+        slot = torch.where(rank < cap, dest * cap + rank, w * cap).long()
+        local = idx - dest * shard_n
+
+        def scatter_pair(_):
+            # sharded_combine's [W*cap+1] scatter build, the yardstick
+            return (torch.zeros(w * cap + 1, device=dev).index_add_(0, slot, vals),
+                    torch.full((w * cap + 1,), shard_n, dtype=torch.int32,
+                               device=dev).scatter_(0, slot, local))
+
+        taken = int(per.sum().item())
+        rows[label] = {
+            "ms": time_ms(raw, [None]),
+            "wrapper_ms": time_ms(lambda _: kernels.fused_bucket_route(
+                vals, idx, dest, w, cap, shard_n), [None]),
+            "plain_ms": time_ms(lambda _: kernels.fused_bucket_route_plain(
+                vals, idx, dest, w, cap, shard_n), [None]),
+            "yardstick_ms": time_ms(scatter_pair, [None]),
+            "device_ms": device_kernel_ms(torch, raw, "bucket_route_kernel"),
+            "bound": bound_ms(8 * taken + 8 * w * cap + 4 * (w + 1), w * cap),
+            "library_ms": None}
+        r = rows[label]
+        dev_txt = "not measured" if r["device_ms"] is None else f"{r['device_ms']:.5f} ms"
+        log(f"time bucket_route {label}: {r['ms']:.4f} ms back to back (device time per "
+            f"launch {dev_txt}; wrapper {r['wrapper_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"[W*cap+1] scatter pair {r['yardstick_ms']:.4f} ms, bound {r['bound'][0]:.5f} ms "
+            f"by {r['bound'][1]})")
+    record["route_cases"] = counts
+    record["route_times"] = rows
+    return err, rows
+
+
 # phase 3's runs: label -> (dawn flags, the kernels the run must launch)
 TOPK_KERNELS = ("count_ge", "count_edges", "fused_sparsify")
 TRAIN_RUNS = {
@@ -695,7 +847,8 @@ def _category(name: str) -> str:
     if any(k in name for k in ("count_ge_edges_kernel", "fused_sparsify_kernel",
                                 "uniform_kernel", "qsgd_kernel", "terngrad_kernel",
                                 "count_kernel", "scan_kernel", "scatter_kernel",
-                                "terngrad_pack_kernel", "qsgd_pack_kernel")):
+                                "terngrad_pack_kernel", "qsgd_pack_kernel",
+                                "bucket_route_kernel")):
         return "port CUDA kernels"
     if "sort" in low or "topk" in low or "radix" in low:
         return "torch.topk (exact threshold, small leaves)"
@@ -812,6 +965,238 @@ def phase_steady(torch, record):
     record["steady"] = out
 
 
+# the multi-rank phase's dawn runs: world -> (label, method, transport, dp_pods)
+RANK_RUNS = {2: ("wire topk entiremodel sharded", "topk", "sharded", 1),
+             4: ("wire thresholdv entiremodel hierarchical 2 pods", "thresholdv",
+                 "hierarchical", 2)}
+LOSSLESS = 1e6  # capacity factors at which every cap clamps to its lossless bound
+FACTOR_KEYS = ("shard_route_factor", "shard_return_factor", "hier_route_factor_ici",
+               "hier_route_factor_dcn")
+BITS_KEYS = ("sent_bits", "sent_bits_psum", "sent_bits_allgather", "sent_bits_alltoall",
+             "sent_bits_ici", "sent_bits_dcn", "sent_bits_dcn_route")
+
+
+def analytic_bits(dp, cfg, name: str, sizes, world: int) -> dict:
+    """The ``sent_bits_*`` a wire sync of these leaf sizes bills: each
+    group's sharded route/return or hierarchical ICI/DCN bits, or the dense
+    all-reduce of a keep-all Block-Top-K group."""
+    out = dict.fromkeys(BITS_KEYS, 0.0)
+    for g in dp.make_leaf_groups([4 * n for n in sizes], cfg.granularity,
+                                 cfg.bucket_mb * dp.BUCKET_MB):
+        n = sum(sizes[i] for i in g)
+        transport = dp.wire_transport(name, n, cfg)
+        if transport == "sharded":
+            route, ret = dp._sharded_group_bits(name, n, world, cfg)
+            out["sent_bits_alltoall"] += route
+            out["sent_bits_allgather"] += ret
+            out["sent_bits"] += route + ret
+        elif transport == "hierarchical":
+            ici, rt, ret = dp._hier_group_bits(name, n, world, cfg)
+            out["sent_bits_ici"] += ici
+            out["sent_bits_dcn"] += rt + ret
+            out["sent_bits_dcn_route"] += rt
+            out["sent_bits"] += ici + rt + ret
+        elif transport == "psum":
+            out["sent_bits_psum"] += 32.0 * n
+            out["sent_bits"] += 32.0 * n
+        else:
+            raise AssertionError(f"{name}: a group on the {transport} transport")
+    return out
+
+
+def _rank_sync_checks(torch, world: int, rank: int, card: str) -> dict:
+    """One rank's share of the sync-alone checks and timings (every rank runs
+    the same collectives in the same order)."""
+    import numpy as np
+
+    from tpu_compressed_dp_torch.models.resnet9 import ResNet9, param_leaves
+    from tpu_compressed_dp_torch.parallel import dp, mesh
+
+    dev = torch.device("cuda", 0)
+    params = param_leaves(ResNet9(seed=0, device=dev))
+    names = list(params)
+    sizes = [params[k].numel() for k in names]
+    gen = torch.Generator(device=dev).manual_seed(1000 + rank)
+    grads = {k: torch.randn(params[k].shape, generator=gen, device=dev) * 1e-2 for k in names}
+    ef0 = {k: torch.randn(params[k].shape, generator=gen, device=dev) * 1e-3 for k in names}
+    flat = lambda t: torch.cat([t[k].reshape(-1) for k in names])  # noqa: E731
+    acc = flat(grads) + flat(ef0)
+    methods = {"topk": dict(method="topk", ratio=RATIO),
+               "thresholdv": dict(method="thresholdv"),
+               "blocktopk": dict(method="blocktopk", ratio=RATIO)}
+    checks = []
+    for label, mkw in methods.items():
+        for gran in ("layerwise", "entiremodel"):
+            base = dict(mode="wire", granularity=gran, error_feedback=True, **mkw)
+            ag_out, ag_ef, ag_stats = dp.make_grad_sync(dp.CompressionConfig(**base))(
+                grads, ef0, 11)
+            for transport in ("sharded", "hierarchical"):
+                for factors in ("lossless", "default"):
+                    kw = dict(base, transport=transport,
+                              dp_pods=2 if transport == "hierarchical" else 1)
+                    if factors == "lossless":
+                        kw.update(dict.fromkeys(FACTOR_KEYS, LOSSLESS))
+                    cfg = dp.CompressionConfig(**kw)
+                    out, ef, stats = dp.make_grad_sync(cfg)(grads, ef0, 11)
+                    name = f"{label} {gran} {transport} {factors}"
+                    ovf = stats["shard_overflow"].item()
+                    row = {"name": name, "shard_overflow": ovf}
+                    if factors == "lossless":
+                        if transport == "sharded":
+                            same = all(torch.equal(out[k].view(torch.int32),
+                                                   ag_out[k].view(torch.int32))
+                                       and torch.equal(ef[k].view(torch.int32),
+                                                       ag_ef[k].view(torch.int32))
+                                       for k in names)
+                            if not same:
+                                raise AssertionError(f"{name}: not bitwise == allgather")
+                            row["max_diff"] = 0.0
+                        else:
+                            d = max(max((out[k] - ag_out[k]).abs().max().item(),
+                                        (ef[k] - ag_ef[k]).abs().max().item()) for k in names)
+                            if not d <= 1e-6:
+                                raise AssertionError(f"{name}: {d} from allgather")
+                            row["max_diff"] = d
+                        if ovf != 0:
+                            raise AssertionError(f"{name}: clipped {ovf} at lossless factors")
+                    else:
+                        # what the workers kept out of EF is what the synced
+                        # gradient holds: mean over the world of acc - new_ef
+                        kept = mesh.all_reduce_sum(acc - flat(ef)) / world
+                        d = (kept - flat(out)).abs().max().item()
+                        worst = mesh.all_reduce_sum(torch.tensor([ovf], device=dev)).item()
+                        if not (d <= 1e-6 and worst > 0):
+                            raise AssertionError(f"{name}: EF identity off by {d}, world "
+                                                 f"overflow {worst}")
+                        row["ef_identity_diff"] = d
+                    want = analytic_bits(dp, cfg, cfg.method, sizes, world)
+                    got = {k: stats[k].item() for k in BITS_KEYS}
+                    if got != {k: float(np.float32(v)) for k, v in want.items()}:
+                        raise AssertionError(f"{name}: bits {got} are not the analytic {want}")
+                    row["sent_bits"] = got
+                    checks.append(row)
+    # sync alone, Top-K 1 % + EF, default factors; gloo through host memory
+    # on one card, so a time of the host and of gloo, not of a link
+    sync_ms = {}
+    for gran in ("layerwise", "entiremodel"):
+        for transport in ("allgather", "sharded", "hierarchical"):
+            cfg = dp.CompressionConfig(method="topk", ratio=RATIO, mode="wire", granularity=gran,
+                                       error_feedback=True, transport=transport,
+                                       dp_pods=2 if transport == "hierarchical" else 1)
+            sync = dp.make_grad_sync(cfg)
+            for _ in range(2):
+                sync(grads, ef0, 11)
+            torch.cuda.synchronize()
+            samples = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                sync(grads, ef0, 11)
+                torch.cuda.synchronize()
+                samples.append((time.perf_counter() - t0) * 1e3)
+            sync_ms[f"topk {gran} {transport}"] = sorted(samples)[2]
+    if rank == 0:
+        log(f"ranks W={world}: {len(checks)} sync checks passed on {card}; sync alone (gloo "
+            f"through host memory on one card, not a link timing), median ms: {sync_ms}")
+    return {"checks": checks, "sync_ms": sync_ms}
+
+
+def rank_worker(world: int, rank: int, port: int, out_path: str) -> int:
+    """One rank of the multi-rank phase (``--rank_worker``)."""
+    import torch
+
+    from tpu_compressed_dp_torch.harness import dawn
+    from tpu_compressed_dp_torch.ops import kernels
+    from tpu_compressed_dp_torch.parallel import dp, mesh
+
+    dev = torch.device("cuda", 0)
+    mesh.init_process_group(dev, backend="gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank)
+    try:
+        kernels.build()      # the parent built them: this loads the libraries
+        card = nvidia_smi() if rank == 0 else ""
+        result = _rank_sync_checks(torch, world, rank, card)
+        label, method, transport, pods = RANK_RUNS[world]
+        argv = ["--network", "resnet9", "--synthetic", "--synthetic_n", "1024",
+                "--batch_size", "512", "--epochs", "1", "--method", method, "--ratio",
+                str(RATIO), "--error_feedback", "--compress", "entiremodel", "--mode", "wire",
+                "--transport", transport, "--dp_pods", str(pods), "--device", "cuda",
+                "--seed", "0", "--log_dir", ""]
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        summary = dawn.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        cfg = dp.CompressionConfig(method=method, ratio=RATIO, mode="wire",
+                                   granularity="entiremodel", error_feedback=True,
+                                   transport=transport, dp_pods=pods)
+        want_wire = (analytic_bits(dp, cfg, cfg.method, [FULL_MODEL], world)["sent_bits"]
+                     / (32.0 * FULL_MODEL))
+        loss, wire = summary["train loss"], summary["wire frac"]
+        if summary["steps"] != 2 or not (math.isfinite(loss)
+                                          and math.isfinite(summary["test loss"])):
+            raise AssertionError(f"{label}: {summary['steps']} steps, loss {loss}")
+        if abs(wire - want_wire) > 1e-6 * want_wire:
+            raise AssertionError(f"{label}: wire frac {wire} is not the analytic {want_wire}")
+        if launches["bucket_route"] < 1 or launches["select_pack"] < 1:
+            raise AssertionError(f"{label}: the route kernels never launched: {launches}")
+        result["train"] = {"label": label, "summary": summary, "launches": launches,
+                           "wall_s": wall, "want_wire": want_wire}
+        with open(out_path, "w") as f:
+            json.dump(result, f, default=str)
+    finally:
+        mesh.destroy()
+    return 0
+
+
+def phase_multirank(torch, record):
+    """W = 2, then W = 4 worker processes on the card, joined by gloo."""
+    from tpu_compressed_dp_torch.parallel.mesh import free_port
+
+    out_dir = os.path.join(HERE, "build", "chip_smoke_ranks")
+    os.makedirs(out_dir, exist_ok=True)
+    worlds = {}
+    for world in (2, 4):
+        port = free_port()
+        paths = [os.path.join(out_dir, f"w{world}_rank{r}.json") for r in range(world)]
+        for path in paths:
+            if os.path.exists(path):
+                os.remove(path)
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank_worker",
+                                   str(world), str(r), str(port), paths[r]],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(world)]
+        try:
+            logs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        for r, (p, text) in enumerate(zip(procs, logs)):
+            if rank_log := text.strip():
+                for line in rank_log.splitlines()[-40:]:
+                    log(f"[W={world} rank {r}] {line}")
+            if p.returncode != 0:
+                raise AssertionError(f"W={world} rank {r} exited {p.returncode}")
+        results = []
+        for path in paths:
+            with open(path) as f:
+                results.append(json.load(f))
+        launches = {k: sum(res["train"]["launches"][k] for res in results)
+                    for k in results[0]["train"]["launches"]}
+        tr = results[0]["train"]
+        log(f"ranks W={world} train {tr['label']}: {tr['summary']['steps']} steps, loss "
+            f"{tr['summary']['train loss']:.4f}, wire frac {tr['summary']['wire frac']:.6f} "
+            f"(analytic {tr['want_wire']:.6f}), sent frac {tr['summary']['sent frac']:.6f}, "
+            f"launches summed over ranks {launches}, world wall {wall:.1f} s")
+        worlds[world] = {"ranks": results, "launches": launches, "wall_s": wall}
+    record["multirank"] = worlds
+    return worlds
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -819,6 +1204,9 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(description="On-card smoke test of the PyTorch port.")
     parser.add_argument("--record", default=None, help="write the full record here (JSON)")
+    parser.add_argument("--rank_worker", nargs=4, default=None,
+                        metavar=("WORLD", "RANK", "PORT", "OUT"),
+                        help="internal: run one rank of the multi-rank phase")
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -829,6 +1217,9 @@ def main(argv=None) -> int:
               "not found beside this script)", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    if args.rank_worker:
+        world, rank, port, out = args.rank_worker
+        return rank_worker(int(world), int(rank), int(port), out)
     from tpu_compressed_dp_torch.harness import dawn
     from tpu_compressed_dp_torch.ops import compressors, kernels, wire
 
@@ -856,8 +1247,11 @@ def main(argv=None) -> int:
     err.update(w_err)
     for n, row in w_rows.items():
         rows[n].update(row)
+    err["bucket_route"], route_rows = phase_route_kernel(kernels, torch, record)
+    rows[FULL_MODEL]["bucket_route"] = route_rows["topk W=2"]
     runs = phase_train(kernels, compressors, dawn, torch, record)
     phase_steady(torch, record)
+    worlds = phase_multirank(torch, record)
 
     replaces = {"count_ge": "tpu_compressed_dp/ops/kernels.py:173",
                 "count_edges": "tpu_compressed_dp/ops/kernels.py:206",
@@ -867,7 +1261,8 @@ def main(argv=None) -> int:
                 "terngrad": "tpu_compressed_dp/ops/kernels.py:1249",
                 "select_pack": "tpu_compressed_dp/ops/kernels.py:1073",
                 "terngrad_pack": "tpu_compressed_dp/ops/kernels.py:1439",
-                "qsgd_pack": "tpu_compressed_dp/ops/kernels.py:1448"}
+                "qsgd_pack": "tpu_compressed_dp/ops/kernels.py:1448",
+                "bucket_route": "tpu_compressed_dp/ops/kernels.py:1613"}
     source = {"count_ge": "tpu_compressed_dp_torch/csrc/count_ge_edges.cu",
               "count_edges": "tpu_compressed_dp_torch/csrc/count_ge_edges.cu",
               "fused_sparsify": "tpu_compressed_dp_torch/csrc/fused_sparsify.cu",
@@ -876,17 +1271,26 @@ def main(argv=None) -> int:
               "terngrad": "tpu_compressed_dp_torch/csrc/dither.cu",
               "select_pack": "tpu_compressed_dp_torch/csrc/select_pack.cu",
               "terngrad_pack": "tpu_compressed_dp_torch/csrc/quant_pack.cu",
-              "qsgd_pack": "tpu_compressed_dp_torch/csrc/quant_pack.cu"}
+              "qsgd_pack": "tpu_compressed_dp_torch/csrc/quant_pack.cu",
+              "bucket_route": "tpu_compressed_dp_torch/csrc/bucket_route.cu"}
     line = {"kernels": []}
     for name in replaces:
         r = rows[FULL_MODEL][name]
-        line["kernels"].append({
+        # the main path's launches: phase 3's runs and the multi-rank dawn runs
+        launches = (sum(run["launches"][name] for run in runs.values())
+                    + sum(w["launches"][name] for w in worlds.values()))
+        entry = {
             "name": name, "route": "cuda", "source": source[name],
-            "replaces": replaces[name],
-            "launches": sum(run["launches"][name] for run in runs.values()),
+            "replaces": replaces[name], "launches": launches,
             "max_abs_err": err[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-            "library_ms": r["library_ms"]})
+            "library_ms": r["library_ms"]}
+        if "yardstick_ms" in r:
+            # no one PyTorch call builds the buckets: the [W*cap+1] scatter pair
+            entry["yardstick_ms"] = r["yardstick_ms"]
+        line["kernels"].append(entry)
+    if not line["kernels"][-1]["launches"]:
+        raise AssertionError("the multi-rank runs never launched bucket_route")
     if args.record:
         os.makedirs(os.path.dirname(os.path.abspath(args.record)), exist_ok=True)
         with open(args.record, "w") as f:

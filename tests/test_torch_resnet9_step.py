@@ -362,7 +362,7 @@ def test_dawn_deferred_protocol_flags_raise(flag):
         dawn.main([flag, "1", "--device", "cpu", "--synthetic"])
 
 
-@pytest.mark.parametrize("argv", [["--transport", "sharded"], ["--dtype=bfloat16"],
+@pytest.mark.parametrize("argv", [["--overlap", "2"], ["--dtype=bfloat16"],
                                   ["--guard"], ["--network", "vgg16"],
                                   ["--clip_sent_norm", "0.5"]])
 def test_dawn_unported_flags_raise(argv):

@@ -295,9 +295,9 @@ def test_leaf_groups_and_config_surface():
     jf = {f.name: f.default for f in dataclasses.fields(jdp.CompressionConfig)}
     tf = {f.name: f.default for f in dataclasses.fields(tdp.CompressionConfig)}
     assert tf == jf
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 9"):
         tdp.make_grad_sync(tdp.CompressionConfig(method="topk", mode="wire",
-                                                 transport="sharded"))
+                                                 transport="sharded", sync_overlap=2))
     with pytest.raises(NotImplementedError, match="item 9"):
         tdp.make_grad_sync(tdp.CompressionConfig(method="powersgd"))
     with pytest.raises(ValueError):
@@ -307,10 +307,11 @@ def test_leaf_groups_and_config_surface():
 def test_resolved_fields_and_wire_transport():
     from tpu_compressed_dp_torch.parallel import dp as tdp
 
-    for gran, mode, shared, chunk in itertools.product(
-            GRANS, ("simulate", "wire"), (None, False, True), (-1, 0, 4096)):
+    for gran, mode, shared, chunk, transport in itertools.product(
+            GRANS, ("simulate", "wire"), (None, False, True), (-1, 0, 4096),
+            ("allgather", "sharded", "hierarchical")):
         kw = dict(granularity=gran, mode=mode, shared_mask=shared, terngrad_chunk=chunk,
-                  ratio=0.3, block_size=64)
+                  ratio=0.3, block_size=64, transport=transport)
         t, j = tdp.CompressionConfig(**kw), jdp.CompressionConfig(**kw)
         assert t.resolved_shared_mask == j.resolved_shared_mask
         assert t.resolved_terngrad_chunk == j.resolved_terngrad_chunk

@@ -369,10 +369,19 @@ def test_wire_config_refusals_and_dense():
         for pkg in (jdp, tdp):
             with pytest.raises(ValueError):
                 pkg.make_grad_sync(pkg.CompressionConfig(mode="wire", **kw))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tdp.make_grad_sync(tdp.CompressionConfig(method="topk", mode="wire",
-                                                 transport="hierarchical"))
     grads = {"a": _t(_grad(300)), "b": _t(_grad(40, seed=1))}
+    # at world 1 the hierarchical transport degrades to the allgather
+    # combine: the same result, bit for bit, and the same bill
+    ef = {k: torch.zeros_like(v) for k, v in grads.items()}
+    base = dict(method="topk", mode="wire", ratio=0.05, error_feedback=True,
+                granularity="entiremodel")
+    out_a, ef_a, stats_a = tdp.make_grad_sync(tdp.CompressionConfig(**base))(grads, ef, SEED)
+    out_h, ef_h, stats_h = tdp.make_grad_sync(tdp.CompressionConfig(
+        transport="hierarchical", dp_pods=1, **base))(grads, ef, SEED)
+    for k in grads:
+        _eq(out_h[k], out_a[k].numpy())
+        _eq(ef_h[k], ef_a[k].numpy())
+    assert {k: v.item() for k, v in stats_h.items()} == {k: v.item() for k, v in stats_a.items()}
     out_w, _, stats_w = tdp.make_grad_sync(tdp.CompressionConfig(mode="wire"))(grads, (), SEED)
     out_s, _, stats_s = tdp.make_grad_sync(tdp.CompressionConfig())(grads, (), SEED)
     assert all(torch.equal(out_w[k], out_s[k]) for k in grads)

@@ -4,8 +4,10 @@ PyTorch-port counterpart of :mod:`tpu_compressed_dp.harness.dawn`, cut to the
 flags of the ported compressors: ``--network resnet9 --compress
 {layerwise,entiremodel,bucketed} --method --ratio --threshold --qstates
 --block_size --bucket_mb --error_feedback --mode {simulate,wire}
---wire_cap_ratio --epochs --batch_size --peak_lr --momentum --clip_norm
---synthetic --synthetic_n --seed`` plus ``--device``.  Protocol
+--wire_cap_ratio --transport {allgather,sharded,hierarchical} --dp_pods
+--hier_route_factor_ici --hier_route_factor_dcn --epochs --batch_size
+--peak_lr --momentum --clip_norm --synthetic --synthetic_n --seed`` plus
+``--device``.  Protocol
 as in the JAX harness: ``PiecewiseLinear([0, 5, epochs], [0, peak, 0])`` at
 fractional epochs divided by the batch size, weight decay ``5e-4 *
 batch_size``, Nesterov when momentum > 0, Crop/FlipLR/Cutout augmentation,
@@ -14,7 +16,9 @@ A flag of the JAX harness that this port does not carry yet raises
 ``NotImplementedError`` naming the ROADMAP item that brings it.
 
 Runs on CUDA unless ``--device cpu``; one process is one worker (launch
-several with ``torchrun``; alone, it runs a 1-rank group).
+several with ``torchrun``, e.g. ``torchrun --nproc_per_node 4 -m
+tpu_compressed_dp_torch.harness.dawn --mode wire --transport hierarchical
+--dp_pods 2 ...``; alone, it runs a 1-rank group).
 
 Run: ``python -m tpu_compressed_dp_torch.harness.dawn --synthetic --epochs 2``
 """
@@ -46,8 +50,6 @@ _ITEM = "ROADMAP.md queue 1, item {}"
 _LATER_FLAGS = {
     **dict.fromkeys(("--clip_sent_norm", "--ratio_warmup_epochs", "--lr_schedule",
                      "--synthetic_hard"), 16),
-    **dict.fromkeys(("--transport", "--dp_pods", "--hier_route_factor_ici",
-                     "--hier_route_factor_dcn"), 8),
     **dict.fromkeys(("--rank", "--overlap", "--dtype"), 9),
     **dict.fromkeys(("--devices", "--coordinator", "--num_processes", "--process_id",
                      "--guard", "--guard_backoff", "--guard_growth_interval",
@@ -88,6 +90,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--wire_cap_ratio", type=float, default=0.05,
                    help="wire thresholdv/adaptivethreshold: payload capacity as a "
                         "fraction of each group")
+    p.add_argument("--transport", default="allgather",
+                   choices=["allgather", "sharded", "hierarchical"],
+                   help="wire combine for index-carrying sparsifiers: flat all_gather "
+                        "(O(W*k) per worker), owner-sharded reduce (O(k + n/W) per worker, "
+                        "ops/wire_sharded.py; size caps via comm/shard_overflow), or the "
+                        "two-level hierarchical reduce over a --dp_pods x chips view of the "
+                        "world (O(k + n/W_pods) DCN bytes)")
+    p.add_argument("--dp_pods", type=int, default=1,
+                   help="hierarchical transport: pod count P of the dp_pods x dp_chips "
+                        "view of the world (must divide the world size; 1 = flat)")
+    p.add_argument("--hier_route_factor_ici", type=float, default=1.25,
+                   help="hierarchical transport: intra-pod union capacity in units of k "
+                        "(clips fold into EF)")
+    p.add_argument("--hier_route_factor_dcn", type=float, default=1.25,
+                   help="hierarchical transport: inter-pod bucket capacity in units of "
+                        "slab/P (clips fold into EF)")
     p.add_argument("--error_feedback", action="store_true")
     p.add_argument("--epochs", type=int, default=None, help="override the 24/40 rule")
     p.add_argument("--batch_size", type=int, default=512, help="global batch size")
@@ -154,6 +172,10 @@ def run(args) -> dict:
         block_size=args.block_size,
         bucket_mb=args.bucket_mb,
         wire_cap_ratio=args.wire_cap_ratio,
+        transport=args.transport,
+        dp_pods=args.dp_pods,
+        hier_route_factor_ici=args.hier_route_factor_ici,
+        hier_route_factor_dcn=args.hier_route_factor_dcn,
         error_feedback=args.error_feedback,
     )
     made_group = not torch.distributed.is_initialized()

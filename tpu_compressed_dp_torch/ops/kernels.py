@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels for the compression hot path, and their glue.
 
-PyTorch/H100 counterpart of the simulate-mode and allgather wire-mode part
-of :mod:`tpu_compressed_dp.ops.kernels`.  Nine Pallas TPU kernels there have
+PyTorch/H100 counterpart of the simulate-mode and wire-mode part of
+:mod:`tpu_compressed_dp.ops.kernels`.  Ten Pallas TPU kernels there have
 a CUDA C++ kernel here (sources in ``tpu_compressed_dp_torch/csrc``, built
 for ``sm_90a`` by ``nvcc`` on first use into ``build/torch_kernels/`` and
 loaded with ``ctypes``):
@@ -27,7 +27,11 @@ loaded with ``ctypes``):
     ``_terngrad_pack_kernel`` and ``_qsgd_pack_kernel``
     (:func:`terngrad_pack`, :func:`terngrad_pack_prescaled`,
     :func:`qsgd_pack`): the dither kernels' levels, bit-packed to the wire
-    bytes in the same pass.
+    bytes in the same pass;
+  * ``bucket_route`` (``csrc/bucket_route.cu``) replaces
+    ``_bucket_route_kernel`` (:func:`fused_bucket_route`): the sharded
+    transport's per-destination buckets as windowed copies of the ascending
+    payload.
 
 Every kernel has a plain PyTorch version beside it (``*_plain``).  A wrapper
 runs the plain version only because the tensor it was given lies on the CPU;
@@ -87,6 +91,10 @@ __all__ = [
     "qsgd_pack_kernel",
     "qsgd_pack_plain",
     "use_quant_pack",
+    "fused_bucket_route",
+    "fused_bucket_route_plain",
+    "route_starts",
+    "use_bucket_route",
     "build",
     "LAUNCHES",
     "MIN_PALLAS_ELEMS",
@@ -102,7 +110,7 @@ _FP32_MAX = torch.finfo(torch.float32).max
 #: kernel launches per route since the last reset; only a CUDA launch counts
 LAUNCHES: Dict[str, int] = {"count_ge": 0, "count_edges": 0, "fused_sparsify": 0,
                             "uniform": 0, "qsgd": 0, "terngrad": 0, "select_pack": 0,
-                            "terngrad_pack": 0, "qsgd_pack": 0}
+                            "terngrad_pack": 0, "qsgd_pack": 0, "bucket_route": 0}
 
 
 def reset_launches() -> None:
@@ -137,7 +145,8 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
     "build", "torch_kernels")
-_SOURCES = ("count_ge_edges", "fused_sparsify", "dither", "select_pack", "quant_pack")
+_SOURCES = ("count_ge_edges", "fused_sparsify", "dither", "select_pack", "quant_pack",
+            "bucket_route")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -199,6 +208,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         "select_pack": {"tcdp_select_pack": [p, ll, p, i32, p, p, p, p, p, p]},
         "quant_pack": {"tcdp_terngrad_pack": [p, ll, p, u64, p, p],
                        "tcdp_qsgd_pack": [p, ll, p, u64, i32, p, p, p]},
+        "bucket_route": {"tcdp_bucket_route": [p, p, p, i32, i32, i32, p, p, p]},
     }[name]
     for fn, types in argtypes.items():
         getattr(lib, fn).argtypes = types
@@ -846,3 +856,93 @@ def use_quant_pack(n: int, device) -> bool:
     """Whether the quantize+pack kernels serve an ``n``-element tensor on
     ``device`` (the JAX package's ``use_quant_pack``)."""
     return _dispatch_to_kernel(n, torch.device(device))
+
+
+# ---------------------------------------------------------------------------
+# Bucket route (the sharded transport's per-destination buckets)
+# ---------------------------------------------------------------------------
+
+
+def route_starts(dest: torch.Tensor, world: int) -> torch.Tensor:
+    """int32 ``[W + 1]`` exclusive prefix of the per-destination counts of
+    ``dest`` over ``W + 1`` buckets (the last the dump bucket of invalid
+    slots): destination ``w``'s slots start at ``starts[w]``, and there are
+    ``starts[w + 1] - starts[w]`` of them.  A scatter-add into ``W + 1``
+    zeros and a cumsum, on the device (no ``bincount``, which reads its
+    maximum back to the host)."""
+    counts = torch.zeros(world + 1, dtype=torch.int32, device=dest.device).scatter_add_(
+        0, dest.long(), torch.ones_like(dest, dtype=torch.int32))
+    return (torch.cumsum(counts, 0, dtype=torch.int32) - counts).contiguous()
+
+
+def fused_bucket_route_plain(vals: torch.Tensor, idx: torch.Tensor, dest: torch.Tensor,
+                             world: int, cap: int, shard_n: int):
+    """The kernel's contract by PyTorch ops: row ``w`` of ``(bvals [W, cap],
+    bidx [W, cap] int32)`` holds the payload window ``[starts[w], starts[w] +
+    min(count_w, cap))`` with local indices ``idx - w * shard_n``; the rest
+    of the row is value 0 / index ``shard_n``.  Values are selected, never
+    added, so their bits (a ``-0.0``, a NaN's payload) are kept."""
+    dev = vals.device
+    starts = route_starts(dest, world).long()
+    r = torch.arange(cap, dtype=torch.int64, device=dev)
+    cnt = torch.clamp(starts[1:] - starts[:-1], max=cap)           # [W]
+    take = r[None, :] < cnt[:, None]                                # [W, cap]
+    pos = torch.where(take, starts[:-1, None] + r[None, :], 0).reshape(-1)
+    v = vals.index_select(0, pos).reshape(world, cap)
+    i = idx.index_select(0, pos).reshape(world, cap)
+    w_off = torch.arange(world, dtype=torch.int32, device=dev)[:, None] * shard_n
+    bvals = torch.where(take, v, torch.zeros((), dtype=vals.dtype, device=dev))
+    bidx = torch.where(take, i - w_off, shard_n).to(torch.int32)
+    return bvals, bidx
+
+
+def fused_bucket_route(vals: torch.Tensor, idx: torch.Tensor, dest: torch.Tensor,
+                       world: int, cap: int, shard_n: int):
+    """``(bvals [W, cap] float32, bidx [W, cap] int32)``: the sharded
+    transport's per-destination buckets as ``W`` windowed copies of the
+    ascending payload, instead of a ``[W*cap+1]`` scatter pair.  ``dest`` is
+    each slot's destination, ``W`` for the invalid tail (the dump bucket,
+    in no window), ascending with ``idx``.
+
+    Replaces ``_bucket_route_kernel`` / ``fused_bucket_route`` of
+    ``tpu_compressed_dp/ops/kernels.py``.  Bound: the accepted windows read
+    and the buckets written, ``8 * (sum_w min(count_w, cap) + W * cap)``
+    bytes; see ``csrc/bucket_route.cu``."""
+    world, cap, shard_n = int(world), int(cap), int(shard_n)
+    if world < 1 or cap < 1:
+        raise ValueError(f"fused_bucket_route needs world >= 1 and cap >= 1, got "
+                         f"{world}, {cap}")
+    if vals.device.type == "cpu":
+        return fused_bucket_route_plain(vals, idx, dest, world, cap, shard_n)
+    if vals.device.type != "cuda":
+        raise ValueError(f"fused_bucket_route runs on CUDA or CPU tensors, got {vals.device}")
+    _check_f32_vector(vals, "vals")
+    k = vals.shape[0]
+    for t, what in ((idx, "idx"), (dest, "dest")):
+        if (t.dtype != torch.int32 or t.shape != (k,) or not t.is_contiguous()
+                or t.device != vals.device):
+            raise ValueError(f"{what} must be a contiguous int32[{k}] tensor on vals' device")
+    if world > 65535 or (world - 1) * shard_n > _INT32_MAX:
+        raise ValueError(f"bucket route geometry W={world}, cap={cap}, shard_n={shard_n} "
+                         "exceeds the kernel's int32 offsets")
+    dev = vals.device
+    starts = route_starts(dest, world)
+    bvals = torch.empty(world, cap, dtype=torch.float32, device=dev)
+    bidx = torch.empty(world, cap, dtype=torch.int32, device=dev)
+    rc = _lib("bucket_route").tcdp_bucket_route(
+        vals.data_ptr(), idx.data_ptr(), starts.data_ptr(), world, cap, shard_n,
+        bvals.data_ptr(), bidx.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _check_launch(rc, "bucket_route")
+    LAUNCHES["bucket_route"] += 1
+    return bvals, bidx
+
+
+def use_bucket_route(k: int, world: int, cap: int, device) -> bool:
+    """Whether the sharded route takes the bucket-route kernel for a
+    ``k``-slot element-granular payload (Block-Top-K's block rows keep the
+    scatter build).  The JAX gate's ``cap_p <= 2^15`` bound fits two scratch
+    windows in TPU VMEM; a CUDA window copy has no such limit, so it is
+    dropped here (full-width entire-model Top-K at W = 2, ``cap`` 41,083,
+    takes the kernel).  ``cap`` stays in the signature for the JAX one's
+    sake."""
+    return _dispatch_to_kernel(k, torch.device(device)) and k <= _INT32_MAX and world >= 2

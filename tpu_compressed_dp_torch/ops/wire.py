@@ -22,12 +22,20 @@ generalisation of the reference's ``RandomKSparsifiedDDP``
     sign bitmap for ``qstates <= 255``, int16 beyond; plus the fp32 scale;
     both ``all_gather``-ed and decoded on every worker.
 
+``transport='sharded'`` moves the index-carrying sparsifiers' pairs
+through the owner-sharded route -> reduce -> return of
+:mod:`~tpu_compressed_dp_torch.ops.wire_sharded` instead (``O(k + n/W)`` per
+worker); ``transport='hierarchical'`` sums each pod's contributions densely
+(ICI), recompresses the pod union and runs that exchange across pods only
+(DCN).  Both degrade to the allgather combine at world 1.  Their capacity
+clips go back to the EF residual (or are dropped, with EF off) and are
+counted in ``shard_overflow``.
+
 ``sent_bits`` is measured from the byte sizes of the tensors handed to the
-collectives.  The select+pack and the quantize+pack steps run on the CUDA
-kernels of :mod:`~tpu_compressed_dp_torch.ops.kernels` where they are
-dispatched; every count, threshold and overflow stays a device tensor, so a
-sync never waits for the host.  The sharded and hierarchical transports are
-not ported yet (ROADMAP.md queue 1, item 8).
+collectives.  The select+pack, quantize+pack and bucket-route steps run on
+the CUDA kernels of :mod:`~tpu_compressed_dp_torch.ops.kernels` where they
+are dispatched; every count, threshold and overflow stays a device tensor,
+so a sync never waits for the host.
 """
 
 from __future__ import annotations
@@ -261,6 +269,215 @@ def _leaf_sync_threshold(flat: torch.Tensor, v: torch.Tensor, cap: int, world: i
     return dense, new_ef, sent_count, overflow, bits
 
 
+def _shard_plan(cfg, n_units: int, keep: int, world: int, unit_size: int):
+    from tpu_compressed_dp_torch.ops import wire_sharded
+
+    return wire_sharded.make_shard_plan(n_units, keep, world, unit_size,
+                                        cfg.shard_route_factor, cfg.shard_return_factor)
+
+
+def _hier_combine(contrib: torch.Tensor, keep: int, world: int, cfg):
+    """Two-level (ICI x DCN) exchange of one group's compressed-dense
+    contribution ``contrib`` (this worker's selection scattered into zeros)
+    over the ``dp_pods x chips`` view of the world:
+
+      1. one dense sum of ``contrib`` over this rank's pod (ICI);
+      2. recompress: the pod sum's nonzero union, ascending, in a
+         ``cap_union`` buffer; chip ``c`` of every pod carries slab ``c``;
+      3. the slabs ride :func:`~tpu_compressed_dp_torch.ops.wire_sharded.
+         sharded_combine` over this rank's DCN column (``pods`` senders);
+      4. a second dense pod sum adds the chips' disjoint-slab partials.
+
+    Returns ``(total, ef_extra, bits_ici, bits_dcn_route, bits_dcn_ret,
+    overflow)``: ``total`` is the sum over ALL workers of what they
+    transmitted (the caller divides by the world); ``ef_extra`` this
+    worker's refund of what was clipped after its pod sum (a union clip
+    refunds ``pod_sum / chips`` on every chip of the pod, a DCN clip the
+    full pod value on the one chip whose slab carried it); ``overflow`` the
+    union clips (chip-rank 0 only, so each pod counts once) plus the DCN
+    exchange's clips."""
+    from tpu_compressed_dp_torch.ops import wire_sharded
+
+    n = contrib.shape[0]
+    dev = contrib.device
+    plan = wire_sharded.make_hier_plan(n, keep, world, cfg.dp_pods,
+                                       cfg.hier_route_factor_ici, cfg.hier_route_factor_dcn)
+    P, C = plan.pods, plan.chips
+    ici_group, dcn_group = mesh.hier_groups(world, P)
+    zero_ovf = torch.zeros((), dtype=torch.int32, device=dev)
+    if C > 1:
+        pod_sum = mesh.all_reduce_sum(contrib, ici_group)
+        bits_ici = _payload_bits(contrib)
+    else:
+        pod_sum, bits_ici = contrib, 0.0
+    if P == 1:
+        # one pod: the ICI sum above already reduced the whole world
+        return pod_sum, torch.zeros_like(contrib), bits_ici, 0.0, 0.0, zero_ovf
+
+    cap = plan.cap_union
+    mask = pod_sum != 0
+    nnz = mask.sum(dtype=torch.int32)
+    uidx = packed_indices_from_mask(mask, cap)
+    uvalid = torch.arange(1, cap + 1, dtype=torch.int32, device=dev) <= torch.clamp(nnz, max=cap)
+    uvals = torch.where(uvalid, pod_sum.index_select(0, uidx.long()), 0.0)
+    uidx = torch.where(uvalid, uidx, 0)
+    # union coordinates past cap_union: the clip is the same on every chip
+    # of the pod, so each refunds 1/C of the pod value
+    taken = torch.zeros(n, dtype=torch.int32, device=dev).index_add_(
+        0, uidx.long(), uvalid.to(torch.int32)) > 0
+    union_clip = torch.where(mask & ~taken, pod_sum, 0.0) / C
+    c_rank = mesh.rank() % C
+    sl = slice(c_rank * plan.slab, (c_rank + 1) * plan.slab)
+    s_vals, s_idx, s_valid = uvals[sl], uidx[sl], uvalid[sl]
+
+    dense_u, sent, route_bits, ret_bits, dcn_overflow = wire_sharded.sharded_combine(
+        s_vals, s_idx, plan.dcn, valid=s_valid, group=dcn_group)
+    partial = dense_u[:n]
+    if C > 1:
+        total = mesh.all_reduce_sum(partial, ici_group)
+        bits_ici += _payload_bits(partial)
+    else:
+        total = partial
+    # DCN clips: only this chip's slab carried these units for its pod
+    slice_refund = torch.zeros(n, dtype=contrib.dtype, device=dev).index_add_(
+        0, s_idx.long(), torch.where(s_valid & ~sent, s_vals, 0.0))
+    ef_extra = union_clip + slice_refund
+    union_clipped = torch.clamp(nnz - cap, min=0) if c_rank == 0 else zero_ovf
+    return total, ef_extra, bits_ici, route_bits, ret_bits, dcn_overflow + union_clipped
+
+
+def _leaf_sync_topk_sharded(flat: torch.Tensor, keep: int, world: int, cfg, want_ef: bool):
+    """Top-K over the owner-sharded transport: the allgather path's
+    selection, with the pairs routed to their shard owners.  Route and
+    return clips stay in the EF residual (or are dropped, EF off)."""
+    from tpu_compressed_dp_torch.ops import wire_sharded
+
+    n = flat.shape[0]
+    mag = flat.abs().to(torch.float32)
+    t = kernels.topk_threshold(mag, keep)
+    vals, idx, count = _select_pack(flat, mag, t, keep)
+    plan = _shard_plan(cfg, n, keep, world, 1)
+    dense_u, sent, route_bits, ret_bits, overflow = wire_sharded.sharded_combine(
+        vals, idx, plan)
+    dense = (dense_u[:n] / world).to(flat.dtype)
+    new_ef = None
+    if want_ef:
+        # zero exactly the coordinates the synced gradient holds; a clipped
+        # survivor keeps its value (set, not multiply: inf * 0 is NaN)
+        new_ef = flat.index_copy(0, idx.long(), torch.where(sent, 0.0, vals))
+    # EF off: survivors past keep (threshold ties) are a selection drop,
+    # reported apart from the transport's clips
+    surplus = None if want_ef else torch.clamp(count - keep, min=0)
+    # sent_elems: the coordinates the synced gradient holds
+    sent_count = sent.sum(dtype=torch.int32)
+    return dense, new_ef, sent_count, route_bits + ret_bits, route_bits, overflow, surplus
+
+
+def _leaf_sync_blocktopk_sharded(flat: torch.Tensor, keep_blocks: int, block_size: int,
+                                 world: int, cfg, want_ef: bool):
+    """Block-Top-K over the owner-sharded transport: whole ``[block_size]``
+    rows route to the owners of their block-index shard (the scatter build;
+    the bucket-route kernel is element-granular)."""
+    from tpu_compressed_dp_torch.ops import wire_sharded
+
+    n = flat.shape[0]
+    scores = compressors.blocktopk_scores(flat, block_size)
+    t = kernels.topk_threshold(scores, keep_blocks)
+    # scores are non-negative: they serve as their own magnitudes
+    bidx = _select_pack(scores, scores, t, keep_blocks)[1]
+    g2 = compressors.blocktopk_blocks(flat, block_size)   # [nb, bs]
+    payload = g2.index_select(0, bidx.long())             # [kb, bs]
+    plan = _shard_plan(cfg, g2.shape[0], keep_blocks, world, block_size)
+    dense_u, sent, route_bits, ret_bits, overflow = wire_sharded.sharded_combine(
+        payload, bidx, plan)
+    dense = (dense_u / world).to(flat.dtype).reshape(-1)[:n]
+    new_ef = None
+    if want_ef:
+        new_ef = g2.index_copy(0, bidx.long(),
+                               torch.where(sent[:, None], 0.0, payload)).reshape(-1)[:n]
+    # blocks that reached the synced gradient, in elements (whole rows)
+    sent_count = sent.sum(dtype=torch.int32) * block_size
+    return dense, new_ef, sent_count, route_bits + ret_bits, route_bits, overflow
+
+
+def _leaf_sync_threshold_sharded(flat: torch.Tensor, v: torch.Tensor, cap: int, world: int,
+                                 cfg, want_ef: bool):
+    """Threshold-V's fixed-capacity buffer over the owner-sharded transport:
+    the zero-padded tail routes to the dump destination.  The capacity
+    overflow and the transport's clips are returned apart: they size
+    different knobs."""
+    from tpu_compressed_dp_torch.ops import wire_sharded
+
+    vals, idx, count = _select_pack(flat, flat.abs(), v, cap)
+    sent_count = torch.clamp(count, max=cap)
+    valid = torch.arange(1, cap + 1, dtype=torch.int32, device=flat.device) <= sent_count
+    vals = torch.where(valid, vals, 0.0)
+    plan = _shard_plan(cfg, flat.shape[0], cap, world, 1)
+    dense_u, sent, route_bits, ret_bits, overflow = wire_sharded.sharded_combine(
+        vals, idx, plan, valid=valid)
+    dense = (dense_u[:flat.shape[0]] / world).to(flat.dtype)
+    new_ef = None
+    if want_ef:
+        # multiply: the padded tail slots (index 0, factor 1) are identities
+        new_ef = flat.clone().scatter_reduce_(0, idx.long(), torch.where(sent, 0.0, 1.0),
+                                              reduce="prod")
+    cap_overflow = torch.clamp(count - cap, min=0)
+    return (dense, new_ef, sent.sum(dtype=torch.int32), route_bits + ret_bits, route_bits,
+            cap_overflow, overflow)
+
+
+def _leaf_sync_topk_hier(flat: torch.Tensor, keep: int, world: int, cfg, want_ef: bool):
+    """Top-K over the hierarchical transport: the flat transports' selection,
+    scattered dense into :func:`_hier_combine`.  EF is everything unselected
+    plus the combine's clip refunds."""
+    mag = flat.abs().to(torch.float32)
+    t = kernels.topk_threshold(mag, keep)
+    vals, idx, count = _select_pack(flat, mag, t, keep)
+    contrib = torch.zeros_like(flat).index_copy_(0, idx.long(), vals)
+    total, ef_extra, b_ici, b_rt, b_ret, overflow = _hier_combine(contrib, keep, world, cfg)
+    dense = (total / world).to(flat.dtype)
+    new_ef = (flat - contrib + ef_extra) if want_ef else None
+    surplus = None if want_ef else torch.clamp(count - keep, min=0)
+    return dense, new_ef, (b_ici, b_rt, b_ret), overflow, surplus
+
+
+def _leaf_sync_blocktopk_hier(flat: torch.Tensor, keep_blocks: int, block_size: int,
+                              world: int, cfg, want_ef: bool):
+    """Block-Top-K over the hierarchical transport: the selected blocks
+    scatter dense, and the pod sum recompresses element by element."""
+    n = flat.shape[0]
+    scores = compressors.blocktopk_scores(flat, block_size)
+    t = kernels.topk_threshold(scores, keep_blocks)
+    bidx = _select_pack(scores, scores, t, keep_blocks)[1].long()
+    g2 = compressors.blocktopk_blocks(flat, block_size)   # [nb, bs]
+    payload = g2.index_select(0, bidx)                    # [kb, bs]
+    contrib = torch.zeros_like(g2).index_copy_(0, bidx, payload).reshape(-1)[:n]
+    total, ef_extra, b_ici, b_rt, b_ret, overflow = _hier_combine(
+        contrib, min(keep_blocks * block_size, n), world, cfg)
+    dense = (total / world).to(flat.dtype)
+    new_ef = (flat - contrib + ef_extra) if want_ef else None
+    return dense, new_ef, (b_ici, b_rt, b_ret), overflow
+
+
+def _leaf_sync_threshold_hier(flat: torch.Tensor, v: torch.Tensor, cap: int, world: int,
+                              cfg, want_ef: bool):
+    """Threshold-V's fixed-capacity buffer over the hierarchical transport:
+    the capacity clip never enters ``contrib`` (it stays in the base
+    residual); the transport's clips refund through :func:`_hier_combine`."""
+    vals, idx, count = _select_pack(flat, flat.abs(), v, cap)
+    sent_count = torch.clamp(count, max=cap)
+    valid = torch.arange(1, cap + 1, dtype=torch.int32, device=flat.device) <= sent_count
+    vals = torch.where(valid, vals, 0.0)
+    idx = torch.where(valid, idx, 0)
+    # add, not copy: the padded tail slots all alias coordinate 0
+    contrib = torch.zeros_like(flat).index_add_(0, idx.long(), vals)
+    total, ef_extra, b_ici, b_rt, b_ret, overflow = _hier_combine(contrib, cap, world, cfg)
+    dense = (total / world).to(flat.dtype)
+    new_ef = (flat - contrib + ef_extra) if want_ef else None
+    cap_overflow = torch.clamp(count - cap, min=0)
+    return dense, new_ef, sent_count, (b_ici, b_rt, b_ret), cap_overflow, overflow
+
+
 def _leaf_sync_terngrad(flat: torch.Tensor, seed: int, chunk: int, world: int):
     n = flat.shape[0]
     if kernels.use_quant_pack(n, flat.device):
@@ -310,16 +527,14 @@ def make_wire_grad_sync(cfg):
     default process group, with the contract of the simulate sync in
     :func:`tpu_compressed_dp_torch.parallel.dp.make_grad_sync` (which
     dispatches here for ``mode='wire'``).  The stat keys are the JAX wire
-    engine's for the same method: the ``sent_bits*`` split, ``sent_elems``,
-    ``dense_elems``, ``num_collectives``, plus ``sync_agree`` (Random-K with
-    ``check_sync``), ``threshold_overflow`` (the threshold methods) and
-    ``topk_surplus_dropped`` (Top-K without EF)."""
+    engine's for the same method and transport: the ``sent_bits*`` split,
+    ``sent_elems``, ``dense_elems``, ``num_collectives``, plus
+    ``sync_agree`` (Random-K with ``check_sync``), ``threshold_overflow``
+    (the threshold methods), ``topk_surplus_dropped`` (Top-K without EF) and
+    ``shard_overflow`` (the sharded and hierarchical transports)."""
     from tpu_compressed_dp_torch.parallel.dp import (BUCKET_MB, group_concat, group_split,
                                                      make_leaf_groups, wire_transport)
 
-    if cfg.transport != "allgather":
-        raise NotImplementedError(f"not ported yet: transport={cfg.transport!r} "
-                                  "(ROADMAP.md queue 1, item 8)")
     comp = compressors.get_compressor(
         cfg.method, ratio=cfg.ratio, threshold=cfg.threshold, qstates=cfg.qstates,
         block_size=cfg.block_size, terngrad_chunk=cfg.resolved_terngrad_chunk)
@@ -352,9 +567,12 @@ def make_wire_grad_sync(cfg):
         return n  # quantizers send every coordinate, narrower
 
     def sync_flat(flat: torch.Tensor, ef_flat: Optional[torch.Tensor], seed: int, world: int):
-        """``(dense, new_ef, sent, bits, agree, overflows)``: ``sent`` is a
-        Python float, or a 0-d tensor for the threshold methods; ``bits`` is
-        measured from the payload tensors."""
+        """``(dense, new_ef, sent, bits, bits_route, agree, overflows,
+        fabric)``: ``sent`` is a Python float, or a 0-d tensor where it
+        depends on the data; ``bits`` is measured from the payload tensors,
+        ``bits_route`` its all_to_all share (sharded groups, else 0);
+        ``fabric`` is None but for hierarchical groups, whose bits split
+        ``(ici, dcn_route, dcn_return)``."""
         acc = flat + ef_flat if ef_flat is not None else flat
         n = flat.shape[0]
         want_ef = ef_flat is not None
@@ -362,22 +580,53 @@ def make_wire_grad_sync(cfg):
             raise ValueError(f"wire-mode {comp.name} group of {n} elements exceeds the int32 "
                              "index range; use granularity='bucketed' or 'layerwise'")
         keep = leaf_keep(n)
+        # at world 1 there is nothing to owner-reduce: both transports
+        # degrade to the allgather combine, the same arithmetic
+        transport = wire_transport(comp.name, n, cfg)
+        sharded = transport == "sharded" and world > 1
+        hier = transport == "hierarchical" and world > 1
         if comp.name in ("thresholdv", "adaptive_threshold"):
             v = (torch.full((), threshold32, device=acc.device) if comp.name == "thresholdv"
                  else acc.abs().max() * 0.5)
+            if hier:
+                dense, new_ef, sent, fabric, cap_ovf, shard_ovf = _leaf_sync_threshold_hier(
+                    acc, v, keep, world, cfg, want_ef)
+                return (dense, new_ef, sent.to(torch.float32), sum(fabric), 0.0, None,
+                        {"threshold_overflow": cap_ovf, "shard_overflow": shard_ovf}, fabric)
+            if sharded:
+                (dense, new_ef, sent, bits, bits_route, cap_ovf,
+                 shard_ovf) = _leaf_sync_threshold_sharded(acc, v, keep, world, cfg, want_ef)
+                return (dense, new_ef, sent.to(torch.float32), bits, bits_route, None,
+                        {"threshold_overflow": cap_ovf, "shard_overflow": shard_ovf}, None)
             dense, new_ef, sent, overflow, bits = _leaf_sync_threshold(acc, v, keep, world,
                                                                        want_ef)
-            return (dense, new_ef, sent.to(torch.float32), bits, None,
-                    {"threshold_overflow": overflow})
+            return (dense, new_ef, sent.to(torch.float32), bits, 0.0, None,
+                    {"threshold_overflow": overflow}, None)
         agree, idx = None, None
         if comp.name == "randomk":
             dense, idx, agree, bits = _leaf_sync_randomk(acc, seed, keep, world, cfg.check_sync)
         elif comp.name == "topk":
+            if hier:
+                dense, new_ef, fabric, overflow, surplus = _leaf_sync_topk_hier(
+                    acc, keep, world, cfg, want_ef)
+                ovf = {"shard_overflow": overflow}
+                if surplus is not None:
+                    ovf["topk_surplus_dropped"] = surplus
+                return dense, new_ef, float(keep), sum(fabric), 0.0, None, ovf, fabric
+            if sharded:
+                (dense, new_ef, sent, bits, bits_route, overflow,
+                 surplus) = _leaf_sync_topk_sharded(acc, keep, world, cfg, want_ef)
+                ovf = {"shard_overflow": overflow}
+                if surplus is not None:
+                    ovf["topk_surplus_dropped"] = surplus
+                return dense, new_ef, sent.to(torch.float32), bits, bits_route, None, ovf, None
             dense, idx, surplus, bits = _leaf_sync_topk(acc, keep, world,
                                                         want_surplus=not want_ef)
             if surplus is not None:
-                return dense, None, float(keep), bits, None, {"topk_surplus_dropped": surplus}
+                return (dense, None, float(keep), bits, 0.0, None,
+                        {"topk_surplus_dropped": surplus}, None)
         elif comp.name == "blocktopk":
+            bs = cfg.block_size
             if keep >= n:
                 # every block kept: the dense all-reduce, never more bytes
                 # than the dense tensor
@@ -387,10 +636,19 @@ def make_wire_grad_sync(cfg):
                     dist.all_reduce(dense)
                 dense = dense / world
                 new_ef = torch.zeros_like(acc) if want_ef else None
+            elif hier:
+                dense, new_ef, fabric, overflow = _leaf_sync_blocktopk_hier(
+                    acc, keep // bs, bs, world, cfg, want_ef)
+                return (dense, new_ef, float(keep), sum(fabric), 0.0, None,
+                        {"shard_overflow": overflow}, fabric)
+            elif sharded:
+                dense, new_ef, sent, bits, bits_route, overflow = _leaf_sync_blocktopk_sharded(
+                    acc, keep // bs, bs, world, cfg, want_ef)
+                return (dense, new_ef, sent.to(torch.float32), bits, bits_route, None,
+                        {"shard_overflow": overflow}, None)
             else:
-                dense, new_ef, bits = _leaf_sync_blocktopk(
-                    acc, keep // cfg.block_size, cfg.block_size, world, want_ef)
-            return dense, new_ef, float(keep), bits, None, {}
+                dense, new_ef, bits = _leaf_sync_blocktopk(acc, keep // bs, bs, world, want_ef)
+            return dense, new_ef, float(keep), bits, 0.0, None, {}, None
         elif comp.name == "terngrad":
             dense, bits = _leaf_sync_terngrad(acc, seed, cfg.resolved_terngrad_chunk, world)
         else:  # qsgd
@@ -398,7 +656,7 @@ def make_wire_grad_sync(cfg):
         # the EF residual is the coordinates that did not travel (EF is
         # refused with the quantizers, so idx is a sparsifier's)
         new_ef = acc.index_fill(0, idx.long(), 0.0) if want_ef else None
-        return dense, new_ef, float(keep), bits, agree, {}
+        return dense, new_ef, float(keep), bits, 0.0, agree, {}, None
 
     def sync(grads: Tree, ef: Any, seed: int) -> Tuple[Tree, Any, Dict[str, torch.Tensor]]:
         world = mesh.world()
@@ -417,14 +675,28 @@ def make_wire_grad_sync(cfg):
         new_ef_leaves = [None] * len(leaves)
         agrees, overflows = [], {}
         sent: Any = 0.0
-        bits = bits_psum = bits_ag = dense_total = 0.0
+        bits = bits_psum = bits_ag = bits_a2a = 0.0
+        bits_ici = bits_dcn = bits_dcn_route = dense_total = 0.0
         for gi, idxs in enumerate(groups):
             flat = group_concat(leaves, idxs)
             ef_flat = group_concat(ef_leaves, idxs) if use_ef else None
-            dense, new_ef_flat, sent_leaf, bits_leaf, agree, leaf_overflows = sync_flat(
-                flat, ef_flat, compressors.leaf_seed(seed, gi, rank), world)
-            if wire_transport(comp.name, flat.shape[0], cfg) == "psum":
+            (dense, new_ef_flat, sent_leaf, bits_leaf, bits_route, agree,
+             leaf_overflows, fabric) = sync_flat(flat, ef_flat,
+                                                 compressors.leaf_seed(seed, gi, rank), world)
+            # the collectives this group's payload rode: a sharded group's
+            # route on the all_to_all and its return on an all_gather; a
+            # hierarchical group's bits per fabric only
+            transport = wire_transport(comp.name, flat.shape[0], cfg)
+            if fabric is not None:
+                f_ici, f_rt, f_ret = fabric
+                bits_ici += f_ici
+                bits_dcn += f_rt + f_ret
+                bits_dcn_route += f_rt
+            elif transport == "psum":
                 bits_psum += bits_leaf
+            elif transport == "sharded" and world > 1:
+                bits_a2a += bits_route
+                bits_ag += bits_leaf - bits_route
             else:
                 bits_ag += bits_leaf
             group_split(dense, leaves, idxs, out_leaves)
@@ -434,7 +706,7 @@ def make_wire_grad_sync(cfg):
                 agrees.append(agree)
             for k, v in leaf_overflows.items():
                 overflows.setdefault(k, []).append(v)
-            sent = sent + sent_leaf          # a device tensor for the threshold methods
+            sent = sent + sent_leaf          # a device tensor where it depends on the data
             bits += bits_leaf
             dense_total += float(flat.shape[0])
 
@@ -443,16 +715,15 @@ def make_wire_grad_sync(cfg):
                 return v.to(torch.float32)
             return torch.full((), float(v), dtype=torch.float32, device=device)
 
-        zero = f32(0.0)
         stats = {
             "sent_elems": f32(sent),
             "sent_bits": f32(bits),
             "sent_bits_psum": f32(bits_psum),
             "sent_bits_allgather": f32(bits_ag),
-            "sent_bits_alltoall": zero,
-            "sent_bits_ici": zero,
-            "sent_bits_dcn": zero,
-            "sent_bits_dcn_route": zero,
+            "sent_bits_alltoall": f32(bits_a2a),
+            "sent_bits_ici": f32(bits_ici),
+            "sent_bits_dcn": f32(bits_dcn),
+            "sent_bits_dcn_route": f32(bits_dcn_route),
             "dense_elems": f32(dense_total),
             "num_collectives": f32(len(groups)),
         }
@@ -460,7 +731,8 @@ def make_wire_grad_sync(cfg):
             stats["sync_agree"] = torch.stack(agrees).min()
         for k, vs in overflows.items():
             # threshold_overflow: survivors clipped by the capacity;
-            # topk_surplus_dropped: survivors past keep, dropped with EF off
+            # topk_surplus_dropped: survivors past keep, dropped with EF off;
+            # shard_overflow: the sharded/hierarchical transport's clips
             stats[k] = torch.stack(vs).sum().to(torch.float32)
         out = dict(zip(names, out_leaves))
         new_ef = dict(zip(names, new_ef_leaves)) if use_ef else ()

@@ -11,8 +11,10 @@ averaged with ``dist.all_reduce(comp) / world`` (the JAX engine's
 In ``mode='wire'`` :func:`make_grad_sync` hands a compressing method to
 :func:`tpu_compressed_dp_torch.ops.wire.make_wire_grad_sync`, whose payloads
 really shrink and whose bits are measured; dense falls through to the
-simulate path, whose all-reduce is its wire form.  The stat keys are the JAX
-engine's.
+simulate path, whose all-reduce is its wire form.  ``transport='sharded'``
+and ``'hierarchical'`` bill, in simulate mode, the buffers their wire form
+would move (the counterfactual of the JAX engine).  The stat keys are the
+JAX engine's.
 
 Gradients, EF residuals and outputs are ordered dicts of tensors keyed by
 parameter path, in the JAX package's leaf order (see
@@ -45,9 +47,11 @@ BUCKET_MB = 1024.0 * 1024.0
 class CompressionConfig:
     """The JAX package's ``CompressionConfig`` fields and defaults
     (``tpu_compressed_dp/parallel/dp.py``).  The port runs every method but
-    ``powersgd``, every granularity, both modes, ``transport='allgather'``
-    and ``sync_overlap=1``; :func:`make_grad_sync` raises
-    ``NotImplementedError`` for the rest, naming the ROADMAP item."""
+    ``powersgd``, every granularity, both modes, all three transports and
+    ``sync_overlap=1``; :func:`make_grad_sync` raises
+    ``NotImplementedError`` for the rest, naming the ROADMAP item.  The
+    hierarchical transport's ``dp_pods`` must divide the world size, which
+    the first sync checks."""
 
     method: Optional[str] = None
     granularity: str = "layerwise"
@@ -110,27 +114,69 @@ class CompressionConfig:
 
 def _check_ported(cfg: CompressionConfig) -> None:
     """Refuse the parts of the config this slice does not carry."""
-    later = []
-    if cfg.transport != "allgather":
-        later.append(f"transport={cfg.transport!r} (ROADMAP.md queue 1, item 8)")
     if cfg.sync_overlap != 1:
-        later.append("sync_overlap > 1 (ROADMAP.md queue 1, item 9)")
-    if later:
-        raise NotImplementedError("not ported yet: " + "; ".join(later))
+        raise NotImplementedError("not ported yet: sync_overlap > 1 "
+                                  "(ROADMAP.md queue 1, item 9)")
 
 
 def wire_transport(name: str, n: int, cfg: CompressionConfig) -> str:
     """Which collective the method's wire form rides for an ``n``-element
-    group (the psum/allgather billing split): dense, shared-seed Random-K
-    and keep-all Block-Top-K psum-reduce a buffer; every other payload is
-    worker-distinct (indices or quantizer scales) and rides an all_gather."""
+    group: ``'psum'`` | ``'allgather'`` | ``'sharded'`` | ``'hierarchical'``,
+    the billing split of both engines.  Dense, shared-seed Random-K and
+    keep-all Block-Top-K psum-reduce a buffer; every other payload is
+    worker-distinct (indices or quantizer scales) and rides an all_gather,
+    unless ``cfg.transport`` moves an index-carrying sparsifier
+    (``wire_sharded.SHARDED_METHODS``) onto the owner-sharded or
+    hierarchical exchange."""
     if name == "none" or (name == "randomk" and cfg.resolved_shared_mask):
         return "psum"
     if name == "blocktopk":
         kb = compressors.blocktopk_keep_blocks(n, cfg.ratio, cfg.block_size)
         if kb * cfg.block_size >= n:
             return "psum"
+    if cfg.transport in ("sharded", "hierarchical"):
+        from tpu_compressed_dp_torch.ops.wire_sharded import SHARDED_METHODS
+
+        if name in SHARDED_METHODS:
+            return cfg.transport
     return "allgather"
+
+
+def _sharded_group_bits(name: str, n: int, world: int, cfg: CompressionConfig):
+    """Analytic ``(route_bits, return_bits)`` of the sharded wire form of an
+    ``n``-element group (``wire_sharded.sharded_payload_bits`` over the
+    method's units), equal to the wire engine's measured buffer bits."""
+    from tpu_compressed_dp_torch.ops import wire_sharded
+
+    if name == "blocktopk":
+        kb = compressors.blocktopk_keep_blocks(n, cfg.ratio, cfg.block_size)
+        nb = -(-n // cfg.block_size)
+        return wire_sharded.sharded_payload_bits(
+            nb, kb, world, cfg.block_size, cfg.shard_route_factor, cfg.shard_return_factor)
+    if name in ("thresholdv", "adaptive_threshold"):
+        keep = max(1, int(round(cfg.wire_cap_ratio * n)))
+    else:
+        keep = compressors.topk_keep_count(n, cfg.ratio)
+    return wire_sharded.sharded_payload_bits(
+        n, keep, world, 1, cfg.shard_route_factor, cfg.shard_return_factor)
+
+
+def _hier_group_bits(name: str, n: int, world: int, cfg: CompressionConfig):
+    """Analytic ``(ici_bits, dcn_route_bits, dcn_return_bits)`` of the
+    hierarchical wire form of an ``n``-element group
+    (``wire_sharded.hier_payload_bits``); ``keep`` counts elements even for
+    Block-Top-K, whose pod union is packed element by element."""
+    from tpu_compressed_dp_torch.ops import wire_sharded
+
+    if name == "blocktopk":
+        kb = compressors.blocktopk_keep_blocks(n, cfg.ratio, cfg.block_size)
+        keep = min(kb * cfg.block_size, n)
+    elif name in ("thresholdv", "adaptive_threshold"):
+        keep = max(1, int(round(cfg.wire_cap_ratio * n)))
+    else:
+        keep = compressors.topk_keep_count(n, cfg.ratio)
+    return wire_sharded.hier_payload_bits(
+        n, keep, world, cfg.dp_pods, cfg.hier_route_factor_ici, cfg.hier_route_factor_dcn)
 
 
 def init_ef_state(grads_like: Tree, cfg: CompressionConfig) -> Any:
@@ -260,6 +306,7 @@ def make_grad_sync(cfg: CompressionConfig):
         new_ef_leaves = [None] * len(leaves)
         zero = torch.zeros((), dtype=torch.float32, device=device)
         sent_total, bits_total, bits_psum, bits_ag = zero, zero, zero, zero
+        bits_a2a, bits_ici, bits_dcn, bits_dcn_route = zero, zero, zero, zero
         dense_total = 0.0
         for gi, idxs in enumerate(groups):
             flat = group_concat(leaves, idxs)
@@ -284,7 +331,26 @@ def make_grad_sync(cfg: CompressionConfig):
             group_split(reduced, leaves, idxs, out_leaves)
             if use_ef:
                 group_split(new_ef_flat, leaves, idxs, new_ef_leaves, dtype=torch.float32)
-            if wire_transport(comp.name, n_g, cfg) == "psum":
+            transport = wire_transport(comp.name, n_g, cfg)
+            if transport == "sharded" and world > 1:
+                # the counterfactual: the fixed-capacity route and return
+                # buffers the sharded wire form would move (at world 1 the
+                # wire engine degrades to the allgather combine, and so
+                # does this bill)
+                route_b, ret_b = _sharded_group_bits(comp.name, n_g, world, cfg)
+                group_bits = torch.full((), route_b + ret_b, dtype=torch.float32, device=device)
+                bits_a2a = bits_a2a + route_b
+                bits_ag = bits_ag + ret_b
+            elif transport == "hierarchical" and world > 1:
+                # per fabric only: the flat collective-kind buckets stay
+                # whole-world
+                ici_b, rt_b, ret_b = _hier_group_bits(comp.name, n_g, world, cfg)
+                group_bits = torch.full((), ici_b + rt_b + ret_b, dtype=torch.float32,
+                                        device=device)
+                bits_ici = bits_ici + ici_b
+                bits_dcn = bits_dcn + rt_b + ret_b
+                bits_dcn_route = bits_dcn_route + rt_b
+            elif transport == "psum":
                 bits_psum = bits_psum + group_bits
             else:
                 bits_ag = bits_ag + group_bits
@@ -299,10 +365,10 @@ def make_grad_sync(cfg: CompressionConfig):
             "sent_bits": bits_total,
             "sent_bits_psum": bits_psum,
             "sent_bits_allgather": bits_ag,
-            "sent_bits_alltoall": zero,
-            "sent_bits_ici": zero,
-            "sent_bits_dcn": zero,
-            "sent_bits_dcn_route": zero,
+            "sent_bits_alltoall": bits_a2a,
+            "sent_bits_ici": bits_ici,
+            "sent_bits_dcn": bits_dcn,
+            "sent_bits_dcn_route": bits_dcn_route,
             "dense_elems": torch.full((), dense_total, dtype=torch.float32, device=device),
             "num_collectives": torch.full((), float(len(groups)), dtype=torch.float32,
                                           device=device),
