@@ -51,7 +51,25 @@ printing no result, where either is missing or any phase fails.
      steps through ``dawn.main``: wire Top-K sharded at W = 2, wire
      Threshold-V hierarchical (2 pods) at W = 4, each with a finite loss,
      the analytic wire fraction and the bucket-route kernel launched;
-  6. prints the kernels' JSON line, the ``nvidia-smi`` name/power line and,
+  6. holds the causal flash-attention kernels (forward, dq, dk/dv) against
+     their plain versions at llama3_8b's attention shape (1, 32, 8192, 128)
+     in bf16 and float32 and at the 125M config's (8, 12, 1024, 64) in bf16
+     (elementwise: float32 to 1e-4, lse to 1e-5, bf16 to one ulp of each
+     element plus a share of the tensor's rms, see ``hold_close``), runs a
+     GQA call (32 query, 8 KV heads) through ``ring_attention`` against the
+     unfused attention, and times each kernel beside its plain version, its
+     bound (causal FLOPs at the bf16 tensor-core or float32 rate) and
+     ``scaled_dot_product_attention``;
+  7. trains llama3_8b at its published widths, cut to 2 layers, seq 8192,
+     batch 1, bf16, through the port's LM entry point (``harness.lm.main``),
+     4 steps each: dense, entire-model and layer-wise Top-K 1 % + EF, and
+     entire-model wire Top-K 1 % + EF; the launch counters are zeroed just
+     before each run and read just after: each flash kernel runs exactly
+     twice a step (once per layer), the fused head + cross-entropy takes the
+     loss every step, the Top-K kernels ran; checks finite loss and the sent
+     fraction against the groups' keep counts, and prints step time, tokens/s,
+     MFU and peak memory; then profiles two steady Top-K steps;
+  8. prints the kernels' JSON line, the ``nvidia-smi`` name/power line and,
      last, ``{"ok": true, "device": {...}}``.
 
 ``--record FILE`` also writes the full record (every timing, the profiles)
@@ -60,6 +78,9 @@ as JSON.
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+import gc
 import json
 import math
 import os
@@ -70,6 +91,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12      # H100 SXM fp32 rate outside the tensor cores
+BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core rate
 # integer issue ceiling: each SM issues at most one warp instruction per
 # scheduler per clock (128 lanes), the lanes the fp32 rate counts (an FMA as
 # two operations): 67e12 / 2.  Integer multiplies run on those FMA lanes.
@@ -844,6 +866,8 @@ def phase_train(kernels, compressors, dawn, torch, record):
 
 def _category(name: str) -> str:
     low = name.lower()
+    if "flash_" in name:
+        return "flash attention (port CUDA kernels)"
     if any(k in name for k in ("count_ge_edges_kernel", "fused_sparsify_kernel",
                                 "uniform_kernel", "qsgd_kernel", "terngrad_kernel",
                                 "count_kernel", "scan_kernel", "scatter_kernel",
@@ -852,7 +876,8 @@ def _category(name: str) -> str:
         return "port CUDA kernels"
     if "sort" in low or "topk" in low or "radix" in low:
         return "torch.topk (exact threshold, small leaves)"
-    if any(k in low for k in ("conv", "xmma", "cudnn", "gemm", "wgrad", "dgrad", "sm90")):
+    if any(k in low for k in ("conv", "xmma", "cudnn", "gemm", "wgrad", "dgrad", "sm90",
+                              "nvjet", "cutlass")):
         return "convolution / matmul"
     if "nccl" in low:
         return "nccl"
@@ -1197,6 +1222,363 @@ def phase_multirank(torch, record):
     return worlds
 
 
+# ---------------------------------------------------------------------------
+# The LM slice: causal flash attention and llama3_8b-width training
+# ---------------------------------------------------------------------------
+
+FLASH_SHAPES = [("llama3_8b bf16", (1, 32, 8192, 128), "bfloat16"),
+                ("llama3_8b f32", (1, 32, 8192, 128), "float32"),
+                ("125M bf16", (8, 12, 1024, 64), "bfloat16")]
+FLASH_ROUTES = ("flash_fwd", "flash_dq", "flash_dkv")
+
+
+# Kernel vs plain, elementwise: |a - w| <= rel |w| + share * rms(w).  bf16
+# outputs: both sides round float32 sums to bf16 at the same points, so an
+# element may land one ulp (<= 2^-7 |w|) apart; the float32 sums before the
+# rounding differ by summation order and, for o, by the running max that
+# each block's p is rounded against (64-row tiles against the plain
+# version's 256-row blocks), which a small share of the tensor's rms covers.
+# float32: summation order only, 1e-4 absolute at inputs of scale 0.5; lse
+# (float32 in both) to 1e-5.  The shares sit 2-4x above what the correct
+# kernels read at these inputs on an H100 (o 0.030, dq 0.0018, dk 0.0020, dv
+# 4e-6 of the rms; the GQA call against the unfused chain, whose p stays
+# float32, 0.034), and far below a kernel that skips the diagonal tile past
+# row 1024 (o 0.95) or the last q tile of the late k tiles (dk 0.20, dv 0.15).
+BF16_REL = 2.0 ** -7
+FLASH_BF16_RMS_SHARE = {"o": 2.0 ** -4, "dq": 2.0 ** -7, "dk": 2.0 ** -7, "dv": 2.0 ** -10}
+GQA_RMS_SHARE = 2.0 ** -3
+
+
+def hold_close(a, w, rel: float, atol: float) -> dict:
+    """Elementwise ``|a - w| <= rel |w| + atol`` of float32 views: the
+    largest error, the largest excess over ``rel |w|`` against ``atol``, and
+    w's rms (the scale the bf16 shares are of)."""
+    d = (a - w).abs()
+    excess = (d - rel * w.abs()).max().item()
+    return {"ok": excess <= atol, "max_abs_err": d.max().item(), "excess": excess,
+            "atol": atol, "rms": w.square().mean().sqrt().item()}
+
+
+def raw_flash(kernels, torch, q, k, v, do, lse, delta, scale: float):
+    """The flash kernels' C entry points with outputs allocated once (timing
+    only; these launches are not counted)."""
+    lib = kernels._lib("flash_attention")
+    stream = torch.cuda.current_stream().cuda_stream
+    b, h, t, d = q.shape
+    bf16 = int(q.dtype == torch.bfloat16)
+    o, dq, dk, dv = (torch.empty_like(q) for _ in range(4))
+    lse_out = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
+    c_scale = ctypes.c_float(scale)
+
+    def check(rc, name):
+        if rc:
+            raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+
+    return (lambda _: check(lib.tcdp_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                               o.data_ptr(), lse_out.data_ptr(), b * h, t, d,
+                                               bf16, c_scale, stream), "flash_fwd"),
+            lambda _: check(lib.tcdp_flash_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                              do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                                              dq.data_ptr(), b * h, t, d, bf16, c_scale, stream),
+                            "flash_dq"),
+            lambda _: check(lib.tcdp_flash_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                               do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                                               dk.data_ptr(), dv.data_ptr(), b * h, t, d, bf16,
+                                               c_scale, stream), "flash_dkv"))
+
+
+def phase_flash(kernels, torch, record):
+    """The flash kernels vs their plain versions at the LM shapes, a GQA call
+    through ring_attention, then timings."""
+    from tpu_compressed_dp_torch.ops import flash_attention as fa
+    from tpu_compressed_dp_torch.ops import ring_attention as ra
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    err = dict.fromkeys(FLASH_ROUTES, 0.0)
+    rows, checks = {}, {}
+    for label, shape, dtname in FLASH_SHAPES:
+        dt = getattr(torch, dtname)
+        b, h, t, d = shape
+        q, k, v, do = ((0.5 * torch.randn(shape, generator=gen, device=dev)).to(dt)
+                       for _ in range(4))
+        s = 1.0 / math.sqrt(d)
+        o, lse = fa.flash_fwd(q, k, v, s)
+        delta = (do.float() * o.float()).sum(-1)
+        got = {"o": o, "lse": lse, "dq": fa.flash_dq(q, k, v, do, lse, delta, s)}
+        got["dk"], got["dv"] = fa.flash_dkv(q, k, v, do, lse, delta, s)
+        o2, lse2 = fa.flash_fwd_plain(q, k, v, s)
+        want = {"o": o2, "lse": lse2, "dq": fa.flash_dq_plain(q, k, v, do, lse, delta, s)}
+        want["dk"], want["dv"] = fa.flash_dkv_plain(q, k, v, do, lse, delta, s)
+        torch.cuda.synchronize()
+        checks[label] = {}
+        for name, route in (("o", "flash_fwd"), ("lse", "flash_fwd"), ("dq", "flash_dq"),
+                            ("dk", "flash_dkv"), ("dv", "flash_dkv")):
+            a, w = got[name].float(), want[name].float()
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"flash {label}: {name} is not finite")
+            rel, atol = 0.0, 1e-4
+            if name == "lse":
+                atol = 1e-5
+            elif dt == torch.bfloat16:
+                rel = BF16_REL
+                atol = FLASH_BF16_RMS_SHARE[name] * w.square().mean().sqrt().item()
+            c = hold_close(a, w, rel, atol)
+            err[route] = max(err[route], c["max_abs_err"])
+            checks[label][name] = c
+            log(f"flash {label} {shape} {name}: max |kernel - plain| {c['max_abs_err']:.4g}, "
+                f"excess over {rel:g} |plain| {c['excess']:.4g} = "
+                f"{c['excess'] / c['rms']:.4g} rms (allowed {c['atol']:.4g}; rms {c['rms']:.4g})")
+        bad = [n for n, c in checks[label].items() if not c["ok"]]
+        if bad:
+            raise AssertionError(f"flash {label}: {bad} differ from the plain versions beyond "
+                                 "the elementwise tolerance")
+
+        # timings: "ms" through the C entries with outputs allocated once
+        # (CUDA events), "wrapper_ms" the Python wrappers, "plain_ms" the
+        # block loops; the yardstick is scaled_dot_product_attention
+        raw_fwd, raw_dq, raw_dkv = raw_flash(kernels, torch, q, k, v, do, lse, delta, s)
+        causal = 2.0 * t * t * d * b * h          # causal half of QK^T and PV
+        peak = BF16_OPS_PER_S if dt == torch.bfloat16 else FP32_OPS_PER_S
+        nbytes = q.numel() * q.element_size()
+        stat_bytes = 4 * b * h * t
+        few = dict(reps=3, inner=2)
+        lib_fwd = time_ms(lambda _: sdpa(q, k, v, is_causal=True), [None], **few)
+        qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+
+        def sdpa_fwd_bwd(_):
+            out = sdpa(qg, kg, vg, is_causal=True)
+            return torch.autograd.grad(out, (qg, kg, vg), do)
+
+        lib_fwd_bwd = time_ms(sdpa_fwd_bwd, [None], **few)
+        plain = dict(reps=1, inner=1)
+        rows[label] = {
+            "flash_fwd": {
+                "ms": time_ms(raw_fwd, [None], **few),
+                "wrapper_ms": time_ms(lambda _: fa.flash_fwd(q, k, v, s), [None], **few),
+                "plain_ms": time_ms(lambda _: fa.flash_fwd_plain(q, k, v, s), [None], **plain),
+                "bound": bound_ms(4 * nbytes + stat_bytes, causal, peak),
+                "library_ms": lib_fwd},
+            "flash_dq": {
+                "ms": time_ms(raw_dq, [None], **few),
+                "wrapper_ms": time_ms(lambda _: fa.flash_dq(q, k, v, do, lse, delta, s),
+                                      [None], **few),
+                "plain_ms": time_ms(lambda _: fa.flash_dq_plain(q, k, v, do, lse, delta, s),
+                                    [None], **plain),
+                "bound": bound_ms(5 * nbytes + 2 * stat_bytes, 1.5 * causal, peak),
+                "library_ms": None},
+            "flash_dkv": {
+                "ms": time_ms(raw_dkv, [None], **few),
+                "wrapper_ms": time_ms(lambda _: fa.flash_dkv(q, k, v, do, lse, delta, s),
+                                      [None], **few),
+                "plain_ms": time_ms(lambda _: fa.flash_dkv_plain(q, k, v, do, lse, delta, s),
+                                    [None], **plain),
+                "bound": bound_ms(6 * nbytes + 2 * stat_bytes, 2.0 * causal, peak),
+                "library_ms": None},
+            # no one PyTorch call computes dq or dk/dv alone: the yardstick is
+            # SDPA's backward (all three), timed as forward + backward less forward
+            "sdpa_fwd_ms": lib_fwd, "sdpa_fwd_bwd_ms": lib_fwd_bwd,
+        }
+        r = rows[label]
+        for name in FLASH_ROUTES:
+            x = r[name]
+            lib_txt = "none" if x["library_ms"] is None else f"{x['library_ms']:.4f} ms"
+            log(f"time flash {label} {name}: {x['ms']:.4f} ms (wrapper {x['wrapper_ms']:.4f} ms, "
+                f"plain {x['plain_ms']:.4f} ms, bound {x['bound'][0]:.4f} ms by "
+                f"{x['bound'][1]}, library {lib_txt})")
+        log(f"time flash {label} sdpa forward {lib_fwd:.4f} ms, forward + backward "
+            f"{lib_fwd_bwd:.4f} ms (backward ~{lib_fwd_bwd - lib_fwd:.4f} ms) vs the kernels' "
+            f"{r['flash_dq']['ms'] + r['flash_dkv']['ms']:.4f} ms backward")
+        del q, k, v, do, o, lse, delta, got, want, qg, kg, vg
+
+    # GQA through ring_attention: llama3_8b's 32 query and 8 KV heads
+    t = 2048
+    q = (0.5 * torch.randn((1, 32, t, 128), generator=gen, device=dev)).to(torch.bfloat16)
+    k, v = ((0.5 * torch.randn((1, 8, t, 128), generator=gen, device=dev)).to(torch.bfloat16)
+            for _ in range(2))
+    qg, kg, vg = (x.clone().requires_grad_(True) for x in (q, k, v))
+    kernels.reset_launches()
+    o = ra.ring_attention(qg, kg, vg)
+    o.float().square().sum().backward()
+    torch.cuda.synchronize()
+    launched = {r_: kernels.LAUNCHES[r_] for r_ in FLASH_ROUTES}
+    w = ra.dense_causal_attention(q, k, v).float()
+    # the unfused chain keeps p in float32 where the kernel rounds it to bf16
+    # before P.V (the Pallas rounding point): a larger share of the rms
+    c = hold_close(o.float(), w, BF16_REL, GQA_RMS_SHARE * w.square().mean().sqrt().item())
+    if (launched != dict.fromkeys(FLASH_ROUTES, 1) or not c["ok"]
+            or kg.grad.shape != k.shape
+            or not all(torch.isfinite(x.grad.float()).all() for x in (qg, kg, vg))):
+        raise AssertionError(f"GQA ring_attention: launches {launched}, |o - unfused| {c}, "
+                             f"dk shape {tuple(kg.grad.shape)}")
+    checks["gqa"] = {**c, "launches": launched}
+    log(f"flash GQA ring_attention (1, 32/8, {t}, 128) bf16: max |o - unfused| "
+        f"{c['max_abs_err']:.4g}, excess over {BF16_REL:g} |unfused| {c['excess']:.4g} = "
+        f"{c['excess'] / c['rms']:.4g} rms (allowed {c['atol']:.4g}), one launch of each "
+        "kernel, finite grads on the 8 KV heads")
+    record["flash_checks"] = checks
+    record["flash_times"] = rows
+    return err, rows
+
+
+LM_ARGV = ["--preset", "llama3_8b", "--layers", "2", "--seq_len", "8192", "--global_batch",
+           "1", "--warmup_steps", "1", "--steps", "4", "--log_every", "4", "--device", "cuda",
+           "--seed", "0"]
+LM_TOPK = ["--method", "topk", "--ratio", str(RATIO), "--error_feedback"]
+LM_RUNS = {"dense": [],
+           "topk entiremodel": ["--compress", "entiremodel", *LM_TOPK],
+           "topk layerwise": ["--compress", "layerwise", *LM_TOPK],
+           "wire topk entiremodel": ["--compress", "entiremodel", "--mode", "wire", *LM_TOPK]}
+LM_PARAMS = 1_486_901_248   # llama3_8b widths at 2 layers
+
+
+def lm_leaf_sizes():
+    """(element count, tensor-sharded?) of every llama3_8b leaf at 2 layers,
+    in the port's leaf order, from the config alone."""
+    from tpu_compressed_dp_torch.models import transformer as tf
+
+    cfg = dataclasses.replace(tf.llama3_8b(), n_layers=2)
+    d, hd, f = cfg.dim, cfg.head_dim, cfg.ffn
+    per_layer = {"attn_norm": d, "mlp_norm": d, "w_down": f * d, "w_gate": d * f,
+                 "w_up": d * f, "wk": d * cfg.n_kv_heads * hd, "wo": cfg.n_heads * hd * d,
+                 "wq": d * cfg.n_heads * hd, "wv": d * cfg.n_kv_heads * hd}
+    sizes = [cfg.vocab_size * d, d] + list(per_layer.values()) * cfg.n_layers + [
+        d * cfg.vocab_size]
+    return list(zip(sizes, tf.is_sharded(cfg)))
+
+
+def phase_lm(kernels, compressors, torch, record):
+    """The LM slice's main path: harness.lm at llama3_8b widths, 2 layers."""
+    from tpu_compressed_dp_torch.harness import lm
+    from tpu_compressed_dp_torch.models import transformer as tf
+    from tpu_compressed_dp_torch.train import lm_step
+
+    leaves = lm_leaf_sizes()
+    n = sum(s for s, _ in leaves)
+    groups = [sum(s for s, sh in leaves if not sh), sum(s for s, sh in leaves if sh)]
+    if n != LM_PARAMS or groups != [525_357_056, 961_544_192]:
+        raise AssertionError(f"llama3_8b at 2 layers: {n} parameters, groups {groups}")
+    keep_em = sum(compressors.topk_keep_count(g, RATIO) for g in groups)
+    keep_lw = sum(compressors.topk_keep_count(s, RATIO) for s, _ in leaves)
+    keep_sharded = {"entiremodel": compressors.topk_keep_count(groups[1], RATIO),
+                    "layerwise": sum(compressors.topk_keep_count(s, RATIO)
+                                     for s, sh in leaves if sh)}
+    if not tf.use_fused_head_xent(8192, 128256, 2):
+        raise AssertionError("the fused head + cross-entropy gate is off at 8192 x 128256 bf16")
+    calls = [0]
+    fused = lm_step.fused_head_xent
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return fused(*a, **kw)
+
+    card = record["card"]
+    runs = {}
+    lm_step.fused_head_xent = counted
+    try:
+        for label, flags in LM_RUNS.items():
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launches()
+            calls[0] = 0
+            t0 = time.perf_counter()
+            summary = lm.main(LM_ARGV + flags)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            steps, loss = summary["step"], summary["loss"]
+            if steps != 4 or not math.isfinite(loss):
+                raise AssertionError(f"lm {label}: {steps} steps, loss {loss}")
+            bad = {r: launches[r] for r in FLASH_ROUTES if launches[r] != 2 * steps}
+            if bad:
+                raise AssertionError(f"lm {label}: flash launches {bad}, want 2 a step")
+            if calls[0] != steps:
+                raise AssertionError(f"lm {label}: the fused head + xent ran {calls[0]} times")
+            sent = summary["sent frac"]
+            if label == "dense":
+                if sent != 1.0:
+                    raise AssertionError(f"lm dense: sent frac {sent}")
+                want = "1.0"
+            elif label.startswith("wire"):
+                # the wire payload carries exactly each group's keep count
+                if sent != keep_em / n or launches["select_pack"] < 1:
+                    raise AssertionError(f"lm {label}: sent frac {sent} is not the keep "
+                                         f"counts' {keep_em / n}, launches {launches}")
+                want = f"{keep_em / n:.9f} (exact)"
+            else:
+                # simulate bills the kept nonzeros: every sharded-group
+                # coordinate is nonzero, but the embedding gradient is zero
+                # outside the batch's tokens' rows, so its group keeps fewer
+                gran = label.split()[1]
+                keep = keep_em if gran == "entiremodel" else keep_lw
+                lo = keep_sharded[gran] / n
+                if not (lo <= sent <= 1.001 * keep / n):
+                    raise AssertionError(f"lm {label}: sent frac {sent} outside "
+                                         f"[{lo}, {1.001 * keep / n}]")
+                must = ("count_ge", "fused_sparsify") + (
+                    ("count_edges",) if gran == "entiremodel" else ())
+                if min(launches[k] for k in must) <= 0:
+                    raise AssertionError(f"lm {label}: a Top-K kernel never launched: "
+                                         f"{launches}")
+                want = f"[{lo:.6f}, {keep / n:.6f}]"
+            tok_s = summary["tok/s"]
+            step_ms = 8192.0 / tok_s * 1e3
+            log(f"lm {label}: loss {loss:.4f}, sent frac {sent:.9f} (want {want}), "
+                f"{step_ms:.1f} ms/step, {tok_s:.0f} tok/s, MFU {summary.get('mfu')}, peak "
+                f"{peak_gb:.2f} GB, wall {wall:.1f} s on {card}; launches {launches}")
+            runs[label] = {"summary": summary, "launches": launches, "step_ms": step_ms,
+                           "peak_gb": peak_gb, "wall_s": wall, "fused_xent_calls": calls[0]}
+    finally:
+        lm_step.fused_head_xent = fused
+    record["lm"] = runs
+    return runs
+
+
+def phase_lm_profile(torch, record):
+    """torch.profiler over two steady entire-model Top-K steps at the LM
+    slice's shape: device busy and idle share, time by kernel category."""
+    import numpy as np
+
+    from tpu_compressed_dp_torch.data import lm as lm_data
+    from tpu_compressed_dp_torch.models import transformer as tf
+    from tpu_compressed_dp_torch.parallel.dp import CompressionConfig
+    from tpu_compressed_dp_torch.train.lm_step import init_lm_ef_state, make_lm_train_step
+    from tpu_compressed_dp_torch.train.optim import SGD
+    from tpu_compressed_dp_torch.train.state import TrainState
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(tf.llama3_8b(), n_layers=2)
+    model = tf.Llama(cfg, seed=0, device=dev)
+    params = tf.param_leaves(model)
+    comp = CompressionConfig(method="topk", ratio=RATIO, granularity="entiremodel",
+                             error_feedback=True)
+    opt = SGD(lr=1e-4, momentum=0.9)
+    state = TrainState.create(model, opt.init(params), init_lm_ef_state(cfg, params, comp))
+    step = make_lm_train_step(cfg, opt, comp)
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in
+             lm_data.SyntheticTokens(cfg.vocab_size, 8192, 1, seed=0).batch(0).items()}
+    holder = {"state": state}
+
+    def run(k):
+        for _ in range(k):
+            holder["state"], _ = step(holder["state"], batch)
+
+    run(2)
+    prof = device_profile(run, torch, n_steps=2)
+    log(f"profile lm topk entiremodel (llama3_8b widths, 2 layers, seq 8192): "
+        f"{json.dumps(prof)}")
+    record["lm_profile"] = prof
+    del holder, state, model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return prof
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1249,7 +1631,12 @@ def main(argv=None) -> int:
         rows[n].update(row)
     err["bucket_route"], route_rows = phase_route_kernel(kernels, torch, record)
     rows[FULL_MODEL]["bucket_route"] = route_rows["topk W=2"]
+    f_err, f_rows = phase_flash(kernels, torch, record)
+    err.update(f_err)
+    rows[FULL_MODEL].update(f_rows["llama3_8b bf16"])
     runs = phase_train(kernels, compressors, dawn, torch, record)
+    lm_runs = phase_lm(kernels, compressors, torch, record)
+    phase_lm_profile(torch, record)
     phase_steady(torch, record)
     worlds = phase_multirank(torch, record)
 
@@ -1262,7 +1649,10 @@ def main(argv=None) -> int:
                 "select_pack": "tpu_compressed_dp/ops/kernels.py:1073",
                 "terngrad_pack": "tpu_compressed_dp/ops/kernels.py:1439",
                 "qsgd_pack": "tpu_compressed_dp/ops/kernels.py:1448",
-                "bucket_route": "tpu_compressed_dp/ops/kernels.py:1613"}
+                "bucket_route": "tpu_compressed_dp/ops/kernels.py:1613",
+                "flash_fwd": "tpu_compressed_dp/ops/flash_attention.py:73",
+                "flash_dq": "tpu_compressed_dp/ops/flash_attention.py:113",
+                "flash_dkv": "tpu_compressed_dp/ops/flash_attention.py:177"}
     source = {"count_ge": "tpu_compressed_dp_torch/csrc/count_ge_edges.cu",
               "count_edges": "tpu_compressed_dp_torch/csrc/count_ge_edges.cu",
               "fused_sparsify": "tpu_compressed_dp_torch/csrc/fused_sparsify.cu",
@@ -1272,12 +1662,15 @@ def main(argv=None) -> int:
               "select_pack": "tpu_compressed_dp_torch/csrc/select_pack.cu",
               "terngrad_pack": "tpu_compressed_dp_torch/csrc/quant_pack.cu",
               "qsgd_pack": "tpu_compressed_dp_torch/csrc/quant_pack.cu",
-              "bucket_route": "tpu_compressed_dp_torch/csrc/bucket_route.cu"}
+              "bucket_route": "tpu_compressed_dp_torch/csrc/bucket_route.cu",
+              **dict.fromkeys(FLASH_ROUTES, "tpu_compressed_dp_torch/csrc/flash_attention.cu")}
     line = {"kernels": []}
     for name in replaces:
         r = rows[FULL_MODEL][name]
-        # the main path's launches: phase 3's runs and the multi-rank dawn runs
+        # the main paths' launches: phase 3's dawn runs, the LM runs of phase
+        # 7 and the multi-rank dawn runs
         launches = (sum(run["launches"][name] for run in runs.values())
+                    + sum(run["launches"][name] for run in lm_runs.values())
                     + sum(w["launches"][name] for w in worlds.values()))
         entry = {
             "name": name, "route": "cuda", "source": source[name],
@@ -1288,9 +1681,21 @@ def main(argv=None) -> int:
         if "yardstick_ms" in r:
             # no one PyTorch call builds the buckets: the [W*cap+1] scatter pair
             entry["yardstick_ms"] = r["yardstick_ms"]
+        if name == "flash_dkv":
+            # one CUDA kernel serves the resident and the streamed TPU dkv kernels
+            entry["also_replaces"] = "tpu_compressed_dp/ops/flash_attention.py:200"
+        if name in ("flash_dq", "flash_dkv"):
+            # no one PyTorch call computes dq or dk/dv alone: SDPA's backward
+            # (all three) as forward + backward less forward
+            f = rows[FULL_MODEL]
+            entry["yardstick_ms"] = f["sdpa_fwd_bwd_ms"] - f["sdpa_fwd_ms"]
         line["kernels"].append(entry)
-    if not line["kernels"][-1]["launches"]:
+    by_name = {e["name"]: e for e in line["kernels"]}
+    if not by_name["bucket_route"]["launches"]:
         raise AssertionError("the multi-rank runs never launched bucket_route")
+    if any(by_name[r]["launches"] != sum(run["launches"][r] for run in lm_runs.values())
+           for r in FLASH_ROUTES):
+        raise AssertionError("a flash kernel launched off the LM runs")
     if args.record:
         os.makedirs(os.path.dirname(os.path.abspath(args.record)), exist_ok=True)
         with open(args.record, "w") as f:

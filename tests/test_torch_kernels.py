@@ -174,7 +174,8 @@ class TestDispatch:
         tk.fused_sparsify(mag, torch.tensor(1.0))
         assert tk.LAUNCHES == {"count_ge": 0, "count_edges": 0, "fused_sparsify": 0,
                                "uniform": 0, "qsgd": 0, "terngrad": 0, "select_pack": 0,
-                               "terngrad_pack": 0, "qsgd_pack": 0, "bucket_route": 0}
+                               "terngrad_pack": 0, "qsgd_pack": 0, "bucket_route": 0,
+                               "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
 
 
 @pytest.mark.cuda

@@ -33,6 +33,10 @@ loaded with ``ctypes``):
     transport's per-destination buckets as windowed copies of the ascending
     payload.
 
+The causal flash-attention kernels (``csrc/flash_attention.cu``) are built
+and loaded here with the others; their wrappers live in
+:mod:`tpu_compressed_dp_torch.ops.flash_attention`.
+
 Every kernel has a plain PyTorch version beside it (``*_plain``).  A wrapper
 runs the plain version only because the tensor it was given lies on the CPU;
 on a CUDA tensor it launches the kernel or raises.  Each launch adds one to
@@ -110,7 +114,8 @@ _FP32_MAX = torch.finfo(torch.float32).max
 #: kernel launches per route since the last reset; only a CUDA launch counts
 LAUNCHES: Dict[str, int] = {"count_ge": 0, "count_edges": 0, "fused_sparsify": 0,
                             "uniform": 0, "qsgd": 0, "terngrad": 0, "select_pack": 0,
-                            "terngrad_pack": 0, "qsgd_pack": 0, "bucket_route": 0}
+                            "terngrad_pack": 0, "qsgd_pack": 0, "bucket_route": 0,
+                            "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
 
 
 def reset_launches() -> None:
@@ -146,7 +151,7 @@ _BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
     "build", "torch_kernels")
 _SOURCES = ("count_ge_edges", "fused_sparsify", "dither", "select_pack", "quant_pack",
-            "bucket_route")
+            "bucket_route", "flash_attention")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -199,6 +204,7 @@ def build() -> float:
 
 def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     p, ll, u64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_ulonglong, ctypes.c_int
+    f32 = ctypes.c_float
     argtypes = {
         "count_ge_edges": {"tcdp_count_ge_edges": [p, ll, p, p, p]},
         "fused_sparsify": {"tcdp_fused_sparsify": [p, ll, p, p, p, p, p]},
@@ -209,6 +215,10 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         "quant_pack": {"tcdp_terngrad_pack": [p, ll, p, u64, p, p],
                        "tcdp_qsgd_pack": [p, ll, p, u64, i32, p, p, p]},
         "bucket_route": {"tcdp_bucket_route": [p, p, p, i32, i32, i32, p, p, p]},
+        "flash_attention": {
+            "tcdp_flash_fwd": [p, p, p, p, p, i32, i32, i32, i32, f32, p],
+            "tcdp_flash_dq": [p, p, p, p, p, p, p, i32, i32, i32, i32, f32, p],
+            "tcdp_flash_dkv": [p, p, p, p, p, p, p, p, i32, i32, i32, i32, f32, p]},
     }[name]
     for fn, types in argtypes.items():
         getattr(lib, fn).argtypes = types

@@ -35,7 +35,9 @@ from tpu_compressed_dp_torch.ops import compressors, kernels
 from tpu_compressed_dp_torch.parallel import mesh
 
 __all__ = ["CompressionConfig", "make_grad_sync", "make_leaf_groups",
-           "group_concat", "group_split", "init_ef_state", "wire_transport"]
+           "group_concat", "group_split", "init_ef_state", "wire_transport",
+           "make_partitioned_grad_sync", "make_grouped_grad_sync", "make_partitioned_clip",
+           "make_sharded_clip", "merge_stat_dicts"]
 
 Tree = Dict[str, torch.Tensor]
 
@@ -376,3 +378,103 @@ def make_grad_sync(cfg: CompressionConfig):
         return out, new_ef, stats
 
     return sync
+
+
+# ---------------------------------------------------------------------------
+# Partitioned sync: one reduction per replication signature
+# ---------------------------------------------------------------------------
+
+# 0/1 diagnostics, combined across signature groups by their min reduction
+# instead of summed (the JAX engine's _DIAG_STATS; its guard/nonfinite comes
+# with the step guard, ROADMAP item 12)
+_DIAG_COMBINE = {"sync_agree": torch.minimum}
+
+
+def merge_stat_dicts(a: Dict[str, Any], b: Dict[str, Any]) -> Dict[str, Any]:
+    """Combine the stats of two disjoint slices of one sync: additive volumes
+    sum; the diagnostic ``sync_agree`` combines by min, and survives when
+    either side reports it.  Keys keep ``a``'s
+    order, then ``b``'s new ones: every rank must list the stats in one order
+    (the step all-reduces them stacked), which set order would not give."""
+    keys = list(a) + [k for k in b if k not in a]
+    merged = {k: a.get(k, 0.0) + b.get(k, 0.0) for k in keys if k not in _DIAG_COMBINE}
+    for k, combine in _DIAG_COMBINE.items():
+        vals = [c[k] for c in (a, b) if k in c]
+        if vals:
+            merged[k] = vals[0] if len(vals) == 1 else combine(*vals)
+    return merged
+
+
+def make_partitioned_grad_sync(cfg: CompressionConfig, leaf_axes):
+    """Compressed sync for gradients whose leaves are sharded over different
+    model axes (the JAX ``make_partitioned_grad_sync``): leaves sync in one
+    group per replication signature, in sorted-signature order, so a
+    data-dependent mask never spans leaves that ranks share differently.
+    ``leaf_axes`` gives, per leaf in the gradients' order, the tuple of model
+    axes it is sharded over (``()`` replicated).
+
+    The port's model axes all have size 1, so a group's stats need no
+    reduction over its signature's axes (the JAX psum over a size-1 axis)
+    and pass through; the groups' stats merge with :func:`merge_stat_dicts`.
+    Signature group ``gi`` compresses with the seed ``fold_in(seed, gi)``
+    (the JAX engine splits its key per signature).  Returns ``sync(grads,
+    ef, seed) -> (synced, new_ef, stats)`` as :func:`make_grad_sync`."""
+    base_sync = make_grad_sync(cfg)
+    leaf_axes = [tuple(a) for a in leaf_axes]
+    sigs = sorted(set(leaf_axes))
+    group_of = [sigs.index(a) for a in leaf_axes]
+
+    def sync(grads: Tree, ef: Any, seed: int):
+        names = list(grads)
+        if len(names) != len(group_of):
+            raise ValueError(f"{len(names)} gradient leaves, {len(group_of)} leaf signatures")
+        use_ef = cfg.error_feedback
+        synced, new_ef, comm = {}, {}, None
+        for gi in range(len(sigs)):
+            keys = [k for k, g in zip(names, group_of) if g == gi]
+            s_g, s_e, s_comm = base_sync({k: grads[k] for k in keys},
+                                         {k: ef[k] for k in keys} if use_ef else (),
+                                         compressors.fold_in(seed, gi))
+            synced.update(s_g)
+            if use_ef:
+                new_ef.update(s_e)
+            comm = s_comm if comm is None else merge_stat_dicts(comm, s_comm)
+        return ({k: synced[k] for k in names},
+                {k: new_ef[k] for k in names} if use_ef else (), comm)
+
+    return sync
+
+
+def make_grouped_grad_sync(cfg: CompressionConfig, is_sharded, shard_axis="tensor"):
+    """:func:`make_partitioned_grad_sync` for leaves that are either
+    replicated or sharded over ``shard_axis`` (a name or a tuple of names)."""
+    axes = (shard_axis,) if isinstance(shard_axis, str) else tuple(shard_axis)
+    return make_partitioned_grad_sync(cfg, [axes if s else () for s in is_sharded])
+
+
+def make_partitioned_clip(leaf_axes):
+    """``clip_tree(tree, limit)``: scale every leaf by ``min(1, limit /
+    ||tree||)``, the full-model L2 norm summed per signature (the JAX
+    ``make_partitioned_clip``; at model axes of size 1 no psum is needed)."""
+    leaf_axes = [tuple(a) for a in leaf_axes]
+    sigs = sorted(set(leaf_axes))
+
+    def global_norm(tree: Tree) -> torch.Tensor:
+        leaves = list(tree.values())
+        total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+        for sig in sigs:
+            total = total + sum((g.to(torch.float32) ** 2).sum()
+                                for g, a in zip(leaves, leaf_axes) if a == sig)
+        return torch.sqrt(total)
+
+    def clip_tree(tree: Tree, limit: float) -> Tree:
+        factor = torch.clamp(limit / torch.clamp(global_norm(tree), min=1e-20), max=1.0)
+        return {k: g * factor for k, g in tree.items()}
+
+    return clip_tree
+
+
+def make_sharded_clip(is_sharded, shard_axis="tensor"):
+    """:func:`make_partitioned_clip` for replicated-or-sharded leaves."""
+    axes = (shard_axis,) if isinstance(shard_axis, str) else tuple(shard_axis)
+    return make_partitioned_clip([axes if s else () for s in is_sharded])
