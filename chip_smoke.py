@@ -23,6 +23,15 @@ printing no result, where either is missing or any phase fails.
      overflowing and empty buckets, -0.0, NaN and +-Inf; then times each
      kernel (CUDA events, after warm-up, inputs cycled past the 50 MB L2)
      beside its plain version, its bound and a library call;
+     Then (2b) holds the four kernels no default path dispatches, as in the
+     reference, bitwise against their plain versions: the threshold pack at
+     the entire-model size at Top-K 1 %, at block rows 16 and 512, ragged,
+     in the overflow regimes (a threshold keeping ~99 %, one keeping twice
+     keep) and on NaN / +-Inf / -0.0 data, EF on and off; the segmented pack
+     and its payload likewise (a threshold overflowing every segment's
+     128-slot cap); the ternary and QSGD byte packers on the level kernels'
+     levels and the full int8 / int16 ranges; and times each through its C
+     entry beside its plain version, its bound and a yardstick;
   3. trains full-width ResNet-9 through the port's DAWNBench entry point
      (``harness.dawn.main``), 4 steps of batch 512 on a 1-rank NCCL group,
      at layerwise and at entiremodel granularity, in simulate mode with
@@ -68,9 +77,15 @@ printing no result, where either is missing or any phase fails.
      twice a step (once per layer), the fused head + cross-entropy takes the
      loss every step, the Top-K kernels ran; checks finite loss and the sent
      fraction against the groups' keep counts, and prints step time, tokens/s,
-     MFU and peak memory; then profiles two steady Top-K steps;
-  8. prints the kernels' JSON line, the ``nvidia-smi`` name/power line and,
-     last, ``{"ok": true, "device": {...}}``.
+     MFU and peak memory; then, with ``kernels._SEG_PACK_DISPATCH`` set (off
+     by default, as in the reference), runs the gated segmented wire Top-K
+     path through both entry points: dawn (entire-model wire Top-K 1 % + EF,
+     4 steps of batch 512) and the LM (the wire Top-K run above): the
+     segmented pack launches once a step per group and select+pack never,
+     with step time and sent fraction beside the default wire path's; then
+     profiles two steady Top-K steps;
+  8. prints the kernels' JSON line (17 entries), the ``nvidia-smi``
+     name/power line and, last, ``{"ok": true, "device": {...}}``.
 
 ``--record FILE`` also writes the full record (every timing, the profiles)
 as JSON.
@@ -725,6 +740,340 @@ def phase_route_kernel(kernels, torch, record):
     return err, rows
 
 
+def raw_pack(kernels, torch, n: int, keep: int, rows: int = 512):
+    """The threshold-pack, segmented-pack and byte-pack C entry points with
+    outputs and scratch allocated once (timing only; not counted)."""
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    tp = kernels._lib("threshold_pack")
+    bp = kernels._lib("byte_pack")
+    P = kernels.pack_payload_slots(n, keep, rows)
+    nb = -(-n // (rows * 128))
+    nseg = -(-n // 65536) * 16
+    vals, idx = torch.empty(P, device=dev), torch.empty(P, dtype=torch.int32, device=dev)
+    ef = torch.empty(n, device=dev)
+    meta = torch.empty(3, dtype=torch.int32, device=dev)
+    scratch = torch.empty(2, nb, dtype=torch.int32, device=dev)
+    svals = torch.empty(nseg * 128, device=dev)
+    sidx = torch.empty(nseg * 128, dtype=torch.int32, device=dev)
+    seg = torch.empty(3, nseg, dtype=torch.int32, device=dev)
+    tern = torch.empty(-(-n // 4), dtype=torch.uint8, device=dev)
+    mags = torch.empty(n, dtype=torch.uint8, device=dev)
+    signs = torch.empty(-(-n // 8), dtype=torch.uint8, device=dev)
+
+    def check(rc, name):
+        if rc:
+            raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+
+    return (
+        lambda xt: check(tp.tcdp_threshold_pack(
+            xt[0].data_ptr(), n, xt[1].data_ptr(), rows, P // 128, vals.data_ptr(),
+            idx.data_ptr(), ef.data_ptr(), meta.data_ptr(), scratch[0].data_ptr(),
+            scratch[1].data_ptr(), stream), "threshold_pack"),
+        lambda xt: check(tp.tcdp_seg_pack(
+            xt[0].data_ptr(), n, xt[1].data_ptr(), keep, nseg, svals.data_ptr(),
+            sidx.data_ptr(), ef.data_ptr(), seg[0].data_ptr(), seg[1].data_ptr(),
+            seg[2].data_ptr(), stream), "seg_pack"),
+        lambda lv: check(bp.tcdp_pack_ternary_bytes(lv.data_ptr(), n, tern.data_ptr(), stream),
+                         "ternary_bytes"),
+        lambda lv: check(bp.tcdp_qsgd_pack_bytes(lv.data_ptr(), n, mags.data_ptr(),
+                                                 signs.data_ptr(), stream), "qsgd_bytes"))
+
+
+def _poison(torch, x):
+    """A copy of ``x`` with NaN, +-Inf and -0.0 planted."""
+    x = x.clone()
+    x[::997] = float("nan")
+    x[1::1009] = float("inf")
+    x[2::1013] = -float("inf")
+    x[3::1019] = -0.0
+    return x
+
+
+def _hold(torch, got, want, name: str, what: str) -> float:
+    """Measures two output tuples against each other (None matching None):
+    the largest |kernel - plain| over the elements finite in both, and the
+    number of elements whose bits differ.  Raises unless no bit differs;
+    returns the largest difference."""
+    d, differ = 0.0, 0
+    for a, b in zip(got, want):
+        if (a is None) != (b is None):
+            raise AssertionError(f"{name} differs from plain ({what}): an output is missing")
+        if a is None:
+            continue
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"{name} differs from plain ({what}): {a.dtype} {a.shape} "
+                                 f"against {b.dtype} {b.shape}")
+        if a.numel() == 0:
+            continue
+        if a.is_floating_point():
+            differ += int((a.view(torch.int32) != b.view(torch.int32)).sum().item())
+            fin = torch.isfinite(a) & torch.isfinite(b)
+            d = max(d, float(torch.where(fin, a - b, 0.0).abs().max().item()))
+        else:
+            differ += int((a != b).sum().item())
+            d = max(d, float((a.long() - b.long()).abs().max().item()))
+    if differ:
+        raise AssertionError(f"{name} differs from plain ({what}): {differ} elements' bits "
+                             f"differ, max |kernel - plain| {d}")
+    return d
+
+
+def phase_pack_kernels(kernels, compressors, torch, record):
+    """The threshold pack, the segmented pack and the byte packers against
+    their plain versions on the card, bitwise: at the entire-model size at
+    Top-K 1 %, ragged multi-block sizes at block rows 16 and 512, the
+    overflow regimes, and data with NaN, +-Inf and -0.0; then timings."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    # every check below is bitwise (_hold raises on any bit that differs);
+    # err keeps the largest |kernel - plain| it measured
+    err = dict.fromkeys(("threshold_pack", "seg_pack", "ternary_bytes", "qsgd_bytes"), 0.0)
+    n = FULL_MODEL
+    keep = compressors.topk_keep_count(n, RATIO)
+    seed = 0x13198A2E03707344
+    x = torch.randn(n, generator=gen, device=dev)
+    full = lambda v: torch.full((), v, device=dev)  # noqa: E731
+    t_top = kernels.topk_threshold(x.abs(), keep)
+    cases = {}
+    # (label, x, t, keep, rows)
+    pack_cases = [("topk 1% rows 512", x, t_top, keep, 512),
+                  ("topk 1% rows 16", x, t_top, keep, 16),
+                  ("ragged 200001 rows 16", x[:200_001], full(2.0), 2000, 16),
+                  ("ragged 1000003 rows 512", x[:1_000_003], full(2.5), 10_000, 512),
+                  ("overflow t keeps ~99%", x, full(0.01), keep, 512),
+                  ("overflow t keeps 2 keep", x, kernels.topk_threshold(x.abs(), 2 * keep), keep,
+                   512),
+                  ("nan/inf/-0.0 topk", _poison(torch, x), t_top, keep, 512),
+                  ("nan/inf/-0.0 t=0", _poison(torch, x[:300_000]), full(0.0), 3000, 16)]
+    for label, v, t, k, rows in pack_cases:
+        for want_ef in (True, False):
+            got = kernels.pack_by_threshold(v, t, k, want_ef=want_ef, rows=rows)
+            want = kernels.pack_by_threshold_plain(v, t, k, want_ef=want_ef, rows=rows)
+            err["threshold_pack"] = max(err["threshold_pack"], _hold(
+                torch, got, want, "threshold_pack", f"{label}, ef {want_ef}"))
+        survivors = int((v.abs() >= t).sum().item())
+        cases[f"threshold_pack {label}"] = {"n": v.numel(), "keep": k, "rows": rows,
+                                            "survivors": survivors,
+                                            "shipped": int(got[3].item()),
+                                            "slots": got[0].numel()}
+    if not (cases["threshold_pack overflow t keeps ~99%"]["shipped"]
+            < cases["threshold_pack overflow t keeps ~99%"]["survivors"]):
+        raise AssertionError(f"threshold_pack overflow case did not truncate: {cases}")
+    log(f"threshold_pack: vals, idx, EF and count bitwise == plain in {len(pack_cases)} cases x "
+        f"EF on/off: {json.dumps({k: v for k, v in cases.items()})}")
+    # t = 1.0 keeps ~32 %, ten times the 128 / 4096 cap: every segment overflows
+    seg_cases = [("topk 1%", x, t_top, keep), ("ragged 200001", x[:200_001], full(2.0), 2000),
+                 ("cap overflow t=1", x, full(1.0), keep),
+                 ("nan/inf/-0.0 topk", _poison(torch, x), t_top, keep),
+                 ("nan/inf/-0.0 t=0", _poison(torch, x[:300_000]), full(0.0), 3000)]
+    for label, v, t, k in seg_cases:
+        for want_ef in (True, False):
+            got = kernels.seg_pack_by_threshold(v, t, k, want_ef=want_ef)
+            want = kernels.seg_pack_by_threshold_plain(v, t, k, want_ef=want_ef)
+            err["seg_pack"] = max(
+                err["seg_pack"], _hold(torch, got, want, "seg_pack", f"{label}, ef {want_ef}"),
+                _hold(torch, kernels.seg_pack_payload(got[0], got[1], got[3], k),
+                      kernels.seg_pack_payload(want[0], want[1], want[3], k), "seg_pack",
+                      f"{label} payload"))
+        cases[f"seg_pack {label}"] = {"n": v.numel(), "keep": k,
+                                      "survivors": int(got[4].sum().item()),
+                                      "eligible": int(got[3].sum().item()),
+                                      "overflowing segments": int((got[4] > 128).sum().item())}
+    if cases["seg_pack cap overflow t=1"]["eligible"] >= cases["seg_pack cap overflow t=1"][
+            "survivors"]:
+        raise AssertionError("seg_pack cap-overflow case did not overflow")
+    log(f"seg_pack: vals, idx, EF, elig, counts and the payload bitwise == plain in "
+        f"{len(seg_cases)} cases x EF on/off: "
+        f"{json.dumps({k: v for k, v in cases.items() if k.startswith('seg')})}")
+    g = x * 1e-2
+    inv = kernels._safe_inv(torch.linalg.vector_norm(g))
+    tern_levels = kernels.terngrad_levels_kernel(g, kernels._safe_inv(g.abs().max()), seed)
+    qsgd_levels = kernels.qsgd_levels_kernel(g, inv, seed, 255)
+    wide8 = torch.randint(-128, 128, (n,), generator=gen, device=dev, dtype=torch.int8)
+    wide16 = torch.randint(-32768, 32768, (n,), generator=gen, device=dev, dtype=torch.int16)
+    for label, lv in (("terngrad levels", tern_levels), ("full int8 range", wide8),
+                      ("ragged 12345", tern_levels[:12_345])):
+        err["ternary_bytes"] = max(err["ternary_bytes"], _hold(
+            torch, (kernels.pack_ternary_bytes(lv),), (kernels.pack_ternary_bytes_plain(lv),),
+            "ternary_bytes", label))
+    for label, lv in (("qsgd levels", qsgd_levels), ("full int16 range", wide16),
+                      ("ragged 12347", qsgd_levels[:12_347])):
+        err["qsgd_bytes"] = max(err["qsgd_bytes"], _hold(
+            torch, kernels.qsgd_pack_bytes(lv), kernels.qsgd_pack_bytes_plain(lv), "qsgd_bytes",
+            label))
+    log("ternary_bytes, qsgd_bytes: bitwise == plain on the level kernels' levels, the full "
+        "int8 / int16 ranges and ragged sizes")
+
+    copies = max(2, math.ceil(120e6 / (4 * n)))
+    xs = [torch.randn(n, generator=gen, device=dev) for _ in range(copies)]
+    pairs = [(v, t_top) for v in xs]
+    terns = [tern_levels.roll(i) for i in range(max(2, math.ceil(120e6 / n)))]
+    qsgds = [qsgd_levels.roll(i) for i in range(max(2, math.ceil(120e6 / (2 * n))))]
+    raw_tp, raw_seg, raw_tern, raw_q = raw_pack(kernels, torch, n, keep)
+    P = kernels.pack_payload_slots(n, keep)
+    nseg = -(-n // 65536) * 16
+    rows = {
+        "threshold_pack": {
+            "ms": time_ms(raw_tp, pairs),
+            "wrapper_ms": time_ms(lambda p: kernels.pack_by_threshold(p[0], p[1], keep), pairs),
+            "plain_ms": time_ms(lambda p: kernels.pack_by_threshold_plain(p[0], p[1], keep),
+                                pairs, reps=5, inner=2),
+            "bound": bound_ms(4 * n + 4 + 4 * n + 8 * P + 12, n),
+            "library_ms": time_ms(lambda p: torch.nonzero(p[0].abs() >= p[1]), pairs)},
+        "seg_pack": {
+            "ms": time_ms(raw_seg, pairs),
+            "wrapper_ms": time_ms(lambda p: kernels.seg_pack_by_threshold(p[0], p[1], keep),
+                                  pairs),
+            "plain_ms": time_ms(lambda p: kernels.seg_pack_by_threshold_plain(p[0], p[1], keep),
+                                pairs, reps=5, inner=2),
+            "payload_ms": None,
+            "bound": bound_ms(4 * n + 4 + 4 * n + 8 * 128 * nseg + 12 * nseg, n),
+            "library_ms": None},
+        "ternary_bytes": {
+            "ms": time_ms(raw_tern, terns),
+            "wrapper_ms": time_ms(kernels.pack_ternary_bytes, terns),
+            "plain_ms": time_ms(kernels.pack_ternary_bytes_plain, terns, reps=5, inner=2),
+            "device_ms": device_kernel_ms(torch, lambda _: raw_tern(terns[0]),
+                                          "ternary_bytes_kernel"),
+            "bound": bound_ms(n + -(-n // 4), n), "library_ms": None},
+        "qsgd_bytes": {
+            "ms": time_ms(raw_q, qsgds),
+            "wrapper_ms": time_ms(kernels.qsgd_pack_bytes, qsgds),
+            "plain_ms": time_ms(kernels.qsgd_pack_bytes_plain, qsgds, reps=5, inner=2),
+            "device_ms": device_kernel_ms(torch, lambda _: raw_q(qsgds[0]), "qsgd_bytes_kernel"),
+            "bound": bound_ms(2 * n + n + -(-n // 8), n), "library_ms": None},
+    }
+    vals, idx, _, elig, _ = kernels.seg_pack_by_threshold(xs[0], t_top, keep)
+    rows["seg_pack"]["payload_ms"] = time_ms(
+        lambda _: kernels.seg_pack_payload(vals, idx, elig, keep), [None])
+    for name, r in rows.items():
+        lib_txt = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        dev_txt = f", device time per launch {r['device_ms']}" if "device_ms" in r else ""
+        log(f"time n={n} {name}: {r['ms']:.4f} ms{dev_txt} (wrapper {r['wrapper_ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.4f} ms, bound {r['bound'][0]:.5f} ms by {r['bound'][1]}, "
+            f"library {lib_txt}) on {record['card']}")
+    log(f"time n={n} seg_pack_payload (PyTorch ops, keep {keep}): "
+        f"{rows['seg_pack']['payload_ms']:.4f} ms; threshold_pack library = "
+        "torch.nonzero(|x| >= t), which syncs the host")
+    del xs, pairs, terns, qsgds
+    record["pack_kernel_errors"] = err
+    record["pack_kernel_cases"] = cases
+    record["pack_kernel_times"] = rows
+    return err, rows
+
+
+LM_GROUPS = (525_357_056, 961_544_192)   # the LM's two sync groups at llama3_8b widths
+
+
+def phase_seg_pack_lm(kernels, compressors, torch, record):
+    """The segmented pack at the LM's group sizes, where the one-block scan
+    loops over ~230 segments a thread and the indices reach ~2^30, bitwise
+    against its plain version with EF, payload included, on seeded data in
+    two regimes: N(0, 1) data at the threshold of 2 * keep (the eligible
+    total passes keep, so the keep cut decides the EF), and data with one
+    segment in eight scaled by 4 at the Top-K 1 % threshold (the 128-slot
+    cap cuts, as on the LM's gradients).  Runs before the trainings, while
+    the plain version's ~35 bytes an element fit."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    err, cases = 0.0, {}
+    for n in LM_GROUPS:
+        keep = compressors.topk_keep_count(n, RATIO)
+        for label in ("spread, t of 2 keep", "concentrated, t of keep"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            x = torch.randn(n, generator=gen, device=dev)
+            if label.startswith("spread"):
+                t = kernels.topk_threshold(x.abs(), 2 * keep)
+            else:
+                span = 8 * 4096
+                x[:n // span * span].view(-1, span)[:, :4096] *= 4.0
+                t = kernels.topk_threshold(x.abs(), keep)
+            got = kernels.seg_pack_by_threshold(x, t, keep)
+            want = kernels.seg_pack_by_threshold_plain(x, t, keep)
+            what = f"n={n} {label}"
+            err = max(err, _hold(torch, got, want, "seg_pack", what))
+            err = max(err, _hold(torch, kernels.seg_pack_payload(got[0], got[1], got[3], keep),
+                                 kernels.seg_pack_payload(want[0], want[1], want[3], keep),
+                                 "seg_pack", f"{what} payload"))
+            c = {"n": n, "keep": keep, "survivors": int(got[4].sum().item()),
+                 "eligible": int(got[3].sum().item()),
+                 "overflowing segments": int((got[4] > 128).sum().item()),
+                 "largest index": int(got[1].max().item())}
+            if not (c["eligible"] > keep if label.startswith("spread")
+                    else c["overflowing segments"] > 0):
+                raise AssertionError(f"seg_pack at {what} misses its regime: {c}")
+            cases[what] = c
+            del x, t, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"seg_pack at the LM's group sizes: vals, idx, EF, elig, counts and the payload "
+        f"bitwise == plain: {json.dumps(cases)}")
+    record["seg_pack_lm_sizes"] = cases
+    return err
+
+
+def phase_seg_path(kernels, compressors, dawn, torch, record, wire_em, lm_wire):
+    """The gated segmented wire Top-K path (``kernels._SEG_PACK_DISPATCH``)
+    through the entry points: dawn at ResNet-9's published widths and the LM
+    at llama3_8b widths, wire Top-K 1 % + EF entiremodel.  ``seg_pack`` must
+    launch once a step per group and ``select_pack`` never; step time and
+    sent fraction beside the default wire path's (``wire_em``, ``lm_wire``)."""
+    from tpu_compressed_dp_torch.harness import lm
+
+    card = record["card"]
+    runs = {}
+    dawn_argv = ["--network", "resnet9", "--synthetic", "--synthetic_n", "2048", "--batch_size",
+                 "512", "--epochs", "1", "--compress", "entiremodel", "--method", "topk",
+                 "--ratio", str(RATIO), "--error_feedback", "--mode", "wire", "--device",
+                 "cuda", "--seed", "0", "--log_dir", ""]
+    lm_argv = LM_ARGV + LM_RUNS["wire topk entiremodel"]
+    keep_rn = compressors.topk_keep_count(FULL_MODEL, RATIO)
+    keep_lm = sum(compressors.topk_keep_count(g, RATIO) for g in LM_GROUPS)
+    kernels._SEG_PACK_DISPATCH = True
+    try:
+        for label, run, groups, keep, dense, base in (
+                ("dawn resnet9", lambda: dawn.main(dawn_argv), 1, keep_rn, FULL_MODEL, wire_em),
+                ("lm llama3_8b 2 layers", lambda: lm.main(lm_argv), 2, keep_lm, LM_PARAMS,
+                 lm_wire)):
+            gc.collect()
+            torch.cuda.empty_cache()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            summary = run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+            steps = summary["steps"] if "steps" in summary else summary["step"]
+            loss = summary["train loss"] if "train loss" in summary else summary["loss"]
+            sent = summary["sent frac"]
+            if not math.isfinite(loss) or steps != 4:
+                raise AssertionError(f"seg {label}: {steps} steps, loss {loss}")
+            if launches["seg_pack"] != groups * steps or launches["select_pack"] != 0:
+                raise AssertionError(f"seg {label}: seg_pack launched {launches['seg_pack']} "
+                                     f"times (want {groups * steps}), select_pack "
+                                     f"{launches['select_pack']} (want 0)")
+            if not 0 < sent <= keep / dense:
+                raise AssertionError(f"seg {label}: sent frac {sent} outside (0, {keep / dense}]")
+            if "train time" in summary:
+                ms = summary["train time"] * 1e3 / steps
+                base_ms = base["ms_per_step"]
+            else:
+                ms = 8192.0 / summary["tok/s"] * 1e3
+                base_ms = base["step_ms"]
+            base_sent = base["summary"]["sent frac"]
+            log(f"seg {label}: loss {loss:.4f}, sent frac {sent:.9f} (default wire path "
+                f"{base_sent:.9f}, keep counts {keep / dense:.9f}), {ms:.2f} ms/step (default "
+                f"wire path {base_ms:.2f}), wall {wall:.1f} s on {card}; launches {launches}")
+            runs[label] = {"summary": summary, "launches": launches, "ms_per_step": ms,
+                           "default_ms_per_step": base_ms, "default_sent": base_sent}
+    finally:
+        kernels._SEG_PACK_DISPATCH = False
+    record["seg_path"] = runs
+    return runs
+
+
 # phase 3's runs: label -> (dawn flags, the kernels the run must launch)
 TOPK_KERNELS = ("count_ge", "count_edges", "fused_sparsify")
 TRAIN_RUNS = {
@@ -872,7 +1221,7 @@ def _category(name: str) -> str:
                                 "uniform_kernel", "qsgd_kernel", "terngrad_kernel",
                                 "count_kernel", "scan_kernel", "scatter_kernel",
                                 "terngrad_pack_kernel", "qsgd_pack_kernel",
-                                "bucket_route_kernel")):
+                                "bucket_route_kernel", "pack_kernel", "bytes_kernel")):
         return "port CUDA kernels"
     if "sort" in low or "topk" in low or "radix" in low:
         return "torch.topk (exact threshold, small leaves)"
@@ -914,14 +1263,22 @@ def device_profile(run, torch, n_steps: int = 3) -> dict:
         us = e.time_range.end - e.time_range.start
         by_name[e.name] = by_name.get(e.name, 0.0) + us
         by_cat[_category(e.name)] = by_cat.get(_category(e.name), 0.0) + us
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+    top = ranked[:8]
+    # each category's three largest kernels
+    cat_top = {}
+    for k, v in ranked:
+        row = cat_top.setdefault(_category(k), [])
+        if len(row) < 3:
+            row.append((k[:80], v / 1e3 / n_steps))
     return {"wall_ms_per_step": wall_us / 1e3 / n_steps,
             "device_busy_ms_per_step": busy / 1e3 / n_steps,
             "idle_share": 1.0 - busy / wall_us,
             "launches_per_step": len(kern) / n_steps,
             "by_category_ms_per_step": {k: v / 1e3 / n_steps for k, v in
                                         sorted(by_cat.items(), key=lambda kv: -kv[1])},
-            "top_kernels_ms_per_step": [(k[:80], v / 1e3 / n_steps) for k, v in top]}
+            "top_kernels_ms_per_step": [(k[:80], v / 1e3 / n_steps) for k, v in top],
+            "top_kernels_by_category_ms_per_step": cat_top}
 
 
 def phase_steady(torch, record):
@@ -1457,7 +1814,7 @@ def phase_lm(kernels, compressors, torch, record):
     leaves = lm_leaf_sizes()
     n = sum(s for s, _ in leaves)
     groups = [sum(s for s, sh in leaves if not sh), sum(s for s, sh in leaves if sh)]
-    if n != LM_PARAMS or groups != [525_357_056, 961_544_192]:
+    if n != LM_PARAMS or groups != list(LM_GROUPS):
         raise AssertionError(f"llama3_8b at 2 layers: {n} parameters, groups {groups}")
     keep_em = sum(compressors.topk_keep_count(g, RATIO) for g in groups)
     keep_lw = sum(compressors.topk_keep_count(s, RATIO) for s, _ in leaves)
@@ -1537,9 +1894,17 @@ def phase_lm(kernels, compressors, torch, record):
     return runs
 
 
-def phase_lm_profile(torch, record):
-    """torch.profiler over two steady entire-model Top-K steps at the LM
-    slice's shape: device busy and idle share, time by kernel category."""
+# phase 7's profiles: label -> (sync mode, segmented pack dispatched?)
+LM_PROFILES = {"topk entiremodel": ("simulate", False),
+               "wire topk entiremodel": ("wire", False),
+               "wire topk entiremodel, segmented": ("wire", True)}
+
+
+def phase_lm_profile(kernels, torch, record):
+    """torch.profiler over two steady entire-model Top-K 1 % + EF steps at
+    the LM slice's shape, in simulate mode, on the default wire path and on
+    the gated segmented wire path: device busy and idle share, time by
+    kernel category and the top kernels."""
     import numpy as np
 
     from tpu_compressed_dp_torch.data import lm as lm_data
@@ -1549,34 +1914,40 @@ def phase_lm_profile(torch, record):
     from tpu_compressed_dp_torch.train.optim import SGD
     from tpu_compressed_dp_torch.train.state import TrainState
 
-    gc.collect()
-    torch.cuda.empty_cache()
     dev = torch.device("cuda")
     cfg = dataclasses.replace(tf.llama3_8b(), n_layers=2)
-    model = tf.Llama(cfg, seed=0, device=dev)
-    params = tf.param_leaves(model)
-    comp = CompressionConfig(method="topk", ratio=RATIO, granularity="entiremodel",
-                             error_feedback=True)
-    opt = SGD(lr=1e-4, momentum=0.9)
-    state = TrainState.create(model, opt.init(params), init_lm_ef_state(cfg, params, comp))
-    step = make_lm_train_step(cfg, opt, comp)
     batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in
              lm_data.SyntheticTokens(cfg.vocab_size, 8192, 1, seed=0).batch(0).items()}
-    holder = {"state": state}
+    profs = {}
+    for label, (mode, seg) in LM_PROFILES.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = tf.Llama(cfg, seed=0, device=dev)
+        params = tf.param_leaves(model)
+        comp = CompressionConfig(method="topk", ratio=RATIO, granularity="entiremodel",
+                                 error_feedback=True, mode=mode)
+        opt = SGD(lr=1e-4, momentum=0.9)
+        state = TrainState.create(model, opt.init(params), init_lm_ef_state(cfg, params, comp))
+        step = make_lm_train_step(cfg, opt, comp)
+        holder = {"state": state}
 
-    def run(k):
-        for _ in range(k):
-            holder["state"], _ = step(holder["state"], batch)
+        def run(k):
+            for _ in range(k):
+                holder["state"], _ = step(holder["state"], batch)
 
-    run(2)
-    prof = device_profile(run, torch, n_steps=2)
-    log(f"profile lm topk entiremodel (llama3_8b widths, 2 layers, seq 8192): "
-        f"{json.dumps(prof)}")
-    record["lm_profile"] = prof
-    del holder, state, model, params
+        kernels._SEG_PACK_DISPATCH = seg
+        try:
+            run(2)
+            prof = device_profile(run, torch, n_steps=2)
+        finally:
+            kernels._SEG_PACK_DISPATCH = False
+        log(f"profile lm {label} (llama3_8b widths, 2 layers, seq 8192): {json.dumps(prof)}")
+        profs[label] = prof
+        del holder, state, model, params, step
     gc.collect()
     torch.cuda.empty_cache()
-    return prof
+    record["lm_profile"] = profs
+    return profs
 
 
 def main(argv=None) -> int:
@@ -1634,9 +2005,15 @@ def main(argv=None) -> int:
     f_err, f_rows = phase_flash(kernels, torch, record)
     err.update(f_err)
     rows[FULL_MODEL].update(f_rows["llama3_8b bf16"])
+    p_err, p_rows = phase_pack_kernels(kernels, compressors, torch, record)
+    err.update(p_err)
+    err["seg_pack"] = max(err["seg_pack"], phase_seg_pack_lm(kernels, compressors, torch, record))
+    rows[FULL_MODEL].update(p_rows)
     runs = phase_train(kernels, compressors, dawn, torch, record)
     lm_runs = phase_lm(kernels, compressors, torch, record)
-    phase_lm_profile(torch, record)
+    seg_runs = phase_seg_path(kernels, compressors, dawn, torch, record,
+                              runs["wire topk entiremodel"], lm_runs["wire topk entiremodel"])
+    phase_lm_profile(kernels, torch, record)
     phase_steady(torch, record)
     worlds = phase_multirank(torch, record)
 
@@ -1652,7 +2029,11 @@ def main(argv=None) -> int:
                 "bucket_route": "tpu_compressed_dp/ops/kernels.py:1613",
                 "flash_fwd": "tpu_compressed_dp/ops/flash_attention.py:73",
                 "flash_dq": "tpu_compressed_dp/ops/flash_attention.py:113",
-                "flash_dkv": "tpu_compressed_dp/ops/flash_attention.py:177"}
+                "flash_dkv": "tpu_compressed_dp/ops/flash_attention.py:177",
+                "threshold_pack": "tpu_compressed_dp/ops/kernels.py:596",
+                "seg_pack": "tpu_compressed_dp/ops/kernels.py:874",
+                "ternary_bytes": "tpu_compressed_dp/ops/kernels.py:1380",
+                "qsgd_bytes": "tpu_compressed_dp/ops/kernels.py:1385"}
     source = {"count_ge": "tpu_compressed_dp_torch/csrc/count_ge_edges.cu",
               "count_edges": "tpu_compressed_dp_torch/csrc/count_ge_edges.cu",
               "fused_sparsify": "tpu_compressed_dp_torch/csrc/fused_sparsify.cu",
@@ -1663,15 +2044,20 @@ def main(argv=None) -> int:
               "terngrad_pack": "tpu_compressed_dp_torch/csrc/quant_pack.cu",
               "qsgd_pack": "tpu_compressed_dp_torch/csrc/quant_pack.cu",
               "bucket_route": "tpu_compressed_dp_torch/csrc/bucket_route.cu",
-              **dict.fromkeys(FLASH_ROUTES, "tpu_compressed_dp_torch/csrc/flash_attention.cu")}
+              **dict.fromkeys(FLASH_ROUTES, "tpu_compressed_dp_torch/csrc/flash_attention.cu"),
+              **dict.fromkeys(("threshold_pack", "seg_pack"),
+                              "tpu_compressed_dp_torch/csrc/threshold_pack.cu"),
+              **dict.fromkeys(("ternary_bytes", "qsgd_bytes"),
+                              "tpu_compressed_dp_torch/csrc/byte_pack.cu")}
     line = {"kernels": []}
     for name in replaces:
         r = rows[FULL_MODEL][name]
         # the main paths' launches: phase 3's dawn runs, the LM runs of phase
-        # 7 and the multi-rank dawn runs
+        # 7, the segmented-path runs and the multi-rank dawn runs
         launches = (sum(run["launches"][name] for run in runs.values())
                     + sum(run["launches"][name] for run in lm_runs.values())
-                    + sum(w["launches"][name] for w in worlds.values()))
+                    + sum(run["launches"][name] for run in seg_runs.values())
+                    + sum(w["launches"].get(name, 0) for w in worlds.values()))
         entry = {
             "name": name, "route": "cuda", "source": source[name],
             "replaces": replaces[name], "launches": launches,
@@ -1693,9 +2079,19 @@ def main(argv=None) -> int:
     by_name = {e["name"]: e for e in line["kernels"]}
     if not by_name["bucket_route"]["launches"]:
         raise AssertionError("the multi-rank runs never launched bucket_route")
-    if any(by_name[r]["launches"] != sum(run["launches"][r] for run in lm_runs.values())
+    lm_all = list(lm_runs.values()) + [seg_runs["lm llama3_8b 2 layers"]]
+    if any(by_name[r]["launches"] != sum(run["launches"][r] for run in lm_all)
            for r in FLASH_ROUTES):
         raise AssertionError("a flash kernel launched off the LM runs")
+    # the threshold pack and the byte packers serve no path, as in the
+    # reference (phase 2b holds them); the segmented pack only the gated runs
+    if any(by_name[r]["launches"] for r in ("threshold_pack", "ternary_bytes", "qsgd_bytes")):
+        raise AssertionError("a path launched a kernel the reference never dispatches")
+    if by_name["seg_pack"]["launches"] != sum(run["launches"]["seg_pack"]
+                                              for run in seg_runs.values()):
+        raise AssertionError("seg_pack launched off the gated segmented-path runs")
+    if len(line["kernels"]) != 17:
+        raise AssertionError(f"the kernels line has {len(line['kernels'])} entries, want 17")
     if args.record:
         os.makedirs(os.path.dirname(os.path.abspath(args.record)), exist_ok=True)
         with open(args.record, "w") as f:

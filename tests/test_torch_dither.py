@@ -16,7 +16,7 @@ interpreter stubs it with zeros, so the anchors are:
 QSGD's norm is summed in another order by ``torch.linalg.vector_norm`` than
 by ``jnp.linalg.norm``; given the same inverse norm its levels are bitwise,
 otherwise at most a few levels differ by one and the scale agrees to 1e-6.
-The CUDA kernels run only on the card (``-m cuda``; ``chip_smoke.py``).
+The CUDA kernels run only on the card (``tests/test_torch_cuda.py``; ``chip_smoke.py``).
 """
 
 import functools
@@ -282,21 +282,3 @@ def test_plain_versions_do_not_count_launches():
     tc.terngrad(g, SEED)
     tc.random_dithering(g, SEED)
     assert set(tk.LAUNCHES.values()) == {0}
-
-
-@pytest.mark.cuda
-def test_cuda_dither_matches_plain():
-    """On the card: the uniform, QSGD and TernGrad kernels equal their plain
-    versions bitwise."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card; run with -m cuda where there is one")
-    dev = torch.device("cuda")
-    for n in (1, 5, 70001):
-        assert torch.equal(tk.uniform(SEED, n, dev), tk.uniform_plain(SEED, n, dev))
-        x = torch.from_numpy(_grad(n)).to(dev)
-        x[::7] = float("nan")
-        inv = torch.tensor(3.0, device=dev)
-        assert torch.equal(tk.qsgd_levels_kernel(x, inv, SEED, 255),
-                           tk.qsgd_levels_plain(x, inv, SEED, 255))
-        assert torch.equal(tk.terngrad_levels_kernel(x, inv, SEED),
-                           tk.terngrad_levels_plain(x, inv, SEED))

@@ -18,7 +18,7 @@ Also: the port's ``autograd.Function`` under ``force`` mode (the Pallas
 interpreter's counterpart) against autograd through the unfused
 ``dense_causal_attention``, GQA through ``ring_attention`` against the JAX
 function, and the dispatch gate.  The CUDA kernels themselves run only on
-the card (``-m cuda``; ``python3 chip_smoke.py``).
+the card (``tests/test_torch_cuda.py``; ``python3 chip_smoke.py``).
 """
 
 import math
@@ -200,36 +200,3 @@ def test_sequence_ring_raises_and_wrapper_refuses_other_devices():
     m = torch.zeros(1, 2, 128, 64, device="meta")
     with pytest.raises(ValueError, match="CUDA or CPU"):
         tfa.flash_fwd(m, m, m, 0.125)
-
-
-@pytest.mark.cuda
-def test_cuda_flash_kernels_match_plain():
-    """On the card: forward, dq and dk/dv kernels against their plain
-    versions, elementwise: float32 to 1e-4, lse to 1e-5, bf16 to one ulp plus
-    a share of the rms (``chip_smoke.py``'s rule: o 2^-4, dq and dk 2^-7, dv
-    2^-10; o's p is rounded against the running max of 64-row tiles, the
-    plain version's of 512-row blocks)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card; run with -m cuda where there is one")
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(0)
-    for shape, dt in (((1, 4, 1024, 128), torch.float32), ((2, 3, 1024, 64), torch.bfloat16)):
-        q, k, v, do = ((0.5 * torch.randn(shape, generator=gen, device=dev)).to(dt)
-                       for _ in range(4))
-        s = 1.0 / math.sqrt(shape[-1])
-        o, lse = tfa.flash_fwd(q, k, v, s)
-        delta = (do.float() * o.float()).sum(-1)
-        got = [o, lse, tfa.flash_dq(q, k, v, do, lse, delta, s),
-               *tfa.flash_dkv(q, k, v, do, lse, delta, s)]
-        o2, lse2 = tfa.flash_fwd_plain(q, k, v, s)
-        want = [o2, lse2, tfa.flash_dq_plain(q, k, v, do, lse, delta, s),
-                *tfa.flash_dkv_plain(q, k, v, do, lse, delta, s)]
-        shares = {"o": 2.0 ** -4, "dq": 2.0 ** -7, "dk": 2.0 ** -7, "dv": 2.0 ** -10}
-        for name, a, b in zip(("o", "lse", "dq", "dk", "dv"), got, want):
-            a, b = a.float().cpu().numpy(), b.float().cpu().numpy()
-            if name == "lse":
-                np.testing.assert_allclose(a, b, rtol=0, atol=1e-5, err_msg=name)
-            elif dt == torch.float32:
-                np.testing.assert_allclose(a, b, rtol=0, atol=1e-4, err_msg=name)
-            else:
-                _assert_bf16_close(a, b, shares[name], name)

@@ -5,7 +5,7 @@ CPU the port's wrappers run their kernels' plain versions; the JAX side runs
 its Pallas kernels in interpret mode, as ``tests/test_kernels.py`` does.
 Thresholds, fused-sparsify outputs and counts must agree bitwise: the port's
 glue repeats the reference's fp32 arithmetic op for op.  The CUDA kernels
-themselves run only on the card (``-m cuda``; ``python3 chip_smoke.py``).
+themselves run only on the card (``tests/test_torch_cuda.py``; ``python3 chip_smoke.py``).
 """
 
 import numpy as np
@@ -175,23 +175,6 @@ class TestDispatch:
         assert tk.LAUNCHES == {"count_ge": 0, "count_edges": 0, "fused_sparsify": 0,
                                "uniform": 0, "qsgd": 0, "terngrad": 0, "select_pack": 0,
                                "terngrad_pack": 0, "qsgd_pack": 0, "bucket_route": 0,
-                               "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
-
-
-@pytest.mark.cuda
-def test_cuda_kernels_match_plain():
-    """On the card: every kernel equals its plain version bitwise."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card; run with -m cuda where there is one")
-    dev = torch.device("cuda")
-    mag = torch.from_numpy(_mag(300000, 12)).to(dev)
-    hi = mag.max() * 1.0000002 + 1e-30
-    edges = torch.cat([hi / 16 * torch.arange(16, device=dev, dtype=torch.float32),
-                       hi.reshape(1)])
-    assert torch.equal(tk.count_ge_edges(mag, edges), tk.count_ge_edges_plain(mag, edges))
-    t = tk.topk_threshold(mag, 3000)
-    t_plain = tk._topk_threshold_hist(
-        mag, 3000, count_fn=lambda x, e, route: tk.count_ge_edges_plain(x, e))
-    assert t.item() == t_plain.item()
-    for got, want in zip(tk.fused_sparsify(mag, t), tk.fused_sparsify_plain(mag, t)):
-        assert torch.equal(got, want)
+                               "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
+                               "threshold_pack": 0, "seg_pack": 0, "ternary_bytes": 0,
+                               "qsgd_bytes": 0}

@@ -146,12 +146,12 @@ def test_forward_and_grads_match():
     assert list(leaves) == list(_flat(params))
 
 
-def _run_both(cfg_kw, steps=3):
+def _run_both(cfg_kw, steps=3, clip_sent_norm=0.0):
     with jax.enable_x64(True):
-        return _run_both_x64(cfg_kw, steps)
+        return _run_both_x64(cfg_kw, steps, clip_sent_norm)
 
 
-def _run_both_x64(cfg_kw, steps):
+def _run_both_x64(cfg_kw, steps, clip_sent_norm=0.0):
     _, params, stats = _flax_init()
     model = _port_model(params, stats)
     module = _flax_module(jnp.float64)
@@ -163,11 +163,12 @@ def _run_both_x64(cfg_kw, steps):
     state_j = JState.create(params, stats, opt_j.init(params),
                             jdp.init_ef_state(params, cfg_j, 1), jax.random.key(1))
     step_j = jstep.make_train_step(make_normalizing_apply_fn(module, MEAN, STD), opt_j,
-                                   cfg_j, mesh, grad_scale=float(BS), donate=False)
+                                   cfg_j, mesh, grad_scale=float(BS), donate=False,
+                                   clip_sent_norm=clip_sent_norm)
     leaves = tres.param_leaves(model)
     state_t = TState.create(model, opt_t.init(leaves), tdp.init_ef_state(leaves, cfg_t))
     step_t = tstep.make_train_step(tcommon.make_normalizing_apply_fn(MEAN, STD), opt_t, cfg_t,
-                                   grad_scale=float(BS))
+                                   grad_scale=float(BS), clip_sent_norm=clip_sent_norm)
     trace = []
     for batch in _batches(steps):
         state_j, m_j = step_j(state_j, {k: jnp.asarray(v) for k, v in batch.items()})
@@ -186,6 +187,31 @@ def test_dense_three_steps_match():
            _flat(state_j.params))
     _close(_port_stats(state_t.model), _flat(state_j.batch_stats))
     assert state_t.step == int(state_j.step) == 3
+
+
+def test_clip_sent_norm_step_matches():
+    # one step of the scaled ResNet-9 with the synced-gradient clip active
+    # (0.05 in mean-loss units, below the first gradient's norm), against
+    # the JAX step in float64, within the dense steps' tolerance
+    state_j, state_t, trace = _run_both(dict(method=None), steps=1, clip_sent_norm=0.05)
+    (m_j, m_t), = trace
+    np.testing.assert_allclose(float(m_t["loss"]), float(m_j["loss"]), rtol=1e-4, atol=1e-5)
+    _close(_flat(tres.leaves_to_flax(tres.param_leaves(state_t.model))),
+           _flat(state_j.params))
+    # the clip was active: the unclipped step moves the port's weights elsewhere
+    _, params, stats = _flax_init()
+    model = _port_model(params, stats)
+    opt_t = _sgd_pair()[1]
+    leaves = tres.param_leaves(model)
+    cfg = tdp.CompressionConfig()
+    step_t = tstep.make_train_step(tcommon.make_normalizing_apply_fn(MEAN, STD), opt_t, cfg,
+                                   grad_scale=float(BS))
+    batch = _batches(1)[0]
+    free, _ = step_t(TState.create(model, opt_t.init(leaves), tdp.init_ef_state(leaves, cfg)),
+                     {k: torch.from_numpy(v) for k, v in batch.items()})
+    moved = {k: (p - p0).norm().item() for (k, p), p0 in zip(
+        tres.param_leaves(state_t.model).items(), tres.param_leaves(free.model).values())}
+    assert max(moved.values()) > 0
 
 
 def _check_topk_ef_run(state_j, state_t, trace):
@@ -356,15 +382,25 @@ def test_dawn_cpu_drive_every_method(method, granularity):
 @pytest.mark.parametrize("flag", ["--clip_sent_norm", "--ratio_warmup_epochs", "--lr_schedule",
                                   "--synthetic_hard"])
 def test_dawn_deferred_protocol_flags_raise(flag):
+    """The four protocol flags that raised until they were ported (ROADMAP
+    queue 1 item 16) now run: a 2-epoch Top-K + EF drive of the scaled
+    ResNet-9 with each, finite losses (their values against the JAX harness:
+    ``tests/test_torch_dawn_protocol.py``)."""
     from tpu_compressed_dp_torch.harness import dawn
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 16"):
-        dawn.main([flag, "1", "--device", "cpu", "--synthetic"])
+    value = {"--clip_sent_norm": ["0.5"], "--ratio_warmup_epochs": ["2"],
+             "--lr_schedule": ["step"], "--synthetic_hard": []}[flag]
+    summary = dawn.main([flag, *value, "--device", "cpu", "--synthetic", "--synthetic_n", "64",
+                         "--batch_size", "32", "--epochs", "2", "--compress", "entiremodel",
+                         "--method", "topk", "--ratio", "0.01", "--error_feedback",
+                         "--channels_scale", "0.125", "--log_dir", ""])
+    assert summary["epoch"] == 2 and np.isfinite(summary["train loss"])
+    assert np.isfinite(summary["test loss"])
 
 
 @pytest.mark.parametrize("argv", [["--overlap", "2"], ["--dtype=bfloat16"],
                                   ["--guard"], ["--network", "vgg16"],
-                                  ["--clip_sent_norm", "0.5"]])
+                                  ["--job_id", "j0"]])
 def test_dawn_unported_flags_raise(argv):
     from tpu_compressed_dp_torch.harness import dawn
 

@@ -17,7 +17,7 @@ JAX package.
   * the wire sync at world 1 (no process group) equals the JAX wire engine
     on a 1-device mesh.
 
-The CUDA kernels run only on the card (``-m cuda``; ``chip_smoke.py``).
+The CUDA kernels run only on the card (``tests/test_torch_cuda.py``; ``chip_smoke.py``).
 """
 
 import functools
@@ -386,25 +386,3 @@ def test_wire_config_refusals_and_dense():
     out_s, _, stats_s = tdp.make_grad_sync(tdp.CompressionConfig())(grads, (), SEED)
     assert all(torch.equal(out_w[k], out_s[k]) for k in grads)
     assert {k: v.item() for k, v in stats_w.items()} == {k: v.item() for k, v in stats_s.items()}
-
-
-@pytest.mark.cuda
-def test_cuda_wire_kernels_match_plain():
-    """On the card: select+pack and quantize+pack equal their plain
-    versions bitwise."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card; run with -m cuda where there is one")
-    dev = torch.device("cuda")
-    for n in (1, 4097, 70001):
-        x = torch.from_numpy(_grad(n, seed=n)).to(dev)
-        x[::7] = float("nan")
-        for keep, t in ((1, 0.0), (max(1, n // 50), 0.01), (n + 3, 0.02)):
-            t = torch.tensor(t, device=dev)
-            got, want = tk.fused_select_pack(x, t, keep), tk.fused_select_pack_plain(x, t, keep)
-            assert all(torch.equal(a, b) for a, b in zip(got, want))
-        inv = torch.tensor(30.0, device=dev)
-        assert torch.equal(tk.terngrad_pack_kernel(x, inv, SEED),
-                           tk.terngrad_pack_plain(x, inv, SEED))
-        for a, b in zip(tk.qsgd_pack_kernel(x, inv, SEED, 255),
-                        tk.qsgd_pack_plain(x, inv, SEED, 255)):
-            assert torch.equal(a, b)

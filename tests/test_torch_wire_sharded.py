@@ -31,7 +31,7 @@ package.
     so TernGrad's synced gradient is bitwise the JAX one; QSGD's agrees by
     its norm contract; the stats of both bitwise.
 
-The CUDA kernel runs only on the card (``-m cuda``; ``chip_smoke.py``).
+The CUDA kernel runs only on the card (``tests/test_torch_cuda.py``; ``chip_smoke.py``).
 """
 
 import dataclasses
@@ -522,22 +522,3 @@ def test_ef_identity_under_forced_clipping(port_w4):
             for k in SHAPES:
                 np.testing.assert_array_equal(port_w4[r][f"{ci}/out/{k}"],
                                               port_w4[0][f"{ci}/out/{k}"])
-
-
-@pytest.mark.cuda
-def test_cuda_bucket_route_matches_plain():
-    """On the card: the bucket-route kernel equals its plain version
-    bitwise, signed zeros and NaN payloads included."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card; run with -m cuda where there is one")
-    dev = torch.device("cuda")
-    for case in sorted(ROUTE_CASES):
-        vals, idx, valid, W, cap, shard_n = _route_case(*ROUTE_CASES[case], poison=True)
-        v, i = torch.from_numpy(vals).to(dev), torch.from_numpy(idx).to(dev)
-        dest = torch.clamp(i // shard_n, max=W - 1).to(torch.int32)
-        if valid is not None:
-            dest = torch.where(torch.from_numpy(valid).to(dev), dest, W)
-        got = tk.fused_bucket_route(v, i, dest, W, cap, shard_n)
-        want = tk.fused_bucket_route_plain(v, i, dest, W, cap, shard_n)
-        assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
-        assert torch.equal(got[1], want[1])

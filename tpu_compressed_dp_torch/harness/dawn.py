@@ -6,10 +6,11 @@ flags of the ported compressors: ``--network resnet9 --compress
 --block_size --bucket_mb --error_feedback --mode {simulate,wire}
 --wire_cap_ratio --transport {allgather,sharded,hierarchical} --dp_pods
 --hier_route_factor_ici --hier_route_factor_dcn --epochs --batch_size
---peak_lr --momentum --clip_norm --synthetic --synthetic_n --seed`` plus
-``--device``.  Protocol
-as in the JAX harness: ``PiecewiseLinear([0, 5, epochs], [0, peak, 0])`` at
-fractional epochs divided by the batch size, weight decay ``5e-4 *
+--peak_lr --lr_schedule {dawn,step} --momentum --clip_norm --clip_sent_norm
+--ratio_warmup_epochs --synthetic --synthetic_hard --synthetic_n --seed``
+plus ``--device``.  Protocol as in the JAX harness:
+``PiecewiseLinear([0, 5, epochs], [0, peak, 0])`` (or the ``step`` shape)
+at fractional epochs divided by the batch size, weight decay ``5e-4 *
 batch_size``, Nesterov when momentum > 0, Crop/FlipLR/Cutout augmentation,
 gradients compressed at summed-loss scale (``grad_scale = batch_size``).
 A flag of the JAX harness that this port does not carry yet raises
@@ -26,6 +27,7 @@ Run: ``python -m tpu_compressed_dp_torch.harness.dawn --synthetic --epochs 2``
 from __future__ import annotations
 
 import argparse
+import math
 import os
 from typing import Optional
 
@@ -36,10 +38,11 @@ from tpu_compressed_dp_torch.data import cifar10 as data
 from tpu_compressed_dp_torch.harness.loop import train_epoch
 from tpu_compressed_dp_torch.models.common import make_normalizing_apply_fn
 from tpu_compressed_dp_torch.models.resnet9 import ResNet9, param_leaves, scaled_channels
+from tpu_compressed_dp_torch.ops.compressors import canonical_name
 from tpu_compressed_dp_torch.parallel import mesh
 from tpu_compressed_dp_torch.parallel.dp import CompressionConfig, init_ef_state
 from tpu_compressed_dp_torch.train.optim import SGD
-from tpu_compressed_dp_torch.train.schedules import piecewise_linear
+from tpu_compressed_dp_torch.train.schedules import lr_phases_to_knots, piecewise_linear
 from tpu_compressed_dp_torch.train.state import TrainState
 from tpu_compressed_dp_torch.train.step import make_eval_step, make_train_step
 from tpu_compressed_dp_torch.utils.loggers import TableLogger, TSVLogger
@@ -48,24 +51,36 @@ from tpu_compressed_dp_torch.utils.timer import Timer, device_sync
 _ITEM = "ROADMAP.md queue 1, item {}"
 # flags of the JAX harness, by the ROADMAP item that ports them
 _LATER_FLAGS = {
-    **dict.fromkeys(("--clip_sent_norm", "--ratio_warmup_epochs", "--lr_schedule",
-                     "--synthetic_hard"), 16),
     **dict.fromkeys(("--rank", "--overlap", "--dtype"), 9),
     **dict.fromkeys(("--devices", "--coordinator", "--num_processes", "--process_id",
                      "--guard", "--guard_backoff", "--guard_growth_interval",
                      "--guard_init_scale", "--guard_max_skips", "--chaos", "--heartbeat",
                      "--heartbeat_interval", "--elastic", "--elastic_dir", "--elastic_ef",
                      "--elastic_min_world", "--peer_timeout", "--checkpoint_dir",
-                     "--resume", "--ckpt_every", "--job_id"), 12),
+                     "--resume", "--ckpt_every"), 12),
     **dict.fromkeys(("--adaptive", "--adaptive_budget_ms", "--adaptive_bw_mbps",
                      "--adaptive_deadband", "--adaptive_model", "--adaptive_rungs",
                      "--adaptive_signal", "--adaptive_window", "--twin_records",
                      "--events", "--events_max_mb", "--prom", "--flight_dir",
-                     "--flight_capacity", "--tensorboard", "--profile_epoch"), 13),
+                     "--flight_capacity", "--tensorboard", "--profile_epoch",
+                     "--job_id"), 13),
     **dict.fromkeys(("--stream_dir", "--stream_every", "--stream_keyframe_every",
                      "--stream_ratio", "--stream_rejoin"), 14),
 }
 _LATER_NETWORKS = ("alexnet", "alexnet_module", "vgg16", "resnet9_graph", "alexnet_graph")
+
+
+def warmup_ratio_for_epoch(epoch: int, *, ratio: float, warmup_epochs: int, method) -> float:
+    """DGC-style sparsity warm-up (the JAX harness's): the keep-ratio
+    ``ratio^((epoch + 1) / warmup_epochs)`` over the first ``warmup_epochs``
+    epochs, rounded to 2 significant digits, for Top-K, Random-K and
+    Block-Top-K; ``ratio`` otherwise."""
+    if (warmup_epochs <= 0 or epoch >= warmup_epochs or method is None
+            or canonical_name(method) not in ("topk", "randomk", "blocktopk")):
+        return ratio
+    r = ratio ** ((epoch + 1) / warmup_epochs)
+    digits = -int(math.floor(math.log10(abs(r)))) + 1
+    return min(1.0, round(r, digits))
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -86,6 +101,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--momentum", type=float, default=0.0)
     p.add_argument("--clip_norm", type=float, default=0.0,
                    help="local-gradient L2 clip (mean-loss units; 0 = off)")
+    p.add_argument("--clip_sent_norm", type=float, default=0.0,
+                   help="post-aggregation L2 clip of the synced gradient (mean-loss "
+                        "units; 0 = off)")
+    p.add_argument("--ratio_warmup_epochs", type=int, default=0,
+                   help="DGC-style sparsity warm-up: the keep-ratio decays geometrically to "
+                        "--ratio over the first N epochs (topk/randomk/blocktopk)")
+    p.add_argument("--lr_schedule", type=str, default="dawn", choices=["dawn", "step"],
+                   help="'dawn' = the CIFAR triangle; 'step' = the reference's ImageNet "
+                        "shape (warm-up to peak, flat, peak/10 at 60%%, peak/100 at 85%%)")
     p.add_argument("--mode", type=str, default="simulate", choices=["simulate", "wire"])
     p.add_argument("--wire_cap_ratio", type=float, default=0.05,
                    help="wire thresholdv/adaptivethreshold: payload capacity as a "
@@ -111,6 +135,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch_size", type=int, default=512, help="global batch size")
     p.add_argument("--peak_lr", type=float, default=0.4)
     p.add_argument("--synthetic", action="store_true", help="synthetic data smoke run")
+    p.add_argument("--synthetic_hard", action="store_true",
+                   help="non-saturating synthetic benchmark (convergence sweeps)")
     p.add_argument("--synthetic_n", type=int, default=2048, help="synthetic train-set size")
     p.add_argument("--channels_scale", type=float, default=1.0,
                    help="width multiplier (1.0 = the published widths)")
@@ -147,6 +173,9 @@ def _check_slice(args) -> None:
         raise ValueError(f"--method {args.method} requires --compress "
                          "layerwise|entiremodel|bucketed "
                          "(the reference silently trained dense here; we refuse instead)")
+    if getattr(args, "adaptive", False) and args.ratio_warmup_epochs > 0:
+        raise ValueError("--adaptive and --ratio_warmup_epochs both drive the keep-ratio; "
+                         "pick one")
 
 
 def _device(name: str) -> torch.device:
@@ -155,18 +184,12 @@ def _device(name: str) -> torch.device:
     return mesh.resolve_device(name)
 
 
-def run(args) -> dict:
-    _check_slice(args)
-    device = _device(args.device)
-    # fp32 stays fp32, as in the JAX reference: no TF32 in convolutions or
-    # the classifier matmul
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    comp = CompressionConfig(
+def comp_for_ratio(args, ratio: float) -> CompressionConfig:
+    return CompressionConfig(
         method=None if args.compress == "none" or args.method.lower() == "none" else args.method,
         granularity=args.compress if args.compress != "none" else "layerwise",
         mode=args.mode,
-        ratio=args.ratio,
+        ratio=ratio,
         threshold=args.threshold,
         qstates=args.qstates,
         block_size=args.block_size,
@@ -178,6 +201,16 @@ def run(args) -> dict:
         hier_route_factor_dcn=args.hier_route_factor_dcn,
         error_feedback=args.error_feedback,
     )
+
+
+def run(args) -> dict:
+    _check_slice(args)
+    device = _device(args.device)
+    # fp32 stays fp32, as in the JAX reference: no TF32 in convolutions or
+    # the classifier matmul
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    comp = comp_for_ratio(args, args.ratio)
     made_group = not torch.distributed.is_initialized()
     mesh.init_process_group(device)
     try:
@@ -199,7 +232,10 @@ def _run(args, device: torch.device, comp: CompressionConfig) -> dict:
               f"{torch.backends.cudnn.allow_tf32} matmul.allow_tf32="
               f"{torch.backends.cuda.matmul.allow_tf32}")
 
-    if args.synthetic:
+    if args.synthetic_hard:
+        dataset = data.synthetic_cifar10_hard(n_train=args.synthetic_n,
+                                              n_test=max(args.synthetic_n // 4, bs))
+    elif args.synthetic:
         dataset = data.synthetic_cifar10(n_train=args.synthetic_n,
                                          n_test=max(args.synthetic_n // 4, bs))
     else:
@@ -216,8 +252,7 @@ def _run(args, device: torch.device, comp: CompressionConfig) -> dict:
                     device=device)
     params = param_leaves(model)
     steps_per_epoch = len(train_batches)
-    ramp_ep = 5 if epochs > 5 else epochs / 2
-    sched = piecewise_linear([0, ramp_ep, epochs], [0, args.peak_lr, 0])
+    sched = lr_schedule(args, epochs)
     spe, bs32 = np.float32(steps_per_epoch), np.float32(bs)
     opt = SGD(lr=lambda step: sched(np.float32(step) / spe) / bs32,  # `dawn.py:142`
               momentum=args.momentum, nesterov=args.momentum > 0,
@@ -226,8 +261,19 @@ def _run(args, device: torch.device, comp: CompressionConfig) -> dict:
                               seed=args.seed)
     apply_fn = make_normalizing_apply_fn(np.asarray(data.CIFAR10_MEAN) * 255.0,
                                          np.asarray(data.CIFAR10_STD) * 255.0)
-    train_step = make_train_step(apply_fn, opt, comp, grad_scale=float(bs),
-                                 clip_norm=args.clip_norm)
+    step_cache: dict = {}
+
+    def train_step_for(epoch: int):
+        # the warm-up schedule's ratio for this epoch: one step per ratio
+        ratio = warmup_ratio_for_epoch(epoch, ratio=args.ratio,
+                                       warmup_epochs=args.ratio_warmup_epochs,
+                                       method=comp.method)
+        if ratio not in step_cache:
+            step_cache[ratio] = make_train_step(
+                apply_fn, opt, comp_for_ratio(args, ratio), grad_scale=float(bs),
+                clip_norm=args.clip_norm, clip_sent_norm=args.clip_sent_norm)
+        return step_cache[ratio]
+
     eval_step = make_eval_step(apply_fn)
 
     table, tsv = TableLogger(), TSVLogger()
@@ -235,8 +281,8 @@ def _run(args, device: torch.device, comp: CompressionConfig) -> dict:
     summary: dict = {}
     for epoch in range(epochs):
         state, epoch_stats, acc = train_epoch(
-            train_step, eval_step, state, train_batches, test_batches, timer, bs, device,
-            rank=rank, world=world)
+            train_step_for(epoch), eval_step, state, train_batches, test_batches, timer, bs,
+            device, rank=rank, world=world)
         train_time = epoch_stats["train time"]
         summary = {
             "epoch": epoch + 1,
@@ -251,6 +297,25 @@ def _run(args, device: torch.device, comp: CompressionConfig) -> dict:
     if args.log_dir and rank == 0:
         tsv.save(args.log_dir)
     return summary
+
+
+def lr_schedule(args, epochs: int):
+    """The learning rate at a fractional epoch: the CIFAR triangle (`dawn.py:110`,
+    the ramp pulled in on runs of 5 epochs or fewer), or with ``--lr_schedule
+    step`` the reference's ImageNet shape (`train.py:60-72`): warm-up over the
+    first eighth to the peak, flat, a tenth of it at 60 % and a hundredth at
+    85 % of the run."""
+    if args.lr_schedule == "step":
+        ramp_s = epochs / 8.0
+        knots, vals = lr_phases_to_knots([
+            {"ep": (0, ramp_s), "lr": (0.0, args.peak_lr)},
+            {"ep": ramp_s, "lr": args.peak_lr},
+            {"ep": 0.6 * epochs, "lr": args.peak_lr / 10.0},
+            {"ep": 0.85 * epochs, "lr": args.peak_lr / 100.0},
+        ])
+        return piecewise_linear(knots, vals)
+    ramp_ep = 5 if epochs > 5 else epochs / 2
+    return piecewise_linear([0, ramp_ep, epochs], [0, args.peak_lr, 0])
 
 
 def main(argv: Optional[list] = None):

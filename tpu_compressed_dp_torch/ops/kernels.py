@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels for the compression hot path, and their glue.
 
 PyTorch/H100 counterpart of the simulate-mode and wire-mode part of
-:mod:`tpu_compressed_dp.ops.kernels`.  Ten Pallas TPU kernels there have
+:mod:`tpu_compressed_dp.ops.kernels`.  Every Pallas TPU kernel there has
 a CUDA C++ kernel here (sources in ``tpu_compressed_dp_torch/csrc``, built
 for ``sm_90a`` by ``nvcc`` on first use into ``build/torch_kernels/`` and
 loaded with ``ctypes``):
@@ -31,7 +31,14 @@ loaded with ``ctypes``):
   * ``bucket_route`` (``csrc/bucket_route.cu``) replaces
     ``_bucket_route_kernel`` (:func:`fused_bucket_route`): the sharded
     transport's per-destination buckets as windowed copies of the ascending
-    payload.
+    payload;
+  * ``threshold_pack`` (``csrc/threshold_pack.cu``) replaces
+    ``_pack_kernel`` (:func:`pack_by_threshold`, the block-granular payload)
+    and ``_seg_pack_kernel`` (:func:`seg_pack_by_threshold`, the per-segment
+    capped payload of the gated segmented wire Top-K path);
+  * ``byte_pack`` (``csrc/byte_pack.cu``) replaces ``_pack2b_kernel`` and
+    ``_qsgd_pack_levels_kernel`` (:func:`pack_ternary_bytes`,
+    :func:`qsgd_pack_bytes`): given levels to the wire bytes.
 
 The causal flash-attention kernels (``csrc/flash_attention.cu``) are built
 and loaded here with the others; their wrappers live in
@@ -99,6 +106,18 @@ __all__ = [
     "fused_bucket_route_plain",
     "route_starts",
     "use_bucket_route",
+    "pack_payload_slots",
+    "pack_by_threshold",
+    "pack_by_threshold_plain",
+    "seg_pack_slots",
+    "seg_pack_by_threshold",
+    "seg_pack_by_threshold_plain",
+    "seg_pack_payload",
+    "use_seg_pack",
+    "pack_ternary_bytes",
+    "pack_ternary_bytes_plain",
+    "qsgd_pack_bytes",
+    "qsgd_pack_bytes_plain",
     "build",
     "LAUNCHES",
     "MIN_PALLAS_ELEMS",
@@ -115,7 +134,9 @@ _FP32_MAX = torch.finfo(torch.float32).max
 LAUNCHES: Dict[str, int] = {"count_ge": 0, "count_edges": 0, "fused_sparsify": 0,
                             "uniform": 0, "qsgd": 0, "terngrad": 0, "select_pack": 0,
                             "terngrad_pack": 0, "qsgd_pack": 0, "bucket_route": 0,
-                            "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+                            "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
+                            "threshold_pack": 0, "seg_pack": 0, "ternary_bytes": 0,
+                            "qsgd_bytes": 0}
 
 
 def reset_launches() -> None:
@@ -151,7 +172,7 @@ _BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
     "build", "torch_kernels")
 _SOURCES = ("count_ge_edges", "fused_sparsify", "dither", "select_pack", "quant_pack",
-            "bucket_route", "flash_attention")
+            "bucket_route", "flash_attention", "threshold_pack", "byte_pack")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -219,6 +240,10 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
             "tcdp_flash_fwd": [p, p, p, p, p, i32, i32, i32, i32, f32, p],
             "tcdp_flash_dq": [p, p, p, p, p, p, p, i32, i32, i32, i32, f32, p],
             "tcdp_flash_dkv": [p, p, p, p, p, p, p, p, i32, i32, i32, i32, f32, p]},
+        "threshold_pack": {"tcdp_threshold_pack": [p, ll, p, i32, i32, p, p, p, p, p, p, p],
+                           "tcdp_seg_pack": [p, ll, p, i32, i32, p, p, p, p, p, p, p]},
+        "byte_pack": {"tcdp_pack_ternary_bytes": [p, ll, p, p],
+                      "tcdp_qsgd_pack_bytes": [p, ll, p, p, p]},
     }[name]
     for fn, types in argtypes.items():
         getattr(lib, fn).argtypes = types
@@ -764,30 +789,259 @@ def use_select_pack(n: int, keep: int, device) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# Fused quantize+pack (TernGrad 2-bit codes, QSGD magnitudes + sign bitmap)
+# Threshold pack (block-granular payload) and segmented pack
+# ---------------------------------------------------------------------------
+
+_LANES = 128
+_PACK_ROWS = 512          # rows of 128 per block of the threshold pack
+_SEG_CAP = _LANES         # payload slots per segment of the segmented pack
+_SEG_BLOCK = 16 * _SEG    # the segmented layout pads n to whole 16-segment blocks
+_SEG_PACK_DISPATCH = False
+
+
+def _check_threshold(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    t = t.to(torch.float32).reshape(()).contiguous()
+    if t.device != x.device:
+        raise ValueError("the threshold must lie on acc's device")
+    return t
+
+
+def _padded_mask(acc: torch.Tensor, t: torch.Tensor, size: int) -> torch.Tensor:
+    """``|acc| >= t`` (fp32 compare; NaN never survives), padded with False
+    to ``size``."""
+    m = acc.abs() >= t
+    return torch.cat([m, m.new_zeros(size - m.shape[0])])
+
+
+def pack_payload_slots(n: int, keep: int, rows: Optional[int] = None) -> int:
+    """Slots ``P`` of :func:`pack_by_threshold`'s payload: ``keep`` rounded
+    up to whole rows of 128, plus one row per block of ``rows x 128``
+    elements (each block's base is row-aligned)."""
+    rows = _PACK_ROWS if rows is None else int(rows)
+    blocks = -(-max(n, 1) // (rows * _LANES))
+    return -(-keep // _LANES) * _LANES + blocks * _LANES
+
+
+def pack_by_threshold_plain(acc: torch.Tensor, t: torch.Tensor, keep: int, *,
+                            want_ef: bool = True, rows: Optional[int] = None):
+    """The threshold pack's layout by PyTorch ops (see :func:`pack_by_threshold`)."""
+    rows = _PACK_ROWS if rows is None else int(rows)
+    n, dev = acc.shape[0], acc.device
+    blk = rows * _LANES
+    nb = -(-max(n, 1) // blk)
+    cap_rows = pack_payload_slots(n, keep, rows) // _LANES
+    mask = _padded_mask(acc, t, nb * blk).reshape(nb, blk)
+    blk_count = mask.sum(1)
+    rows_used = (blk_count + _LANES - 1) // _LANES
+    base = torch.cumsum(rows_used, 0) - rows_used
+    shipped = base + rows_used <= cap_rows
+    sel = (mask & shipped[:, None]).reshape(-1)[:n]
+    # a survivor's slot: its block's base row, then its rank in the block
+    slot = (base[:, None] * _LANES + torch.cumsum(mask, 1) - 1).reshape(-1)[:n]
+    dest = torch.where(sel, slot, cap_rows * _LANES)     # the last slot is a dump
+    pos = torch.arange(n, dtype=torch.int32, device=dev)
+    P = cap_rows * _LANES
+    vals = torch.zeros(P + 1, dtype=torch.float32, device=dev).index_copy_(0, dest, acc)
+    idx = torch.zeros(P + 1, dtype=torch.int32, device=dev).index_copy_(0, dest, pos)
+    count = torch.where(shipped, blk_count, 0).sum().to(torch.int32)
+    new_ef = torch.where(sel, 0.0, acc) if want_ef else None
+    return vals[:P].clone(), idx[:P].clone(), new_ef, count
+
+
+def pack_by_threshold(acc: torch.Tensor, t: torch.Tensor, keep: int, *, want_ef: bool = True,
+                      rows: Optional[int] = None):
+    """``(vals [P], idx [P] int32, new_ef [n] | None, count int32 0-d)`` with
+    ``P = pack_payload_slots(n, keep, rows)``: the coordinates with ``|acc| >=
+    t`` in ascending order inside each block of ``rows x 128`` elements, each
+    block's survivors from its base row on, the bases advancing by the rows
+    each block uses; a block ships only if it fits whole below ``P``, and
+    from the first that does not, none does.  Unshipped survivors stay in
+    the EF residual (shipped ones read ``+0.0`` there), ``count`` is the
+    number shipped, and every other slot holds 0 / index 0.
+
+    Replaces ``_pack_kernel`` / ``pack_by_threshold`` of
+    ``tpu_compressed_dp/ops/kernels.py`` (``rows`` is its ``_PACK_ROWS``,
+    512).  The Pallas kernel assembles the payload with one-hot sums and
+    matmuls, so on NaN / Inf data and ``-0.0`` survivors its values differ
+    from a copy; this kernel and its plain version copy the bits.  Not
+    dispatched by any wire path, as in the reference.  Bound: 4n read, 4n EF
+    and 8P written; see ``csrc/threshold_pack.cu``."""
+    rows = _PACK_ROWS if rows is None else int(rows)
+    if keep < 1 or rows < 1:
+        raise ValueError(f"pack_by_threshold needs keep >= 1 and rows >= 1, got {keep}, {rows}")
+    if acc.device.type == "cpu":
+        return pack_by_threshold_plain(acc, t, keep, want_ef=want_ef, rows=rows)
+    if acc.device.type != "cuda":
+        raise ValueError(f"pack_by_threshold runs on CUDA or CPU tensors, got {acc.device}")
+    _check_f32_vector(acc, "acc")
+    t = _check_threshold(t, acc)
+    n, dev = acc.numel(), acc.device
+    P = pack_payload_slots(n, keep, rows)
+    nb = -(-max(n, 1) // (rows * _LANES))
+    vals = torch.empty(P, dtype=torch.float32, device=dev)
+    idx = torch.empty(P, dtype=torch.int32, device=dev)
+    new_ef = torch.empty_like(acc) if want_ef else None
+    meta = torch.empty(3, dtype=torch.int32, device=dev)
+    scratch = torch.empty(2, nb, dtype=torch.int32, device=dev)
+    rc = _lib("threshold_pack").tcdp_threshold_pack(
+        acc.data_ptr(), n, t.data_ptr(), rows, P // _LANES, vals.data_ptr(), idx.data_ptr(),
+        new_ef.data_ptr() if want_ef else None, meta.data_ptr(), scratch[0].data_ptr(),
+        scratch[1].data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _check_launch(rc, "threshold_pack")
+    LAUNCHES["threshold_pack"] += 1
+    return vals, idx, new_ef, meta[0]
+
+
+def seg_pack_slots(n: int) -> int:
+    """Payload capacity of the segmented layout: 128 slots per segment."""
+    return -(-n // _SEG) * _SEG_CAP
+
+
+def seg_pack_by_threshold_plain(acc: torch.Tensor, t: torch.Tensor, keep: int, *,
+                                want_ef: bool = True):
+    """The segmented pack by PyTorch ops (see :func:`seg_pack_by_threshold`)."""
+    n, dev = acc.shape[0], acc.device
+    nseg = -(-n // _SEG_BLOCK) * (_SEG_BLOCK // _SEG)
+    mask = _padded_mask(acc, t, nseg * _SEG).reshape(nseg, _SEG)
+    counts = mask.sum(1, dtype=torch.int32)
+    elig = torch.clamp(counts, max=_SEG_CAP)
+    starts = torch.cumsum(elig, 0, dtype=torch.int32) - elig
+    rank = torch.cumsum(mask, 1, dtype=torch.int32)          # 1-based at survivors
+    eligible = mask & (rank <= _SEG_CAP)
+    seg = torch.arange(nseg, dtype=torch.int64, device=dev)[:, None]
+    dump = nseg * _SEG_CAP
+    dest = torch.where(eligible, seg * _SEG_CAP + rank - 1, dump).reshape(-1)[:n]
+    pos = torch.arange(n, dtype=torch.int32, device=dev)
+    vals = torch.zeros(dump + 1, dtype=torch.float32, device=dev).index_copy_(0, dest, acc)
+    idx = torch.zeros(dump + 1, dtype=torch.int32, device=dev).index_copy_(0, dest, pos)
+    new_ef = None
+    if want_ef:
+        sent = (eligible & (starts[:, None] + rank <= keep)).reshape(-1)[:n]
+        new_ef = torch.where(sent, 0.0, acc)
+    return (vals[:dump].reshape(nseg, _SEG_CAP), idx[:dump].reshape(nseg, _SEG_CAP), new_ef,
+            elig, counts)
+
+
+def seg_pack_by_threshold(acc: torch.Tensor, t: torch.Tensor, keep: int, *,
+                          want_ef: bool = True):
+    """``(vals [nseg, 128], idx [nseg, 128] int32, new_ef [n] | None, elig
+    [nseg] int32, counts [nseg] int32)``: per 4096-element segment, the first
+    ``<= 128`` coordinates with ``|acc| >= t`` left-compacted with their
+    global indices (live slots past the segment's count hold 0 / 0);
+    ``counts`` the segment's survivors, ``elig = min(counts, 128)``.  The EF
+    residual zeroes (``+0.0``) exactly the survivors that travel: ranked
+    within the cap, and within ``keep`` counting the segments before.
+    ``nseg`` is padded to whole 65,536-element blocks, as in the reference.
+
+    Replaces ``_seg_pack_kernel`` / ``seg_pack_by_threshold`` of
+    ``tpu_compressed_dp/ops/kernels.py``; the counts, the eligible prefix
+    and the pack are three launches of ``csrc/threshold_pack.cu``.  Bound:
+    4n read, 4n EF and 8 * 128 * nseg written."""
+    if acc.device.type == "cpu":
+        return seg_pack_by_threshold_plain(acc, t, keep, want_ef=want_ef)
+    if acc.device.type != "cuda":
+        raise ValueError(f"seg_pack_by_threshold runs on CUDA or CPU tensors, got {acc.device}")
+    _check_f32_vector(acc, "acc")
+    t = _check_threshold(t, acc)
+    n, dev = acc.numel(), acc.device
+    nseg = -(-n // _SEG_BLOCK) * (_SEG_BLOCK // _SEG)
+    vals = torch.empty(nseg, _SEG_CAP, dtype=torch.float32, device=dev)
+    idx = torch.empty(nseg, _SEG_CAP, dtype=torch.int32, device=dev)
+    new_ef = torch.empty_like(acc) if want_ef else None
+    seg = torch.empty(3, nseg, dtype=torch.int32, device=dev)   # counts, elig, starts
+    if nseg:
+        rc = _lib("threshold_pack").tcdp_seg_pack(
+            acc.data_ptr(), n, t.data_ptr(), int(min(keep, _INT32_MAX)), nseg, vals.data_ptr(),
+            idx.data_ptr(), new_ef.data_ptr() if want_ef else None, seg[0].data_ptr(),
+            seg[1].data_ptr(), seg[2].data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        _check_launch(rc, "seg_pack")
+        LAUNCHES["seg_pack"] += 1
+    return vals, idx, new_ef, seg[1], seg[0]
+
+
+def seg_pack_payload(vals: torch.Tensor, idx: torch.Tensor, elig: torch.Tensor, keep: int):
+    """The exact ``keep``-slot wire payload from the segmented pack: slot
+    ``j`` holds eligible survivor ``j + 1`` in ascending global order (each
+    rank's segment found by a histogram of the segment ends and a cumsum, as
+    ``seg_pack_payload`` of the JAX package does); slots past the eligible
+    total hold 0 / 0.  PyTorch ops on the device, no host sync."""
+    nseg, dev = vals.shape[0], vals.device
+    ends = torch.cumsum(elig, 0, dtype=torch.int32)                  # inclusive
+    ranks = torch.arange(1, keep + 1, dtype=torch.int32, device=dev)
+    hist = torch.zeros(keep + 1, dtype=torch.int32, device=dev).index_add_(
+        0, torch.clamp(ends, max=keep).long(), torch.ones_like(ends))
+    seg_of = torch.cumsum(hist, 0, dtype=torch.int32)[:keep]
+    valid = seg_of < nseg
+    seg_of = torch.where(valid, seg_of, 0).long()
+    within = ranks - (ends.index_select(0, seg_of) - elig.index_select(0, seg_of)) - 1
+    flat_pos = torch.where(valid, seg_of * _SEG_CAP + within, 0)
+    pvals = torch.where(valid, vals.reshape(-1).index_select(0, flat_pos), 0.0)
+    pidx = torch.where(valid, idx.reshape(-1).index_select(0, flat_pos), 0)
+    return pvals, pidx
+
+
+def use_seg_pack(n: int, keep: int, device) -> bool:
+    """Whether wire Top-K takes the segmented pack (the JAX package's
+    ``use_seg_pack``): off unless ``_SEG_PACK_DISPATCH`` is set, as there
+    (its round-4 result was a tie with the unfused chain, and a segment's
+    128-slot cap cuts the sent fraction on concentrated gradients); then a
+    kernel-dispatched size, int32-indexable, and ``keep`` at most half the
+    cap's density (128 / 4096)."""
+    return (_SEG_PACK_DISPATCH and _dispatch_to_kernel(n, torch.device(device))
+            and n <= _INT32_MAX and keep * 2 * _SEG <= n * _SEG_CAP)
+
+
+# ---------------------------------------------------------------------------
+# Byte layouts of the wire (TernGrad 2-bit codes, QSGD magnitudes + sign
+# bitmap), by PyTorch ops: the plain versions of the packing kernels
 # ---------------------------------------------------------------------------
 
 
-# The plain versions pack with the wire module's byte layouts, which import
-# this module: hence the imports inside them.
+def _pack_codes(codes: torch.Tensor, per: int) -> torch.Tensor:
+    """uint8 bytes of small int32 ``codes``, ``per`` to a byte, element ``i``
+    at bits ``(8 // per) * (i % per)``."""
+    shifts = torch.arange(0, 8, 8 // per, dtype=torch.int32, device=codes.device)
+    return (codes.reshape(-1, per) << shifts).sum(dim=1).to(torch.uint8)
+
+
+def pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """A boolean vector eight to a byte, little-endian within the byte."""
+    n = bits.shape[0]
+    return _pack_codes(torch.nn.functional.pad(bits.to(torch.int32), (0, (-n) % 8)), 8)
+
+
+def pack_ternary_bytes_plain(levels: torch.Tensor) -> torch.Tensor:
+    """Ternary levels (int8 in {-1, 0, 1}) as 2-bit codes ``level + 1``, four
+    to a byte, element ``i`` at bits ``2 * (i % 4)``: ``uint8[ceil(n/4)]``; a
+    padded tail packs as code 1 (level 0)."""
+    n = levels.shape[0]
+    return _pack_codes(torch.nn.functional.pad(levels.to(torch.int32), (0, (-n) % 4)) + 1, 4)
+
+
+def qsgd_pack_bytes_plain(levels: torch.Tensor):
+    """``(uint8 |level| [n], uint8 sign bitmap [ceil(n/8)])`` of int16 levels,
+    ``|level|`` taken in int32 and cut to 8 bits."""
+    return levels.to(torch.int32).abs().to(torch.uint8), pack_bits(levels < 0)
+
+
+# ---------------------------------------------------------------------------
+# Fused quantize+pack (TernGrad 2-bit codes, QSGD magnitudes + sign bitmap)
+# ---------------------------------------------------------------------------
 
 
 def terngrad_pack_plain(x: torch.Tensor, inv: torch.Tensor, seed: int,
                         u: Optional[torch.Tensor] = None) -> torch.Tensor:
     """uint8 ``[ceil(n/4)]``: :func:`terngrad_levels_plain` through
-    ``wire.pack_ternary`` (codes ``level + 1``, four to a byte)."""
-    from tpu_compressed_dp_torch.ops import wire
-
-    return wire.pack_ternary(terngrad_levels_plain(x, inv, seed, u))
+    :func:`pack_ternary_bytes_plain` (codes ``level + 1``, four to a byte)."""
+    return pack_ternary_bytes_plain(terngrad_levels_plain(x, inv, seed, u))
 
 
 def qsgd_pack_plain(x: torch.Tensor, inv: torch.Tensor, seed: int, qstates: int,
                     u: Optional[torch.Tensor] = None):
     """``(uint8 mags [n], uint8 signs [ceil(n/8)])``: :func:`qsgd_levels_plain`
-    through ``wire.qsgd_wire_pack``'s ``qstates <= 255`` layout."""
-    from tpu_compressed_dp_torch.ops import wire
-
-    return wire.qsgd_wire_pack(qsgd_levels_plain(x, inv, seed, qstates, u), 255)
+    through :func:`qsgd_pack_bytes_plain`, the wire's ``qstates <= 255``
+    layout."""
+    return qsgd_pack_bytes_plain(qsgd_levels_plain(x, inv, seed, qstates, u))
 
 
 def _launch_pack(route: str, x: torch.Tensor, inv: torch.Tensor, seed: int, *outs, qstates=None):
@@ -866,6 +1120,69 @@ def use_quant_pack(n: int, device) -> bool:
     """Whether the quantize+pack kernels serve an ``n``-element tensor on
     ``device`` (the JAX package's ``use_quant_pack``)."""
     return _dispatch_to_kernel(n, torch.device(device))
+
+
+# ---------------------------------------------------------------------------
+# Byte packers of given levels
+# ---------------------------------------------------------------------------
+
+
+def _check_levels(levels: torch.Tensor, dtype, what: str) -> None:
+    if levels.dtype != dtype or levels.dim() != 1 or not levels.is_contiguous():
+        raise ValueError(f"{what} packs a contiguous 1-D {dtype} tensor, got {levels.dtype} "
+                         f"of shape {tuple(levels.shape)}")
+
+
+def pack_ternary_bytes(levels: torch.Tensor) -> torch.Tensor:
+    """``uint8[ceil(n/4)]`` of int8 levels: byte ``j`` holds the codes
+    ``level + 1`` of elements ``4j .. 4j+3``, element ``i`` at bits ``2 * (i %
+    4)``, their sum taken in int32 and cut to 8 bits; the padded tail packs
+    as code 1 (level 0).
+
+    Replaces ``_pack2b_kernel`` (``pack_ternary_pallas``, through
+    ``_pack_bytes_call``) of ``tpu_compressed_dp/ops/kernels.py``; not on any
+    wire path, as in the reference.  Bound: 1.25n bytes; see
+    ``csrc/byte_pack.cu``."""
+    if levels.device.type == "cpu":
+        return pack_ternary_bytes_plain(levels)
+    if levels.device.type != "cuda":
+        raise ValueError(f"pack_ternary_bytes runs on CUDA or CPU tensors, got {levels.device}")
+    _check_levels(levels, torch.int8, "pack_ternary_bytes")
+    n = levels.numel()
+    out = torch.empty(-(-n // 4), dtype=torch.uint8, device=levels.device)
+    if n:
+        rc = _lib("byte_pack").tcdp_pack_ternary_bytes(
+            levels.data_ptr(), n, out.data_ptr(),
+            torch.cuda.current_stream(levels.device).cuda_stream)
+        _check_launch(rc, "pack_ternary_bytes")
+        LAUNCHES["ternary_bytes"] += 1
+    return out
+
+
+def qsgd_pack_bytes(levels: torch.Tensor):
+    """``(uint8 |level| [n], uint8 sign bitmap [ceil(n/8)])`` of int16
+    levels: the magnitude taken in int32 and cut to 8 bits, bit ``i % 8`` of
+    byte ``i // 8`` set iff ``level_i < 0``.
+
+    Replaces ``_qsgd_pack_levels_kernel`` (``qsgd_pack_pallas``, through
+    ``_pack_bytes_call``) of ``tpu_compressed_dp/ops/kernels.py``; not on
+    any wire path, as in the reference.  Bound: 3.125n bytes; see
+    ``csrc/byte_pack.cu``."""
+    if levels.device.type == "cpu":
+        return qsgd_pack_bytes_plain(levels)
+    if levels.device.type != "cuda":
+        raise ValueError(f"qsgd_pack_bytes runs on CUDA or CPU tensors, got {levels.device}")
+    _check_levels(levels, torch.int16, "qsgd_pack_bytes")
+    n = levels.numel()
+    mags = torch.empty(n, dtype=torch.uint8, device=levels.device)
+    signs = torch.empty(-(-n // 8), dtype=torch.uint8, device=levels.device)
+    if n:
+        rc = _lib("byte_pack").tcdp_qsgd_pack_bytes(
+            levels.data_ptr(), n, mags.data_ptr(), signs.data_ptr(),
+            torch.cuda.current_stream(levels.device).cuda_stream)
+        _check_launch(rc, "qsgd_pack_bytes")
+        LAUNCHES["qsgd_bytes"] += 1
+    return mags, signs
 
 
 # ---------------------------------------------------------------------------

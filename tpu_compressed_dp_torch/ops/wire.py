@@ -31,11 +31,17 @@ worker); ``transport='hierarchical'`` sums each pod's contributions densely
 clips go back to the EF residual (or are dropped, with EF off) and are
 counted in ``shard_overflow``.
 
+With ``kernels._SEG_PACK_DISPATCH`` set (off by default, as in the JAX
+package), allgather Top-K takes the segmented pack instead of select+pack:
+at most 128 survivors per 4096-element segment travel, the rest stay in the
+EF residual (or are dropped and counted in ``topk_surplus_dropped``).
+
 ``sent_bits`` is measured from the byte sizes of the tensors handed to the
-collectives.  The select+pack, quantize+pack and bucket-route steps run on
-the CUDA kernels of :mod:`~tpu_compressed_dp_torch.ops.kernels` where they
-are dispatched; every count, threshold and overflow stays a device tensor,
-so a sync never waits for the host.
+collectives.  The select+pack, segmented-pack, quantize+pack and
+bucket-route steps run on the CUDA kernels of
+:mod:`~tpu_compressed_dp_torch.ops.kernels` where they are dispatched;
+every count, threshold and overflow stays a device tensor, so a sync never
+waits for the host.
 """
 
 from __future__ import annotations
@@ -63,19 +69,10 @@ Tree = Dict[str, torch.Tensor]
 # ---------------------------------------------------------------------------
 
 
-def _pack_codes(codes: torch.Tensor, per: int) -> torch.Tensor:
-    """uint8 bytes of small int32 ``codes``, ``per`` to a byte, element ``i``
-    at bits ``(8 // per) * (i % per)``."""
-    shifts = torch.arange(0, 8, 8 // per, dtype=torch.int32, device=codes.device)
-    return (codes.reshape(-1, per) << shifts).sum(dim=1).to(torch.uint8)
-
-
-def pack_ternary(levels: torch.Tensor) -> torch.Tensor:
-    """Ternary levels (int8 in {-1, 0, 1}) as 2-bit codes ``level + 1``, four
-    to a byte, element ``i`` at bits ``2 * (i % 4)``: ``uint8[ceil(n/4)]``; a
-    padded tail packs as code 1 (level 0)."""
-    n = levels.shape[0]
-    return _pack_codes(torch.nn.functional.pad(levels.to(torch.int32), (0, (-n) % 4)) + 1, 4)
+# the packing layouts live beside their kernels; the JAX package's wire
+# module names them so
+pack_ternary = kernels.pack_ternary_bytes_plain
+pack_bits = kernels.pack_bits
 
 
 def unpack_ternary(packed: torch.Tensor, n: int) -> torch.Tensor:
@@ -83,12 +80,6 @@ def unpack_ternary(packed: torch.Tensor, n: int) -> torch.Tensor:
     p = packed.to(torch.int32)
     codes = torch.stack([(p >> s) & 3 for s in (0, 2, 4, 6)], dim=-1)
     return (codes.reshape(*packed.shape[:-1], -1)[..., :n] - 1).to(torch.int8)
-
-
-def pack_bits(bits: torch.Tensor) -> torch.Tensor:
-    """A boolean vector eight to a byte, little-endian within the byte."""
-    n = bits.shape[0]
-    return _pack_codes(torch.nn.functional.pad(bits.to(torch.int32), (0, (-n) % 8)), 8)
 
 
 def unpack_bits(packed: torch.Tensor, n: int) -> torch.Tensor:
@@ -105,7 +96,7 @@ def qsgd_wire_pack(levels: torch.Tensor, qstates: int) -> Tuple[torch.Tensor, ..
     if qstates <= 127:
         return (levels.to(torch.int8),)
     if qstates <= 255:
-        return levels.to(torch.int32).abs().to(torch.uint8), pack_bits(levels < 0)
+        return kernels.qsgd_pack_bytes_plain(levels)
     return (levels,)
 
 
@@ -222,6 +213,33 @@ def _leaf_sync_topk(flat: torch.Tensor, keep: int, world: int, want_surplus: boo
     # resolution) are cut by ascending index: with EF off they are dropped
     surplus = torch.clamp(count - keep, min=0) if want_surplus else None
     return dense, idx, surplus, bits
+
+
+def _leaf_sync_topk_seg(flat: torch.Tensor, keep: int, world: int, want_ef: bool):
+    """Element Top-K through the segmented pack (``kernels.use_seg_pack``):
+    the kernel writes each 4096-element segment's first <= 128 survivors and
+    the EF residual in one pass, and :func:`kernels.seg_pack_payload` joins
+    the segments' prefixes into ``keep`` slots.  The selection differs from
+    :func:`_leaf_sync_topk` only where a segment holds more than 128
+    survivors: the overflow stays in the residual and later survivors take
+    the freed slots.  ``(dense, new_ef, sent_count, bits, dropped)``:
+    ``sent_count = min(sum elig, keep)`` and ``dropped`` (survivors that did
+    not travel) are 0-d device tensors; the dense combine adds the gathered
+    ``[W * keep]`` payload in one ``index_add_``, as the JAX path's one
+    scatter does."""
+    mag = flat.abs().to(torch.float32)
+    t = kernels.topk_threshold(mag, keep)
+    vals, idx, new_ef, elig, counts = kernels.seg_pack_by_threshold(
+        flat.to(torch.float32).contiguous(), t, keep, want_ef=want_ef)
+    pvals, pidx = kernels.seg_pack_payload(vals, idx, elig, keep)
+    pvals = pvals.to(flat.dtype)
+    bits = _payload_bits(pvals, pidx)
+    g_vals, g_idx = mesh.all_gather(pvals), mesh.all_gather(pidx)
+    dense = torch.zeros_like(flat).index_add_(0, g_idx.reshape(-1).long(),
+                                              g_vals.reshape(-1)) / world
+    sent_count = torch.clamp(elig.sum(dtype=torch.int32), max=keep)
+    dropped = counts.sum(dtype=torch.int32) - sent_count
+    return dense, new_ef, sent_count, bits, dropped
 
 
 def _leaf_sync_blocktopk(flat: torch.Tensor, keep_blocks: int, block_size: int, world: int,
@@ -620,6 +638,14 @@ def make_wire_grad_sync(cfg):
                 if surplus is not None:
                     ovf["topk_surplus_dropped"] = surplus
                 return dense, new_ef, sent.to(torch.float32), bits, bits_route, None, ovf, None
+            if kernels.use_seg_pack(n, keep, acc.device):
+                # the segmented pack's fused EF assumes every packed slot
+                # travels: an allgather contract, so the transports above
+                # keep their own packs
+                dense, new_ef, sent, bits, dropped = _leaf_sync_topk_seg(acc, keep, world,
+                                                                         want_ef)
+                return (dense, new_ef, sent.to(torch.float32), bits, 0.0, None,
+                        {} if want_ef else {"topk_surplus_dropped": dropped}, None)
             dense, idx, surplus, bits = _leaf_sync_topk(acc, keep, world,
                                                         want_surplus=not want_ef)
             if surplus is not None:

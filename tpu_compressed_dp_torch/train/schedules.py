@@ -1,18 +1,18 @@
 """Learning-rate schedules as functions of the step.
 
 PyTorch-port counterpart of :mod:`tpu_compressed_dp.train.schedules`
-(``piecewise_linear``).  Schedules are evaluated on the host in numpy float32
-with ``jnp.interp``'s arithmetic, so the values equal the JAX step's bitwise
-and reading them never syncs the device.
+(``piecewise_linear``, ``lr_phases_to_knots``).  Schedules are evaluated on
+the host in numpy float32 with ``jnp.interp``'s arithmetic, so the values
+equal the JAX step's bitwise and reading them never syncs the device.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from typing import Callable, List, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["piecewise_linear"]
+__all__ = ["piecewise_linear", "lr_phases_to_knots"]
 
 Schedule = Callable[[float], np.float32]
 
@@ -39,3 +39,34 @@ def piecewise_linear(knots: Sequence[float], vals: Sequence[float]) -> Schedule:
         return np.float32(f)
 
     return schedule
+
+
+def lr_phases_to_knots(phases: List[dict]) -> Tuple[List[float], List[float]]:
+    """Flatten ImageNet-style lr phases into ``(knots, vals)`` for
+    :func:`piecewise_linear`.  A phase ``{'ep': (e0, e1), 'lr': (v0, v1)}``
+    ramps linearly; ``'ep': e`` with a scalar ``lr`` holds the value until the
+    next phase starts.  A start knot that would repeat the previous end is
+    nudged by 1e-6 so the jump has one side."""
+    knots: List[float] = []
+    vals: List[float] = []
+    lr_phases = [p for p in phases if "lr" in p]
+    for i, p in enumerate(lr_phases):
+        ep, lr = p["ep"], p["lr"]
+        if isinstance(ep, (tuple, list)):
+            e0, e1 = float(ep[0]), float(ep[1])
+        else:
+            e0 = float(ep)
+            if i + 1 < len(lr_phases):
+                nxt = lr_phases[i + 1]["ep"]
+                e1 = float(nxt[0] if isinstance(nxt, (tuple, list)) else nxt)
+            else:
+                e1 = e0 + 1.0
+        if isinstance(lr, (tuple, list)):
+            v0, v1 = float(lr[0]), float(lr[1])
+        else:
+            v0 = v1 = float(lr)
+        if knots and e0 <= knots[-1]:
+            e0 = knots[-1] + 1e-6
+        knots += [e0, e1]
+        vals += [v0, v1]
+    return knots, vals

@@ -51,13 +51,16 @@ def cross_entropy_sum(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tenso
 
 
 def make_train_step(apply_fn: ApplyFn, optimizer: SGD, comp_cfg: CompressionConfig, *,
-                    grad_scale: float = 1.0, clip_norm: float = 0.0):
+                    grad_scale: float = 1.0, clip_norm: float = 0.0,
+                    clip_sent_norm: float = 0.0):
     """Build ``train_step(state, batch) -> (state, metrics)``.
 
     ``batch`` is ``{'input': [B, 32, 32, 3], 'target': [B]}`` on the model's
     device (this rank's shard of the global batch).  ``clip_norm`` (mean-loss
     units; 0 = off) clips the local gradient by L2 norm before EF
-    accumulation.  Metrics are world-reduced 0-d tensors: ``loss`` (mean),
+    accumulation; ``clip_sent_norm`` (the same units) clips the synced
+    gradient by its global L2 norm before the optimizer, which bounds the
+    residual's release itself.  Metrics are world-reduced 0-d tensors: ``loss`` (mean),
     ``correct`` and ``count`` (sums), ``comm/*`` (means), plus ``lr``."""
     grad_sync = make_grad_sync(comp_cfg)
 
@@ -80,6 +83,11 @@ def make_train_step(apply_fn: ApplyFn, optimizer: SGD, comp_cfg: CompressionConf
             scaled = {k: g * factor for k, g in scaled.items()}
         # the step's compression seed: fold_in(state.rng, step) of the JAX step
         synced, new_ef, comm = grad_sync(scaled, state.ef, fold_in(state.seed, state.step))
+        if clip_sent_norm > 0.0:
+            snorm = torch.sqrt(sum((g * g).sum() for g in synced.values()))
+            sfactor = torch.clamp(clip_sent_norm * grad_scale / torch.clamp(snorm, min=1e-20),
+                                  max=1.0)
+            synced = {k: g * sfactor for k, g in synced.items()}
         new_step = state.step + 1
         optimizer.apply(params, synced, state.opt_state, new_step)
 
