@@ -6,7 +6,8 @@ It needs one CUDA card and the CUDA toolkit (``nvcc``), and exits non-zero,
 printing no result, where either is missing or any phase fails.
 
   1. prints the card's name and power limit, builds the CUDA kernels from
-     ``tpu_compressed_dp_torch/csrc`` with ``nvcc`` and prints the build time;
+     ``tpu_compressed_dp_torch/csrc`` with ``nvcc`` and prints the build time
+     of each source and each kernel's registers and spill stores;
   2. holds every kernel against its plain PyTorch version on the card, at the
      shapes of full-width ResNet-9 (the 2,359,296-element layer3 residual
      conv and the 6,573,120-element entire model): histogram counts and
@@ -60,7 +61,8 @@ printing no result, where either is missing or any phase fails.
      steps through ``dawn.main``: wire Top-K sharded at W = 2, wire
      Threshold-V hierarchical (2 pods) at W = 4, each with a finite loss,
      the analytic wire fraction and the bucket-route kernel launched;
-  6. holds the causal flash-attention kernels (forward, dq, dk/dv) against
+  6. holds the causal flash-attention kernels (forward, dq, dk/dv; bf16
+     forward and dk/dv on the tensor cores, the rest on the CUDA cores) against
      their plain versions at llama3_8b's attention shape (1, 32, 8192, 128)
      in bf16 and float32 and at the 125M config's (8, 12, 1024, 64) in bf16
      (elementwise: float32 to 1e-4, lse to 1e-5, bf16 to one ulp of each
@@ -154,6 +156,47 @@ def time_ms(fn, inputs, *, reps: int = 15, inner: int = 10) -> float:
 def bound_ms(bytes_moved: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
     t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _demangle(mangled: str) -> str:
+    """``flash_dkv_tc_kernel<128>`` from its Itanium name: the last of the
+    length-prefixed names after ``_ZN``, with an element type and an int
+    template argument where there are (enough for this repo's kernels)."""
+    import re
+
+    if not mangled.startswith("_ZN"):
+        return mangled
+    i, name = 3, mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        name, i = mangled[j:j + n], j + n
+    args = re.match(r"I(f|13__nv_bfloat16)?Li(\d+)E", mangled[i:])
+    if args:
+        dtype = {"f": "float, ", "13__nv_bfloat16": "bf16, "}.get(args.group(1) or "", "")
+        name += f"<{dtype}{args.group(2)}>"
+    return name
+
+
+def ptxas_report(text: str) -> dict:
+    """Registers and spill stores per kernel from ``nvcc -Xptxas -v``:
+    ``{"flash_dkv_tc_kernel<128>": {"registers": 255, "spill_stores": 0}}``
+    (template arguments: the element type where there is one, then D)."""
+    import re
+
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = _demangle(m.group(1))
+            out[name] = {"registers": None, "spill_stores": None}
+        elif name and "spill stores" in line:
+            out[name]["spill_stores"] = int(re.search(r"(\d+) bytes spill stores", line).group(1))
+        elif name and "Used" in line and "registers" in line:
+            out[name]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return out
 
 
 def raw_launchers(kernels, torch, n: int):
@@ -1597,10 +1640,21 @@ FLASH_ROUTES = ("flash_fwd", "flash_dq", "flash_dkv")
 # version's 256-row blocks), which a small share of the tensor's rms covers.
 # float32: summation order only, 1e-4 absolute at inputs of scale 0.5; lse
 # (float32 in both) to 1e-5.  The shares sit 2-4x above what the correct
-# kernels read at these inputs on an H100 (o 0.030, dq 0.0018, dk 0.0020, dv
-# 4e-6 of the rms; the GQA call against the unfused chain, whose p stays
-# float32, 0.034), and far below a kernel that skips the diagonal tile past
-# row 1024 (o 0.95) or the last q tile of the late k tiles (dk 0.20, dv 0.15).
+# kernels read at these inputs on an H100: the CUDA-core kernels o 0.030,
+# dq 0.0018, dk 0.0020, dv 4e-6 of the rms; the bf16 tensor-core forward and
+# dk/dv o 0.030, dk 0.0021, dv 6.0e-5 (mma's float32 sums of 512 products
+# each lose more than an FMA chain's; the GQA call against the unfused
+# chain, whose p stays float32, 0.034).  And far below a broken kernel:
+# on the CUDA-core kernels, skipping the diagonal tile past row 1024 read o
+# 0.95, the last q tile skipped for the late k tiles dk 0.20, dv 0.15; on the
+# tensor-core kernels the same two mutants read o 0.947 (and lse 0.066
+# absolute) and dk 0.199, dv 0.150, and dropping the lo half of dv's p
+# (one bf16 p, as a plain tensor-core port would take it) dv 0.120.  dk holds
+# 2^-7 on the tensor cores because large ds round as the plain version's
+# (see seq_dots in csrc/flash_attention.cu): with s and dp summed by the
+# tensor cores alone, dk read 0.0133 at (1, 32, 8192, 128), while the plain
+# version with exact score products read 0.0041 against it and the dq
+# kernel 0.0216: bf16(ds) flips with the order of the float32 sums.
 BF16_REL = 2.0 ** -7
 FLASH_BF16_RMS_SHARE = {"o": 2.0 ** -4, "dq": 2.0 ** -7, "dk": 2.0 ** -7, "dv": 2.0 ** -10}
 GQA_RMS_SHARE = 2.0 ** -3
@@ -1983,11 +2037,12 @@ def main(argv=None) -> int:
     build_s = kernels.build()
     record["nvcc"] = {}
     for name, text in kernels.BUILD_LOG.items():
-        lines = [line.strip() for line in text.splitlines()
-                 if "registers" in line or "error" in line.lower()]
-        record["nvcc"][name] = lines
-        for line in lines:
-            log(f"nvcc {name}: {line}")
+        report = ptxas_report(text)
+        record["nvcc"][name] = {"seconds": kernels.BUILD_SECONDS.get(name), "kernels": report}
+        for kname, r in report.items():
+            log(f"nvcc {name}: {kname}: {r['registers']} registers, {r['spill_stores']} bytes "
+                "spill stores")
+        log(f"nvcc {name}.cu built in {kernels.BUILD_SECONDS.get(name, 0.0):.2f} s")
     log(f"kernels built in {build_s:.2f} s")
     record["build_s"] = build_s
 

@@ -167,12 +167,16 @@ def test_cuda_flash_kernels_match_plain():
     versions, elementwise: float32 to 1e-4, lse to 1e-5, bf16 to one ulp plus
     a share of the rms (``chip_smoke.py``'s rule: o 2^-4, dq and dk 2^-7, dv
     2^-10; o's p is rounded against the running max of 64-row tiles, the
-    plain version's of 512-row blocks)."""
+    plain version's of 512-row blocks).  bf16 forward and dk/dv run on the
+    tensor cores in 64-row tiles: T = 192 takes three, an odd count of the
+    128-row blocks the dispatch gate asks for."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; run with -m cuda where there is one")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    for shape, dt in (((1, 4, 1024, 128), torch.float32), ((2, 3, 1024, 64), torch.bfloat16)):
+    for shape, dt in (((1, 4, 1024, 128), torch.float32), ((2, 3, 1024, 64), torch.bfloat16),
+                      ((1, 4, 1024, 128), torch.bfloat16), ((1, 2, 192, 128), torch.bfloat16),
+                      ((2, 2, 192, 64), torch.bfloat16)):
         q, k, v, do = ((0.5 * torch.randn(shape, generator=gen, device=dev)).to(dt)
                        for _ in range(4))
         s = 1.0 / math.sqrt(shape[-1])

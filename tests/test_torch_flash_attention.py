@@ -100,6 +100,37 @@ def test_plain_versions_match_jax_interpret_bf16():
         _assert_bf16_close(got, want, 2.0 ** -8, name)
 
 
+@pytest.mark.parametrize("shape", [(1, 2, 256, 64), (1, 1, 512, 128)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_dv_hi_lo_split_holds_the_dv_share(shape):
+    """The tensor-core dk/dv kernel's design for dv: the reference's float32
+    ``p`` (``dv += p^T do``) reaches the bf16 tensor cores as ``hi + lo``
+    (:func:`split_bf16`), two products into one float32 sum.  Emulated on the
+    CPU it holds ``chip_smoke.py``'s dv rule against ``flash_dkv_plain``
+    (2^-7 |w| + 2^-10 rms; it reads 9.4e-7 and 3.6e-6 of the rms here),
+    while ``p`` rounded once to bf16 lands 22x and 45x past the share (0.021
+    and 0.044 of the rms)."""
+    q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16) for x in _inputs(shape, seed=3))
+    s = 1.0 / math.sqrt(shape[-1])
+    o, lse = tfa.flash_fwd_plain(q, k, v, s)
+    delta = (do.float() * o.float()).sum(-1)
+    w = tfa.flash_dkv_plain(q, k, v, do, lse, delta, s)[1].float().numpy()
+    rms = float(np.sqrt(np.mean(np.square(w, dtype=np.float64))))
+
+    def excess(parts):
+        got = tfa.flash_dv_bf16_parts_plain(q, k, v, do, lse, delta, s, parts)
+        got = got.to(torch.bfloat16).float().numpy()   # dv is written in bf16
+        return float((np.abs(got - w) - 2.0 ** -7 * np.abs(w)).max()) / rms
+
+    hi_lo, single = excess(2), excess(1)
+    assert hi_lo <= 2.0 ** -10, hi_lo
+    assert single > 2.0 ** -10, single
+    hi, lo = tfa.split_bf16(torch.tensor([1.0 / 3.0, -2.5e-3, 0.0]))
+    assert torch.equal(hi, hi.to(torch.bfloat16).float())
+    assert torch.equal(lo, lo.to(torch.bfloat16).float())
+    assert torch.allclose(hi + lo, torch.tensor([1.0 / 3.0, -2.5e-3, 0.0]), rtol=2.0 ** -16, atol=0)
+
+
 @pytest.mark.parametrize("shape", [(2, 2, 128, 64), (1, 3, 256, 128)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_autograd_function_force_mode_vs_dense(shape):

@@ -16,6 +16,17 @@ sources of :mod:`tpu_compressed_dp_torch.ops.kernels`):
   * ``flash_dkv`` replaces ``_dkv_kernel`` and ``_dkv_kernel_streamed`` (one
     CUDA kernel: on the card every q/do block streams through shared memory).
 
+Each C entry picks its kernel by dtype alone.  bfloat16 ``flash_fwd`` and
+``flash_dkv`` run on the tensor cores (``mma.sync`` with ``ldmatrix`` and a
+``cp.async`` ring, 64-row tiles, a warp per 16 rows): a product of two bf16
+values is exact in float32, so they compute the reference's products.  dv's
+``p`` is float32 in the reference; it reaches the tensor cores as ``hi +
+lo`` (:func:`split_bf16`), two bf16 products into one float32 sum, since one
+bf16 rounding of ``p`` lands ~20x past the dv share of ``chip_smoke.py``'s
+rule (:func:`flash_dv_bf16_parts_plain` emulates both).  float32 operands,
+and ``flash_dq`` in both types, stay on the CUDA cores: TF32 tensor cores
+would not compute the reference's float32 products.
+
 Layout ``[B, H, T, D]``, causal only, bfloat16 or float32, ``T`` a multiple
 of 64 (the dispatch gate asks 128) and ``D`` 64 or 128.  ``lse`` and
 ``delta`` are plain float32 ``[B, H, T]`` tensors (the TPU kernels pack them
@@ -41,7 +52,7 @@ from tpu_compressed_dp_torch.ops import kernels
 
 __all__ = ["flash_causal_attention", "flash_fwd", "flash_dq", "flash_dkv",
            "flash_fwd_plain", "flash_dq_plain", "flash_dkv_plain", "pick_blocks",
-           "check_kernel_shape"]
+           "check_kernel_shape", "split_bf16", "flash_dv_bf16_parts_plain"]
 
 _NEG_INF = -1e30
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
@@ -150,6 +161,45 @@ def flash_dkv_plain(q, k, v, do, lse, delta, scale: float):
         dk[..., cols, :] = dk_acc.to(q.dtype)
         dv[..., cols, :] = dv_acc.to(q.dtype)
     return dk, dv
+
+
+def split_bf16(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``x`` as ``hi + lo``, two bfloat16 values held in float32: ``hi =
+    bf16(x)``, ``lo = bf16(x - hi)`` (``x - hi`` is exact), so ``hi + lo``
+    is ``x`` to ~2^-17 of it.  The tensor-core dk/dv kernel feeds dv's
+    float32 ``p`` to the bf16 tensor cores this way."""
+    hi = x.to(torch.bfloat16).to(torch.float32)
+    return hi, (x - hi).to(torch.bfloat16).to(torch.float32)
+
+
+def flash_dv_bf16_parts_plain(q, k, v, do, lse, delta, scale: float,
+                              parts: int = 2) -> torch.Tensor:
+    """dv by the dkv kernels' blocks with ``p`` (float32 in the reference)
+    in ``parts`` bfloat16 terms, each product with ``do`` summed in float32:
+    ``parts=2`` is :func:`split_bf16`'s ``hi + lo``, the tensor-core kernel's
+    design; ``parts=1`` rounds ``p`` once.  No path calls it: the CPU tests
+    hold the design against :func:`flash_dkv_plain`; float32 dv."""
+    if parts not in (1, 2):
+        raise ValueError(f"parts must be 1 or 2, got {parts}")
+    t = q.shape[-2]
+    bq, bk = pick_blocks(t)
+    n_q = t // bq
+    dv = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    for kj in range(t // bk):
+        cols = slice(kj * bk, (kj + 1) * bk)
+        kb, vb = k[..., cols, :], v[..., cols, :]
+        acc = torch.zeros(kb.shape, dtype=torch.float32, device=q.device)
+        for qi in range(kj * bk // bq, n_q):
+            rows = slice(qi * bq, (qi + 1) * bq)
+            qb, do_f = q[..., rows, :], do[..., rows, :].to(torch.float32)
+            p, _ = _p_ds(qb, kb, vb, do_f, lse[..., rows], delta[..., rows], qi, kj, bq, bk,
+                         scale)
+            hi, lo = split_bf16(p)
+            acc = acc + _mm(hi.transpose(-1, -2), do_f)
+            if parts == 2:
+                acc = acc + _mm(lo.transpose(-1, -2), do_f)
+        dv[..., cols, :] = acc
+    return dv
 
 
 # ---------------------------------------------------------------------------

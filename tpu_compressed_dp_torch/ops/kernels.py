@@ -178,6 +178,8 @@ _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _LIBS: Dict[str, ctypes.CDLL] = {}
 #: nvcc's -Xptxas -v report per source from the last build (registers, smem)
 BUILD_LOG: Dict[str, str] = {}
+#: seconds each source's nvcc took in the last build (all run at once)
+BUILD_SECONDS: Dict[str, float] = {}
 
 
 def _nvcc() -> str:
@@ -209,14 +211,23 @@ def build() -> float:
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
         cmd = [_nvcc(), *_NVCC_FLAGS, "-o", tmp, os.path.join(_CSRC, f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True), tmp, out)
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        BUILD_LOG[name] = log
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{log}")
-        os.replace(tmp, out)
+        # the report goes to a file: a full pipe would stall nvcc while we poll
+        with open(f"{tmp}.log", "w") as logf:
+            procs[name] = (subprocess.Popen(cmd, stdout=logf, stderr=subprocess.STDOUT),
+                           tmp, out)
+    pending = dict(procs)
+    while pending:
+        for name in [n for n, (proc, _, _) in pending.items() if proc.poll() is not None]:
+            proc, tmp, out = pending.pop(name)
+            BUILD_SECONDS[name] = time.perf_counter() - t0
+            with open(f"{tmp}.log") as logf:
+                log = logf.read()
+            os.remove(f"{tmp}.log")
+            BUILD_LOG[name] = log
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{log}")
+            os.replace(tmp, out)
+        time.sleep(0.05)
     for name in _SOURCES:
         if name not in _LIBS:
             _LIBS[name] = _bind(name, ctypes.CDLL(_lib_path(name)))
