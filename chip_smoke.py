@@ -61,8 +61,8 @@ printing no result, where either is missing or any phase fails.
      steps through ``dawn.main``: wire Top-K sharded at W = 2, wire
      Threshold-V hierarchical (2 pods) at W = 4, each with a finite loss,
      the analytic wire fraction and the bucket-route kernel launched;
-  6. holds the causal flash-attention kernels (forward, dq, dk/dv; bf16
-     forward and dk/dv on the tensor cores, the rest on the CUDA cores) against
+  6. holds the causal flash-attention kernels (forward, dq, dk/dv; bf16 on
+     the tensor cores, float32 on the CUDA cores) against
      their plain versions at llama3_8b's attention shape (1, 32, 8192, 128)
      in bf16 and float32 and at the 125M config's (8, 12, 1024, 64) in bf16
      (elementwise: float32 to 1e-4, lse to 1e-5, bf16 to one ulp of each
@@ -70,7 +70,8 @@ printing no result, where either is missing or any phase fails.
      GQA call (32 query, 8 KV heads) through ``ring_attention`` against the
      unfused attention, and times each kernel beside its plain version, its
      bound (causal FLOPs at the bf16 tensor-core or float32 rate) and
-     ``scaled_dot_product_attention``;
+     ``scaled_dot_product_attention``, and the bf16 dq and dk/dv again on
+     concentrated attention (q scaled 4x);
   7. trains llama3_8b at its published widths, cut to 2 layers, seq 8192,
      batch 1, bf16, through the port's LM entry point (``harness.lm.main``),
      4 steps each: dense, entire-model and layer-wise Top-K 1 % + EF, and
@@ -85,7 +86,8 @@ printing no result, where either is missing or any phase fails.
      4 steps of batch 512) and the LM (the wire Top-K run above): the
      segmented pack launches once a step per group and select+pack never,
      with step time and sent fraction beside the default wire path's; then
-     profiles two steady Top-K steps;
+     profiles two steady Top-K steps, with the threshold and sparsify
+     kernels' per-launch times at each sync group's size;
   8. prints the kernels' JSON line (17 entries), the ``nvidia-smi``
      name/power line and, last, ``{"ok": true, "device": {...}}``.
 
@@ -1278,10 +1280,11 @@ def _category(name: str) -> str:
     return "elementwise and other"
 
 
-def device_profile(run, torch, n_steps: int = 3) -> dict:
+def device_profile(run, torch, n_steps: int = 3, port_launches: bool = False) -> dict:
     """torch.profiler over ``run(n_steps)``: device busy time per step (the
     union of kernel intervals), idle share of the wall time, and device time
-    by kernel category and by the top kernels."""
+    by kernel category and by the top kernels; with ``port_launches``, also
+    the port's kernels launch by launch (name, device µs) in time order."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1314,14 +1317,19 @@ def device_profile(run, torch, n_steps: int = 3) -> dict:
         row = cat_top.setdefault(_category(k), [])
         if len(row) < 3:
             row.append((k[:80], v / 1e3 / n_steps))
-    return {"wall_ms_per_step": wall_us / 1e3 / n_steps,
-            "device_busy_ms_per_step": busy / 1e3 / n_steps,
-            "idle_share": 1.0 - busy / wall_us,
-            "launches_per_step": len(kern) / n_steps,
-            "by_category_ms_per_step": {k: v / 1e3 / n_steps for k, v in
-                                        sorted(by_cat.items(), key=lambda kv: -kv[1])},
-            "top_kernels_ms_per_step": [(k[:80], v / 1e3 / n_steps) for k, v in top],
-            "top_kernels_by_category_ms_per_step": cat_top}
+    out = {"wall_ms_per_step": wall_us / 1e3 / n_steps,
+           "device_busy_ms_per_step": busy / 1e3 / n_steps,
+           "idle_share": 1.0 - busy / wall_us,
+           "launches_per_step": len(kern) / n_steps,
+           "by_category_ms_per_step": {k: v / 1e3 / n_steps for k, v in
+                                       sorted(by_cat.items(), key=lambda kv: -kv[1])},
+           "top_kernels_ms_per_step": [(k[:80], v / 1e3 / n_steps) for k, v in top],
+           "top_kernels_by_category_ms_per_step": cat_top}
+    if port_launches:
+        port = sorted((e.time_range.start, e.name, e.time_range.end - e.time_range.start)
+                      for e in kern if _category(e.name) == "port CUDA kernels")
+        out["port_launches_us"] = [(name[:40], us) for _, name, us in port]
+    return out
 
 
 def phase_steady(torch, record):
@@ -1641,20 +1649,23 @@ FLASH_ROUTES = ("flash_fwd", "flash_dq", "flash_dkv")
 # float32: summation order only, 1e-4 absolute at inputs of scale 0.5; lse
 # (float32 in both) to 1e-5.  The shares sit 2-4x above what the correct
 # kernels read at these inputs on an H100: the CUDA-core kernels o 0.030,
-# dq 0.0018, dk 0.0020, dv 4e-6 of the rms; the bf16 tensor-core forward and
-# dk/dv o 0.030, dk 0.0021, dv 6.0e-5 (mma's float32 sums of 512 products
-# each lose more than an FMA chain's; the GQA call against the unfused
-# chain, whose p stays float32, 0.034).  And far below a broken kernel:
-# on the CUDA-core kernels, skipping the diagonal tile past row 1024 read o
-# 0.95, the last q tile skipped for the late k tiles dk 0.20, dv 0.15; on the
-# tensor-core kernels the same two mutants read o 0.947 (and lse 0.066
-# absolute) and dk 0.199, dv 0.150, and dropping the lo half of dv's p
-# (one bf16 p, as a plain tensor-core port would take it) dv 0.120.  dk holds
-# 2^-7 on the tensor cores because large ds round as the plain version's
-# (see seq_dots in csrc/flash_attention.cu): with s and dp summed by the
-# tensor cores alone, dk read 0.0133 at (1, 32, 8192, 128), while the plain
-# version with exact score products read 0.0041 against it and the dq
-# kernel 0.0216: bf16(ds) flips with the order of the float32 sums.
+# dq 0.0018, dk 0.0020, dv 4e-6 of the rms; the bf16 tensor-core kernels o
+# 0.030, dq 0.0020 (0.0015 at the 125M shape), dk 0.0021, dv 6.0e-5 (mma's
+# float32 sums of 512 products each lose more than an FMA chain's; the GQA
+# call against the unfused chain, whose p stays float32, 0.034).  And far
+# below a broken kernel: on the CUDA-core kernels, skipping the diagonal
+# tile past row 1024 read o 0.95, the last q tile skipped for the late k
+# tiles dk 0.20, dv 0.15; on the tensor-core kernels the same two mutants
+# read o 0.947 (and lse 0.066 absolute) and dk 0.199, dv 0.150, and dropping
+# the lo half of dv's p (one bf16 p, as a plain tensor-core port would take
+# it) dv 0.120; the tensor-core dq skipping its diagonal tile's mask past row
+# 1024 read 1.196, dropping the last k tile of the q tiles past row 1024
+# 1.237, and without seq_dots 0.0215.  dq and dk hold 2^-7 on the tensor
+# cores because large ds round as the plain version's (see seq_dots in
+# csrc/flash_attention.cu): with s and dp summed by the tensor cores alone,
+# dk read 0.0133 and dq 0.0215 at (1, 32, 8192, 128), and a plain version
+# with exact score products read 0.0216 against the CUDA-core dq kernel:
+# bf16(ds) flips with the order of the float32 sums.
 BF16_REL = 2.0 ** -7
 FLASH_BF16_RMS_SHARE = {"o": 2.0 ** -4, "dq": 2.0 ** -7, "dk": 2.0 ** -7, "dv": 2.0 ** -10}
 GQA_RMS_SHARE = 2.0 ** -3
@@ -1801,7 +1812,20 @@ def phase_flash(kernels, torch, record):
         log(f"time flash {label} sdpa forward {lib_fwd:.4f} ms, forward + backward "
             f"{lib_fwd_bwd:.4f} ms (backward ~{lib_fwd_bwd - lib_fwd:.4f} ms) vs the kernels' "
             f"{r['flash_dq']['ms'] + r['flash_dkv']['ms']:.4f} ms backward")
+        if dt == torch.bfloat16:
+            # the backward on concentrated attention (q scaled 4x): more
+            # entries take seq_dots, the kernels' one data-dependent cost
+            q4 = 4 * q
+            o4, lse4 = fa.flash_fwd(q4, k, v, s)
+            delta4 = (do.float() * o4.float()).sum(-1)
+            _, raw_dq4, raw_dkv4 = raw_flash(kernels, torch, q4, k, v, do, lse4, delta4, s)
+            r["flash_dq"]["q4_ms"] = time_ms(raw_dq4, [None], **few)
+            r["flash_dkv"]["q4_ms"] = time_ms(raw_dkv4, [None], **few)
+            log(f"time flash {label} with q scaled 4x: flash_dq {r['flash_dq']['q4_ms']:.4f} ms, "
+                f"flash_dkv {r['flash_dkv']['q4_ms']:.4f} ms")
         del q, k, v, do, o, lse, delta, got, want, qg, kg, vg
+        if dt == torch.bfloat16:
+            del q4, o4, lse4, delta4, raw_dq4, raw_dkv4
 
     # GQA through ring_attention: llama3_8b's 32 query and 8 KV heads
     t = 2048
@@ -1954,6 +1978,31 @@ LM_PROFILES = {"topk entiremodel": ("simulate", False),
                "wire topk entiremodel, segmented": ("wire", True)}
 
 
+def lm_group_launches(launches) -> dict:
+    """Per-launch device ms of ``count_ge_edges`` (the threshold's histogram
+    rounds) and ``fused_sparsify`` at each of the LM's sync group sizes,
+    beside their bounds (as phase 2 counts them), from an entire-model Top-K
+    profile's ``port_launches_us``: the groups sync one after the other, and
+    each group's launches end with its ``fused_sparsify``."""
+    groups, cur = [], {"count_ge_edges": [], "fused_sparsify": []}
+    for name, us in launches:
+        key = next((k for k in cur if k in name), None)
+        if key:
+            cur[key].append(us / 1e3)
+        if key == "fused_sparsify":
+            groups.append(cur)
+            cur = {"count_ge_edges": [], "fused_sparsify": []}
+    out = {}
+    for gi, n in enumerate(LM_GROUPS):
+        mine = groups[gi::len(LM_GROUPS)]
+        for key, bound in (("count_ge_edges", bound_ms(4 * n + 17 * 4 + 16 * 4, 17 * n)),
+                           ("fused_sparsify", bound_ms(12 * n + 8, 4 * n))):
+            ms = [x for g in mine for x in g[key]]
+            out[f"{key} n={n}"] = {"launches": len(ms), "ms_min": min(ms), "ms_max": max(ms),
+                                   "bound_ms": bound[0], "bound_by": bound[1]}
+    return out
+
+
 def phase_lm_profile(kernels, torch, record):
     """torch.profiler over two steady entire-model Top-K 1 % + EF steps at
     the LM slice's shape, in simulate mode, on the default wire path and on
@@ -1992,10 +2041,16 @@ def phase_lm_profile(kernels, torch, record):
         kernels._SEG_PACK_DISPATCH = seg
         try:
             run(2)
-            prof = device_profile(run, torch, n_steps=2)
+            prof = device_profile(run, torch, n_steps=2, port_launches=True)
         finally:
             kernels._SEG_PACK_DISPATCH = False
+        launches = prof.pop("port_launches_us", [])
         log(f"profile lm {label} (llama3_8b widths, 2 layers, seq 8192): {json.dumps(prof)}")
+        if mode == "simulate":
+            prof["group_launches"] = lm_group_launches(launches)
+            for key, r in prof["group_launches"].items():
+                log(f"profile lm {label} {key}: {r['launches']} launches, {r['ms_min']:.4f}-"
+                    f"{r['ms_max']:.4f} ms each, bound {r['bound_ms']:.4f} ms by {r['bound_by']}")
         profs[label] = prof
         del holder, state, model, params, step
     gc.collect()

@@ -131,6 +131,42 @@ def test_dv_hi_lo_split_holds_the_dv_share(shape):
     assert torch.allclose(hi + lo, torch.tensor([1.0 / 3.0, -2.5e-3, 0.0]), rtol=2.0 ** -16, atol=0)
 
 
+@pytest.mark.parametrize("q_scale", [1.0, 4.0], ids=lambda x: f"q{x:g}")
+@pytest.mark.parametrize("shape", [(1, 2, 512, 128), (2, 4, 512, 64)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_dq_exact_dots_holds_the_dq_share(shape, q_scale):
+    """The tensor-core dq kernel's design: ``s`` and ``dp`` as exactly
+    rounded float32 sums (the tensor cores' order), recomputed as the
+    index-order FMA chain where ``p >= 2^-8`` (``seq_dots``), then the
+    Pallas rounding points.  Emulated on the CPU it holds ``chip_smoke.py``'s
+    dq rule against ``flash_dq_plain`` (2^-7 |w| + 2^-7 rms; it reads
+    1.7e-4 to 7.1e-4 of the rms here).  At T = 512 about a quarter of the
+    causal entries take the chain (the rows of fewer than ~256 columns), with
+    q at 1x or 4x, so the test reaches both branches.  The variant without the
+    chain (``seq_p=math.inf``) passes at these sizes too (up to 7.1e-4): the
+    failure the chain guards against shows only at T = 8192 on the card
+    (0.0216 of the rms), which phase 6 of ``chip_smoke.py`` checks."""
+    q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16) for x in _inputs(shape, seed=4))
+    q = q * q_scale
+    s = 1.0 / math.sqrt(shape[-1])
+    o, lse = tfa.flash_fwd_plain(q, k, v, s)
+    delta = (do.float() * o.float()).sum(-1)
+    w = tfa.flash_dq_plain(q, k, v, do, lse, delta, s).float().numpy()
+    rms = float(np.sqrt(np.mean(np.square(w, dtype=np.float64))))
+    for seq_p in (2.0 ** -8, math.inf):   # the design, and the exact sums alone
+        got = tfa.flash_dq_exact_dots_plain(q, k, v, do, lse, delta, s, seq_p)
+        got = got.float().numpy()
+        excess = float((np.abs(got - w) - 2.0 ** -7 * np.abs(w)).max()) / rms
+        assert excess <= 2.0 ** -7, (seq_p, excess)
+    # the chain rounds once a step, in index order: (1 + 2^-7)^2 is exact, and
+    # adding 2^10 drops its 2^-14 (half an ulp, to even) before -2^10 takes
+    # it back; the exact sum keeps it
+    a = torch.tensor([[1.0 + 2.0 ** -7, 2.0 ** 10, -(2.0 ** 10)]], dtype=torch.bfloat16)
+    b = torch.tensor([[1.0 + 2.0 ** -7, 1.0, 1.0]], dtype=torch.bfloat16)
+    assert tfa._chain_dots(a, b).item() == 1.0 + 2.0 ** -6
+    assert tfa._exact_dots(a, b).item() == 1.0 + 2.0 ** -6 + 2.0 ** -14
+
+
 @pytest.mark.parametrize("shape", [(2, 2, 128, 64), (1, 3, 256, 128)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_autograd_function_force_mode_vs_dense(shape):

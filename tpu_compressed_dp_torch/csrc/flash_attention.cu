@@ -29,12 +29,13 @@
 // not bitwise.
 //
 // Dispatch is by dtype alone, in each C entry:
-//   * bfloat16 forward and dk/dv run on the tensor cores (flash_fwd_tc_kernel,
-//     flash_dkv_tc_kernel below): a bf16 x bf16 product is exact in float32,
-//     so mma.sync with float32 accumulators computes the reference's products;
-//   * float32 (every kernel) and the bf16 dq stay on the CUDA-core kernels
-//     (flash_*_kernel): the reference multiplies float32 operands in float32,
-//     which TF32 tensor cores would round to 10 mantissa bits.
+//   * bfloat16 runs on the tensor cores (flash_fwd_tc_kernel,
+//     flash_dq_tc_kernel, flash_dkv_tc_kernel below): a bf16 x bf16 product
+//     is exact in float32, so mma.sync with float32 accumulators computes the
+//     reference's products;
+//   * float32 stays on the CUDA-core kernels (flash_*_kernel): the reference
+//     multiplies float32 operands in float32, which TF32 tensor cores would
+//     round to 10 mantissa bits.
 // A failed launch returns its error; nothing falls back to the other design.
 //
 // Tensor-core design (bf16; mma.sync.m16n8k16 with ldmatrix and cp.async,
@@ -58,6 +59,17 @@
 //     layout, which is the A-operand layout of dV += P^T dO and
 //     dK += bf16(dS^T) Q (dO and Q by ldmatrix.trans).  Grid (B*H, T/64),
 //     the k tiles that meet the most q tiles first;
+//   * dq: the forward's layout with dk/dv's arithmetic.  Q, dO of the block's
+//     64 q rows stay in shared memory (each warp reads only its own 16 rows),
+//     lse and delta of the thread's two rows in registers; K/V tiles stream.
+//     S = Q K^T and dP = dO V^T (K, V as the col-major B operand, Q and dO
+//     reloaded per 16-deep step), P and dS formed on the accumulator rows,
+//     dQ += bf16(dS) K with dS as the A operand (K by ldmatrix.trans).  One
+//     16 x D accumulator a warp, one 64-column pass per k tile.  Grid
+//     (B*H, T/64), the longest q tiles first.  A warp-wide vote skips the
+//     seq_dots branches (below) on the tiles that need none: with them inline
+//     on every tile, dq took 4.8 ms at (1, 32, 8192, 128) on an H100, with
+//     the vote 3.3;
 //   * dv's p is float32 in the reference.  One bf16 rounding of p errs by
 //     ~2^-9.8 of each term, and a dv element sums ~T/2 terms of random sign,
 //     which puts its error near phase 6's 2^-10 rms share; so p splits into
@@ -68,12 +80,13 @@
 //     the exact products of s and dp in another order than a float32 FMA
 //     chain (the plain version's and the CUDA-core kernels' order), and for a
 //     large ds an ulp of difference may round it to the other bf16
-//     neighbour, an error of ~2^-8 |ds| |q| in one dk term.  Where p >= 2^-8
-//     (the concentrated rows, ~0.1 % of the terms of random inputs) dk/dv
-//     recomputes s and dp as that chain on the CUDA cores (seq_dots), so its
-//     large ds round as the plain version's and the dq kernel's do.
+//     neighbour, an error of ~2^-8 |ds| |q| in one dk term (|k| in dq).
+//     Where p >= 2^-8 (the concentrated rows, ~0.1 % of the terms of random
+//     inputs) dq and dk/dv recompute s and dp as that chain on the CUDA cores
+//     (seq_dots), so their large ds round as the plain version's do, and
+//     both kernels round each large ds from the same s and dp.
 //
-// CUDA-core design (float32, and bf16 dq): one block of 256 threads per
+// CUDA-core design (float32): one block of 256 threads per
 // (64-row tile, batch-head); a 16 x 16 thread grid, thread (ty, tx) owning
 // rows ty + 16 i (i < 4) and columns tx + 16 j of every 64-wide tile, so
 // shared-memory reads are consecutive across tx (tiles widened to float32,
@@ -84,17 +97,17 @@
 // 48 KB default, so each launch raises the dynamic shared-memory limit.
 //
 // Bound: operations.  Causal attention does 2 T^2 D B H flops forward (two
-// products over half of the T x T scores) and 2x that in dk/dv (four);
-// at the llama3_8b shape (1, 32, 8192, 128) that is 0.55 TFLOP forward, 0.56
-// ms at the bf16 tensor-core rate (989 TFLOP/s), and 1.1 ms for dk/dv.
-// mma.sync reaches a part of that rate (wgmma is the only way to all of it),
-// and each warp reads whole K/V (or Q/dO) tiles from shared memory for its
-// 16 rows (32 KB per 128 mma forward, 72 KB per 320 in dk/dv), so
-// shared-memory bandwidth, not the tensor cores, bounds these kernels; dk/dv
-// also holds 255 registers a thread (its accumulators take 128), so two
-// blocks share an SM.  The float32 kernels run on the CUDA cores (67 TFLOP/s), a 16 x 16
-// thread grid with 8 shared-memory loads per 16 FMAs; the bf16 dq kernel is
-// that design too, the next to move to the tensor cores.
+// products over half of the T x T scores), 1.5x that in dq (three) and 2x
+// in dk/dv (four); at the llama3_8b shape (1, 32, 8192, 128) that is 0.55
+// TFLOP forward, 0.56 ms at the bf16 tensor-core rate (989 TFLOP/s), 0.83
+// ms for dq and 1.1 ms for dk/dv.  mma.sync reaches a part of that rate
+// (wgmma is the only way to all of it), and each warp reads whole K/V (or
+// Q/dO) tiles from shared memory for its 16 rows (32 KB per 128 mma
+// forward, 56 KB per 192 in dq, 72 KB per 320 in dk/dv), so shared-memory
+// bandwidth, not the tensor cores, bounds these kernels; dk/dv also holds
+// 255 registers a thread (its accumulators take 128), so two blocks share
+// an SM.  The float32 kernels run on the CUDA cores (67 TFLOP/s), a 16 x 16
+// thread grid with 8 shared-memory loads per 16 FMAs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -718,8 +731,8 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// Where the attention is concentrated (p >= kSeqP) dk/dv recomputes s and dp
-// on the CUDA cores, see seq_dots.
+// Where the attention is concentrated (p >= kSeqP) dq and dk/dv recompute s
+// and dp on the CUDA cores, see seq_dots.
 constexpr float kSeqP = 1.f / 256.f;
 
 // s = a[ra] . b[rb] and dp = c[ra] . d[rb] over d = 0..D-1 of four swizzled
@@ -871,6 +884,105 @@ flash_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_rows<D>(dva, nullptr, sv, row0, dv + r_out, lane);
 }
 
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 2)
+flash_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                   const float* __restrict__ lse, const float* __restrict__ delta,
+                   bf16* __restrict__ dq, int t, float scale) {
+  constexpr int TILE = kRows * D, NT = D / 8;
+  constexpr uint32_t TB = TILE * sizeof(bf16);
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* sq = reinterpret_cast<bf16*>(smem_raw);
+  const uint32_t sq_s = smem_u32(sq), sdo_s = sq_s + TB;
+  const uint32_t skv = sdo_s + TB;  // stage s: K at skv + 2 s TB, V at skv + (2 s + 1) TB
+  const char* gq = reinterpret_cast<const char*>(smem_raw);  // Q, dO, then the stages
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, c2 = (lane & 3) * 2;  // accumulator rows g, g + 8; columns c2, c2 + 1
+  const int row0 = warp * 16;                    // the warp's q rows in the tile
+  const int qi = gridDim.y - 1 - blockIdx.y;     // the longest rows start first
+  const size_t base = (size_t)blockIdx.x * t * D;
+  const bf16* kb = k + base;
+  const bf16* vb = v + base;
+  cp_tile<D>(sq_s, q + base + (size_t)qi * TILE);
+  cp_tile<D>(sdo_s, dout + base + (size_t)qi * TILE);
+  cp_tile<D>(skv, kb);
+  cp_tile<D>(skv + TB, vb);
+  cp_commit();
+
+  const size_t srow = (size_t)blockIdx.x * t + (size_t)qi * kRows + row0 + g;
+  const float l[2] = {lse[srow], lse[srow + 8]};
+  const float dl[2] = {delta[srow], delta[srow + 8]};
+  float dqa[NT][4];
+  zero(dqa);
+
+  for (int kj = 0; kj <= qi; ++kj) {
+    const uint32_t sk = skv + (kj & 1) * 2 * TB, sv = sk + TB;
+    if (kj < qi) {  // the next K/V tile into the other stage
+      const uint32_t nk = skv + ((kj + 1) & 1) * 2 * TB;
+      cp_tile<D>(nk, kb + (size_t)(kj + 1) * TILE);
+      cp_tile<D>(nk + TB, vb + (size_t)(kj + 1) * TILE);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    const bool diag = kj == qi;
+    const char* gk = gq + (sk - sq_s);  // K, then V
+
+    // P = exp(Q K^T * scale - lse), 0 where the k position passes the q
+    // position; s = dot * scale and s - lse round as the reference's
+    float p[8][4];
+    scores<D, 4>(p, sq_s, row0, sk, 0, lane);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = j * 8 + c2 + (e & 1);
+        const float x = expf(__fsub_rn(__fmul_rn(p[j][e], scale), l[e >> 1]));
+        p[j][e] = (diag && c > row0 + g + (e >> 1) * 8) ? 0.f : x;
+      }
+    // dS = P (dO V^T - delta) * scale, s and dp of the concentrated entries
+    // as dk/dv computes them (seq_dots).  One warp-wide test first: most
+    // tiles have no such entry, and their path stays free of the 32 branches.
+    float ds[8][4];
+    scores<D, 4>(ds, sdo_s, row0, sv, 0, lane);
+    bool seq = false;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) seq |= p[j][e] >= kSeqP;  // masked entries are 0
+    if (__any_sync(0xffffffffu, seq)) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (p[j][e] >= kSeqP) {
+            float sd, dd;
+            seq_dots<D>(gq, gk, gq + TB, gk + TB, row0 + g + (e >> 1) * 8,
+                        j * 8 + c2 + (e & 1), sd, dd);
+            p[j][e] = expf(__fsub_rn(__fmul_rn(sd, scale), l[e >> 1]));
+            ds[j][e] = dd;
+          }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ds[j][e] = p[j][e] * (ds[j][e] - dl[e >> 1]) * scale;
+    // dQ += bf16(dS) K, dS from the registers
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t a[4];
+      acc_to_a(ds[2 * kk], ds[2 * kk + 1], a);
+      acc_pv<D, false>(dqa, a, a, sk, kk, lane);
+    }
+    __syncthreads();  // this stage's readers are done before it is refilled
+  }
+  // Q's rows row0.. are this warp's alone: they stage its dq rows
+  store_rows<D>(dqa, nullptr, sq, row0, dq + base + ((size_t)qi * kRows + row0) * D, lane);
+}
+
 constexpr size_t tile_bytes(int d, int tiles, int score_tiles) {
   return sizeof(float) * ((size_t)tiles * kBlk * (d + 1) + (size_t)score_tiles * kBlk * kLs +
                           3 * kBlk);
@@ -931,6 +1043,20 @@ int launch_fwd_tc(const void* q, const void* k, const void* v, void* o, float* l
 }
 
 template <int D>
+int launch_dq_tc(const void* q, const void* k, const void* v, const void* dout,
+                 const float* lse, const float* delta, void* dq, int bh, int t, float scale,
+                 cudaStream_t stream) {
+  constexpr int smem = 6 * kRows * D * sizeof(bf16);  // Q, dO and two K/V stages
+  cudaError_t err = cudaFuncSetAttribute(flash_dq_tc_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  flash_dq_tc_kernel<D><<<dim3(bh, t / kRows), kTcThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq), t, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
 int launch_dkv_tc(const void* q, const void* k, const void* v, const void* dout,
                   const float* lse, const float* delta, void* dk, void* dv, int bh, int t,
                   float scale, cudaStream_t stream) {
@@ -967,17 +1093,16 @@ extern "C" int tcdp_flash_fwd(const void* q, const void* k, const void* v, void*
                  : launch_fwd<float, 128>(q, k, v, o, lse, bh, t, scale, s);
 }
 
-// dout and dq in the input type; lse, delta float32 [bh, t].  Both types run
-// on the CUDA cores.
+// dout and dq in the input type; lse, delta float32 [bh, t].  bf16 on the
+// tensor cores, float32 on the CUDA cores.
 extern "C" int tcdp_flash_dq(const void* q, const void* k, const void* v, const void* dout,
                              const float* lse, const float* delta, void* dq, int bh, int t,
                              int d, int is_bf16, float scale, void* stream) {
   if (bad_shape(bh, t, d)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return d == 64
-               ? launch_dq<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, dq, bh, t, scale, s)
-               : launch_dq<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, dq, bh, t, scale, s);
+  if (is_bf16)  // the tensor cores
+    return d == 64 ? launch_dq_tc<64>(q, k, v, dout, lse, delta, dq, bh, t, scale, s)
+                   : launch_dq_tc<128>(q, k, v, dout, lse, delta, dq, bh, t, scale, s);
   return d == 64 ? launch_dq<float, 64>(q, k, v, dout, lse, delta, dq, bh, t, scale, s)
                  : launch_dq<float, 128>(q, k, v, dout, lse, delta, dq, bh, t, scale, s);
 }

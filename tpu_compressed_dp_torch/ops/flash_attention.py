@@ -16,16 +16,20 @@ sources of :mod:`tpu_compressed_dp_torch.ops.kernels`):
   * ``flash_dkv`` replaces ``_dkv_kernel`` and ``_dkv_kernel_streamed`` (one
     CUDA kernel: on the card every q/do block streams through shared memory).
 
-Each C entry picks its kernel by dtype alone.  bfloat16 ``flash_fwd`` and
-``flash_dkv`` run on the tensor cores (``mma.sync`` with ``ldmatrix`` and a
-``cp.async`` ring, 64-row tiles, a warp per 16 rows): a product of two bf16
-values is exact in float32, so they compute the reference's products.  dv's
-``p`` is float32 in the reference; it reaches the tensor cores as ``hi +
-lo`` (:func:`split_bf16`), two bf16 products into one float32 sum, since one
-bf16 rounding of ``p`` lands ~20x past the dv share of ``chip_smoke.py``'s
-rule (:func:`flash_dv_bf16_parts_plain` emulates both).  float32 operands,
-and ``flash_dq`` in both types, stay on the CUDA cores: TF32 tensor cores
-would not compute the reference's float32 products.
+Each C entry picks its kernel by dtype alone.  bfloat16 ``flash_fwd``,
+``flash_dq`` and ``flash_dkv`` run on the tensor cores (``mma.sync`` with
+``ldmatrix`` and a ``cp.async`` ring, 64-row tiles, a warp per 16 rows): a
+product of two bf16 values is exact in float32, so they compute the
+reference's products.  dv's ``p`` is float32 in the reference; it reaches
+the tensor cores as ``hi + lo`` (:func:`split_bf16`), two bf16 products into
+one float32 sum, since one bf16 rounding of ``p`` lands ~20x past the dv
+share of ``chip_smoke.py``'s rule (:func:`flash_dv_bf16_parts_plain`
+emulates both).  Where ``p >= 2^-8`` the dq and dk/dv kernels recompute
+``s`` and ``dp`` as the float32 FMA chain in index order, so that
+``bf16(ds)`` rounds from the plain version's sums
+(:func:`flash_dq_exact_dots_plain` emulates dq's design).  float32 operands
+stay on the CUDA cores: TF32 tensor cores would not compute the reference's
+float32 products.
 
 Layout ``[B, H, T, D]``, causal only, bfloat16 or float32, ``T`` a multiple
 of 64 (the dispatch gate asks 128) and ``D`` 64 or 128.  ``lse`` and
@@ -52,7 +56,8 @@ from tpu_compressed_dp_torch.ops import kernels
 
 __all__ = ["flash_causal_attention", "flash_fwd", "flash_dq", "flash_dkv",
            "flash_fwd_plain", "flash_dq_plain", "flash_dkv_plain", "pick_blocks",
-           "check_kernel_shape", "split_bf16", "flash_dv_bf16_parts_plain"]
+           "check_kernel_shape", "split_bf16", "flash_dv_bf16_parts_plain",
+           "flash_dq_exact_dots_plain"]
 
 _NEG_INF = -1e30
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
@@ -200,6 +205,67 @@ def flash_dv_bf16_parts_plain(q, k, v, do, lse, delta, scale: float,
                 acc = acc + _mm(lo.transpose(-1, -2), do_f)
         dv[..., cols, :] = acc
     return dv
+
+
+def _exact_dots(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a b^T`` of bf16-valued operands, each sum rounded once to float32
+    (the products are exact in float64, their float64 sum errs far below a
+    float32 ulp): the order-free model of the tensor cores' float32 sums."""
+    return torch.matmul(a.to(torch.float64), b.to(torch.float64).transpose(-1, -2)).to(
+        torch.float32)
+
+
+def _chain_dots(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a b^T`` as the float32 chain ``x = fma(a_d, b_d, x)`` over d in index
+    order: a product of two bf16 values is exact in float32, so ``x + a_d
+    b_d`` rounds once per step, as ``fmaf`` does."""
+    a, b = a.to(torch.float32), b.to(torch.float32)
+    x = torch.zeros(a.shape[:-1] + (b.shape[-2],), dtype=torch.float32, device=a.device)
+    for d in range(a.shape[-1]):
+        x = x + a[..., :, d, None] * b[..., None, :, d]
+    return x
+
+
+def flash_dq_exact_dots_plain(q, k, v, do, lse, delta, scale: float,
+                              seq_p: float = 2.0 ** -8) -> torch.Tensor:
+    """dq by the dq kernel's blocks with the tensor-core kernel's ``s`` and
+    ``dp``: exactly rounded float32 sums (:func:`_exact_dots`, a model of the
+    tensor cores' own order), and where ``p >= seq_p`` the index-order float32
+    FMA chain instead (:func:`_chain_dots`), which is what the kernel's
+    ``seq_dots`` computes; ``seq_p=math.inf`` keeps the exact sums everywhere.
+    ``ds`` is rounded to k's type before ``ds . k``; dq in q's type.  No path
+    calls it: the CPU tests hold the design against :func:`flash_dq_plain`.
+
+    The chain is there for the T = 8192 rows on the card, where a large
+    ``ds`` within an ulp of a bf16 midpoint rounds by the order of the float32
+    sums: there the tensor-core dq without it read 0.0216 of the rms against
+    the plain version, past ``chip_smoke.py``'s 2^-7 dq share.  At the CPU
+    tests' sizes the exact-sum variant without the chain passes the share
+    too, so the CPU test checks the design's rounding points, not that
+    failure; phase 6 of ``chip_smoke.py`` remains the check of it."""
+    t = q.shape[-2]
+    bq, bk = pick_blocks(t)
+    n_k = t // bk
+    dq = torch.empty_like(q)
+    for qi in range(t // bq):
+        rows = slice(qi * bq, (qi + 1) * bq)
+        qb, dob = q[..., rows, :], do[..., rows, :]
+        lse_b, delta_b = lse[..., rows, None], delta[..., rows, None]
+        acc = torch.zeros(qb.shape, dtype=torch.float32, device=q.device)
+        for kj in range(min(((qi + 1) * bq + bk - 1) // bk, n_k)):
+            kb = k[..., kj * bk:(kj + 1) * bk, :]
+            vb = v[..., kj * bk:(kj + 1) * bk, :]
+            live = _causal(qi, kj, bq, bk, q.device)
+            s, dp = _exact_dots(qb, kb), _exact_dots(dob, vb)
+            p = torch.where(live, torch.exp(s * scale - lse_b), 0.0)
+            chain = p >= seq_p   # masked entries are 0
+            s = torch.where(chain, _chain_dots(qb, kb), s)
+            dp = torch.where(chain, _chain_dots(dob, vb), dp)
+            p = torch.where(chain, torch.exp(s * scale - lse_b), p)
+            ds = p * (dp - delta_b) * scale
+            acc = acc + _mm(ds.to(k.dtype), kb)
+        dq[..., rows, :] = acc.to(q.dtype)
+    return dq
 
 
 # ---------------------------------------------------------------------------
