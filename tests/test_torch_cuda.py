@@ -83,9 +83,35 @@ def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     return torch.equal(a, b)
 
 
+def _search_case(name: str):
+    """``(mag, keep)`` for the device-resident search's branches: the
+    refinement rounds count the candidates; the sampled round picks bin 0
+    (the first 128 elements of every 2048-block, the whole sample, raised by
+    10); the candidate buffer overflows (``_CAND_SLACK`` set small by the
+    caller); NaN and Inf mixed in; 95 % exact zeros (the sample's edges 0 up
+    to e[15], the zeros counted apart from the candidates); and n = 2^25,
+    where the counts pass 2^24 and their float32 rounds."""
+    n = 1 << 25 if name == "n2^25" else 1 << 20
+    mag = _mag(n, 5)
+    if name == "b_zero":
+        mag.reshape(-1, 2048)[:, :128] += 10.0
+    if name == "nan_inf":
+        mag[::997] = np.nan
+        mag[5::1009] = np.inf
+    if name == "zeros":
+        mag[np.random.default_rng(6).random(n) < 0.95] = 0.0
+    return mag, n // 10
+
+
+def _plain_search(mag, keep):
+    return tk._topk_threshold_hist(mag, keep, count_fn=tk.count_ge_edges_plain)
+
+
 @pytest.mark.cuda
-def test_cuda_kernels_match_plain():
-    """On the card: every kernel equals its plain version bitwise."""
+def test_cuda_kernels_match_plain(monkeypatch):
+    """On the card: every kernel equals its plain version bitwise, and the
+    device-resident threshold search equals the unfused glue on the plain
+    counts and the CPU search (its whole state) in each of its branches."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; run with -m cuda where there is one")
     dev = torch.device("cuda")
@@ -93,13 +119,47 @@ def test_cuda_kernels_match_plain():
     hi = mag.max() * 1.0000002 + 1e-30
     edges = torch.cat([hi / 16 * torch.arange(16, device=dev, dtype=torch.float32),
                        hi.reshape(1)])
-    assert torch.equal(tk.count_ge_edges(mag, edges), tk.count_ge_edges_plain(mag, edges))
+    state = tk.new_search_state(dev)
+    tk.count_round(mag, state, 0.0, edges=edges)
+    assert torch.equal(state[tk._ST_LAST_COUNTS:tk._ST_LAST_COUNTS + 16],
+                       tk.count_ge_edges_plain(mag, edges))
     t = tk.topk_threshold(mag, 3000)
-    t_plain = tk._topk_threshold_hist(
-        mag, 3000, count_fn=lambda x, e, route: tk.count_ge_edges_plain(x, e))
+    t_plain = _plain_search(mag, 3000)
     assert t.item() == t_plain.item()
     for got, want in zip(tk.fused_sparsify(mag, t), tk.fused_sparsify_plain(mag, t)):
         assert torch.equal(got, want)
+    # single refinement rounds over random brackets where lo and width * b
+    # are of one size (there a contracted FMA rounds the new lo apart from
+    # the glue's two roundings in ~12 % of bins): the kernel's whole state
+    # against the plain round's
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(_mag(65536, 13)).to(dev)
+    for _ in range(64):
+        lo = np.float32(rng.uniform(0.2, 1.0))
+        state = tk.new_search_state(dev)
+        state.view(torch.float32)[:3] = torch.tensor(
+            [lo, lo * np.float32(rng.uniform(1.5, 3.0)), float(rng.integers(0, 2000))])
+        want = state.clone()
+        keep_f = float(rng.integers(1, 40000))
+        tk.count_round(x, state, keep_f)
+        tk.count_round_plain(x, want, keep_f)
+        assert torch.equal(state, want), (state[:3].view(torch.float32), want[:3].view(
+            torch.float32))
+    for name in ("candidates", "b_zero", "overflow", "nan_inf", "zeros", "n2^25"):
+        with monkeypatch.context() as m:
+            if name == "overflow":
+                m.setattr(tk, "_CAND_SLACK", 0.5)
+            host, keep = _search_case(name)
+            x = torch.from_numpy(host).to(dev)
+            state = tk._hist_search(x, keep)
+            want = _plain_search(x, keep)
+            assert _bits_equal(state.view(torch.float32)[tk._ST_LO], want), name
+            assert _bits_equal(tk.topk_threshold(x, keep), want), name
+            # the CPU search (plain rounds) ends in the same state, word for word
+            assert torch.equal(state.cpu(), tk._hist_search(torch.from_numpy(host), keep)), name
+            cand_rounds = int(state[tk._ST_CAND_ROUNDS])
+            assert cand_rounds == (4 if name in ("candidates", "nan_inf", "zeros", "n2^25")
+                                   else 0), name
 
 
 @pytest.mark.cuda

@@ -77,6 +77,125 @@ class TestThreshold:
         if finite.all():
             assert int((mag >= got.item()).sum()) >= keep
 
+    @pytest.mark.parametrize("name", ["candidates", "b_zero", "overflow", "nan_inf", "zeros"])
+    def test_sampled_search_branches_bitwise_vs_pallas(self, name, monkeypatch):
+        """Each branch of the device-resident search at n = 2^20 (keep n/10,
+        the sampled first round): the refinement rounds count the candidates;
+        the sampled round picks bin 0 (the first 128 elements of every
+        2048-block, the whole sample, raised by 10), so every round counts the
+        whole tensor; the candidate buffer overflows; NaN and Inf mixed in;
+        95 % exact zeros (as the embedding gradient outside a batch's tokens),
+        so the sample's edges are 0 up to e[15] and the zeros, counted apart,
+        stay out of the candidates."""
+        n = 1 << 20
+        mag, keep = _mag(n, 5), n // 10
+        if name == "b_zero":
+            mag.reshape(-1, 2048)[:, :128] += 10.0
+        if name == "overflow":
+            monkeypatch.setattr(tk, "_CAND_SLACK", 0.5)
+        if name == "nan_inf":
+            # few enough that the window still holds the keep-th finite value
+            mag[::997] = np.nan
+            mag[5::1009] = np.inf
+        if name == "zeros":
+            mag[np.random.default_rng(6).random(n) < 0.95] = 0.0
+        assert tk._sample_plan(n, keep) == (2048, 512, 65536)
+        want = jk._topk_threshold_pallas(jnp.asarray(mag), keep, interpret=True)
+        state = tk._hist_search(torch.from_numpy(mag), keep)
+        got = tk.topk_threshold(torch.from_numpy(mag), keep)
+        np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+        np.testing.assert_array_equal(_bits(state.view(torch.float32)[tk._ST_LO].numpy()),
+                                      _bits(want))
+        assert int(state[tk._ST_ROUNDS]) == 5
+        cand_ok = int(state[tk._ST_CAND_OK])
+        cand_rounds = int(state[tk._ST_CAND_ROUNDS])
+        if name in ("candidates", "nan_inf", "zeros"):
+            assert cand_ok == 1 and cand_rounds == 4
+            if name == "zeros":
+                assert int(state[tk._ST_CAND_EQ]) == int((mag == 0).sum())
+                assert int(state[tk._ST_CAND_LEN]) == int((mag > 0).sum())
+        elif name == "b_zero":
+            assert cand_ok == 0 and cand_rounds == 0
+            # the sampled round's bin: its counts at e[1] fall short of keep
+            sample_top = mag.reshape(-1, 2048)[:, :128]
+            assert (mag >= 10.0).sum() == sample_top.size < keep
+        else:
+            assert cand_ok == 0 and cand_rounds == 0
+            assert int(state[tk._ST_CAND_LEN]) > tk._sample_values(
+                torch.from_numpy(mag), keep, tk._sample_plan(n, keep))[2]
+        finite = np.isfinite(mag)
+        kept = int((mag[finite] >= got.item()).sum()) + int(np.isinf(mag).sum())
+        assert kept >= keep
+
+    @pytest.mark.parametrize("variant", ["count_ge", "count_edges"])
+    @pytest.mark.parametrize("data", ["random", "ties"])
+    def test_fused_round_equals_glue(self, variant, data):
+        """The plain fused round (the kernel's split of the counts and its
+        epilogue on the state) equals count_ge_edges_plain + the glue's
+        narrowing bitwise, over random brackets; a refinement round over the
+        candidates equals one over the whole tensor."""
+        rng = np.random.default_rng(21)
+        if data == "random":
+            x = _mag(20000, 22)
+        else:
+            x = np.repeat(rng.standard_normal(40).astype(np.float32) ** 2, 500)
+        xt = torch.from_numpy(x)
+        for trial in range(12):
+            keep_f = float(rng.integers(1, x.size))
+            if variant == "count_ge":
+                lo, hi = np.sort(rng.choice(x, 2)).astype(np.float32)
+                hi = np.float32(hi * np.float32(1.5) + np.float32(trial % 2))
+                above = np.float32(rng.integers(0, x.size // 4))
+                state = tk.new_search_state("cpu")
+                sf = state.view(torch.float32)
+                sf[tk._ST_LO], sf[tk._ST_HI], sf[tk._ST_ABOVE] = float(lo), float(hi), float(above)
+                lo_t, hi_t, ab_t = (torch.tensor(v, dtype=torch.float32) for v in (lo, hi, above))
+                width = (hi_t - lo_t) / 16
+                edges = torch.cat([lo_t + width * torch.arange(16, dtype=torch.float32),
+                                   hi_t.reshape(1)])
+                counts = tk.count_ge_edges_plain(xt, edges)
+                want = tk._narrow(lo_t, hi_t, ab_t, counts.to(torch.float32), keep_f)
+                tk.count_round_plain(xt, state, keep_f)
+                # the same round over the bracket's elements as candidates:
+                # those above lo, and a count of those equal to it
+                win = xt[(xt > edges[0]) & (xt < edges[16])]
+                st2 = tk.new_search_state("cpu")
+                st2.view(torch.float32)[:3] = torch.tensor([lo, hi, above])
+                st2[tk._ST_CAND_OK], st2[tk._ST_CAND_LEN] = 1, win.numel()
+                st2[tk._ST_CAND_EQ] = int((xt == edges[0]).sum())
+                st2.view(torch.float32)[tk._ST_WIN_LO] = edges[0]
+                st2.view(torch.float32)[tk._ST_WIN_HI] = edges[16]
+                tk.count_round_plain(xt, st2, keep_f, cand=win.clone())
+                assert int(st2[tk._ST_CAND_ROUNDS]) == 1
+                for lo_w, hi_w in ((0, 3), (tk._ST_LAST_COUNTS, tk._ST_LAST_COUNTS + 16)):
+                    np.testing.assert_array_equal(st2[lo_w:hi_w].numpy(),
+                                                  state[lo_w:hi_w].numpy())
+            else:
+                edges = torch.from_numpy(np.concatenate(
+                    [[0.0], np.sort(rng.choice(x, 15)), [x.max() * 1.0000002 + 1e-30]]
+                ).astype(np.float32))
+                counts = tk.count_ge_edges_plain(xt, edges)
+                cf = counts.to(torch.float32)
+                b = ((cf >= keep_f).sum() - 1).clamp(0, 15)
+                ext = torch.cat([cf, cf.new_zeros(1)])
+                want = (tk._pick(edges, b), tk._pick(edges, b + 1),
+                        tk._pick(ext, (b + 1).clamp(0, 16)))
+                state = tk.new_search_state("cpu")
+                cand = torch.empty(x.size, dtype=torch.float32)
+                tk.count_round_plain(xt, state, keep_f, edges=edges, cand=cand)
+                length = int(state[tk._ST_CAND_LEN])
+                win = x[(x > edges[1].item()) & (x < edges[16].item())]
+                assert length == win.size
+                assert int(state[tk._ST_CAND_EQ]) == int((x == edges[1].item()).sum())
+                np.testing.assert_array_equal(np.sort(cand[:length].numpy()), np.sort(win))
+                assert int(state[tk._ST_CAND_OK]) == int(int(b) >= 1)
+            got = state.view(torch.float32)[:3]
+            np.testing.assert_array_equal(_bits(got.numpy()),
+                                          _bits(torch.stack(list(want)).numpy()))
+            np.testing.assert_array_equal(
+                state[tk._ST_LAST_COUNTS:tk._ST_LAST_COUNTS + 16].numpy(), counts.numpy())
+            assert not state[tk._ST_COUNTS:tk._ST_TICKET + 1].any()
+
     def test_scatter_fallback_bitwise_vs_jnp(self):
         mag = _mag(5000, 6)
         want = jk._topk_threshold_jnp(jnp.asarray(mag), 500)
@@ -172,7 +291,8 @@ class TestDispatch:
         mag = torch.from_numpy(_mag(300000, 11))
         tk.topk_threshold(mag, 3000)
         tk.fused_sparsify(mag, torch.tensor(1.0))
-        assert tk.LAUNCHES == {"count_ge": 0, "count_edges": 0, "fused_sparsify": 0,
+        assert tk.LAUNCHES == {"count_ge": 0, "count_edges": 0, "search_init": 0,
+                               "fused_sparsify": 0,
                                "uniform": 0, "qsgd": 0, "terngrad": 0, "select_pack": 0,
                                "terngrad_pack": 0, "qsgd_pack": 0, "bucket_route": 0,
                                "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,

@@ -9,7 +9,9 @@ loaded with ``ctypes``):
   * ``count_ge_edges`` (``csrc/count_ge_edges.cu``) serves both
     ``_count_ge_kernel`` (an equispaced refinement round of the histogram
     threshold search) and ``_count_edges_kernel`` (its sampled-quantile first
-    round): cumulative int32 counts at 17 edges read from device memory;
+    round): one launch a round counts at 17 edges and narrows the search's
+    device-resident state (:func:`count_round`), and the sampled round keeps
+    the candidates the later rounds count;
   * ``fused_sparsify`` (``csrc/fused_sparsify.cu``) replaces
     ``_fused_sparsify_kernel``: threshold, EF residual and nonzero-survivor
     count in one pass;
@@ -62,6 +64,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -77,7 +80,8 @@ __all__ = [
     "fused_sparsify",
     "fused_sparsify_plain",
     "use_fused_sparsify",
-    "count_ge_edges",
+    "count_round",
+    "count_round_plain",
     "count_ge_edges_plain",
     "uniform",
     "uniform_plain",
@@ -131,7 +135,8 @@ _INT32_MAX = (1 << 31) - 1
 _FP32_MAX = torch.finfo(torch.float32).max
 
 #: kernel launches per route since the last reset; only a CUDA launch counts
-LAUNCHES: Dict[str, int] = {"count_ge": 0, "count_edges": 0, "fused_sparsify": 0,
+LAUNCHES: Dict[str, int] = {"count_ge": 0, "count_edges": 0, "search_init": 0,
+                            "fused_sparsify": 0,
                             "uniform": 0, "qsgd": 0, "terngrad": 0, "select_pack": 0,
                             "terngrad_pack": 0, "qsgd_pack": 0, "bucket_route": 0,
                             "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
@@ -238,7 +243,8 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     p, ll, u64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_ulonglong, ctypes.c_int
     f32 = ctypes.c_float
     argtypes = {
-        "count_ge_edges": {"tcdp_count_ge_edges": [p, ll, p, p, p]},
+        "count_ge_edges": {"tcdp_count_round": [p, ll, p, p, p, ll, f32, p],
+                           "tcdp_search_init": [p, p, p, p, f32, f32, p]},
         "fused_sparsify": {"tcdp_fused_sparsify": [p, ll, p, p, p, p, p]},
         "dither": {"tcdp_uniform": [p, ll, u64, p],
                    "tcdp_qsgd_levels": [p, ll, p, u64, i32, p, p],
@@ -286,6 +292,67 @@ def _check_f32_vector(x: torch.Tensor, what: str) -> None:
 # count_ge_edges: the histogram rounds of the threshold search
 # ---------------------------------------------------------------------------
 
+# The search's state: int32 words, floats stored as their bits (the layout of
+# csrc/count_ge_edges.cu).  lo, hi, above: the bracket and the count above
+# it; the running counts and the ticket (zero between rounds); the candidate
+# buffer's length, whether later rounds may count it, and its window
+# (wlo, e16); the rounds that counted the candidates and the rounds run; the
+# sampled round's count of elements equal to wlo (left out of the buffer);
+# the last round's counts; the sampled round's 17 edges.
+_ST_LO, _ST_HI, _ST_ABOVE, _ST_COUNTS, _ST_TICKET = 0, 1, 2, 3, 19
+_ST_CAND_LEN, _ST_CAND_OK, _ST_WIN_LO, _ST_WIN_HI = 20, 21, 22, 23
+_ST_CAND_ROUNDS, _ST_ROUNDS, _ST_CAND_EQ, _ST_LAST_COUNTS = 24, 25, 26, 32
+_ST_EDGES, _STATE_WORDS = 64, 96
+# hi0 = max|g| * _HI_MUL + _HI_ADD: strictly above the largest magnitude
+_HI_MUL, _HI_ADD = 1.0000002, 1e-30
+# the candidate buffer holds this many times the window's expected size
+_CAND_SLACK = 2.0
+
+
+def new_search_state(device) -> torch.Tensor:
+    """A zeroed search state."""
+    return torch.zeros(_STATE_WORDS, dtype=torch.int32, device=device)
+
+
+def search_init_plain(mx: torch.Tensor, state: torch.Tensor, sv: Optional[torch.Tensor] = None,
+                      ranks: Optional[torch.Tensor] = None) -> None:
+    """Plain version of :func:`search_init`."""
+    hi0 = _hi_bracket(mx)
+    state.zero_()
+    if sv is None:
+        state.view(torch.float32)[_ST_HI] = hi0
+    else:
+        state.view(torch.float32)[_ST_EDGES:_ST_EDGES + _HIST_BINS + 1] = _quantile_edges(
+            sv, ranks, hi0)
+
+
+def search_init(mx: torch.Tensor, state: torch.Tensor, sv: Optional[torch.Tensor] = None,
+                ranks: Optional[torch.Tensor] = None) -> None:
+    """Write the search's first state from the magnitudes' max ``mx``: ``lo =
+    above = 0`` and ``hi = hi0`` (the full-range search), or, given the
+    sample's top values ``sv`` and the 15 quantile ranks, the sampled round's
+    17 edges (:func:`_quantile_edges`) at ``_ST_EDGES``.  One launch of the
+    glue's arithmetic on the card (``csrc/count_ge_edges.cu``), in place of
+    the dozen small tensor ops of ``_topk_threshold_pallas``'s set-up."""
+    if state.device.type == "cpu":
+        return search_init_plain(mx, state, sv, ranks)
+    if (state.dtype != torch.int32 or state.shape != (_STATE_WORDS,)
+            or not state.is_contiguous()):
+        raise ValueError(f"state must be a contiguous int32[{_STATE_WORDS}]")
+    if mx.dtype != torch.float32 or mx.numel() != 1 or mx.device != state.device:
+        raise ValueError("mx must be one float32 on the state's device")
+    if sv is not None and (sv.dtype != torch.float32 or not sv.is_contiguous()
+                           or ranks.dtype != torch.long or ranks.shape != (_HIST_BINS - 1,)
+                           or sv.device != state.device or ranks.device != state.device):
+        raise ValueError("sv must be contiguous float32 and ranks int64[15] on the "
+                         "state's device")
+    rc = _lib("count_ge_edges").tcdp_search_init(
+        mx.data_ptr(), None if sv is None else sv.data_ptr(),
+        None if sv is None else ranks.data_ptr(), state.data_ptr(), _HI_MUL, _HI_ADD,
+        torch.cuda.current_stream(state.device).cuda_stream)
+    _check_launch(rc, "search_init")
+    LAUNCHES["search_init"] += 1
+
 
 def count_ge_edges_plain(x: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
     """``counts[b] = #{x : edges[b] <= x < edges[16]}`` as int32[16]."""
@@ -294,30 +361,103 @@ def count_ge_edges_plain(x: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
                         for b in range(_HIST_BINS)]).to(torch.int32)
 
 
-def count_ge_edges(x: torch.Tensor, edges: torch.Tensor, *,
-                   route: str = "count_ge") -> torch.Tensor:
-    """Cumulative counts at 17 ascending edges (int32[16]).
+def count_round_plain(x: torch.Tensor, state: torch.Tensor, keep_f: float, *,
+                      edges: Optional[torch.Tensor] = None,
+                      cand: Optional[torch.Tensor] = None) -> None:
+    """Plain version of one :func:`count_round`, updating ``state`` in place:
+    the kernel's split of the counts (bin 0 over every element; bins 1-15
+    over the open window ``(wlo, e[16])``, ``wlo = min(e[1:16])``, plus the
+    elements equal to ``wlo`` in the bins whose edge is ``wlo``), its
+    compaction of the window into ``cand``, its choice of source and its
+    epilogue, in the same float32 op order."""
+    sf = state.view(torch.float32)
+    sampled = edges is not None
+    src, from_cand = x, False
+    if not sampled:
+        lo, hi = sf[_ST_LO].clone(), sf[_ST_HI].clone()
+        width = (hi - lo) / _HIST_BINS
+        edges = torch.cat([lo + width * _bin_index(x.device), hi.reshape(1)])
+        from_cand = bool(cand is not None and state[_ST_CAND_OK] != 0
+                         and lo >= sf[_ST_WIN_LO] and hi <= sf[_ST_WIN_HI])
+        if from_cand:
+            src = cand[: int(state[_ST_CAND_LEN])]
+    top = edges[_HIST_BINS]
+    below = src < top
+    wlo = edges[1:_HIST_BINS].nan_to_num(nan=float("inf")).min()  # fminf skips NaN
+    win = src[(src > wlo) & below]
+    eq = int(((src == wlo) & below).sum())
+    counts = [int(((src >= edges[0]) & below).sum())]
+    counts += [int((win >= edges[b]).sum()) + (eq if edges[b] <= wlo else 0)
+               for b in range(1, _HIST_BINS)]
+    if from_cand and sf[_ST_WIN_LO] < top:
+        # the sampled round's elements equal to its wlo, left out of cand
+        ws, n_eq = sf[_ST_WIN_LO], int(state[_ST_CAND_EQ])
+        counts = [c + (n_eq if edges[b] <= ws else 0) for b, c in enumerate(counts)]
+    counts = torch.tensor(counts, dtype=torch.int32, device=x.device)
+    cf = torch.cat([counts.to(torch.float32), torch.zeros(1, device=x.device)])
+    if sampled:
+        if cand is not None:
+            k = min(win.numel(), cand.numel())
+            cand[:k] = win[:k]
+            state[_ST_CAND_LEN] = win.numel()
+            state[_ST_CAND_EQ] = eq
+        b = int(((cf[:_HIST_BINS] >= keep_f).sum() - 1).clamp(0, _HIST_BINS - 1))
+        new_lo, new_hi, new_above = edges[b], edges[b + 1], cf[b + 1]
+        state[_ST_CAND_OK] = int(cand is not None and b >= 1
+                                 and win.numel() <= cand.numel())
+        sf[_ST_WIN_LO] = wlo
+        sf[_ST_WIN_HI] = top
+    else:
+        above = sf[_ST_ABOVE].clone()
+        b = int(((above + cf[:_HIST_BINS] >= keep_f).sum() - 1).clamp(0, _HIST_BINS - 1))
+        fb = torch.tensor([float(b), float(b + 1)], device=x.device)
+        new_lo = lo + width * fb[0]
+        new_hi = hi if b == _HIST_BINS - 1 else lo + width * fb[1]
+        new_above = above + cf[b + 1]
+        state[_ST_CAND_ROUNDS] += int(from_cand)
+    sf[_ST_LO], sf[_ST_HI], sf[_ST_ABOVE] = new_lo, new_hi, new_above
+    state[_ST_ROUNDS] += 1
+    state[_ST_LAST_COUNTS:_ST_LAST_COUNTS + _HIST_BINS] = counts
 
-    Replaces ``_count_ge_kernel`` (``route='count_ge'``, equispaced edges) and
-    ``_count_edges_kernel`` (``route='count_edges'``, sample quantiles) of
-    ``tpu_compressed_dp/ops/kernels.py``; ``route`` picks the launch counter.
-    Bound: 4n bytes read per round (the 17 compares per element are far below
-    the card's fp32 rate); see ``csrc/count_ge_edges.cu`` for the design."""
+
+def count_round(x: torch.Tensor, state: torch.Tensor, keep_f: float, *,
+                edges: Optional[torch.Tensor] = None,
+                cand: Optional[torch.Tensor] = None) -> None:
+    """One round of the threshold search in one launch: counts at 17 edges,
+    then the narrowing step, on the device-resident ``state``.
+
+    Replaces ``_count_ge_kernel`` (``edges`` None: equispaced edges from the
+    state's ``lo`` and ``hi``) and ``_count_edges_kernel`` (``edges``: the
+    17 sample quantiles) of ``tpu_compressed_dp/ops/kernels.py`` together
+    with the ``narrow`` step after each.  With ``edges`` and ``cand`` the
+    round also stores every element of ``(e[1], e[16])`` in ``cand`` (and
+    counts those equal to ``e[1]`` in the state); a later round counts
+    ``cand`` instead of ``x`` where the state says it holds every element the
+    round could count.  A launch counts as ``count_edges`` with ``edges``,
+    else as ``count_ge``.  Bound: 4 bytes an element of the source read (plus
+    4 a candidate written); see ``csrc/count_ge_edges.cu`` for the design."""
     if x.device.type == "cpu":
-        return count_ge_edges_plain(x, edges)
+        return count_round_plain(x, state, keep_f, edges=edges, cand=cand)
     if x.device.type != "cuda":
-        raise ValueError(f"count_ge_edges runs on CUDA or CPU tensors, got {x.device}")
+        raise ValueError(f"count_round runs on CUDA or CPU tensors, got {x.device}")
     _check_f32_vector(x, "x")
-    if (edges.dtype != torch.float32 or edges.shape != (_HIST_BINS + 1,)
-            or not edges.is_contiguous() or edges.device != x.device):
+    if (state.dtype != torch.int32 or state.shape != (_STATE_WORDS,)
+            or not state.is_contiguous() or state.device != x.device):
+        raise ValueError(f"state must be a contiguous int32[{_STATE_WORDS}] on x's device")
+    if edges is not None and (edges.dtype != torch.float32 or edges.shape != (_HIST_BINS + 1,)
+                              or not edges.is_contiguous() or edges.device != x.device):
         raise ValueError("edges must be a contiguous float32[17] tensor on x's device")
-    counts = torch.zeros(_HIST_BINS, dtype=torch.int32, device=x.device)
-    rc = _lib("count_ge_edges").tcdp_count_ge_edges(
-        x.data_ptr(), x.numel(), edges.data_ptr(), counts.data_ptr(),
+    if cand is not None:
+        _check_f32_vector(cand, "cand")
+        if cand.device != x.device:
+            raise ValueError("cand must lie on x's device")
+    rc = _lib("count_ge_edges").tcdp_count_round(
+        x.data_ptr(), x.numel(), None if edges is None else edges.data_ptr(),
+        state.data_ptr(), None if cand is None else cand.data_ptr(),
+        0 if cand is None else cand.numel(), keep_f,
         torch.cuda.current_stream(x.device).cuda_stream)
     _check_launch(rc, "count_ge_edges")
-    LAUNCHES[route] += 1
-    return counts
+    LAUNCHES["count_ge" if edges is None else "count_edges"] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -370,7 +510,7 @@ def _narrow(lo, hi, above, counts, keep_f: float):
 def _count_round(mag, lo, hi, above, keep_f: float, count_fn):
     width = (hi - lo) / _HIST_BINS
     edges = torch.cat([lo + width * _bin_index(mag.device), hi.reshape(1)])
-    counts = count_fn(mag, edges, route="count_ge").to(torch.float32)
+    counts = count_fn(mag, edges).to(torch.float32)
     return _narrow(lo, hi, above, counts, keep_f)
 
 
@@ -391,30 +531,18 @@ def _sample_plan(n: int, keep: int) -> Optional[Tuple[int, int, int]]:
     return C, nb, m
 
 
-def _topk_threshold_hist(mag: torch.Tensor, keep: int, *, count_fn=None) -> torch.Tensor:
-    """Port of ``_topk_threshold_pallas``: 16-bin histogram refinement, with
-    a sampled-quantile first round for large tensors.  ``lo``, ``hi`` and
-    ``above`` stay 0-d device tensors across rounds (no host sync).
-    ``count_fn`` (default :func:`count_ge_edges`) lets a check run the same
-    glue on the plain counts."""
-    count_fn = count_fn or count_ge_edges
+def _hi_bracket(mx: torch.Tensor) -> torch.Tensor:
+    """max|g| strictly below hi so the top element lands in a bin; a
+    non-finite max is clamped so NaN/Inf cannot poison the bin edges."""
+    hi_raw = mx * _HI_MUL + _HI_ADD
+    return torch.where(torch.isfinite(hi_raw), hi_raw, _FP32_MAX)
+
+
+def _sample_values(mag: torch.Tensor, keep: int, plan):
+    """The sampled round's inputs: the sample's top ``hi_rank + 1`` values,
+    the ranks of the 15 interior edges among them (device int64, in
+    ascending edge order) and the candidate buffer's capacity."""
     n = mag.shape[0]
-    keep = min(keep, n)
-    mag = mag.to(torch.float32).contiguous()
-    keep_f = float(min(keep, n))
-
-    # max|g| strictly below hi so the top element lands in a bin; a
-    # non-finite max is clamped so NaN/Inf cannot poison the bin edges
-    hi_raw = mag.max() * 1.0000002 + 1e-30
-    zero = torch.zeros((), dtype=torch.float32, device=mag.device)
-    hi0 = torch.where(torch.isfinite(hi_raw), hi_raw, _FP32_MAX)
-    plan = _sample_plan(n, keep)
-    if plan is None:
-        lo, hi, above = zero, hi0, zero
-        for _ in range(_ROUNDS):
-            lo, hi, above = _count_round(mag, lo, hi, above, keep_f, count_fn)
-        return lo
-
     C, nb, m = plan
     sample = mag[: nb * C].reshape(nb, C)[:, :128].reshape(-1)
     r = keep * m / n
@@ -422,13 +550,77 @@ def _topk_threshold_hist(mag: torch.Tensor, keep: int, *, count_fn=None) -> torc
     hi_rank = int(min(m - 1, r + delta))
     lo_rank = int(max(0, r - delta))
     sv = torch.topk(sample, hi_rank + 1).values
-    # 15 interior quantile edges, ascending; a non-finite edge is clamped to
-    # the top bracket (an empty top bin, like a duplicate edge)
     qranks = [int(round(lo_rank + (hi_rank - lo_rank) * i / 14.0)) for i in range(15)]
-    interior = sv.index_select(0, _rank_index(tuple(reversed(qranks)), mag.device))
+    ranks = _rank_index(tuple(reversed(qranks)), mag.device)
+    # the window (e1, e16) holds about (hi_rank + 1) / m of the tensor
+    cap = min(n, math.ceil(n * (_CAND_SLACK * (hi_rank + 1) + 64) / m))
+    return sv, ranks, cap
+
+
+def _quantile_edges(sv: torch.Tensor, ranks: torch.Tensor, hi0: torch.Tensor) -> torch.Tensor:
+    """The sampled round's 17 ascending edges: 0, the 15 interior quantiles,
+    ``hi0``; a non-finite edge is clamped to the top bracket (an empty top
+    bin, like a duplicate edge)."""
+    interior = sv.index_select(0, ranks)
     interior = torch.where(torch.isfinite(interior), torch.minimum(interior, hi0), hi0)
-    edges = torch.cat([zero.reshape(1), interior, hi0.reshape(1)])
-    counts = count_fn(mag, edges, route="count_edges").to(torch.float32)
+    return torch.cat([torch.zeros(1, device=sv.device), interior, hi0.reshape(1)])
+
+
+def _hist_search(mag: torch.Tensor, keep: int) -> torch.Tensor:
+    """The histogram search's final state: seven full-range
+    :func:`count_round` rounds, or a sampled round that keeps the candidates
+    and four refinement rounds that count them where they may."""
+    n = mag.shape[0]
+    keep = min(keep, n)
+    mag = mag.to(torch.float32).contiguous()
+    keep_f = float(keep)
+    mx = mag.max()
+    state = torch.empty(_STATE_WORDS, dtype=torch.int32, device=mag.device)
+    plan = _sample_plan(n, keep)
+    if plan is None:
+        search_init(mx, state)
+        for _ in range(_ROUNDS):
+            count_round(mag, state, keep_f)
+        return state
+    sv, ranks, cap = _sample_values(mag, keep, plan)
+    search_init(mx, state, sv, ranks)
+    cand = torch.empty(cap, dtype=torch.float32, device=mag.device)
+    edges = state.view(torch.float32)[_ST_EDGES:_ST_EDGES + _HIST_BINS + 1]
+    count_round(mag, state, keep_f, edges=edges, cand=cand)
+    for _ in range(4):
+        count_round(mag, state, keep_f, cand=cand)
+    return state
+
+
+def _topk_threshold_hist(mag: torch.Tensor, keep: int, *, count_fn=None) -> torch.Tensor:
+    """Port of ``_topk_threshold_pallas``: 16-bin histogram refinement, with
+    a sampled-quantile first round for large tensors.
+
+    By default each round is one :func:`count_round` launch on a
+    device-resident state (no host sync, no glue between rounds), and a
+    sampled search reads the tensor in full once: its later rounds count the
+    candidates the first one kept.  With ``count_fn`` (``count_fn(mag,
+    edges)``: int32[16] counts, as :func:`count_ge_edges_plain`) it runs the
+    unfused glue instead (``lo``, ``hi`` and ``above`` as 0-d tensors,
+    ``_narrow`` after each count), the reference the checks hold the fused
+    search to."""
+    if count_fn is None:
+        return _hist_search(mag, keep).view(torch.float32)[_ST_LO]
+    n = mag.shape[0]
+    keep = min(keep, n)
+    mag = mag.to(torch.float32).contiguous()
+    keep_f = float(keep)
+    hi0 = _hi_bracket(mag.max())
+    zero = torch.zeros((), dtype=torch.float32, device=mag.device)
+    plan = _sample_plan(n, keep)
+    if plan is None:
+        lo, hi, above = zero, hi0, zero
+        for _ in range(_ROUNDS):
+            lo, hi, above = _count_round(mag, lo, hi, above, keep_f, count_fn)
+        return lo
+    sv, ranks, _ = _sample_values(mag, keep, plan)
+    edges = _quantile_edges(sv, ranks, hi0)
+    counts = count_fn(mag, edges).to(torch.float32)
     b = ((counts >= keep_f).sum() - 1).clamp(0, _HIST_BINS - 1)
     lo = _pick(edges, b)
     hi = _pick(edges, b + 1)
@@ -448,8 +640,7 @@ def _topk_threshold_scatter(mag: torch.Tensor, keep: int) -> torch.Tensor:
     margin = 8.0 * n / float(1 << 23) if n > (1 << 23) else 0.0
     keep_f = float(torch.tensor(min(keep + margin, n), dtype=torch.float32))
     lo = torch.zeros((), dtype=torch.float32, device=mag.device)
-    hi_raw = mag.max() * 1.0000002 + 1e-30
-    hi = torch.where(torch.isfinite(hi_raw), hi_raw, _FP32_MAX)
+    hi = _hi_bracket(mag.max())
     above = torch.zeros((), dtype=torch.float32, device=mag.device)
     for _ in range(_ROUNDS):
         width = (hi - lo) / _HIST_BINS
