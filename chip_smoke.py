@@ -173,8 +173,9 @@ def bound_ms(bytes_moved: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
 def _demangle(mangled: str) -> str:
     """``flash_dkv_tc_kernel<128>`` from its Itanium name: the last of the
     length-prefixed names after ``_ZN``, with an element type and an int
-    template argument, or a bool one, where there are (enough for this
-    repo's kernels)."""
+    template argument, a bool one, or a class of int arguments
+    (``select_pack_kernel<Tiling<512, 8, 0, 3>>``), where there are (enough
+    for this repo's kernels)."""
     import re
 
     if not mangled.startswith("_ZN"):
@@ -193,6 +194,10 @@ def _demangle(mangled: str) -> str:
     flag = re.match(r"ILb([01])E", mangled[i:])
     if flag:
         name += "<true>" if flag.group(1) == "1" else "<false>"
+    # a class template argument of int arguments, as select_pack's Tiling
+    cls = re.match(r"INS_\d+([A-Za-z_]+?)I((?:Li\d+E)+)E", mangled[i:])
+    if cls:
+        name += f"<{cls.group(1)}<{', '.join(re.findall(r'Li(\d+)E', cls.group(2)))}>>"
     return name
 
 
@@ -642,7 +647,8 @@ def raw_wire(kernels, torch, n: int, keep: int, seed: int):
     vals = torch.empty(keep, device=dev)
     idx = torch.empty(keep, dtype=torch.int32, device=dev)
     count = torch.empty(1, dtype=torch.int32, device=dev)
-    scratch = torch.empty(2, -(-n // 4096), dtype=torch.int32, device=dev)
+    state = torch.zeros(kernels._lib("select_pack").tcdp_select_pack_state_words(n),
+                        dtype=torch.int64, device=dev)
     tern = torch.empty(-(-n // 4), dtype=torch.uint8, device=dev)
     mags = torch.empty(n, dtype=torch.uint8, device=dev)
     signs = torch.empty(-(-n // 8), dtype=torch.uint8, device=dev)
@@ -652,8 +658,8 @@ def raw_wire(kernels, torch, n: int, keep: int, seed: int):
             raise RuntimeError(f"{name} launch failed: cudaError {rc}")
 
     return (lambda xt: check(sel(xt[0].data_ptr(), n, xt[1].data_ptr(), keep, vals.data_ptr(),
-                                 idx.data_ptr(), count.data_ptr(), scratch[0].data_ptr(),
-                                 scratch[1].data_ptr(), stream), "select_pack"),
+                                 idx.data_ptr(), count.data_ptr(), state.data_ptr(),
+                                 state.numel(), stream), "select_pack"),
             lambda xi: check(qp.tcdp_terngrad_pack(xi[0].data_ptr(), n, xi[1].data_ptr(), seed,
                                                    tern.data_ptr(), stream), "terngrad_pack"),
             lambda xi: check(qp.tcdp_qsgd_pack(xi[0].data_ptr(), n, xi[1].data_ptr(), seed, 255,
@@ -669,6 +675,73 @@ def _bits_equal(torch, a, b) -> bool:
     return torch.equal(a, b)
 
 
+def select_pack_edge_cases(kernels, torch, x, keep: int):
+    """The one-pass select+pack's look-back cases on N(0, 1) data ``x``:
+    misaligned views ``x[1:]``, ``x[3:]`` at their Top-K threshold; survivors
+    only in the last tile, and only in the first; ``count == keep`` with ties
+    at ``t``; ``keep > n``; ``-0.0`` survivors at ``t = 0``; ``t = NaN``."""
+    n = x.numel()
+    full = lambda v: torch.full((), v, device=x.device)  # noqa: E731
+    cases = [(f"misaligned x[{off}:]", x[off:], kernels.topk_threshold(x[off:].abs(), keep), keep)
+             for off in (1, 3)]
+    small = x * 1e-2
+    for where, sl in (("last", slice(n - 100, n)), ("first", slice(0, 100))):
+        y = small.clone()
+        y[sl] = 5.0
+        cases.append((f"survivors only in the {where} tile", y, full(1.0), 64))
+    ties = torch.where(x.abs() >= 1.0, x.sign(), 0.5 * x.sign())
+    cases.append(("count == keep, ties at t", ties, full(1.0),
+                  int((ties.abs() >= 1.0).sum().item())))
+    cases.append(("keep > n", x, full(2.0), n + 7))
+    signed = torch.zeros_like(x)
+    signed[x < 0] = -0.0
+    cases.append(("-0.0 survivors at t=0", signed, full(0.0), keep))
+    cases.append(("t=NaN", x, full(float("nan")), keep))
+    return cases
+
+
+def lookback_size_cases(kernels, torch, gen):
+    """Select+pack at the sizes that stress the tiling: one tile and one tile
+    +- 1 of either tiling, on both sides of the size that picks it (every
+    element surviving, zeros at ``t = 0``, a 2 % threshold, ``keep > n``),
+    more than 1,000 tiles, and n > 2^24 (Top-K 1 %)."""
+    dev = torch.device("cuda")
+    lib = kernels._lib("select_pack")
+    large_from = lib.tcdp_select_pack_large_from()
+    small, large = lib.tcdp_select_pack_tile(1), lib.tcdp_select_pack_tile(large_from)
+    full = lambda v: torch.full((), v, device=dev)  # noqa: E731
+    cases = []
+    for n in (small - 1, small, small + 1, large_from - 1, large_from,
+              342 * large - 1, 342 * large, 342 * large + 1):
+        x = torch.randn(n, generator=gen, device=dev)
+        cases += [(f"n={n} all survive", x, full(0.0), n),
+                  (f"n={n} zeros t=0", torch.zeros(n, device=dev), full(0.0), n + 1),
+                  (f"n={n} 2 %", x, kernels.topk_threshold(x.abs(), n // 50), n // 50),
+                  (f"n={n} keep > n", x, full(1.0), 2 * n + 5)]
+    for label, n in (("1,000 tiles", 1000 * large + 123), ("n > 2^24", (1 << 24) + 4099)):
+        x = torch.randn(n, generator=gen, device=dev)
+        cases.append((f"{label}, 1 %", x, kernels.topk_threshold(x.abs(), n // 100), n // 100))
+    return cases
+
+
+def hold_select_pack(kernels, torch, cases, where: str):
+    """Each case's select+pack bitwise against the plain version; returns the
+    largest |kernel - plain| (0 unless it raised) and each case's
+    (survivors, slots)."""
+    err, counts = 0.0, {}
+    for label, v, t, k in cases:
+        got = kernels.fused_select_pack(v, t, k)
+        want = kernels.fused_select_pack_plain(v, t, k)
+        # equal slots count 0, so an Inf value matched by an Inf is no NaN
+        d = max(torch.where(a == b, 0.0, (a.double() - b.double()).abs()).max().item()
+                for a, b in zip(got, want))
+        err = max(err, d)
+        if not all(_bits_equal(torch, a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"select_pack differs from plain {where} ({label})")
+        counts[label] = (int(got[2].item()), k)
+    return err, counts
+
+
 def phase_wire_kernels(kernels, compressors, wire, torch, record):
     """Select+pack and quantize+pack vs their plain versions on the card,
     their contracts, then timings."""
@@ -677,6 +750,13 @@ def phase_wire_kernels(kernels, compressors, wire, torch, record):
     err = {"select_pack": 0.0, "terngrad_pack": 0.0, "qsgd_pack": 0.0}
     rows, cases = {}, {}
     seed = 0x13198A2E03707344
+    size_cases = lookback_size_cases(kernels, torch, gen)
+    err["select_pack"], size_counts = hold_select_pack(kernels, torch, size_cases,
+                                                       "at the tiling's sizes")
+    log(f"select_pack: vals, idx and count bitwise == plain in {len(size_cases)} cases at the "
+        f"tiling's sizes (survivors/slots: {size_counts})")
+    cases["tiling"] = size_counts
+    del size_cases
     for n in (FULL_LEAF, FULL_MODEL):
         x = torch.randn(n, generator=gen, device=dev)
         keep = compressors.topk_keep_count(n, RATIO)
@@ -700,24 +780,25 @@ def phase_wire_kernels(kernels, compressors, wire, torch, record):
             ("nan/inf", poisoned, kernels.topk_threshold(finite_mag, keep), keep),
             ("zeros t=0", zeros, full(0.0), keep),
             ("zeros t=1", zeros, full(1.0), keep),
+            *select_pack_edge_cases(kernels, torch, x, keep),
         ]
-        counts = {}
-        for label, v, t, k in sel_cases:
-            got = kernels.fused_select_pack(v, t, k)
+        d, counts = hold_select_pack(kernels, torch, sel_cases, f"at n={n}")
+        err["select_pack"] = max(err["select_pack"], d)
+        if n == FULL_MODEL:
+            # the ranks come from the scan, not from the order the tiles ran in
+            label, v, t, k = sel_cases[0]
             want = kernels.fused_select_pack_plain(v, t, k)
-            # equal slots count 0, so an Inf value matched by an Inf is no NaN
-            d = max(torch.where(a == b, 0.0, (a.double() - b.double()).abs()).max().item()
-                    for a, b in zip(got, want))
-            err["select_pack"] = max(err["select_pack"], d)
-            if not all(_bits_equal(torch, a, b) for a, b in zip(got, want)):
-                raise AssertionError(f"select_pack differs from plain at n={n} ({label})")
-            counts[label] = (int(got[2].item()), k)
+            for _ in range(50):
+                if not all(_bits_equal(torch, a, b)
+                           for a, b in zip(kernels.fused_select_pack(v, t, k), want)):
+                    raise AssertionError(f"select_pack differs between launches at n={n}")
         (c_over, k_over), (c_under, k_under) = (counts["thresholdv overflow"],
                                                  counts["thresholdv underfull"])
         if not (c_over > k_over and c_under < k_under and counts["randomk mask"][0] == keep):
             raise AssertionError(f"select_pack cases miss their regime at n={n}: {counts}")
         log(f"select_pack n={n}: vals, idx and count bitwise == plain in {len(sel_cases)} cases "
-            f"(survivors/slots: {counts})")
+            f"(survivors/slots: {counts})"
+            + ("; 50 back-to-back launches bitwise equal" if n == FULL_MODEL else ""))
 
         g = x * 1e-2
         pg = poisoned * 1e-2
@@ -1244,6 +1325,22 @@ def phase_search_lm(kernels, compressors, torch, record):
             log_passes(r["passes"], record["card"])
             t = kernels.topk_threshold(mag, keep)
             del mag
+            full = lambda v: torch.full((), v, device=dev)  # noqa: E731
+            lm_cases = [("topk 1 %", x, t, keep), ("misaligned x[1:]", x[1:], t, keep),
+                        ("thresholdv underfull", x, full(4.5), keep),
+                        ("all survive t=0", x, full(0.0), keep)]
+            _, counts = hold_select_pack(kernels, torch, lm_cases, f"at n={n}")
+            want = kernels.fused_select_pack(x, t, keep)
+            for _ in range(5):
+                if not all(_bits_equal(torch, a, b)
+                           for a, b in zip(kernels.fused_select_pack(x, t, keep), want)):
+                    raise AssertionError(f"select_pack differs between launches at n={n}")
+            del want
+            r["select_pack_cases"] = counts
+            log(f"select_pack n={n}: bitwise == plain in {len(lm_cases)} cases (survivors/"
+                f"slots: {counts}); 5 more launches bitwise equal")
+            gc.collect()
+            torch.cuda.empty_cache()
             raw_sel = raw_wire(kernels, torch, n, keep, 0)[0]
             ms = time_ms(raw_sel, [(x, t)], reps=5, inner=4)
             bound = bound_ms(4 * n + 4 + 8 * keep + 4, n)
@@ -2257,6 +2354,8 @@ def phase_lm_profile(kernels, torch, record):
         finally:
             kernels._SEG_PACK_DISPATCH = False
         launches = prof.pop("port_launches_us", [])
+        prof["select_pack_ms_per_step"] = sum(
+            us for name, us in launches if "select_pack_kernel" in name) / 1e3 / 2
         log(f"profile lm {label} (llama3_8b widths, 2 layers, seq 8192): {json.dumps(prof)}")
         if mode == "simulate":
             prof["group_launches"] = lm_group_launches(launches, 2)

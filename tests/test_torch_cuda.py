@@ -180,10 +180,57 @@ def test_cuda_dither_matches_plain():
                            tk.terngrad_levels_plain(x, inv, SEED))
 
 
+def _select_pack_cases(dev):
+    """``(label, x, t, keep)`` for the one-pass select+pack's look-back and
+    edges: n at one tile and one tile +- 1 of either tiling, on both sides
+    of the size that picks the tiling, and across more than 1,000 tiles;
+    survivors only in the last tile, or only in the first; ``count == keep``
+    with ties at ``t``; ``keep > n``; misaligned views; ``-0.0`` survivors at
+    ``t = 0``; ``t = NaN``; n > 2^24."""
+    lib = tk._lib("select_pack")
+    large_from = lib.tcdp_select_pack_large_from()
+    small, large = lib.tcdp_select_pack_tile(1), lib.tcdp_select_pack_tile(large_from)
+    full = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)  # noqa: E731
+    cases = []
+    for n in (small - 1, small, small + 1, large_from - 1, large_from,
+              342 * large - 1, 342 * large, 342 * large + 1):
+        x = torch.from_numpy(_grad(n, seed=n)).to(dev)
+        cases += [(f"n={n} all survive", x, full(0.0), n),
+                  (f"n={n} zeros t=0", torch.zeros(n, device=dev), full(0.0), n + 1),
+                  (f"n={n} 2 %", x, tk.topk_threshold(x.abs(), n // 50), n // 50),
+                  (f"n={n} keep > n", x, full(0.01), 2 * n + 5)]
+    n = 1000 * large + 123
+    x = torch.from_numpy(_grad(n, seed=1)).to(dev)
+    cases.append(("1,000 tiles, 1 %", x, tk.topk_threshold(x.abs(), n // 100), n // 100))
+    for where, sl in (("last", slice(n - 100, n)), ("first", slice(0, 100))):
+        y = x.clone()
+        y[sl] = 5.0
+        cases += [(f"survivors only in the {where} tile", y, full(1.0), 64),
+                  (f"survivors only in the {where} tile, underfull", y, full(1.0), 300)]
+    ties = torch.from_numpy(np.random.default_rng(2).choice(
+        np.float32([0.5, 1.0, -1.0, 2.0]), 3 * small + 17)).to(dev)
+    cases.append(("count == keep, ties at t", ties, full(1.0), int((ties.abs() >= 1.0).sum())))
+    for m in (3 * small + 5, large_from + 5):
+        base = torch.from_numpy(_grad(m + 4, seed=4)).to(dev)
+        for off in (1, 2, 3):
+            v = base[off:off + m]
+            cases.append((f"misaligned x[{off}:] of {m}", v, tk.topk_threshold(v.abs(), 200), 200))
+    signed = torch.zeros(2 * small + 3, device=dev)
+    signed[::3] = -0.0
+    cases.append(("-0.0 survivors at t=0", signed, full(0.0), small))
+    cases.append(("t=NaN", x, full(float("nan")), 77))
+    n = (1 << 24) + 4099
+    big = torch.from_numpy(_grad(n, seed=5)).to(dev)
+    cases.append(("n > 2^24", big, tk.topk_threshold(big.abs(), n // 100), n // 100))
+    return cases
+
+
 @pytest.mark.cuda
 def test_cuda_wire_kernels_match_plain():
     """On the card: select+pack and quantize+pack equal their plain
-    versions bitwise."""
+    versions bitwise; select+pack also in the look-back's cases
+    (``_select_pack_cases``) and over 50 back-to-back launches on one
+    input."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; run with -m cuda where there is one")
     dev = torch.device("cuda")
@@ -200,6 +247,50 @@ def test_cuda_wire_kernels_match_plain():
         for a, b in zip(tk.qsgd_pack_kernel(x, inv, SEED, 255),
                         tk.qsgd_pack_plain(x, inv, SEED, 255)):
             assert torch.equal(a, b)
+    cases = _select_pack_cases(dev)
+    for label, x, t, keep in cases:
+        got, want = tk.fused_select_pack(x, t, keep), tk.fused_select_pack_plain(x, t, keep)
+        assert all(_bits_equal(a, b) for a, b in zip(got, want)), label
+    # the ranks come from the scan, not from the order the tiles ran in
+    x, t, keep = next((x, t, k) for label, x, t, k in cases if label == "1,000 tiles, 1 %")
+    want = tk.fused_select_pack_plain(x, t, keep)
+    runs = [tk.fused_select_pack(x, t, keep) for _ in range(50)]
+    for got in runs:
+        assert all(_bits_equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_cuda_select_pack_state():
+    """On the card: the select+pack's persistent state serves calls of
+    alternating sizes (stale status words of a larger call ignored), a second
+    stream keeps its own, and the epoch's wrap clears the status words."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; run with -m cuda where there is one")
+    dev = torch.device("cuda")
+    big = torch.from_numpy(_grad(300_001, seed=6)).to(dev)
+    inputs = [(big, 3000), (big[:70_001], 700), (big[5:100_006], 1000), (big, 3000)]
+    for x, keep in inputs + inputs:
+        t = tk.topk_threshold(x.abs(), keep)
+        got, want = tk.fused_select_pack(x, t, keep), tk.fused_select_pack_plain(x, t, keep)
+        assert all(_bits_equal(a, b) for a, b in zip(got, want))
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    t = tk.topk_threshold(big.abs(), 3000)
+    want = tk.fused_select_pack_plain(big, t, 3000)
+    with torch.cuda.stream(side):
+        got = tk.fused_select_pack(big, t, 3000)
+    torch.cuda.synchronize()
+    assert all(_bits_equal(a, b) for a, b in zip(got, want))
+    assert len({v.data_ptr() for k, v in tk._SP_STATE.items() if k[0] == big.device}) >= 2
+    # the last epoch before the wrap, then the wrap's first
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    state = tk.select_pack_state(big.device, stream, 1)
+    state[-1] = (1 << 30) - 1  # ctrl word 2 (the epoch), little-endian
+    for x, keep in inputs:
+        t = tk.topk_threshold(x.abs(), keep)
+        got, want = tk.fused_select_pack(x, t, keep), tk.fused_select_pack_plain(x, t, keep)
+        assert all(_bits_equal(a, b) for a, b in zip(got, want))
+    assert int(state[-1]) == (1 << 30) + len(inputs) - 1
 
 
 @pytest.mark.cuda

@@ -298,3 +298,35 @@ class TestDispatch:
                                "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
                                "threshold_pack": 0, "seg_pack": 0, "ternary_bytes": 0,
                                "qsgd_bytes": 0}
+
+
+def test_chip_smoke_names_template_kernels():
+    """``chip_smoke.py``'s ptxas report keeps each template instance of a
+    kernel apart: the select+pack tilings, the flash kernels' element type
+    and head size, and the count kernel's bool."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke_names", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    ns = "_ZN47_GLOBAL__N__f1b82417_14_select_pack_cu_81a3c5b9"
+    small = ns + "18select_pack_kernelINS_6TilingILi512ELi8ELi0ELi3EEEEEvPKfxiiS4_iPfPiS6_PyiPj"
+    large = ns + "18select_pack_kernelINS_6TilingILi256ELi16ELi8ELi3EEEEEvPKfxiiS4_iPfPiS6_PyiPj"
+    assert smoke._demangle(small) == "select_pack_kernel<Tiling<512, 8, 0, 3>>"
+    assert smoke._demangle(large) == "select_pack_kernel<Tiling<256, 16, 8, 3>>"
+    report = smoke.ptxas_report(
+        f"ptxas info    : Compiling entry function '{small}' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 40 registers, used 1 barriers, 528 bytes smem\n"
+        f"ptxas info    : Compiling entry function '{large}' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 80 registers, used 1 barriers, 784 bytes smem\n")
+    assert report == {"select_pack_kernel<Tiling<512, 8, 0, 3>>": {"registers": 40,
+                                                                    "spill_stores": 0},
+                      "select_pack_kernel<Tiling<256, 16, 8, 3>>": {"registers": 80,
+                                                                     "spill_stores": 0}}
+    assert smoke._demangle("_ZN12_GLOBAL__N_121count_ge_edges_kernelILb1EEEvPKf") == (
+        "count_ge_edges_kernel<true>")

@@ -122,24 +122,82 @@ def _jax_chain(flat, mag, t, keep):
     return jw._sorted_gather(flat, idx), idx, jnp.sum(mask, dtype=jnp.int32)
 
 
-@pytest.mark.parametrize("n,keep", [(70000, 700), (65536, 1), (4096, 4096), (12345, 300)])
-def test_select_pack_plain_bitwise(n, keep):
-    flat = np.asarray(jax.random.normal(jax.random.key(n + keep), (n,)))
+def _select_case(kind, n, keep):
+    """``(flat, t, keep)``: N(0, 1) data at its Top-K threshold; survivors
+    only in the last 4096-element segment; values of {0.5, +-1, 2} at
+    ``t = 1`` (ties at ``t``, ``keep`` the survivor count); ``-0.0``, ``+0.0``
+    and NaN mixed in, at ``t = 0`` and at ``t = 1``."""
+    flat = np.array(jax.random.normal(jax.random.key(n + (keep or 0)), (n,)))
+    if kind == "topk":
+        return flat, jk.topk_threshold(jnp.abs(jnp.asarray(flat)), keep), keep
+    if kind == "last segment":
+        flat *= np.float32(0.01)
+        flat[n // 4096 * 4096 + 10::7] = 5.0
+        return flat, np.float32(1.0), keep
+    if kind == "ties":
+        flat = np.random.default_rng(n).choice(np.float32([0.5, 1.0, -1.0, 2.0]), n)
+        return flat, np.float32(1.0), int((np.abs(flat) >= 1.0).sum())
+    flat[::5] = -0.0
+    flat[2::11] = 0.0
+    flat[1::7] = np.nan
+    return flat, np.float32(0.0 if kind == "signed zeros, NaN, t=0" else 1.0), keep
+
+
+@pytest.mark.parametrize("kind,n,keep", [
+    pytest.param("topk", 70000, 700, id="70000-700"),
+    pytest.param("topk", 65536, 1, id="65536-1"),
+    pytest.param("topk", 4096, 4096, id="4096-4096"),
+    pytest.param("topk", 12345, 300, id="12345-300"),
+    pytest.param("topk", 4095, 40, id="4095-40"),
+    pytest.param("topk", 4097, 41, id="4097-41"),
+    pytest.param("topk", 8193, 82, id="8193-82"),
+    pytest.param("last segment", 12388, 10, id="last-segment-12388-10"),
+    pytest.param("ties", 12305, None, id="ties-count-eq-keep-12305"),
+    pytest.param("signed zeros, NaN, t=0", 8195, 5000, id="signed-zeros-nan-t0-8195-5000"),
+    pytest.param("signed zeros, NaN, t=1", 8195, 1000, id="signed-zeros-nan-t1-8195-1000"),
+])
+def test_select_pack_plain_bitwise(kind, n, keep):
+    flat, t, keep = _select_case(kind, n, keep)
     mag = jnp.abs(jnp.asarray(flat))
-    t = jk.topk_threshold(mag, keep)
     fv, fi, fc = jk.fused_select_pack(jnp.asarray(flat), t, keep, interpret=True)
     xv, xi, xc = _jax_chain(jnp.asarray(flat), mag, t, keep)
     tv, ti, tc_ = tk.fused_select_pack_plain(_t(flat), _t(t), keep)
     for got, f, x in ((tv, fv, xv), (ti, fi, xi)):
         _eq(got, f)
         _eq(got, x)
-    assert int(tc_) == int(fc) == int(xc) and tc_.dtype == torch.int32
+    assert int(tc_) == int(fc) == int(xc) >= keep and tc_.dtype == torch.int32
+    if kind == "ties":
+        assert int(tc_) == keep and bool((mag == 1.0).any())
     # the wrapper on a CPU tensor is the plain version, and the port's own
     # unfused chain agrees with it
     tk.set_pallas_mode("off")
     for a, b in zip(tk.fused_select_pack(_t(flat), _t(t), keep),
                     tw._select_pack(_t(flat), _t(mag), _t(t), keep)):
-        assert torch.equal(a, b)
+        assert torch.equal(a.view(torch.int32) if a.is_floating_point() else a,
+                           b.view(torch.int32) if b.is_floating_point() else b)
+
+
+@pytest.mark.parametrize("words", [1, 2, 60_000])
+def test_select_pack_state(words):
+    """The select+pack's state: zeroed int64 words, one buffer for each
+    (device, stream), kept while it is large enough and replaced, zeroed, when
+    a call needs more."""
+    dev, key = torch.device("cpu"), -12345
+    tk._SP_STATE.pop((dev, key), None)
+    try:
+        state = tk.select_pack_state(dev, key, words)
+        assert state.dtype == torch.int64 and state.numel() == words
+        assert not bool(state.any())
+        state.fill_(7)
+        assert tk.select_pack_state(dev, key, words) is state
+        assert tk.select_pack_state(dev, key, 1) is state
+        assert tk.select_pack_state(dev, key - 1, words) is not state
+        grown = tk.select_pack_state(dev, key, words + 1)
+        assert grown.numel() == words + 1 and not bool(grown.any())
+        assert tk.select_pack_state(dev, key, words) is grown
+    finally:
+        tk._SP_STATE.pop((dev, key), None)
+        tk._SP_STATE.pop((dev, key - 1), None)
 
 
 def test_select_pack_underfull_pads_zero():

@@ -96,6 +96,7 @@ __all__ = [
     "use_quant_kernels",
     "fused_select_pack",
     "fused_select_pack_plain",
+    "select_pack_state",
     "first_set_indices",
     "use_select_pack",
     "terngrad_pack",
@@ -249,7 +250,10 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         "dither": {"tcdp_uniform": [p, ll, u64, p],
                    "tcdp_qsgd_levels": [p, ll, p, u64, i32, p, p],
                    "tcdp_terngrad_levels": [p, ll, p, u64, p, p]},
-        "select_pack": {"tcdp_select_pack": [p, ll, p, i32, p, p, p, p, p, p]},
+        "select_pack": {"tcdp_select_pack": [p, ll, p, i32, p, p, p, p, ll, p],
+                        "tcdp_select_pack_state_words": [ll],
+                        "tcdp_select_pack_tile": [ll],
+                        "tcdp_select_pack_large_from": []},
         "quant_pack": {"tcdp_terngrad_pack": [p, ll, p, u64, p, p],
                        "tcdp_qsgd_pack": [p, ll, p, u64, i32, p, p, p]},
         "bucket_route": {"tcdp_bucket_route": [p, p, p, i32, i32, i32, p, p, p]},
@@ -919,7 +923,9 @@ def use_quant_kernels(n: int, device) -> bool:
 # Fused select+pack (the wire payload of the index-carrying sparsifiers)
 # ---------------------------------------------------------------------------
 
-_SEG = 4096  # elements per segment of csrc/select_pack.cu
+_SEG = 4096  # elements per segment of csrc/threshold_pack.cu
+# csrc/select_pack.cu's state (int64 words) for each (device, stream)
+_SP_STATE: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
 
 def first_set_indices(mask: torch.Tensor, keep: int) -> torch.Tensor:
@@ -931,6 +937,18 @@ def first_set_indices(mask: torch.Tensor, keep: int) -> torch.Tensor:
     ranks = torch.arange(1, keep + 1, dtype=torch.int64, device=mask.device)
     idx = torch.searchsorted(pos, ranks)
     return torch.where(idx < mask.shape[0], idx, 0).to(torch.int32)
+
+
+def select_pack_state(device: torch.device, stream: int, words: int) -> torch.Tensor:
+    """The select+pack's state for calls on ``stream`` of ``device``: at least
+    ``words`` int64 words, zeroed when made.  Each call leaves it ready for
+    the next, and calls on one stream run in order, so a stream keeps one
+    buffer and replaces it only to grow."""
+    key = (device, stream)
+    state = _SP_STATE.get(key)
+    if state is None or state.numel() < words:
+        state = _SP_STATE[key] = torch.zeros(words, dtype=torch.int64, device=device)
+    return state
 
 
 def fused_select_pack_plain(flat: torch.Tensor, t: torch.Tensor, keep: int):
@@ -974,11 +992,12 @@ def fused_select_pack(flat: torch.Tensor, t: torch.Tensor, keep: int):
     if n == 0:
         return vals.zero_(), idx.zero_(), torch.zeros((), dtype=torch.int32, device=dev)
     count = torch.empty(1, dtype=torch.int32, device=dev)
-    scratch = torch.empty(2, -(-n // _SEG), dtype=torch.int32, device=dev)
-    rc = _lib("select_pack").tcdp_select_pack(
-        flat.data_ptr(), n, t.data_ptr(), keep, vals.data_ptr(), idx.data_ptr(),
-        count.data_ptr(), scratch[0].data_ptr(), scratch[1].data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    lib = _lib("select_pack")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    state = select_pack_state(dev, stream, lib.tcdp_select_pack_state_words(n))
+    rc = lib.tcdp_select_pack(flat.data_ptr(), n, t.data_ptr(), keep, vals.data_ptr(),
+                              idx.data_ptr(), count.data_ptr(), state.data_ptr(),
+                              state.numel(), stream)
     _check_launch(rc, "select_pack")
     LAUNCHES["select_pack"] += 1
     return vals, idx, count.reshape(())
