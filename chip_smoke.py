@@ -1356,6 +1356,47 @@ def phase_search_lm(kernels, compressors, torch, record):
     return out
 
 
+# the Top-K groups of the paper's configs 2-3 that phase 3b gives the
+# kernels: VGG16's fc1 (layer-wise), VGG16 and AlexNet (module) entire-model,
+# and AlexNet's fc2, exactly 2^24
+CIFAR_GROUPS = (102_760_448, 134_301_514, 23_272_266, 16_777_216)
+
+
+def phase_search_cifar(kernels, compressors, torch, record):
+    """2e: the threshold search at the CIFAR configs' group sizes, bitwise
+    against the unfused glue on the plain counts and the CPU search
+    (``check_search``); the fused sparsify there bitwise against its plain
+    version; and ``select_pack`` (its Large tiling) at VGG16's entire-model
+    size against its plain version."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    out = {}
+    for n in CIFAR_GROUPS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        x = torch.randn(n, generator=gen, device=dev) * 1e-2
+        mag = x.abs()
+        keep = compressors.topk_keep_count(n, RATIO)
+        r = {"search": check_search(kernels, torch, mag, keep, f"n={n}")}
+        t = kernels.topk_threshold(mag, keep)
+        del mag
+        for got, want in zip(kernels.fused_sparsify(x, t), kernels.fused_sparsify_plain(x, t)):
+            if not _bits_equal(torch, got, want):
+                raise AssertionError(f"fused_sparsify differs from its plain version at n={n}")
+        if n == 134_301_514:
+            _, counts = hold_select_pack(kernels, torch, [("topk 1 %", x, t, keep)],
+                                         f"at n={n}")
+            r["select_pack_cases"] = counts
+        held = "search, fused_sparsify" + (", select_pack" if "select_pack_cases" in r else "")
+        log(f"cifar group n={n}: {held} bitwise == plain")
+        out[str(n)] = r
+        del x
+    gc.collect()
+    torch.cuda.empty_cache()
+    record["search_cifar"] = out
+    return out
+
+
 def phase_seg_path(kernels, compressors, dawn, torch, record, wire_em, lm_wire):
     """The gated segmented wire Top-K path (``kernels._SEG_PACK_DISPATCH``)
     through the entry points: dawn at ResNet-9's published widths and the LM
@@ -1444,11 +1485,16 @@ WIRE_RUNS = {
 }
 
 
-def _group_sizes(dp, gran: str):
-    """Full-width ResNet-9's reduction groups, as element counts."""
-    from tpu_compressed_dp_torch.models.resnet9 import ResNet9, param_leaves
+def _group_sizes(dp, gran: str, network: str = "resnet9"):
+    """A full-width network's reduction groups, as element counts (the leaf
+    sizes of a module built on the CPU)."""
+    import torch
 
-    sizes = [p.numel() for p in param_leaves(ResNet9(seed=0, device="cpu")).values()]
+    from tpu_compressed_dp_torch.harness import dawn
+    from tpu_compressed_dp_torch.models.common import param_leaves
+
+    sizes = [p.numel() for p in param_leaves(
+        dawn.MODELS[network](1.0, torch.float32, 0, "cpu")).values()]
     groups = dp.make_leaf_groups([4 * s for s in sizes], gran, 25.0 * dp.BUCKET_MB)
     return [sum(sizes[i] for i in g) for g in groups]
 
@@ -1552,6 +1598,108 @@ def phase_train(kernels, compressors, dawn, torch, record):
             != runs["terngrad entiremodel"]["summary"]["steps"]):
         raise AssertionError("entiremodel TernGrad did not take the chunked, prescaled call")
     record["train"] = runs
+    return runs
+
+
+# phase 3b's runs, the paper's CIFAR configs 2-3 (BASELINE.json) and the
+# other nets: label -> (network, dawn flags, the kernels the run must launch)
+_TOPK = ["--method", "topk", "--ratio", str(RATIO), "--error_feedback"]
+ALEXNET_TOPK = ("count_ge", "search_init", "fused_sparsify")
+CIFAR_RUNS = {
+    "config 2 vgg16 topk layerwise": ("vgg16", ["--compress", "layerwise", *_TOPK],
+                                      TOPK_KERNELS),
+    "config 2 vgg16 wire topk entiremodel": (
+        "vgg16", ["--mode", "wire", "--compress", "entiremodel", *_TOPK], ("select_pack",)),
+    "config 3a alexnet_module topk entiremodel": (
+        "alexnet_module", ["--compress", "entiremodel", *_TOPK], TOPK_KERNELS),
+    "config 3b alexnet_module randomk entiremodel": (
+        "alexnet_module", ["--compress", "entiremodel", "--method", "randomk", "--ratio",
+                           str(RATIO), "--error_feedback"], ("uniform",)),
+    # the graph AlexNet's leaves (<= 884,736) are below the sampled round's
+    # size: its searches run full-range rounds only
+    **{f"{net} topk layerwise": (net, ["--compress", "layerwise", *_TOPK], must)
+       for net, must in (("alexnet", ALEXNET_TOPK), ("resnet9_graph", TOPK_KERNELS),
+                         ("alexnet_graph", ALEXNET_TOPK))},
+    **{f"{net} bf16 topk layerwise": (net, ["--compress", "layerwise", "--dtype", "bfloat16",
+                                            *_TOPK], must)
+       for net, must in (("resnet9", TOPK_KERNELS), ("alexnet", ALEXNET_TOPK))},
+    **{f"resnet9 powersgd {gran}": ("resnet9", ["--compress", gran, "--method", "powersgd",
+                                                "--rank", "4", "--error_feedback"], ())
+       for gran in ("layerwise", "entiremodel")},
+}
+
+
+def phase_cifar(kernels, compressors, dawn, torch, record):
+    """3b: the paper's CIFAR configs 2 and 3 and the graph-family nets at
+    full width through ``dawn.main``, 4 steps of batch 512 each."""
+    import numpy as np
+
+    from tpu_compressed_dp_torch.ops import lowrank
+    from tpu_compressed_dp_torch.parallel import dp
+
+    def billed(elems: float, dense: float) -> float:
+        # the step's stats are float32 tensors: past 2^24 (VGG16's 134 M)
+        # the counts are held rounded to float32, and so is the fraction
+        return float(np.float32(elems)) / float(np.float32(dense))
+
+    card = record["card"]
+    t_phase = time.perf_counter()
+    runs = {}
+    for label, (network, flags, must) in CIFAR_RUNS.items():
+        argv = ["--network", network, "--synthetic", "--synthetic_n", "2048", "--batch_size",
+                "512", "--epochs", "1", *flags, "--device", "cuda", "--seed", "0",
+                "--log_dir", ""]
+        gran = flags[flags.index("--compress") + 1]
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        summary = dawn.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        steps, loss = summary["steps"], summary["train loss"]
+        sent, wire = summary["sent frac"], summary["wire frac"]
+        if steps != 4 or not (math.isfinite(loss) and math.isfinite(summary["test loss"])):
+            raise AssertionError(f"{label}: {steps} steps, loss {loss}")
+        ns = _group_sizes(dp, gran, network)
+        dense = sum(ns)
+        if "wire" in label:
+            # the measured bits of the (value, index) payloads are the layout's
+            keep = sum(compressors.topk_keep_count(n, RATIO) for n in ns)
+            want_sent, want_wire = billed(keep, dense), billed(64 * keep, dense) / 32
+            if sent != want_sent or abs(wire - want_wire) > 1e-12 * want_wire:
+                raise AssertionError(f"{label}: sent {sent} / wire {wire} are not the "
+                                     f"layout's {want_sent} / {want_wire}")
+        elif "randomk" in label:
+            # the billed keep counts, at a (value, index) pair each
+            keep = sum(compressors.randomk_keep_count(n, RATIO) for n in ns)
+            want_sent, want_wire = billed(keep, dense), billed(64 * keep, dense) / 32
+            if sent != want_sent or abs(wire - want_wire) > 1e-12 * want_wire:
+                raise AssertionError(f"{label}: sent {sent} / wire {wire} are not the keep "
+                                     f"count's {want_sent} / {want_wire}")
+        elif "powersgd" in label:
+            bits = sum(lowrank.powersgd_group_bits(n, 4) for n in ns)
+            want = billed(bits, dense) / 32
+            if abs(wire - want) > 1e-12 * want or abs(sent - want) > 1e-12 * want:
+                raise AssertionError(f"{label}: sent {sent} / wire {wire} are not the factor "
+                                     f"bits' {want}")
+        elif abs(sent - RATIO) > 0.1 * RATIO:
+            raise AssertionError(f"{label}: sent frac {sent} is not ~{RATIO}")
+        if must and min(launches[k] for k in must) <= 0:
+            raise AssertionError(f"{label}: a kernel of the run never launched: {launches}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        ms = summary["train time"] * 1e3 / steps
+        log(f"cifar {label}: {steps} steps, loss {loss:.4f}, sent frac {sent:.6f}, wire frac "
+            f"{wire:.6f}, {ms:.2f} ms/step (first epoch, warm-up included), peak "
+            f"{peak:.2f} GiB, run wall {wall:.2f} s on {card}, launches {launches}")
+        runs[label] = {"summary": summary, "launches": launches, "ms_per_step": ms,
+                       "peak_gib": peak, "groups": len(ns)}
+    vgg = runs["config 2 vgg16 topk layerwise"]
+    if vgg["launches"]["count_edges"] < vgg["summary"]["steps"]:
+        raise AssertionError("VGG16's fc1 did not take the sampled first round every step")
+    wall = time.perf_counter() - t_phase
+    log(f"phase 3b (CIFAR configs 2-3, graph nets, bf16, PowerSGD) wall {wall:.1f} s on {card}")
+    record["cifar"] = {"runs": runs, "wall_s": wall}
     return runs
 
 
@@ -1698,6 +1846,94 @@ def phase_steady(torch, record):
     record["steady"] = out
 
 
+# phase 4b's rows: label -> (network, dtype, method, granularity)
+CIFAR_STEADY = {
+    "vgg16 dense": ("vgg16", "float32", None, "layerwise"),
+    "vgg16 topk layerwise": ("vgg16", "float32", "topk", "layerwise"),
+    "alexnet_module dense": ("alexnet_module", "float32", None, "layerwise"),
+    "alexnet_module topk entiremodel": ("alexnet_module", "float32", "topk", "entiremodel"),
+    "alexnet_module randomk entiremodel": ("alexnet_module", "float32", "randomk",
+                                           "entiremodel"),
+    "resnet9 dense fp32": ("resnet9", "float32", None, "layerwise"),
+    "resnet9 dense bf16": ("resnet9", "bfloat16", None, "layerwise"),
+    "resnet9 powersgd layerwise": ("resnet9", "float32", "powersgd", "layerwise"),
+    "resnet9 powersgd entiremodel": ("resnet9", "float32", "powersgd", "entiremodel"),
+}
+
+
+def phase_steady_cifar(torch, record):
+    """4b: steady-state steps (batch 512) and the sync alone of the rows
+    above, with peak memory and the profile's idle share."""
+    import numpy as np
+
+    from tpu_compressed_dp_torch.data import cifar10 as data
+    from tpu_compressed_dp_torch.harness import dawn
+    from tpu_compressed_dp_torch.models.common import make_normalizing_apply_fn, param_leaves
+    from tpu_compressed_dp_torch.parallel.dp import (CompressionConfig, init_comp_state,
+                                                     init_ef_state, make_stateful_grad_sync)
+    from tpu_compressed_dp_torch.train.optim import SGD
+    from tpu_compressed_dp_torch.train.state import TrainState
+    from tpu_compressed_dp_torch.train.step import make_train_step
+
+    card = record["card"]
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    ds = data.synthetic_cifar10(n_train=512, n_test=8)
+    batch = {"input": torch.from_numpy(ds["train"]["data"]).to(dev),
+             "target": torch.from_numpy(ds["train"]["labels"]).to(dev)}
+    apply_fn = make_normalizing_apply_fn(np.asarray(data.CIFAR10_MEAN) * 255.0,
+                                         np.asarray(data.CIFAR10_STD) * 255.0)
+    out = {}
+    for label, (network, dtype, method, gran) in CIFAR_STEADY.items():
+        cfg = CompressionConfig(method=method, granularity=gran, ratio=RATIO, rank=4,
+                                error_feedback=method is not None)
+        model = dawn.MODELS[network](1.0, dawn.DTYPES[dtype], 0, dev)
+        params = param_leaves(model)
+        opt = SGD(lr=1e-4, momentum=0.9, nesterov=True, weight_decay=0.256)
+        state = TrainState.create(model, opt.init(params), init_ef_state(params, cfg),
+                                  comp=init_comp_state(params, cfg))
+        step = make_train_step(apply_fn, opt, cfg, grad_scale=512.0)
+        for _ in range(3):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        n_steps = 6
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            state, m = step(state, batch)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        holder = {"state": state}
+
+        def run(k):
+            for _ in range(k):
+                holder["state"], _ = step(holder["state"], batch)
+
+        prof = device_profile(run, torch, n_steps=2)
+        state = holder["state"]
+        grads = {k: torch.randn(p.shape, device=dev) * 1e-2 for k, p in params.items()}
+        sync = make_stateful_grad_sync(cfg)
+        ef, comp = init_ef_state(params, cfg), init_comp_state(params, cfg)
+        sync_ms = time_ms(lambda g: sync(g, ef, comp, 0), [grads], reps=5, inner=3)
+        if not math.isfinite(float(m["loss"])):
+            raise AssertionError(f"steady {label}: non-finite loss")
+        out[label] = {"step_ms": step_ms, "img_s": 512 / step_ms * 1e3, "sync_ms": sync_ms,
+                      "peak_gib": peak, "profile": prof}
+        log(f"steady {label}: {step_ms:.3f} ms/step ({512 / step_ms * 1e3:.0f} img/s), "
+            f"gradient sync alone {sync_ms:.3f} ms, peak {peak:.2f} GiB, idle share "
+            f"{prof.get('idle_share', 'not measured')}, on {card}")
+        log(f"profile {label}: {json.dumps(prof)}")
+        del state, model, params, grads, ef, comp, holder, step, sync
+        gc.collect()
+        torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    log(f"phase 4b wall {wall:.1f} s on {card}")
+    record["steady_cifar"] = out
+
+
 # the multi-rank phase's dawn runs: world -> (label, method, transport, dp_pods)
 RANK_RUNS = {2: ("wire topk entiremodel sharded", "topk", "sharded", 1),
              4: ("wire thresholdv entiremodel hierarchical 2 pods", "thresholdv",
@@ -1827,10 +2063,45 @@ def _rank_sync_checks(torch, world: int, rank: int, card: str) -> dict:
                 torch.cuda.synchronize()
                 samples.append((time.perf_counter() - t0) * 1e3)
             sync_ms[f"topk {gran} {transport}"] = sorted(samples)[2]
+    if world == 2:
+        checks += _rank_powersgd_checks(torch, dp, mesh, params, grads, ef0, world)
     if rank == 0:
         log(f"ranks W={world}: {len(checks)} sync checks passed on {card}; sync alone (gloo "
             f"through host memory on one card, not a link timing), median ms: {sync_ms}")
     return {"checks": checks, "sync_ms": sync_ms}
+
+
+def _rank_powersgd_checks(torch, dp, mesh, params, grads, ef0, world: int) -> list:
+    """PowerSGD rank 4 + EF over the ranks' different full-width ResNet-9
+    gradients: the result equals the W = 1 sync of the ranks' mean gradient
+    and EF within 1e-5 of each leaf's largest entry (every nonlinear step
+    follows a mean), and ``sync_agree`` reads 1."""
+    checks = []
+    for gran in ("layerwise", "entiremodel"):
+        cfg = dp.CompressionConfig(method="powersgd", rank=4, granularity=gran,
+                                   error_feedback=True, check_sync=True)
+        comp = dp.init_comp_state(params, cfg)
+        sync = dp.make_stateful_grad_sync(cfg)
+        out, _, q, stats = sync(grads, ef0, comp, 11)
+        mean_g = {k: mesh.all_reduce_sum(v) / world for k, v in grads.items()}
+        mean_e = {k: mesh.all_reduce_sum(v) / world for k, v in ef0.items()}
+        # the same engine at W = 1: the default group's size read as 1 skips
+        # its all-reduces
+        group_world = mesh.world
+        mesh.world = lambda: 1
+        try:
+            ref, _, q_ref, _ = sync(mean_g, mean_e, comp, 11)
+        finally:
+            mesh.world = group_world
+        d = max(((out[k] - ref[k]).abs().max() / ref[k].abs().max()).item() for k in out)
+        dq = max(((q[k] - q_ref[k]).abs().max() / q_ref[k].abs().max()).item() for k in q)
+        agree = stats["sync_agree"].item()
+        if not (d <= 1e-5 and dq <= 1e-5 and agree == 1.0):
+            raise AssertionError(f"powersgd {gran}: W={world} vs W=1 on the mean {d}, Q {dq}, "
+                                 f"sync_agree {agree}")
+        checks.append({"name": f"powersgd {gran} W={world} vs W=1 on the mean",
+                       "max_rel_diff": d, "q_max_rel_diff": dq, "sync_agree": agree})
+    return checks
 
 
 def rank_worker(world: int, rank: int, port: int, out_path: str) -> int:
@@ -2161,6 +2432,7 @@ LM_ARGV = ["--preset", "llama3_8b", "--layers", "2", "--seq_len", "8192", "--glo
            "1", "--warmup_steps", "1", "--steps", "4", "--log_every", "4", "--device", "cuda",
            "--seed", "0"]
 LM_TOPK = ["--method", "topk", "--ratio", str(RATIO), "--error_feedback"]
+ALEXNET_TOPK = ("count_ge", "search_init", "fused_sparsify")
 LM_RUNS = {"dense": [],
            "topk entiremodel": ["--compress", "entiremodel", *LM_TOPK],
            "topk layerwise": ["--compress", "layerwise", *LM_TOPK],
@@ -2435,13 +2707,16 @@ def main(argv=None) -> int:
     err.update(p_err)
     err["seg_pack"] = max(err["seg_pack"], phase_seg_pack_lm(kernels, compressors, torch, record))
     phase_search_lm(kernels, compressors, torch, record)
+    phase_search_cifar(kernels, compressors, torch, record)
     rows[FULL_MODEL].update(p_rows)
     runs = phase_train(kernels, compressors, dawn, torch, record)
+    cifar_runs = phase_cifar(kernels, compressors, dawn, torch, record)
     lm_runs = phase_lm(kernels, compressors, torch, record)
     seg_runs = phase_seg_path(kernels, compressors, dawn, torch, record,
                               runs["wire topk entiremodel"], lm_runs["wire topk entiremodel"])
     phase_lm_profile(kernels, torch, record)
     phase_steady(torch, record)
+    phase_steady_cifar(torch, record)
     worlds = phase_multirank(torch, record)
 
     replaces = {"count_ge": "tpu_compressed_dp/ops/kernels.py:173",
@@ -2482,9 +2757,10 @@ def main(argv=None) -> int:
     line = {"kernels": []}
     for name in replaces:
         r = rows[FULL_MODEL][name]
-        # the main paths' launches: phase 3's dawn runs, the LM runs of phase
-        # 7, the segmented-path runs and the multi-rank dawn runs
+        # the main paths' launches: phase 3's and 3b's dawn runs, the LM runs
+        # of phase 7, the segmented-path runs and the multi-rank dawn runs
         launches = (sum(run["launches"][name] for run in runs.values())
+                    + sum(run["launches"][name] for run in cifar_runs.values())
                     + sum(run["launches"][name] for run in lm_runs.values())
                     + sum(run["launches"][name] for run in seg_runs.values())
                     + sum(w["launches"].get(name, 0) for w in worlds.values()))

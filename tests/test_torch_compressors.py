@@ -170,11 +170,19 @@ class TestRegistry:
                 (b_j.name, b_j.needs_rng, b_j.is_sparsifier)
 
     def test_powersgd_raises(self):
+        # PowerSGD is ported (tests/test_torch_lowrank.py): every spelling
+        # binds its stateless form, and its wire width, which depends on the
+        # group's size, raises without one, as in the JAX registry
         for spelling in ("powersgd", "power_sgd", "lowrank"):
-            with pytest.raises(NotImplementedError, match="item 9"):
-                tc.get_compressor(spelling)
-        with pytest.raises(NotImplementedError, match="item 9"):
-            tc.payload_bits_per_elem("powersgd")
+            b_t, b_j = tc.get_compressor(spelling, rank=2), jc.get_compressor(spelling, rank=2)
+            assert (b_t.name, b_t.needs_rng, b_t.is_sparsifier, b_t.is_stateful) == \
+                (b_j.name, b_j.needs_rng, b_j.is_sparsifier, b_j.is_stateful)
+        for pkg in (tc, jc):
+            with pytest.raises(ValueError, match="pass n"):
+                pkg.payload_bits_per_elem("powersgd")
+        for n in (100, 600, 2359296):
+            assert tc.payload_bits_per_elem("powersgd", n=n, rank=4) == \
+                jc.payload_bits_per_elem("powersgd", n=n, rank=4)
 
 
 def test_seed_helpers():

@@ -433,3 +433,113 @@ def test_cuda_byte_packers_match_plain():
             lv = torch.from_numpy(rng.integers(lo, hi, n).astype(np.int16)).to(dev)
             for a, b in zip(tk.qsgd_pack_bytes(lv), tk.qsgd_pack_bytes_plain(lv)):
                 assert _bits_equal(a, b)
+
+
+# the CIFAR nets: network -> (constructor(dtype), batch); fixed-width nets
+# at their only width, the graph family at full width
+def _cifar_nets():
+    from tpu_compressed_dp_torch.harness import dawn
+
+    return {name: (lambda dtype, n=name: dawn.MODELS[n](1.0, dtype, 0, "cpu"))
+            for name in ("resnet9", "alexnet", "alexnet_module", "vgg16", "resnet9_graph",
+                         "alexnet_graph")}
+
+
+# card vs CPU, float32: cuDNN's convolutions sum in other orders than the
+# CPU's (TF32 off); the logits within 1e-4 of the largest |logit|
+CARD_FWD_REL = 1e-4
+# bf16: one ulp of each logit plus 0.05 of the logits' rms, as the CPU
+# parity tests hold the bf16 nets to the JAX modules
+CARD_BF16_RMS_SHARE = 0.05
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_cifar_nets_forward_match_cpu(dtype):
+    """On the card: every CIFAR net's forward (eval and train mode, dropout
+    masks given) equals its CPU forward from the same weights."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; run with -m cuda where there is one")
+    from tpu_compressed_dp_torch.harness import dawn
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = dawn.DTYPES[dtype]
+    dev = torch.device("cuda")
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((8, 32, 32, 3))
+                         .astype(np.float32))
+    for name, make in _cifar_nets().items():
+        if dt != torch.float32 and name in ("alexnet_module", "vgg16"):
+            continue  # fp32 only, as in the JAX harness
+        cpu = make(dt)
+        card = make(dt).to(dev)
+        card.load_state_dict(cpu.state_dict())
+        for train in (False, True):
+            kw = {}
+            if train and getattr(cpu, "dropout_rate", 0.0) > 0.0:
+                g = torch.Generator().manual_seed(1)
+                kw = {"dropout": [torch.rand(8, 1024 if name == "alexnet_module" else 4096,
+                                             generator=g) < 0.5,
+                                  torch.rand(8, 4096, generator=g) < 0.5]}
+            want = cpu(x, train, **kw).detach().double().numpy()
+            got = card(x.to(dev), train, **kw).detach().cpu().double().numpy()
+            if dt == torch.float32:
+                assert np.abs(got - want).max() <= CARD_FWD_REL * np.abs(want).max(), name
+            else:
+                _assert_bf16_close(got, want, CARD_BF16_RMS_SHARE, f"{name} train={train}")
+        del card
+
+
+@pytest.mark.cuda
+def test_cuda_vgg16_fc1_topk_count_contract():
+    """VGG16's fc1 (102,760,448 elements, past 2^24): the threshold the
+    search returns keeps at least the keep count, ``count(|g| >= t) >=
+    keep``, with a surplus only from ties at the threshold's resolution
+    (well under 1 % of keep on normal data)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; run with -m cuda where there is one")
+    from tpu_compressed_dp_torch.ops import compressors as tc
+
+    dev = torch.device("cuda")
+    n = 25088 * 4096
+    g = torch.Generator(device=dev).manual_seed(3)
+    mag = torch.randn(n, generator=g, device=dev).abs_()
+    keep = tc.topk_keep_count(n, 0.01)
+    t = tk.topk_threshold(mag, keep)
+    at_least = int((mag >= t).sum())
+    assert keep <= at_least <= 1.01 * keep, (at_least, keep)
+    _, _, sent = tk.fused_sparsify(mag, t)
+    assert int(sent.item()) == at_least
+
+
+@pytest.mark.cuda
+def test_cuda_powersgd_sync_is_approx():
+    """On the card, at W = 1: the warm-started sync from
+    ``init_group_state(n, r, seed)`` equals ``powersgd_approx(acc, seed)``
+    bitwise (the same Q0 and the same fp32 products), at ResNet-9's largest
+    leaf and VGG16's fc1; and equals the CPU's within 1e-4 of its largest
+    entry (cuBLAS sums the products in another order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; run with -m cuda where there is one")
+    from tpu_compressed_dp_torch.ops import lowrank as tlr
+    from tpu_compressed_dp_torch.parallel import dp as tdp
+
+    dev = torch.device("cuda")
+    for n in (2_359_296, 102_760_448):
+        g = torch.Generator(device=dev).manual_seed(n)
+        acc = torch.randn(n, generator=g, device=dev) * 1e-2
+        recon, q_new, _, _ = tlr.powersgd_group_sync(acc, tlr.init_group_state(n, 4, 9, dev),
+                                                     4, 1)
+        assert _bits_equal(recon, tlr.powersgd_approx(acc, 9, rank=4))
+        # the dp sync (one 1-D leaf: no layout change) from the same warm start
+        cfg = tdp.CompressionConfig(method="powersgd", rank=4, error_feedback=True)
+        out, ef, comp, stats = tdp.make_stateful_grad_sync(cfg)(
+            {"w": acc}, {"w": torch.zeros_like(acc)},
+            {"q0": tlr.init_group_state(n, 4, 9, dev)}, 0)
+        assert _bits_equal(out["w"], recon) and _bits_equal(comp["q0"], q_new)
+        assert torch.equal(ef["w"], acc - recon)
+        assert float(stats["sent_bits"]) == tlr.powersgd_group_bits(n, 4)
+        if n < 10_000_000:
+            cpu = tlr.powersgd_group_sync(acc.cpu(), tlr.init_group_state(n, 4, 9, dev).cpu(),
+                                          4, 1)[0]
+            assert (recon.cpu() - cpu).abs().max() <= 1e-4 * cpu.abs().max()

@@ -398,8 +398,10 @@ def test_dawn_deferred_protocol_flags_raise(flag):
     assert np.isfinite(summary["test loss"])
 
 
-@pytest.mark.parametrize("argv", [["--overlap", "2"], ["--dtype=bfloat16"],
-                                  ["--guard"], ["--network", "vgg16"],
+# --dtype and --network vgg16 were cases here until they were ported (the
+# drives below); two flags that still raise took their places
+@pytest.mark.parametrize("argv", [["--overlap", "2"], ["--resume", "ckpt"],
+                                  ["--guard"], ["--stream_dir", "s"],
                                   ["--job_id", "j0"]])
 def test_dawn_unported_flags_raise(argv):
     from tpu_compressed_dp_torch.harness import dawn
@@ -464,3 +466,71 @@ def test_dawn_cpu_wire_drive_every_method(method, granularity):
         assert 0.0 < summary["sent frac"] <= want_wire / 2
     else:
         assert summary["sent frac"] == pytest.approx(want_sent, rel=1e-12)
+
+
+# the port's other CIFAR nets through the entry point: 1 step each at the
+# smallest size their flags allow (the fixed-width nets at full width, batch 2)
+@pytest.mark.parametrize("network,argv", [
+    ("alexnet", ["--channels_scale", "0.125"]),
+    ("resnet9_graph", ["--channels_scale", "0.125"]),
+    ("alexnet_graph", ["--channels_scale", "0.125"]),
+    ("resnet9", ["--channels_scale", "0.125", "--dtype", "bfloat16"]),
+    ("alexnet", ["--channels_scale", "0.125", "--dtype", "bfloat16"]),
+    ("resnet9_graph", ["--channels_scale", "0.125", "--dtype", "bfloat16"]),
+    ("alexnet_module", []),
+])
+def test_dawn_cpu_drive_every_network(network, argv):
+    from tpu_compressed_dp_torch.harness import dawn
+
+    bs = "2" if network == "alexnet_module" else "32"
+    summary = dawn.main(["--network", network, *argv, "--synthetic", "--synthetic_n", bs,
+                         "--batch_size", bs, "--epochs", "1", "--compress", "layerwise",
+                         "--method", "topk", "--ratio", "0.01", "--error_feedback",
+                         "--device", "cpu", "--log_dir", ""])
+    assert summary["steps"] == 1 and np.isfinite(summary["train loss"])
+    assert np.isfinite(summary["test loss"])
+    assert abs(summary["sent frac"] - 0.01) < 0.001
+
+
+def test_dawn_cpu_drive_vgg16():
+    # full width (134,301,514 parameters), batch 2, dense: ~4 s and ~5 GB
+    from tpu_compressed_dp_torch.harness import dawn
+
+    summary = dawn.main(["--network", "vgg16", "--synthetic", "--synthetic_n", "2",
+                         "--batch_size", "2", "--epochs", "1", "--device", "cpu",
+                         "--log_dir", ""])
+    assert summary["steps"] == 1 and np.isfinite(summary["train loss"])
+    assert summary["sent frac"] == summary["wire frac"] == 1.0
+
+
+@pytest.mark.parametrize("network", ["vgg16", "alexnet_module"])
+@pytest.mark.parametrize("argv,match", [(["--channels_scale", "0.5"], "channels_scale"),
+                                        (["--dtype", "bfloat16"], "--dtype")])
+def test_dawn_fixed_width_nets_refuse(network, argv, match):
+    from tpu_compressed_dp_torch.harness import dawn
+
+    with pytest.raises(ValueError, match=match):
+        dawn.main(["--network", network, *argv, "--synthetic", "--synthetic_n", "2",
+                   "--batch_size", "2", "--epochs", "1", "--device", "cpu", "--log_dir", ""])
+
+
+@pytest.mark.parametrize("granularity", ["layerwise", "entiremodel", "bucketed"])
+def test_dawn_cpu_drive_powersgd(granularity):
+    """PowerSGD rank 2 + EF: the billed fractions are the factor pairs of
+    the compressed groups and the dense vectors of the rest."""
+    from tpu_compressed_dp.ops import lowrank as jlr
+
+    from tpu_compressed_dp_torch.harness import dawn
+
+    summary = dawn.main(["--synthetic", "--synthetic_n", "64", "--batch_size", "32",
+                         "--epochs", "1", "--compress", granularity, "--method", "powersgd",
+                         "--rank", "2", "--bucket_mb", "0.1", "--error_feedback",
+                         "--device", "cpu", "--channels_scale", "0.125", "--log_dir", ""])
+    assert summary["steps"] == 2 and np.isfinite(summary["train loss"])
+    sizes = [p.numel() for p in tres.param_leaves(
+        tres.ResNet9(channels=tres.scaled_channels(SCALE), seed=0, device="cpu")).values()]
+    groups = jdp.make_leaf_groups([4 * n for n in sizes], granularity, 0.1 * jdp.BUCKET_MB)
+    ns = [sum(sizes[i] for i in g) for g in groups]
+    bits = sum(jlr.powersgd_group_bits(n, 2) for n in ns)
+    assert summary["wire frac"] == pytest.approx(bits / (32.0 * sum(ns)), rel=1e-12)
+    assert summary["sent frac"] == pytest.approx(bits / (32.0 * sum(ns)), rel=1e-12)

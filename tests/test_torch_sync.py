@@ -298,7 +298,8 @@ def test_leaf_groups_and_config_surface():
     with pytest.raises(NotImplementedError, match="item 9"):
         tdp.make_grad_sync(tdp.CompressionConfig(method="topk", mode="wire",
                                                  transport="sharded", sync_overlap=2))
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # PowerSGD is ported, behind the stateful sync (tests/test_torch_lowrank.py)
+    with pytest.raises(ValueError, match="make_stateful_grad_sync"):
         tdp.make_grad_sync(tdp.CompressionConfig(method="powersgd"))
     with pytest.raises(ValueError):
         tdp.CompressionConfig(granularity="per-row")

@@ -1,9 +1,11 @@
-"""CIFAR-10 DAWNBench harness on PyTorch: ResNet-9 with compressed DP SGD.
+"""CIFAR-10 DAWNBench harness on PyTorch: the CIFAR nets with compressed DP SGD.
 
 PyTorch-port counterpart of :mod:`tpu_compressed_dp.harness.dawn`, cut to the
-flags of the ported compressors: ``--network resnet9 --compress
-{layerwise,entiremodel,bucketed} --method --ratio --threshold --qstates
---block_size --bucket_mb --error_feedback --mode {simulate,wire}
+flags of the ported compressors: ``--network {resnet9,alexnet,alexnet_module,
+vgg16,resnet9_graph,alexnet_graph} --channels_scale --dtype
+{float32,bfloat16} --compress {layerwise,entiremodel,bucketed} --method
+--ratio --threshold --qstates --rank --block_size --bucket_mb
+--error_feedback --mode {simulate,wire}
 --wire_cap_ratio --transport {allgather,sharded,hierarchical} --dp_pods
 --hier_route_factor_ici --hier_route_factor_dcn --epochs --batch_size
 --peak_lr --lr_schedule {dawn,step} --momentum --clip_norm --clip_sent_norm
@@ -36,11 +38,15 @@ import torch
 
 from tpu_compressed_dp_torch.data import cifar10 as data
 from tpu_compressed_dp_torch.harness.loop import train_epoch
-from tpu_compressed_dp_torch.models.common import make_normalizing_apply_fn
-from tpu_compressed_dp_torch.models.resnet9 import ResNet9, param_leaves, scaled_channels
+from tpu_compressed_dp_torch.models import alexnet as alexnet_mod
+from tpu_compressed_dp_torch.models import graph as graph_mod
+from tpu_compressed_dp_torch.models import resnet9 as resnet9_mod
+from tpu_compressed_dp_torch.models import vgg as vgg_mod
+from tpu_compressed_dp_torch.models.common import make_normalizing_apply_fn, param_leaves
 from tpu_compressed_dp_torch.ops.compressors import canonical_name
 from tpu_compressed_dp_torch.parallel import mesh
-from tpu_compressed_dp_torch.parallel.dp import CompressionConfig, init_ef_state
+from tpu_compressed_dp_torch.parallel.dp import (CompressionConfig, init_comp_state,
+                                                 init_ef_state)
 from tpu_compressed_dp_torch.train.optim import SGD
 from tpu_compressed_dp_torch.train.schedules import lr_phases_to_knots, piecewise_linear
 from tpu_compressed_dp_torch.train.state import TrainState
@@ -51,7 +57,7 @@ from tpu_compressed_dp_torch.utils.timer import Timer, device_sync
 _ITEM = "ROADMAP.md queue 1, item {}"
 # flags of the JAX harness, by the ROADMAP item that ports them
 _LATER_FLAGS = {
-    **dict.fromkeys(("--rank", "--overlap", "--dtype"), 9),
+    "--overlap": 9,
     **dict.fromkeys(("--devices", "--coordinator", "--num_processes", "--process_id",
                      "--guard", "--guard_backoff", "--guard_growth_interval",
                      "--guard_init_scale", "--guard_max_skips", "--chaos", "--heartbeat",
@@ -67,7 +73,34 @@ _LATER_FLAGS = {
     **dict.fromkeys(("--stream_dir", "--stream_every", "--stream_keyframe_every",
                      "--stream_ratio", "--stream_rejoin"), 14),
 }
-_LATER_NETWORKS = ("alexnet", "alexnet_module", "vgg16", "resnet9_graph", "alexnet_graph")
+
+
+def _fixed_width(name: str, ctor, scale: float, dtype: torch.dtype, seed: int, device):
+    # no width or dtype knob on these: refuse a non-default rather than
+    # build full-width fp32 under another label (the JAX harness's rule)
+    if scale != 1.0:
+        raise ValueError(f"{name} does not support channels_scale")
+    if dtype != torch.float32:
+        raise ValueError(f"{name} does not support --dtype (fp32 only)")
+    return ctor(seed=seed, device=device)
+
+
+# --network -> (channels_scale, dtype, seed, device) -> module
+MODELS = {
+    "resnet9": lambda s, dtype, seed, device: resnet9_mod.ResNet9(
+        channels=resnet9_mod.scaled_channels(s), seed=seed, device=device, dtype=dtype),
+    "alexnet": lambda s, dtype, seed, device: resnet9_mod.AlexNetGraph(
+        channels=resnet9_mod.alexnet_channels(s), seed=seed, device=device, dtype=dtype),
+    "alexnet_module": lambda s, dtype, seed, device: _fixed_width(
+        "alexnet_module", alexnet_mod.AlexNet, s, dtype, seed, device),
+    "vgg16": lambda s, dtype, seed, device: _fixed_width(
+        "vgg16", vgg_mod.vgg16, s, dtype, seed, device),
+    "resnet9_graph": lambda s, dtype, seed, device: graph_mod.GraphNet(graph_mod.resnet9_spec(
+        channels=resnet9_mod.scaled_channels(s), dtype=dtype, seed=seed, device=device)),
+    "alexnet_graph": lambda s, dtype, seed, device: graph_mod.GraphNet(graph_mod.alexnet_spec(
+        channels=resnet9_mod.alexnet_channels(s), dtype=dtype, seed=seed, device=device)),
+}
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def warmup_ratio_for_epoch(epoch: int, *, ratio: float, warmup_epochs: int, method) -> float:
@@ -87,13 +120,15 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--data_dir", type=str, default="./data")
     p.add_argument("--log_dir", type=str, default=".")
-    p.add_argument("--network", "-n", type=str, default="resnet9")
+    p.add_argument("--network", "-n", type=str, default="resnet9", choices=sorted(MODELS))
     p.add_argument("--compress", "-c", type=str, default="none",
                    choices=["none", "layerwise", "entiremodel", "bucketed"])
     p.add_argument("--method", type=str, default="none")
     p.add_argument("--ratio", "-K", type=float, default=0.5)
     p.add_argument("--threshold", "-V", type=float, default=0.001)
     p.add_argument("--qstates", "-Q", type=int, default=255)
+    p.add_argument("--rank", type=int, default=4,
+                   help="r for powersgd (per-group payload r * (m + n/m) fp32 words)")
     p.add_argument("--block_size", type=int, default=256,
                    help="blocktopk: elements per contiguous block")
     p.add_argument("--bucket_mb", type=float, default=25.0,
@@ -139,7 +174,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="non-saturating synthetic benchmark (convergence sweeps)")
     p.add_argument("--synthetic_n", type=int, default=2048, help="synthetic train-set size")
     p.add_argument("--channels_scale", type=float, default=1.0,
-                   help="width multiplier (1.0 = the published widths)")
+                   help="width multiplier of the graph-family nets (1.0 = the published "
+                        "widths)")
+    p.add_argument("--dtype", type=str, default="float32", choices=sorted(DTYPES),
+                   help="compute dtype of the graph-family nets (parameters stay fp32)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises where CUDA is missing) or cpu")
@@ -164,11 +202,6 @@ def default_epochs(method: str) -> int:
 
 
 def _check_slice(args) -> None:
-    if args.network in _LATER_NETWORKS:
-        raise NotImplementedError(f"--network {args.network} is not ported yet: "
-                                  f"{_ITEM.format(9)}")
-    if args.network != "resnet9":
-        raise ValueError(f"unknown network {args.network!r}")
     if args.method.lower() != "none" and args.compress == "none":
         raise ValueError(f"--method {args.method} requires --compress "
                          "layerwise|entiremodel|bucketed "
@@ -199,6 +232,7 @@ def comp_for_ratio(args, ratio: float) -> CompressionConfig:
         dp_pods=args.dp_pods,
         hier_route_factor_ici=args.hier_route_factor_ici,
         hier_route_factor_dcn=args.hier_route_factor_dcn,
+        rank=args.rank,
         error_feedback=args.error_feedback,
     )
 
@@ -227,8 +261,9 @@ def _run(args, device: torch.device, comp: CompressionConfig) -> dict:
     if bs % world:
         raise ValueError(f"batch_size {bs} not divisible by world size {world}")
     if rank == 0:
-        print(f"world: {world} x {device}; network={args.network} compress={args.compress} "
-              f"method={args.method} epochs={epochs}; cudnn.allow_tf32="
+        print(f"world: {world} x {device}; network={args.network} dtype={args.dtype} "
+              f"compress={args.compress} method={args.method} epochs={epochs}; "
+              "cudnn.allow_tf32="
               f"{torch.backends.cudnn.allow_tf32} matmul.allow_tf32="
               f"{torch.backends.cuda.matmul.allow_tf32}")
 
@@ -248,8 +283,7 @@ def _run(args, device: torch.device, comp: CompressionConfig) -> dict:
     test_batches = data.Batches(test_x, dataset["test"]["labels"], bs,
                                 shuffle=False, augment=False, drop_last=False)
 
-    model = ResNet9(channels=scaled_channels(args.channels_scale), seed=args.seed,
-                    device=device)
+    model = MODELS[args.network](args.channels_scale, DTYPES[args.dtype], args.seed, device)
     params = param_leaves(model)
     steps_per_epoch = len(train_batches)
     sched = lr_schedule(args, epochs)
@@ -258,7 +292,7 @@ def _run(args, device: torch.device, comp: CompressionConfig) -> dict:
               momentum=args.momentum, nesterov=args.momentum > 0,
               weight_decay=5e-4 * bs)
     state = TrainState.create(model, opt.init(params), init_ef_state(params, comp),
-                              seed=args.seed)
+                              seed=args.seed, comp=init_comp_state(params, comp))
     apply_fn = make_normalizing_apply_fn(np.asarray(data.CIFAR10_MEAN) * 255.0,
                                          np.asarray(data.CIFAR10_STD) * 255.0)
     step_cache: dict = {}

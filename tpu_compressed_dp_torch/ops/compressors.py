@@ -4,8 +4,9 @@ PyTorch counterpart of :mod:`tpu_compressed_dp.ops.compressors`: identity,
 Top-K, Block-Top-K, Random-K, Threshold-V, Adaptive-Threshold, TernGrad and
 QSGD (random dithering).  Each operator maps a flat gradient and a seed to a
 same-shaped dense tensor with zeros at the dropped coordinates (the paper's
-"simulate" representation).  PowerSGD raises ``NotImplementedError`` naming
-the ROADMAP item that brings it.
+"simulate" representation).  PowerSGD registers its stateless single-shot
+form (``ops/lowrank.py``); the sync engine runs its warm-started stateful
+form.
 
 Randomness is a 64-bit seed (a plain Python integer) in place of a
 ``jax.random`` key: :func:`fold_in` and :func:`leaf_seed` derive it on the
@@ -71,9 +72,6 @@ _ALIASES = {
 
 REGISTRY = ("none", "topk", "blocktopk", "randomk", "thresholdv",
             "adaptive_threshold", "terngrad", "qsgd", "powersgd")
-
-#: where PowerSGD comes to the port
-POWERSGD_LATER = "ROADMAP.md queue 1, item 9 (PowerSGD, ops/lowrank.py)"
 
 _U64 = (1 << 64) - 1
 
@@ -352,6 +350,12 @@ class _Bound:
         return self.name in ("topk", "randomk", "thresholdv",
                              "adaptive_threshold", "blocktopk")
 
+    @property
+    def is_stateful(self) -> bool:
+        """Stateful compressors carry a warm start through the sync
+        (``TrainState.comp``); ``fn`` is their stateless single-shot form."""
+        return self.name == "powersgd"
+
 
 def canonical_name(method: Optional[str]) -> str:
     """Resolve a method spelling to its canonical name (raises on unknown)."""
@@ -364,13 +368,20 @@ def canonical_name(method: Optional[str]) -> str:
 
 
 def payload_bits_per_elem(name: str, *, qstates: int = 255, shared_mask: bool = False,
-                          block_size: int = 256) -> float:
+                          block_size: int = 256, rank: int = 4,
+                          n: Optional[int] = None) -> float:
     """Wire width of one transmitted element, in bits: dense fp32 32; a
     (value, index) pair 64, or 32 for shared-seed Random-K whose indices the
     common seed implies; Block-Top-K 32 + one index per block; TernGrad 2;
-    QSGD 8, 9 or 16 by ``qstates``."""
+    QSGD 8, 9 or 16 by ``qstates``; PowerSGD its two fp32 factors over the
+    ``n`` elements of the group (``n`` required: the width depends on it)."""
     if name == "powersgd":
-        raise NotImplementedError(f"'powersgd' is not ported yet: {POWERSGD_LATER}")
+        if n is None:
+            raise ValueError("powersgd wire width is shape-dependent; pass n (the flat "
+                             "group's element count)")
+        from tpu_compressed_dp_torch.ops import lowrank
+
+        return lowrank.powersgd_group_bits(n, rank) / n
     if name in ("none", "thresholdv", "adaptive_threshold", "topk"):
         return 32.0 if name == "none" else 64.0
     if name == "randomk":
@@ -412,5 +423,9 @@ def get_compressor(method: Optional[str], *, ratio: float = 0.5, threshold: floa
     if canon == "qsgd":
         return _Bound("qsgd", lambda g, seed: random_dithering(g, seed, qstates=qstates),
                       needs_rng=True)
-    raise NotImplementedError(f"compression method {canon!r} (rank={rank}) is not ported "
-                              f"yet: {POWERSGD_LATER}")
+    # powersgd: the stateless single-shot form; the sync engine runs the
+    # warm-started one (parallel/dp.py)
+    from tpu_compressed_dp_torch.ops import lowrank
+
+    return _Bound("powersgd", lambda g, seed: lowrank.powersgd_approx(g, seed, rank=rank),
+                  needs_rng=True)

@@ -16,9 +16,17 @@ and ``'hierarchical'`` bill, in simulate mode, the buffers their wire form
 would move (the counterfactual of the JAX engine).  The stat keys are the
 JAX engine's.
 
+PowerSGD (``method='powersgd'``, :mod:`tpu_compressed_dp_torch.ops.lowrank`)
+carries a warm start across steps: :func:`make_stateful_grad_sync` builds
+the JAX engine's ``sync(grads, ef, comp, seed) -> (synced, new_ef,
+new_comp, stats)``, whose compressor state ``comp`` comes from
+:func:`init_comp_state` (stateless methods pass it through unchanged);
+:func:`make_grad_sync` is the stateless ``sync(grads, ef, seed)`` of every
+other method.
+
 Gradients, EF residuals and outputs are ordered dicts of tensors keyed by
 parameter path, in the JAX package's leaf order (see
-``models/resnet9.param_leaves``), so entire-model concatenation and EF rows
+``models/common.param_leaves``), so entire-model concatenation and EF rows
 line up with the JAX run.  The EF residual is this rank's own (no leading
 device axis: one process per worker).
 """
@@ -26,16 +34,18 @@ device axis: one process per worker).
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
+from tpu_compressed_dp_torch.models.common import to_flax_layout, to_torch_layout
 from tpu_compressed_dp_torch.ops import compressors, kernels
 from tpu_compressed_dp_torch.parallel import mesh
 
-__all__ = ["CompressionConfig", "make_grad_sync", "make_leaf_groups",
-           "group_concat", "group_split", "init_ef_state", "wire_transport",
+__all__ = ["CompressionConfig", "make_grad_sync", "make_stateful_grad_sync", "make_leaf_groups",
+           "group_concat", "group_split", "init_ef_state", "init_comp_state", "wire_transport",
            "make_partitioned_grad_sync", "make_grouped_grad_sync", "make_partitioned_clip",
            "make_sharded_clip", "merge_stat_dicts"]
 
@@ -48,10 +58,10 @@ BUCKET_MB = 1024.0 * 1024.0
 @dataclasses.dataclass(frozen=True)
 class CompressionConfig:
     """The JAX package's ``CompressionConfig`` fields and defaults
-    (``tpu_compressed_dp/parallel/dp.py``).  The port runs every method but
-    ``powersgd``, every granularity, both modes, all three transports and
-    ``sync_overlap=1``; :func:`make_grad_sync` raises
-    ``NotImplementedError`` for the rest, naming the ROADMAP item.  The
+    (``tpu_compressed_dp/parallel/dp.py``).  The port runs every method,
+    every granularity, both modes, all three transports and
+    ``sync_overlap=1``; the sync constructors raise ``NotImplementedError`` for
+    ``sync_overlap > 1``, naming the ROADMAP item.  The
     hierarchical transport's ``dp_pods`` must divide the world size, which
     the first sync checks."""
 
@@ -189,6 +199,28 @@ def init_ef_state(grads_like: Tree, cfg: CompressionConfig) -> Any:
             for k, g in grads_like.items()}
 
 
+def init_comp_state(grads_like: Tree, cfg: CompressionConfig) -> Any:
+    """Persistent compressor state (``()`` for stateless methods).  PowerSGD:
+    one fp32 warm start ``Q`` ``[n2, r]`` per compressed group, keyed
+    ``'q<gi>'``, drawn from ``fold_in(0, gi)`` so that every rank holds the
+    same one; dense-fallback groups carry none."""
+    if compressors.canonical_name(cfg.method) != "powersgd":
+        return ()
+    from tpu_compressed_dp_torch.ops import lowrank
+
+    leaves = list(grads_like.values())
+    groups = make_leaf_groups([g.numel() * g.element_size() for g in leaves],
+                              cfg.granularity, cfg.bucket_mb * BUCKET_MB)
+    state = {}
+    for gi, idxs in enumerate(groups):
+        n = sum(leaves[i].numel() for i in idxs)
+        q = lowrank.init_group_state(n, cfg.rank, compressors.fold_in(0, gi),
+                                     leaves[0].device)
+        if q is not None:
+            state[f"q{gi}"] = q
+    return state if state else ()
+
+
 def make_leaf_groups(byte_sizes, granularity: str, bucket_bytes: float):
     """Partition leaf indices into reduction groups: one leaf per group
     (layerwise), every leaf in one group (entiremodel), or contiguous leaves
@@ -229,7 +261,8 @@ def group_split(flat, leaves, idxs, out, dtype=None) -> None:
 
 def make_grad_sync(cfg: CompressionConfig):
     """Build ``sync(grads, ef, seed) -> (synced, new_ef, stats)`` over the
-    default process group.
+    default process group, for every stateless method (PowerSGD's sync is
+    :func:`make_stateful_grad_sync`'s).
 
     ``grads`` are this rank's gradients at the scale the reference compresses
     (see ``train/step.py``); ``synced`` is the world mean.  ``seed`` is the
@@ -242,6 +275,9 @@ def make_grad_sync(cfg: CompressionConfig):
     comp = compressors.get_compressor(
         cfg.method, ratio=cfg.ratio, threshold=cfg.threshold, qstates=cfg.qstates,
         block_size=cfg.block_size, terngrad_chunk=cfg.resolved_terngrad_chunk, rank=cfg.rank)
+    if comp.is_stateful:
+        raise ValueError(f"{comp.name} carries a warm start across steps: build its sync "
+                         "with make_stateful_grad_sync")
     if cfg.mode == "wire" and comp.name != "none":
         from tpu_compressed_dp_torch.ops import wire
 
@@ -376,6 +412,143 @@ def make_grad_sync(cfg: CompressionConfig):
                                           device=device),
         }
         return out, new_ef, stats
+
+    return sync
+
+
+def make_stateful_grad_sync(cfg: CompressionConfig):
+    """Build ``sync(grads, ef, comp, seed) -> (synced, new_ef, new_comp,
+    stats)``, the JAX engine's signature: ``comp`` is the compressor state of
+    :func:`init_comp_state`.  PowerSGD runs its warm-started engine (the
+    factors are its wire form, so both modes share it); every other method
+    runs :func:`make_grad_sync`'s sync and returns ``comp`` unchanged."""
+    _check_ported(cfg)
+    if compressors.canonical_name(cfg.method) == "powersgd":
+        return _make_powersgd_sync(cfg)
+    base = make_grad_sync(cfg)
+
+    def sync(grads: Tree, ef: Any, comp: Any, seed: int):
+        out, new_ef, stats = base(grads, ef, seed)
+        return out, new_ef, comp, stats
+
+    return sync
+
+
+def _flax_order(path: str, g: torch.Tensor) -> torch.Tensor:
+    """A leaf's elements, flat, in the flax layout's order (the port keeps
+    conv kernels OIHW and Dense kernels ``(out, in)``; models/common.py)."""
+    return to_flax_layout(path, g).reshape(-1)
+
+
+def _from_flax_order(path: str, flat: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`_flax_order`: a view of ``flat`` in ``like``'s
+    shape."""
+    return to_torch_layout(path, flat.reshape(to_flax_layout(path, like).shape))
+
+
+def _make_powersgd_sync(cfg: CompressionConfig):
+    """The stateful PowerSGD engine (the JAX ``_make_powersgd_sync``).
+
+    Per group: one warm-started power iteration against ``comp['q<gi>']``,
+    two all-reduces (``P`` then ``Q``), the rank-r approximation of the
+    world-mean gradient, and ``acc - recon`` into the EF residual.  Groups
+    whose factors would cost at least the dense vector are all-reduced
+    dense (exact; no state).  Every payload rides the all-reduce:
+    ``sent_bits_allgather`` is 0.  Each group is flattened leaf by leaf in
+    the flax layout's element order (:func:`_flax_order`), since the
+    approximation, unlike Top-K, depends on how the group is laid out in
+    ``[m, n2]``; results go back to the port's layout.  ``check_sync``
+    reports ``sync_agree``: 1 where every rank's warm start is the same
+    (max == min across ranks)."""
+    from tpu_compressed_dp_torch.ops import lowrank
+
+    if not cfg.error_feedback:
+        warnings.warn("method='powersgd' without error_feedback=True discards the low-rank "
+                      "residual every step; enable EF (Vogels et al. always do)", stacklevel=2)
+
+    def sync(grads: Tree, ef: Any, comp_state: Any, seed: int):
+        world = mesh.world()
+        names = list(grads)
+        leaves = [grads[k] for k in names]
+        use_ef = cfg.error_feedback
+        if use_ef and not isinstance(ef, dict):
+            raise ValueError("error_feedback=True needs an EF state; build it "
+                             "with init_ef_state(grads_like, cfg)")
+        ef_leaves = [ef[k] for k in names] if use_ef else None
+        device = leaves[0].device
+        groups = make_leaf_groups([g.numel() * g.element_size() for g in leaves],
+                                  cfg.granularity, cfg.bucket_mb * BUCKET_MB)
+        out_leaves = [None] * len(leaves)
+        new_ef_leaves = [None] * len(leaves)
+        new_comp = {}
+        sent_total = bits_total = dense_total = 0.0
+        n_coll = 0
+        agrees = []
+        for gi, idxs in enumerate(groups):
+            flat = torch.cat([_flax_order(names[i], leaves[i]) for i in idxs])
+            acc = (flat + torch.cat([_flax_order(names[i], ef_leaves[i]) for i in idxs])
+                   if use_ef else flat)
+            acc = acc.to(torch.float32)
+            n_g = acc.shape[0]
+            if lowrank.powersgd_dims(n_g, cfg.rank) is None:
+                # factors would cost >= the dense vector: all-reduce dense
+                # (torch.cat made acc a copy, so in place is safe)
+                if world > 1:
+                    dist.all_reduce(acc)
+                recon = acc / world
+                new_ef_flat = torch.zeros_like(acc) if use_ef else None
+                group_sent, group_bits = float(n_g), 32.0 * n_g
+                n_coll += 1
+            else:
+                qk = f"q{gi}"
+                if not isinstance(comp_state, dict) or qk not in comp_state:
+                    raise ValueError(f"powersgd sync needs warm-start state {qk!r}; build "
+                                     "TrainState.comp with init_comp_state(grads_like, cfg)")
+                q_in = comp_state[qk]
+                if cfg.check_sync:
+                    hi, lo = q_in.clone(), q_in.clone()
+                    if world > 1:
+                        dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+                        dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+                    agrees.append(((hi - lo).abs().max() == 0.0).to(torch.float32))
+                recon, q_new, group_sent, group_bits = lowrank.powersgd_group_sync(
+                    acc, q_in, cfg.rank, world)
+                new_comp[qk] = q_new
+                new_ef_flat = acc - recon if use_ef else None
+                n_coll += 2  # the P and the Q all-reduce
+            off = 0
+            for i in idxs:
+                n = leaves[i].numel()
+                out_leaves[i] = _from_flax_order(names[i], recon[off:off + n],
+                                                 leaves[i]).to(leaves[i].dtype)
+                if use_ef:
+                    new_ef_leaves[i] = _from_flax_order(names[i], new_ef_flat[off:off + n],
+                                                        leaves[i])
+                off += n
+            sent_total += group_sent
+            bits_total += group_bits
+            dense_total += float(n_g)
+
+        def full(v: float) -> torch.Tensor:
+            return torch.full((), v, dtype=torch.float32, device=device)
+
+        stats = {
+            "sent_elems": full(sent_total),
+            "sent_bits": full(bits_total),
+            "sent_bits_psum": full(bits_total),
+            "sent_bits_allgather": full(0.0),
+            "sent_bits_alltoall": full(0.0),
+            "sent_bits_ici": full(0.0),
+            "sent_bits_dcn": full(0.0),
+            "sent_bits_dcn_route": full(0.0),
+            "dense_elems": full(dense_total),
+            "num_collectives": full(float(n_coll)),
+        }
+        if agrees:
+            stats["sync_agree"] = torch.stack(agrees).min()
+        return (dict(zip(names, out_leaves)),
+                dict(zip(names, new_ef_leaves)) if use_ef else (),
+                new_comp if new_comp else (), stats)
 
     return sync
 

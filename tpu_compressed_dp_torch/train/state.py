@@ -3,8 +3,10 @@
 PyTorch-port counterpart of :mod:`tpu_compressed_dp.train.state`.  The model
 (parameters and BatchNorm running statistics) is an ``nn.Module``; momentum
 and the EF residual are dicts of tensors keyed like
-``models/resnet9.param_leaves``.  The EF residual is this rank's own (one
-process per worker, so no leading device axis).
+``models/common.param_leaves``.  The EF residual is this rank's own (one
+process per worker, so no leading device axis); the compressor state
+(PowerSGD's warm starts, ``parallel/dp.init_comp_state``) is the same on
+every rank.
 """
 
 from __future__ import annotations
@@ -25,7 +27,9 @@ class TrainState:
     ef: Any              # error-feedback residual, or () when off
     seed: int = 0        # base seed of the run; each step's compression seed is
                          # compressors.fold_in(seed, step)
+    comp: Any = ()       # persistent compressor state, or () for stateless methods
 
     @classmethod
-    def create(cls, model: nn.Module, opt_state: Any, ef: Any, seed: int = 0) -> "TrainState":
-        return cls(step=0, model=model, opt_state=opt_state, ef=ef, seed=seed)
+    def create(cls, model: nn.Module, opt_state: Any, ef: Any, seed: int = 0,
+               comp: Any = ()) -> "TrainState":
+        return cls(step=0, model=model, opt_state=opt_state, ef=ef, seed=seed, comp=comp)

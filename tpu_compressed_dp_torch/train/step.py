@@ -6,9 +6,13 @@ mean loss, scales it by ``grad_scale`` (the harness passes the batch size,
 so the compressor sees the reference's summed-loss gradient), optionally
 clips it, and hands it to the compressed sync with the step's compression
 seed (derived on the host from the run's seed and the step), whose
-world-mean result drives SGD.  BatchNorm running statistics come from the
-local batch and are averaged over the workers after the step, like the JAX
-step's ``pmean``.
+world-mean result drives SGD.  The compressor state (``state.comp``,
+PowerSGD's warm starts) threads through the sync.  A model with dropout
+(a ``dropout_rate`` attribute above 0) draws its keep masks from a
+generator seeded with :func:`dropout_seed` ``(seed, step, rank)``, as the
+JAX step folds the worker index into its dropout key.  BatchNorm running
+statistics come from the local batch and are averaged over the workers
+after the step, like the JAX step's ``pmean``.
 
 Metrics stay on the device (0-d tensors) so a step never waits for the
 host; ``harness/loop.py`` fetches them once per epoch.
@@ -22,18 +26,27 @@ from typing import Callable, Dict
 import torch
 import torch.distributed as dist
 
-from tpu_compressed_dp_torch.models.resnet9 import param_leaves
+from tpu_compressed_dp_torch.models.common import param_leaves
 from tpu_compressed_dp_torch.ops.compressors import fold_in
 from tpu_compressed_dp_torch.parallel import mesh
-from tpu_compressed_dp_torch.parallel.dp import CompressionConfig, make_grad_sync
+from tpu_compressed_dp_torch.parallel.dp import CompressionConfig, make_stateful_grad_sync
 from tpu_compressed_dp_torch.train.optim import SGD, _value
 from tpu_compressed_dp_torch.train.state import TrainState
 
 __all__ = ["make_train_step", "make_eval_step", "cross_entropy_per_example",
-           "cross_entropy_sum"]
+           "cross_entropy_sum", "dropout_seed"]
 
-# apply_fn(model, x, train) -> logits  (models/common.py)
-ApplyFn = Callable[[torch.nn.Module, torch.Tensor, bool], torch.Tensor]
+# apply_fn(model, x, train[, dropout]) -> logits  (models/common.py)
+ApplyFn = Callable[..., torch.Tensor]
+
+# the dropout stream of a step's seed, apart from its per-group compression
+# seeds (leaf_seed folds in group indices, far below this)
+_DROPOUT_STREAM = 0x64726F706F7574
+
+
+def dropout_seed(seed: int, step: int, rank: int) -> int:
+    """The dropout generator's seed of ``rank`` at ``step``."""
+    return fold_in(fold_in(fold_in(seed, step), _DROPOUT_STREAM), rank)
 
 
 def cross_entropy_per_example(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -62,7 +75,7 @@ def make_train_step(apply_fn: ApplyFn, optimizer: SGD, comp_cfg: CompressionConf
     gradient by its global L2 norm before the optimizer, which bounds the
     residual's release itself.  Metrics are world-reduced 0-d tensors: ``loss`` (mean),
     ``correct`` and ``count`` (sums), ``comm/*`` (means), plus ``lr``."""
-    grad_sync = make_grad_sync(comp_cfg)
+    grad_sync = make_stateful_grad_sync(comp_cfg)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         if comp_cfg.error_feedback and not isinstance(state.ef, dict):
@@ -72,7 +85,12 @@ def make_train_step(apply_fn: ApplyFn, optimizer: SGD, comp_cfg: CompressionConf
         params = param_leaves(model)
         x, y = batch["input"], batch["target"]
         model.train()
-        logits = apply_fn(model, x, True)
+        if getattr(model, "dropout_rate", 0.0) > 0.0:
+            gen = torch.Generator(device=x.device).manual_seed(
+                dropout_seed(state.seed, state.step, mesh.rank()))
+            logits = apply_fn(model, x, True, gen)
+        else:
+            logits = apply_fn(model, x, True)
         loss = cross_entropy_sum(logits, y) / x.shape[0]  # local mean
         grads = torch.autograd.grad(loss, list(params.values()))
         scaled = {k: g.to(torch.float32) * grad_scale for k, g in zip(params, grads)}
@@ -82,7 +100,8 @@ def make_train_step(apply_fn: ApplyFn, optimizer: SGD, comp_cfg: CompressionConf
                                  max=1.0)
             scaled = {k: g * factor for k, g in scaled.items()}
         # the step's compression seed: fold_in(state.rng, step) of the JAX step
-        synced, new_ef, comm = grad_sync(scaled, state.ef, fold_in(state.seed, state.step))
+        synced, new_ef, new_comp, comm = grad_sync(scaled, state.ef, state.comp,
+                                                   fold_in(state.seed, state.step))
         if clip_sent_norm > 0.0:
             snorm = torch.sqrt(sum((g * g).sum() for g in synced.values()))
             sfactor = torch.clamp(clip_sent_norm * grad_scale / torch.clamp(snorm, min=1e-20),
@@ -115,7 +134,7 @@ def make_train_step(apply_fn: ApplyFn, optimizer: SGD, comp_cfg: CompressionConf
         }
         for k, v in zip(comm, comm_vals):
             metrics[f"comm/{k}"] = v
-        return dataclasses.replace(state, step=new_step, ef=new_ef), metrics
+        return dataclasses.replace(state, step=new_step, ef=new_ef, comp=new_comp), metrics
 
     return train_step
 
