@@ -98,7 +98,22 @@ printing no result, where either is missing or any phase fails.
      profiles two steady Top-K steps, with the threshold search's full and
      refinement passes and the sparsify kernel per launch at each sync
      group's size;
-  8. prints the kernels' JSON line (18 entries), the ``nvidia-smi``
+  8. trains full-width bf16 ResNet-50 (25,557,032 parameters, 1000 classes)
+     through the port's ImageNet entry point (``harness.imagenet.main``) on
+     synthetic ImageNet, the port's loaders and native crop-resize, one
+     epoch in each of the reference's per-GPU phases (128 px / batch 512,
+     224 px / 224, 288 px / 128 with rect val), dense and layer-wise Top-K
+     1 % + EF, with zeroed and read launch counters; (8b) times steady steps
+     at 224 px / batch 224 from a device-resident batch (dense; Top-K 1 % +
+     EF layer-wise and entire-model; Random-K 1 % + EF layer-wise at
+     ``--overlap`` 1 and 4; wire entire-model Top-K) with the sync alone,
+     peak memory, idle share, launches per step and MFU; (8c) at the
+     entire-model group's 25,557,032 elements holds the search (and the
+     ``count >= keep`` contract), the fused sparsify and select+pack bitwise
+     to their plain versions, and holds ``sync_overlap = 4`` bitwise to 1 on
+     the card (one sync, then 2 steps) at W = 1, and (phase 5's W = 2
+     workers) across 2 gloo ranks;
+  9. prints the kernels' JSON line (18 entries), the ``nvidia-smi``
      name/power line and, last, ``{"ok": true, "device": {...}}``.
 
 ``--record FILE`` also writes the full record (every timing, the profiles)
@@ -922,17 +937,22 @@ def device_kernel_ms(torch, fn, name: str, n: int = 50):
     """Mean device duration (CUPTI, through torch.profiler) of the kernels
     named ``name`` over ``n`` calls of ``fn``: what a kernel takes on the
     card once the host's enqueue of back-to-back launches is out of the
-    way.  None where the profiler records no device time."""
+    way.  A trace that comes back without the kernel (CUPTI now and then
+    records no device activity for a profile) is taken again, up to three
+    times; None where none of them has it."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn(None)
+    for _ in range(3):
         torch.cuda.synchronize()
-    us = [e.time_range.end - e.time_range.start for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
-    return sum(us) / len(us) / 1e3 if us else None
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn(None)
+            torch.cuda.synchronize()
+        us = [e.time_range.end - e.time_range.start for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
+        if us:
+            return sum(us) / len(us) / 1e3
+    return None
 
 
 def phase_route_kernel(kernels, torch, record):
@@ -2119,6 +2139,12 @@ def rank_worker(world: int, rank: int, port: int, out_path: str) -> int:
         kernels.build()      # the parent built them: this loads the libraries
         card = nvidia_smi() if rank == 0 else ""
         result = _rank_sync_checks(torch, world, rank, card)
+        if world == 2:
+            # the chunked sync's async all-reduces across ranks: each rank's
+            # own data, full-width ResNet-50, sync_overlap 4 against 1
+            batch = _image_batch(torch, dev, 16, 128, 40 + rank)
+            result["overlap"] = {m: _overlap_pair(torch, dev, m, batch)
+                                 for m in ("randomk", "topk")}
         label, method, transport, pods = RANK_RUNS[world]
         argv = ["--network", "resnet9", "--synthetic", "--synthetic_n", "1024",
                 "--batch_size", "512", "--epochs", "1", "--method", method, "--ratio",
@@ -2189,6 +2215,13 @@ def phase_multirank(torch, record):
         for path in paths:
             with open(path) as f:
                 results.append(json.load(f))
+        for r, res in enumerate(results):
+            if "overlap" in res and not all(res["overlap"].values()):
+                raise AssertionError(f"W={world} rank {r}: sync_overlap 4 differs from 1: "
+                                     f"{res['overlap']}")
+            if "overlap" in res:
+                log(f"[W={world} rank {r}] resnet50 layerwise 1 % + EF, sync_overlap 4 bitwise "
+                    f"== 1 (one sync, 2 steps): {res['overlap']}")
         launches = {k: sum(res["train"]["launches"][k] for res in results)
                     for k in results[0]["train"]["launches"]}
         tr = results[0]["train"]
@@ -2199,6 +2232,254 @@ def phase_multirank(torch, record):
         worlds[world] = {"ranks": results, "launches": launches, "wall_s": wall}
     record["multirank"] = worlds
     return worlds
+
+
+# ---------------------------------------------------------------------------
+# The ImageNet slice: ResNet-50 at full width
+# ---------------------------------------------------------------------------
+
+RESNET50_PARAMS = 25_557_032   # every ResNet-50 parameter, the entire-model group
+# the reference's per-GPU phases (one_machine_phases' global batches over 8
+# GPUs), one epoch each: 1,024 synthetic images give 2, 4 and 8 steps
+IMAGENET_PHASES = json.dumps([
+    {"ep": 0, "sz": 128, "bs": 512}, {"ep": [0, 3], "lr": [0.1, 0.1]},
+    {"ep": 1, "sz": 224, "bs": 224},
+    {"ep": 2, "sz": 288, "bs": 128, "min_scale": 0.5, "rect_val": True}])
+IMAGENET_RUNS = {"resnet50 dense": ([], ()),
+                 "resnet50 topk layerwise": (["--compress", "layerwise", *_TOPK],
+                                             ("count_ge", "search_init", "fused_sparsify"))}
+
+
+def phase_imagenet(kernels, imagenet, torch, record):
+    """8: full-width bf16 ResNet-50 through the port's ImageNet entry point
+    (``harness.imagenet.main``) on synthetic ImageNet, the port's loaders
+    and native crop-resize, progressive resizing over the reference's
+    per-GPU phases (rect val in the last), dense and layer-wise Top-K 1 %
+    + EF."""
+    card = record["card"]
+    t_phase = time.perf_counter()
+    runs = {}
+    for label, (flags, must) in IMAGENET_RUNS.items():
+        argv = ["--synthetic", "--synthetic_n", "1024", "--phases", IMAGENET_PHASES,
+                "--seed", "0", "--device", "cuda", *flags]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        summary = imagenet.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        loss = summary["train loss"]
+        if summary["epoch"] != 2 or summary["steps"] != 8 or not (
+                math.isfinite(loss) and math.isfinite(summary["test loss"])):
+            raise AssertionError(f"imagenet {label}: epoch {summary['epoch']}, "
+                                 f"{summary['steps']} steps, loss {loss}")
+        if must:
+            if abs(summary["sent frac"] - RATIO) > 0.1 * RATIO:
+                raise AssertionError(f"imagenet {label}: sent frac {summary['sent frac']}")
+            if min(launches[k] for k in must) <= 0:
+                raise AssertionError(f"imagenet {label}: a kernel never launched: {launches}")
+        log(f"imagenet {label}: last phase (288 px, bs 128, rect val) {summary['steps']} steps, "
+            f"loss {loss:.4f}, {summary['img/s']} img/s (first epoch of the phase, warm-up "
+            f"included), MFU {summary.get('mfu')}, sent frac {summary.get('sent frac')}, "
+            f"peak {peak:.2f} GiB, run wall {wall:.1f} s on {card}, launches {launches}")
+        runs[label] = {"summary": summary, "launches": launches, "peak_gib": peak,
+                       "wall_s": wall}
+    wall = time.perf_counter() - t_phase
+    log(f"phase 8 (ImageNet ResNet-50 harness) wall {wall:.1f} s on {card}")
+    record["imagenet"] = {"runs": runs, "wall_s": wall}
+    return runs
+
+
+# phase 8b's rows: label -> (method, granularity, mode, sync_overlap)
+IMAGENET_STEADY = {
+    "dense": (None, "layerwise", "simulate", 1),
+    "topk layerwise": ("topk", "layerwise", "simulate", 1),
+    "topk entiremodel": ("topk", "entiremodel", "simulate", 1),
+    "randomk layerwise overlap 1": ("randomk", "layerwise", "simulate", 1),
+    "randomk layerwise overlap 4": ("randomk", "layerwise", "simulate", 4),
+    "wire topk entiremodel": ("topk", "entiremodel", "wire", 1),
+}
+
+
+def _resnet50_step(torch, cfg, dev, lr: float = 0.1):
+    """A full-width bf16 ResNet-50 (seed 0), its SGD, state and train step."""
+    from tpu_compressed_dp_torch.data.imagenet import IMAGENET_MEAN, IMAGENET_STD
+    from tpu_compressed_dp_torch.models import resnet
+    from tpu_compressed_dp_torch.models.common import make_normalizing_apply_fn, param_leaves
+    from tpu_compressed_dp_torch.parallel.dp import init_comp_state, init_ef_state
+    from tpu_compressed_dp_torch.train.optim import SGD
+    from tpu_compressed_dp_torch.train.state import TrainState
+    from tpu_compressed_dp_torch.train.step import make_train_step
+
+    model = resnet.resnet50(dtype=torch.bfloat16, seed=0, device=dev)
+    params = param_leaves(model)
+    opt = SGD(lr=lr, momentum=0.9, weight_decay=1e-4)
+    state = TrainState.create(model, opt.init(params), init_ef_state(params, cfg), seed=1,
+                              comp=init_comp_state(params, cfg))
+    apply_fn = make_normalizing_apply_fn(IMAGENET_MEAN, IMAGENET_STD)
+    return model, params, state, make_train_step(apply_fn, opt, cfg)
+
+
+def _image_batch(torch, dev, n: int, hw: int, seed: int):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return {"input": torch.randint(0, 256, (n, hw, hw, 3), generator=g, device=dev,
+                                   dtype=torch.uint8),
+            "target": torch.randint(0, 1000, (n,), generator=g, device=dev)}
+
+
+def phase_steady_imagenet(kernels, torch, record):
+    """8b: steady-state steps of full-width bf16 ResNet-50 at 224 px / batch
+    224 (the reference's per-GPU batch of that phase) from a device-resident
+    batch, and the sync alone, with peak memory, the profile's idle share,
+    launches per step (the port's kernels and all kernels) and MFU."""
+    from tpu_compressed_dp_torch.parallel.dp import (CompressionConfig, init_comp_state,
+                                                     init_ef_state, make_stateful_grad_sync)
+    from tpu_compressed_dp_torch.parallel.overlap import make_chunked_grad_sync
+    from tpu_compressed_dp_torch.utils import flops
+
+    card = record["card"]
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    bs, hw = 224, 224
+    batch = _image_batch(torch, dev, bs, hw, 5)
+    out = {}
+    fwd = None
+    for label, (method, gran, mode, k) in IMAGENET_STEADY.items():
+        cfg = CompressionConfig(method=method, granularity=gran, mode=mode, ratio=RATIO,
+                                error_feedback=method is not None, sync_overlap=k)
+        model, params, state, step = _resnet50_step(torch, cfg, dev)
+        if fwd is None:
+            fwd = flops.cnn_fwd_flops(model, (bs, hw, hw, 3), dev)
+        for _ in range(3):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        n_steps = 6
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            state, m = step(state, batch)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+        port_launches = {r: v / n_steps for r, v in kernels.LAUNCHES.items() if v}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        holder = {"state": state}
+
+        def run(n):
+            for _ in range(n):
+                holder["state"], _ = step(holder["state"], batch)
+
+        prof = device_profile(run, torch, n_steps=2)
+        state = holder["state"]
+        if not math.isfinite(float(m["loss"])):
+            raise AssertionError(f"steady imagenet {label}: non-finite loss")
+        grads = {key: torch.randn(p.shape, device=dev) * 1e-2 for key, p in params.items()}
+        sync = make_stateful_grad_sync(cfg) if k == 1 else make_chunked_grad_sync(cfg)
+        ef, comp = init_ef_state(params, cfg), init_comp_state(params, cfg)
+        sync_ms = time_ms(lambda g: sync(g, ef, comp, 0), [grads], reps=5, inner=3)
+        mfu = 3.0 * fwd / (step_ms * 1e-3) / BF16_OPS_PER_S
+        out[label] = {"step_ms": step_ms, "img_s": bs / step_ms * 1e3, "sync_ms": sync_ms,
+                      "peak_gib": peak, "mfu": mfu, "port_launches_per_step": port_launches,
+                      "profile": prof}
+        log(f"steady imagenet resnet50 {label}: {step_ms:.3f} ms/step "
+            f"({bs / step_ms * 1e3:.1f} img/s), gradient sync alone {sync_ms:.3f} ms, peak "
+            f"{peak:.2f} GiB, idle share {prof.get('idle_share', 'not measured')}, launches "
+            f"per step {prof.get('launches_per_step', 'not measured')} (port kernels "
+            f"{port_launches}), MFU {mfu:.4f} (bf16 peak), on {card}")
+        log(f"profile imagenet {label}: {json.dumps(prof)}")
+        del state, model, params, grads, ef, comp, holder, step, sync
+        gc.collect()
+        torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    log(f"phase 8b wall {wall:.1f} s on {card}; forward {fwd / 1e9:.3f} GFLOP per batch of "
+        f"{bs} at {hw} px")
+    record["steady_imagenet"] = {"rows": out, "fwd_flops": fwd, "wall_s": wall}
+
+
+def _overlap_pair(torch, dev, method: str, batch, n_steps: int = 2):
+    """Two train steps of full-width bf16 ResNet-50 at ``sync_overlap`` 1 and
+    4 (layer-wise, 1 % + EF) from the same init and batch, and the synced
+    gradients, EF of one sync of the first step's gradients at both: True
+    where every parameter, momentum, EF entry and BatchNorm statistic and
+    every synced entry agree bitwise.  cuDNN runs its deterministic
+    algorithms (its default weight-gradient kernels may add in another
+    order from run to run)."""
+    from tpu_compressed_dp_torch.models.common import param_leaves
+    from tpu_compressed_dp_torch.parallel.dp import CompressionConfig, make_stateful_grad_sync
+    from tpu_compressed_dp_torch.parallel.overlap import make_chunked_grad_sync
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ends, syncs = [], []
+        for k in (1, 4):
+            cfg = CompressionConfig(method=method, granularity="layerwise", ratio=RATIO,
+                                    error_feedback=True, sync_overlap=k)
+            model, params, state, step = _resnet50_step(torch, cfg, dev)
+            g = torch.Generator(device=dev).manual_seed(99)
+            grads = {key: torch.randn(p.shape, generator=g, device=dev) * 1e-2
+                     for key, p in params.items()}
+            sync = make_stateful_grad_sync(cfg) if k == 1 else make_chunked_grad_sync(cfg)
+            synced, new_ef, _, _ = sync(grads, state.ef, state.comp, 123)
+            syncs.append((synced, new_ef))
+            for _ in range(n_steps):
+                state, m = step(state, batch)
+            ends.append((param_leaves(state.model), dict(state.model.named_buffers()),
+                         state.opt_state["momentum"], state.ef))
+            del model, params, state, step, grads
+        same = all(list(a) == list(b) and all(_bits_equal(torch, a[key], b[key]) for key in a)
+                   for a, b in zip(*ends))
+        same_sync = all(all(_bits_equal(torch, a[key], b[key]) for key in a)
+                        for a, b in zip(*syncs))
+        return same and same_sync
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_resnet50_holds(kernels, compressors, torch, record):
+    """8c: at the entire-model group's 25,557,032 elements, the threshold
+    search bitwise against the unfused glue and the CPU search with
+    ``count(|g| >= t) >= keep`` (``check_search``), ``fused_sparsify`` and
+    ``select_pack`` bitwise against their plain versions; and on the card at
+    W = 1, ``sync_overlap = 4`` bitwise ``sync_overlap = 1`` (Random-K and
+    Top-K, layer-wise 1 % + EF: the synced gradients and EF of one sync, and
+    parameters, momentum, EF and BatchNorm statistics after 2 steps of batch
+    32 at 128 px)."""
+    card = record["card"]
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(25)
+    n = RESNET50_PARAMS
+    x = torch.randn(n, generator=gen, device=dev) * 1e-2
+    mag = x.abs()
+    keep = compressors.topk_keep_count(n, RATIO)
+    out = {"search": check_search(kernels, torch, mag, keep, f"n={n}")}
+    t = kernels.topk_threshold(mag, keep)
+    del mag
+    for got, want in zip(kernels.fused_sparsify(x, t), kernels.fused_sparsify_plain(x, t)):
+        if not _bits_equal(torch, got, want):
+            raise AssertionError(f"fused_sparsify differs from its plain version at n={n}")
+    _, out["select_pack_cases"] = hold_select_pack(kernels, torch, [("topk 1 %", x, t, keep)],
+                                                   f"at n={n}")
+    del x
+    log(f"resnet50 entire model n={n}: search, fused_sparsify, select_pack bitwise == plain")
+    batch = _image_batch(torch, dev, 32, 128, 8)
+    for method in ("randomk", "topk"):
+        if not _overlap_pair(torch, dev, method, batch):
+            raise AssertionError(f"resnet50 {method} layerwise: sync_overlap 4 differs from 1")
+        out[f"overlap {method} W=1"] = True
+        log(f"resnet50 {method} layerwise 1 % + EF: sync_overlap 4 bitwise == 1 (one sync, "
+            f"2 steps) at W=1 on {card}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 8c wall {out['wall_s']:.1f} s on {card}")
+    record["resnet50_holds"] = out
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2670,7 +2951,7 @@ def main(argv=None) -> int:
     if args.rank_worker:
         world, rank, port, out = args.rank_worker
         return rank_worker(int(world), int(rank), int(port), out)
-    from tpu_compressed_dp_torch.harness import dawn
+    from tpu_compressed_dp_torch.harness import dawn, imagenet
     from tpu_compressed_dp_torch.ops import compressors, kernels, wire
 
     record = {}
@@ -2717,6 +2998,9 @@ def main(argv=None) -> int:
     phase_lm_profile(kernels, torch, record)
     phase_steady(torch, record)
     phase_steady_cifar(torch, record)
+    imagenet_runs = phase_imagenet(kernels, imagenet, torch, record)
+    phase_steady_imagenet(kernels, torch, record)
+    phase_resnet50_holds(kernels, compressors, torch, record)
     worlds = phase_multirank(torch, record)
 
     replaces = {"count_ge": "tpu_compressed_dp/ops/kernels.py:173",
@@ -2758,9 +3042,11 @@ def main(argv=None) -> int:
     for name in replaces:
         r = rows[FULL_MODEL][name]
         # the main paths' launches: phase 3's and 3b's dawn runs, the LM runs
-        # of phase 7, the segmented-path runs and the multi-rank dawn runs
+        # of phase 7, the segmented-path runs, phase 8's ImageNet runs and
+        # the multi-rank dawn runs
         launches = (sum(run["launches"][name] for run in runs.values())
                     + sum(run["launches"][name] for run in cifar_runs.values())
+                    + sum(run["launches"][name] for run in imagenet_runs.values())
                     + sum(run["launches"][name] for run in lm_runs.values())
                     + sum(run["launches"][name] for run in seg_runs.values())
                     + sum(w["launches"].get(name, 0) for w in worlds.values()))

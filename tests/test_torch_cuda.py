@@ -543,3 +543,68 @@ def test_cuda_powersgd_sync_is_approx():
             cpu = tlr.powersgd_group_sync(acc.cpu(), tlr.init_group_state(n, 4, 9, dev).cpu(),
                                           4, 1)[0]
             assert (recon.cpu() - cpu).abs().max() <= 1e-4 * cpu.abs().max()
+
+
+def _resnet50_state(cfg, dev):
+    from tpu_compressed_dp_torch.models import resnet as tres
+    from tpu_compressed_dp_torch.models.common import param_leaves
+    from tpu_compressed_dp_torch.parallel import dp as tdp
+    from tpu_compressed_dp_torch.train.optim import SGD
+    from tpu_compressed_dp_torch.train.state import TrainState
+
+    model = tres.resnet50(dtype=torch.bfloat16, seed=0, device=dev)
+    params = param_leaves(model)
+    opt = SGD(lr=0.1, momentum=0.9, weight_decay=1e-4)
+    return opt, TrainState.create(model, opt.init(params), tdp.init_ef_state(params, cfg),
+                                  seed=7, comp=tdp.init_comp_state(params, cfg))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["topk", "randomk"])
+def test_cuda_resnet50_step_and_overlap_bitwise(method):
+    """Full-width bf16 ResNet-50 (1000 classes), batch 32 at 128 px, layer-wise
+    sparsification 1 % + EF: two steps are finite, launch the method's
+    kernels, and ``sync_overlap = 4`` (chunks issued from the backward
+    pass's hooks) ends bitwise where ``sync_overlap = 1`` does: parameters,
+    momentum, EF and BatchNorm statistics.  cuDNN runs its deterministic
+    algorithms here: its default weight-gradient kernels may add in another
+    order from run to run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; run with -m cuda where there is one")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _resnet50_overlap_check(method)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _resnet50_overlap_check(method):
+    from tpu_compressed_dp_torch.data.imagenet import IMAGENET_MEAN, IMAGENET_STD
+    from tpu_compressed_dp_torch.models.common import make_normalizing_apply_fn, param_leaves
+    from tpu_compressed_dp_torch.parallel import dp as tdp
+    from tpu_compressed_dp_torch.train.step import make_train_step
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    batch = {"input": torch.randint(0, 256, (32, 128, 128, 3), generator=g, device=dev,
+                                    dtype=torch.uint8),
+             "target": torch.randint(0, 1000, (32,), generator=g, device=dev)}
+    apply_fn = make_normalizing_apply_fn(IMAGENET_MEAN, IMAGENET_STD)
+    ends = []
+    for k in (1, 4):
+        cfg = tdp.CompressionConfig(method=method, granularity="layerwise", ratio=0.01,
+                                    error_feedback=True, sync_overlap=k)
+        opt, state = _resnet50_state(cfg, dev)
+        step = make_train_step(apply_fn, opt, cfg)
+        tk.reset_launches()
+        for _ in range(2):
+            state, m = step(state, batch)
+        assert math.isfinite(float(m["loss"]))
+        want = ("count_ge", "fused_sparsify") if method == "topk" else ("uniform",)
+        assert all(tk.LAUNCHES[r] > 0 for r in want), dict(tk.LAUNCHES)
+        ends.append((param_leaves(state.model), dict(state.model.named_buffers()),
+                     state.opt_state["momentum"], state.ef))
+    for a, b in zip(*ends):
+        assert list(a) == list(b)
+        assert all(_bits_equal(a[k], b[k]) for k in a)

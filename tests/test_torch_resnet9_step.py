@@ -398,9 +398,10 @@ def test_dawn_deferred_protocol_flags_raise(flag):
     assert np.isfinite(summary["test loss"])
 
 
-# --dtype and --network vgg16 were cases here until they were ported (the
-# drives below); two flags that still raise took their places
-@pytest.mark.parametrize("argv", [["--overlap", "2"], ["--resume", "ckpt"],
+# --dtype, --network vgg16 and --overlap were cases here until they were
+# ported (the drives below, tests/test_torch_overlap.py); flags that still
+# raise took their places
+@pytest.mark.parametrize("argv", [["--chaos", "nan"], ["--resume", "ckpt"],
                                   ["--guard"], ["--stream_dir", "s"],
                                   ["--job_id", "j0"]])
 def test_dawn_unported_flags_raise(argv):

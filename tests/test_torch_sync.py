@@ -295,9 +295,12 @@ def test_leaf_groups_and_config_surface():
     jf = {f.name: f.default for f in dataclasses.fields(jdp.CompressionConfig)}
     tf = {f.name: f.default for f in dataclasses.fields(tdp.CompressionConfig)}
     assert tf == jf
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tdp.make_grad_sync(tdp.CompressionConfig(method="topk", mode="wire",
-                                                 transport="sharded", sync_overlap=2))
+    # sync_overlap is the train step's chunked sync (tests/test_torch_overlap.py):
+    # the engines build for any K, and K < 1 is refused as in JAX
+    tdp.make_grad_sync(tdp.CompressionConfig(method="topk", mode="wire", transport="sharded",
+                                             sync_overlap=2))
+    with pytest.raises(ValueError, match="sync_overlap"):
+        tdp.CompressionConfig(sync_overlap=0)
     # PowerSGD is ported, behind the stateful sync (tests/test_torch_lowrank.py)
     with pytest.raises(ValueError, match="make_stateful_grad_sync"):
         tdp.make_grad_sync(tdp.CompressionConfig(method="powersgd"))

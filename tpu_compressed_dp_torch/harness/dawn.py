@@ -5,7 +5,7 @@ flags of the ported compressors: ``--network {resnet9,alexnet,alexnet_module,
 vgg16,resnet9_graph,alexnet_graph} --channels_scale --dtype
 {float32,bfloat16} --compress {layerwise,entiremodel,bucketed} --method
 --ratio --threshold --qstates --rank --block_size --bucket_mb
---error_feedback --mode {simulate,wire}
+--error_feedback --overlap --mode {simulate,wire}
 --wire_cap_ratio --transport {allgather,sharded,hierarchical} --dp_pods
 --hier_route_factor_ici --hier_route_factor_dcn --epochs --batch_size
 --peak_lr --lr_schedule {dawn,step} --momentum --clip_norm --clip_sent_norm
@@ -30,14 +30,13 @@ from __future__ import annotations
 
 import argparse
 import math
-import os
 from typing import Optional
 
 import numpy as np
 import torch
 
 from tpu_compressed_dp_torch.data import cifar10 as data
-from tpu_compressed_dp_torch.harness.loop import train_epoch
+from tpu_compressed_dp_torch.harness.loop import local_device, train_epoch
 from tpu_compressed_dp_torch.models import alexnet as alexnet_mod
 from tpu_compressed_dp_torch.models import graph as graph_mod
 from tpu_compressed_dp_torch.models import resnet9 as resnet9_mod
@@ -57,7 +56,6 @@ from tpu_compressed_dp_torch.utils.timer import Timer, device_sync
 _ITEM = "ROADMAP.md queue 1, item {}"
 # flags of the JAX harness, by the ROADMAP item that ports them
 _LATER_FLAGS = {
-    "--overlap": 9,
     **dict.fromkeys(("--devices", "--coordinator", "--num_processes", "--process_id",
                      "--guard", "--guard_backoff", "--guard_growth_interval",
                      "--guard_init_scale", "--guard_max_skips", "--chaos", "--heartbeat",
@@ -166,6 +164,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="hierarchical transport: inter-pod bucket capacity in units of "
                         "slab/P (clips fold into EF)")
     p.add_argument("--error_feedback", action="store_true")
+    p.add_argument("--overlap", type=int, default=1,
+                   help="chunk-pipelined sync (parallel/overlap.py): up to K chunk syncs "
+                        "started during the backward pass, each chunk's SGD slice applied "
+                        "when it is reduced; numerics unchanged (1 = one sync after the "
+                        "backward pass)")
     p.add_argument("--epochs", type=int, default=None, help="override the 24/40 rule")
     p.add_argument("--batch_size", type=int, default=512, help="global batch size")
     p.add_argument("--peak_lr", type=float, default=0.4)
@@ -211,12 +214,6 @@ def _check_slice(args) -> None:
                          "pick one")
 
 
-def _device(name: str) -> torch.device:
-    if name == "cuda" and "LOCAL_RANK" in os.environ:
-        name = f"cuda:{int(os.environ['LOCAL_RANK'])}"
-    return mesh.resolve_device(name)
-
-
 def comp_for_ratio(args, ratio: float) -> CompressionConfig:
     return CompressionConfig(
         method=None if args.compress == "none" or args.method.lower() == "none" else args.method,
@@ -234,12 +231,13 @@ def comp_for_ratio(args, ratio: float) -> CompressionConfig:
         hier_route_factor_dcn=args.hier_route_factor_dcn,
         rank=args.rank,
         error_feedback=args.error_feedback,
+        sync_overlap=args.overlap,
     )
 
 
 def run(args) -> dict:
     _check_slice(args)
-    device = _device(args.device)
+    device = local_device(args.device)
     # fp32 stays fp32, as in the JAX reference: no TF32 in convolutions or
     # the classifier matmul
     torch.backends.cudnn.allow_tf32 = False

@@ -1,0 +1,413 @@
+"""ImageNet ResNet harness on PyTorch: the paper's ImageNet experiment with
+compressed DP SGD.
+
+PyTorch-port counterpart of :mod:`tpu_compressed_dp.harness.imagenet` (the
+reference's ``IMAGENET/training/train_imagenet_nv.py``):
+
+  * the phase-schedule mini-DSL mixing data phases (``ep/sz/bs/min_scale/
+    rect_val/keep_dl``) and LR phases (``ep/lr``, a value or a ramp), with
+    the LR evaluated per batch; the default schedule is the reference's
+    one-machine recipe (``bs`` global, over 8 GPUs there);
+  * progressive resizing: the loaders are rebuilt at each data phase's
+    first epoch (``PhaseData``), rect val included;
+  * bf16 compute with fp32 master parameters (``--fp32`` turns it off),
+    ``--init_bn0``, ``--no_bn_wd``;
+  * the whole compression surface of the port (every method, granularity,
+    mode and transport, EF, ``--overlap``), gradients at mean-loss scale
+    (``grad_scale = 1``, as the reference backpropagates the mean loss);
+  * validation every epoch with world top-1 / top-5 sums, every process
+    running the same number of (possibly empty, padded) batches;
+  * ``--short_epoch`` (10 batches) and ``--evaluate`` (validation only).
+
+One process is one worker (``torchrun`` for several); batches are split by
+process (``bs // world`` each).  Runs on CUDA unless ``--device cpu``.  A flag
+of the JAX harness that this port does not carry yet raises
+``NotImplementedError`` naming the ROADMAP item that brings it.
+
+Run: ``python -m tpu_compressed_dp_torch.harness.imagenet --synthetic``
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+from typing import Dict, List, Optional
+
+import torch
+
+from tpu_compressed_dp_torch.data import imagenet as data
+from tpu_compressed_dp_torch.harness.loop import (comm_summary, local_device, run_local_eval,
+                                                  run_train_epoch)
+from tpu_compressed_dp_torch.models import resnet as resnet_mod
+from tpu_compressed_dp_torch.models.common import make_normalizing_apply_fn, param_leaves
+from tpu_compressed_dp_torch.parallel import mesh
+from tpu_compressed_dp_torch.parallel.dp import (CompressionConfig, init_comp_state,
+                                                 init_ef_state)
+from tpu_compressed_dp_torch.train.optim import SGD, bn_wd_mask
+from tpu_compressed_dp_torch.train.schedules import phase_lr_schedule_variable_bs
+from tpu_compressed_dp_torch.train.state import TrainState
+from tpu_compressed_dp_torch.train.step import make_eval_step, make_train_step
+from tpu_compressed_dp_torch.utils import flops as flops_mod
+from tpu_compressed_dp_torch.utils.loggers import TableLogger, TSVLogger
+from tpu_compressed_dp_torch.utils.meters import per_chip_comm_bytes
+from tpu_compressed_dp_torch.utils.timer import Timer, device_sync
+
+__all__ = ["ARCHS", "one_machine_phases", "smoke_phases", "data_phases", "total_epochs",
+           "PhaseData", "build_parser", "parse_args", "run", "main"]
+
+ARCHS = {
+    "resnet18": resnet_mod.resnet18,
+    "resnet34": resnet_mod.resnet34,
+    "resnet50": resnet_mod.resnet50,
+    "resnet101": resnet_mod.resnet101,
+    "resnet152": resnet_mod.resnet152,
+}
+
+_ITEM = "ROADMAP.md queue 1, item {}"
+# flags of the JAX harness, by the ROADMAP item that ports them
+_LATER_FLAGS = {
+    **dict.fromkeys(("--devices", "--coordinator", "--num_processes", "--process_id",
+                     "--resume", "--checkpoint_dir", "--best_floor", "--guard",
+                     "--guard_init_scale", "--guard_backoff", "--guard_growth_interval",
+                     "--guard_max_skips", "--chaos", "--heartbeat", "--heartbeat_interval",
+                     "--elastic", "--elastic_dir", "--peer_timeout", "--elastic_ef",
+                     "--elastic_min_world"), 12),
+    **dict.fromkeys(("--adaptive", "--adaptive_window", "--adaptive_deadband",
+                     "--adaptive_rungs", "--adaptive_budget_ms", "--adaptive_bw_mbps",
+                     "--adaptive_signal", "--adaptive_model", "--twin_records", "--events",
+                     "--prom", "--job_id", "--events_max_mb", "--flight_dir",
+                     "--flight_capacity", "--tensorboard", "--profile_epoch"), 13),
+    **dict.fromkeys(("--stream_dir", "--stream_every", "--stream_keyframe_every",
+                     "--stream_ratio", "--stream_rejoin"), 14),
+}
+
+
+def one_machine_phases() -> List[dict]:
+    """The reference's single-machine schedule (93.00 top-5 in 109 min on 8
+    V100s): 128 px / bs 512 -> 224 px / bs 224 -> 288 px / bs 128 per GPU,
+    with warm-up and step decays.  ``bs`` here is the global batch (the
+    reference's per-GPU batch x 8)."""
+    lr = 1.0
+    scale_224 = 224 / 512
+    scale_288 = 128 / 512
+    return [
+        {"ep": 0, "sz": 128, "bs": 512 * 8},
+        {"ep": (0, 5), "lr": (lr, lr * 2)},
+        {"ep": 5, "lr": lr},
+        {"ep": 14, "sz": 224, "bs": 224 * 8, "lr": lr * scale_224},
+        {"ep": 16, "lr": lr / 10 * scale_224},
+        {"ep": 27, "lr": lr / 100 * scale_224},
+        {"ep": 32, "sz": 288, "bs": 128 * 8, "min_scale": 0.5, "rect_val": True,
+         "lr": lr / 100 * scale_288},
+        {"ep": (33, 35), "lr": lr / 1000 * scale_288},
+    ]
+
+
+def smoke_phases(bs: int = 64) -> List[dict]:
+    """Tiny 3-epoch progressive-resize schedule for tests and CPU smoke."""
+    return [
+        {"ep": 0, "sz": 64, "bs": bs},
+        {"ep": (0, 1), "lr": (0.1, 0.2)},
+        {"ep": 1, "lr": 0.1},
+        {"ep": 2, "sz": 96, "bs": bs // 2, "rect_val": True},
+        {"ep": (2, 3), "lr": (0.01, 0.001)},
+    ]
+
+
+def data_phases(phases: List[dict]) -> List[dict]:
+    return [p for p in phases if "sz" in p or p.get("keep_dl")]
+
+
+def total_epochs(phases: List[dict]) -> int:
+    """The largest epoch edge of the schedule (at least 1)."""
+    out = 0
+    for p in phases:
+        ep = p["ep"]
+        out = max(out, int(max(ep) if isinstance(ep, (tuple, list)) else ep))
+    return out if out > 0 else 1
+
+
+class PhaseData:
+    """Owns the current train/val loaders and swaps them at the first epoch
+    of each data phase; a ``keep_dl`` phase inherits its predecessor's
+    settings."""
+
+    def __init__(self, dataset_train, dataset_val, phases: List[dict], *, workers: int = 8,
+                 seed: int = 0, min_scale_default: float = 0.08, ar_buckets: int = 8,
+                 process_index: int = 0, process_count: int = 1):
+        raw = data_phases(phases)
+        if not raw or raw[0]["ep"] != 0:
+            raise ValueError("first data phase must start at ep 0")
+        self.phases: List[dict] = []
+        for p in raw:
+            merged = {**self.phases[-1], **p} if p.get("keep_dl") and self.phases else dict(p)
+            self.phases.append(merged)
+        self.ds_train, self.ds_val = dataset_train, dataset_val
+        self.workers, self.seed = workers, seed
+        self.min_scale_default = min_scale_default
+        self.ar_buckets = ar_buckets
+        self.pi, self.pc = process_index, process_count
+        self.cur: Optional[dict] = None
+        self.train_loader = None
+        self.val_loader = None
+        self.val_bs = None
+
+    def phase_at(self, epoch: int) -> dict:
+        """The phase governing ``epoch`` (the last one starting at or before it)."""
+        out = self.phases[0]
+        for p in self.phases:
+            if p["ep"] <= epoch:
+                out = p
+        return out
+
+    def set_epoch(self, epoch: int) -> bool:
+        """Build the loaders of the phase governing ``epoch`` if it is not the
+        current one; returns True on a swap."""
+        phase = self.phase_at(epoch)
+        swapped = False
+        if phase is not self.cur:
+            sz, bs = int(phase["sz"]), int(phase["bs"])
+            self.train_loader = data.TrainLoader(
+                self.ds_train, bs // self.pc, sz,
+                min_scale=float(phase.get("min_scale", self.min_scale_default)),
+                seed=self.seed, workers=self.workers, process_index=self.pi,
+                process_count=self.pc)
+            self.val_bs = data.val_batch_size(sz, bs)
+            # as in the JAX harness, rect val runs single-process only
+            rect = bool(phase.get("rect_val", False)) and self.pc == 1
+            self.val_loader = data.ValLoader(
+                self.ds_val, self.val_bs // self.pc, sz, rect_val=rect,
+                ar_buckets=self.ar_buckets, workers=self.workers, process_index=self.pi,
+                process_count=self.pc)
+            self.cur = phase
+            swapped = True
+        self.train_loader.set_epoch(epoch)
+        return swapped
+
+    def epoch_batches(self, epochs: int) -> List[int]:
+        """Steps per epoch, for the step -> epoch LR map."""
+        out = []
+        for e in range(epochs):
+            bs = int(self.phase_at(e)["bs"]) // self.pc
+            out.append(max((len(self.ds_train) // self.pc) // bs, 1))
+        return out
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="ImageNet compressed-DP harness (PyTorch)")
+    p.add_argument("data", nargs="?", default=None,
+                   help="ImageFolder root with train/ and validation/")
+    p.add_argument("--arch", "-a", default="resnet50", choices=sorted(ARCHS))
+    p.add_argument("--width", type=int, default=64, help="stem width (64 = standard)")
+    p.add_argument("--num_classes", type=int, default=1000)
+    p.add_argument("--phases", type=str, default=None,
+                   help="JSON phase list; default = the reference's one-machine schedule")
+    p.add_argument("--lr_scale", type=float, default=1.0,
+                   help="multiply every phase LR (batch-size scaling)")
+    p.add_argument("--momentum", type=float, default=0.9)
+    p.add_argument("--weight_decay", "--wd", type=float, default=1e-4)
+    p.add_argument("--no_bn_wd", action="store_true", help="exclude BN params from wd")
+    p.add_argument("--init_bn0", action="store_true", help="zero-init last-BN gammas")
+    p.add_argument("--fp32", action="store_true", help="disable bf16 compute")
+    p.add_argument("--compress", "-c", default="none",
+                   choices=["none", "layerwise", "entiremodel", "bucketed"])
+    p.add_argument("--method", default="none")
+    p.add_argument("--ratio", "-K", type=float, default=0.5)
+    p.add_argument("--threshold", "-V", type=float, default=0.001)
+    p.add_argument("--qstates", "-Q", type=int, default=255)
+    p.add_argument("--rank", type=int, default=4, help="r for powersgd")
+    p.add_argument("--block_size", type=int, default=256,
+                   help="blocktopk: elements per contiguous block")
+    p.add_argument("--bucket_mb", type=float, default=25.0,
+                   help="bucketed granularity: capacity per bucket")
+    p.add_argument("--mode", default="simulate", choices=["simulate", "wire"])
+    p.add_argument("--transport", default="allgather",
+                   choices=["allgather", "sharded", "hierarchical"],
+                   help="wire combine for index-carrying sparsifiers: flat all_gather, "
+                        "owner-sharded reduce, or the two-level hierarchical reduce over "
+                        "--dp_pods")
+    p.add_argument("--dp_pods", type=int, default=1,
+                   help="hierarchical transport: pod count (must divide the world size)")
+    p.add_argument("--hier_route_factor_ici", type=float, default=1.25)
+    p.add_argument("--hier_route_factor_dcn", type=float, default=1.25)
+    p.add_argument("--error_feedback", action="store_true")
+    p.add_argument("--overlap", type=int, default=1,
+                   help="chunk-pipelined sync (parallel/overlap.py): up to K chunk syncs "
+                        "started during the backward pass; numerics unchanged")
+    p.add_argument("--wire_cap_ratio", type=float, default=0.05,
+                   help="wire thresholdv/adaptive_threshold transport capacity")
+    p.add_argument("--clip_norm", type=float, default=0.0,
+                   help="local-gradient L2 clip (0 = off)")
+    p.add_argument("--clip_sent_norm", type=float, default=0.0,
+                   help="post-aggregation L2 clip of the synced gradient (0 = off)")
+    p.add_argument("--workers", type=int, default=8, help="decode threads per loader")
+    p.add_argument("--seed", type=int, default=2147483647)
+    p.add_argument("--short_epoch", action="store_true", help="10-batch epochs")
+    p.add_argument("--evaluate", action="store_true")
+    p.add_argument("--synthetic", action="store_true")
+    p.add_argument("--synthetic_n", type=int, default=512)
+    p.add_argument("--logdir", type=str, default=None)
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (default; raises where CUDA is missing) or cpu")
+    return p
+
+
+def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
+    args, rest = build_parser().parse_known_args(argv)
+    for tok in rest:
+        flag = tok.split("=", 1)[0]
+        if flag in _LATER_FLAGS:
+            raise NotImplementedError(
+                f"{flag} is not ported yet: {_ITEM.format(_LATER_FLAGS[flag])}")
+    if rest:
+        build_parser().error(f"unrecognized arguments: {' '.join(rest)}")
+    return args
+
+
+def _truncate(it, n: Optional[int]):
+    for i, b in enumerate(it):
+        if n is not None and i >= n:
+            break
+        yield b
+
+
+def comp_config(args) -> CompressionConfig:
+    return CompressionConfig(
+        method=None if args.compress == "none" or args.method.lower() == "none" else args.method,
+        granularity=args.compress if args.compress != "none" else "layerwise",
+        mode=args.mode, ratio=args.ratio, threshold=args.threshold, qstates=args.qstates,
+        block_size=args.block_size, bucket_mb=args.bucket_mb,
+        wire_cap_ratio=args.wire_cap_ratio, transport=args.transport, dp_pods=args.dp_pods,
+        hier_route_factor_ici=args.hier_route_factor_ici,
+        hier_route_factor_dcn=args.hier_route_factor_dcn, rank=args.rank,
+        error_feedback=args.error_feedback, sync_overlap=args.overlap)
+
+
+def run(args) -> Dict[str, float]:
+    if args.method.lower() != "none" and args.compress == "none":
+        raise ValueError(f"--method {args.method} requires --compress "
+                         "layerwise|entiremodel|bucketed")
+    device = local_device(args.device)
+    # fp32 stays fp32, as in the JAX reference: no TF32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    comp = comp_config(args)
+    made_group = not torch.distributed.is_initialized()
+    mesh.init_process_group(device)
+    try:
+        return _run(args, device, comp)
+    finally:
+        if made_group:
+            mesh.destroy()
+
+
+def _run(args, device: torch.device, comp: CompressionConfig) -> Dict[str, float]:
+    world, rank = mesh.world(), mesh.rank()
+    if args.synthetic:
+        ds_train = data.SyntheticImages(args.synthetic_n, args.num_classes, seed=0)
+        ds_val = data.SyntheticImages(max(args.synthetic_n // 4, 64), args.num_classes, seed=7)
+    else:
+        if not args.data:
+            raise ValueError("pass an ImageFolder root or --synthetic")
+        ds_train = data.ImageFolder(f"{args.data}/train")
+        ds_val = data.ImageFolder(f"{args.data}/validation")
+
+    phases = json.loads(args.phases) if args.phases else (
+        smoke_phases() if args.synthetic else one_machine_phases())
+    if args.lr_scale != 1.0:
+        for p in phases:
+            if "lr" in p:
+                lr = p["lr"]
+                p["lr"] = (tuple(v * args.lr_scale for v in lr) if isinstance(lr, (tuple, list))
+                           else lr * args.lr_scale)
+    epochs = total_epochs(phases)
+    pd = PhaseData(ds_train, ds_val, phases, workers=args.workers, seed=args.seed,
+                   process_index=rank, process_count=world)
+    epoch_batches = pd.epoch_batches(epochs)
+    if args.short_epoch:
+        epoch_batches = [min(n, 10) for n in epoch_batches]
+    lr_sched = phase_lr_schedule_variable_bs(phases, epoch_batches)
+
+    dtype = torch.float32 if args.fp32 else torch.bfloat16
+    model = ARCHS[args.arch](num_classes=args.num_classes, bn0=args.init_bn0, dtype=dtype,
+                             width=args.width, seed=args.seed % (2 ** 31), device=device)
+    params = param_leaves(model)
+    apply_fn = make_normalizing_apply_fn(data.IMAGENET_MEAN, data.IMAGENET_STD)
+    opt = SGD(lr=lr_sched, momentum=args.momentum, nesterov=False,
+              weight_decay=args.weight_decay,
+              wd_mask=bn_wd_mask(params) if args.no_bn_wd else None)
+    state = TrainState.create(model, opt.init(params), init_ef_state(params, comp),
+                              seed=(args.seed + 1) % (2 ** 31),
+                              comp=init_comp_state(params, comp))
+    train_step = make_train_step(apply_fn, opt, comp, grad_scale=1.0, clip_norm=args.clip_norm,
+                                 clip_sent_norm=args.clip_sent_norm)
+    eval_step = make_eval_step(apply_fn)
+    if rank == 0:
+        n_params = sum(p.numel() for p in params.values())
+        print(f"world: {world} x {device}; arch={args.arch} width={args.width} "
+              f"params={n_params} dtype={dtype} compress={args.compress} "
+              f"method={args.method} overlap={args.overlap} epochs={epochs}")
+
+    def validate(state) -> Dict[str, float]:
+        batches = _truncate(pd.val_loader, 10 if args.short_epoch else None)
+        return run_local_eval(eval_step, state, batches, pd.val_loader.batch_size, device)
+
+    fwd_cache: Dict[tuple, float] = {}
+
+    def fwd_flops(phase) -> Optional[float]:
+        """The forward FLOPs of one local batch of the phase, where the card's
+        peak is known (MFU needs it)."""
+        if flops_mod.device_peak_flops(device, dtype) is None:
+            return None
+        key = (int(phase["sz"]), int(phase["bs"]) // world)
+        if key not in fwd_cache:
+            fwd_cache[key] = flops_mod.cnn_fwd_flops(model, (key[1], key[0], key[0], 3), device)
+        return fwd_cache[key]
+
+    table, tsv = TableLogger(), TSVLogger()
+    timer = Timer(lambda: device_sync(device))
+    summary: Dict[str, float] = {}
+    if args.evaluate:
+        pd.set_epoch(0)
+        val = validate(state)
+        if rank == 0:
+            print(f"top1 {val['acc'] * 100:.2f} top5 {val['acc5'] * 100:.2f}")
+        return val
+    for epoch in range(epochs):
+        pd.set_epoch(epoch)
+        batches = _truncate(pd.train_loader, 10 if args.short_epoch else None)
+        state, acc = run_train_epoch(train_step, state, batches, device)
+        train_time = timer()
+        val = validate(state)
+        timer(False)  # eval time stays out of the training total
+        examples = int(acc.sums.get("count", 0.0))
+        img_s = examples / train_time if train_time > 0 else 0.0
+        thr = flops_mod.throughput_record(fwd_flops(pd.cur), acc.steps / max(train_time, 1e-9),
+                                          examples_per_sec=img_s, device=device, dtype=dtype)
+        summary = {
+            "epoch": epoch, "train time": train_time, "train loss": acc.mean("loss"),
+            "test loss": val["loss"], "top1": val["acc"] * 100, "top5": val["acc5"] * 100,
+            "test acc": val["acc"], "total time": timer.total_time,
+            "img/s": round(img_s, 1), "steps": acc.steps,
+        }
+        if "throughput/mfu" in thr:
+            summary["mfu"] = round(thr["throughput/mfu"], 4)
+        summary.update(comm_summary(acc))
+        comm_means = {k: acc.mean(k) for k in acc.sums if k.startswith("comm/")}
+        per_chip_b = per_chip_comm_bytes(comm_means, world, args.dp_pods)
+        if per_chip_b is not None and train_time > 0:
+            summary["comm MB/s"] = per_chip_b * acc.steps / train_time / 1e6
+        if rank == 0:
+            table.append(summary)
+            tsv.append(summary)
+    if args.logdir and rank == 0:
+        tsv.save(args.logdir)
+    return summary
+
+
+def main(argv: Optional[list] = None):
+    return run(parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

@@ -2,24 +2,36 @@
 
 PyTorch-port counterpart of ``run_train_epoch``, ``run_eval``,
 ``train_epoch``, ``comm_summary`` and ``pad_batch`` of
-:mod:`tpu_compressed_dp.harness.loop`.  Train metrics stay on the device
+:mod:`tpu_compressed_dp.harness.loop`, plus :func:`run_local_eval` for
+loaders that hand each process its own (possibly empty) batches and
+:func:`local_device` for the entry points.  Train metrics stay on the device
 until the epoch ends and come back in one copy, so the host never waits on a
 step.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Iterable, Tuple
 
 import numpy as np
 import torch
 
+from tpu_compressed_dp_torch.parallel import mesh
 from tpu_compressed_dp_torch.train.state import TrainState
 from tpu_compressed_dp_torch.utils.loggers import MetricAccumulator
 from tpu_compressed_dp_torch.utils.timer import Timer
 
-__all__ = ["run_train_epoch", "run_eval", "train_epoch", "comm_summary", "pad_batch",
-           "to_device"]
+__all__ = ["run_train_epoch", "run_eval", "run_local_eval", "train_epoch", "comm_summary",
+           "pad_batch", "to_device", "local_device"]
+
+
+def local_device(name: str) -> torch.device:
+    """The entry points' ``--device``: ``cuda`` is this process's card
+    (``LOCAL_RANK`` under ``torchrun``) and raises where CUDA is missing."""
+    if name == "cuda" and "LOCAL_RANK" in os.environ:
+        name = f"cuda:{int(os.environ['LOCAL_RANK'])}"
+    return mesh.resolve_device(name)
 
 
 def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
@@ -70,10 +82,25 @@ def run_eval(eval_step, state: TrainState, batches: Iterable[Dict], batch_size: 
              device, rank: int = 0, world: int = 1) -> Dict[str, float]:
     """Every batch is padded to ``batch_size`` rows; each rank evaluates its
     ``batch_size / world`` share and the eval step sums over the world."""
+    return _eval_sums(eval_step, state, (_shard(pad_batch(b, batch_size), rank, world)
+                                         for b in batches), device)
+
+
+def run_local_eval(eval_step, state: TrainState, batches: Iterable[Dict], batch_size: int,
+                   device) -> Dict[str, float]:
+    """Each process evaluates its own batches, each padded (an empty one
+    wholly) to ``batch_size`` rows with a 0/1 mask; every process must run
+    the same number of batches (``ValLoader``'s contract), since the eval
+    step sums over the world.  Loss and accuracies (top-1 ``acc``, top-5
+    ``acc5``) are over the real examples."""
+    return _eval_sums(eval_step, state, (pad_batch(b, batch_size) for b in batches), device)
+
+
+def _eval_sums(eval_step, state: TrainState, batches: Iterable[Dict], device
+               ) -> Dict[str, float]:
     sums = torch.zeros(4, dtype=torch.float64)
     keys = ("loss_sum", "correct", "correct5", "count")
-    outs = [eval_step(state, to_device(_shard(pad_batch(b, batch_size), rank, world), device))
-            for b in batches]
+    outs = [eval_step(state, to_device(b, device)) for b in batches]
     if outs:
         sums = torch.stack([torch.stack([o[k] for k in keys]) for o in outs]).cpu().double()
         sums = sums.sum(0)

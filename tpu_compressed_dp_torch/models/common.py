@@ -1,4 +1,4 @@
-"""Model glue shared by every CIFAR network of the port.
+"""Model glue shared by the port's CNNs (the CIFAR nets and the ImageNet ResNets).
 
 PyTorch counterpart of :mod:`tpu_compressed_dp.models.common`.  In the port
 the module holds its parameters and BatchNorm buffers, so
@@ -87,8 +87,9 @@ class BatchNorm(nn.Module):
 
     Running averages decay by 0.9, eps 1e-5, the batch variance is the
     biased ``E[x^2] - E[x]^2`` (clipped at 0) and updates the running
-    variance.  Statistics and the normalisation run in fp32 whatever the
-    input's dtype; the output has the input's dtype (flax's ``dtype``)."""
+    variance.  Statistics and the normalisation run in fp32, or the input's
+    dtype where that is wider (flax's ``promote_types(dtype, float32)``); the
+    output has the input's dtype (flax's ``dtype``)."""
 
     def __init__(self, features: int, device=None):
         super().__init__()
@@ -98,7 +99,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(features, device=device))
 
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
-        xf = x.float()
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if train:
             dims = (0, 2, 3)
             mean = xf.mean(dims)
@@ -115,11 +116,12 @@ class BatchNorm(nn.Module):
 
 
 def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor], *,
-           stride: int = 1, dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """flax ``nn.Conv`` (3x3, padding 1) at compute ``dtype``: input, kernel
-    and bias cast to it, the result in it."""
+           stride: int = 1, padding: int = 1,
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """flax ``nn.Conv`` (symmetric integer ``padding``) at compute ``dtype``:
+    input, kernel and bias cast to it, the result in it."""
     return F.conv2d(x.to(dtype), weight.to(dtype), None if bias is None else bias.to(dtype),
-                    stride=stride, padding=1)
+                    stride=stride, padding=padding)
 
 
 class Dense(nn.Module):

@@ -540,11 +540,11 @@ def _leaf_sync_qsgd(flat: torch.Tensor, seed: int, qstates: int, world: int):
 # ---------------------------------------------------------------------------
 
 
-def make_wire_grad_sync(cfg):
+def make_wire_grad_sync(cfg, group_offset: int = 0):
     """Build ``sync(grads, ef, seed) -> (synced, new_ef, stats)`` over the
     default process group, with the contract of the simulate sync in
     :func:`tpu_compressed_dp_torch.parallel.dp.make_grad_sync` (which
-    dispatches here for ``mode='wire'``).  The stat keys are the JAX wire
+    dispatches here for ``mode='wire'``), ``group_offset`` included.  The stat keys are the JAX wire
     engine's for the same method and transport: the ``sent_bits*`` split,
     ``sent_elems``, ``dense_elems``, ``num_collectives``, plus
     ``sync_agree`` (Random-K with ``check_sync``), ``threshold_overflow``
@@ -708,7 +708,8 @@ def make_wire_grad_sync(cfg):
             ef_flat = group_concat(ef_leaves, idxs) if use_ef else None
             (dense, new_ef_flat, sent_leaf, bits_leaf, bits_route, agree,
              leaf_overflows, fabric) = sync_flat(flat, ef_flat,
-                                                 compressors.leaf_seed(seed, gi, rank), world)
+                                                 compressors.leaf_seed(seed, group_offset + gi,
+                                                                       rank), world)
             # the collectives this group's payload rode: a sharded group's
             # route on the all_to_all and its return on an all_gather; a
             # hierarchical group's bits per fabric only

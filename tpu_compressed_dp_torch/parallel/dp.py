@@ -22,7 +22,14 @@ the JAX engine's ``sync(grads, ef, comp, seed) -> (synced, new_ef,
 new_comp, stats)``, whose compressor state ``comp`` comes from
 :func:`init_comp_state` (stateless methods pass it through unchanged);
 :func:`make_grad_sync` is the stateless ``sync(grads, ef, seed)`` of every
-other method.
+other method.  :func:`make_issue_grad_sync` splits the stateful sync in two
+for the chunk-pipelined sync (``parallel/overlap.py``):
+``issue(grads, ef, comp, seed)`` compresses and starts the collectives, and
+the ``finish()`` it returns waits for them and yields the result.  Every
+constructor takes a ``group_offset``: group ``gi`` of the tree it is handed
+draws ``leaf_seed(seed, group_offset + gi)`` and keeps PowerSGD's warm start
+under ``q<group_offset + gi>``, so a chunk of the tree synced alone is
+bitwise the same groups of the whole tree.
 
 Gradients, EF residuals and outputs are ordered dicts of tensors keyed by
 parameter path, in the JAX package's leaf order (see
@@ -35,7 +42,7 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -47,7 +54,7 @@ from tpu_compressed_dp_torch.parallel import mesh
 __all__ = ["CompressionConfig", "make_grad_sync", "make_stateful_grad_sync", "make_leaf_groups",
            "group_concat", "group_split", "init_ef_state", "init_comp_state", "wire_transport",
            "make_partitioned_grad_sync", "make_grouped_grad_sync", "make_partitioned_clip",
-           "make_sharded_clip", "merge_stat_dicts"]
+           "make_sharded_clip", "merge_stat_dicts", "make_issue_grad_sync"]
 
 Tree = Dict[str, torch.Tensor]
 
@@ -59,11 +66,11 @@ BUCKET_MB = 1024.0 * 1024.0
 class CompressionConfig:
     """The JAX package's ``CompressionConfig`` fields and defaults
     (``tpu_compressed_dp/parallel/dp.py``).  The port runs every method,
-    every granularity, both modes, all three transports and
-    ``sync_overlap=1``; the sync constructors raise ``NotImplementedError`` for
-    ``sync_overlap > 1``, naming the ROADMAP item.  The
-    hierarchical transport's ``dp_pods`` must divide the world size, which
-    the first sync checks."""
+    every granularity, both modes and all three transports; ``sync_overlap >
+    1`` is the train step's chunk-pipelined sync (``parallel/overlap.py``),
+    which the sync constructors here do not read.  The hierarchical
+    transport's ``dp_pods`` must divide the world size, which the first sync
+    checks."""
 
     method: Optional[str] = None
     granularity: str = "layerwise"
@@ -122,13 +129,6 @@ class CompressionConfig:
         if self.terngrad_chunk >= 0:
             return self.terngrad_chunk
         return 0 if self.granularity == "layerwise" else 1 << 21
-
-
-def _check_ported(cfg: CompressionConfig) -> None:
-    """Refuse the parts of the config this slice does not carry."""
-    if cfg.sync_overlap != 1:
-        raise NotImplementedError("not ported yet: sync_overlap > 1 "
-                                  "(ROADMAP.md queue 1, item 9)")
 
 
 def wire_transport(name: str, n: int, cfg: CompressionConfig) -> str:
@@ -259,7 +259,7 @@ def group_split(flat, leaves, idxs, out, dtype=None) -> None:
         off += n
 
 
-def make_grad_sync(cfg: CompressionConfig):
+def make_grad_sync(cfg: CompressionConfig, group_offset: int = 0):
     """Build ``sync(grads, ef, seed) -> (synced, new_ef, stats)`` over the
     default process group, for every stateless method (PowerSGD's sync is
     :func:`make_stateful_grad_sync`'s).
@@ -267,11 +267,25 @@ def make_grad_sync(cfg: CompressionConfig):
     ``grads`` are this rank's gradients at the scale the reference compresses
     (see ``train/step.py``); ``synced`` is the world mean.  ``seed`` is the
     step's 64-bit compression seed (the JAX ``key``); group ``gi`` draws from
-    ``leaf_seed(seed, gi)``, with the rank folded in where the workers' draws
-    must differ.  ``stats`` are 0-d float32 tensors on the gradients'
-    device, keyed as in the JAX engine (``sent_elems``, ``sent_bits`` and its
-    per-collective split, ``dense_elems``, ``num_collectives``)."""
-    _check_ported(cfg)
+    ``leaf_seed(seed, group_offset + gi)``, with the rank folded in where the
+    workers' draws must differ.  ``stats`` are 0-d float32 tensors on the
+    gradients' device, keyed as in the JAX engine (``sent_elems``,
+    ``sent_bits`` and its per-collective split, ``dense_elems``,
+    ``num_collectives``)."""
+    issue = _make_stateless_issue(cfg, group_offset)
+
+    def sync(grads: Tree, ef: Any, seed: int) -> Tuple[Tree, Any, Dict[str, torch.Tensor]]:
+        return issue(grads, ef, seed)()
+
+    return sync
+
+
+def _make_stateless_issue(cfg: CompressionConfig, group_offset: int):
+    """``issue(grads, ef, seed) -> finish``, ``finish() -> (synced, new_ef,
+    stats)``, for the stateless methods.  The simulate engine starts each
+    group's all-reduce with ``async_op=True`` and ``finish`` waits for them;
+    the wire engine's collectives feed its combine, so it runs whole in
+    ``issue``."""
     comp = compressors.get_compressor(
         cfg.method, ratio=cfg.ratio, threshold=cfg.threshold, qstates=cfg.qstates,
         block_size=cfg.block_size, terngrad_chunk=cfg.resolved_terngrad_chunk, rank=cfg.rank)
@@ -281,7 +295,7 @@ def make_grad_sync(cfg: CompressionConfig):
     if cfg.mode == "wire" and comp.name != "none":
         from tpu_compressed_dp_torch.ops import wire
 
-        return wire.make_wire_grad_sync(cfg)
+        return _done(wire.make_wire_grad_sync(cfg, group_offset))
     per_worker_rng = not cfg.resolved_shared_mask
     bits_per_elem = compressors.payload_bits_per_elem(
         comp.name, qstates=cfg.qstates, shared_mask=cfg.resolved_shared_mask,
@@ -326,7 +340,7 @@ def make_grad_sync(cfg: CompressionConfig):
             return 0.5 * acc.abs().max()
         return None
 
-    def sync(grads: Tree, ef: Any, seed: int) -> Tuple[Tree, Any, Dict[str, torch.Tensor]]:
+    def issue(grads: Tree, ef: Any, seed: int) -> Callable[[], Tuple[Tree, Any, Dict]]:
         world = mesh.world()
         rank = mesh.rank() if per_worker_rng and comp.needs_rng else None
         names = list(grads)
@@ -346,6 +360,7 @@ def make_grad_sync(cfg: CompressionConfig):
         sent_total, bits_total, bits_psum, bits_ag = zero, zero, zero, zero
         bits_a2a, bits_ici, bits_dcn, bits_dcn_route = zero, zero, zero, zero
         dense_total = 0.0
+        in_flight = []   # (work or None, payload, idxs) per group
         for gi, idxs in enumerate(groups):
             flat = group_concat(leaves, idxs)
             acc = flat + group_concat(ef_leaves, idxs) if use_ef else flat
@@ -355,7 +370,7 @@ def make_grad_sync(cfg: CompressionConfig):
                 comp_flat, new_ef_flat, group_sent = kernels.fused_sparsify(
                     acc.contiguous(), fuse_t, want_ef=use_ef)
             else:
-                comp_flat = comp.fn(acc, compressors.leaf_seed(seed, gi, rank))
+                comp_flat = comp.fn(acc, compressors.leaf_seed(seed, group_offset + gi, rank))
                 new_ef_flat = acc - comp_flat if use_ef else None
                 group_sent = sent_count(n_g, comp_flat)
                 if comp.name == "none":
@@ -363,10 +378,8 @@ def make_grad_sync(cfg: CompressionConfig):
                     # alias the caller's gradient
                     comp_flat = comp_flat.clone()
             group_bits = group_sent * bits_width(n_g)
-            if world > 1:
-                dist.all_reduce(comp_flat)
-            reduced = comp_flat / world
-            group_split(reduced, leaves, idxs, out_leaves)
+            work = dist.all_reduce(comp_flat, async_op=True) if world > 1 else None
+            in_flight.append((work, comp_flat, idxs))
             if use_ef:
                 group_split(new_ef_flat, leaves, idxs, new_ef_leaves, dtype=torch.float32)
             transport = wire_transport(comp.name, n_g, cfg)
@@ -396,7 +409,6 @@ def make_grad_sync(cfg: CompressionConfig):
             bits_total = bits_total + group_bits
             dense_total += float(n_g)
 
-        out = dict(zip(names, out_leaves))
         new_ef = dict(zip(names, new_ef_leaves)) if use_ef else ()
         stats = {
             "sent_elems": sent_total,
@@ -411,25 +423,64 @@ def make_grad_sync(cfg: CompressionConfig):
             "num_collectives": torch.full((), float(len(groups)), dtype=torch.float32,
                                           device=device),
         }
-        return out, new_ef, stats
 
-    return sync
+        def finish():
+            for work, comp_flat, idxs in in_flight:
+                if work is not None:
+                    work.wait()
+                group_split(comp_flat / world, leaves, idxs, out_leaves)
+            return dict(zip(names, out_leaves)), new_ef, stats
+
+        return finish
+
+    return issue
 
 
-def make_stateful_grad_sync(cfg: CompressionConfig):
+def _done(sync):
+    """A synchronous engine ``sync(*args) -> result`` as ``issue(*args) ->
+    finish``, its result ready at issue."""
+
+    def issue(*args):
+        result = sync(*args)
+        return lambda: result
+
+    return issue
+
+
+def make_issue_grad_sync(cfg: CompressionConfig, group_offset: int = 0):
+    """Build ``issue(grads, ef, comp, seed) -> finish`` with ``finish() ->
+    (synced, new_ef, new_comp, stats)``, the stateful sync of
+    :func:`make_stateful_grad_sync` in two halves: ``issue`` compresses and
+    starts the collectives, ``finish`` waits for them.  The simulate
+    engine's all-reduces are asynchronous (``async_op=True``); the wire and
+    PowerSGD engines feed each collective's result to the next step, so they
+    finish inside ``issue``."""
+    if compressors.canonical_name(cfg.method) == "powersgd":
+        return _done(_make_powersgd_sync(cfg, group_offset))
+    base = _make_stateless_issue(cfg, group_offset)
+
+    def issue(grads: Tree, ef: Any, comp: Any, seed: int):
+        fin = base(grads, ef, seed)
+
+        def finish():
+            out, new_ef, stats = fin()
+            return out, new_ef, comp, stats
+
+        return finish
+
+    return issue
+
+
+def make_stateful_grad_sync(cfg: CompressionConfig, group_offset: int = 0):
     """Build ``sync(grads, ef, comp, seed) -> (synced, new_ef, new_comp,
     stats)``, the JAX engine's signature: ``comp`` is the compressor state of
     :func:`init_comp_state`.  PowerSGD runs its warm-started engine (the
     factors are its wire form, so both modes share it); every other method
     runs :func:`make_grad_sync`'s sync and returns ``comp`` unchanged."""
-    _check_ported(cfg)
-    if compressors.canonical_name(cfg.method) == "powersgd":
-        return _make_powersgd_sync(cfg)
-    base = make_grad_sync(cfg)
+    issue = make_issue_grad_sync(cfg, group_offset)
 
     def sync(grads: Tree, ef: Any, comp: Any, seed: int):
-        out, new_ef, stats = base(grads, ef, seed)
-        return out, new_ef, comp, stats
+        return issue(grads, ef, comp, seed)()
 
     return sync
 
@@ -446,7 +497,7 @@ def _from_flax_order(path: str, flat: torch.Tensor, like: torch.Tensor) -> torch
     return to_torch_layout(path, flat.reshape(to_flax_layout(path, like).shape))
 
 
-def _make_powersgd_sync(cfg: CompressionConfig):
+def _make_powersgd_sync(cfg: CompressionConfig, group_offset: int = 0):
     """The stateful PowerSGD engine (the JAX ``_make_powersgd_sync``).
 
     Per group: one warm-started power iteration against ``comp['q<gi>']``,
@@ -500,7 +551,7 @@ def _make_powersgd_sync(cfg: CompressionConfig):
                 group_sent, group_bits = float(n_g), 32.0 * n_g
                 n_coll += 1
             else:
-                qk = f"q{gi}"
+                qk = f"q{group_offset + gi}"
                 if not isinstance(comp_state, dict) or qk not in comp_state:
                     raise ValueError(f"powersgd sync needs warm-start state {qk!r}; build "
                                      "TrainState.comp with init_comp_state(grads_like, cfg)")

@@ -11,12 +11,12 @@ arithmetic is the same, op for op.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Union
+from typing import Any, Callable, Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
 
-__all__ = ["SGD"]
+__all__ = ["SGD", "bn_wd_mask"]
 
 ScalarOrSchedule = Union[float, Callable[[int], float]]
 
@@ -60,3 +60,17 @@ class SGD:
             buf.copy_(mu * buf + (1.0 - self.dampening) * d)
             d = d + mu * buf if self.nesterov else buf
             p.copy_(p - lr * d)
+
+
+def bn_wd_mask(params: Mapping[str, Any],
+               is_excluded: Optional[Callable[[tuple], bool]] = None) -> Dict[str, bool]:
+    """True where weight decay applies, False for BatchNorm parameters (the
+    JAX ``bn_wd_mask``, the reference's ``bnwd_optim_params``): by default a
+    leaf is excluded when a component of its flax path mentions ``bn`` or
+    ``batchnorm`` (``layer1_0/bn1/scale``, ``BatchNorm_0/bias``)."""
+
+    def default_excluded(path: tuple) -> bool:
+        return any("bn" in k.lower() or "batchnorm" in k.lower() for k in path)
+
+    pred = is_excluded or default_excluded
+    return {k: not pred(tuple(k.split("/"))) for k in params}

@@ -1,7 +1,9 @@
 """Learning-rate schedules as functions of the step.
 
 PyTorch-port counterpart of :mod:`tpu_compressed_dp.train.schedules`
-(``piecewise_linear``, ``lr_phases_to_knots``).  Schedules are evaluated on
+(``piecewise_linear``, ``lr_phases_to_knots`` and the ImageNet harness's
+``phase_lr_schedule``, ``epoch_from_steps`` and
+``phase_lr_schedule_variable_bs``).  Schedules are evaluated on
 the host in numpy float32 with ``jnp.interp``'s arithmetic, so the values
 equal the JAX step's bitwise and reading them never syncs the device.
 """
@@ -12,7 +14,8 @@ from typing import Callable, List, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["piecewise_linear", "lr_phases_to_knots"]
+__all__ = ["piecewise_linear", "lr_phases_to_knots", "phase_lr_schedule", "epoch_from_steps",
+           "phase_lr_schedule_variable_bs"]
 
 Schedule = Callable[[float], np.float32]
 
@@ -70,3 +73,37 @@ def lr_phases_to_knots(phases: List[dict]) -> Tuple[List[float], List[float]]:
         knots += [e0, e1]
         vals += [v0, v1]
     return knots, vals
+
+
+def phase_lr_schedule(phases: List[dict], batches_per_epoch: int) -> Schedule:
+    """Per-batch LR from ImageNet phase dicts; the input is the global step."""
+    knots, vals = lr_phases_to_knots(phases)
+    base = piecewise_linear(knots, vals)
+    bpe = np.float32(batches_per_epoch)
+
+    def schedule(step) -> np.float32:
+        return base(np.float32(step) / bpe)
+
+    return schedule
+
+
+def epoch_from_steps(epoch_batches: Sequence[int]) -> Schedule:
+    """A global step as a fractional epoch when the batches per epoch vary
+    (progressive resizing changes the batch size mid-run): epoch ``e`` spans
+    ``epoch_batches[e]`` steps."""
+    cum = [0.0]
+    for n in epoch_batches:
+        cum.append(cum[-1] + float(max(n, 1)))
+    return piecewise_linear(cum, [float(e) for e in range(len(cum))])
+
+
+def phase_lr_schedule_variable_bs(phases: List[dict], epoch_batches: Sequence[int]) -> Schedule:
+    """Phase LR under progressive resizing: ``lr(step) = lr_by_epoch(epoch(step))``."""
+    knots, vals = lr_phases_to_knots(phases)
+    by_epoch = piecewise_linear(knots, vals)
+    to_epoch = epoch_from_steps(epoch_batches)
+
+    def schedule(step) -> np.float32:
+        return by_epoch(to_epoch(np.float32(step)))
+
+    return schedule

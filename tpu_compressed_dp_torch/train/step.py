@@ -14,6 +14,12 @@ JAX step folds the worker index into its dropout key.  BatchNorm running
 statistics come from the local batch and are averaged over the workers
 after the step, like the JAX step's ``pmean``.
 
+``comp_cfg.sync_overlap > 1`` pipelines the sync (``parallel/overlap.py``):
+a tensor hook on each parameter lands its scaled gradient as the backward
+pass produces it, each chunk's sync starts when its last gradient lands,
+and each chunk's slice of SGD runs once its collectives are waited on.  The
+numerics are the single sync's, bit for bit.
+
 Metrics stay on the device (0-d tensors) so a step never waits for the
 host; ``harness/loop.py`` fetches them once per epoch.
 """
@@ -30,6 +36,7 @@ from tpu_compressed_dp_torch.models.common import param_leaves
 from tpu_compressed_dp_torch.ops.compressors import fold_in
 from tpu_compressed_dp_torch.parallel import mesh
 from tpu_compressed_dp_torch.parallel.dp import CompressionConfig, make_stateful_grad_sync
+from tpu_compressed_dp_torch.parallel.overlap import ChunkedSync
 from tpu_compressed_dp_torch.train.optim import SGD, _value
 from tpu_compressed_dp_torch.train.state import TrainState
 
@@ -76,6 +83,45 @@ def make_train_step(apply_fn: ApplyFn, optimizer: SGD, comp_cfg: CompressionConf
     residual's release itself.  Metrics are world-reduced 0-d tensors: ``loss`` (mean),
     ``correct`` and ``count`` (sums), ``comm/*`` (means), plus ``lr``."""
     grad_sync = make_stateful_grad_sync(comp_cfg)
+    chunked = ChunkedSync(comp_cfg) if comp_cfg.sync_overlap > 1 else None
+
+    def sync_and_apply(state: TrainState, params, loss, seed: int, new_step: int):
+        """Backward, sync and the optimizer: ``(new_ef, new_comp, comm)``."""
+        if chunked is None or clip_norm > 0.0:
+            grads = torch.autograd.grad(loss, list(params.values()))
+            scaled = {k: g.to(torch.float32) * grad_scale for k, g in zip(params, grads)}
+            if clip_norm > 0.0:
+                gnorm = torch.sqrt(sum((g * g).sum() for g in scaled.values()))
+                factor = torch.clamp(clip_norm * grad_scale / torch.clamp(gnorm, min=1e-20),
+                                     max=1.0)
+                scaled = {k: g * factor for k, g in scaled.items()}
+        if chunked is None:
+            synced, new_ef, new_comp, comm = grad_sync(scaled, state.ef, state.comp, seed)
+        else:
+            rnd = chunked.begin(params, state.ef, state.comp, seed)
+            if clip_norm > 0.0:
+                # the clip needs every gradient before any chunk compresses
+                rnd.land_all(scaled)
+            else:
+                def land(i):
+                    return lambda g: rnd.land(i, g.to(torch.float32) * grad_scale)
+
+                hooks = [p.register_hook(land(i)) for i, p in enumerate(params.values())]
+                try:
+                    torch.autograd.grad(loss, list(params.values()))
+                finally:
+                    for h in hooks:
+                        h.remove()
+            if clip_sent_norm == 0.0:
+                return rnd.apply(params, optimizer, state.opt_state, new_step)
+            synced, new_ef, new_comp, comm = rnd.collect()
+        if clip_sent_norm > 0.0:
+            snorm = torch.sqrt(sum((g * g).sum() for g in synced.values()))
+            sfactor = torch.clamp(clip_sent_norm * grad_scale / torch.clamp(snorm, min=1e-20),
+                                  max=1.0)
+            synced = {k: g * sfactor for k, g in synced.items()}
+        optimizer.apply(params, synced, state.opt_state, new_step)
+        return new_ef, new_comp, comm
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         if comp_cfg.error_feedback and not isinstance(state.ef, dict):
@@ -92,23 +138,10 @@ def make_train_step(apply_fn: ApplyFn, optimizer: SGD, comp_cfg: CompressionConf
         else:
             logits = apply_fn(model, x, True)
         loss = cross_entropy_sum(logits, y) / x.shape[0]  # local mean
-        grads = torch.autograd.grad(loss, list(params.values()))
-        scaled = {k: g.to(torch.float32) * grad_scale for k, g in zip(params, grads)}
-        if clip_norm > 0.0:
-            gnorm = torch.sqrt(sum((g * g).sum() for g in scaled.values()))
-            factor = torch.clamp(clip_norm * grad_scale / torch.clamp(gnorm, min=1e-20),
-                                 max=1.0)
-            scaled = {k: g * factor for k, g in scaled.items()}
-        # the step's compression seed: fold_in(state.rng, step) of the JAX step
-        synced, new_ef, new_comp, comm = grad_sync(scaled, state.ef, state.comp,
-                                                   fold_in(state.seed, state.step))
-        if clip_sent_norm > 0.0:
-            snorm = torch.sqrt(sum((g * g).sum() for g in synced.values()))
-            sfactor = torch.clamp(clip_sent_norm * grad_scale / torch.clamp(snorm, min=1e-20),
-                                  max=1.0)
-            synced = {k: g * sfactor for k, g in synced.items()}
         new_step = state.step + 1
-        optimizer.apply(params, synced, state.opt_state, new_step)
+        # the step's compression seed: fold_in(state.rng, step) of the JAX step
+        new_ef, new_comp, comm = sync_and_apply(state, params, loss,
+                                                fold_in(state.seed, state.step), new_step)
 
         world = mesh.world()
         local_bs = float(x.shape[0])
