@@ -36,10 +36,15 @@ printing no result, where either is missing or any phase fails.
      in the overflow regimes (a threshold keeping ~99 %, one keeping twice
      keep) and on NaN / +-Inf / -0.0 data, EF on and off; the segmented pack
      and its payload likewise (a threshold overflowing every segment's
-     128-slot cap); the ternary and QSGD byte packers on the level kernels'
-     levels and the full int8 / int16 ranges; and times each through its C
-     entry beside its plain version, its bound and a yardstick; (2c) holds
-     the segmented pack at the LM's group sizes; (2d) holds the threshold
+     128-slot cap); both packs at the edges of their one-pass units
+     (source blocks, 65,536-element units, segments, misaligned views,
+     truncation at block 0 and inside a unit, a keep cut inside a tile),
+     back to back on one stream and on a second, each one launch a call; the
+     ternary and QSGD byte packers on the level kernels' levels and the full
+     int8 / int16 ranges; and times each through its C entry (CUDA events,
+     and CUPTI) beside its plain version, its bound and a yardstick; (2c)
+     holds both packs at the LM's group sizes and times them there; (2d)
+     holds the threshold
      search as above at the LM's group sizes and at n = 2^25 (counts past
      2^24), times its passes there and ``select_pack`` through its C entry;
   3. trains full-width ResNet-9 through the port's DAWNBench entry point
@@ -1050,18 +1055,18 @@ def phase_route_kernel(kernels, torch, record):
 
 def raw_pack(kernels, torch, n: int, keep: int, rows: int = 512):
     """The threshold-pack, segmented-pack and byte-pack C entry points with
-    outputs and scratch allocated once (timing only; not counted)."""
+    outputs and look-back state allocated once (timing only; not counted)."""
     dev = torch.device("cuda")
     stream = torch.cuda.current_stream().cuda_stream
     tp = kernels._lib("threshold_pack")
     bp = kernels._lib("byte_pack")
     P = kernels.pack_payload_slots(n, keep, rows)
-    nb = -(-n // (rows * 128))
     nseg = -(-n // 65536) * 16
     vals, idx = torch.empty(P, device=dev), torch.empty(P, dtype=torch.int32, device=dev)
     ef = torch.empty(n, device=dev)
     meta = torch.empty(3, dtype=torch.int32, device=dev)
-    scratch = torch.empty(2, nb, dtype=torch.int32, device=dev)
+    state = torch.zeros(max(tp.tcdp_threshold_pack_state_words(n, rows),
+                            tp.tcdp_seg_pack_state_words(nseg)), dtype=torch.int64, device=dev)
     svals = torch.empty(nseg * 128, device=dev)
     sidx = torch.empty(nseg * 128, dtype=torch.int32, device=dev)
     seg = torch.empty(3, nseg, dtype=torch.int32, device=dev)
@@ -1076,12 +1081,12 @@ def raw_pack(kernels, torch, n: int, keep: int, rows: int = 512):
     return (
         lambda xt: check(tp.tcdp_threshold_pack(
             xt[0].data_ptr(), n, xt[1].data_ptr(), rows, P // 128, vals.data_ptr(),
-            idx.data_ptr(), ef.data_ptr(), meta.data_ptr(), scratch[0].data_ptr(),
-            scratch[1].data_ptr(), stream), "threshold_pack"),
+            idx.data_ptr(), ef.data_ptr(), meta.data_ptr(), state.data_ptr(), state.numel(),
+            stream), "threshold_pack"),
         lambda xt: check(tp.tcdp_seg_pack(
             xt[0].data_ptr(), n, xt[1].data_ptr(), keep, nseg, svals.data_ptr(),
             sidx.data_ptr(), ef.data_ptr(), seg[0].data_ptr(), seg[1].data_ptr(),
-            seg[2].data_ptr(), stream), "seg_pack"),
+            seg[2].data_ptr(), state.data_ptr(), state.numel(), stream), "seg_pack"),
         lambda lv: check(bp.tcdp_pack_ternary_bytes(lv.data_ptr(), n, tern.data_ptr(), stream),
                          "ternary_bytes"),
         lambda lv: check(bp.tcdp_qsgd_pack_bytes(lv.data_ptr(), n, mags.data_ptr(),
@@ -1127,11 +1132,85 @@ def _hold(torch, got, want, name: str, what: str) -> float:
     return d
 
 
+def hold_packs(kernels, torch, x, t, keep, rows, what: str, want_efs=(True, False)) -> dict:
+    """The threshold pack (at block rows ``rows``; None skips it) and the
+    segmented pack with its payload bitwise against their plain versions;
+    returns each kernel's largest |kernel - plain|."""
+    err = {"threshold_pack": 0.0, "seg_pack": 0.0}
+    for want_ef in want_efs:
+        if rows is not None:
+            got = kernels.pack_by_threshold(x, t, keep, want_ef=want_ef, rows=rows)
+            want = kernels.pack_by_threshold_plain(x, t, keep, want_ef=want_ef, rows=rows)
+            err["threshold_pack"] = max(err["threshold_pack"], _hold(
+                torch, got, want, "threshold_pack", f"{what}, rows {rows}, ef {want_ef}"))
+        got = kernels.seg_pack_by_threshold(x, t, keep, want_ef=want_ef)
+        want = kernels.seg_pack_by_threshold_plain(x, t, keep, want_ef=want_ef)
+        err["seg_pack"] = max(
+            err["seg_pack"], _hold(torch, got, want, "seg_pack", f"{what}, ef {want_ef}"),
+            _hold(torch, kernels.seg_pack_payload(got[0], got[1], got[3], keep),
+                  kernels.seg_pack_payload(want[0], want[1], want[3], keep), "seg_pack",
+                  f"{what} payload"))
+    return err
+
+
+def pack_edge_cases(kernels, torch, x):
+    """(label, x, t, keep, rows) at the edges of the one-pass packs' units,
+    on N(0, 1) data ``x`` of at least 1,000,003 elements (rows None: the
+    segmented pack alone): n one short of, at and one past a source block
+    (rows 16 and 512), a 65,536-element unit and a 4096-element segment;
+    misaligned views ``x[1:]``, ``x[3:]`` at their Top-K 1 % threshold; rows
+    600, a source block longer than a unit (the count pre-pass); truncation
+    at block 0 (every element survives) and inside a unit (rows 16, ~13 %
+    survive); a keep cut inside a segmented tile (after 2 of its 4 segments
+    and 5 survivors more); t above every |x|."""
+    full = lambda v: torch.full((), v, device=x.device)  # noqa: E731
+    cases = [(f"n={n}", x[:n], full(2.0), max(1, n // 100), rows)
+             for n in (2047, 2048, 2049, 4095, 4097, 16383, 16385, 65535, 65536, 65537, 131073)
+             for rows in (16, 512)]
+    for off in (1, 3):
+        v = x[off:1_000_003]
+        keep = v.numel() // 100
+        cases += [(f"misaligned x[{off}:]", v, kernels.topk_threshold(v.abs(), keep), keep, rows)
+                  for rows in (16, 512)]
+    v = x[:1_000_003]
+    cases += [("rows 600", v, full(2.0), 10_000, 600),
+              ("truncated at block 0", x[:200_001], full(0.0), 2000, 512),
+              ("truncated inside a unit", v, full(1.5), 10_000, 16)]
+    elig = kernels.seg_pack_by_threshold_plain(x[:300_001], full(2.0), 1)[3]
+    cases += [("keep cut inside a tile", x[:300_001], full(2.0), int(elig[:42].sum()) + 5, None),
+              ("t above every |x|", v, full(10.0), 5000, 512)]
+    return cases
+
+
+def call_kernels(torch, fn, calls: int = 20) -> list:
+    """The names of the device activities (kernels, memsets, copies) that
+    ``calls`` calls of ``fn`` enqueue, from a CUPTI trace.  CUPTI drops a
+    record now and then (a single call's trace came back empty, 20 calls'
+    with 19), so a trace with fewer activities than calls is taken again,
+    up to three times, and the last one returned."""
+    from torch.profiler import ProfilerActivity, profile
+
+    names = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if len(names) >= calls:
+            break
+    return names
+
+
 def phase_pack_kernels(kernels, compressors, torch, record):
     """The threshold pack, the segmented pack and the byte packers against
     their plain versions on the card, bitwise: at the entire-model size at
     Top-K 1 %, ragged multi-block sizes at block rows 16 and 512, the
-    overflow regimes, and data with NaN, +-Inf and -0.0; then timings."""
+    overflow regimes, data with NaN, +-Inf and -0.0, the one-pass packs' unit
+    edges (``pack_edge_cases``), back-to-back calls on one stream and a call
+    on a second; each pack one launch a call; then timings."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(6)
     # every check below is bitwise (_hold raises on any bit that differs);
@@ -1194,6 +1273,48 @@ def phase_pack_kernels(kernels, compressors, torch, record):
     log(f"seg_pack: vals, idx, EF, elig, counts and the payload bitwise == plain in "
         f"{len(seg_cases)} cases x EF on/off: "
         f"{json.dumps({k: v for k, v in cases.items() if k.startswith('seg')})}")
+    big = torch.randn(1_000_003, generator=gen, device=dev)
+    edges = pack_edge_cases(kernels, torch, big)
+    for label, v, t, k, rows in edges:
+        e = hold_packs(kernels, torch, v, t, k, rows, label, want_efs=(True,))
+        for name in e:
+            err[name] = max(err[name], e[name])
+    # the look-back state: back-to-back calls of both packs on one stream,
+    # alternating sizes, then a call on a second stream
+    sizes = [(big, 512), (big[:70_001], 16), (big[5:300_006], 600), (big[:131_073], 512)]
+    for v, rows in sizes * 3:
+        e = hold_packs(kernels, torch, v, full(2.0), v.numel() // 100, rows, "back to back",
+                       want_efs=(True,))
+        for name in e:
+            err[name] = max(err[name], e[name])
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        got = (kernels.pack_by_threshold(big, full(2.0), 10_000),
+               kernels.seg_pack_by_threshold(big, full(2.0), 10_000))
+    torch.cuda.synchronize()
+    err["threshold_pack"] = max(err["threshold_pack"], _hold(
+        torch, got[0], kernels.pack_by_threshold_plain(big, full(2.0), 10_000), "threshold_pack",
+        "second stream"))
+    err["seg_pack"] = max(err["seg_pack"], _hold(
+        torch, got[1], kernels.seg_pack_by_threshold_plain(big, full(2.0), 10_000), "seg_pack",
+        "second stream"))
+    launched = {"threshold_pack": call_kernels(torch, lambda: kernels.pack_by_threshold(
+                    x, t_top, keep)),
+                "seg_pack": call_kernels(torch, lambda: kernels.seg_pack_by_threshold(
+                    x, t_top, keep))}
+    # every activity is the kernel, and no more than one a call (a dropped
+    # record may leave fewer)
+    for name, names in launched.items():
+        if not 10 < len(names) <= 20 or any(f"{name}_kernel" not in k for k in names):
+            raise AssertionError(f"{name}: 20 calls launched {sorted(set(names))} "
+                                 f"({len(names)} activities), want one {name}_kernel a call")
+        launched[name] = f"{len(names)} activities in 20 calls, all {name}_kernel"
+    log(f"threshold_pack, seg_pack: bitwise == plain in {len(edges)} unit-edge cases "
+        f"({', '.join(sorted({c[0] for c in edges}))}), {3 * len(sizes)} back-to-back calls "
+        f"on one stream and a call on a second; one launch a call: {launched}")
+    record["pack_launches_a_call"] = launched
+    del big, edges
     g = x * 1e-2
     inv = kernels._safe_inv(torch.linalg.vector_norm(g))
     tern_levels = kernels.terngrad_levels_kernel(g, kernels._safe_inv(g.abs().max()), seed)
@@ -1224,6 +1345,8 @@ def phase_pack_kernels(kernels, compressors, torch, record):
     rows = {
         "threshold_pack": {
             "ms": time_ms(raw_tp, pairs),
+            "device_ms": device_kernel_ms(torch, lambda _: raw_tp(pairs[0]),
+                                          "threshold_pack_kernel"),
             "wrapper_ms": time_ms(lambda p: kernels.pack_by_threshold(p[0], p[1], keep), pairs),
             "plain_ms": time_ms(lambda p: kernels.pack_by_threshold_plain(p[0], p[1], keep),
                                 pairs, reps=5, inner=2),
@@ -1231,6 +1354,7 @@ def phase_pack_kernels(kernels, compressors, torch, record):
             "library_ms": time_ms(lambda p: torch.nonzero(p[0].abs() >= p[1]), pairs)},
         "seg_pack": {
             "ms": time_ms(raw_seg, pairs),
+            "device_ms": device_kernel_ms(torch, lambda _: raw_seg(pairs[0]), "seg_pack_kernel"),
             "wrapper_ms": time_ms(lambda p: kernels.seg_pack_by_threshold(p[0], p[1], keep),
                                   pairs),
             "plain_ms": time_ms(lambda p: kernels.seg_pack_by_threshold_plain(p[0], p[1], keep),
@@ -1274,18 +1398,23 @@ def phase_pack_kernels(kernels, compressors, torch, record):
 LM_GROUPS = (525_357_056, 961_544_192)   # the LM's two sync groups at llama3_8b widths
 
 
-def phase_seg_pack_lm(kernels, compressors, torch, record):
-    """The segmented pack at the LM's group sizes, where the one-block scan
-    loops over ~230 segments a thread and the indices reach ~2^30, bitwise
-    against its plain version with EF, payload included, on seeded data in
-    two regimes: N(0, 1) data at the threshold of 2 * keep (the eligible
-    total passes keep, so the keep cut decides the EF), and data with one
-    segment in eight scaled by 4 at the Top-K 1 % threshold (the 128-slot
-    cap cuts, as on the LM's gradients).  Runs before the trainings, while
-    the plain version's ~35 bytes an element fit."""
+def phase_pack_lm(kernels, compressors, torch, record):
+    """The threshold pack (block rows 512) and the segmented pack at the LM's
+    group sizes, where the indices reach ~2^30, bitwise against their plain
+    versions with EF, the segmented payload included, on seeded data in two
+    regimes: N(0, 1) data at the threshold of 2 * keep (the eligible total
+    passes keep, so the keep cut decides the segmented EF, and the threshold
+    pack's rows pass its payload, so it truncates), and data with one
+    segment in eight scaled by 4 at the Top-K 1 % threshold (the 128-slot cap
+    cuts, as on the LM's gradients); then, at the spread data's Top-K 1 %
+    threshold, each kernel's time by CUDA events (its C entry) and CUPTI
+    beside its bound, the wrapper's, the plain version's and (threshold
+    pack) ``torch.nonzero``'s.  Runs before the trainings, while the plain
+    versions' ~35 bytes an element fit."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(7)
-    err, cases = 0.0, {}
+    err = {"threshold_pack": 0.0, "seg_pack": 0.0}
+    cases, times = {}, {}
     for n in LM_GROUPS:
         keep = compressors.topk_keep_count(n, RATIO)
         for label in ("spread, t of 2 keep", "concentrated, t of keep"):
@@ -1298,27 +1427,64 @@ def phase_seg_pack_lm(kernels, compressors, torch, record):
                 span = 8 * 4096
                 x[:n // span * span].view(-1, span)[:, :4096] *= 4.0
                 t = kernels.topk_threshold(x.abs(), keep)
-            got = kernels.seg_pack_by_threshold(x, t, keep)
-            want = kernels.seg_pack_by_threshold_plain(x, t, keep)
             what = f"n={n} {label}"
-            err = max(err, _hold(torch, got, want, "seg_pack", what))
-            err = max(err, _hold(torch, kernels.seg_pack_payload(got[0], got[1], got[3], keep),
-                                 kernels.seg_pack_payload(want[0], want[1], want[3], keep),
-                                 "seg_pack", f"{what} payload"))
+            for name, e in hold_packs(kernels, torch, x, t, keep, 512, what,
+                                      want_efs=(True,)).items():
+                err[name] = max(err[name], e)
+            got = kernels.seg_pack_by_threshold(x, t, keep)
+            shipped = int(kernels.pack_by_threshold(x, t, keep)[3].item())
             c = {"n": n, "keep": keep, "survivors": int(got[4].sum().item()),
                  "eligible": int(got[3].sum().item()),
                  "overflowing segments": int((got[4] > 128).sum().item()),
-                 "largest index": int(got[1].max().item())}
-            if not (c["eligible"] > keep if label.startswith("spread")
-                    else c["overflowing segments"] > 0):
-                raise AssertionError(f"seg_pack at {what} misses its regime: {c}")
+                 "largest index": int(got[1].max().item()), "threshold_pack shipped": shipped}
+            if not (c["eligible"] > keep and shipped < c["survivors"]
+                    if label.startswith("spread") else c["overflowing segments"] > 0):
+                raise AssertionError(f"the packs at {what} miss their regime: {c}")
             cases[what] = c
-            del x, t, got, want
+            del x, t, got
+        gc.collect()
+        torch.cuda.empty_cache()
+        x = torch.randn(n, generator=gen, device=dev)
+        t = kernels.topk_threshold(x.abs(), keep)
+        pair = [(x, t)]
+        raw_tp, raw_seg = raw_pack(kernels, torch, n, keep)[:2]
+        P = kernels.pack_payload_slots(n, keep)
+        nseg = -(-n // 65536) * 16
+        r = {"threshold_pack": {
+                "ms": time_ms(raw_tp, pair, reps=5, inner=4),
+                "device_ms": device_kernel_ms(torch, lambda _: raw_tp(pair[0]),
+                                              "threshold_pack_kernel", n=10),
+                "wrapper_ms": time_ms(lambda p: kernels.pack_by_threshold(p[0], p[1], keep),
+                                      pair, reps=5, inner=2),
+                "plain_ms": time_ms(lambda p: kernels.pack_by_threshold_plain(p[0], p[1], keep),
+                                    pair, reps=3, inner=1),
+                "bound": bound_ms(4 * n + 4 + 4 * n + 8 * P + 12, n),
+                "library_ms": time_ms(lambda p: torch.nonzero(p[0].abs() >= p[1]), pair,
+                                      reps=5, inner=2)},
+             "seg_pack": {
+                "ms": time_ms(raw_seg, pair, reps=5, inner=4),
+                "device_ms": device_kernel_ms(torch, lambda _: raw_seg(pair[0]),
+                                              "seg_pack_kernel", n=10),
+                "wrapper_ms": time_ms(lambda p: kernels.seg_pack_by_threshold(p[0], p[1], keep),
+                                      pair, reps=5, inner=2),
+                "plain_ms": time_ms(
+                    lambda p: kernels.seg_pack_by_threshold_plain(p[0], p[1], keep), pair,
+                    reps=3, inner=1),
+                "bound": bound_ms(4 * n + 4 + 4 * n + 8 * 128 * nseg + 12 * nseg, n),
+                "library_ms": None}}
+        for name, row in r.items():
+            lib_txt = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
+            log(f"time n={n} {name}: {row['ms']:.4f} ms, CUPTI {row['device_ms']} ms (wrapper "
+                f"{row['wrapper_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+                f"{row['bound'][0]:.5f} ms by {row['bound'][1]}, library {lib_txt}) on "
+                f"{record['card']}")
+        times[str(n)] = r
+        del x, t, pair, raw_tp, raw_seg
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"seg_pack at the LM's group sizes: vals, idx, EF, elig, counts and the payload "
-        f"bitwise == plain: {json.dumps(cases)}")
-    record["seg_pack_lm_sizes"] = cases
+    log(f"threshold_pack, seg_pack at the LM's group sizes: vals, idx, EF, meta / elig, "
+        f"counts, starts and the payload bitwise == plain: {json.dumps(cases)}")
+    record["pack_lm_sizes"] = {"cases": cases, "times": times}
     return err
 
 
@@ -2986,7 +3152,8 @@ def main(argv=None) -> int:
     rows[FULL_MODEL].update(f_rows["llama3_8b bf16"])
     p_err, p_rows = phase_pack_kernels(kernels, compressors, torch, record)
     err.update(p_err)
-    err["seg_pack"] = max(err["seg_pack"], phase_seg_pack_lm(kernels, compressors, torch, record))
+    for name, e in phase_pack_lm(kernels, compressors, torch, record).items():
+        err[name] = max(err[name], e)
     phase_search_lm(kernels, compressors, torch, record)
     phase_search_cifar(kernels, compressors, torch, record)
     rows[FULL_MODEL].update(p_rows)

@@ -281,10 +281,10 @@ def test_cuda_select_pack_state():
         got = tk.fused_select_pack(big, t, 3000)
     torch.cuda.synchronize()
     assert all(_bits_equal(a, b) for a, b in zip(got, want))
-    assert len({v.data_ptr() for k, v in tk._SP_STATE.items() if k[0] == big.device}) >= 2
+    assert len({v.data_ptr() for k, v in tk._LB_STATE.items() if k[0] == big.device}) >= 2
     # the last epoch before the wrap, then the wrap's first
     stream = torch.cuda.current_stream(dev).cuda_stream
-    state = tk.select_pack_state(big.device, stream, 1)
+    state = tk.lookback_state(big.device, stream, 1)
     state[-1] = (1 << 30) - 1  # ctrl word 2 (the epoch), little-endian
     for x, keep in inputs:
         t = tk.topk_threshold(x.abs(), keep)
@@ -415,6 +415,103 @@ def test_cuda_seg_pack_matches_plain(poison):
             for a, b in zip(tk.seg_pack_payload(got[0], got[1], got[3], keep),
                             tk.seg_pack_payload(want[0], want[1], want[3], keep)):
                 assert _bits_equal(a, b)
+
+
+def _hold_packs(x, t, keep, rows, label):
+    """Both packs bitwise against their plain versions (the segmented one's
+    payload too), EF on and off; ``rows`` None skips the threshold pack."""
+    for want_ef in (True, False):
+        if rows is not None:
+            got = tk.pack_by_threshold(x, t, keep, want_ef=want_ef, rows=rows)
+            want = tk.pack_by_threshold_plain(x, t, keep, want_ef=want_ef, rows=rows)
+            for a, b in zip(got, want):
+                assert (a is None and b is None) or _bits_equal(a, b), (label, rows, want_ef)
+        got = tk.seg_pack_by_threshold(x, t, keep, want_ef=want_ef)
+        want = tk.seg_pack_by_threshold_plain(x, t, keep, want_ef=want_ef)
+        for a, b in zip(got, want):
+            assert (a is None and b is None) or _bits_equal(a, b), (label, want_ef)
+        for a, b in zip(tk.seg_pack_payload(got[0], got[1], got[3], keep),
+                        tk.seg_pack_payload(want[0], want[1], want[3], keep)):
+            assert _bits_equal(a, b), label
+
+
+@pytest.mark.cuda
+def test_cuda_packs_one_pass_edges():
+    """On the card: the one-pass threshold and segmented packs at the edges
+    of their units: n one short of, at and one past a source block (rows 16
+    and 512), a unit of 65,536 elements and a 4096-element segment; rows 3
+    (source blocks that do not divide a unit) and rows 600 / 1024 (a source
+    block longer than a unit: the count pre-pass); misaligned views
+    ``x[1:]``..``x[3:]``; truncation at block 0 and inside a unit; a keep cut
+    inside a segmented tile; t above every |x| and t = NaN."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; run with -m cuda where there is one")
+    dev = torch.device("cuda")
+    big = torch.from_numpy(_grad(400_003, seed=21, scale=1.0)).to(dev)
+    full = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)  # noqa: E731
+    for n in (1, 7, 2047, 2048, 2049, 4095, 4096, 4097, 16383, 16385, 65535, 65536, 65537,
+              131073, 300_001):
+        for rows in (3, 16, 512, 600, 1024):
+            _hold_packs(big[:n], full(2.0), max(1, n // 100), rows, f"n={n}")
+        _hold_packs(big[:n], full(0.0), max(1, n // 100), 512, f"n={n} t=0")
+    for off in (1, 2, 3):
+        for rows in (16, 512, 600):
+            _hold_packs(big[off:], full(2.3), 4000, rows, f"x[{off}:]")
+    # truncation at block 0: every element survives, 512 rows against 35
+    _hold_packs(big[:200_001], full(0.0), 2000, 512, "truncated at block 0")
+    # ~13 % survive at rows 16: 3 rows a block against 0.6 on average, so the
+    # first block that does not ship lies inside a 32-block unit
+    _hold_packs(big, full(1.5), 4000, 16, "truncated inside a unit")
+    _hold_packs(big, full(1.0), 4000, 600, "truncated, rows 600")
+    # keep cut after 2 of the 4 segments of tile 10 and 5 survivors more
+    x = big[:300_001]
+    elig = tk.seg_pack_by_threshold_plain(x, full(2.0), 1)[3]
+    keep = int(elig[:42].sum()) + 5
+    _hold_packs(x, full(2.0), keep, None, "keep cut inside a tile")
+    _hold_packs(big, full(10.0), 5000, 512, "t above every |x|")
+    _hold_packs(big, full(float("nan")), 5000, 512, "t = NaN")
+
+
+@pytest.mark.cuda
+def test_cuda_packs_state():
+    """On the card: the threshold and segmented packs and select+pack share
+    one look-back state a stream; back-to-back calls of all three at
+    alternating sizes stay bitwise, a second stream keeps its own state, and
+    the epoch's wrap clears the status words."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; run with -m cuda where there is one")
+    dev = torch.device("cuda")
+    big = torch.from_numpy(_grad(300_001, seed=22, scale=1.0)).to(dev)
+    t = torch.tensor(2.0, device=dev)
+    inputs = [(big, 3000, 512), (big[:70_001], 700, 16), (big[5:100_006], 1000, 600),
+              (big, 3000, 16)]
+
+    def run_all():
+        for x, keep, rows in inputs:
+            _hold_packs(x, t, keep, rows, f"n={x.numel()}")
+            got = tk.fused_select_pack(x, t, keep)
+            assert all(_bits_equal(a, b)
+                       for a, b in zip(got, tk.fused_select_pack_plain(x, t, keep)))
+
+    run_all()
+    run_all()
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    want = tk.pack_by_threshold_plain(big, t, 3000)
+    with torch.cuda.stream(side):
+        got = tk.pack_by_threshold(big, t, 3000)
+        got_seg = tk.seg_pack_by_threshold(big, t, 3000)
+    torch.cuda.synchronize()
+    assert all(_bits_equal(a, b) for a, b in zip(got, want))
+    assert all(_bits_equal(a, b)
+               for a, b in zip(got_seg, tk.seg_pack_by_threshold_plain(big, t, 3000)))
+    assert len({v.data_ptr() for k, v in tk._LB_STATE.items() if k[0] == big.device}) >= 2
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    state = tk.lookback_state(big.device, stream, 1)
+    state[-1] = (1 << 30) - 1  # ctrl word 2 (the epoch), little-endian
+    run_all()
+    # five launches an input: two of each pack (EF on and off) and select+pack
+    assert int(state[-1]) == (1 << 30) - 1 + 5 * len(inputs)
 
 
 @pytest.mark.cuda

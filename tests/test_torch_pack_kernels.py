@@ -96,6 +96,41 @@ def test_seg_pack_plain_bitwise(n, t, keep, seed):
     _eq(pi, wi)
 
 
+# the one-pass kernels' edges: n one short of and one past a 16-row source
+# block (2048 elements), every element surviving (t = 0), t above every |x|
+PACK_EDGE_CASES = [(2047, 20, None), (2049, 20, None), (3000, 30, 0.0), (5000, 50, 10.0)]
+
+
+@pytest.mark.parametrize("n,keep,t", PACK_EDGE_CASES, ids=lambda v: str(v))
+def test_pack_by_threshold_plain_edges(monkeypatch, n, keep, t):
+    monkeypatch.setattr(jk, "_PACK_ROWS", 16)
+    acc = np.random.default_rng(n).standard_normal(n).astype(np.float32)
+    t = np.partition(np.abs(acc), n - keep)[n - keep] if t is None else np.float32(t)
+    want = jk.pack_by_threshold(jnp.asarray(acc), jnp.asarray(t), keep, interpret=True)
+    got = tk.pack_by_threshold(torch.from_numpy(acc), torch.tensor(t), keep, rows=16)
+    for g, w in zip(got, want):
+        _eq(g, w)
+
+
+# n one short of and one past a 4096-element segment, every element
+# surviving, t above every |x|
+SEG_EDGE_CASES = [(4095, 2.0, 30), (4097, 2.0, 30), (6000, 0.0, 41), (5000, 10.0, 50)]
+
+
+@pytest.mark.parametrize("n,t,keep", SEG_EDGE_CASES, ids=lambda v: str(v))
+def test_seg_pack_plain_edges(n, t, keep):
+    x = np.random.default_rng(n).standard_normal(n).astype(np.float32)
+    want = jk.seg_pack_by_threshold(jnp.asarray(x), jnp.float32(t), keep, interpret=True)
+    got = tk.seg_pack_by_threshold(torch.from_numpy(x), torch.tensor(t, dtype=torch.float32),
+                                   keep)
+    for g, w in zip(got, want):
+        _eq(g, w)
+    pv, pi = tk.seg_pack_payload(got[0], got[1], got[3], keep)
+    wv, wi = jk.seg_pack_payload(want[0], want[1], want[3], keep)
+    _eq(pv, wv)
+    _eq(pi, wi)
+
+
 @pytest.mark.parametrize("n", [70000, 12345, 65533, 7])
 def test_pack_ternary_bytes_plain_bitwise(n):
     levels = np.random.default_rng(n).integers(-1, 2, n).astype(np.int8)

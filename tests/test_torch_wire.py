@@ -183,21 +183,21 @@ def test_select_pack_state(words):
     (device, stream), kept while it is large enough and replaced, zeroed, when
     a call needs more."""
     dev, key = torch.device("cpu"), -12345
-    tk._SP_STATE.pop((dev, key), None)
+    tk._LB_STATE.pop((dev, key), None)
     try:
-        state = tk.select_pack_state(dev, key, words)
+        state = tk.lookback_state(dev, key, words)
         assert state.dtype == torch.int64 and state.numel() == words
         assert not bool(state.any())
         state.fill_(7)
-        assert tk.select_pack_state(dev, key, words) is state
-        assert tk.select_pack_state(dev, key, 1) is state
-        assert tk.select_pack_state(dev, key - 1, words) is not state
-        grown = tk.select_pack_state(dev, key, words + 1)
+        assert tk.lookback_state(dev, key, words) is state
+        assert tk.lookback_state(dev, key, 1) is state
+        assert tk.lookback_state(dev, key - 1, words) is not state
+        grown = tk.lookback_state(dev, key, words + 1)
         assert grown.numel() == words + 1 and not bool(grown.any())
-        assert tk.select_pack_state(dev, key, words) is grown
+        assert tk.lookback_state(dev, key, words) is grown
     finally:
-        tk._SP_STATE.pop((dev, key), None)
-        tk._SP_STATE.pop((dev, key - 1), None)
+        tk._LB_STATE.pop((dev, key), None)
+        tk._LB_STATE.pop((dev, key - 1), None)
 
 
 def test_select_pack_underfull_pads_zero():

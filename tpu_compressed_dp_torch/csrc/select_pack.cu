@@ -31,9 +31,10 @@
 //   * ranks inside the tile: each thread's survivor counts of its vectors,
 //     packed a byte each, go through one shuffle scan; warp 0 scans the
 //     (vector, warp) totals in index order;
-//   * look-back: warp 0 publishes (AGGREGATE, tile total), reads the status
-//     words of its predecessors 32 at a time, adds their counts back to the
-//     nearest PREFIX, and publishes (PREFIX, inclusive prefix).
+//   * look-back (lookback.cuh, shared with threshold_pack.cu): warp 0
+//     publishes (AGGREGATE, tile total), reads the status words of its
+//     predecessors 32 at a time, adds their counts back to the nearest
+//     PREFIX, and publishes (PREFIX, inclusive prefix).
 //     The call's epoch, flag and count share one 64-bit word that is stored
 //     and loaded whole, and no other data passes between blocks, so relaxed
 //     gpu-scope atomics order all that needs ordering.  Ranks come from the
@@ -60,7 +61,11 @@
 
 #include <cstdint>
 
+#include "lookback.cuh"
+
 namespace {
+
+using namespace lookback;
 
 // A tile's geometry: kThreads threads, each kVecs vectors in shared memory
 // and kRegVecs in registers; kMinBlocks resident blocks an SM cap the
@@ -82,96 +87,6 @@ using Small = Tiling<512, 8, 0, 3>;
 using Large = Tiling<256, 16, 8, 3>;
 constexpr long long kLargeFrom = 1 << 23;  // elements from which a tensor takes Large
 constexpr int kMaxPadBlocks = 264;           // two a streaming multiprocessor of an H100
-constexpr unsigned kSleepMinNs = 16, kSleepMaxNs = 256;  // back-off of a waiting warp
-// a status word: the count in bits 0-31, the flag in 32-33 (0 unset, 1
-// AGGREGATE, 2 PREFIX), the call's epoch in 34-63
-constexpr unsigned kAggregate = 1, kPrefix = 2, kEpochMask = (1u << 30) - 1;
-constexpr long long kWaitLimit = 20000000000ll;  // clock cycles: ~10 s
-
-__device__ __forceinline__ unsigned long long load_status(const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void store_status(unsigned long long* p, unsigned long long v) {
-  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
-}
-
-// The high word of a status word with `flag` in the call of `epoch`.
-__device__ __forceinline__ unsigned tag(unsigned epoch, unsigned flag) {
-  return (epoch & kEpochMask) << 2 | flag;
-}
-
-// One thread: the status word of `tile` once it holds a PREFIX of this call.
-__device__ unsigned long long wait_prefix(const unsigned long long* status, int tile,
-                                          unsigned epoch) {
-  unsigned long long w = load_status(status + tile);
-  const long long t0 = clock64();
-  while ((unsigned)(w >> 32) != tag(epoch, kPrefix)) {
-    __nanosleep(256);
-    if (clock64() - t0 > kWaitLimit) __trap();
-    w = load_status(status + tile);
-  }
-  return w;
-}
-
-// The flag of status word `w` in the call whose tags start at `base` =
-// tag(epoch, 0): kAggregate or kPrefix, any other value if the word is unset
-// or of another call.
-__device__ __forceinline__ unsigned flag(unsigned long long w, unsigned base) {
-  return (unsigned)(w >> 32) - base;
-}
-
-// Warp 0: the exclusive prefix of `tile` > 0.  Each step reads the status
-// words of the 32 tiles below `last`, lane 31 the nearest (a tile below 0
-// reads as an empty PREFIX), waits until none is unset, and adds the counts
-// from the nearest PREFIX up; without a PREFIX it adds all 32 and moves one
-// window down.  One register (`base`) carries the epoch through the loop:
-// the Large tiling has none to spare.
-__device__ unsigned look_back(const unsigned long long* status, int tile, int lane,
-                              unsigned base) {
-  unsigned excl = 0;
-  for (int last = tile - 1;; last -= 32) {
-    const int p = last - 31 + lane;
-    unsigned long long w = p < 0 ? (unsigned long long)(base + kPrefix) << 32
-                                 : load_status(status + p);
-    if (!__all_sync(0xffffffffu, flag(w, base) - 1 < 2u)) {
-      const long long t0 = clock64();
-      unsigned ns = kSleepMinNs;
-      do {
-        __nanosleep(ns);
-        ns = min(2 * ns, kSleepMaxNs);
-        if (clock64() - t0 > kWaitLimit) __trap();
-        if (flag(w, base) - 1 >= 2u) w = load_status(status + p);
-      } while (!__all_sync(0xffffffffu, flag(w, base) - 1 < 2u));
-    }
-    const unsigned prefixes = __ballot_sync(0xffffffffu, flag(w, base) == kPrefix);
-    const int stop = prefixes ? 31 - __clz(prefixes) : 0;
-    excl += __reduce_add_sync(0xffffffffu, lane >= stop ? (unsigned)w : 0u);
-    if (prefixes) return excl;
-  }
-}
-
-__device__ __forceinline__ void cp_async16(const void* smem, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(smem))),
-               "l"(src)
-               : "memory");
-}
-
-// The block's last use of the state is over: the last block of the call to
-// get here clears the ticket and this counter and advances the epoch (on its
-// wrap it clears the `capacity` status words, so no stale word can match).
-__device__ void finish(unsigned long long* status, int capacity, unsigned* ctrl) {
-  if (atomicAdd(ctrl + 1, 1u) != gridDim.x - 1) return;
-  const unsigned epoch = ctrl[2] + 1;
-  if ((epoch & kEpochMask) == 0)
-    for (int i = 0; i < capacity; ++i) status[i] = 0;
-  ctrl[0] = 0;
-  ctrl[1] = 0;
-  ctrl[2] = epoch;
-}
 
 template <class T>
 __global__ void __launch_bounds__(T::kThreads, T::kMinBlocks)
@@ -190,17 +105,14 @@ select_pack_kernel(const float* __restrict__ x, long long n, int shift, int ntil
   __shared__ unsigned s_part[kParts];
   __shared__ unsigned s_excl;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (threadIdx.x == 0) {
-    s_tile = (int)atomicAdd(ctrl, 1u);
-    s_epoch = *reinterpret_cast<volatile unsigned*>(ctrl + 2);
-  }
+  if (threadIdx.x == 0) take_ticket(ctrl, &s_tile, &s_epoch);
   __syncthreads();
   const int tile = s_tile;
 
   if (tile >= ntiles) {  // padding: the slots no survivor fills
     if (threadIdx.x == 0) {
-      s_excl = (unsigned)wait_prefix(status, ntiles - 1, s_epoch);
-      finish(status, capacity, ctrl);
+      s_excl = (unsigned)wait_prefix(status + ntiles - 1, s_epoch);
+      finish(status, capacity, ctrl, gridDim.x);
     }
     __syncthreads();
     const long long stride = (long long)(gridDim.x - ntiles) * kThreads;
@@ -301,7 +213,9 @@ select_pack_kernel(const float* __restrict__ x, long long n, int shift, int ntil
     if (lane == 0)
       store_status(status + tile,
                    (unsigned long long)tag(s_epoch, tile == 0 ? kPrefix : kAggregate) << 32 | agg);
-    const unsigned excl = tile == 0 ? 0u : look_back(status, tile, lane, tag(s_epoch, 0));
+    unsigned back[1] = {0u};
+    if (tile > 0) look_back(status, tile, lane, tag(s_epoch, 0), back);
+    const unsigned excl = back[0];
     if (lane == 0) {
       if (tile > 0)
         store_status(status + tile, (unsigned long long)tag(s_epoch, kPrefix) << 32 | (excl + agg));
@@ -329,7 +243,7 @@ select_pack_kernel(const float* __restrict__ x, long long n, int shift, int ntil
     }
   }
   // after the registers of the tile are free
-  if (threadIdx.x == 0) finish(status, capacity, ctrl);
+  if (threadIdx.x == 0) finish(status, capacity, ctrl, gridDim.x);
 }
 
 // Tiles of the tiling `T` over n elements laid from `shift` elements before x.

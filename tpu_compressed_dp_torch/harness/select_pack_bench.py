@@ -1,16 +1,17 @@
 """Device time of the wire select+pack (``csrc/select_pack.cu``): this tree's
-one-pass kernel against the three-launch design it replaced, on the same
-inputs.
+one-pass kernel against another tree's, on the same inputs.
 
     python -m tpu_compressed_dp_torch.harness.select_pack_bench --baseline DIR \\
         [--sizes resnet9|lm|all] [--out FILE]
 
-``DIR`` is a checkout of the three-launch design (the port's tree up to
-commit 5f74006 included), whose ``tpu_compressed_dp_torch/csrc/select_pack.cu``
-exports ``tcdp_select_pack(x, n, t, keep, vals, idx, count, seg_counts,
-seg_start, stream)`` (count, scan and scatter over 4096-element segments);
-no other baseline is supported.  It is built with the port's ``nvcc`` flags
-into ``build/select_pack_bench/``.  Inputs: N(0, 1) data at its Top-K 1 %
+``DIR`` is a checkout of the port.  Its
+``tpu_compressed_dp_torch/csrc/select_pack.cu`` is built with the port's
+``nvcc`` flags into ``build/select_pack_bench/`` and bound by what it
+exports: the one-pass entry on a look-back state (from commit d61768c on;
+``tcdp_select_pack_state_words`` present) or the three-launch design's
+``tcdp_select_pack(x, n, t, keep, vals, idx, count, seg_counts, seg_start,
+stream)`` (count, scan and scatter over 4096-element segments, up to commit
+5f74006 included).  Inputs: N(0, 1) data at its Top-K 1 %
 threshold (``kernels.topk_threshold``), at ResNet-9's wire leaves (the seven
 a layer-wise step packs), its entire-model group, at 6.57 M also the
 Threshold-V capacity (5 % of n) overflowed (t = 1.5) and underfull (t = 3.0),
@@ -69,6 +70,8 @@ def _compile(src: str, name: str) -> ctypes.CDLL:
 def build_baseline(tree: str) -> ctypes.CDLL:
     lib = _compile(os.path.join(tree, "tpu_compressed_dp_torch", "csrc", "select_pack.cu"),
                    "baseline")
+    if hasattr(lib, "tcdp_select_pack_state_words"):
+        return kernels._bind("select_pack", lib)
     p = ctypes.c_void_p
     lib.tcdp_select_pack.argtypes = [p, ctypes.c_longlong, p, ctypes.c_int, p, p, p, p, p, p]
     lib.tcdp_select_pack.restype = ctypes.c_int
@@ -76,7 +79,7 @@ def build_baseline(tree: str) -> ctypes.CDLL:
 
 
 def ours_launcher(lib, n: int, keep: int):
-    """This tree's one-pass C entry with outputs and state allocated once."""
+    """A one-pass C entry with outputs and state allocated once."""
     dev = torch.device("cuda")
     stream = torch.cuda.current_stream().cuda_stream
     vals = torch.empty(keep, device=dev)
@@ -183,7 +186,8 @@ def run_size(n: int, gen, base_lib, cap: bool) -> dict:
     out = {}
     for label, (k, inputs) in cases.items():
         ours = ours_launcher(kernels._lib("select_pack"), n, k)
-        base = base_launcher(base_lib, n, k)
+        base = (ours_launcher if hasattr(base_lib, "tcdp_select_pack_state_words")
+                else base_launcher)(base_lib, n, k)
         r = out[label] = time_case(n, k, inputs, base, ours)
         print(f"n={n} {label} (keep {k}, count {r['count']}): device us ours "
               f"{', '.join(f'{1e3 * v:.2f}' for v in r['ours_device_ms'])}, baseline "

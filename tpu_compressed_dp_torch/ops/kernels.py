@@ -24,7 +24,8 @@ loaded with ``ctypes``):
   * ``select_pack`` (``csrc/select_pack.cu``) replaces
     ``_select_pack_kernel`` and its epilogue (:func:`fused_select_pack`):
     the wire payload of the index-carrying sparsifiers, the coordinates with
-    ``|x| >= t`` in ascending order in exactly ``keep`` slots;
+    ``|x| >= t`` in ascending order in exactly ``keep`` slots, in one pass
+    on the decoupled look-back of ``csrc/lookback.cuh``;
   * ``quant_pack`` (``csrc/quant_pack.cu``) replaces
     ``_terngrad_pack_kernel`` and ``_qsgd_pack_kernel``
     (:func:`terngrad_pack`, :func:`terngrad_pack_prescaled`,
@@ -37,7 +38,8 @@ loaded with ``ctypes``):
   * ``threshold_pack`` (``csrc/threshold_pack.cu``) replaces
     ``_pack_kernel`` (:func:`pack_by_threshold`, the block-granular payload)
     and ``_seg_pack_kernel`` (:func:`seg_pack_by_threshold`, the per-segment
-    capped payload of the gated segmented wire Top-K path);
+    capped payload of the gated segmented wire Top-K path), each one pass on
+    the same look-back (the threshold pack a cluster of 2 blocks a unit);
   * ``byte_pack`` (``csrc/byte_pack.cu``) replaces ``_pack2b_kernel`` and
     ``_qsgd_pack_levels_kernel`` (:func:`pack_ternary_bytes`,
     :func:`qsgd_pack_bytes`): given levels to the wire bytes.
@@ -96,7 +98,7 @@ __all__ = [
     "use_quant_kernels",
     "fused_select_pack",
     "fused_select_pack_plain",
-    "select_pack_state",
+    "lookback_state",
     "first_set_indices",
     "use_select_pack",
     "terngrad_pack",
@@ -261,8 +263,10 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
             "tcdp_flash_fwd": [p, p, p, p, p, i32, i32, i32, i32, f32, p],
             "tcdp_flash_dq": [p, p, p, p, p, p, p, i32, i32, i32, i32, f32, p],
             "tcdp_flash_dkv": [p, p, p, p, p, p, p, p, i32, i32, i32, i32, f32, p]},
-        "threshold_pack": {"tcdp_threshold_pack": [p, ll, p, i32, i32, p, p, p, p, p, p, p],
-                           "tcdp_seg_pack": [p, ll, p, i32, i32, p, p, p, p, p, p, p]},
+        "threshold_pack": {"tcdp_threshold_pack": [p, ll, p, i32, i32, p, p, p, p, p, ll, p],
+                           "tcdp_seg_pack": [p, ll, p, i32, i32, p, p, p, p, p, p, p, ll, p],
+                           "tcdp_threshold_pack_state_words": [ll, i32],
+                           "tcdp_seg_pack_state_words": [i32]},
         "byte_pack": {"tcdp_pack_ternary_bytes": [p, ll, p, p],
                       "tcdp_qsgd_pack_bytes": [p, ll, p, p, p]},
     }[name]
@@ -924,8 +928,9 @@ def use_quant_kernels(n: int, device) -> bool:
 # ---------------------------------------------------------------------------
 
 _SEG = 4096  # elements per segment of csrc/threshold_pack.cu
-# csrc/select_pack.cu's state (int64 words) for each (device, stream)
-_SP_STATE: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+# the look-back kernels' state (int64 words, csrc/lookback.cuh) for each
+# (device, stream)
+_LB_STATE: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
 
 def first_set_indices(mask: torch.Tensor, keep: int) -> torch.Tensor:
@@ -939,15 +944,17 @@ def first_set_indices(mask: torch.Tensor, keep: int) -> torch.Tensor:
     return torch.where(idx < mask.shape[0], idx, 0).to(torch.int32)
 
 
-def select_pack_state(device: torch.device, stream: int, words: int) -> torch.Tensor:
-    """The select+pack's state for calls on ``stream`` of ``device``: at least
-    ``words`` int64 words, zeroed when made.  Each call leaves it ready for
-    the next, and calls on one stream run in order, so a stream keeps one
-    buffer and replaces it only to grow."""
+def lookback_state(device: torch.device, stream: int, words: int) -> torch.Tensor:
+    """The state of the one-pass look-back kernels (select+pack, threshold
+    pack, segmented pack; ``csrc/lookback.cuh``) for calls on ``stream`` of
+    ``device``: at least ``words`` int64 words, zeroed when made.  Each call
+    leaves it ready for the next, whichever kernel it was, and calls on one
+    stream run in order, so a stream keeps one buffer and replaces it only
+    to grow."""
     key = (device, stream)
-    state = _SP_STATE.get(key)
+    state = _LB_STATE.get(key)
     if state is None or state.numel() < words:
-        state = _SP_STATE[key] = torch.zeros(words, dtype=torch.int64, device=device)
+        state = _LB_STATE[key] = torch.zeros(words, dtype=torch.int64, device=device)
     return state
 
 
@@ -994,7 +1001,7 @@ def fused_select_pack(flat: torch.Tensor, t: torch.Tensor, keep: int):
     count = torch.empty(1, dtype=torch.int32, device=dev)
     lib = _lib("select_pack")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    state = select_pack_state(dev, stream, lib.tcdp_select_pack_state_words(n))
+    state = lookback_state(dev, stream, lib.tcdp_select_pack_state_words(n))
     rc = lib.tcdp_select_pack(flat.data_ptr(), n, t.data_ptr(), keep, vals.data_ptr(),
                               idx.data_ptr(), count.data_ptr(), state.data_ptr(),
                               state.numel(), stream)
@@ -1085,8 +1092,9 @@ def pack_by_threshold(acc: torch.Tensor, t: torch.Tensor, keep: int, *, want_ef:
     512).  The Pallas kernel assembles the payload with one-hot sums and
     matmuls, so on NaN / Inf data and ``-0.0`` survivors its values differ
     from a copy; this kernel and its plain version copy the bits.  Not
-    dispatched by any wire path, as in the reference.  Bound: 4n read, 4n EF
-    and 8P written; see ``csrc/threshold_pack.cu``."""
+    dispatched by any wire path, as in the reference.  One launch (two for
+    ``rows`` > 512) on the stream's look-back state (:func:`lookback_state`).
+    Bound: 4n read, 4n EF and 8P written; see ``csrc/threshold_pack.cu``."""
     rows = _PACK_ROWS if rows is None else int(rows)
     if keep < 1 or rows < 1:
         raise ValueError(f"pack_by_threshold needs keep >= 1 and rows >= 1, got {keep}, {rows}")
@@ -1098,16 +1106,17 @@ def pack_by_threshold(acc: torch.Tensor, t: torch.Tensor, keep: int, *, want_ef:
     t = _check_threshold(t, acc)
     n, dev = acc.numel(), acc.device
     P = pack_payload_slots(n, keep, rows)
-    nb = -(-max(n, 1) // (rows * _LANES))
     vals = torch.empty(P, dtype=torch.float32, device=dev)
     idx = torch.empty(P, dtype=torch.int32, device=dev)
     new_ef = torch.empty_like(acc) if want_ef else None
     meta = torch.empty(3, dtype=torch.int32, device=dev)
-    scratch = torch.empty(2, nb, dtype=torch.int32, device=dev)
-    rc = _lib("threshold_pack").tcdp_threshold_pack(
+    lib = _lib("threshold_pack")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    state = lookback_state(dev, stream, lib.tcdp_threshold_pack_state_words(n, rows))
+    rc = lib.tcdp_threshold_pack(
         acc.data_ptr(), n, t.data_ptr(), rows, P // _LANES, vals.data_ptr(), idx.data_ptr(),
-        new_ef.data_ptr() if want_ef else None, meta.data_ptr(), scratch[0].data_ptr(),
-        scratch[1].data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        new_ef.data_ptr() if want_ef else None, meta.data_ptr(), state.data_ptr(),
+        state.numel(), stream)
     _check_launch(rc, "threshold_pack")
     LAUNCHES["threshold_pack"] += 1
     return vals, idx, new_ef, meta[0]
@@ -1155,9 +1164,10 @@ def seg_pack_by_threshold(acc: torch.Tensor, t: torch.Tensor, keep: int, *,
     ``nseg`` is padded to whole 65,536-element blocks, as in the reference.
 
     Replaces ``_seg_pack_kernel`` / ``seg_pack_by_threshold`` of
-    ``tpu_compressed_dp/ops/kernels.py``; the counts, the eligible prefix
-    and the pack are three launches of ``csrc/threshold_pack.cu``.  Bound:
-    4n read, 4n EF and 8 * 128 * nseg written."""
+    ``tpu_compressed_dp/ops/kernels.py``: one launch of
+    ``csrc/threshold_pack.cu`` on the stream's look-back state
+    (:func:`lookback_state`).  Bound: 4n read, 4n EF and 8 * 128 * nseg
+    written."""
     if acc.device.type == "cpu":
         return seg_pack_by_threshold_plain(acc, t, keep, want_ef=want_ef)
     if acc.device.type != "cuda":
@@ -1171,10 +1181,13 @@ def seg_pack_by_threshold(acc: torch.Tensor, t: torch.Tensor, keep: int, *,
     new_ef = torch.empty_like(acc) if want_ef else None
     seg = torch.empty(3, nseg, dtype=torch.int32, device=dev)   # counts, elig, starts
     if nseg:
-        rc = _lib("threshold_pack").tcdp_seg_pack(
+        lib = _lib("threshold_pack")
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        state = lookback_state(dev, stream, lib.tcdp_seg_pack_state_words(nseg))
+        rc = lib.tcdp_seg_pack(
             acc.data_ptr(), n, t.data_ptr(), int(min(keep, _INT32_MAX)), nseg, vals.data_ptr(),
             idx.data_ptr(), new_ef.data_ptr() if want_ef else None, seg[0].data_ptr(),
-            seg[1].data_ptr(), seg[2].data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            seg[1].data_ptr(), seg[2].data_ptr(), state.data_ptr(), state.numel(), stream)
         _check_launch(rc, "seg_pack")
         LAUNCHES["seg_pack"] += 1
     return vals, idx, new_ef, seg[1], seg[0]
