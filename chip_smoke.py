@@ -18,10 +18,12 @@ printing no result, where either is missing or any phase fails.
      Top-K threshold, Threshold-V capacities that overflow and underfill,
      Block-Top-K scores, a Random-K mask, NaN / +-Inf and zeros; TernGrad and
      QSGD quantize+pack, whose unpacked bytes are the level kernels' levels;
-     the sharded transport's bucket route bitwise (values as bits) at the
-     full-width geometries (entire-model Top-K at W = 2 / 4 / 8, the
-     hierarchical Threshold-V slab across 2 pods), with a dump-bucket tail,
-     overflowing and empty buckets, -0.0, NaN and +-Inf; the threshold
+     the sharded transport's one-launch bucket route (buckets, indices and
+     ``accepted``; values as bits) at the full-width geometries
+     (entire-model Top-K at W = 2 / 4 / 8, the hierarchical Threshold-V
+     slab across 2 pods) and at the LM's payloads (k = 5,253,571 /
+     9,615,442 at W = 2 and 4), with a dump-bucket tail, overflowing and
+     empty buckets, -0.0, NaN and +-Inf, one kernel a route call; the threshold
      search (one launch a round on a device-resident state, the sampled
      round keeping the candidates the later rounds count) bitwise against
      the unfused glue on the plain counts and, state word for word, the CPU
@@ -41,9 +43,11 @@ printing no result, where either is missing or any phase fails.
      truncation at block 0 and inside a unit, a keep cut inside a tile),
      back to back on one stream and on a second, each one launch a call; the
      ternary and QSGD byte packers on the level kernels' levels and the full
-     int8 / int16 ranges; and times each through its C entry (CUDA events,
-     and CUPTI) beside its plain version, its bound and a yardstick; (2c)
-     holds both packs at the LM's group sizes and times them there; (2d)
+     int8 / int16 ranges, the QSGD one also on views at every element offset
+     from a 16-byte boundary and every n % 32; and times each through its C
+     entry (CUDA events, and CUPTI) beside its plain version, its bound and
+     a yardstick; (2c) holds both packs and the QSGD byte packer at the LM's
+     group sizes and times them there; (2d)
      holds the threshold
      search as above at the LM's group sizes and at n = 2^25 (counts past
      2^24), times its passes there and ``select_pack`` through its C entry;
@@ -915,27 +919,25 @@ def phase_wire_kernels(kernels, compressors, wire, torch, record):
     return err, rows
 
 
-def _route_payload(torch, gen, n: int, k: int, world: int, *, span: float = 1.0,
-                   nvalid=None):
+def _route_payload(torch, gen, n: int, k: int, *, span: float = 1.0, nvalid=None):
     """A bucket-route input on the card: ``k`` slots of ascending distinct
     indices drawn from the first ``span`` of ``[0, n)`` (the first
-    ``nvalid`` valid, the rest a zero tail bound for the dump bucket),
-    values with -0.0, NaN and +-Inf planted, and their destinations."""
+    ``nvalid`` valid, the rest a zero tail bound for the dump bucket, and
+    ``valid`` its mask; None where every slot is valid), values with -0.0,
+    NaN and +-Inf planted."""
     dev = torch.device("cuda")
     nv = k if nvalid is None else nvalid
     pick = torch.randperm(int(n * span), generator=gen, device=dev)[:nv].sort().values
     idx = torch.cat([pick, torch.zeros(k - nv, dtype=pick.dtype, device=dev)]).to(torch.int32)
+    del pick
     vals = torch.randn(k, generator=gen, device=dev)
     vals[::7] = -0.0
     vals[1::11] = float("nan")
     vals[2::13] = float("inf")
     vals[3::17] = -float("inf")
     vals[nv:] = 0.0
-    shard_n = -(-n // world)
-    dest = torch.clamp(idx // shard_n, max=world - 1).to(torch.int32)
-    if nvalid is not None:
-        dest = torch.where(torch.arange(k, device=dev) < nv, dest, world).to(torch.int32)
-    return vals, idx, dest, shard_n
+    valid = None if nvalid is None else torch.arange(k, device=dev) < nv
+    return vals, idx, valid
 
 
 def device_kernel_ms(torch, fn, name: str, n: int = 50):
@@ -960,9 +962,24 @@ def device_kernel_ms(torch, fn, name: str, n: int = 50):
     return None
 
 
-def phase_route_kernel(kernels, torch, record):
-    """The bucket route vs its plain version on the card at the main path's
-    geometries, then timings."""
+def route_bound(kernels, torch, idx, valid, w: int, cap: int, shard_n: int):
+    """(bound, taken): the route's bytes, the accepted windows read (values
+    and indices), the buckets and ``accepted`` written, at 3.35 TB/s; one
+    compare a bucket slot."""
+    starts = kernels.route_starts(kernels.route_slots(idx, valid, w, cap, shard_n)[2], w)
+    taken = int(torch.clamp(starts[1:] - starts[:-1], max=cap).sum().item())
+    k = idx.numel()
+    return bound_ms(8 * taken + 8 * w * cap + k, w * cap), taken
+
+
+def phase_route_kernel(kernels, compressors, torch, record):
+    """The one-launch bucket route (``route_buckets``: the windows found by
+    the kernel's search, the buckets and ``accepted`` in one launch) and
+    ``fused_bucket_route`` against their plain versions on the card,
+    bitwise, at the main path's geometries and at the LM's payloads (k =
+    5,253,571 / 9,615,442 at W = 2 and 4, inputs past the 50 MB L2); one
+    kernel a route call, by the launch count and a CUPTI trace; then
+    timings beside the bound."""
     from tpu_compressed_dp_torch.ops import wire_sharded
 
     dev = torch.device("cuda")
@@ -970,54 +987,80 @@ def phase_route_kernel(kernels, torch, record):
     k_top = 65_732                                    # entire-model Top-K 1 %
     hp = wire_sharded.make_hier_plan(FULL_MODEL, int(round(0.05 * FULL_MODEL)), 4, 2,
                                      1.25, 1.25)
-    cases = [(f"topk W={w}", k_top, w,
+    # (label, n, k, W, cap, span, nvalid)
+    cases = [(f"topk W={w}", FULL_MODEL, k_top, w,
               wire_sharded.make_shard_plan(FULL_MODEL, k_top, w, 1, 1.25, 1.25).cap_dest, 1.0,
               None) for w in (2, 4, 8)]
     # the hierarchical Threshold-V slab: the first survivors of a ~92 %
     # dense gradient, so every slot is bound for the first pod's shard
     # (an overflowing bucket and an empty one)
-    cases.append(("hier thresholdv slab", hp.slab, 2, hp.dcn.cap_dest, 0.034, None))
-    cases.append(("dump-bucket tail", hp.slab, 2, hp.dcn.cap_dest, 1.0, 150_000))
-    caps = [c[3] for c in cases]
+    cases.append(("hier thresholdv slab", FULL_MODEL, hp.slab, 2, hp.dcn.cap_dest, 0.034, None))
+    cases.append(("dump-bucket tail", FULL_MODEL, hp.slab, 2, hp.dcn.cap_dest, 1.0, 150_000))
+    caps = [c[4] for c in cases]
     if caps[:4] != [41_083, 20_542, 10_271, 128_381] or hp.slab != 205_410:
         raise AssertionError(f"bucket route geometry moved: caps {caps}, slab {hp.slab}")
-    err, rows, counts = 0.0, {}, {}
-    lib = kernels._lib("bucket_route").tcdp_bucket_route
+    for n in LM_GROUPS:
+        k = compressors.topk_keep_count(n, RATIO)
+        cases += [(f"lm n={n} W={w}", n, k, w,
+                   wire_sharded.make_shard_plan(n, k, w, 1, 1.25, 1.25).cap_dest, 1.0, None)
+                  for w in (2, 4)]
+    err, rows, counts, launched = 0.0, {}, {}, {}
+    lib = kernels._lib("bucket_route").tcdp_route_buckets
     stream = torch.cuda.current_stream().cuda_stream
-    for label, k, w, cap, span, nvalid in cases:
-        vals, idx, dest, shard_n = _route_payload(torch, gen, FULL_MODEL, k, w, span=span,
-                                                  nvalid=nvalid)
-        got = kernels.fused_bucket_route(vals, idx, dest, w, cap, shard_n)
-        want = kernels.fused_bucket_route_plain(vals, idx, dest, w, cap, shard_n)
-        torch.cuda.synchronize()
-        for a, b in zip(got, want):
-            # bit-for-bit: two NaNs with one payload are equal here
-            bad = a.view(torch.int32) != b.view(torch.int32)
-            d = torch.where(bad, (a.double() - b.double()).abs(), 0.0).max().item()
-            err = max(err, d if d == d else math.inf)
-        if not all(_bits_equal(torch, a, b) for a, b in zip(got, want)):
-            raise AssertionError(f"bucket_route differs from plain ({label})")
+    payloads = {}
+    for label, n, k, w, cap, span, nvalid in cases:
+        key = (n, k, span, nvalid)
+        if key not in payloads:
+            payloads.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+            payloads[key] = [_route_payload(torch, gen, n, k, span=span, nvalid=nvalid)
+                             for _ in range(1 if n == FULL_MODEL else 2)]
+        inputs = payloads[key]
+        vals, idx, valid = inputs[0]
+        shard_n = -(-n // w)
+        kernels.reset_launches()
+        got = kernels.route_buckets(vals, idx, valid, w, cap, shard_n)
+        if kernels.LAUNCHES["bucket_route"] != 1:
+            raise AssertionError(f"route_buckets launched {kernels.LAUNCHES['bucket_route']} "
+                                 f"kernels ({label})")
+        want = kernels.route_buckets_plain(vals, idx, valid, w, cap, shard_n)
+        err = max(err, _hold(torch, got, want, "bucket_route", label))
+        dest = kernels.route_slots(idx, valid, w, cap, shard_n)[2]
+        err = max(err, _hold(torch, kernels.fused_bucket_route(vals, idx, dest, w, cap, shard_n),
+                             want[:2], "bucket_route", f"{label}, fused_bucket_route"))
         starts = kernels.route_starts(dest, w)
         per = torch.clamp(starts[1:] - starts[:-1], max=cap)
         neg0 = int(((got[0] == 0) & torch.signbit(got[0])).sum().item())
         if neg0 == 0:
             raise AssertionError(f"bucket_route lost every -0.0 ({label})")
         counts[label] = {"k": k, "W": w, "cap": cap, "taken": per.tolist(),
-                         "counts": (starts[1:] - starts[:-1]).tolist(), "neg_zero_kept": neg0}
-        log(f"bucket_route {label}: k={k} W={w} cap={cap}: buckets and indices bitwise == "
-            f"plain; window counts {counts[label]['counts']}, taken {per.tolist()}, "
-            f"{neg0} -0.0 kept")
+                         "counts": (starts[1:] - starts[:-1]).tolist(), "neg_zero_kept": neg0,
+                         "accepted": int(got[2].sum().item())}
+        log(f"bucket_route {label}: k={k} W={w} cap={cap}: buckets, indices and accepted "
+            f"bitwise == plain (and fused_bucket_route's buckets); window counts "
+            f"{counts[label]['counts']}, taken {per.tolist()}, {neg0} -0.0 kept")
+        del got, want
         if nvalid is not None:
             continue
-        # timings: "ms" through the C entry with outputs and starts
-        # allocated once; the payload is a few MB, in L2 as its producer
-        # (select+pack) leaves it, so the inputs are not cycled
+        names = call_kernels(torch, lambda: kernels.route_buckets(vals, idx, valid, w, cap,
+                                                                  shard_n))
+        if not 10 < len(names) <= 20 or any("route_kernel" not in nm for nm in names):
+            raise AssertionError(f"bucket_route {label}: 20 route calls enqueued "
+                                 f"{sorted(set(names))} ({len(names)} activities), want one "
+                                 "route_kernel a call")
+        launched[label] = f"{len(names)} activities in 20 calls, all route_kernel"
+        # timings: "ms" through the C entry with outputs allocated once; the
+        # 6.57 M payload is a few MB, in L2 as its producer (select+pack)
+        # leaves it; the LM's two payloads and buckets are past L2
         bv = torch.empty(w, cap, device=dev)
         bi = torch.empty(w, cap, dtype=torch.int32, device=dev)
+        acc = torch.empty(k, dtype=torch.bool, device=dev)
 
-        def raw(_):
-            rc = lib(vals.data_ptr(), idx.data_ptr(), starts.data_ptr(), w, cap, shard_n,
-                     bv.data_ptr(), bi.data_ptr(), stream)
+        def raw(inp):
+            v, i, ok = inputs[0] if inp is None else inp
+            rc = lib(v.data_ptr(), i.data_ptr(), None, None if ok is None else ok.data_ptr(), k,
+                     w, cap, shard_n, bv.data_ptr(), bi.data_ptr(), acc.data_ptr(), stream)
             if rc:
                 raise RuntimeError(f"bucket_route launch failed: cudaError {rc}")
 
@@ -1031,25 +1074,36 @@ def phase_route_kernel(kernels, torch, record):
                     torch.full((w * cap + 1,), shard_n, dtype=torch.int32,
                                device=dev).scatter_(0, slot, local))
 
-        taken = int(per.sum().item())
+        big = n != FULL_MODEL
+        reps, inner = (5, 4) if big else (15, 10)
+        bound, taken = route_bound(kernels, torch, idx, valid, w, cap, shard_n)
         rows[label] = {
-            "ms": time_ms(raw, [None]),
-            "wrapper_ms": time_ms(lambda _: kernels.fused_bucket_route(
-                vals, idx, dest, w, cap, shard_n), [None]),
-            "plain_ms": time_ms(lambda _: kernels.fused_bucket_route_plain(
-                vals, idx, dest, w, cap, shard_n), [None]),
-            "yardstick_ms": time_ms(scatter_pair, [None]),
-            "device_ms": device_kernel_ms(torch, raw, "bucket_route_kernel"),
-            "bound": bound_ms(8 * taken + 8 * w * cap + 4 * (w + 1), w * cap),
-            "library_ms": None}
+            "ms": time_ms(raw, inputs, reps=reps, inner=inner),
+            "wrapper_ms": time_ms(lambda p: kernels.route_buckets(p[0], p[1], p[2], w, cap,
+                                                                  shard_n), inputs,
+                                  reps=reps, inner=inner),
+            "plain_ms": time_ms(lambda p: kernels.route_buckets_plain(p[0], p[1], p[2], w, cap,
+                                                                      shard_n), inputs,
+                                reps=3 if big else 15, inner=2 if big else 10),
+            "yardstick_ms": time_ms(scatter_pair, [None], reps=reps, inner=inner),
+            "device_ms": device_kernel_ms(torch, raw, "route_kernel", n=10 if big else 50),
+            "bound": bound, "taken": taken, "library_ms": None}
+        del slot, local, rank, dest, bv, bi, acc
         r = rows[label]
         dev_txt = "not measured" if r["device_ms"] is None else f"{r['device_ms']:.5f} ms"
+        share = ("" if r["device_ms"] is None
+                 else f", {100 * r['bound'][0] / r['device_ms']:.1f} % of the bound")
         log(f"time bucket_route {label}: {r['ms']:.4f} ms back to back (device time per "
-            f"launch {dev_txt}; wrapper {r['wrapper_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-            f"[W*cap+1] scatter pair {r['yardstick_ms']:.4f} ms, bound {r['bound'][0]:.5f} ms "
-            f"by {r['bound'][1]})")
+            f"launch {dev_txt}{share}; wrapper {r['wrapper_ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, [W*cap+1] scatter pair {r['yardstick_ms']:.4f} ms, bound "
+            f"{r['bound'][0]:.5f} ms by {r['bound'][1]}) on {record['card']}")
+    payloads.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"bucket_route: one kernel a route call: {json.dumps(launched)}")
     record["route_cases"] = counts
     record["route_times"] = rows
+    record["route_launches_a_call"] = launched
     return err, rows
 
 
@@ -1326,13 +1380,20 @@ def phase_pack_kernels(kernels, compressors, torch, record):
         err["ternary_bytes"] = max(err["ternary_bytes"], _hold(
             torch, (kernels.pack_ternary_bytes(lv),), (kernels.pack_ternary_bytes_plain(lv),),
             "ternary_bytes", label))
-    for label, lv in (("qsgd levels", qsgd_levels), ("full int16 range", wide16),
-                      ("ragged 12347", qsgd_levels[:12_347])):
+    # the QSGD packer's 16-byte runs: ragged n (every n % 32 class below),
+    # views at each element offset from a 16-byte boundary
+    q_cases = [("qsgd levels", qsgd_levels), ("full int16 range", wide16),
+               ("ragged 12347", qsgd_levels[:12_347])]
+    q_cases += [(f"view at +{off}, n % 32 = {r}", wide16[off:off + 32 * 4001 + r])
+                for off, r in ((1, 0), (3, 1), (5, 7), (7, 8), (8, 31), (2, 17))]
+    q_cases.append(("view at +1, to the end", wide16[1:]))
+    for label, lv in q_cases:
         err["qsgd_bytes"] = max(err["qsgd_bytes"], _hold(
             torch, kernels.qsgd_pack_bytes(lv), kernels.qsgd_pack_bytes_plain(lv), "qsgd_bytes",
             label))
     log("ternary_bytes, qsgd_bytes: bitwise == plain on the level kernels' levels, the full "
-        "int8 / int16 ranges and ragged sizes")
+        "int8 / int16 ranges and ragged sizes; qsgd_bytes also on views at element offsets "
+        f"1-8 and every n % 32 class ({len(q_cases)} cases)")
 
     copies = max(2, math.ceil(120e6 / (4 * n)))
     xs = [torch.randn(n, generator=gen, device=dev) for _ in range(copies)]
@@ -1485,6 +1546,52 @@ def phase_pack_lm(kernels, compressors, torch, record):
     log(f"threshold_pack, seg_pack at the LM's group sizes: vals, idx, EF, meta / elig, "
         f"counts, starts and the payload bitwise == plain: {json.dumps(cases)}")
     record["pack_lm_sizes"] = {"cases": cases, "times": times}
+    return err
+
+
+def phase_qsgd_bytes_lm(kernels, torch, record):
+    """The QSGD byte packer at the LM's group sizes (no path calls it; these
+    sizes read its rate): full-range int16 levels held bitwise against the
+    plain version, then its time by CUDA events (the C entry) and CUPTI
+    beside the bound, the wrapper's and the plain version's."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    err, times = 0.0, {}
+    bp = kernels._lib("byte_pack")
+    stream = torch.cuda.current_stream().cuda_stream
+    for n in LM_GROUPS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        lv = torch.randint(-32768, 32768, (n,), generator=gen, device=dev, dtype=torch.int16)
+        err = max(err, _hold(torch, kernels.qsgd_pack_bytes(lv), kernels.qsgd_pack_bytes_plain(lv),
+                             "qsgd_bytes", f"n={n} full int16 range"))
+        gc.collect()
+        torch.cuda.empty_cache()
+        mags = torch.empty(n, dtype=torch.uint8, device=dev)
+        signs = torch.empty(-(-n // 8), dtype=torch.uint8, device=dev)
+
+        def raw(_):
+            rc = bp.tcdp_qsgd_pack_bytes(lv.data_ptr(), n, mags.data_ptr(), signs.data_ptr(),
+                                         stream)
+            if rc:
+                raise RuntimeError(f"qsgd_bytes launch failed: cudaError {rc}")
+
+        r = {"ms": time_ms(raw, [None], reps=5, inner=4),
+             "device_ms": device_kernel_ms(torch, raw, "qsgd_bytes_kernel", n=10),
+             "wrapper_ms": time_ms(kernels.qsgd_pack_bytes, [lv], reps=5, inner=2),
+             "plain_ms": time_ms(kernels.qsgd_pack_bytes_plain, [lv], reps=3, inner=1),
+             "bound": bound_ms(2 * n + n + -(-n // 8), n), "library_ms": None}
+        share = ("" if r["device_ms"] is None
+                 else f", {100 * r['bound'][0] / r['device_ms']:.1f} % of the bound")
+        log(f"time n={n} qsgd_bytes: {r['ms']:.4f} ms, CUPTI {r['device_ms']} ms{share} "
+            f"(wrapper {r['wrapper_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound'][0]:.5f} ms by {r['bound'][1]}) on {record['card']}")
+        times[str(n)] = r
+        del lv, mags, signs
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("qsgd_bytes at the LM's group sizes: magnitudes and signs bitwise == plain")
+    record["qsgd_bytes_lm_sizes"] = times
     return err
 
 
@@ -1898,7 +2005,7 @@ def _category(name: str) -> str:
                                 "uniform_kernel", "qsgd_kernel", "terngrad_kernel",
                                 "count_kernel", "scan_kernel", "scatter_kernel",
                                 "terngrad_pack_kernel", "qsgd_pack_kernel",
-                                "bucket_route_kernel", "pack_kernel", "bytes_kernel")):
+                                "route_kernel", "pack_kernel", "bytes_kernel")):
         return "port CUDA kernels"
     if "sort" in low or "topk" in low or "radix" in low:
         return "torch.topk (exact threshold, small leaves)"
@@ -3145,7 +3252,7 @@ def main(argv=None) -> int:
     err.update(w_err)
     for n, row in w_rows.items():
         rows[n].update(row)
-    err["bucket_route"], route_rows = phase_route_kernel(kernels, torch, record)
+    err["bucket_route"], route_rows = phase_route_kernel(kernels, compressors, torch, record)
     rows[FULL_MODEL]["bucket_route"] = route_rows["topk W=2"]
     f_err, f_rows = phase_flash(kernels, torch, record)
     err.update(f_err)
@@ -3154,6 +3261,7 @@ def main(argv=None) -> int:
     err.update(p_err)
     for name, e in phase_pack_lm(kernels, compressors, torch, record).items():
         err[name] = max(err[name], e)
+    err["qsgd_bytes"] = max(err["qsgd_bytes"], phase_qsgd_bytes_lm(kernels, torch, record))
     phase_search_lm(kernels, compressors, torch, record)
     phase_search_cifar(kernels, compressors, torch, record)
     rows[FULL_MODEL].update(p_rows)

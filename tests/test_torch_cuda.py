@@ -312,6 +312,67 @@ def test_cuda_bucket_route_matches_plain():
         assert torch.equal(got[1], want[1])
 
 
+def _route_equal(got, want) -> bool:
+    return all(torch.equal(g.view(torch.uint8), w.view(torch.uint8)) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_cuda_route_buckets_matches_plain():
+    """On the card: the one-launch route (windows found by the kernel's
+    search, ``accepted`` written by the same launch) equals its plain
+    version, ``route_slots`` + ``fused_bucket_route_plain``, bitwise, on the
+    route cases, on views at odd offsets (the hierarchical slab's slices),
+    and at the LM's payload k = 5,253,571 at W = 2 and 4; one kernel launch a
+    call, by ``LAUNCHES`` and by the profiler's trace."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; run with -m cuda where there is one")
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device("cuda")
+    inputs = []
+    for case in sorted(ROUTE_CASES):
+        vals, idx, valid, W, cap, shard_n = _route_case(*ROUTE_CASES[case], poison=True)
+        v, i = torch.from_numpy(vals).to(dev), torch.from_numpy(idx).to(dev)
+        ok = None if valid is None else torch.from_numpy(valid).to(dev)
+        inputs.append((case, v, i, ok, W, cap, shard_n))
+        # the same payload one element into a larger buffer
+        vb, ib = torch.zeros(len(vals) + 1, device=dev), torch.zeros(
+            len(vals) + 1, dtype=torch.int32, device=dev)
+        vb[1:], ib[1:] = v, i
+        okb = None
+        if ok is not None:
+            okb = torch.zeros(len(vals) + 1, dtype=torch.bool, device=dev)
+            okb[1:] = ok
+        inputs.append((f"{case} view", vb[1:], ib[1:], None if okb is None else okb[1:], W,
+                       cap, shard_n))
+    gen = torch.Generator(device=dev).manual_seed(9)
+    n, k = 525_357_056, 5_253_571
+    pick = torch.randperm(n, generator=gen, device=dev)[:k].sort().values.to(torch.int32)
+    big = torch.randn(k, generator=gen, device=dev)
+    for W in (2, 4):
+        inputs.append((f"lm W={W}", big, pick, None, W, -(-int(round(1.25 * k)) // W),
+                       -(-n // W)))
+    for label, v, i, ok, W, cap, shard_n in inputs:
+        tk.reset_launches()
+        got = tk.route_buckets(v, i, ok, W, cap, shard_n)
+        assert tk.LAUNCHES["bucket_route"] == 1, label
+        want = tk.route_buckets_plain(v, i, ok, W, cap, shard_n)
+        assert _route_equal(got, want), label
+        dest = tk.route_slots(i, ok, W, cap, shard_n)[2]
+        assert _route_equal(tk.fused_bucket_route(v, i, dest, W, cap, shard_n), want[:2]), label
+    label, v, i, ok, W, cap, shard_n = inputs[-1]
+    for _ in range(2):
+        tk.route_buckets(v, i, ok, W, cap, shard_n)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            tk.route_buckets(v, i, ok, W, cap, shard_n)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # CUPTI drops a record now and then: at most one activity a call, each the kernel
+    assert 5 <= len(names) <= 10 and all("route_kernel" in nm for nm in names), names
+
+
 @pytest.mark.cuda
 def test_cuda_flash_kernels_match_plain():
     """On the card: forward, dq and dk/dv kernels against their plain
@@ -530,6 +591,15 @@ def test_cuda_byte_packers_match_plain():
             lv = torch.from_numpy(rng.integers(lo, hi, n).astype(np.int16)).to(dev)
             for a, b in zip(tk.qsgd_pack_bytes(lv), tk.qsgd_pack_bytes_plain(lv)):
                 assert _bits_equal(a, b)
+    # the QSGD packer's 16-byte runs: every n % 32 class, views at each
+    # element offset from a 16-byte boundary, the full int16 range
+    full = torch.from_numpy(np.random.default_rng(3).integers(
+        -32768, 32768, 1 << 16).astype(np.int16)).to(dev)
+    for n in (32, 33, 39, 40, 63, 4096, 65519):
+        for off in range(9):
+            lv = full[off:off + n]
+            for a, b in zip(tk.qsgd_pack_bytes(lv), tk.qsgd_pack_bytes_plain(lv)):
+                assert _bits_equal(a, b), (n, off)
 
 
 # the CIFAR nets: network -> (constructor(dtype), batch); fixed-width nets

@@ -148,6 +148,24 @@ def test_qsgd_pack_bytes_plain_bitwise(n):
         _eq(g, w)
 
 
+@pytest.mark.parametrize("n", [32 * 37, 32 * 37 + 1, 32 * 37 + 7, 32 * 37 + 8, 32 * 37 + 31])
+@pytest.mark.parametrize("offset", [0, 1, 5])
+def test_qsgd_pack_bytes_plain_edges(n, offset):
+    """Every ``n % 32`` class the vector kernel's runs meet, full int16
+    range, on views at odd element offsets (a run that starts off a 16-byte
+    boundary)."""
+    full = np.random.default_rng(n + offset).integers(-32768, 32768, n + offset)
+    full[offset:offset + 4] = [-32768, 256, -256, 255]
+    levels = full.astype(np.int16)
+    view = torch.from_numpy(levels)[offset:]
+    assert view.is_contiguous() and view.storage_offset() == offset
+    got = tk.qsgd_pack_bytes(view)
+    want = jk.qsgd_pack_pallas(jnp.asarray(levels[offset:]), interpret=True)
+    for g, w in zip(got, want):
+        _eq(g, w)
+    assert got[0][:4].tolist() == [0, 0, 0, 255] and got[1][0].item() & 0b0101 == 0b0101
+
+
 def test_slots_and_seg_pack_gate(monkeypatch):
     for n, keep in ((1, 1), (5000, 50), (65536, 700), (6_573_120, 65_732),
                     (961_544_192, 9_615_442)):

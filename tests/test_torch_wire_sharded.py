@@ -10,7 +10,10 @@ package.
     ``fused_bucket_route(interpret=True)`` (the Pallas window copy, which
     keeps a ``-0.0`` and a NaN's payload), and to the JAX ``[W*cap+1]``
     scatter build on data without signed zeros (the scatter adds into zeros,
-    turning ``-0.0`` into ``+0.0``);
+    turning ``-0.0`` into ``+0.0``); ``route_buckets_plain`` (the one-launch
+    route's buckets and ``accepted``) to that window copy and the JAX
+    ``_per_dest_slots``' ``accepted``; the plain twin of the route kernel's
+    lower-bound search to the count-based starts;
   * at W = 2 and W = 4 the port runs in spawned processes joined by gloo
     (subgroups for the hierarchical pods and columns), the JAX engine under
     ``shard_map`` on 2 and 4 CPU devices, on the same numpy gradients and EF
@@ -241,6 +244,70 @@ def test_bucket_route_plain_bitwise(case, poison):
                                      torch.from_numpy(np.array(dest)), W, cap, shard_n)
     assert torch.equal(tv2.view(torch.int32), tv.view(torch.int32)) and torch.equal(ti2, ti)
     assert tk.LAUNCHES["bucket_route"] == 0
+
+
+def _jax_plan(W, cap, shard_n, keep):
+    return jws.ShardPlan(n_units=W * shard_n, keep=keep, world=W, unit_size=1,
+                         shard_n=shard_n, cap_dest=cap, cap_ret=1, dense_return=True)
+
+
+@pytest.mark.parametrize("case", sorted(ROUTE_CASES))
+@pytest.mark.parametrize("poison", [False, True], ids=["finite", "signed-zero-nan-inf"])
+def test_route_buckets_plain_bitwise(case, poison):
+    """The one-launch route's plain version: the JAX ``_per_dest_slots``'
+    ``accepted`` and the Pallas window copy, bitwise; no launch on the CPU."""
+    vals, idx, valid, W, cap, shard_n = _route_case(*ROUTE_CASES[case], poison=poison)
+    jvalid = None if valid is None else jnp.asarray(valid)
+    _, j_acc, j_dest = jws._per_dest_slots(jnp.asarray(idx), jvalid,
+                                           _jax_plan(W, cap, shard_n, idx.shape[0]))
+    fv, fi = jk.fused_bucket_route(jnp.asarray(vals), jnp.asarray(idx), j_dest, W, cap,
+                                   shard_n, interpret=True)
+    tvalid = None if valid is None else torch.from_numpy(valid)
+    tk.reset_launches()
+    got = tk.route_buckets(torch.from_numpy(vals), torch.from_numpy(idx), tvalid, W, cap,
+                           shard_n)
+    assert tk.LAUNCHES["bucket_route"] == 0
+    plain = tk.route_buckets_plain(torch.from_numpy(vals), torch.from_numpy(idx), tvalid, W,
+                                   cap, shard_n)
+    for g, p in zip(got, plain):
+        assert torch.equal(g.view(torch.uint8), p.view(torch.uint8))
+    tv, ti, acc = got
+    assert acc.dtype == torch.bool and acc.shape == (idx.shape[0],)
+    np.testing.assert_array_equal(_bits(tv.numpy()), _bits(fv))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(fi))
+    np.testing.assert_array_equal(acc.numpy(), np.asarray(j_acc))
+    # accepted is each window's first min(count, cap) slots: the buckets' fill
+    assert int(acc.sum()) == int((ti < shard_n).sum())
+
+
+# the search's edges beyond ROUTE_CASES: one slot, every slot bound for the
+# last destination, an all-invalid payload, windows of exactly 32 and 33 and
+# of a round's 1024 probes and one more
+SEARCH_EDGES = {
+    "window-1024-1025": (np.concatenate([np.arange(1024), 5000 + np.arange(1025)]).astype(
+        np.int32), None, 2, 5000),
+    "one-slot": (np.array([5], np.int32), None, 4, 10),
+    "all-last": (np.arange(90, 150, dtype=np.int32), None, 4, 25),
+    "all-invalid": (np.zeros(40, np.int32), np.zeros(40, bool), 2, 100),
+    "window-32-33": (np.concatenate([np.arange(32), 100 + np.arange(33)]).astype(np.int32),
+                     None, 2, 100),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ROUTE_CASES) + sorted(SEARCH_EDGES))
+def test_route_starts_search_equals_count(case):
+    """The plain twin of the kernel's 32-ary lower-bound search equals the
+    count-based ``route_starts`` (dump tails and empty buckets included)."""
+    if case in ROUTE_CASES:
+        _, idx, valid, W, _, shard_n = _route_case(*ROUTE_CASES[case])
+    else:
+        idx, valid, W, shard_n = SEARCH_EDGES[case]
+    t_idx = torch.from_numpy(idx)
+    t_valid = None if valid is None else torch.from_numpy(valid)
+    dest = tk.route_slots(t_idx, t_valid, W, 1, shard_n)[2]
+    want = tk.route_starts(dest, W)
+    assert torch.equal(tk.route_starts_search(t_idx, t_valid, W, shard_n), want)
+    assert torch.equal(tk.route_starts_search(t_idx, None, W, shard_n, dest=dest), want)
 
 
 def test_route_starts_and_gate():

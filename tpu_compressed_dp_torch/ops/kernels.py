@@ -32,9 +32,10 @@ loaded with ``ctypes``):
     :func:`qsgd_pack`): the dither kernels' levels, bit-packed to the wire
     bytes in the same pass;
   * ``bucket_route`` (``csrc/bucket_route.cu``) replaces
-    ``_bucket_route_kernel`` (:func:`fused_bucket_route`): the sharded
-    transport's per-destination buckets as windowed copies of the ascending
-    payload;
+    ``_bucket_route_kernel`` (:func:`route_buckets`,
+    :func:`fused_bucket_route`): the sharded transport's per-destination
+    buckets as windowed copies of the ascending payload, the windows found
+    on the card by a search, and which slots went in, in one launch;
   * ``threshold_pack`` (``csrc/threshold_pack.cu``) replaces
     ``_pack_kernel`` (:func:`pack_by_threshold`, the block-granular payload)
     and ``_seg_pack_kernel`` (:func:`seg_pack_by_threshold`, the per-segment
@@ -111,7 +112,11 @@ __all__ = [
     "use_quant_pack",
     "fused_bucket_route",
     "fused_bucket_route_plain",
+    "route_buckets",
+    "route_buckets_plain",
+    "route_slots",
     "route_starts",
+    "route_starts_search",
     "use_bucket_route",
     "pack_payload_slots",
     "pack_by_threshold",
@@ -258,7 +263,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
                         "tcdp_select_pack_large_from": []},
         "quant_pack": {"tcdp_terngrad_pack": [p, ll, p, u64, p, p],
                        "tcdp_qsgd_pack": [p, ll, p, u64, i32, p, p, p]},
-        "bucket_route": {"tcdp_bucket_route": [p, p, p, i32, i32, i32, p, p, p]},
+        "bucket_route": {"tcdp_route_buckets": [p, p, p, p, i32, i32, i32, i32, p, p, p, p]},
         "flash_attention": {
             "tcdp_flash_fwd": [p, p, p, p, p, i32, i32, i32, i32, f32, p],
             "tcdp_flash_dq": [p, p, p, p, p, p, p, i32, i32, i32, i32, f32, p],
@@ -1436,6 +1441,70 @@ def route_starts(dest: torch.Tensor, world: int) -> torch.Tensor:
     return (torch.cumsum(counts, 0, dtype=torch.int32) - counts).contiguous()
 
 
+#: probes a round of the route kernel's search (``csrc/bucket_route.cu``:
+#: one a lane of a warp)
+_ROUTE_FAN = 32
+
+
+def route_slots(idx: torch.Tensor, valid: Optional[torch.Tensor], world: int, cap: int,
+                shard_n: int):
+    """``(slot, accepted, dest)`` of an ascending payload: each slot's
+    destination ``min(idx // shard_n, W - 1)`` (``W``, the dump bucket, past
+    the ``valid`` prefix), whether it is among the first ``cap`` of its
+    destination's (and valid), and its position in the flat ``[W*cap]``
+    buckets (the dump slot ``W*cap`` if not).  A slot's rank within its
+    destination is its position less the destination's first position, from
+    :func:`route_starts`'s count."""
+    k = idx.shape[0]
+    dest = torch.clamp(torch.div(idx, shard_n, rounding_mode="floor"), max=world - 1)
+    dest = dest.to(torch.int32)
+    if valid is not None:
+        dest = torch.where(valid, dest, world)
+    starts = route_starts(dest, world)
+    rank = torch.arange(k, dtype=torch.int32, device=idx.device) - starts[dest.long()]
+    accepted = rank < cap
+    if valid is not None:
+        accepted = accepted & valid
+    slot = torch.where(accepted, dest * cap + rank, world * cap)
+    return slot, accepted, dest
+
+
+def route_starts_search(idx: torch.Tensor, valid: Optional[torch.Tensor], world: int,
+                        shard_n: int, dest: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """int32 ``[W + 1]``: the route kernel's search, step for step, by
+    PyTorch ops: ``starts[w]`` is the first slot whose destination (``dest``,
+    or derived from ``idx`` and the ``valid`` prefix as in
+    :func:`route_slots`) is at least ``w``, found by rounds of
+    ``_ROUTE_FAN`` probes ``lo + j * ceil((hi - lo) / _ROUTE_FAN)``.  Equals
+    :func:`route_starts` when the destinations ascend."""
+    k = idx.shape[0]
+    lanes = torch.arange(_ROUTE_FAN, dtype=torch.int64)
+
+    def key(p: torch.Tensor) -> torch.Tensor:
+        if dest is not None:
+            return dest[p].long().cpu()
+        d = torch.clamp(torch.div(idx[p], shard_n, rounding_mode="floor"), max=world - 1)
+        if valid is not None:
+            d = torch.where(valid[p], d, world)
+        return d.long().cpu()
+
+    starts = [0]
+    for w in range(1, world + 1):
+        lo, hi = 0, k
+        while lo < hi:
+            step = -(-(hi - lo) // _ROUTE_FAN)
+            p = lo + lanes * step
+            inside = p < hi
+            ge = ~inside
+            ge[inside] = key(p[inside].to(idx.device)) >= w
+            if bool(ge[0]):
+                break
+            f = int(torch.nonzero(ge)[0]) if bool(ge.any()) else _ROUTE_FAN
+            lo, hi = lo + (f - 1) * step + 1, (min(lo + f * step, hi) if f < _ROUTE_FAN else hi)
+        starts.append(lo)
+    return torch.tensor(starts, dtype=torch.int32, device=idx.device)
+
+
 def fused_bucket_route_plain(vals: torch.Tensor, idx: torch.Tensor, dest: torch.Tensor,
                              world: int, cap: int, shard_n: int):
     """The kernel's contract by PyTorch ops: row ``w`` of ``(bvals [W, cap],
@@ -1457,13 +1526,74 @@ def fused_bucket_route_plain(vals: torch.Tensor, idx: torch.Tensor, dest: torch.
     return bvals, bidx
 
 
+def route_buckets_plain(vals: torch.Tensor, idx: torch.Tensor, valid: Optional[torch.Tensor],
+                        world: int, cap: int, shard_n: int):
+    """:func:`route_buckets` by PyTorch ops: :func:`route_slots`'
+    ``accepted`` and destinations, then :func:`fused_bucket_route_plain`."""
+    _, accepted, dest = route_slots(idx, valid, world, cap, shard_n)
+    bvals, bidx = fused_bucket_route_plain(vals, idx, dest, world, cap, shard_n)
+    return bvals, bidx, accepted
+
+
+def _launch_route(vals, idx, dest, valid, world: int, cap: int, shard_n: int, want_accepted):
+    """One launch of ``csrc/bucket_route.cu`` (checks, outputs, count)."""
+    world, cap, shard_n = int(world), int(cap), int(shard_n)
+    if world < 1 or cap < 1 or shard_n < 1:
+        raise ValueError(f"the bucket route needs world, cap and shard_n >= 1, got "
+                         f"{world}, {cap}, {shard_n}")
+    _check_f32_vector(vals, "vals")
+    k = vals.shape[0]
+    for t, what, dtype in ((idx, "idx", torch.int32), (dest, "dest", torch.int32),
+                           (valid, "valid", torch.bool)):
+        if t is not None and (t.dtype != dtype or t.shape != (k,) or not t.is_contiguous()
+                              or t.device != vals.device):
+            raise ValueError(f"{what} must be a contiguous {dtype}[{k}] tensor on vals' device")
+    if world > 65535 or (world - 1) * shard_n > _INT32_MAX:
+        raise ValueError(f"bucket route geometry W={world}, cap={cap}, shard_n={shard_n} "
+                         "exceeds the kernel's int32 offsets")
+    dev = vals.device
+    bvals = torch.empty(world, cap, dtype=torch.float32, device=dev)
+    bidx = torch.empty(world, cap, dtype=torch.int32, device=dev)
+    accepted = torch.empty(k, dtype=torch.bool, device=dev) if want_accepted else None
+    rc = _lib("bucket_route").tcdp_route_buckets(
+        vals.data_ptr(), idx.data_ptr(), None if dest is None else dest.data_ptr(),
+        None if valid is None else valid.data_ptr(), k, world, cap, shard_n, bvals.data_ptr(),
+        bidx.data_ptr(), None if accepted is None else accepted.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _check_launch(rc, "bucket_route")
+    LAUNCHES["bucket_route"] += 1
+    return bvals, bidx, accepted
+
+
+def route_buckets(vals: torch.Tensor, idx: torch.Tensor, valid: Optional[torch.Tensor],
+                  world: int, cap: int, shard_n: int):
+    """``(bvals [W, cap] float32, bidx [W, cap] int32, accepted [k] bool)``:
+    the sharded transport's route of an ascending payload (``idx`` ascending
+    over the ``valid`` prefix, ``valid`` a prefix or None) in one launch:
+    each destination's window found on the card, its first ``cap`` slots
+    copied into its row (local indices, value 0 / index ``shard_n`` past
+    them), and which slots went in.
+
+    Replaces ``_bucket_route_kernel`` of ``tpu_compressed_dp/ops/kernels.py``
+    (with the XLA count of its starts).  Bound: the accepted windows read,
+    the buckets and ``accepted`` written, ``8 * sum_w min(count_w, cap) + 8
+    * W * cap + k`` bytes; see ``csrc/bucket_route.cu``."""
+    if vals.device.type == "cpu":
+        return route_buckets_plain(vals, idx, valid, int(world), int(cap), int(shard_n))
+    if vals.device.type != "cuda":
+        raise ValueError(f"route_buckets runs on CUDA or CPU tensors, got {vals.device}")
+    return _launch_route(vals, idx, None, valid, world, cap, shard_n, True)
+
+
 def fused_bucket_route(vals: torch.Tensor, idx: torch.Tensor, dest: torch.Tensor,
                        world: int, cap: int, shard_n: int):
     """``(bvals [W, cap] float32, bidx [W, cap] int32)``: the sharded
     transport's per-destination buckets as ``W`` windowed copies of the
     ascending payload, instead of a ``[W*cap+1]`` scatter pair.  ``dest`` is
     each slot's destination, ``W`` for the invalid tail (the dump bucket,
-    in no window), ascending with ``idx``.
+    in no window), ascending with ``idx``.  The JAX function's signature and
+    contract, on the kernel of :func:`route_buckets` (which searches the
+    given ``dest``).
 
     Replaces ``_bucket_route_kernel`` / ``fused_bucket_route`` of
     ``tpu_compressed_dp/ops/kernels.py``.  Bound: the accepted windows read
@@ -1477,25 +1607,7 @@ def fused_bucket_route(vals: torch.Tensor, idx: torch.Tensor, dest: torch.Tensor
         return fused_bucket_route_plain(vals, idx, dest, world, cap, shard_n)
     if vals.device.type != "cuda":
         raise ValueError(f"fused_bucket_route runs on CUDA or CPU tensors, got {vals.device}")
-    _check_f32_vector(vals, "vals")
-    k = vals.shape[0]
-    for t, what in ((idx, "idx"), (dest, "dest")):
-        if (t.dtype != torch.int32 or t.shape != (k,) or not t.is_contiguous()
-                or t.device != vals.device):
-            raise ValueError(f"{what} must be a contiguous int32[{k}] tensor on vals' device")
-    if world > 65535 or (world - 1) * shard_n > _INT32_MAX:
-        raise ValueError(f"bucket route geometry W={world}, cap={cap}, shard_n={shard_n} "
-                         "exceeds the kernel's int32 offsets")
-    dev = vals.device
-    starts = route_starts(dest, world)
-    bvals = torch.empty(world, cap, dtype=torch.float32, device=dev)
-    bidx = torch.empty(world, cap, dtype=torch.int32, device=dev)
-    rc = _lib("bucket_route").tcdp_bucket_route(
-        vals.data_ptr(), idx.data_ptr(), starts.data_ptr(), world, cap, shard_n,
-        bvals.data_ptr(), bidx.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    _check_launch(rc, "bucket_route")
-    LAUNCHES["bucket_route"] += 1
-    return bvals, bidx
+    return _launch_route(vals, idx, dest, None, world, cap, shard_n, False)[:2]
 
 
 def use_bucket_route(k: int, world: int, cap: int, device) -> bool:

@@ -190,23 +190,10 @@ def hier_payload_bits(n: int, keep: int, world: int, pods: int,
 def _per_dest_slots(idx: torch.Tensor, valid: Optional[torch.Tensor], plan: ShardPlan):
     """``(slot, accepted, dest)``: each payload slot's position in the flat
     ``[W*cap_dest]`` bucket buffer (clipped and invalid slots at the dump
-    slot ``W*cap_dest``), whether it was accepted, and its destination.
-    ``idx`` is ascending, so a slot's rank within its destination is its
-    position less the destination's first position; invalid slots (a
-    zero-padded tail) go to the dump destination ``W``."""
-    k = idx.shape[0]
-    W, cap = plan.world, plan.cap_dest
-    dest = torch.clamp(torch.div(idx, plan.shard_n, rounding_mode="floor"), max=W - 1)
-    dest = dest.to(torch.int32)
-    if valid is not None:
-        dest = torch.where(valid, dest, W)
-    starts = kernels.route_starts(dest, W)               # exclusive prefix, [W + 1]
-    rank = torch.arange(k, dtype=torch.int32, device=idx.device) - starts[dest.long()]
-    accepted = rank < cap
-    if valid is not None:
-        accepted = accepted & valid
-    slot = torch.where(accepted, dest * cap + rank, W * cap)
-    return slot, accepted, dest
+    slot ``W*cap_dest``), whether it was accepted, and its destination
+    (:func:`~tpu_compressed_dp_torch.ops.kernels.route_slots`; invalid slots,
+    a zero-padded tail, go to the dump destination ``W``)."""
+    return kernels.route_slots(idx, valid, plan.world, plan.cap_dest, plan.shard_n)
 
 
 def sharded_combine(vals: torch.Tensor, idx: torch.Tensor, plan: ShardPlan,
@@ -228,16 +215,16 @@ def sharded_combine(vals: torch.Tensor, idx: torch.Tensor, plan: ShardPlan,
     W, cap, shard_n = plan.world, plan.cap_dest, plan.shard_n
     row = tuple(vals.shape[1:])
     dev = vals.device
-    slot, accepted, dest = _per_dest_slots(idx, valid, plan)
 
     # route: fixed [W, cap_dest] buckets, one all_to_all.  Empty slots carry
     # value 0 and the guard index shard_n (one past the owner's range), so
     # padding never touches a real unit or the occupancy counts.
     if not row and kernels.use_bucket_route(idx.shape[0], W, cap, dev):
         # each destination's accepted slots are a window of the ascending
-        # payload: W windowed copies in one kernel
-        bvals, bidx = kernels.fused_bucket_route(vals, idx, dest, W, cap, shard_n)
+        # payload: the windows found, copied and marked in one kernel
+        bvals, bidx, accepted = kernels.route_buckets(vals, idx, valid, W, cap, shard_n)
     else:
+        slot, accepted, dest = _per_dest_slots(idx, valid, plan)
         local = (idx - dest * shard_n).to(torch.int32)
         slot = slot.long()
         bvals = torch.zeros((W * cap + 1,) + row, dtype=vals.dtype, device=dev).index_add_(
