@@ -106,7 +106,21 @@ printing no result, where either is missing or any phase fails.
      with step time and sent fraction beside the default wire path's; then
      profiles two steady Top-K steps, with the threshold search's full and
      refinement passes and the sparsify kernel per launch at each sync
-     group's size;
+     group's size; (7c) the LM's other mesh axes as gloo ranks on the card
+     (run right after the build, while the card's memory is free), 3 steps
+     of entire-model Top-K 1 % + EF through ``harness.lm.main`` each:
+     ``--dp 1 --tp 2`` (2 layers, seq 8192: equal finite losses, each flash
+     kernel twice a step on each rank at 16/4 local heads, the Top-K kernels
+     on both signature groups, the replicated parameters bitwise equal
+     across the ranks) and ``--dp 1 --sp 2 --remat`` (``LM_SP_LAYERS`` /
+     ``LM_SP_SEQ``, which fit two whole models on the card; no flash launch:
+     the unfused ring, as in JAX; first one layer's ring attention, forward
+     and q/k/v gradients, held against the whole sequence's unfused
+     attention); then at phase 7's one-rank config PowerSGD r 4 + EF
+     entire-model and layer-wise (finite loss, the analytic sent fraction)
+     and one sync at ``sync_overlap`` 4 bitwise the one at 1 (entire-model
+     and layer-wise), then ``--overlap 4`` steps; step ms, tok/s, MFU and
+     peak GiB of each;
   8. trains full-width bf16 ResNet-50 (25,557,032 parameters, 1000 classes)
      through the port's ImageNet entry point (``harness.imagenet.main``) on
      synthetic ImageNet, the port's loaders and native crop-resize, one
@@ -2994,19 +3008,29 @@ LM_RUNS = {"dense": [],
 LM_PARAMS = 1_486_901_248   # llama3_8b widths at 2 layers
 
 
-def lm_leaf_sizes():
-    """(element count, tensor-sharded?) of every llama3_8b leaf at 2 layers,
-    in the port's leaf order, from the config alone."""
+def lm_leaf_shapes(layers: int = 2) -> dict:
+    """The shape of every llama3_8b leaf at ``layers`` layers, keyed and
+    ordered as the port's ``param_leaves``, from the config alone."""
     from tpu_compressed_dp_torch.models import transformer as tf
 
-    cfg = dataclasses.replace(tf.llama3_8b(), n_layers=2)
-    d, hd, f = cfg.dim, cfg.head_dim, cfg.ffn
-    per_layer = {"attn_norm": d, "mlp_norm": d, "w_down": f * d, "w_gate": d * f,
-                 "w_up": d * f, "wk": d * cfg.n_kv_heads * hd, "wo": cfg.n_heads * hd * d,
-                 "wq": d * cfg.n_heads * hd, "wv": d * cfg.n_kv_heads * hd}
-    sizes = [cfg.vocab_size * d, d] + list(per_layer.values()) * cfg.n_layers + [
-        d * cfg.vocab_size]
-    return list(zip(sizes, tf.is_sharded(cfg)))
+    cfg = dataclasses.replace(tf.llama3_8b(), n_layers=layers)
+    d, hd, f, v = cfg.dim, cfg.head_dim, cfg.ffn, cfg.vocab_size
+    per_layer = {"attn_norm": (d,), "mlp_norm": (d,), "w_down": (f, d), "w_gate": (d, f),
+                 "w_up": (d, f), "wk": (d, cfg.n_kv_heads * hd), "wo": (cfg.n_heads * hd, d),
+                 "wq": (d, cfg.n_heads * hd), "wv": (d, cfg.n_kv_heads * hd)}
+    return {"embed": (v, d), "final_norm": (d,),
+            **{f"layers.{i}.{k}": sh for i in range(cfg.n_layers) for k, sh in per_layer.items()},
+            "lm_head": (d, v)}
+
+
+def lm_leaf_sizes(layers: int = 2):
+    """(element count, tensor-sharded?) of every llama3_8b leaf at ``layers``
+    layers, in the port's leaf order."""
+    from tpu_compressed_dp_torch.models import transformer as tf
+
+    cfg = dataclasses.replace(tf.llama3_8b(), n_layers=layers)
+    return list(zip([math.prod(sh) for sh in lm_leaf_shapes(layers).values()],
+                    tf.is_sharded(cfg)))
 
 
 def phase_lm(kernels, compressors, torch, record):
@@ -3201,6 +3225,440 @@ def phase_lm_profile(kernels, torch, record):
     return profs
 
 
+# ---------------------------------------------------------------------------
+# Phase 7c: the LM's sequence and tensor axes, PowerSGD and --overlap
+# ---------------------------------------------------------------------------
+
+LM_AXES_STEPS = 3
+# label -> (dp, sp, tp), layers, seq, extra flags: ranks are worker processes
+# on the one card, joined by gloo.  sp2: every rank holds the whole model; two
+# ranks at 2 layers ran out of the H100's 80 GB (one asked 3.58 GiB with 78.2
+# GiB of the card in use), at 1 layer and seq 8192 each peaks at ~32 GiB
+# (PERF.md section 5)
+LM_SP_LAYERS, LM_SP_SEQ = 1, 8192
+LM_AXES_RUNS = {"tp2": {"mesh": (1, 1, 2), "layers": 2, "seq": 8192, "flags": []},
+                "sp2": {"mesh": (1, 2, 1), "layers": LM_SP_LAYERS, "seq": LM_SP_SEQ,
+                        "flags": ["--remat"]}}
+LM_AXES_TOPK = ("count_ge", "search_init", "fused_sparsify")
+RING_REL = 1e-4   # ring vs float64 whole-sequence attention: max |diff| over the rms
+
+
+def lm_axes_argv(run: dict, layers: int, seq: int) -> list:
+    dpn, spn, tpn = run["mesh"]
+    return ["--preset", "llama3_8b", "--layers", str(layers), "--seq_len", str(seq),
+            "--global_batch", "1", "--warmup_steps", "1", "--steps", str(LM_AXES_STEPS),
+            "--log_every", str(LM_AXES_STEPS), "--device", "cuda", "--seed", "0",
+            "--dp", str(dpn), "--sp", str(spn), "--tp", str(tpn), "--compress", "entiremodel",
+            *LM_TOPK, *run["flags"]]
+
+
+def _causal64(torch, q, k, v, scale: float):
+    """Causal softmax attention in float64 (full scores), the reference of
+    the ring hold."""
+    t = q.shape[2]
+    s = (q @ k.transpose(-1, -2)) * scale
+    keep = torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
+    return torch.softmax(s.masked_fill(~keep, float("-inf")), -1) @ v
+
+
+def ring_hold(torch, group, seq: int, heads: int = 32, kv_heads: int = 8, d: int = 128) -> dict:
+    """One layer's attention at llama3_8b's heads through the sp ring (this
+    rank's query block), forward and q/k/v gradients, float32, against the
+    whole sequence's attention on this card: the unfused float32 chain and,
+    as the exact reference, float64, one KV head's group of query heads at a
+    time.  The ring passes where its largest error from float64 is at most
+    RING_REL of the output's rms, or at most twice the whole-sequence
+    float32 chain's own (both sum the same terms in float32, in another
+    order: dk and dv add the two halves' partial sums)."""
+    from tpu_compressed_dp_torch.ops import ring_attention as ra
+    from tpu_compressed_dp_torch.parallel import mesh
+
+    dev = torch.device("cuda", 0)
+    ring, my = mesh.size(group), mesh.group_rank(group)
+    tl = seq // ring
+    sl = slice(my * tl, (my + 1) * tl)
+    scale = 1.0 / math.sqrt(d)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn(1, heads, seq, d, generator=gen, device=dev)
+    k = torch.randn(1, kv_heads, seq, d, generator=gen, device=dev)
+    v = torch.randn(1, kv_heads, seq, d, generator=gen, device=dev)
+    do = torch.randn(1, heads, seq, d, generator=gen, device=dev)
+    ql, kl, vl = (a[:, :, sl].contiguous().requires_grad_(True) for a in (q, k, v))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    o = ra.ring_attention(ql, kl, vl, group=group)
+    got = [o, *torch.autograd.grad((o * do[:, :, sl]).sum(), (ql, kl, vl))]
+    torch.cuda.synchronize()
+    ring_ms = (time.perf_counter() - t0) * 1e3
+    rep = heads // kv_heads
+    err, err32, sq, cnt = [0.0] * 4, [0.0] * 4, [0.0] * 4, [0] * 4
+    for g in range(kv_heads):
+        hs = slice(g * rep, (g + 1) * rep)
+        outs = []
+        for dt in (torch.float32, torch.float64):
+            qh = q[:, hs].to(dt).requires_grad_(True)
+            kh, vh = (a[:, g:g + 1].to(dt).requires_grad_(True) for a in (k, v))
+            oh = (ra.dense_causal_attention(qh, kh, vh) if dt == torch.float32 else
+                  _causal64(torch, qh, kh.expand_as(qh), vh.expand_as(qh), scale))
+            outs.append([oh, *torch.autograd.grad((oh * do[:, hs].to(dt)).sum(), (qh, kh, vh))])
+            del qh, kh, vh, oh
+        for i, (a, w32, w) in enumerate(zip(got, *outs)):
+            a = a[:, hs] if i < 2 else a[:, g:g + 1]
+            w, w32 = w[:, :, sl], w32[:, :, sl]
+            err[i] = max(err[i], (a.double() - w).abs().max().item())
+            err32[i] = max(err32[i], (w32.double() - w).abs().max().item())
+            sq[i] += (w ** 2).sum().item()
+            cnt[i] += w.numel()
+        del outs
+    out = {"ring_ms": ring_ms, "seq": seq, "ring": ring}
+    for i, name in enumerate(("o", "dq", "dk", "dv")):
+        rms = math.sqrt(sq[i] / cnt[i])
+        out[name] = {"max_abs": err[i], "whole_fp32_max_abs": err32[i], "rms": rms,
+                     "rel": err[i] / rms}
+        if not err[i] <= max(RING_REL * rms, 2.0 * err32[i]):
+            raise AssertionError(f"ring attention {name}: max |diff| from float64 {err[i]} > "
+                                 f"{RING_REL} x rms {rms} and > 2 x the whole-sequence float32 "
+                                 f"chain's {err32[i]}")
+    return out
+
+
+def lm_axes_worker(label: str, rank: int, port: int, out_path: str, layers: int,
+                   seq: int) -> int:
+    """One rank of phase 7c (``--lm_axes_worker``): LM_AXES_RUNS[label]
+    through ``harness.lm.main`` at llama3_8b widths, ``layers`` deep."""
+    import hashlib
+
+    import torch
+
+    from tpu_compressed_dp_torch.harness import lm
+    from tpu_compressed_dp_torch.models import transformer as tf
+    from tpu_compressed_dp_torch.ops import kernels
+    from tpu_compressed_dp_torch.parallel import mesh
+
+    run = LM_AXES_RUNS[label]
+    dpn, spn, tpn = run["mesh"]
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh.init_process_group(dev, backend="gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=dpn * spn * tpn, rank=rank)
+    try:
+        kernels.build()      # the parent built them: this loads the libraries
+        result = {"label": label, "layers": layers, "seq": seq}
+        if spn > 1:
+            groups = mesh.lm_groups(dpn, spn, tpn)
+            result["ring_hold"] = ring_hold(torch, groups.seq, seq)
+            gc.collect()
+            torch.cuda.empty_cache()
+        holder, heads = {}, set()
+        make_step, attend = lm.make_lm_train_step, tf.ring_attention
+
+        def capture(*a, **kw):
+            step = make_step(*a, **kw)
+
+            def wrapped(state, batch):
+                holder["state"], m = step(state, batch)
+                return holder["state"], m
+
+            return wrapped
+
+        def seen(q, k, v, **kw):
+            heads.add((q.shape[1], k.shape[1]))
+            return attend(q, k, v, **kw)
+
+        lm.make_lm_train_step, tf.ring_attention = capture, seen
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            summary = lm.main(lm_axes_argv(run, layers, seq))
+        finally:
+            lm.make_lm_train_step, tf.ring_attention = make_step, attend
+        torch.cuda.synchronize()
+        result.update(summary=summary, launches=dict(kernels.LAUNCHES),
+                      wall_s=time.perf_counter() - t0, heads=sorted(heads),
+                      peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        model = holder["state"].model
+        cfg = model.cfg
+        digest = hashlib.sha256()
+        groups = [0, 0]
+        for (name, p), sh in zip(tf.param_leaves(model).items(), tf.is_sharded(cfg)):
+            groups[sh] += p.numel()
+            if not sh:
+                digest.update(name.encode())
+                digest.update(p.detach().cpu().numpy().tobytes())
+        result["replicated_sha256"] = digest.hexdigest()
+        result["groups"] = groups
+        with open(out_path, "w") as f:
+            json.dump(result, f, default=str)
+    finally:
+        mesh.destroy()
+    return 0
+
+
+def lm_axes_groups(label: str) -> list:
+    """The element counts of a rank's two entire-model sync groups in the
+    run ``label`` of LM_AXES_RUNS (replicated leaves, then this tensor
+    rank's shards), from the config alone."""
+    run = LM_AXES_RUNS[label]
+    tpn = run["mesh"][2]
+    leaves = lm_leaf_sizes(run["layers"])
+    return [sum(n for n, sh in leaves if not sh), sum(n for n, sh in leaves if sh) // tpn]
+
+
+def hold_lm_axes_groups(kernels, compressors, torch, sizes) -> dict:
+    """At each of 7c's sync group sizes, Top-K 1 % of seeded N(0, 1) x 1e-2
+    data: the threshold search bitwise against the unfused glue on the plain
+    counts and the CPU search (``check_search``), and ``fused_sparsify``
+    (compressed, EF, count) bitwise against its plain version."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    out = {}
+    for n in sizes:
+        gc.collect()
+        torch.cuda.empty_cache()
+        x = torch.randn(n, generator=gen, device=dev) * 1e-2
+        mag = x.abs()
+        keep = compressors.topk_keep_count(n, RATIO)
+        r = {"search": check_search(kernels, torch, mag, keep, f"7c group n={n}")}
+        t = kernels.topk_threshold(mag, keep)
+        del mag
+        for got, want in zip(kernels.fused_sparsify(x, t), kernels.fused_sparsify_plain(x, t)):
+            if not _bits_equal(torch, got, want):
+                raise AssertionError(f"fused_sparsify differs from its plain version at 7c's "
+                                     f"group n={n}")
+        log(f"7c group n={n}: search, fused_sparsify bitwise == plain")
+        out[str(n)] = r
+        del x, t
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_lm_axes_world(label: str, layers: int, seq: int) -> list:
+    """Phase 7c's ranks of ``label`` as worker processes on the card."""
+    from tpu_compressed_dp_torch.parallel.mesh import free_port
+
+    world = math.prod(LM_AXES_RUNS[label]["mesh"])
+    out_dir = os.path.join(HERE, "build", "chip_smoke_ranks")
+    os.makedirs(out_dir, exist_ok=True)
+    port = free_port()
+    paths = [os.path.join(out_dir, f"lm_{label}_rank{r}.json") for r in range(world)]
+    for path in paths:
+        if os.path.exists(path):
+            os.remove(path)
+    # two ranks share the card: growable segments keep each rank's cache
+    # from holding freed blocks the other rank needs
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--lm_axes_worker",
+                               label, str(r), str(port), paths[r], str(layers), str(seq)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              env=env)
+             for r in range(world)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, text in enumerate(logs):
+        for line in text.strip().splitlines()[-30:]:
+            log(f"[7c {label} rank {r}] {line}")
+    codes = [p.returncode for p in procs]
+    if any(codes):
+        raise AssertionError(f"7c {label}: the ranks exited {codes}")
+    results = []
+    for path in paths:
+        with open(path) as f:
+            results.append(json.load(f))
+    return results
+
+
+def _lm_row(label: str, summary: dict, peak, card: str, tokens: int) -> dict:
+    tok_s = summary["tok/s"]
+    step_ms = tokens / tok_s * 1e3
+    log(f"lm {label}: loss {summary['loss']:.4f}, sent frac {summary.get('sent frac')}, "
+        f"{step_ms:.1f} ms/step, {tok_s:.0f} tok/s, MFU {summary.get('mfu')}, peak {peak} GiB "
+        f"on {card}")
+    return {"summary": summary, "step_ms": step_ms, "peak_gib": peak}
+
+
+def powersgd_sent(dp, lowrank, leaves, gran: str, rank: int) -> float:
+    """PowerSGD's analytic sent fraction of the LM's grouped sync: per
+    signature group and reduction group, ``r (m + n2)`` factor elements, or
+    the whole group where the factors would cost as much."""
+    sent = total = 0
+    for sig in (False, True):
+        sizes = [n for n, sh in leaves if sh == sig]
+        groups = dp.make_leaf_groups([4 * n for n in sizes], gran, 25.0 * dp.BUCKET_MB)
+        for idxs in groups:
+            n = sum(sizes[i] for i in idxs)
+            dims = lowrank.powersgd_dims(n, rank)
+            sent += n if dims is None else dims[2] * (dims[0] + dims[1])
+            total += n
+    return sent / total
+
+
+def overlap_sync_hold(torch, gran: str) -> bool:
+    """One LM sync (Top-K 1 % + EF) at llama3_8b widths, 2 layers, of seeded
+    gradients and EF at ``sync_overlap`` 4 and 1: True where every synced
+    entry, EF entry and stat agree bitwise."""
+    from tpu_compressed_dp_torch.parallel import dp
+
+    dev = torch.device("cuda", 0)
+    leaf_axes = [("tensor",) if sh else () for _, sh in lm_leaf_sizes()]
+    shapes = lm_leaf_shapes()
+    gen = torch.Generator(device=dev).manual_seed(21)
+    grads = {k: torch.randn(sh, generator=gen, device=dev) * 1e-2 for k, sh in shapes.items()}
+    ef = {k: torch.randn(sh, generator=gen, device=dev) * 1e-3 for k, sh in shapes.items()}
+    outs = []
+    for k in (1, 4):
+        c = dp.CompressionConfig(method="topk", ratio=RATIO, granularity=gran,
+                                 error_feedback=True, sync_overlap=k)
+        synced, new_ef, _, stats = dp.PartitionedSync(c, leaf_axes)(grads, ef, (), 77)
+        outs.append((synced, new_ef, stats))
+    same = all(all(_bits_equal(torch, a[key], b[key]) for key in a)
+               for a, b in zip(outs[0], outs[1]))
+    del grads, ef, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return same
+
+
+LM_ONE_RUNS = {"powersgd r4 entiremodel": ["--compress", "entiremodel", "--method", "powersgd",
+                                           "--rank", "4", "--error_feedback"],
+               "powersgd r4 layerwise": ["--compress", "layerwise", "--method", "powersgd",
+                                         "--rank", "4", "--error_feedback"],
+               "topk entiremodel --overlap 4": ["--compress", "entiremodel", *LM_TOPK,
+                                                "--overlap", "4"],
+               # several chunks a signature group: the hooks pipeline them
+               "topk layerwise --overlap 4": ["--compress", "layerwise", *LM_TOPK,
+                                              "--overlap", "4"]}
+
+
+def phase_lm_axes_ranks(kernels, compressors, torch, record):
+    """7c (a) tp = 2 and (b) sp = 2 + remat as gloo ranks on the card, then
+    the Top-K kernels held against their plain versions at the ranks' sync
+    group sizes.  It runs before the phases that train in this process: the
+    ranks need the card's memory to themselves (two whole models at sp =
+    2)."""
+    card = record["card"]
+    t_phase = time.perf_counter()
+    free, total = torch.cuda.mem_get_info()
+    log(f"7c: {free / 2 ** 30:.1f} of {total / 2 ** 30:.1f} GiB free on the card before the "
+        "ranks start")
+    runs = {}
+    for label, run in LM_AXES_RUNS.items():
+        layers, seq = run["layers"], run["seq"]
+        t0 = time.perf_counter()
+        results = run_lm_axes_world(label, layers, seq)
+        wall = time.perf_counter() - t0
+        losses = [r["summary"]["loss"] for r in results]
+        if not all(math.isfinite(x) for x in losses) or len(set(losses)) != 1:
+            raise AssertionError(f"7c {label}: losses {losses} (finite and equal wanted)")
+        for r, res in enumerate(results):
+            la = res["launches"]
+            if res["summary"]["step"] != LM_AXES_STEPS:
+                raise AssertionError(f"7c {label} rank {r}: {res['summary']['step']} steps")
+            if res["groups"] != lm_axes_groups(label):
+                raise AssertionError(f"7c {label} rank {r}: sync groups {res['groups']}, want "
+                                     f"{lm_axes_groups(label)}")
+            # two signature groups a step, each one entire-model Top-K group
+            if la["fused_sparsify"] != 2 * LM_AXES_STEPS or min(la[k] for k in LM_AXES_TOPK) < 1:
+                raise AssertionError(f"7c {label} rank {r}: Top-K launches {la}")
+            if label == "tp2":
+                bad = {k: la[k] for k in FLASH_ROUTES if la[k] != layers * LM_AXES_STEPS}
+                if bad or res["heads"] != [[16, 4]]:
+                    raise AssertionError(f"7c tp2 rank {r}: flash launches {bad}, local heads "
+                                         f"{res['heads']} (16/4 wanted)")
+            elif any(la[k] for k in FLASH_ROUTES):
+                raise AssertionError(f"7c {label} rank {r}: a flash kernel ran on the ring: {la}")
+            if "ring_hold" in res:
+                h = res["ring_hold"]
+                log(f"7c {label} rank {r}: ring attention (1, 32/8 heads, {h['seq']}, 128) "
+                    f"fp32, sp={h['ring']}, max |diff| from the whole sequence in float64 "
+                    "(the whole sequence's float32 chain's; the rms): "
+                    + ", ".join(f"{n} {h[n]['max_abs']:.3e} ({h[n]['whole_fp32_max_abs']:.3e}; "
+                                f"{h[n]['rms']:.4f})" for n in ("o", "dq", "dk", "dv"))
+                    + f"; ring fwd + bwd {h['ring_ms']:.1f} ms")
+        if label == "tp2" and len({r["replicated_sha256"] for r in results}) != 1:
+            raise AssertionError("7c tp2: the replicated parameters differ across tensor ranks")
+        tokens = seq
+        rows = [_lm_row(f"7c {label} rank {r} ({layers} layers, seq {seq})", res["summary"],
+                        round(res["peak_gib"], 2), card, tokens)
+                for r, res in enumerate(results)]
+        launches = {k: sum(res["launches"][k] for res in results)
+                    for k in results[0]["launches"]}
+        log(f"7c {label}: world wall {wall:.1f} s, launches summed over ranks {launches}"
+            + ("; replicated parameters bitwise equal across the tensor ranks"
+               if label == "tp2" else ""))
+        runs[label] = {"ranks": results, "rows": rows, "launches": launches, "wall_s": wall}
+    t0 = time.perf_counter()
+    sizes = sorted({n for label in LM_AXES_RUNS for n in lm_axes_groups(label)})
+    holds = hold_lm_axes_groups(kernels, compressors, torch, sizes)
+    log(f"7c Top-K holds at the ranks' group sizes {sizes}: {time.perf_counter() - t0:.1f} s")
+    wall = time.perf_counter() - t_phase
+    log(f"7c (a)-(b) wall {wall:.1f} s")
+    record["lm_axes_ranks"] = {"runs": runs, "holds": holds, "wall_s": wall}
+    return runs
+
+
+def phase_lm_axes_one(kernels, torch, record, lm_runs):
+    """7c (c): PowerSGD and --overlap 4 at phase 7's one-rank config; each
+    --overlap run launches ``fused_sparsify`` as often as phase 7's run at
+    its granularity (``lm_runs``) does, whose step time it prints beside its
+    own."""
+    from tpu_compressed_dp_torch.harness import lm
+    from tpu_compressed_dp_torch.ops import lowrank
+    from tpu_compressed_dp_torch.parallel import dp
+
+    card = record["card"]
+    t_phase = time.perf_counter()
+    runs = {}
+    leaves = lm_leaf_sizes()
+    holds = {gran: overlap_sync_hold(torch, gran) for gran in ("entiremodel", "layerwise")}
+    if not all(holds.values()):
+        raise AssertionError(f"7c: sync_overlap 4 differs from 1: {holds}")
+    log(f"7c one LM sync (Top-K 1 % + EF, llama3_8b widths, 2 layers) at sync_overlap 4 bitwise "
+        f"== 1: {holds}")
+    for label, flags in LM_ONE_RUNS.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        summary = lm.main(LM_ARGV + flags)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        if summary["step"] != 4 or not math.isfinite(summary["loss"]):
+            raise AssertionError(f"7c {label}: {summary}")
+        if any(launches[k] != 2 * summary["step"] for k in FLASH_ROUTES):
+            raise AssertionError(f"7c {label}: flash launches {launches}")
+        if label.startswith("powersgd"):
+            want = powersgd_sent(dp, lowrank, leaves, label.split()[2], 4)
+            if abs(summary["sent frac"] - want) > 1e-6 * want:
+                raise AssertionError(f"7c {label}: sent frac {summary['sent frac']}, analytic "
+                                     f"{want}")
+        else:
+            base = lm_runs[label.split(" --")[0]]
+            # one fused_sparsify a sync group a step; the search's rounds
+            # depend on the data
+            if (launches["fused_sparsify"] != base["launches"]["fused_sparsify"]
+                    or min(launches[k] for k in LM_AXES_TOPK) < 1):
+                raise AssertionError(f"7c {label}: Top-K launches {launches}, phase 7's "
+                                     f"{base['launches']}")
+            log(f"7c {label}: phase 7's {label.split(' --')[0]} run {base['step_ms']:.1f} "
+                f"ms/step on {card}")
+        row = _lm_row(f"7c {label} (phase 7's config)", summary,
+                      round(torch.cuda.max_memory_allocated() / 2 ** 30, 2), card, 8192)
+        runs[label] = {**row, "launches": launches, "wall_s": wall}
+    wall = time.perf_counter() - t_phase
+    log(f"7c (c) wall {wall:.1f} s")
+    record["lm_axes_one"] = {"runs": runs, "overlap_holds": holds, "wall_s": wall}
+    return runs
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3211,6 +3669,9 @@ def main(argv=None) -> int:
     parser.add_argument("--rank_worker", nargs=4, default=None,
                         metavar=("WORLD", "RANK", "PORT", "OUT"),
                         help="internal: run one rank of the multi-rank phase")
+    parser.add_argument("--lm_axes_worker", nargs=6, default=None,
+                        metavar=("LABEL", "RANK", "PORT", "OUT", "LAYERS", "SEQ"),
+                        help="internal: run one rank of phase 7c")
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -3224,6 +3685,9 @@ def main(argv=None) -> int:
     if args.rank_worker:
         world, rank, port, out = args.rank_worker
         return rank_worker(int(world), int(rank), int(port), out)
+    if args.lm_axes_worker:
+        label, rank, port, out, layers, seq = args.lm_axes_worker
+        return lm_axes_worker(label, int(rank), int(port), out, int(layers), int(seq))
     from tpu_compressed_dp_torch.harness import dawn, imagenet
     from tpu_compressed_dp_torch.ops import compressors, kernels, wire
 
@@ -3242,6 +3706,7 @@ def main(argv=None) -> int:
         log(f"nvcc {name}.cu built in {kernels.BUILD_SECONDS.get(name, 0.0):.2f} s")
     log(f"kernels built in {build_s:.2f} s")
     record["build_s"] = build_s
+    axes_runs = phase_lm_axes_ranks(kernels, compressors, torch, record)
 
     err, rows = phase_kernels(kernels, compressors, torch, record)
     d_err, d_rows = phase_dither(kernels, torch, record)
@@ -3271,6 +3736,7 @@ def main(argv=None) -> int:
     seg_runs = phase_seg_path(kernels, compressors, dawn, torch, record,
                               runs["wire topk entiremodel"], lm_runs["wire topk entiremodel"])
     phase_lm_profile(kernels, torch, record)
+    axes_runs.update(phase_lm_axes_one(kernels, torch, record, lm_runs))
     phase_steady(torch, record)
     phase_steady_cifar(torch, record)
     imagenet_runs = phase_imagenet(kernels, imagenet, torch, record)
@@ -3317,14 +3783,15 @@ def main(argv=None) -> int:
     for name in replaces:
         r = rows[FULL_MODEL][name]
         # the main paths' launches: phase 3's and 3b's dawn runs, the LM runs
-        # of phase 7, the segmented-path runs, phase 8's ImageNet runs and
-        # the multi-rank dawn runs
+        # of phases 7 and 7c (7c's ranks summed), the segmented-path runs,
+        # phase 8's ImageNet runs and the multi-rank dawn runs
         launches = (sum(run["launches"][name] for run in runs.values())
                     + sum(run["launches"][name] for run in cifar_runs.values())
                     + sum(run["launches"][name] for run in imagenet_runs.values())
                     + sum(run["launches"][name] for run in lm_runs.values())
                     + sum(run["launches"][name] for run in seg_runs.values())
-                    + sum(w["launches"].get(name, 0) for w in worlds.values()))
+                    + sum(w["launches"].get(name, 0) for w in worlds.values())
+                    + sum(run["launches"].get(name, 0) for run in axes_runs.values()))
         entry = {
             "name": name, "route": "cuda", "source": source[name],
             "replaces": replaces[name], "launches": launches,
@@ -3346,7 +3813,8 @@ def main(argv=None) -> int:
     by_name = {e["name"]: e for e in line["kernels"]}
     if not by_name["bucket_route"]["launches"]:
         raise AssertionError("the multi-rank runs never launched bucket_route")
-    lm_all = list(lm_runs.values()) + [seg_runs["lm llama3_8b 2 layers"]]
+    lm_all = (list(lm_runs.values()) + [seg_runs["lm llama3_8b 2 layers"]]
+              + list(axes_runs.values()))
     if any(by_name[r]["launches"] != sum(run["launches"][r] for run in lm_all)
            for r in FLASH_ROUTES):
         raise AssertionError("a flash kernel launched off the LM runs")

@@ -261,8 +261,13 @@ def test_dispatch_gate():
 
 
 def test_sequence_ring_raises_and_wrapper_refuses_other_devices():
-    q = torch.zeros(1, 2, 128, 64)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # no sequence group is a ring of one block: the dense causal attention
+    # (the ring over a group: tests/test_torch_lm_axes.py)
+    gen = torch.Generator().manual_seed(0)
+    q, k = torch.randn(1, 2, 128, 64, generator=gen), torch.randn(1, 1, 128, 64, generator=gen)
+    np.testing.assert_array_equal(tra.ring_attention(q, k, k, group=None).numpy(),
+                                  tra.dense_causal_attention(q, k, k).numpy())
+    with pytest.raises(TypeError):
         tra.ring_attention(q, q, q, axis_name="seq")
     m = torch.zeros(1, 2, 128, 64, device="meta")
     with pytest.raises(ValueError, match="CUDA or CPU"):

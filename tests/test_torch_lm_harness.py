@@ -7,17 +7,30 @@
   * every JAX flag the port does not carry yet raises
     ``NotImplementedError`` naming its ROADMAP item, the flag names and
     defaults are the JAX parser's, and CUDA is the default device;
+  * the mesh and sync flags drive the entry point on 2 gloo processes
+    (``--tp 2``, ``--sp 2``, ``--remat``, ``--overlap 2``, ``--method
+    powersgd``), each with a finite first-step loss equal to the JAX
+    harness's to rtol 1e-5 (float32; the port's processes start from the
+    JAX harness's ``init_llama`` parameters, injected as the tests inject
+    JAX's draws elsewhere);
   * the MFU accounting matches the JAX closed form and is absent off the
     card.
 """
 
+import json
 import math
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
 
+import jax
+
 from tpu_compressed_dp.data import lm as jdata
 from tpu_compressed_dp.harness import lm as jharness
+from tpu_compressed_dp.models import transformer as jtf
 from tpu_compressed_dp.utils import flops as jflops
 
 import torch
@@ -92,13 +105,12 @@ def test_parser_surface_matches_jax():
 
 
 _UNPORTED = [
-    (["--tp", "2"], 11), (["--sp", "2"], 11), (["--pp", "2"], 11), (["--experts", "4"], 11),
-    (["--remat"], 11), (["--guard"], 12), (["--guard_max_skips", "3"], 12),
+    (["--pp", "2"], 11), (["--experts", "4"], 11),
+    (["--guard"], 12), (["--guard_max_skips", "3"], 12),
     (["--chaos", "nan,target=grads,steps=1"], 12), (["--checkpoint_dir", "ck"], 12),
     (["--resume", "ck"], 12), (["--elastic"], 12), (["--elastic_dir", "d"], 12),
     (["--stream_dir", "s"], 14), (["--stream_rejoin"], 14), (["--adaptive"], 13),
     (["--adaptive_window", "4"], 13), (["--events", "e.jsonl"], 13), (["--prom", "m.prom"], 13),
-    (["--overlap", "2"], 9),
 ]
 
 
@@ -106,6 +118,102 @@ _UNPORTED = [
 def test_unported_flags_raise(argv, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         tharness.main(["--device", "cpu", "--steps", "1", *argv])
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_DRIVE = ["--preset", "tiny", "--steps", "1", "--log_every", "1", "--seq_len", "64",
+          "--global_batch", "4", "--fp32", "--seed", "3"]
+_TOPK = ["--method", "topk", "--ratio", "0.05", "--error_feedback"]
+# label -> (port flags, JAX flags): 2 processes each; the JAX harness runs
+# the same mesh on 2 virtual devices
+MESH_DRIVES = {
+    "tp2": (["--tp", "2", "--compress", "entiremodel", *_TOPK], ["--dp", "1", "--tp", "2"]),
+    "sp2": (["--sp", "2", "--compress", "entiremodel", *_TOPK], ["--dp", "1", "--sp", "2"]),
+    "remat": (["--remat", "--sp", "2", "--compress", "layerwise", *_TOPK],
+              ["--dp", "1", "--sp", "2", "--remat"]),
+    "overlap2": (["--overlap", "2", "--compress", "layerwise", *_TOPK],
+                 ["--dp", "2", "--overlap", "2"]),
+    # the first step's loss comes before any sync; the JAX LM step refuses
+    # PowerSGD on this JAX (ROADMAP.md queue 3), so its dense run is the
+    # reference
+    "powersgd": (["--method", "powersgd", "--rank", "2", "--compress", "layerwise",
+                  "--error_feedback"], ["--dp", "2"]),
+}
+
+_DRIVE_WORKER = r"""
+import json, sys
+import numpy as np
+from tpu_compressed_dp_torch.harness import lm
+from tpu_compressed_dp_torch.models import transformer as tf
+from tpu_compressed_dp_torch.parallel import mesh
+out, port, rank = sys.argv[1], sys.argv[2], int(sys.argv[3])
+mesh.init_process_group("cpu", init_method=f"tcp://localhost:{port}", world_size=2, rank=rank)
+saved = np.load(sys.argv[5])
+flat = {k: saved[k] for k in saved.files}
+tree = {"embed": flat.pop("embed"), "final_norm": flat.pop("final_norm"),
+        "lm_head": flat.pop("lm_head")}
+n_layers = 1 + max(int(k.split(".")[1]) for k in flat)
+tree["layers"] = [{k.split(".")[2]: v for k, v in flat.items() if k.startswith(f"layers.{i}.")}
+                  for i in range(n_layers)]
+llama = tf.Llama
+
+
+def from_jax(cfg, *, seed=0, device=None, tensor_rank=0, tensor_size=1):
+    tf.Llama = llama
+    try:
+        return tf.load_jax_params(cfg, tree, tensor_rank, tensor_size, device=device)
+    finally:
+        tf.Llama = from_jax
+
+
+tf.Llama = from_jax
+summary = lm.main(json.loads(sys.argv[4]))
+with open(out, "w") as f:
+    json.dump(summary, f)
+mesh.destroy()
+"""
+
+
+@pytest.fixture(scope="module")
+def mesh_drives(tmp_path_factory):
+    from tpu_compressed_dp_torch.parallel.mesh import free_port
+
+    out = tmp_path_factory.mktemp("lm_mesh_drives")
+    # the JAX harness's initial parameters (init_llama of its seed)
+    jargs = jharness.build_parser().parse_args(_DRIVE)
+    params = jtf.init_llama(jharness.build_config(jargs), jax.random.key(jargs.seed))
+    names = [".".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in path)
+             for path, _ in jax.tree_util.tree_flatten_with_path(params)[0]]
+    np.savez(out / "params.npz", **{n: np.asarray(a) for n, a in
+                                    zip(names, jax.tree.leaves(params))})
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               OMP_NUM_THREADS="1")
+    procs = {}
+    for label, (flags, _) in MESH_DRIVES.items():
+        port = str(free_port())
+        procs[label] = [subprocess.Popen(
+            [sys.executable, "-c", _DRIVE_WORKER, str(out / f"{label}_{r}.json"), port, str(r),
+             json.dumps(_DRIVE + ["--device", "cpu"] + flags), str(out / "params.npz")],
+            env=env, cwd=REPO, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    results = {}
+    for label, ps in procs.items():
+        logs = [p.communicate(timeout=300)[0] for p in ps]
+        for p, log in zip(ps, logs):
+            assert p.returncode == 0, log[-3000:]
+        results[label] = [json.loads((out / f"{label}_{r}.json").read_text()) for r in range(2)]
+    return results
+
+
+@pytest.mark.parametrize("label", list(MESH_DRIVES))
+def test_mesh_flags_drive_and_match_the_jax_first_step(mesh_drives, label):
+    port_flags, jax_flags = MESH_DRIVES[label]
+    want = jharness.main(_DRIVE + jax_flags)["loss"]
+    for summary in mesh_drives[label]:
+        assert summary["step"] == 1 and math.isfinite(summary["loss"])
+        np.testing.assert_allclose(summary["loss"], want, rtol=1e-5)
+        if "--method" in port_flags:
+            assert 0.0 < summary["sent frac"] < 1.0
 
 
 def test_cuda_is_the_default_device():

@@ -298,9 +298,14 @@ def test_step_surface():
     for kw, item in ((dict(guard_cfg=object()), "item 12"), (dict(chaos=object()), "item 12")):
         with pytest.raises(NotImplementedError, match=item):
             tlm.make_lm_train_step(cfg, opt, tdp.CompressionConfig(), **kw)
+    # PowerSGD and the chunked sync build on the data-parallel mesh; the
+    # warm starts are per signature group
     for comp in (tdp.CompressionConfig(sync_overlap=2), tdp.CompressionConfig(method="powersgd")):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            tlm.make_lm_train_step(cfg, opt, comp)
+        assert callable(tlm.make_lm_train_step(cfg, opt, comp))
+    leaves = ttf.param_leaves(ttf.Llama(cfg))
+    state = tlm.init_lm_comp_state(cfg, leaves, tdp.CompressionConfig(method="powersgd"))
+    assert sorted(state) == ["sig0", "sig1"] and state["sig1"]
+    assert tlm.init_lm_comp_state(cfg, leaves, tdp.CompressionConfig(method="topk")) == ()
     assert tlm.local_rows(8, 4, 3) == slice(6, 8)
     with pytest.raises(ValueError):
         tlm.local_rows(6, 4, 0)

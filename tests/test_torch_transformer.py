@@ -175,11 +175,20 @@ def test_fused_xent_auto_rule_matches_jax():
     assert ttf.use_fused_head_xent(8192, 128256, 2)
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(pair):
     with pytest.raises(NotImplementedError, match="item 11"):
         ttf.Llama(dataclasses.replace(CFG_T, n_experts=4))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ttf.Llama(dataclasses.replace(CFG_T, remat=True))
+    # remat is ported: each layer recomputed in the backward pass, the same
+    # bits as without
+    params, model = pair
+    remat = ttf.load_jax_params(dataclasses.replace(CFG_T, remat=True), params)
+    x, y = (torch.from_numpy(a) for a in _tokens())
+    grads = []
+    for m in (model, remat):
+        loss = ttf.vocab_parallel_xent(m(x), y)
+        grads.append([loss] + list(torch.autograd.grad(loss, list(ttf.param_leaves(m).values()))))
+    for a, b in zip(*grads):
+        np.testing.assert_array_equal(a.detach().numpy(), b.detach().numpy())
     with pytest.raises(ValueError):
         ttf.load_jax_params(dataclasses.replace(CFG_T, n_layers=3),
                             jax.tree.map(np.asarray, jtf.init_llama(CFG_J, jax.random.key(1))))

@@ -1,18 +1,22 @@
 """Llama pretrain harness on PyTorch: compressed data-parallel SGD.
 
-PyTorch-port counterpart of :mod:`tpu_compressed_dp.harness.lm` on a
-``(data, 1, 1)`` mesh (``--tp 1 --sp 1 --pp 1``): each process is one
-data-parallel worker holding the whole model; its gradient syncs through
-the ported engines (dense, or any compressor in simulate or wire mode, over
-the allgather, sharded or hierarchical transport).  The flag names and
-defaults are the JAX harness's, plus ``--device``; a flag this port does not
-carry yet raises ``NotImplementedError`` naming the ROADMAP item that brings
-it.  Steady-state tokens/s excludes the first two steps (as the JAX harness
+PyTorch-port counterpart of :mod:`tpu_compressed_dp.harness.lm` on the
+``(data, seq, tensor)`` mesh (``--dp --sp --tp``; ``--pp 1``): one process
+per mesh position (``parallel/mesh.lm_groups``), each holding its tensor
+shard of the model and its ``(data, seq)`` block of the global batch; the
+``dp * sp`` compression workers' gradients sync through the ported engines
+(dense, PowerSGD at ``--tp 1``, or any compressor in simulate or wire mode,
+over the allgather, sharded or hierarchical transport, chunk-pipelined with
+``--overlap``).  The flag names and defaults are the JAX harness's, plus
+``--device``; a flag this port does not carry yet raises
+``NotImplementedError`` naming the ROADMAP item that brings it.
+Steady-state tokens/s excludes the first two steps (as the JAX harness
 does) and is closed by a device synchronise.
 
-Runs on CUDA unless ``--device cpu``; one process is one worker (launch
-several with ``torchrun``, e.g. ``torchrun --nproc_per_node 2 -m
-tpu_compressed_dp_torch.harness.lm ...``; alone, it runs a 1-rank group).
+Runs on CUDA unless ``--device cpu``; launch ``dp * sp * tp`` processes with
+``torchrun`` (e.g. ``torchrun --nproc_per_node 4 -m
+tpu_compressed_dp_torch.harness.lm --sp 2 --tp 2 ...``; ``--dp`` defaults to
+the world over ``sp * tp``); alone, it runs a 1-rank group.
 
 Run: ``python -m tpu_compressed_dp_torch.harness.lm --preset llama3_8b
 --layers 2 --seq_len 8192 --global_batch 1 --compress entiremodel --method
@@ -34,8 +38,8 @@ from tpu_compressed_dp_torch.harness.loop import to_device
 from tpu_compressed_dp_torch.models import transformer as tf
 from tpu_compressed_dp_torch.parallel import mesh
 from tpu_compressed_dp_torch.parallel.dp import CompressionConfig
-from tpu_compressed_dp_torch.train.lm_step import (init_lm_ef_state, local_rows,
-                                                   make_lm_train_step)
+from tpu_compressed_dp_torch.train.lm_step import (init_lm_comp_state, init_lm_ef_state,
+                                                   local_block, make_lm_train_step)
 from tpu_compressed_dp_torch.train.optim import SGD
 from tpu_compressed_dp_torch.train.schedules import piecewise_linear
 from tpu_compressed_dp_torch.train.state import TrainState
@@ -52,7 +56,7 @@ _ITEM = "ROADMAP.md queue 1, item {}"
 # flags of the JAX harness this port does not carry yet, by the ROADMAP item
 # that ports them: any value but the default raises
 _LATER = {
-    **dict.fromkeys(("experts", "moe_every", "capacity_factor", "remat", "microbatches"), 11),
+    **dict.fromkeys(("experts", "moe_every", "capacity_factor", "microbatches"), 11),
     **dict.fromkeys(("guard", "guard_init_scale", "guard_backoff", "guard_growth_interval",
                      "guard_max_skips", "chaos", "heartbeat", "heartbeat_interval", "elastic",
                      "elastic_dir", "peer_timeout", "elastic_ef", "elastic_min_world",
@@ -66,8 +70,8 @@ _LATER = {
     **dict.fromkeys(("stream_dir", "stream_every", "stream_keyframe_every", "stream_ratio",
                      "stream_rejoin"), 14),
 }
-# axes and chunking: values above 1 are not ported
-_ABOVE_ONE = {"tp": 11, "sp": 11, "pp": 11, "overlap": 9}
+# pipeline stages: values above 1 are not ported
+_ABOVE_ONE = {"pp": 11}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -84,12 +88,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--moe_every", type=int, default=None)
     p.add_argument("--capacity_factor", type=float, default=None)
     p.add_argument("--fp32", action="store_true", help="disable bf16 compute")
-    p.add_argument("--remat", action="store_true", help="rematerialise layers (not ported)")
+    p.add_argument("--remat", action="store_true", help="rematerialise layers")
     # mesh
     p.add_argument("--dp", type=int, default=None,
-                   help="data axis size (default: the world size; must equal it)")
-    p.add_argument("--sp", type=int, default=1, help="sequence axis size (1 only)")
-    p.add_argument("--tp", type=int, default=1, help="tensor axis size (1 only)")
+                   help="data axis size (default: world // (sp * tp))")
+    p.add_argument("--sp", type=int, default=1, help="sequence axis size (ring attention)")
+    p.add_argument("--tp", type=int, default=1, help="tensor axis size (Megatron layers)")
     p.add_argument("--pp", type=int, default=1, help="pipeline stages (1 only)")
     p.add_argument("--microbatches", type=int, default=4)
     # data/schedule
@@ -114,7 +118,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ratio", "-K", type=float, default=0.01)
     p.add_argument("--threshold", "-V", type=float, default=0.001)
     p.add_argument("--qstates", "-Q", type=int, default=255)
-    p.add_argument("--rank", type=int, default=4, help="r for powersgd (not ported)")
+    p.add_argument("--rank", type=int, default=4, help="r for powersgd")
     p.add_argument("--block_size", type=int, default=256,
                    help="blocktopk: elements per contiguous block")
     p.add_argument("--bucket_mb", type=float, default=25.0,
@@ -125,7 +129,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--transport", default="allgather",
                    choices=["allgather", "sharded", "hierarchical"])
     p.add_argument("--error_feedback", action="store_true")
-    p.add_argument("--overlap", type=int, default=1, help="chunk-pipelined sync (1 only)")
+    p.add_argument("--overlap", type=int, default=1,
+                   help="chunk-pipelined sync: chunks per signature group")
     p.add_argument("--dp_pods", type=int, default=1,
                    help="hierarchical transport: pod count (must divide the world size)")
     p.add_argument("--hier_route_factor_ici", type=float, default=1.25)
@@ -241,34 +246,56 @@ def run(args) -> Dict[str, float]:
             mesh.destroy()
 
 
+def _mesh(args) -> mesh.LmGroups:
+    """This rank's groups on the ``(dp, sp, tp)`` mesh, with the JAX
+    harness's checks."""
+    world = mesh.world()
+    if args.sp < 1 or args.tp < 1 or world % (args.sp * args.tp):
+        raise ValueError(f"--sp {args.sp} x --tp {args.tp} must divide the world size {world}")
+    dp = args.dp if args.dp is not None else world // (args.sp * args.tp)
+    if dp * args.sp * args.tp != world:
+        raise ValueError(f"--dp {dp} x --sp {args.sp} x --tp {args.tp} must equal the world "
+                         f"size {world} (one process per mesh position)")
+    if args.global_batch % dp:
+        raise ValueError(f"--global_batch {args.global_batch} must divide by dp={dp}")
+    if args.seq_len % args.sp:
+        raise ValueError(f"--seq_len {args.seq_len} must divide by sp={args.sp}")
+    return mesh.lm_groups(dp, args.sp, args.tp)
+
+
 def _run(args, device: torch.device, comp: CompressionConfig) -> Dict[str, float]:
-    world, rank = mesh.world(), mesh.rank()
-    if args.dp is not None and args.dp != world:
-        raise ValueError(f"--dp {args.dp} must equal the world size {world} "
-                         "(one process per data-parallel worker)")
     cfg = build_config(args)
-    rows = local_rows(args.global_batch, world, rank)
+    cfg.validate_mesh(args.tp)
+    groups = _mesh(args)
+    rank = mesh.rank()
     if args.corpus:
         ds = lm_data.ByteCorpus(args.corpus, args.seq_len, args.global_batch, seed=args.seed)
         if ds.vocab != cfg.vocab_size:
             cfg = dataclasses.replace(cfg, vocab_size=ds.vocab)
+            cfg.validate_mesh(args.tp)
     else:
         ds = lm_data.SyntheticTokens(cfg.vocab_size, args.seq_len, args.global_batch,
                                      seed=args.seed)
-    model = tf.Llama(cfg, seed=args.seed, device=device)
+    rows, cols = local_block(args.global_batch, args.seq_len, groups)
+    model = tf.Llama(cfg, seed=args.seed, device=device, tensor_rank=groups.tensor_index,
+                     tensor_size=groups.tp)
     params = tf.param_leaves(model)
-    n_params = sum(p.numel() for p in params.values())
+    # the whole model's count (the JAX tree's), every tensor shard's leaves
+    n_params = sum(p.numel() * (groups.tp if sh else 1)
+                   for p, sh in zip(params.values(), tf.is_sharded(cfg)))
     sched = piecewise_linear(
         [0, max(args.warmup_steps, 1), max(args.steps, args.warmup_steps + 1)],
         [0.0, args.lr, args.lr * 0.1])
     opt = SGD(lr=sched, momentum=args.momentum, weight_decay=args.weight_decay)
     state = TrainState.create(model, opt.init(params), init_lm_ef_state(cfg, params, comp),
-                              seed=args.seed + 1)
-    train_step = make_lm_train_step(cfg, opt, comp, clip_norm=args.clip_norm,
+                              seed=args.seed + 1,
+                              comp=init_lm_comp_state(cfg, params, comp, groups))
+    train_step = make_lm_train_step(cfg, opt, comp, groups=groups, clip_norm=args.clip_norm,
                                     clip_sent_norm=args.clip_sent_norm)
+    n_chips = groups.dp * groups.sp * groups.tp
     if rank == 0:
-        print(f"params={n_params / 1e6:.1f}M world={world} x {device} "
-              f"seq={args.seq_len} batch={args.global_batch} "
+        print(f"params={n_params / 1e6:.1f}M mesh=dp{groups.dp}xsp{groups.sp}xtp{groups.tp} "
+              f"x {device} seq={args.seq_len} batch={args.global_batch} "
               f"method={comp.method or 'dense'}/{comp.granularity}/{comp.mode} "
               f"dtype={cfg.dtype}")
 
@@ -276,7 +303,7 @@ def _run(args, device: torch.device, comp: CompressionConfig) -> Dict[str, float
     summary: Dict[str, float] = {}
     t0, timed_from = time.perf_counter(), 0
     for step_i in range(args.steps):
-        batch = {k: v[rows] for k, v in ds.batch(step_i).items()}
+        batch = {k: v[rows, cols] for k, v in ds.batch(step_i).items()}
         state, metrics = train_step(state, to_device(batch, device))
         if step_i <= 1:
             # steady state starts after the first two steps (allocator and
@@ -291,11 +318,12 @@ def _run(args, device: torch.device, comp: CompressionConfig) -> Dict[str, float
             summary = {"step": step_i + 1, "loss": m["loss"], "lr": m["lr"],
                        "tok/s": round(tokens_done / dt, 1) if steps_timed > 0 else 0.0}
             if steps_timed > 0:
-                # MFU: closed-form 6N + 12 L d s per token, per card, against
-                # the card's bf16 peak (absent on the CPU and unknown cards)
+                # MFU: closed-form 6N + 12 L d s per token, per card of the
+                # mesh, against the card's bf16 peak (absent on the CPU and
+                # unknown cards)
                 tok_flops = flops_mod.transformer_train_flops_per_token(
                     n_params, cfg.n_layers, cfg.dim, args.seq_len)
-                fwd_per_card = (tok_flops / 3.0) * args.global_batch * args.seq_len / world
+                fwd_per_card = (tok_flops / 3.0) * args.global_batch * args.seq_len / n_chips
                 thr = flops_mod.throughput_record(fwd_per_card, steps_timed / dt,
                                                   tokens_per_sec=tokens_done / dt,
                                                   device=device)

@@ -1,8 +1,26 @@
 """Llama-family decoder-only transformer as an ``nn.Module``.
 
-PyTorch counterpart of :mod:`tpu_compressed_dp.models.transformer` at tensor
-and sequence axes of size 1: RMSNorm pre-norm, rotary position embeddings
-(interleaved pairs), grouped-query attention, SwiGLU MLP, untied LM head.
+PyTorch counterpart of :mod:`tpu_compressed_dp.models.transformer`: RMSNorm
+pre-norm, rotary position embeddings (interleaved pairs), grouped-query
+attention, SwiGLU MLP, untied LM head.
+
+A :class:`Llama` is one rank's shard of the model on the ``(data, seq,
+tensor)`` mesh (``parallel/mesh.lm_groups``), written Megatron-style as the
+JAX ``apply_llama`` is under ``shard_map``: ``Llama(cfg, tensor_rank=t,
+tensor_size=tp)`` holds the JAX ``param_specs`` slices, ``wq/wk/wv``,
+``w_gate/w_up`` and ``lm_head`` by columns (``H/tp`` query and ``H_kv/tp``
+KV heads, ``ffn/tp`` hidden units, ``vocab/tp`` logits), ``wo`` and
+``w_down`` by rows, the embedding and the norms whole.  ``forward(tokens,
+tensor_group=..., seq_group=...)`` sums each row-parallel product over the
+tensor group (``mesh.reduce_from_group``, the JAX ``psum``) and marks the
+replicated input of each column-parallel product with
+``mesh.copy_to_group``, whose backward sums the cotangent over the group
+(the psum JAX's AD puts at the implicit ``pvary``), so the replicated
+parameters get the same whole gradient on every tensor rank.  The tokens
+are this rank's sequence block: rope positions are offset by its seq index
+and attention is the ring over the seq group (``ops/ring_attention.py``).
+``cfg.remat`` recomputes each layer in the backward pass
+(``torch.utils.checkpoint``, the JAX ``jax.checkpoint``).
 
 Parameters keep the JAX layout so that entire-model flattening lays every
 leaf out as the JAX run does (the Top-K sampled first round and the wire
@@ -13,16 +31,16 @@ at use.  :func:`param_leaves` yields them in ``jax.tree.leaves`` order
 wk, wo, wq, wv}, lm_head``) and :func:`load_jax_params` carries a JAX
 parameter tree across.
 
-The LM loss is :func:`vocab_parallel_xent` of the logits, or
-:func:`fused_head_xent` straight from the final hidden states (the head
+The LM loss is :func:`vocab_parallel_xent` of the (vocab-sharded) logits,
+or :func:`fused_head_xent` straight from the final hidden states (the head
 matmul and the softmax cross-entropy fused through a running logsumexp over
 vocab chunks, so the ``[N, V]`` logits never materialise); the train step
 takes the fused form where the logits would exceed 1 GiB
-(:func:`use_fused_head_xent`).  Both are plain ``torch`` matrix work, as the
-JAX package leaves them to XLA.
+(:func:`use_fused_head_xent`).  Both reduce their max, sum-exp and target
+logit over the tensor group, and are plain ``torch`` matrix work, as the JAX
+package leaves them to XLA.
 
-Not ported yet (ROADMAP.md queue 1, item 11): mixture-of-experts layers,
-rematerialisation, and the tensor and sequence axes.
+Not ported yet (ROADMAP.md queue 1, item 11): mixture-of-experts layers.
 """
 
 from __future__ import annotations
@@ -35,8 +53,10 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from tpu_compressed_dp_torch.ops.ring_attention import ring_attention
+from tpu_compressed_dp_torch.parallel import mesh
 
 __all__ = ["LlamaConfig", "llama3_8b", "tiny_llama", "Llama", "param_leaves", "is_sharded",
            "load_jax_params", "vocab_parallel_xent", "fused_head_xent",
@@ -45,6 +65,11 @@ __all__ = ["LlamaConfig", "llama3_8b", "tiny_llama", "Llama", "param_leaves", "i
 _ITEM = "ROADMAP.md queue 1, item 11"
 _LAYER_KEYS = ("attn_norm", "mlp_norm", "w_down", "w_gate", "w_up", "wk", "wo", "wq", "wv")
 _NORMS = ("attn_norm", "mlp_norm")
+# the axis each sharded leaf splits over the tensor axis (param_specs): the
+# output columns of the column-parallel products, the input rows of wo and
+# w_down
+_SHARD_AXIS = {"wq": 1, "wk": 1, "wv": 1, "w_gate": 1, "w_up": 1, "wo": 0, "w_down": 0,
+               "lm_head": 1}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,6 +103,16 @@ class LlamaConfig:
         h = int(8 * self.dim / 3)
         return ((h + 255) // 256) * 256
 
+    def validate_mesh(self, tensor_size: int) -> None:
+        """The JAX check: heads, KV heads, ffn and vocab divide by the tensor
+        axis."""
+        if self.n_kv_heads % tensor_size or self.n_heads % tensor_size:
+            raise ValueError(f"heads ({self.n_heads}/{self.n_kv_heads}) must divide by "
+                             f"tensor axis size {tensor_size}")
+        if self.ffn % tensor_size or self.vocab_size % tensor_size:
+            raise ValueError(f"ffn ({self.ffn}) and vocab ({self.vocab_size}) must divide "
+                             f"by tensor axis size {tensor_size}")
+
 
 def llama3_8b() -> LlamaConfig:
     """Llama-3-8B's widths: dim 4096, 32 heads, 8 KV heads, ffn 14336, vocab
@@ -95,29 +130,50 @@ def tiny_llama(vocab: int = 256, dim: int = 64, layers: int = 2) -> LlamaConfig:
 def _check_ported(cfg: LlamaConfig) -> None:
     if cfg.n_experts > 0:
         raise NotImplementedError(f"mixture-of-experts layers are not ported yet: {_ITEM}")
-    if cfg.remat:
-        raise NotImplementedError(f"rematerialisation (remat) is not ported yet: {_ITEM}")
 
 
 def _dense(gen: torch.Generator, fan_in: int, shape, device) -> torch.Tensor:
     return torch.randn(shape, generator=gen, device=device) / math.sqrt(fan_in)
 
 
-class LlamaLayer(nn.Module):
-    """One decoder layer's parameters (the JAX layer dict)."""
+def _shard(a, key: str, tensor_rank: int, tensor_size: int):
+    """Tensor rank ``tensor_rank``'s slice of the whole leaf ``a`` (a tensor
+    or a numpy array) named ``key``, as ``param_specs`` shards it; the leaf
+    itself where it is replicated or the axis has size 1."""
+    axis = _SHARD_AXIS.get(key.rsplit(".", 1)[-1])
+    if axis is None or tensor_size == 1:
+        return a
+    n = a.shape[axis] // tensor_size
+    index = [slice(None)] * a.ndim
+    index[axis] = slice(tensor_rank * n, (tensor_rank + 1) * n)
+    part = a[tuple(index)]
+    return part.clone() if isinstance(part, torch.Tensor) else part
 
-    def __init__(self, cfg: LlamaConfig, gen: torch.Generator, device=None):
+
+class LlamaLayer(nn.Module):
+    """One decoder layer's parameters (the JAX layer dict), tensor rank
+    ``tensor_rank``'s shard: every leaf is drawn whole, in the order of the
+    unsharded model, and sliced, so the shards of one seed make up the
+    unsharded model of that seed."""
+
+    def __init__(self, cfg: LlamaConfig, gen: torch.Generator, device=None,
+                 tensor_rank: int = 0, tensor_size: int = 1):
         super().__init__()
         d, hd = cfg.dim, cfg.head_dim
+
+        def leaf(key, fan_in, shape):
+            return nn.Parameter(_shard(_dense(gen, fan_in, shape, device), key, tensor_rank,
+                                       tensor_size))
+
         self.attn_norm = nn.Parameter(torch.ones(d, device=device))
-        self.wq = nn.Parameter(_dense(gen, d, (d, cfg.n_heads * hd), device))
-        self.wk = nn.Parameter(_dense(gen, d, (d, cfg.n_kv_heads * hd), device))
-        self.wv = nn.Parameter(_dense(gen, d, (d, cfg.n_kv_heads * hd), device))
-        self.wo = nn.Parameter(_dense(gen, cfg.n_heads * hd, (cfg.n_heads * hd, d), device))
+        self.wq = leaf("wq", d, (d, cfg.n_heads * hd))
+        self.wk = leaf("wk", d, (d, cfg.n_kv_heads * hd))
+        self.wv = leaf("wv", d, (d, cfg.n_kv_heads * hd))
+        self.wo = leaf("wo", cfg.n_heads * hd, (cfg.n_heads * hd, d))
         self.mlp_norm = nn.Parameter(torch.ones(d, device=device))
-        self.w_gate = nn.Parameter(_dense(gen, d, (d, cfg.ffn), device))
-        self.w_up = nn.Parameter(_dense(gen, d, (d, cfg.ffn), device))
-        self.w_down = nn.Parameter(_dense(gen, cfg.ffn, (cfg.ffn, d), device))
+        self.w_gate = leaf("w_gate", d, (d, cfg.ffn))
+        self.w_up = leaf("w_up", d, (d, cfg.ffn))
+        self.w_down = leaf("w_down", cfg.ffn, (cfg.ffn, d))
 
 
 def _rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -141,44 +197,74 @@ def _rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
 
 
 class Llama(nn.Module):
-    """The decoder; ``forward(tokens)`` gives logits ``[B, T, V]`` in
+    """The decoder, tensor rank ``tensor_rank`` of ``tensor_size``'s shard;
+    ``forward(tokens)`` gives this rank's logits ``[B, T, V / tp]`` in
     ``cfg.dtype``, ``forward(tokens, return_hidden=True)`` the final-normed
-    hidden states (the input of :func:`fused_head_xent`)."""
+    hidden states (the input of :func:`fused_head_xent`).  ``tensor_group``
+    (of ``tensor_size`` ranks) and ``seq_group`` are the process groups of
+    the model axes, ``None`` where an axis has size 1."""
 
-    def __init__(self, cfg: LlamaConfig, *, seed: int = 0, device=None):
+    def __init__(self, cfg: LlamaConfig, *, seed: int = 0, device=None, tensor_rank: int = 0,
+                 tensor_size: int = 1):
         super().__init__()
         _check_ported(cfg)
+        cfg.validate_mesh(tensor_size)
         self.cfg = cfg
+        self.tensor_rank, self.tensor_size = tensor_rank, tensor_size
         gen = torch.Generator(device=device if device is not None else "cpu").manual_seed(seed)
-        self.layers = nn.ModuleList(LlamaLayer(cfg, gen, device) for _ in range(cfg.n_layers))
+        self.layers = nn.ModuleList(LlamaLayer(cfg, gen, device, tensor_rank, tensor_size)
+                                    for _ in range(cfg.n_layers))
         self.embed = nn.Parameter(
             torch.randn((cfg.vocab_size, cfg.dim), generator=gen, device=device) * 0.02)
         self.final_norm = nn.Parameter(torch.ones(cfg.dim, device=device))
-        self.lm_head = nn.Parameter(_dense(gen, cfg.dim, (cfg.dim, cfg.vocab_size), device))
+        self.lm_head = nn.Parameter(_shard(_dense(gen, cfg.dim, (cfg.dim, cfg.vocab_size),
+                                                  device), "lm_head", tensor_rank, tensor_size))
 
-    def forward(self, tokens: torch.Tensor, return_hidden: bool = False) -> torch.Tensor:
+    def _layer(self, h, lp, pos, tensor_group, seq_group):
         cfg = self.cfg
         dt, hd = cfg.dtype, cfg.head_dim
-        b, t = tokens.shape
+        b, t = h.shape[:2]
+        x = mesh.copy_to_group(_rms_norm(h, lp.attn_norm, cfg.norm_eps), tensor_group)
+        q = (x @ lp.wq.to(dt)).reshape(b, t, -1, hd).transpose(1, 2)
+        k = (x @ lp.wk.to(dt)).reshape(b, t, -1, hd).transpose(1, 2)
+        v = (x @ lp.wv.to(dt)).reshape(b, t, -1, hd).transpose(1, 2)
+        q = _rope(q, pos, cfg.rope_theta)
+        k = _rope(k, pos, cfg.rope_theta)
+        o = ring_attention(q, k, v, group=seq_group)
+        o = o.transpose(1, 2).reshape(b, t, -1)
+        h = h + mesh.reduce_from_group(o @ lp.wo.to(dt), tensor_group)
+        x = mesh.copy_to_group(_rms_norm(h, lp.mlp_norm, cfg.norm_eps), tensor_group)
+        gate = F.silu(x @ lp.w_gate.to(dt))
+        return h + mesh.reduce_from_group((gate * (x @ lp.w_up.to(dt))) @ lp.w_down.to(dt),
+                                          tensor_group)
+
+    def forward(self, tokens: torch.Tensor, return_hidden: bool = False, *, tensor_group=None,
+                seq_group=None) -> torch.Tensor:
+        cfg = self.cfg
+        if mesh.axis_size(tensor_group) != self.tensor_size:
+            raise ValueError(f"a tensor shard of {self.tensor_size} needs a tensor group of that "
+                             f"size, got {mesh.axis_size(tensor_group)}")
+        t = tokens.shape[1]
         pos = torch.arange(t, device=tokens.device)
+        if seq_group is not None:
+            pos = mesh.group_rank(seq_group) * t + pos
         # gather, then cast: the same values as the JAX embed.astype(dt)[tokens]
         # without a cast copy of the whole table
-        h = F.embedding(tokens.long(), self.embed).to(dt)
+        h = F.embedding(tokens.long(), self.embed).to(cfg.dtype)
         for lp in self.layers:
-            x = _rms_norm(h, lp.attn_norm, cfg.norm_eps)
-            q = (x @ lp.wq.to(dt)).reshape(b, t, -1, hd).transpose(1, 2)
-            k = (x @ lp.wk.to(dt)).reshape(b, t, -1, hd).transpose(1, 2)
-            v = (x @ lp.wv.to(dt)).reshape(b, t, -1, hd).transpose(1, 2)
-            q = _rope(q, pos, cfg.rope_theta)
-            k = _rope(k, pos, cfg.rope_theta)
-            o = ring_attention(q, k, v)
-            o = o.transpose(1, 2).reshape(b, t, -1)
-            h = h + o @ lp.wo.to(dt)
-            x = _rms_norm(h, lp.mlp_norm, cfg.norm_eps)
-            gate = F.silu(x @ lp.w_gate.to(dt))
-            h = h + (gate * (x @ lp.w_up.to(dt))) @ lp.w_down.to(dt)
+            if cfg.remat:
+                # the whole layer is recomputed, never stopped early: a
+                # recompute must run every collective of the layer's forward
+                # on every rank of its groups
+                with set_checkpoint_early_stop(False):
+                    h = checkpoint(self._layer, h, lp, pos, tensor_group, seq_group,
+                                   use_reentrant=False)
+            else:
+                h = self._layer(h, lp, pos, tensor_group, seq_group)
         h = _rms_norm(h, self.final_norm, cfg.norm_eps)
-        return h if return_hidden else h @ self.lm_head.to(dt)
+        if return_hidden:
+            return h
+        return mesh.copy_to_group(h, tensor_group) @ self.lm_head.to(cfg.dtype)
 
 
 def param_leaves(model: Llama) -> Dict[str, nn.Parameter]:
@@ -202,10 +288,12 @@ def is_sharded(cfg: LlamaConfig):
     return [False, False] + per_layer * cfg.n_layers + [True]
 
 
-def load_jax_params(cfg: LlamaConfig, tree: Mapping, device="cpu") -> Llama:
-    """A :class:`Llama` holding the JAX parameter tree ``tree`` (``init_llama``'s
-    nested dict, leaves as numpy arrays), in the same layout."""
-    model = Llama(cfg, device=device)
+def load_jax_params(cfg: LlamaConfig, tree: Mapping, tensor_rank: int = 0,
+                    tensor_size: int = 1, device="cpu") -> Llama:
+    """A :class:`Llama` holding tensor rank ``tensor_rank``'s shard of the
+    JAX parameter tree ``tree`` (``init_llama``'s nested dict of whole
+    leaves as numpy arrays), in the same layout."""
+    model = Llama(cfg, device=device, tensor_rank=tensor_rank, tensor_size=tensor_size)
     leaves = param_leaves(model)
     want = {"embed": tree["embed"], "final_norm": tree["final_norm"], "lm_head": tree["lm_head"]}
     if len(tree["layers"]) != cfg.n_layers:
@@ -216,7 +304,8 @@ def load_jax_params(cfg: LlamaConfig, tree: Mapping, device="cpu") -> Llama:
         want.update({f"layers.{i}.{k}": v for k, v in layer.items()})
     with torch.no_grad():
         for name, p in leaves.items():
-            a = np.array(want[name], dtype=np.float32)
+            a = np.array(_shard(np.asarray(want[name]), name, tensor_rank, tensor_size),
+                         dtype=np.float32)
             if a.shape != tuple(p.shape):
                 raise ValueError(f"{name}: shape {a.shape}, expected {tuple(p.shape)}")
             p.copy_(torch.from_numpy(a))
@@ -228,14 +317,31 @@ def load_jax_params(cfg: LlamaConfig, tree: Mapping, device="cpu") -> Llama:
 # ---------------------------------------------------------------------------
 
 
-def vocab_parallel_xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """Mean next-token cross-entropy of ``logits`` ``[B, T, V]`` against
-    ``targets`` ``[B, T]`` (the JAX function at ``tensor_axis=None``); the
-    stabilising max carries no gradient."""
+def _vocab_offset(v_local: int, tensor_group) -> int:
+    """The first vocab id of this tensor rank's logits shard."""
+    return 0 if tensor_group is None else mesh.group_rank(tensor_group) * v_local
+
+
+def vocab_parallel_xent(logits: torch.Tensor, targets: torch.Tensor,
+                        tensor_group=None) -> torch.Tensor:
+    """Mean next-token cross-entropy of this tensor rank's vocab shard of
+    the logits ``[B, T, V / tp]`` against global ``targets`` ``[B, T]``
+    (the JAX function): the max, the sum-exp and the target logit reduce
+    over ``tensor_group`` (the max with no gradient, as the stabiliser
+    cancels out of it)."""
     z = logits.to(torch.float32)
+    v_local = z.shape[-1]
+    off = _vocab_offset(v_local, tensor_group)
     zmax = z.detach().amax(-1)
+    if mesh.axis_size(tensor_group) > 1:
+        zmax = mesh.all_reduce_max(zmax, tensor_group)
     sumexp = torch.exp(z - zmax[..., None]).sum(-1)
-    zt = torch.gather(z, -1, targets.long()[..., None])[..., 0]
+    local_t = targets.long() - off
+    in_shard = (local_t >= 0) & (local_t < v_local)
+    zt = torch.gather(z, -1, local_t.clamp(0, v_local - 1)[..., None])[..., 0]
+    zt = torch.where(in_shard, zt, 0.0)
+    sumexp = mesh.reduce_from_group(sumexp, tensor_group)
+    zt = mesh.reduce_from_group(zt, tensor_group)
     return (torch.log(sumexp) + zmax - zt).mean()
 
 
@@ -257,12 +363,18 @@ def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 class _FusedHeadXent(torch.autograd.Function):
     """The JAX ``fused_head_xent`` custom VJP.  Chunks are the true vocab
     columns (the JAX scan pads the last chunk with zero columns that it
-    masks to -inf, which changes no valid column's result)."""
+    masks to -inf, which changes no valid column's result).  Over a tensor
+    group the forward takes the max of the shards' running maxima and sums
+    their rescaled sum-exps and target logits; the backward sums ``dh`` over
+    the group (the replicated ``h``'s cotangent is the sum of the shards'
+    partials, the JAX ``match_vma``), while each shard's ``dw`` is its
+    own."""
 
     @staticmethod
-    def forward(ctx, h, w, targets, chunk):
+    def forward(ctx, h, w, targets, chunk, group):
         d, v = h.shape[-1], w.shape[-1]
         h2, t1 = h.reshape(-1, d), targets.reshape(-1).long()
+        t1 = t1 - _vocab_offset(v, group)
         n = h2.shape[0]
         c, nc = _fhx_chunks(v, chunk)
         m = torch.full((n,), -math.inf, dtype=torch.float32, device=h.device)
@@ -273,13 +385,20 @@ class _FusedHeadXent(torch.autograd.Function):
             m_new = torch.maximum(m, z.amax(-1))
             l = l * torch.exp(m - m_new) + torch.exp(z - m_new[:, None]).sum(-1)
             lt = t1 - ci * c
+            # a target of another shard can alias into this shard's range
+            # only through a negative or past-the-end id
             in_chunk = (lt >= 0) & (lt < z.shape[1]) & (t1 < v)
             zc = torch.gather(z, 1, lt.clamp(0, z.shape[1] - 1)[:, None])[:, 0]
             zt = zt + torch.where(in_chunk, zc, 0.0)
             m = m_new
+        if mesh.axis_size(group) > 1:
+            m_g = mesh.all_reduce_max(m, group)
+            l = mesh.all_reduce_sum(l * torch.exp(m - m_g), group)
+            zt = mesh.all_reduce_sum(zt, group)
+            m = m_g
         lse = m + torch.log(l)
         ctx.save_for_backward(h, w, targets, lse)
-        ctx.chunk = chunk
+        ctx.chunk, ctx.group = chunk, group
         return (lse - zt).mean()
 
     @staticmethod
@@ -287,6 +406,7 @@ class _FusedHeadXent(torch.autograd.Function):
         h, w, targets, lse = ctx.saved_tensors
         d, v = h.shape[-1], w.shape[-1]
         h2, t1 = h.reshape(-1, d), targets.reshape(-1).long()
+        t1 = t1 - _vocab_offset(v, ctx.group)
         n = h2.shape[0]
         c, nc = _fhx_chunks(v, ctx.chunk)
         dnll = (g / n).to(torch.float32)
@@ -300,17 +420,20 @@ class _FusedHeadXent(torch.autograd.Function):
             dz = ((p - onehot.to(torch.float32)) * dnll).to(w.dtype)
             dh = dh + _mm_f32(dz, w_c.t())
             dw[:, ci * c:(ci + 1) * c] = _mm_f32(h2.t(), dz)
-        return dh.reshape(h.shape).to(h.dtype), dw.to(w.dtype), None, None
+        if mesh.axis_size(ctx.group) > 1:
+            dh = mesh.all_reduce_sum(dh, ctx.group)
+        return dh.reshape(h.shape).to(h.dtype), dw.to(w.dtype), None, None, None
 
 
 def fused_head_xent(h: torch.Tensor, w: torch.Tensor, targets: torch.Tensor,
-                    chunk: int = 2048) -> torch.Tensor:
+                    chunk: int = 2048, tensor_group=None) -> torch.Tensor:
     """Mean next-token cross-entropy straight from hidden states ``h``
-    ``[..., D]`` and head ``w`` ``[D, V]``, through a running logsumexp over
-    ``chunk``-wide vocab slices; the backward recomputes each chunk's logits
-    instead of saving them.  Equal to ``vocab_parallel_xent(h @ w, targets)``
-    up to rounding (float32 logits inside the chunks)."""
-    return _FusedHeadXent.apply(h, w, targets, chunk)
+    ``[..., D]`` and this tensor rank's head shard ``w`` ``[D, V / tp]``,
+    through a running logsumexp over ``chunk``-wide vocab slices; the
+    backward recomputes each chunk's logits instead of saving them.  Equal
+    to ``vocab_parallel_xent(h @ w, targets, tensor_group)`` up to rounding
+    (float32 logits inside the chunks)."""
+    return _FusedHeadXent.apply(h, w, targets, chunk, tensor_group)
 
 
 _FUSED_XENT_AUTO_BYTES = 1 << 30

@@ -122,16 +122,17 @@ def init_group_state(n: int, rank: int, seed: int, device) -> Optional[torch.Ten
     return _normal((n2, r), seed, device)
 
 
-def _world_mean(t: torch.Tensor, world: int) -> torch.Tensor:
+def _world_mean(t: torch.Tensor, world: int, group=None) -> torch.Tensor:
     if world > 1:
-        dist.all_reduce(t)
+        dist.all_reduce(t, group=group)
     return t / world
 
 
-def powersgd_group_sync(acc: torch.Tensor, q: torch.Tensor, rank: int,
-                        world: int) -> Tuple[torch.Tensor, torch.Tensor, float, float]:
+def powersgd_group_sync(acc: torch.Tensor, q: torch.Tensor, rank: int, world: int,
+                        group=None) -> Tuple[torch.Tensor, torch.Tensor, float, float]:
     """One warm-started PowerSGD sync of a group's accumulated gradient over
-    the default process group.  Returns ``(recon, q_new, sent_elems,
+    the ``world`` workers of ``group`` (``None``: the default process
+    group).  Returns ``(recon, q_new, sent_elems,
     sent_bits)``: ``recon`` approximates the world-mean gradient, and the
     caller folds ``acc - recon`` into the EF residual."""
     n = acc.shape[0]
@@ -145,8 +146,8 @@ def powersgd_group_sync(acc: torch.Tensor, q: torch.Tensor, rank: int,
                          "and gradient tree")
     mat = _as_matrix(acc, m, n2)
     with _fp32_matmul():
-        p_hat = gram_schmidt(_world_mean(mat @ q, world))
-        q_new = _world_mean(mat.T @ p_hat, world)
+        p_hat = gram_schmidt(_world_mean(mat @ q, world, group))
+        q_new = _world_mean(mat.T @ p_hat, world, group)
         recon = (p_hat @ q_new.T).reshape(-1)[:n]
     sent = float(r * (m + n2))
     return recon, q_new, sent, 32.0 * sent

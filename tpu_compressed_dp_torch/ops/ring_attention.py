@@ -1,16 +1,30 @@
-"""Causal attention of the LM layers: the fused flash kernels or the unfused chain.
+"""Causal attention of the LM layers: the fused flash kernels, the unfused
+chain, or a ring of blocks over a sequence-parallel process group.
 
-PyTorch counterpart of :mod:`tpu_compressed_dp.ops.ring_attention` at ring
-size 1 (no sequence-parallel axis): every LM layer's attention runs whole on
-one worker.  :func:`use_fused_attention` sends CUDA tensors the kernels take
-to :func:`tpu_compressed_dp_torch.ops.flash_attention.flash_causal_attention`;
+PyTorch counterpart of :mod:`tpu_compressed_dp.ops.ring_attention`.  At ring
+size 1 (no sequence-parallel axis) a layer's attention runs whole on one
+worker: :func:`use_fused_attention` sends CUDA tensors the kernels take to
+:func:`tpu_compressed_dp_torch.ops.flash_attention.flash_causal_attention`;
 everything else, the CPU by default included (as JAX off the TPU), takes the
 unfused online-softmax step ``_block_attend`` over the one block, with q and
 k upcast to float32 before the score product as the JAX code does.
 
+Over a ``seq`` group of ``ring`` ranks (``parallel/mesh.lm_groups``) each
+rank holds a block of ``T_local`` positions, rank ``i`` the positions
+``[i * T_local, (i + 1) * T_local)``.  The K/V blocks rotate ``i -> i + 1``
+(:func:`~tpu_compressed_dp_torch.parallel.mesh.ppermute`, whose backward
+sends the cotangents back around the ring) while each rank accumulates its
+queries' ``(o, m, l)`` over the blocks with the unfused step, as the JAX
+ring does: no kernel serves a ring block, since the flash kernels export no
+``(o, m, l)`` (ROADMAP item 15).  Every rank attends every block, the ones
+its causal mask hides whole too, so every rank builds the same graph and
+issues the same collectives in the same order, forward and backward.
+
 Layout ``[B, H, T, D]``.  GQA: K/V may have fewer heads than Q when
 ``H_q % H_kv == 0``; each KV head is repeated for its group of query heads
-(``jnp.repeat(k, rep, axis=1)``, i.e. ``repeat_interleave``).
+(``jnp.repeat(k, rep, axis=1)``, i.e. ``repeat_interleave``).  The ring
+rotates the unrepeated K/V and repeats each block where it is used: the
+same values, ``H_kv / H_q`` of the bytes.
 """
 
 from __future__ import annotations
@@ -22,6 +36,7 @@ import torch
 from tpu_compressed_dp_torch.ops import kernels
 from tpu_compressed_dp_torch.ops.flash_attention import (check_kernel_shape,
                                                          flash_causal_attention)
+from tpu_compressed_dp_torch.parallel import mesh
 
 __all__ = ["ring_attention", "dense_causal_attention", "use_fused_attention"]
 
@@ -82,20 +97,39 @@ def _unfused_causal(q, k, v, scale: float) -> torch.Tensor:
     return (o / l[..., None]).to(q.dtype)
 
 
-def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                   axis_name: Optional[str] = None,
+def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, group=None,
                    scale: Optional[float] = None) -> torch.Tensor:
-    """Causal attention, ``q/k/v`` ``[B, H, T, D]``.  ``axis_name`` (a
-    sequence-parallel ring) is not ported: a ring of more than one block
-    raises."""
-    if axis_name is not None:
-        raise NotImplementedError("ring attention over a sequence-parallel axis is not "
-                                  "ported yet: ROADMAP.md queue 1, item 11")
-    k, v = _repeat_kv(q, k, v)
+    """Causal attention of this rank's query block, ``q/k/v`` ``[B, H,
+    T_local, D]``.  ``group`` is the sequence-parallel ring (``None``: no
+    sequence axis, one block); the full sequence is ``ring * T_local``
+    long."""
     scale = scale if scale is not None else 1.0 / (q.shape[3] ** 0.5)
-    if use_fused_attention(q.shape, k.shape, q.dtype, q.device):
-        return flash_causal_attention(q, k, v, scale)
-    return _unfused_causal(q, k, v, scale)
+    ring = mesh.axis_size(group)
+    if ring == 1:
+        k, v = _repeat_kv(q, k, v)
+        if use_fused_attention(q.shape, k.shape, q.dtype, q.device):
+            return flash_causal_attention(q, k, v, scale)
+        return _unfused_causal(q, k, v, scale)
+    my = mesh.group_rank(group)
+    t = q.shape[2]
+    local = torch.arange(t, device=q.device)
+    q_pos = my * t + local
+    qf = q.to(torch.float32)
+    o = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    m = torch.full(q.shape[:3], _NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros(q.shape[:3], dtype=torch.float32, device=q.device)
+    kv = torch.stack([k, v])
+    perm = mesh.ring_perm(ring)
+    for s in range(ring):
+        # after s rotations this rank holds block (my - s) mod ring
+        src = (my - s) % ring
+        kb, vb = _repeat_kv(q, kv[0], kv[1])
+        o, m, l = _block_attend(qf, kb.to(torch.float32), vb, q_pos, src * t + local,
+                                scale, o, m, l)
+        if s < ring - 1:
+            kv = mesh.ppermute(kv, perm, group)
+    # every causal query row attends to itself, so l > 0
+    return (o / l[..., None]).to(q.dtype)
 
 
 def dense_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -180,13 +180,13 @@ def _scatter_combine(rows: int, row_shape, dtype, g_idx: torch.Tensor, g_vals: t
 
 
 def _leaf_sync_randomk(flat: torch.Tensor, seed: int, keep: int, world: int,
-                       check: bool = False):
+                       check: bool = False, group=None):
     n = flat.shape[0]
     idx = packed_indices_from_mask(compressors.randomk_mask(seed, n, keep, flat.device), keep)
     payload = flat[idx.long()]                            # [k]: all that travels
     bits = _payload_bits(payload)
     if world > 1:
-        dist.all_reduce(payload)
+        dist.all_reduce(payload, group=group)
     dense = torch.zeros_like(flat).index_copy_(0, idx.long(), payload / world)
     agree = None
     if check:
@@ -196,26 +196,28 @@ def _leaf_sync_randomk(flat: torch.Tensor, seed: int, keep: int, world: int,
         h = (idx.to(torch.float32) * w).sum().reshape(1)
         hmax, hmin = h.clone(), h.clone()
         if world > 1:
-            dist.all_reduce(hmax, op=dist.ReduceOp.MAX)
-            dist.all_reduce(hmin, op=dist.ReduceOp.MIN)
+            dist.all_reduce(hmax, op=dist.ReduceOp.MAX, group=group)
+            dist.all_reduce(hmin, op=dist.ReduceOp.MIN, group=group)
         agree = (hmax == hmin).to(torch.float32).reshape(())
     return dense, idx, agree, bits
 
 
-def _leaf_sync_topk(flat: torch.Tensor, keep: int, world: int, want_surplus: bool = False):
+def _leaf_sync_topk(flat: torch.Tensor, keep: int, world: int, want_surplus: bool = False,
+                    group=None):
     mag = flat.abs().to(torch.float32)
     t = kernels.topk_threshold(mag, keep)
     payload, idx, count = _select_pack(flat, mag, t, keep)
     bits = _payload_bits(payload, idx)
-    dense = _scatter_combine(flat.shape[0], (), flat.dtype, mesh.all_gather(idx),
-                             mesh.all_gather(payload), world)
+    dense = _scatter_combine(flat.shape[0], (), flat.dtype, mesh.all_gather(idx, group),
+                             mesh.all_gather(payload, group), world)
     # above-threshold survivors past `keep` (ties at the threshold's
     # resolution) are cut by ascending index: with EF off they are dropped
     surplus = torch.clamp(count - keep, min=0) if want_surplus else None
     return dense, idx, surplus, bits
 
 
-def _leaf_sync_topk_seg(flat: torch.Tensor, keep: int, world: int, want_ef: bool):
+def _leaf_sync_topk_seg(flat: torch.Tensor, keep: int, world: int, want_ef: bool,
+                        group=None):
     """Element Top-K through the segmented pack (``kernels.use_seg_pack``):
     the kernel writes each 4096-element segment's first <= 128 survivors and
     the EF residual in one pass, and :func:`kernels.seg_pack_payload` joins
@@ -234,7 +236,7 @@ def _leaf_sync_topk_seg(flat: torch.Tensor, keep: int, world: int, want_ef: bool
     pvals, pidx = kernels.seg_pack_payload(vals, idx, elig, keep)
     pvals = pvals.to(flat.dtype)
     bits = _payload_bits(pvals, pidx)
-    g_vals, g_idx = mesh.all_gather(pvals), mesh.all_gather(pidx)
+    g_vals, g_idx = mesh.all_gather(pvals, group), mesh.all_gather(pidx, group)
     dense = torch.zeros_like(flat).index_add_(0, g_idx.reshape(-1).long(),
                                               g_vals.reshape(-1)) / world
     sent_count = torch.clamp(elig.sum(dtype=torch.int32), max=keep)
@@ -243,7 +245,7 @@ def _leaf_sync_topk_seg(flat: torch.Tensor, keep: int, world: int, want_ef: bool
 
 
 def _leaf_sync_blocktopk(flat: torch.Tensor, keep_blocks: int, block_size: int, world: int,
-                         want_ef: bool):
+                         want_ef: bool, group=None):
     """Whole ``[block_size]`` rows of the blocks with the largest L2 norms
     travel with their block indices.  The JAX package gathers sub-128-lane
     blocks through covering 128-lane rows (``_blocktopk_small_bs``), a TPU
@@ -258,14 +260,14 @@ def _leaf_sync_blocktopk(flat: torch.Tensor, keep_blocks: int, block_size: int, 
     payload = g2.index_select(0, bidx)                    # [kb, bs]
     bits = _payload_bits(payload, bidx.to(torch.int32))
     dense = _scatter_combine(g2.shape[0], (block_size,), flat.dtype,
-                             mesh.all_gather(bidx.to(torch.int32)), mesh.all_gather(payload),
-                             world).reshape(-1)[:n]
+                             mesh.all_gather(bidx.to(torch.int32), group),
+                             mesh.all_gather(payload, group), world).reshape(-1)[:n]
     new_ef = g2.index_fill(0, bidx, 0.0).reshape(-1)[:n] if want_ef else None
     return dense, new_ef, bits
 
 
 def _leaf_sync_threshold(flat: torch.Tensor, v: torch.Tensor, cap: int, world: int,
-                         want_ef: bool):
+                         want_ef: bool, group=None):
     """The first ``cap`` survivors of ``|flat| >= v`` by ascending index in a
     fixed buffer, zero-padded; ``(dense, new_ef, sent_count, overflow,
     bits)`` with ``sent_count`` and ``overflow`` as 0-d device tensors."""
@@ -275,8 +277,8 @@ def _leaf_sync_threshold(flat: torch.Tensor, v: torch.Tensor, cap: int, world: i
     vals = torch.where(valid, vals, 0.0)
     idx = torch.where(valid, idx, 0)
     bits = _payload_bits(vals, idx)                      # the whole cap-sized buffer
-    dense = _scatter_combine(flat.shape[0], (), flat.dtype, mesh.all_gather(idx),
-                             mesh.all_gather(vals), world)
+    dense = _scatter_combine(flat.shape[0], (), flat.dtype, mesh.all_gather(idx, group),
+                             mesh.all_gather(vals, group), world)
     new_ef = None
     if want_ef:
         # zero exactly the sent coordinates: padded slots multiply
@@ -294,10 +296,10 @@ def _shard_plan(cfg, n_units: int, keep: int, world: int, unit_size: int):
                                         cfg.shard_route_factor, cfg.shard_return_factor)
 
 
-def _hier_combine(contrib: torch.Tensor, keep: int, world: int, cfg):
+def _hier_combine(contrib: torch.Tensor, keep: int, world: int, cfg, group=None):
     """Two-level (ICI x DCN) exchange of one group's compressed-dense
     contribution ``contrib`` (this worker's selection scattered into zeros)
-    over the ``dp_pods x chips`` view of the world:
+    over the ``dp_pods x chips`` view of ``group``'s workers:
 
       1. one dense sum of ``contrib`` over this rank's pod (ICI);
       2. recompress: the pod sum's nonzero union, ascending, in a
@@ -321,7 +323,7 @@ def _hier_combine(contrib: torch.Tensor, keep: int, world: int, cfg):
     plan = wire_sharded.make_hier_plan(n, keep, world, cfg.dp_pods,
                                        cfg.hier_route_factor_ici, cfg.hier_route_factor_dcn)
     P, C = plan.pods, plan.chips
-    ici_group, dcn_group = mesh.hier_groups(world, P)
+    ici_group, dcn_group = mesh.hier_groups(world, P, group)
     zero_ovf = torch.zeros((), dtype=torch.int32, device=dev)
     if C > 1:
         pod_sum = mesh.all_reduce_sum(contrib, ici_group)
@@ -344,7 +346,7 @@ def _hier_combine(contrib: torch.Tensor, keep: int, world: int, cfg):
     taken = torch.zeros(n, dtype=torch.int32, device=dev).index_add_(
         0, uidx.long(), uvalid.to(torch.int32)) > 0
     union_clip = torch.where(mask & ~taken, pod_sum, 0.0) / C
-    c_rank = mesh.rank() % C
+    c_rank = mesh.group_rank(group) % C
     sl = slice(c_rank * plan.slab, (c_rank + 1) * plan.slab)
     s_vals, s_idx, s_valid = uvals[sl], uidx[sl], uvalid[sl]
 
@@ -364,7 +366,8 @@ def _hier_combine(contrib: torch.Tensor, keep: int, world: int, cfg):
     return total, ef_extra, bits_ici, route_bits, ret_bits, dcn_overflow + union_clipped
 
 
-def _leaf_sync_topk_sharded(flat: torch.Tensor, keep: int, world: int, cfg, want_ef: bool):
+def _leaf_sync_topk_sharded(flat: torch.Tensor, keep: int, world: int, cfg, want_ef: bool,
+                            group=None):
     """Top-K over the owner-sharded transport: the allgather path's
     selection, with the pairs routed to their shard owners.  Route and
     return clips stay in the EF residual (or are dropped, EF off)."""
@@ -376,7 +379,7 @@ def _leaf_sync_topk_sharded(flat: torch.Tensor, keep: int, world: int, cfg, want
     vals, idx, count = _select_pack(flat, mag, t, keep)
     plan = _shard_plan(cfg, n, keep, world, 1)
     dense_u, sent, route_bits, ret_bits, overflow = wire_sharded.sharded_combine(
-        vals, idx, plan)
+        vals, idx, plan, group=group)
     dense = (dense_u[:n] / world).to(flat.dtype)
     new_ef = None
     if want_ef:
@@ -392,7 +395,7 @@ def _leaf_sync_topk_sharded(flat: torch.Tensor, keep: int, world: int, cfg, want
 
 
 def _leaf_sync_blocktopk_sharded(flat: torch.Tensor, keep_blocks: int, block_size: int,
-                                 world: int, cfg, want_ef: bool):
+                                 world: int, cfg, want_ef: bool, group=None):
     """Block-Top-K over the owner-sharded transport: whole ``[block_size]``
     rows route to the owners of their block-index shard (the scatter build;
     the bucket-route kernel is element-granular)."""
@@ -407,7 +410,7 @@ def _leaf_sync_blocktopk_sharded(flat: torch.Tensor, keep_blocks: int, block_siz
     payload = g2.index_select(0, bidx.long())             # [kb, bs]
     plan = _shard_plan(cfg, g2.shape[0], keep_blocks, world, block_size)
     dense_u, sent, route_bits, ret_bits, overflow = wire_sharded.sharded_combine(
-        payload, bidx, plan)
+        payload, bidx, plan, group=group)
     dense = (dense_u / world).to(flat.dtype).reshape(-1)[:n]
     new_ef = None
     if want_ef:
@@ -419,7 +422,7 @@ def _leaf_sync_blocktopk_sharded(flat: torch.Tensor, keep_blocks: int, block_siz
 
 
 def _leaf_sync_threshold_sharded(flat: torch.Tensor, v: torch.Tensor, cap: int, world: int,
-                                 cfg, want_ef: bool):
+                                 cfg, want_ef: bool, group=None):
     """Threshold-V's fixed-capacity buffer over the owner-sharded transport:
     the zero-padded tail routes to the dump destination.  The capacity
     overflow and the transport's clips are returned apart: they size
@@ -432,7 +435,7 @@ def _leaf_sync_threshold_sharded(flat: torch.Tensor, v: torch.Tensor, cap: int, 
     vals = torch.where(valid, vals, 0.0)
     plan = _shard_plan(cfg, flat.shape[0], cap, world, 1)
     dense_u, sent, route_bits, ret_bits, overflow = wire_sharded.sharded_combine(
-        vals, idx, plan, valid=valid)
+        vals, idx, plan, valid=valid, group=group)
     dense = (dense_u[:flat.shape[0]] / world).to(flat.dtype)
     new_ef = None
     if want_ef:
@@ -444,7 +447,8 @@ def _leaf_sync_threshold_sharded(flat: torch.Tensor, v: torch.Tensor, cap: int, 
             cap_overflow, overflow)
 
 
-def _leaf_sync_topk_hier(flat: torch.Tensor, keep: int, world: int, cfg, want_ef: bool):
+def _leaf_sync_topk_hier(flat: torch.Tensor, keep: int, world: int, cfg, want_ef: bool,
+                         group=None):
     """Top-K over the hierarchical transport: the flat transports' selection,
     scattered dense into :func:`_hier_combine`.  EF is everything unselected
     plus the combine's clip refunds."""
@@ -452,7 +456,8 @@ def _leaf_sync_topk_hier(flat: torch.Tensor, keep: int, world: int, cfg, want_ef
     t = kernels.topk_threshold(mag, keep)
     vals, idx, count = _select_pack(flat, mag, t, keep)
     contrib = torch.zeros_like(flat).index_copy_(0, idx.long(), vals)
-    total, ef_extra, b_ici, b_rt, b_ret, overflow = _hier_combine(contrib, keep, world, cfg)
+    total, ef_extra, b_ici, b_rt, b_ret, overflow = _hier_combine(contrib, keep, world, cfg,
+                                                                  group)
     dense = (total / world).to(flat.dtype)
     new_ef = (flat - contrib + ef_extra) if want_ef else None
     surplus = None if want_ef else torch.clamp(count - keep, min=0)
@@ -460,7 +465,7 @@ def _leaf_sync_topk_hier(flat: torch.Tensor, keep: int, world: int, cfg, want_ef
 
 
 def _leaf_sync_blocktopk_hier(flat: torch.Tensor, keep_blocks: int, block_size: int,
-                              world: int, cfg, want_ef: bool):
+                              world: int, cfg, want_ef: bool, group=None):
     """Block-Top-K over the hierarchical transport: the selected blocks
     scatter dense, and the pod sum recompresses element by element."""
     n = flat.shape[0]
@@ -471,14 +476,14 @@ def _leaf_sync_blocktopk_hier(flat: torch.Tensor, keep_blocks: int, block_size: 
     payload = g2.index_select(0, bidx)                    # [kb, bs]
     contrib = torch.zeros_like(g2).index_copy_(0, bidx, payload).reshape(-1)[:n]
     total, ef_extra, b_ici, b_rt, b_ret, overflow = _hier_combine(
-        contrib, min(keep_blocks * block_size, n), world, cfg)
+        contrib, min(keep_blocks * block_size, n), world, cfg, group)
     dense = (total / world).to(flat.dtype)
     new_ef = (flat - contrib + ef_extra) if want_ef else None
     return dense, new_ef, (b_ici, b_rt, b_ret), overflow
 
 
 def _leaf_sync_threshold_hier(flat: torch.Tensor, v: torch.Tensor, cap: int, world: int,
-                              cfg, want_ef: bool):
+                              cfg, want_ef: bool, group=None):
     """Threshold-V's fixed-capacity buffer over the hierarchical transport:
     the capacity clip never enters ``contrib`` (it stays in the base
     residual); the transport's clips refund through :func:`_hier_combine`."""
@@ -489,14 +494,15 @@ def _leaf_sync_threshold_hier(flat: torch.Tensor, v: torch.Tensor, cap: int, wor
     idx = torch.where(valid, idx, 0)
     # add, not copy: the padded tail slots all alias coordinate 0
     contrib = torch.zeros_like(flat).index_add_(0, idx.long(), vals)
-    total, ef_extra, b_ici, b_rt, b_ret, overflow = _hier_combine(contrib, cap, world, cfg)
+    total, ef_extra, b_ici, b_rt, b_ret, overflow = _hier_combine(contrib, cap, world, cfg,
+                                                                  group)
     dense = (total / world).to(flat.dtype)
     new_ef = (flat - contrib + ef_extra) if want_ef else None
     cap_overflow = torch.clamp(count - cap, min=0)
     return dense, new_ef, sent_count, (b_ici, b_rt, b_ret), cap_overflow, overflow
 
 
-def _leaf_sync_terngrad(flat: torch.Tensor, seed: int, chunk: int, world: int):
+def _leaf_sync_terngrad(flat: torch.Tensor, seed: int, chunk: int, world: int, group=None):
     n = flat.shape[0]
     if kernels.use_quant_pack(n, flat.device):
         # dither and 2-bit codes in one kernel pass
@@ -509,8 +515,8 @@ def _leaf_sync_terngrad(flat: torch.Tensor, seed: int, chunk: int, world: int):
         levels, scale = compressors.terngrad_levels(flat, seed, chunk=chunk)
         packed = pack_ternary(levels)                     # uint8[ceil(n/4)]
     bits = _payload_bits(packed, scale)
-    g_levels = unpack_ternary(mesh.all_gather(packed), n).to(flat.dtype)   # [W, n]
-    g_scale = mesh.all_gather(scale)                      # [W] or [W, nc]
+    g_levels = unpack_ternary(mesh.all_gather(packed, group), n).to(flat.dtype)   # [W, n]
+    g_scale = mesh.all_gather(scale, group)               # [W] or [W, nc]
     if scale.dim() == 0:
         return (g_scale[:, None] * g_levels).sum(0) / world, bits
     # chunked scales: each worker's [nc] scales over its chunks
@@ -519,7 +525,7 @@ def _leaf_sync_terngrad(flat: torch.Tensor, seed: int, chunk: int, world: int):
     return (g_scale[:, :, None] * lv).sum(0).reshape(-1)[:n] / world, bits
 
 
-def _leaf_sync_qsgd(flat: torch.Tensor, seed: int, qstates: int, world: int):
+def _leaf_sync_qsgd(flat: torch.Tensor, seed: int, qstates: int, world: int, group=None):
     n = flat.shape[0]
     if 127 < qstates <= 255 and kernels.use_quant_pack(n, flat.device):
         # the byte-magnitude + sign-bitmap layout, straight from the kernel
@@ -529,9 +535,9 @@ def _leaf_sync_qsgd(flat: torch.Tensor, seed: int, qstates: int, world: int):
         levels, scale = compressors.qsgd_levels(flat, seed, qstates=qstates)
         payload = qsgd_wire_pack(levels, qstates)
     bits = _payload_bits(*payload, scale)
-    g_levels = qsgd_wire_unpack(tuple(mesh.all_gather(p) for p in payload), n, qstates,
+    g_levels = qsgd_wire_unpack(tuple(mesh.all_gather(p, group) for p in payload), n, qstates,
                                 dtype=flat.dtype)
-    g_scale = mesh.all_gather(scale)                      # [W]
+    g_scale = mesh.all_gather(scale, group)               # [W]
     return (g_scale[:, None] * g_levels).sum(0) / world, bits
 
 
@@ -540,11 +546,13 @@ def _leaf_sync_qsgd(flat: torch.Tensor, seed: int, qstates: int, world: int):
 # ---------------------------------------------------------------------------
 
 
-def make_wire_grad_sync(cfg, group_offset: int = 0):
+def make_wire_grad_sync(cfg, group_offset: int = 0, group=None):
     """Build ``sync(grads, ef, seed) -> (synced, new_ef, stats)`` over the
-    default process group, with the contract of the simulate sync in
+    workers of ``group`` (``None``: the default process group), with the
+    contract of the simulate sync in
     :func:`tpu_compressed_dp_torch.parallel.dp.make_grad_sync` (which
-    dispatches here for ``mode='wire'``), ``group_offset`` included.  The stat keys are the JAX wire
+    dispatches here for ``mode='wire'``), ``group_offset`` and ``group``
+    included.  The stat keys are the JAX wire
     engine's for the same method and transport: the ``sent_bits*`` split,
     ``sent_elems``, ``dense_elems``, ``num_collectives``, plus
     ``sync_agree`` (Random-K with ``check_sync``), ``threshold_overflow``
@@ -608,32 +616,34 @@ def make_wire_grad_sync(cfg, group_offset: int = 0):
                  else acc.abs().max() * 0.5)
             if hier:
                 dense, new_ef, sent, fabric, cap_ovf, shard_ovf = _leaf_sync_threshold_hier(
-                    acc, v, keep, world, cfg, want_ef)
+                    acc, v, keep, world, cfg, want_ef, group)
                 return (dense, new_ef, sent.to(torch.float32), sum(fabric), 0.0, None,
                         {"threshold_overflow": cap_ovf, "shard_overflow": shard_ovf}, fabric)
             if sharded:
                 (dense, new_ef, sent, bits, bits_route, cap_ovf,
-                 shard_ovf) = _leaf_sync_threshold_sharded(acc, v, keep, world, cfg, want_ef)
+                 shard_ovf) = _leaf_sync_threshold_sharded(acc, v, keep, world, cfg, want_ef,
+                                                              group)
                 return (dense, new_ef, sent.to(torch.float32), bits, bits_route, None,
                         {"threshold_overflow": cap_ovf, "shard_overflow": shard_ovf}, None)
             dense, new_ef, sent, overflow, bits = _leaf_sync_threshold(acc, v, keep, world,
-                                                                       want_ef)
+                                                                       want_ef, group)
             return (dense, new_ef, sent.to(torch.float32), bits, 0.0, None,
                     {"threshold_overflow": overflow}, None)
         agree, idx = None, None
         if comp.name == "randomk":
-            dense, idx, agree, bits = _leaf_sync_randomk(acc, seed, keep, world, cfg.check_sync)
+            dense, idx, agree, bits = _leaf_sync_randomk(acc, seed, keep, world, cfg.check_sync,
+                                                       group)
         elif comp.name == "topk":
             if hier:
                 dense, new_ef, fabric, overflow, surplus = _leaf_sync_topk_hier(
-                    acc, keep, world, cfg, want_ef)
+                    acc, keep, world, cfg, want_ef, group)
                 ovf = {"shard_overflow": overflow}
                 if surplus is not None:
                     ovf["topk_surplus_dropped"] = surplus
                 return dense, new_ef, float(keep), sum(fabric), 0.0, None, ovf, fabric
             if sharded:
                 (dense, new_ef, sent, bits, bits_route, overflow,
-                 surplus) = _leaf_sync_topk_sharded(acc, keep, world, cfg, want_ef)
+                 surplus) = _leaf_sync_topk_sharded(acc, keep, world, cfg, want_ef, group)
                 ovf = {"shard_overflow": overflow}
                 if surplus is not None:
                     ovf["topk_surplus_dropped"] = surplus
@@ -643,11 +653,11 @@ def make_wire_grad_sync(cfg, group_offset: int = 0):
                 # travels: an allgather contract, so the transports above
                 # keep their own packs
                 dense, new_ef, sent, bits, dropped = _leaf_sync_topk_seg(acc, keep, world,
-                                                                         want_ef)
+                                                                         want_ef, group)
                 return (dense, new_ef, sent.to(torch.float32), bits, 0.0, None,
                         {} if want_ef else {"topk_surplus_dropped": dropped}, None)
             dense, idx, surplus, bits = _leaf_sync_topk(acc, keep, world,
-                                                        want_surplus=not want_ef)
+                                                        want_surplus=not want_ef, group=group)
             if surplus is not None:
                 return (dense, None, float(keep), bits, 0.0, None,
                         {"topk_surplus_dropped": surplus}, None)
@@ -659,34 +669,36 @@ def make_wire_grad_sync(cfg, group_offset: int = 0):
                 dense = acc.clone()
                 bits = _payload_bits(acc)
                 if world > 1:
-                    dist.all_reduce(dense)
+                    dist.all_reduce(dense, group=group)
                 dense = dense / world
                 new_ef = torch.zeros_like(acc) if want_ef else None
             elif hier:
                 dense, new_ef, fabric, overflow = _leaf_sync_blocktopk_hier(
-                    acc, keep // bs, bs, world, cfg, want_ef)
+                    acc, keep // bs, bs, world, cfg, want_ef, group)
                 return (dense, new_ef, float(keep), sum(fabric), 0.0, None,
                         {"shard_overflow": overflow}, fabric)
             elif sharded:
                 dense, new_ef, sent, bits, bits_route, overflow = _leaf_sync_blocktopk_sharded(
-                    acc, keep // bs, bs, world, cfg, want_ef)
+                    acc, keep // bs, bs, world, cfg, want_ef, group)
                 return (dense, new_ef, sent.to(torch.float32), bits, bits_route, None,
                         {"shard_overflow": overflow}, None)
             else:
-                dense, new_ef, bits = _leaf_sync_blocktopk(acc, keep // bs, bs, world, want_ef)
+                dense, new_ef, bits = _leaf_sync_blocktopk(acc, keep // bs, bs, world, want_ef,
+                                                           group)
             return dense, new_ef, float(keep), bits, 0.0, None, {}, None
         elif comp.name == "terngrad":
-            dense, bits = _leaf_sync_terngrad(acc, seed, cfg.resolved_terngrad_chunk, world)
+            dense, bits = _leaf_sync_terngrad(acc, seed, cfg.resolved_terngrad_chunk, world,
+                                              group)
         else:  # qsgd
-            dense, bits = _leaf_sync_qsgd(acc, seed, cfg.qstates, world)
+            dense, bits = _leaf_sync_qsgd(acc, seed, cfg.qstates, world, group)
         # the EF residual is the coordinates that did not travel (EF is
         # refused with the quantizers, so idx is a sparsifier's)
         new_ef = acc.index_fill(0, idx.long(), 0.0) if want_ef else None
         return dense, new_ef, float(keep), bits, 0.0, agree, {}, None
 
     def sync(grads: Tree, ef: Any, seed: int) -> Tuple[Tree, Any, Dict[str, torch.Tensor]]:
-        world = mesh.world()
-        rank = mesh.rank() if per_worker_rng else None
+        world = mesh.size(group)
+        rank = mesh.group_rank(group) if per_worker_rng else None
         names = list(grads)
         leaves = [grads[k] for k in names]
         use_ef = cfg.error_feedback

@@ -29,7 +29,11 @@ the ``finish()`` it returns waits for them and yields the result.  Every
 constructor takes a ``group_offset``: group ``gi`` of the tree it is handed
 draws ``leaf_seed(seed, group_offset + gi)`` and keeps PowerSGD's warm start
 under ``q<group_offset + gi>``, so a chunk of the tree synced alone is
-bitwise the same groups of the whole tree.
+bitwise the same groups of the whole tree.  Every constructor also takes a
+``group``: the process group the workers form (``None``, the default group;
+the LM's ``workers`` group of ``parallel/mesh.lm_groups``).  Every
+collective, the world size and each rank's seed (its rank within the
+group, the JAX ``axis_index`` over the sync axes) come from it.
 
 Gradients, EF residuals and outputs are ordered dicts of tensors keyed by
 parameter path, in the JAX package's leaf order (see
@@ -54,7 +58,8 @@ from tpu_compressed_dp_torch.parallel import mesh
 __all__ = ["CompressionConfig", "make_grad_sync", "make_stateful_grad_sync", "make_leaf_groups",
            "group_concat", "group_split", "init_ef_state", "init_comp_state", "wire_transport",
            "make_partitioned_grad_sync", "make_grouped_grad_sync", "make_partitioned_clip",
-           "make_sharded_clip", "merge_stat_dicts", "make_issue_grad_sync"]
+           "make_sharded_clip", "merge_stat_dicts", "make_issue_grad_sync", "PartitionedSync",
+           "init_comp_state_partitioned", "init_comp_state_grouped"]
 
 Tree = Dict[str, torch.Tensor]
 
@@ -199,11 +204,11 @@ def init_ef_state(grads_like: Tree, cfg: CompressionConfig) -> Any:
             for k, g in grads_like.items()}
 
 
-def init_comp_state(grads_like: Tree, cfg: CompressionConfig) -> Any:
+def init_comp_state(grads_like: Tree, cfg: CompressionConfig, seed: int = 0) -> Any:
     """Persistent compressor state (``()`` for stateless methods).  PowerSGD:
     one fp32 warm start ``Q`` ``[n2, r]`` per compressed group, keyed
-    ``'q<gi>'``, drawn from ``fold_in(0, gi)`` so that every rank holds the
-    same one; dense-fallback groups carry none."""
+    ``'q<gi>'``, drawn from ``fold_in(seed, gi)`` so that every rank holds
+    the same one; dense-fallback groups carry none."""
     if compressors.canonical_name(cfg.method) != "powersgd":
         return ()
     from tpu_compressed_dp_torch.ops import lowrank
@@ -214,7 +219,7 @@ def init_comp_state(grads_like: Tree, cfg: CompressionConfig) -> Any:
     state = {}
     for gi, idxs in enumerate(groups):
         n = sum(leaves[i].numel() for i in idxs)
-        q = lowrank.init_group_state(n, cfg.rank, compressors.fold_in(0, gi),
+        q = lowrank.init_group_state(n, cfg.rank, compressors.fold_in(seed, gi),
                                      leaves[0].device)
         if q is not None:
             state[f"q{gi}"] = q
@@ -259,10 +264,10 @@ def group_split(flat, leaves, idxs, out, dtype=None) -> None:
         off += n
 
 
-def make_grad_sync(cfg: CompressionConfig, group_offset: int = 0):
+def make_grad_sync(cfg: CompressionConfig, group_offset: int = 0, group=None):
     """Build ``sync(grads, ef, seed) -> (synced, new_ef, stats)`` over the
-    default process group, for every stateless method (PowerSGD's sync is
-    :func:`make_stateful_grad_sync`'s).
+    workers of ``group`` (``None``: the default process group), for every
+    stateless method (PowerSGD's sync is :func:`make_stateful_grad_sync`'s).
 
     ``grads`` are this rank's gradients at the scale the reference compresses
     (see ``train/step.py``); ``synced`` is the world mean.  ``seed`` is the
@@ -272,7 +277,7 @@ def make_grad_sync(cfg: CompressionConfig, group_offset: int = 0):
     gradients' device, keyed as in the JAX engine (``sent_elems``,
     ``sent_bits`` and its per-collective split, ``dense_elems``,
     ``num_collectives``)."""
-    issue = _make_stateless_issue(cfg, group_offset)
+    issue = _make_stateless_issue(cfg, group_offset, group)
 
     def sync(grads: Tree, ef: Any, seed: int) -> Tuple[Tree, Any, Dict[str, torch.Tensor]]:
         return issue(grads, ef, seed)()
@@ -280,7 +285,7 @@ def make_grad_sync(cfg: CompressionConfig, group_offset: int = 0):
     return sync
 
 
-def _make_stateless_issue(cfg: CompressionConfig, group_offset: int):
+def _make_stateless_issue(cfg: CompressionConfig, group_offset: int, group=None):
     """``issue(grads, ef, seed) -> finish``, ``finish() -> (synced, new_ef,
     stats)``, for the stateless methods.  The simulate engine starts each
     group's all-reduce with ``async_op=True`` and ``finish`` waits for them;
@@ -295,7 +300,7 @@ def _make_stateless_issue(cfg: CompressionConfig, group_offset: int):
     if cfg.mode == "wire" and comp.name != "none":
         from tpu_compressed_dp_torch.ops import wire
 
-        return _done(wire.make_wire_grad_sync(cfg, group_offset))
+        return _done(wire.make_wire_grad_sync(cfg, group_offset, group))
     per_worker_rng = not cfg.resolved_shared_mask
     bits_per_elem = compressors.payload_bits_per_elem(
         comp.name, qstates=cfg.qstates, shared_mask=cfg.resolved_shared_mask,
@@ -341,8 +346,8 @@ def _make_stateless_issue(cfg: CompressionConfig, group_offset: int):
         return None
 
     def issue(grads: Tree, ef: Any, seed: int) -> Callable[[], Tuple[Tree, Any, Dict]]:
-        world = mesh.world()
-        rank = mesh.rank() if per_worker_rng and comp.needs_rng else None
+        world = mesh.size(group)
+        rank = mesh.group_rank(group) if per_worker_rng and comp.needs_rng else None
         names = list(grads)
         leaves = [grads[k] for k in names]
         use_ef = cfg.error_feedback
@@ -363,7 +368,15 @@ def _make_stateless_issue(cfg: CompressionConfig, group_offset: int):
         in_flight = []   # (work or None, payload, idxs) per group
         for gi, idxs in enumerate(groups):
             flat = group_concat(leaves, idxs)
-            acc = flat + group_concat(ef_leaves, idxs) if use_ef else flat
+            if use_ef:
+                # a group of several leaves is a fresh concatenation: add the
+                # residual into it (the same bits; one group-sized buffer
+                # fewer at the LM's ~1 G-element groups)
+                ef_flat = group_concat(ef_leaves, idxs)
+                acc = flat.add_(ef_flat) if len(idxs) > 1 else flat + ef_flat
+                del ef_flat
+            else:
+                acc = flat
             n_g = flat.shape[0]
             fuse_t = fused_threshold(acc)
             if fuse_t is not None:
@@ -378,7 +391,8 @@ def _make_stateless_issue(cfg: CompressionConfig, group_offset: int):
                     # alias the caller's gradient
                     comp_flat = comp_flat.clone()
             group_bits = group_sent * bits_width(n_g)
-            work = dist.all_reduce(comp_flat, async_op=True) if world > 1 else None
+            work = (dist.all_reduce(comp_flat, group=group, async_op=True) if world > 1
+                    else None)
             in_flight.append((work, comp_flat, idxs))
             if use_ef:
                 group_split(new_ef_flat, leaves, idxs, new_ef_leaves, dtype=torch.float32)
@@ -428,7 +442,9 @@ def _make_stateless_issue(cfg: CompressionConfig, group_offset: int):
             for work, comp_flat, idxs in in_flight:
                 if work is not None:
                     work.wait()
-                group_split(comp_flat / world, leaves, idxs, out_leaves)
+                # the payload is this sync's own buffer: divide it in place
+                group_split(comp_flat.div_(world) if world > 1 else comp_flat, leaves, idxs,
+                            out_leaves)
             return dict(zip(names, out_leaves)), new_ef, stats
 
         return finish
@@ -447,7 +463,7 @@ def _done(sync):
     return issue
 
 
-def make_issue_grad_sync(cfg: CompressionConfig, group_offset: int = 0):
+def make_issue_grad_sync(cfg: CompressionConfig, group_offset: int = 0, group=None):
     """Build ``issue(grads, ef, comp, seed) -> finish`` with ``finish() ->
     (synced, new_ef, new_comp, stats)``, the stateful sync of
     :func:`make_stateful_grad_sync` in two halves: ``issue`` compresses and
@@ -456,8 +472,8 @@ def make_issue_grad_sync(cfg: CompressionConfig, group_offset: int = 0):
     PowerSGD engines feed each collective's result to the next step, so they
     finish inside ``issue``."""
     if compressors.canonical_name(cfg.method) == "powersgd":
-        return _done(_make_powersgd_sync(cfg, group_offset))
-    base = _make_stateless_issue(cfg, group_offset)
+        return _done(_make_powersgd_sync(cfg, group_offset, group))
+    base = _make_stateless_issue(cfg, group_offset, group)
 
     def issue(grads: Tree, ef: Any, comp: Any, seed: int):
         fin = base(grads, ef, seed)
@@ -471,13 +487,13 @@ def make_issue_grad_sync(cfg: CompressionConfig, group_offset: int = 0):
     return issue
 
 
-def make_stateful_grad_sync(cfg: CompressionConfig, group_offset: int = 0):
+def make_stateful_grad_sync(cfg: CompressionConfig, group_offset: int = 0, group=None):
     """Build ``sync(grads, ef, comp, seed) -> (synced, new_ef, new_comp,
     stats)``, the JAX engine's signature: ``comp`` is the compressor state of
     :func:`init_comp_state`.  PowerSGD runs its warm-started engine (the
     factors are its wire form, so both modes share it); every other method
     runs :func:`make_grad_sync`'s sync and returns ``comp`` unchanged."""
-    issue = make_issue_grad_sync(cfg, group_offset)
+    issue = make_issue_grad_sync(cfg, group_offset, group)
 
     def sync(grads: Tree, ef: Any, comp: Any, seed: int):
         return issue(grads, ef, comp, seed)()
@@ -497,7 +513,7 @@ def _from_flax_order(path: str, flat: torch.Tensor, like: torch.Tensor) -> torch
     return to_torch_layout(path, flat.reshape(to_flax_layout(path, like).shape))
 
 
-def _make_powersgd_sync(cfg: CompressionConfig, group_offset: int = 0):
+def _make_powersgd_sync(cfg: CompressionConfig, group_offset: int = 0, group=None):
     """The stateful PowerSGD engine (the JAX ``_make_powersgd_sync``).
 
     Per group: one warm-started power iteration against ``comp['q<gi>']``,
@@ -518,7 +534,7 @@ def _make_powersgd_sync(cfg: CompressionConfig, group_offset: int = 0):
                       "residual every step; enable EF (Vogels et al. always do)", stacklevel=2)
 
     def sync(grads: Tree, ef: Any, comp_state: Any, seed: int):
-        world = mesh.world()
+        world = mesh.size(group)
         names = list(grads)
         leaves = [grads[k] for k in names]
         use_ef = cfg.error_feedback
@@ -545,7 +561,7 @@ def _make_powersgd_sync(cfg: CompressionConfig, group_offset: int = 0):
                 # factors would cost >= the dense vector: all-reduce dense
                 # (torch.cat made acc a copy, so in place is safe)
                 if world > 1:
-                    dist.all_reduce(acc)
+                    dist.all_reduce(acc, group=group)
                 recon = acc / world
                 new_ef_flat = torch.zeros_like(acc) if use_ef else None
                 group_sent, group_bits = float(n_g), 32.0 * n_g
@@ -559,11 +575,11 @@ def _make_powersgd_sync(cfg: CompressionConfig, group_offset: int = 0):
                 if cfg.check_sync:
                     hi, lo = q_in.clone(), q_in.clone()
                     if world > 1:
-                        dist.all_reduce(hi, op=dist.ReduceOp.MAX)
-                        dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+                        dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=group)
+                        dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=group)
                     agrees.append(((hi - lo).abs().max() == 0.0).to(torch.float32))
                 recon, q_new, group_sent, group_bits = lowrank.powersgd_group_sync(
-                    acc, q_in, cfg.rank, world)
+                    acc, q_in, cfg.rank, world, group)
                 new_comp[qk] = q_new
                 new_ef_flat = acc - recon if use_ef else None
                 n_coll += 2  # the P and the Q all-reduce
@@ -610,8 +626,8 @@ def _make_powersgd_sync(cfg: CompressionConfig, group_offset: int = 0):
 
 # 0/1 diagnostics, combined across signature groups by their min reduction
 # instead of summed (the JAX engine's _DIAG_STATS; its guard/nonfinite comes
-# with the step guard, ROADMAP item 12)
-_DIAG_COMBINE = {"sync_agree": torch.minimum}
+# with the step guard, ROADMAP item 12): key -> (collective, combine)
+_DIAG_COMBINE = {"sync_agree": (dist.ReduceOp.MIN, torch.minimum)}
 
 
 def merge_stat_dicts(a: Dict[str, Any], b: Dict[str, Any]) -> Dict[str, Any]:
@@ -622,14 +638,46 @@ def merge_stat_dicts(a: Dict[str, Any], b: Dict[str, Any]) -> Dict[str, Any]:
     (the step all-reduces them stacked), which set order would not give."""
     keys = list(a) + [k for k in b if k not in a]
     merged = {k: a.get(k, 0.0) + b.get(k, 0.0) for k in keys if k not in _DIAG_COMBINE}
-    for k, combine in _DIAG_COMBINE.items():
+    for k, (_, combine) in _DIAG_COMBINE.items():
         vals = [c[k] for c in (a, b) if k in c]
         if vals:
             merged[k] = vals[0] if len(vals) == 1 else combine(*vals)
     return merged
 
 
-def make_partitioned_grad_sync(cfg: CompressionConfig, leaf_axes):
+def _reduce_stats(stats: Dict[str, torch.Tensor], groups) -> Dict[str, torch.Tensor]:
+    """A signature group's per-rank stats as model-wide totals: volumes
+    summed over the signature's axis groups, diagnostics by their own
+    reduction (the JAX ``psum`` / ``pmin`` over the signature's axes)."""
+    groups = [g for g in groups if mesh.axis_size(g) > 1]
+    if not groups:
+        return stats
+    keys = [k for k in stats if k not in _DIAG_COMBINE]
+    vals = torch.stack([stats[k].to(torch.float32) for k in keys])
+    out = {}
+    for g in groups:
+        vals = mesh.all_reduce_sum(vals, g)
+    out.update(zip(keys, vals.unbind(0)))
+    for k, (op, _) in _DIAG_COMBINE.items():
+        if k in stats:
+            v = stats[k].clone()
+            for g in groups:
+                dist.all_reduce(v, op=op, group=g)
+            out[k] = v
+    return {k: out[k] for k in stats}
+
+
+def _signatures(leaf_axes):
+    leaf_axes = [tuple(a) for a in leaf_axes]
+    sigs = sorted(set(leaf_axes))
+    return leaf_axes, sigs, [sigs.index(a) for a in leaf_axes]
+
+
+def _axis_groups(sig, axis_groups) -> list:
+    return [(axis_groups or {}).get(ax) for ax in sig]
+
+
+class PartitionedSync:
     """Compressed sync for gradients whose leaves are sharded over different
     model axes (the JAX ``make_partitioned_grad_sync``): leaves sync in one
     group per replication signature, in sorted-signature order, so a
@@ -637,58 +685,156 @@ def make_partitioned_grad_sync(cfg: CompressionConfig, leaf_axes):
     ``leaf_axes`` gives, per leaf in the gradients' order, the tuple of model
     axes it is sharded over (``()`` replicated).
 
-    The port's model axes all have size 1, so a group's stats need no
-    reduction over its signature's axes (the JAX psum over a size-1 axis)
-    and pass through; the groups' stats merge with :func:`merge_stat_dicts`.
-    Signature group ``gi`` compresses with the seed ``fold_in(seed, gi)``
-    (the JAX engine splits its key per signature).  Returns ``sync(grads,
-    ef, seed) -> (synced, new_ef, stats)`` as :func:`make_grad_sync`."""
-    base_sync = make_grad_sync(cfg)
-    leaf_axes = [tuple(a) for a in leaf_axes]
-    sigs = sorted(set(leaf_axes))
-    group_of = [sigs.index(a) for a in leaf_axes]
+    Every signature group syncs over the workers of ``group`` (the JAX sync
+    axes) with the seed ``fold_in(seed, gi)`` (the JAX engine splits its
+    key per signature), through the chunk engines of
+    ``parallel/overlap.py`` (``cfg.sync_overlap`` chunks a group; one chunk
+    is the single sync); its stats are then summed over the process groups
+    ``axis_groups`` names for its signature's axes (``{"tensor":
+    tensor_group}``; an absent axis has size 1), ``sync_agree`` by min, and
+    the groups' stats merge with :func:`merge_stat_dicts`.  The compressor
+    state is one :func:`init_comp_state` sub-dict per signature, keyed
+    ``'sig<gi>'`` (:func:`init_comp_state_partitioned`).
 
-    def sync(grads: Tree, ef: Any, seed: int):
-        names = list(grads)
-        if len(names) != len(group_of):
-            raise ValueError(f"{len(names)} gradient leaves, {len(group_of)} leaf signatures")
-        use_ef = cfg.error_feedback
-        synced, new_ef, comm = {}, {}, None
-        for gi in range(len(sigs)):
-            keys = [k for k, g in zip(names, group_of) if g == gi]
-            s_g, s_e, s_comm = base_sync({k: grads[k] for k in keys},
-                                         {k: ef[k] for k in keys} if use_ef else (),
-                                         compressors.fold_in(seed, gi))
+    ``sync(grads, ef, comp, seed) -> (synced, new_ef, new_comp, stats)``;
+    ``begin(params, ef, comp, seed)`` opens a round whose ``land(i, g)``
+    takes leaf ``i``'s gradient as the backward pass produces it (a group's
+    chunk goes out when its last gradient lands) and whose ``collect()``
+    returns the same four values."""
+
+    def __init__(self, cfg: CompressionConfig, leaf_axes, *, group=None, axis_groups=None):
+        from tpu_compressed_dp_torch.parallel.overlap import ChunkedSync
+
+        self.cfg = cfg
+        self.leaf_axes, self.sigs, self.group_of = _signatures(leaf_axes)
+        self.axis_groups = axis_groups
+        self.chunked = [ChunkedSync(cfg, group) for _ in self.sigs]
+
+    def begin(self, grads_like: Tree, ef: Any, comp: Any, seed: int) -> "_PartitionedRound":
+        if len(grads_like) != len(self.group_of):
+            raise ValueError(f"{len(grads_like)} gradient leaves, {len(self.group_of)} leaf "
+                             "signatures")
+        return _PartitionedRound(self, list(grads_like), grads_like, ef, comp, seed)
+
+    def __call__(self, grads: Tree, ef: Any, comp: Any, seed: int):
+        rnd = self.begin(grads, ef, comp, seed)
+        rnd.land_all(grads)
+        return rnd.collect()
+
+
+class _PartitionedRound:
+    def __init__(self, ps: PartitionedSync, names, grads_like: Tree, ef: Any, comp: Any,
+                 seed: int):
+        self.ps, self.names = ps, names
+        use_ef = ps.cfg.error_feedback
+        self.keys = [[k for k, g in zip(names, ps.group_of) if g == gi]
+                     for gi in range(len(ps.sigs))]
+        self.where = {k: (gi, j) for gi, keys in enumerate(self.keys) for j, k in enumerate(keys)}
+        self.rounds = [
+            ps.chunked[gi].begin({k: grads_like[k] for k in keys},
+                                 {k: ef[k] for k in keys} if use_ef else (),
+                                 comp.get(f"sig{gi}", ()) if isinstance(comp, dict) else (),
+                                 compressors.fold_in(seed, gi))
+            for gi, keys in enumerate(self.keys)]
+
+    def land(self, i: int, g: torch.Tensor) -> None:
+        gi, j = self.where[self.names[i]]
+        self.rounds[gi].land(j, g)
+
+    def land_all(self, grads: Tree) -> None:
+        for rnd, keys in zip(self.rounds, self.keys):
+            rnd.land_all({k: grads[k] for k in keys})
+
+    def collect(self):
+        use_ef = self.ps.cfg.error_feedback
+        synced, new_ef, new_comp, comm = {}, {}, {}, None
+        for gi, (sig, rnd) in enumerate(zip(self.ps.sigs, self.rounds)):
+            s_g, s_e, s_c, s_comm = rnd.collect()
             synced.update(s_g)
             if use_ef:
                 new_ef.update(s_e)
+            if isinstance(s_c, dict):
+                new_comp[f"sig{gi}"] = s_c
+            s_comm = _reduce_stats(s_comm, _axis_groups(sig, self.ps.axis_groups))
             comm = s_comm if comm is None else merge_stat_dicts(comm, s_comm)
-        return ({k: synced[k] for k in names},
-                {k: new_ef[k] for k in names} if use_ef else (), comm)
+        return ({k: synced[k] for k in self.names},
+                {k: new_ef[k] for k in self.names} if use_ef else (),
+                new_comp if new_comp else (), comm)
+
+
+def make_partitioned_grad_sync(cfg: CompressionConfig, leaf_axes, *, group=None,
+                               axis_groups=None):
+    """:class:`PartitionedSync` for the stateless methods: ``sync(grads, ef,
+    seed) -> (synced, new_ef, stats)``, as :func:`make_grad_sync`."""
+    if compressors.canonical_name(cfg.method) == "powersgd":
+        raise ValueError("powersgd carries a warm start across steps: build its sync with "
+                         "PartitionedSync")
+    full = PartitionedSync(cfg, leaf_axes, group=group, axis_groups=axis_groups)
+
+    def sync(grads: Tree, ef: Any, seed: int):
+        synced, new_ef, _, comm = full(grads, ef, (), seed)
+        return synced, new_ef, comm
 
     return sync
 
 
-def make_grouped_grad_sync(cfg: CompressionConfig, is_sharded, shard_axis="tensor"):
+def _binary_axes(is_sharded, shard_axis):
+    axes = (shard_axis,) if isinstance(shard_axis, str) else tuple(shard_axis)
+    return [axes if s else () for s in is_sharded]
+
+
+def make_grouped_grad_sync(cfg: CompressionConfig, is_sharded, shard_axis="tensor", *,
+                           group=None, axis_groups=None):
     """:func:`make_partitioned_grad_sync` for leaves that are either
     replicated or sharded over ``shard_axis`` (a name or a tuple of names)."""
-    axes = (shard_axis,) if isinstance(shard_axis, str) else tuple(shard_axis)
-    return make_partitioned_grad_sync(cfg, [axes if s else () for s in is_sharded])
+    return make_partitioned_grad_sync(cfg, _binary_axes(is_sharded, shard_axis), group=group,
+                                      axis_groups=axis_groups)
 
 
-def make_partitioned_clip(leaf_axes):
+def init_comp_state_partitioned(grads_like: Tree, cfg: CompressionConfig, leaf_axes,
+                                seed: int = 0) -> Any:
+    """The compressor state of :class:`PartitionedSync`:
+    one :func:`init_comp_state` sub-dict per replication signature, keyed
+    ``'sig<gi>'`` in sorted-signature order and drawn from ``seed + gi``
+    (the JAX ``init_comp_state_partitioned``); ``()`` when every signature
+    is stateless."""
+    if compressors.canonical_name(cfg.method) != "powersgd":
+        return ()
+    leaf_axes, sigs, _ = _signatures(leaf_axes)
+    state = {}
+    for gi, sig in enumerate(sigs):
+        sub = init_comp_state({k: g for (k, g), a in zip(grads_like.items(), leaf_axes)
+                               if a == sig}, cfg, seed + gi)
+        if sub != ():
+            state[f"sig{gi}"] = sub
+    return state if state else ()
+
+
+def init_comp_state_grouped(grads_like: Tree, cfg: CompressionConfig, is_sharded,
+                            shard_axis="tensor", seed: int = 0) -> Any:
+    """:func:`init_comp_state_partitioned` for replicated-or-sharded leaves."""
+    return init_comp_state_partitioned(grads_like, cfg, _binary_axes(is_sharded, shard_axis),
+                                       seed)
+
+
+def make_partitioned_clip(leaf_axes, axis_groups=None):
     """``clip_tree(tree, limit)``: scale every leaf by ``min(1, limit /
-    ||tree||)``, the full-model L2 norm summed per signature (the JAX
-    ``make_partitioned_clip``; at model axes of size 1 no psum is needed)."""
-    leaf_axes = [tuple(a) for a in leaf_axes]
-    sigs = sorted(set(leaf_axes))
+    ||tree||)``, the full-model L2 norm: squared norms accumulate per
+    signature and are summed over the process groups of the signature's
+    axes (the JAX ``make_partitioned_clip``'s psum; an absent axis has size
+    1), replicated leaves counting once."""
+    leaf_axes, sigs, _ = _signatures(leaf_axes)
 
     def global_norm(tree: Tree) -> torch.Tensor:
         leaves = list(tree.values())
         total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
         for sig in sigs:
-            total = total + sum((g.to(torch.float32) ** 2).sum()
-                                for g, a in zip(leaves, leaf_axes) if a == sig)
+            sq = sum((g.to(torch.float32) ** 2).sum()
+                     for g, a in zip(leaves, leaf_axes) if a == sig)
+            for g in _axis_groups(sig, axis_groups):
+                if mesh.axis_size(g) > 1:
+                    sq = mesh.all_reduce_sum(sq, g)
+            total = total + sq
         return torch.sqrt(total)
 
     def clip_tree(tree: Tree, limit: float) -> Tree:
@@ -698,7 +844,6 @@ def make_partitioned_clip(leaf_axes):
     return clip_tree
 
 
-def make_sharded_clip(is_sharded, shard_axis="tensor"):
+def make_sharded_clip(is_sharded, shard_axis="tensor", axis_groups=None):
     """:func:`make_partitioned_clip` for replicated-or-sharded leaves."""
-    axes = (shard_axis,) if isinstance(shard_axis, str) else tuple(shard_axis)
-    return make_partitioned_clip([axes if s else () for s in is_sharded])
+    return make_partitioned_clip(_binary_axes(is_sharded, shard_axis), axis_groups)

@@ -131,18 +131,21 @@ def _comp_slice(comp: Any, plan: ChunkPlan) -> Any:
 
 
 class ChunkedSync:
-    """The chunk engines of one config, planned once per tree layout (leaf
-    names and byte sizes); :meth:`begin` starts one step's round."""
+    """The chunk engines of one config over the workers of ``group`` (``None``:
+    the default process group), planned once per tree layout (leaf names and
+    byte sizes); :meth:`begin` starts one step's round."""
 
-    def __init__(self, cfg):
+    def __init__(self, cfg, group=None):
         self.cfg = cfg
+        self.group = group
         self._layout: Optional[Tuple] = None
 
     def _plan(self, grads_like: Tree):
         layout = tuple((k, g.numel() * 4) for k, g in grads_like.items())
         if layout != self._layout:
             self.plans = plan_chunks([b for _, b in layout], self.cfg)
-            self.issues = [dp.make_issue_grad_sync(self.cfg, p.group_offset) for p in self.plans]
+            self.issues = [dp.make_issue_grad_sync(self.cfg, p.group_offset, self.group)
+                           for p in self.plans]
             self.chunk_of = [c for c, p in enumerate(self.plans)
                              for _ in range(p.leaf_lo, p.leaf_hi)]
             self._layout = layout
