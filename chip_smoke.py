@@ -116,11 +116,20 @@ printing no result, where either is missing or any phase fails.
      ``LM_SP_SEQ``, which fit two whole models on the card; no flash launch:
      the unfused ring, as in JAX; first one layer's ring attention, forward
      and q/k/v gradients, held against the whole sequence's unfused
-     attention); then at phase 7's one-rank config PowerSGD r 4 + EF
-     entire-model and layer-wise (finite loss, the analytic sent fraction)
-     and one sync at ``sync_overlap`` 4 bitwise the one at 1 (entire-model
-     and layer-wise), then ``--overlap 4`` steps; step ms, tok/s, MFU and
-     peak GiB of each;
+     attention) and ``--pp 2 --microbatches 2`` (the GPipe step, one layer
+     a stage, batch 2: equal finite losses, each flash kernel ``M + S - 1``
+     = 3 times a step on each rank, the Top-K kernels on both signature
+     groups, the pipe-replicated parameters bitwise equal across the
+     stages), with the Top-K kernels held against their plain versions at
+     every rank's group sizes; then at phase 7's one-rank config PowerSGD r
+     4 + EF entire-model and layer-wise (finite loss, the analytic sent
+     fraction) and one sync at ``sync_overlap`` 4 bitwise the one at 1
+     (entire-model and layer-wise), then ``--overlap 4`` steps; step ms,
+     tok/s, MFU and peak GiB of each; (7d) phase 7's config with 8 experts
+     (Mixtral 8x7B's count and FFN width) on every second layer at capacity
+     factor 1.25, dense and layer-wise Top-K 1 % + EF (each flash kernel
+     twice a step, the Top-K kernels launched), with step ms, tok/s, MFU,
+     peak GiB and the share of one batch's tokens past capacity;
   8. trains full-width bf16 ResNet-50 (25,557,032 parameters, 1000 classes)
      through the port's ImageNet entry point (``harness.imagenet.main``) on
      synthetic ImageNet, the port's loaders and native crop-resize, one
@@ -3236,9 +3245,15 @@ LM_AXES_STEPS = 3
 # GiB of the card in use), at 1 layer and seq 8192 each peaks at ~32 GiB
 # (PERF.md section 5)
 LM_SP_LAYERS, LM_SP_SEQ = 1, 8192
+# pp2: two GPipe stages of one layer each (llama3_8b widths, 2 layers), 2
+# microbatches of one sequence, ~1.27 G parameters a rank; "pp" is the pipe
+# axis, "batch" the global batch
+LM_PP_SEQ = 8192
 LM_AXES_RUNS = {"tp2": {"mesh": (1, 1, 2), "layers": 2, "seq": 8192, "flags": []},
                 "sp2": {"mesh": (1, 2, 1), "layers": LM_SP_LAYERS, "seq": LM_SP_SEQ,
-                        "flags": ["--remat"]}}
+                        "flags": ["--remat"]},
+                "pp2": {"mesh": (1, 1, 1), "pp": 2, "batch": 2, "layers": 2, "seq": LM_PP_SEQ,
+                        "flags": ["--microbatches", "2"]}}
 LM_AXES_TOPK = ("count_ge", "search_init", "fused_sparsify")
 RING_REL = 1e-4   # ring vs float64 whole-sequence attention: max |diff| over the rms
 
@@ -3246,10 +3261,14 @@ RING_REL = 1e-4   # ring vs float64 whole-sequence attention: max |diff| over th
 def lm_axes_argv(run: dict, layers: int, seq: int) -> list:
     dpn, spn, tpn = run["mesh"]
     return ["--preset", "llama3_8b", "--layers", str(layers), "--seq_len", str(seq),
-            "--global_batch", "1", "--warmup_steps", "1", "--steps", str(LM_AXES_STEPS),
-            "--log_every", str(LM_AXES_STEPS), "--device", "cuda", "--seed", "0",
-            "--dp", str(dpn), "--sp", str(spn), "--tp", str(tpn), "--compress", "entiremodel",
-            *LM_TOPK, *run["flags"]]
+            "--global_batch", str(run.get("batch", 1)), "--warmup_steps", "1", "--steps",
+            str(LM_AXES_STEPS), "--log_every", str(LM_AXES_STEPS), "--device", "cuda", "--seed",
+            "0", "--dp", str(dpn), "--sp", str(spn), "--tp", str(tpn), "--pp",
+            str(run.get("pp", 1)), "--compress", "entiremodel", *LM_TOPK, *run["flags"]]
+
+
+def lm_axes_world(run: dict) -> int:
+    return math.prod(run["mesh"]) * run.get("pp", 1)
 
 
 def _causal64(torch, q, k, v, scale: float):
@@ -3334,13 +3353,14 @@ def lm_axes_worker(label: str, rank: int, port: int, out_path: str, layers: int,
     from tpu_compressed_dp_torch.models import transformer as tf
     from tpu_compressed_dp_torch.ops import kernels
     from tpu_compressed_dp_torch.parallel import mesh
+    from tpu_compressed_dp_torch.train import pp_step
 
     run = LM_AXES_RUNS[label]
     dpn, spn, tpn = run["mesh"]
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     mesh.init_process_group(dev, backend="gloo", init_method=f"tcp://localhost:{port}",
-                            world_size=dpn * spn * tpn, rank=rank)
+                            world_size=lm_axes_world(run), rank=rank)
     try:
         kernels.build()      # the parent built them: this loads the libraries
         result = {"label": label, "layers": layers, "seq": seq}
@@ -3351,9 +3371,10 @@ def lm_axes_worker(label: str, rank: int, port: int, out_path: str, layers: int,
             torch.cuda.empty_cache()
         holder, heads = {}, set()
         make_step, attend = lm.make_lm_train_step, tf.ring_attention
+        make_pp = pp_step.make_pp_train_step
 
-        def capture(*a, **kw):
-            step = make_step(*a, **kw)
+        def capture(*a, make=make_step, **kw):
+            step = make(*a, **kw)
 
             def wrapped(state, batch):
                 holder["state"], m = step(state, batch)
@@ -3366,6 +3387,7 @@ def lm_axes_worker(label: str, rank: int, port: int, out_path: str, layers: int,
             return attend(q, k, v, **kw)
 
         lm.make_lm_train_step, tf.ring_attention = capture, seen
+        pp_step.make_pp_train_step = lambda *a, **kw: capture(*a, make=make_pp, **kw)
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
         t0 = time.perf_counter()
@@ -3373,15 +3395,23 @@ def lm_axes_worker(label: str, rank: int, port: int, out_path: str, layers: int,
             summary = lm.main(lm_axes_argv(run, layers, seq))
         finally:
             lm.make_lm_train_step, tf.ring_attention = make_step, attend
+            pp_step.make_pp_train_step = make_pp
         torch.cuda.synchronize()
         result.update(summary=summary, launches=dict(kernels.LAUNCHES),
                       wall_s=time.perf_counter() - t0, heads=sorted(heads),
                       peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
         model = holder["state"].model
         cfg = model.cfg
+        if run.get("pp", 1) > 1:
+            # the two signature groups: the pipe-replicated leaves, then the
+            # stage's layer stacks
+            leaves = pp_step.stage_leaves(model)
+            sharded = [bool(ax) for ax in pp_step.stage_leaf_axes(cfg, tpn)]
+        else:
+            leaves, sharded = tf.param_leaves(model), tf.is_sharded(cfg)
         digest = hashlib.sha256()
         groups = [0, 0]
-        for (name, p), sh in zip(tf.param_leaves(model).items(), tf.is_sharded(cfg)):
+        for (name, p), sh in zip(leaves.items(), sharded):
             groups[sh] += p.numel()
             if not sh:
                 digest.update(name.encode())
@@ -3398,18 +3428,24 @@ def lm_axes_worker(label: str, rank: int, port: int, out_path: str, layers: int,
 def lm_axes_groups(label: str) -> list:
     """The element counts of a rank's two entire-model sync groups in the
     run ``label`` of LM_AXES_RUNS (replicated leaves, then this tensor
-    rank's shards), from the config alone."""
+    rank's shards; with pipe stages the pipe-replicated embedding, final
+    norm and head, then this stage's layers), from the config alone."""
     run = LM_AXES_RUNS[label]
-    tpn = run["mesh"][2]
+    tpn, ppn = run["mesh"][2], run.get("pp", 1)
+    if ppn > 1:
+        shapes = lm_leaf_shapes(run["layers"])
+        whole = sum(math.prod(shapes[k]) for k in ("embed", "final_norm", "lm_head"))
+        return [whole, (sum(math.prod(sh) for sh in shapes.values()) - whole) // ppn]
     leaves = lm_leaf_sizes(run["layers"])
     return [sum(n for n, sh in leaves if not sh), sum(n for n, sh in leaves if sh) // tpn]
 
 
-def hold_lm_axes_groups(kernels, compressors, torch, sizes) -> dict:
-    """At each of 7c's sync group sizes, Top-K 1 % of seeded N(0, 1) x 1e-2
-    data: the threshold search bitwise against the unfused glue on the plain
-    counts and the CPU search (``check_search``), and ``fused_sparsify``
-    (compressed, EF, count) bitwise against its plain version."""
+def hold_lm_axes_groups(kernels, compressors, torch, sizes, label: str = "7c group") -> dict:
+    """At each of the sync group sizes ``sizes`` (7c's ranks', 7d's layer-wise
+    leaves), Top-K 1 % of seeded N(0, 1) x 1e-2 data: the threshold search
+    bitwise against the unfused glue on the plain counts and the CPU search
+    (``check_search``), and ``fused_sparsify`` (compressed, EF, count)
+    bitwise against its plain version."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(13)
     out = {}
@@ -3419,14 +3455,14 @@ def hold_lm_axes_groups(kernels, compressors, torch, sizes) -> dict:
         x = torch.randn(n, generator=gen, device=dev) * 1e-2
         mag = x.abs()
         keep = compressors.topk_keep_count(n, RATIO)
-        r = {"search": check_search(kernels, torch, mag, keep, f"7c group n={n}")}
+        r = {"search": check_search(kernels, torch, mag, keep, f"{label} n={n}")}
         t = kernels.topk_threshold(mag, keep)
         del mag
         for got, want in zip(kernels.fused_sparsify(x, t), kernels.fused_sparsify_plain(x, t)):
             if not _bits_equal(torch, got, want):
-                raise AssertionError(f"fused_sparsify differs from its plain version at 7c's "
-                                     f"group n={n}")
-        log(f"7c group n={n}: search, fused_sparsify bitwise == plain")
+                raise AssertionError(f"fused_sparsify differs from its plain version at "
+                                     f"{label} n={n}")
+        log(f"{label} n={n}: search, fused_sparsify bitwise == plain")
         out[str(n)] = r
         del x, t
     gc.collect()
@@ -3438,7 +3474,7 @@ def run_lm_axes_world(label: str, layers: int, seq: int) -> list:
     """Phase 7c's ranks of ``label`` as worker processes on the card."""
     from tpu_compressed_dp_torch.parallel.mesh import free_port
 
-    world = math.prod(LM_AXES_RUNS[label]["mesh"])
+    world = lm_axes_world(LM_AXES_RUNS[label])
     out_dir = os.path.join(HERE, "build", "chip_smoke_ranks")
     os.makedirs(out_dir, exist_ok=True)
     port = free_port()
@@ -3537,11 +3573,11 @@ LM_ONE_RUNS = {"powersgd r4 entiremodel": ["--compress", "entiremodel", "--metho
 
 
 def phase_lm_axes_ranks(kernels, compressors, torch, record):
-    """7c (a) tp = 2 and (b) sp = 2 + remat as gloo ranks on the card, then
-    the Top-K kernels held against their plain versions at the ranks' sync
-    group sizes.  It runs before the phases that train in this process: the
-    ranks need the card's memory to themselves (two whole models at sp =
-    2)."""
+    """7c (a) tp = 2, (b) sp = 2 + remat and (d) pp = 2 (GPipe, 2
+    microbatches) as gloo ranks on the card, then the Top-K kernels held
+    against their plain versions at the ranks' sync group sizes.  It runs
+    before the phases that train in this process: the ranks need the card's
+    memory to themselves (two whole models at sp = 2)."""
     card = record["card"]
     t_phase = time.perf_counter()
     free, total = torch.cuda.mem_get_info()
@@ -3571,6 +3607,14 @@ def phase_lm_axes_ranks(kernels, compressors, torch, record):
                 if bad or res["heads"] != [[16, 4]]:
                     raise AssertionError(f"7c tp2 rank {r}: flash launches {bad}, local heads "
                                          f"{res['heads']} (16/4 wanted)")
+            elif "pp" in run:
+                # M + S - 1 ticks a step, each through the stage's layers
+                ticks = int(run["flags"][1]) + run["pp"] - 1
+                want = ticks * layers // run["pp"] * LM_AXES_STEPS
+                bad = {k: la[k] for k in FLASH_ROUTES if la[k] != want}
+                if bad or res["heads"] != [[32, 8]]:
+                    raise AssertionError(f"7c {label} rank {r}: flash launches {bad} ({want} "
+                                         f"wanted), heads {res['heads']}")
             elif any(la[k] for k in FLASH_ROUTES):
                 raise AssertionError(f"7c {label} rank {r}: a flash kernel ran on the ring: {la}")
             if "ring_hold" in res:
@@ -3581,17 +3625,20 @@ def phase_lm_axes_ranks(kernels, compressors, torch, record):
                     + ", ".join(f"{n} {h[n]['max_abs']:.3e} ({h[n]['whole_fp32_max_abs']:.3e}; "
                                 f"{h[n]['rms']:.4f})" for n in ("o", "dq", "dk", "dv"))
                     + f"; ring fwd + bwd {h['ring_ms']:.1f} ms")
-        if label == "tp2" and len({r["replicated_sha256"] for r in results}) != 1:
-            raise AssertionError("7c tp2: the replicated parameters differ across tensor ranks")
-        tokens = seq
+        axis = {"tp2": "tensor", "pp2": "pipe"}.get(label)
+        if axis and len({r["replicated_sha256"] for r in results}) != 1:
+            raise AssertionError(f"7c {label}: the replicated parameters differ across {axis} "
+                                 "ranks")
+        tokens = seq * run.get("batch", 1)
         rows = [_lm_row(f"7c {label} rank {r} ({layers} layers, seq {seq})", res["summary"],
                         round(res["peak_gib"], 2), card, tokens)
                 for r, res in enumerate(results)]
         launches = {k: sum(res["launches"][k] for res in results)
                     for k in results[0]["launches"]}
         log(f"7c {label}: world wall {wall:.1f} s, launches summed over ranks {launches}"
-            + ("; replicated parameters bitwise equal across the tensor ranks"
-               if label == "tp2" else ""))
+            + (f"; replicated parameters bitwise equal across the {axis} ranks" if axis else "")
+            + ("; host-bound: every pipe sum and hand-off goes through host memory over gloo"
+               if "pp" in run else ""))
         runs[label] = {"ranks": results, "rows": rows, "launches": launches, "wall_s": wall}
     t0 = time.perf_counter()
     sizes = sorted({n for label in LM_AXES_RUNS for n in lm_axes_groups(label)})
@@ -3656,6 +3703,188 @@ def phase_lm_axes_one(kernels, torch, record, lm_runs):
     wall = time.perf_counter() - t_phase
     log(f"7c (c) wall {wall:.1f} s")
     record["lm_axes_one"] = {"runs": runs, "overlap_holds": holds, "wall_s": wall}
+    return runs
+
+
+# phase 7d: phase 7's config with Mixtral 8x7B's expert count and FFN width
+# (8 experts of llama3_8b's ffn 14336) on every second layer, top-1 routing
+# at capacity factor 1.25 as in the JAX package (cap 1,280 of 8,192 tokens)
+LM_MOE = ["--experts", "8", "--moe_every", "2", "--capacity_factor", "1.25"]
+LM_MOE_PARAMS = 2_720_059_392
+LM_MOE_RUNS = {"moe dense": [],
+               "moe topk layerwise": ["--compress", "layerwise", *LM_TOPK]}
+
+
+def moe_ffn_times(torch, cfg) -> dict:
+    """One MoE FFN at 7d's shapes (8,192 tokens, 8 experts of llama3_8b's
+    widths, cap 1,280, bf16) on random inputs, CUDA events: the whole
+    ``_moe_ffn`` forward and forward + backward, and alone the one-hot
+    dispatch and combine products and the three expert products (forward),
+    against their bf16 tensor-core bound."""
+    from tpu_compressed_dp_torch.models import transformer as tf
+
+    dev, dt = torch.device("cuda", 0), cfg.dtype
+    n, d, f, e = 8192, cfg.dim, cfg.ffn, cfg.n_experts
+    cap = max(int(math.ceil(n / e * cfg.capacity_factor)), 1)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    x = torch.randn(1, n, d, generator=gen, device=dev).to(dt).requires_grad_(True)
+    lp = {"router": torch.randn(d, e, generator=gen, device=dev) / 64,
+          "w_gate": torch.randn(e, d, f, generator=gen, device=dev) / 64,
+          "w_up": torch.randn(e, d, f, generator=gen, device=dev) / 64,
+          "w_down": torch.randn(e, f, d, generator=gen, device=dev) / 120}
+    for v in lp.values():
+        v.requires_grad_(True)
+    ct = torch.randn(1, n, d, generator=gen, device=dev).to(dt)
+
+    def fwd_bwd(_):
+        out, aux = tf._moe_ffn(cfg, lp, x)
+        torch.autograd.grad((out * ct).sum() + aux, [x, *lp.values()])
+
+    out = {"ffn_fwd_bwd_ms": time_ms(fwd_bwd, [0], reps=5, inner=2)}
+    with torch.no_grad():
+        # a one-hot [N, E, cap] dispatch of every slot, as _moe_ffn builds
+        slot = torch.arange(n, device=dev)
+        disp = torch.zeros(n, e, cap, dtype=dt, device=dev)
+        disp[slot, slot % e, (slot // e) % cap] = 1
+        xf = x.detach().reshape(n, d)
+        xe = torch.randn(e, cap, d, generator=gen, device=dev).to(dt)
+        wg, wu, wd = (lp[k].detach().to(dt) for k in ("w_gate", "w_up", "w_down"))
+
+        def experts(_):
+            gate = torch.einsum("ecd,edf->ecf", xe, wg)
+            return torch.einsum("ecf,efd->ecd", gate * torch.einsum("ecd,edf->ecf", xe, wu), wd)
+
+        out.update(
+            ffn_fwd_ms=time_ms(lambda _: tf._moe_ffn(cfg, lp, x), [0], reps=5, inner=2),
+            dispatch_ms=time_ms(lambda _: torch.einsum("nec,nd->ecd", disp, xf), [0], reps=5,
+                                inner=5),
+            combine_ms=time_ms(lambda _: torch.einsum("ecd,nec->nd", xe, disp), [0], reps=5,
+                               inner=5),
+            experts_ms=time_ms(experts, [0], reps=5, inner=5))
+    out["one_hot_bound_ms"] = 2.0 * e * cap * n * d / BF16_OPS_PER_S * 1e3
+    out["experts_bound_ms"] = 3 * 2.0 * e * cap * d * f / BF16_OPS_PER_S * 1e3
+    del x, lp, ct, disp, xf, xe, wg, wu, wd
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_moe_leaf_shapes(cfg) -> dict:
+    """The shape of every leaf of 7d's model ``cfg`` (llama3_8b widths at 2
+    layers with experts), from the config alone."""
+    shapes = lm_leaf_shapes(cfg.n_layers)
+    for i in range(cfg.n_layers):
+        if cfg.is_moe_layer(i):
+            for k in ("w_gate", "w_up", "w_down"):
+                shapes[f"layers.{i}.{k}"] = (cfg.n_experts, *shapes[f"layers.{i}.{k}"])
+            shapes[f"layers.{i}.router"] = (cfg.dim, cfg.n_experts)
+    return shapes
+
+
+def phase_lm_moe(kernels, compressors, torch, record):
+    """7d: the LM's mixture-of-experts layers at one rank through
+    ``harness.lm.main`` (phase 7's widths, depth and batch, bf16), dense and
+    layer-wise Top-K 1 % + EF; the drop share of one batch's routing (the
+    tokens past their expert's capacity) from the first MoE layer of the
+    first step; the Top-K kernels held against their plain versions at the
+    layer-wise groups' sizes the run gave ``fused_sparsify``, the expert
+    stacks' included.  MFU is printed twice: the harness's ``6N``, whose N
+    counts every expert, and by the active parameters (one expert a token,
+    as top-1 routing runs).  Entire-model Top-K is not run: its one group
+    of 2.72 G elements is past the kernels' 2^31 - 1 dispatch limit."""
+    from tpu_compressed_dp_torch.harness import lm
+    from tpu_compressed_dp_torch.models import transformer as tf
+
+    card = record["card"]
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(tf.llama3_8b(), n_layers=2, n_experts=8, moe_every=2)
+    sizes = [math.prod(sh) for sh in lm_moe_leaf_shapes(cfg).values()]
+    n = sum(sizes)
+    if n != LM_MOE_PARAMS:
+        raise AssertionError(f"llama3_8b at 2 layers with 8 experts: {n} parameters")
+    # top-1 routing runs one of each MoE layer's experts a token
+    n_active = n - sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers)) * (
+        (cfg.n_experts - 1) * 3 * cfg.dim * cfg.ffn)
+    attn = 12.0 * cfg.n_layers * cfg.dim * 8192
+    active_share = (6.0 * n_active + attn) / (6.0 * n + attn)
+    kernel_sizes = sorted({m for m in sizes if kernels.use_fused_sparsify(m, "cuda")})
+    routed, seen = {}, set()
+    moe_ffn, fused = tf._moe_ffn, kernels.fused_sparsify
+
+    def sized(acc, t, **kw):
+        seen.add(acc.numel())
+        return fused(acc, t, **kw)
+
+    def counted(c, lp, x, tensor_group=None):
+        if not routed:
+            with torch.no_grad():
+                xf = x.reshape(-1, x.shape[-1])
+                top = torch.argmax(torch.softmax((xf @ lp["router"].to(c.dtype)).float(), -1), -1)
+                per = torch.bincount(top, minlength=c.n_experts)
+                cap = max(int(math.ceil(xf.shape[0] / c.n_experts * c.capacity_factor)), 1)
+                routed.update(tokens=xf.shape[0], cap=cap, per_expert=per.tolist(),
+                              dropped=int((per - cap).clamp(min=0).sum()))
+        return moe_ffn(c, lp, x, tensor_group)
+
+    runs = {}
+    tf._moe_ffn, kernels.fused_sparsify = counted, sized
+    try:
+        for label, flags in LM_MOE_RUNS.items():
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launches()
+            routed.clear()
+            seen.clear()
+            t0 = time.perf_counter()
+            summary = lm.main(LM_ARGV + LM_MOE + flags)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+            steps = summary["step"]
+            if steps != 4 or not math.isfinite(summary["loss"]):
+                raise AssertionError(f"7d {label}: {summary}")
+            if any(launches[k] != 2 * steps for k in FLASH_ROUTES):
+                raise AssertionError(f"7d {label}: flash launches {launches}, want 2 a step")
+            if "topk" in label:
+                if (launches["fused_sparsify"] < steps
+                        or min(launches[k] for k in ("count_ge", "search_init")) < 1):
+                    raise AssertionError(f"7d {label}: Top-K launches {launches}")
+                if not 0.0 < summary["sent frac"] <= 0.0101:
+                    raise AssertionError(f"7d {label}: sent frac {summary['sent frac']}")
+                if sorted(seen) != kernel_sizes:
+                    raise AssertionError(f"7d {label}: fused_sparsify saw groups of "
+                                         f"{sorted(seen)} elements, want {kernel_sizes}")
+            elif summary["sent frac"] != 1.0:
+                raise AssertionError(f"7d {label}: sent frac {summary['sent frac']}")
+            row = _lm_row(f"7d {label} (llama3_8b widths, 2 layers, 8 experts)", summary,
+                          round(torch.cuda.max_memory_allocated() / 2 ** 30, 2), card, 8192)
+            drop = routed["dropped"] / routed["tokens"]
+            mfu_active = summary["mfu"] * active_share
+            log(f"7d {label}: MFU {summary['mfu']} by 6N over all {n:,} parameters, "
+                f"{mfu_active:.4f} by the {n_active:,} active ones (one expert a token)")
+            log(f"7d {label}: {n:,} parameters; routing of step 1's batch at the MoE layer: "
+                f"{routed['per_expert']} tokens an expert, cap {routed['cap']}, drop share "
+                f"{drop:.4f}; wall {wall:.1f} s; launches {launches}")
+            runs[label] = {**row, "launches": launches, "wall_s": wall, "routing": dict(routed),
+                           "drop_share": drop, "mfu_active": mfu_active}
+    finally:
+        tf._moe_ffn, kernels.fused_sparsify = moe_ffn, fused
+    t0 = time.perf_counter()
+    holds = hold_lm_axes_groups(kernels, compressors, torch, kernel_sizes, "7d layer-wise group")
+    log(f"7d Top-K holds at the layer-wise groups' sizes {kernel_sizes}: "
+        f"{time.perf_counter() - t0:.1f} s")
+    times = moe_ffn_times(torch, dataclasses.replace(cfg, dtype=torch.bfloat16))
+    log("7d one MoE FFN (8,192 tokens, 8 experts, cap 1,280, bf16, events): forward "
+        f"{times['ffn_fwd_ms']:.3f} ms, forward + backward {times['ffn_fwd_bwd_ms']:.3f}; "
+        f"alone: the one-hot dispatch {times['dispatch_ms']:.3f} and combine "
+        f"{times['combine_ms']:.3f} (bound {times['one_hot_bound_ms']:.3f} each), the three "
+        f"expert products {times['experts_ms']:.3f} (bound {times['experts_bound_ms']:.3f}) "
+        f"on {card}")
+    wall = time.perf_counter() - t_phase
+    log(f"7d wall {wall:.1f} s")
+    record["lm_moe"] = {"runs": runs, "params": n, "active_params": n_active,
+                        "ffn_times": times, "holds": holds, "wall_s": wall}
     return runs
 
 
@@ -3737,6 +3966,7 @@ def main(argv=None) -> int:
                               runs["wire topk entiremodel"], lm_runs["wire topk entiremodel"])
     phase_lm_profile(kernels, torch, record)
     axes_runs.update(phase_lm_axes_one(kernels, torch, record, lm_runs))
+    axes_runs.update(phase_lm_moe(kernels, compressors, torch, record))
     phase_steady(torch, record)
     phase_steady_cifar(torch, record)
     imagenet_runs = phase_imagenet(kernels, imagenet, torch, record)
@@ -3783,7 +4013,7 @@ def main(argv=None) -> int:
     for name in replaces:
         r = rows[FULL_MODEL][name]
         # the main paths' launches: phase 3's and 3b's dawn runs, the LM runs
-        # of phases 7 and 7c (7c's ranks summed), the segmented-path runs,
+        # of phases 7, 7c (7c's ranks summed) and 7d, the segmented-path runs,
         # phase 8's ImageNet runs and the multi-rank dawn runs
         launches = (sum(run["launches"][name] for run in runs.values())
                     + sum(run["launches"][name] for run in cifar_runs.values())

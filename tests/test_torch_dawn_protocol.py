@@ -157,12 +157,16 @@ if sys.argv[2] == "torch":
     seed = int(sys.argv[sys.argv.index("--seed") + 1])
     params, stats = jdawn.init_model(jdawn.MODELS["resnet9"](0.125, dtype=jnp.float32),
                                      jax.random.key(seed), jnp.zeros((1, 32, 32, 3), jnp.float32))
+    planted = []
     def jax_init(channels, seed, device):
+        planted.append(seed)
         model = resnet9.ResNet9(channels=channels, seed=seed, device=device)
         resnet9.load_flax_params(model, jax.tree.map(np.asarray, params),
                                  jax.tree.map(np.asarray, stats))
         return model
-    dawn.ResNet9 = jax_init
+    # plant through the table the harness builds its net from
+    dawn.MODELS["resnet9"] = lambda s, dtype, seed, device: jax_init(
+        resnet9.scaled_channels(s), seed, device)
 else:
     from tpu_compressed_dp.utils import loggers
     dawn = jdawn
@@ -172,6 +176,9 @@ def record(self, row):
     append(self, row)
 loggers.TableLogger.append = record
 dawn.main(sys.argv[3:])
+if sys.argv[2] == "torch" and not planted:
+    sys.exit("the JAX initial weights were never planted: the harness did not build "
+             "its net through dawn.MODELS")
 if losses:
     with open(sys.argv[1], "w") as f:
         json.dump(losses, f)

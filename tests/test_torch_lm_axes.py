@@ -204,7 +204,7 @@ if "grads" in tasks:
     for label, c in (("plain", cfg), ("remat", dataclasses.replace(cfg, remat=True))):
         model = model_of(c)
         leaves = tf.param_leaves(model)
-        loss = lm_step.lm_loss(c, model, x, y, g)
+        loss, _ = lm_step.lm_loss(c, model, x, y, g)
         grads = torch.autograd.grad(loss, list(leaves.values()))
         res[f"{label}/loss"] = loss.detach().numpy()
         for i, gr in enumerate(grads):

@@ -9,7 +9,8 @@
     defaults are the JAX parser's, and CUDA is the default device;
   * the mesh and sync flags drive the entry point on 2 gloo processes
     (``--tp 2``, ``--sp 2``, ``--remat``, ``--overlap 2``, ``--method
-    powersgd``), each with a finite first-step loss equal to the JAX
+    powersgd``, ``--experts 4``, ``--pp 2 --microbatches 2``), each with a
+    finite first-step loss equal to the JAX
     harness's to rtol 1e-5 (float32; the port's processes start from the
     JAX harness's ``init_llama`` parameters, injected as the tests inject
     JAX's draws elsewhere);
@@ -105,7 +106,6 @@ def test_parser_surface_matches_jax():
 
 
 _UNPORTED = [
-    (["--pp", "2"], 11), (["--experts", "4"], 11),
     (["--guard"], 12), (["--guard_max_skips", "3"], 12),
     (["--chaos", "nan,target=grads,steps=1"], 12), (["--checkpoint_dir", "ck"], 12),
     (["--resume", "ck"], 12), (["--elastic"], 12), (["--elastic_dir", "d"], 12),
@@ -138,6 +138,12 @@ MESH_DRIVES = {
     # reference
     "powersgd": (["--method", "powersgd", "--rank", "2", "--compress", "layerwise",
                   "--error_feedback"], ["--dp", "2"]),
+    # 4 experts on every second layer (its capacity per worker's tokens)
+    "experts4": (["--experts", "4", "--compress", "entiremodel", *_TOPK],
+                 ["--dp", "2", "--experts", "4"]),
+    # two GPipe stages of one layer each, two microbatches
+    "pp2": (["--pp", "2", "--microbatches", "2", "--compress", "entiremodel", *_TOPK],
+            ["--dp", "1", "--pp", "2", "--microbatches", "2"]),
 }
 
 _DRIVE_WORKER = r"""
@@ -146,6 +152,7 @@ import numpy as np
 from tpu_compressed_dp_torch.harness import lm
 from tpu_compressed_dp_torch.models import transformer as tf
 from tpu_compressed_dp_torch.parallel import mesh
+from tpu_compressed_dp_torch.train import pp_step
 out, port, rank = sys.argv[1], sys.argv[2], int(sys.argv[3])
 mesh.init_process_group("cpu", init_method=f"tcp://localhost:{port}", world_size=2, rank=rank)
 saved = np.load(sys.argv[5])
@@ -158,7 +165,8 @@ tree["layers"] = [{k.split(".")[2]: v for k, v in flat.items() if k.startswith(f
 llama = tf.Llama
 
 
-def from_jax(cfg, *, seed=0, device=None, tensor_rank=0, tensor_size=1):
+def from_jax(cfg, *, seed=0, device=None, tensor_rank=0, tensor_size=1, layers=None):
+    # the whole model: a pipeline stage takes its layers from it
     tf.Llama = llama
     try:
         return tf.load_jax_params(cfg, tree, tensor_rank, tensor_size, device=device)
@@ -166,7 +174,7 @@ def from_jax(cfg, *, seed=0, device=None, tensor_rank=0, tensor_size=1):
         tf.Llama = from_jax
 
 
-tf.Llama = from_jax
+tf.Llama = pp_step.Llama = from_jax
 summary = lm.main(json.loads(sys.argv[4]))
 with open(out, "w") as f:
     json.dump(summary, f)
@@ -179,21 +187,22 @@ def mesh_drives(tmp_path_factory):
     from tpu_compressed_dp_torch.parallel.mesh import free_port
 
     out = tmp_path_factory.mktemp("lm_mesh_drives")
-    # the JAX harness's initial parameters (init_llama of its seed)
-    jargs = jharness.build_parser().parse_args(_DRIVE)
-    params = jtf.init_llama(jharness.build_config(jargs), jax.random.key(jargs.seed))
-    names = [".".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in path)
-             for path, _ in jax.tree_util.tree_flatten_with_path(params)[0]]
-    np.savez(out / "params.npz", **{n: np.asarray(a) for n, a in
-                                    zip(names, jax.tree.leaves(params))})
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""),
                OMP_NUM_THREADS="1")
     procs = {}
-    for label, (flags, _) in MESH_DRIVES.items():
+    for label, (flags, jflags) in MESH_DRIVES.items():
+        # the JAX harness's initial parameters (init_llama of its seed and
+        # config)
+        jargs = jharness.build_parser().parse_args(_DRIVE + jflags)
+        params = jtf.init_llama(jharness.build_config(jargs), jax.random.key(jargs.seed))
+        names = [".".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in path)
+                 for path, _ in jax.tree_util.tree_flatten_with_path(params)[0]]
+        np.savez(out / f"{label}_params.npz", **{n: np.asarray(a) for n, a in
+                                                 zip(names, jax.tree.leaves(params))})
         port = str(free_port())
         procs[label] = [subprocess.Popen(
             [sys.executable, "-c", _DRIVE_WORKER, str(out / f"{label}_{r}.json"), port, str(r),
-             json.dumps(_DRIVE + ["--device", "cpu"] + flags), str(out / "params.npz")],
+             json.dumps(_DRIVE + ["--device", "cpu"] + flags), str(out / f"{label}_params.npz")],
             env=env, cwd=REPO, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True) for r in range(2)]
     results = {}

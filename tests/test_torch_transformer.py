@@ -176,8 +176,13 @@ def test_fused_xent_auto_rule_matches_jax():
 
 
 def test_unported_options_raise(pair):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ttf.Llama(dataclasses.replace(CFG_T, n_experts=4))
+    # mixture-of-experts layers are ported (tests/test_torch_moe.py): a model
+    # builds with the JAX layout, every second layer's FFN an expert stack
+    moe = ttf.Llama(dataclasses.replace(CFG_T, n_experts=4))
+    leaves = ttf.param_leaves(moe)
+    assert tuple(leaves["layers.1.w_gate"].shape) == (4, CFG_T.dim, CFG_T.ffn)
+    assert tuple(leaves["layers.1.router"].shape) == (CFG_T.dim, 4)
+    assert "layers.0.router" not in leaves
     # remat is ported: each layer recomputed in the backward pass, the same
     # bits as without
     params, model = pair

@@ -1,22 +1,26 @@
 """Llama pretrain harness on PyTorch: compressed data-parallel SGD.
 
 PyTorch-port counterpart of :mod:`tpu_compressed_dp.harness.lm` on the
-``(data, seq, tensor)`` mesh (``--dp --sp --tp``; ``--pp 1``): one process
-per mesh position (``parallel/mesh.lm_groups``), each holding its tensor
-shard of the model and its ``(data, seq)`` block of the global batch; the
+``(data, seq, tensor)`` mesh (``--dp --sp --tp``), or with ``--pp > 1`` the
+GPipe step on ``(data, seq, pipe, tensor)`` (``train/pp_step.py``,
+``--microbatches`` a step): one process per mesh position
+(``parallel/mesh.lm_groups``), each holding its tensor shard of the model (of
+its pipeline stage) and its ``(data, seq)`` block of the global batch; the
 ``dp * sp`` compression workers' gradients sync through the ported engines
-(dense, PowerSGD at ``--tp 1``, or any compressor in simulate or wire mode,
-over the allgather, sharded or hierarchical transport, chunk-pipelined with
-``--overlap``).  The flag names and defaults are the JAX harness's, plus
+(dense, PowerSGD at ``--tp 1 --pp 1``, or any compressor in simulate or wire
+mode, over the allgather, sharded or hierarchical transport, chunk-pipelined
+with ``--overlap``).  ``--experts E`` makes every ``--moe_every``-th layer's
+FFN a top-1 mixture of ``E`` experts at ``--capacity_factor`` (experts split
+over ``--tp``).  The flag names and defaults are the JAX harness's, plus
 ``--device``; a flag this port does not carry yet raises
 ``NotImplementedError`` naming the ROADMAP item that brings it.
 Steady-state tokens/s excludes the first two steps (as the JAX harness
 does) and is closed by a device synchronise.
 
-Runs on CUDA unless ``--device cpu``; launch ``dp * sp * tp`` processes with
-``torchrun`` (e.g. ``torchrun --nproc_per_node 4 -m
+Runs on CUDA unless ``--device cpu``; launch ``dp * sp * pp * tp`` processes
+with ``torchrun`` (e.g. ``torchrun --nproc_per_node 4 -m
 tpu_compressed_dp_torch.harness.lm --sp 2 --tp 2 ...``; ``--dp`` defaults to
-the world over ``sp * tp``); alone, it runs a 1-rank group.
+the world over ``sp * tp * pp``); alone, it runs a 1-rank group.
 
 Run: ``python -m tpu_compressed_dp_torch.harness.lm --preset llama3_8b
 --layers 2 --seq_len 8192 --global_batch 1 --compress entiremodel --method
@@ -37,9 +41,10 @@ from tpu_compressed_dp_torch.data import lm as lm_data
 from tpu_compressed_dp_torch.harness.loop import to_device
 from tpu_compressed_dp_torch.models import transformer as tf
 from tpu_compressed_dp_torch.parallel import mesh
-from tpu_compressed_dp_torch.parallel.dp import CompressionConfig
+from tpu_compressed_dp_torch.parallel.dp import CompressionConfig, init_ef_state
 from tpu_compressed_dp_torch.train.lm_step import (init_lm_comp_state, init_lm_ef_state,
                                                    local_block, make_lm_train_step)
+from tpu_compressed_dp_torch.train import pp_step
 from tpu_compressed_dp_torch.train.optim import SGD
 from tpu_compressed_dp_torch.train.schedules import piecewise_linear
 from tpu_compressed_dp_torch.train.state import TrainState
@@ -56,7 +61,6 @@ _ITEM = "ROADMAP.md queue 1, item {}"
 # flags of the JAX harness this port does not carry yet, by the ROADMAP item
 # that ports them: any value but the default raises
 _LATER = {
-    **dict.fromkeys(("experts", "moe_every", "capacity_factor", "microbatches"), 11),
     **dict.fromkeys(("guard", "guard_init_scale", "guard_backoff", "guard_growth_interval",
                      "guard_max_skips", "chaos", "heartbeat", "heartbeat_interval", "elastic",
                      "elastic_dir", "peer_timeout", "elastic_ef", "elastic_min_world",
@@ -70,8 +74,6 @@ _LATER = {
     **dict.fromkeys(("stream_dir", "stream_every", "stream_keyframe_every", "stream_ratio",
                      "stream_rejoin"), 14),
 }
-# pipeline stages: values above 1 are not ported
-_ABOVE_ONE = {"pp": 11}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -84,7 +86,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--heads", type=int, default=None)
     p.add_argument("--kv_heads", type=int, default=None)
     p.add_argument("--ffn", type=int, default=None)
-    p.add_argument("--experts", type=int, default=None, help="MoE expert count (not ported)")
+    p.add_argument("--experts", type=int, default=None, help="MoE expert count (0 = dense)")
     p.add_argument("--moe_every", type=int, default=None)
     p.add_argument("--capacity_factor", type=float, default=None)
     p.add_argument("--fp32", action="store_true", help="disable bf16 compute")
@@ -94,8 +96,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="data axis size (default: world // (sp * tp))")
     p.add_argument("--sp", type=int, default=1, help="sequence axis size (ring attention)")
     p.add_argument("--tp", type=int, default=1, help="tensor axis size (Megatron layers)")
-    p.add_argument("--pp", type=int, default=1, help="pipeline stages (1 only)")
-    p.add_argument("--microbatches", type=int, default=4)
+    p.add_argument("--pp", type=int, default=1, help="pipeline stages (GPipe)")
+    p.add_argument("--microbatches", type=int, default=4,
+                   help="pipeline microbatches per step (--pp > 1 only)")
     # data/schedule
     p.add_argument("--corpus", type=str, default=None,
                    help="byte-level text file; default synthetic")
@@ -191,9 +194,6 @@ def _check_ported(args) -> None:
     for dest, item in _LATER.items():
         if getattr(args, dest) != getattr(defaults, dest):
             raise NotImplementedError(f"--{dest} is not ported yet: {_ITEM.format(item)}")
-    for dest, item in _ABOVE_ONE.items():
-        if getattr(args, dest) > 1:
-            raise NotImplementedError(f"--{dest} > 1 is not ported yet: {_ITEM.format(item)}")
 
 
 def build_config(args) -> tf.LlamaConfig:
@@ -247,20 +247,55 @@ def run(args) -> Dict[str, float]:
 
 
 def _mesh(args) -> mesh.LmGroups:
-    """This rank's groups on the ``(dp, sp, tp)`` mesh, with the JAX
+    """This rank's groups on the ``(dp, sp, pp, tp)`` mesh, with the JAX
     harness's checks."""
     world = mesh.world()
-    if args.sp < 1 or args.tp < 1 or world % (args.sp * args.tp):
-        raise ValueError(f"--sp {args.sp} x --tp {args.tp} must divide the world size {world}")
-    dp = args.dp if args.dp is not None else world // (args.sp * args.tp)
-    if dp * args.sp * args.tp != world:
-        raise ValueError(f"--dp {dp} x --sp {args.sp} x --tp {args.tp} must equal the world "
-                         f"size {world} (one process per mesh position)")
-    if args.global_batch % dp:
-        raise ValueError(f"--global_batch {args.global_batch} must divide by dp={dp}")
+    model = args.sp * args.tp * args.pp
+    if min(args.sp, args.tp, args.pp) < 1 or world % model:
+        raise ValueError(f"--sp {args.sp} x --tp {args.tp} x --pp {args.pp} must divide the "
+                         f"world size {world}")
+    dp = args.dp if args.dp is not None else world // model
+    if dp * model != world:
+        raise ValueError(f"--dp {dp} x --sp {args.sp} x --tp {args.tp} x --pp {args.pp} must "
+                         f"equal the world size {world} (one process per mesh position)")
+    if args.global_batch % (dp * (args.microbatches if args.pp > 1 else 1)):
+        raise ValueError(f"--global_batch {args.global_batch} must divide by dp*microbatches")
     if args.seq_len % args.sp:
         raise ValueError(f"--seq_len {args.seq_len} must divide by sp={args.sp}")
-    return mesh.lm_groups(dp, args.sp, args.tp)
+    return mesh.lm_groups(dp, args.sp, args.tp, args.pp)
+
+
+def _build(args, cfg: tf.LlamaConfig, comp: CompressionConfig, opt: SGD, groups, device):
+    """This rank's ``(state, train_step, n_params)``: the model (or its
+    pipeline stage), the LM or GPipe step, and the whole model's parameter
+    count (the JAX tree's: every expert, every tensor shard and stage)."""
+    if groups.pp > 1:
+        stage = pp_step.PipelineStage.build(
+            cfg, seed=args.seed, device=device, pipe_rank=groups.pipe_index,
+            pipe_size=groups.pp, tensor_rank=groups.tensor_index, tensor_size=groups.tp)
+        params = pp_step.stage_leaves(stage)
+        n_params = sum(p.numel() * (groups.tp if "tensor" in ax else 1)
+                       * (groups.pp if "pipe" in ax else 1)
+                       for p, ax in zip(params.values(),
+                                        pp_step.stage_leaf_axes(cfg, groups.tp)))
+        state = TrainState.create(stage, opt.init(params), init_ef_state(params, comp),
+                                  seed=args.seed + 1)
+        step = pp_step.make_pp_train_step(cfg, opt, comp, groups=groups,
+                                          microbatches=args.microbatches,
+                                          clip_norm=args.clip_norm,
+                                          clip_sent_norm=args.clip_sent_norm)
+        return state, step, n_params
+    model = tf.Llama(cfg, seed=args.seed, device=device, tensor_rank=groups.tensor_index,
+                     tensor_size=groups.tp)
+    params = tf.param_leaves(model)
+    n_params = sum(p.numel() * (groups.tp if sh else 1)
+                   for p, sh in zip(params.values(), tf.is_sharded(cfg)))
+    state = TrainState.create(model, opt.init(params), init_lm_ef_state(cfg, params, comp),
+                              seed=args.seed + 1,
+                              comp=init_lm_comp_state(cfg, params, comp, groups))
+    step = make_lm_train_step(cfg, opt, comp, groups=groups, clip_norm=args.clip_norm,
+                              clip_sent_norm=args.clip_sent_norm)
+    return state, step, n_params
 
 
 def _run(args, device: torch.device, comp: CompressionConfig) -> Dict[str, float]:
@@ -277,27 +312,19 @@ def _run(args, device: torch.device, comp: CompressionConfig) -> Dict[str, float
         ds = lm_data.SyntheticTokens(cfg.vocab_size, args.seq_len, args.global_batch,
                                      seed=args.seed)
     rows, cols = local_block(args.global_batch, args.seq_len, groups)
-    model = tf.Llama(cfg, seed=args.seed, device=device, tensor_rank=groups.tensor_index,
-                     tensor_size=groups.tp)
-    params = tf.param_leaves(model)
-    # the whole model's count (the JAX tree's), every tensor shard's leaves
-    n_params = sum(p.numel() * (groups.tp if sh else 1)
-                   for p, sh in zip(params.values(), tf.is_sharded(cfg)))
     sched = piecewise_linear(
         [0, max(args.warmup_steps, 1), max(args.steps, args.warmup_steps + 1)],
         [0.0, args.lr, args.lr * 0.1])
     opt = SGD(lr=sched, momentum=args.momentum, weight_decay=args.weight_decay)
-    state = TrainState.create(model, opt.init(params), init_lm_ef_state(cfg, params, comp),
-                              seed=args.seed + 1,
-                              comp=init_lm_comp_state(cfg, params, comp, groups))
-    train_step = make_lm_train_step(cfg, opt, comp, groups=groups, clip_norm=args.clip_norm,
-                                    clip_sent_norm=args.clip_sent_norm)
-    n_chips = groups.dp * groups.sp * groups.tp
+    state, train_step, n_params = _build(args, cfg, comp, opt, groups, device)
+    n_chips = groups.dp * groups.sp * groups.tp * groups.pp
+    mesh_str = (f"dp{groups.dp}xsp{groups.sp}xpp{groups.pp}xtp{groups.tp}(mb{args.microbatches})"
+                if groups.pp > 1 else f"dp{groups.dp}xsp{groups.sp}xtp{groups.tp}")
     if rank == 0:
-        print(f"params={n_params / 1e6:.1f}M mesh=dp{groups.dp}xsp{groups.sp}xtp{groups.tp} "
-              f"x {device} seq={args.seq_len} batch={args.global_batch} "
+        print(f"params={n_params / 1e6:.1f}M mesh={mesh_str} "
+              f"seq={args.seq_len} batch={args.global_batch} "
               f"method={comp.method or 'dense'}/{comp.granularity}/{comp.mode} "
-              f"dtype={cfg.dtype}")
+              f"device={device} dtype={cfg.dtype}")
 
     table = TableLogger()
     summary: Dict[str, float] = {}
@@ -318,9 +345,10 @@ def _run(args, device: torch.device, comp: CompressionConfig) -> Dict[str, float
             summary = {"step": step_i + 1, "loss": m["loss"], "lr": m["lr"],
                        "tok/s": round(tokens_done / dt, 1) if steps_timed > 0 else 0.0}
             if steps_timed > 0:
-                # MFU: closed-form 6N + 12 L d s per token, per card of the
-                # mesh, against the card's bf16 peak (absent on the CPU and
-                # unknown cards)
+                # MFU: closed-form 6N + 12 L d s per token (N counts every
+                # expert, as the JAX harness's), per card of the mesh,
+                # against the card's bf16 peak (absent on the CPU and unknown
+                # cards)
                 tok_flops = flops_mod.transformer_train_flops_per_token(
                     n_params, cfg.n_layers, cfg.dim, args.seq_len)
                 fwd_per_card = (tok_flops / 3.0) * args.global_batch * args.seq_len / n_chips

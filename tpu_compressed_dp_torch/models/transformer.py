@@ -27,9 +27,18 @@ leaf out as the JAX run does (the Top-K sampled first round and the wire
 packers read that layout): projection weights are ``[in, out]`` and are used
 as ``x @ w.to(dtype)``; parameters are float32 masters cast to ``cfg.dtype``
 at use.  :func:`param_leaves` yields them in ``jax.tree.leaves`` order
-(``embed, final_norm, layers[i]{attn_norm, mlp_norm, w_down, w_gate, w_up,
-wk, wo, wq, wv}, lm_head``) and :func:`load_jax_params` carries a JAX
-parameter tree across.
+(``embed, final_norm, layers[i]{attn_norm, mlp_norm, [router,] w_down,
+w_gate, w_up, wk, wo, wq, wv}, lm_head``) and :func:`load_jax_params` carries
+a JAX parameter tree across.
+
+With ``n_experts > 0`` every ``moe_every``-th layer's FFN is the JAX
+Switch-style top-1 mixture of experts (``_moe_ffn``): a replicated
+``router`` ``[D, E]`` and expert stacks ``w_gate``/``w_up`` ``[E, D, F]``,
+``w_down`` ``[E, F, D]`` split on their leading expert axis over the tensor
+group.  Every tensor rank routes all tokens into fixed-capacity slots of its
+local experts through one-hot products and one ``reduce_from_group``
+combines; ``forward(..., with_aux=True)`` also returns the load-balance aux
+loss averaged over the MoE layers.
 
 The LM loss is :func:`vocab_parallel_xent` of the (vocab-sharded) logits,
 or :func:`fused_head_xent` straight from the final hidden states (the head
@@ -39,8 +48,6 @@ takes the fused form where the logits would exceed 1 GiB
 (:func:`use_fused_head_xent`).  Both reduce their max, sum-exp and target
 logit over the tensor group, and are plain ``torch`` matrix work, as the JAX
 package leaves them to XLA.
-
-Not ported yet (ROADMAP.md queue 1, item 11): mixture-of-experts layers.
 """
 
 from __future__ import annotations
@@ -60,16 +67,18 @@ from tpu_compressed_dp_torch.parallel import mesh
 
 __all__ = ["LlamaConfig", "llama3_8b", "tiny_llama", "Llama", "param_leaves", "is_sharded",
            "load_jax_params", "vocab_parallel_xent", "fused_head_xent",
-           "use_fused_head_xent"]
+           "use_fused_head_xent", "decoder_layer", "run_layer", "layer_keys", "shard_axis"]
 
-_ITEM = "ROADMAP.md queue 1, item 11"
 _LAYER_KEYS = ("attn_norm", "mlp_norm", "w_down", "w_gate", "w_up", "wk", "wo", "wq", "wv")
-_NORMS = ("attn_norm", "mlp_norm")
+# an MoE layer's keys, sorted as the JAX tree sorts them
+_MOE_KEYS = ("attn_norm", "mlp_norm", "router", "w_down", "w_gate", "w_up", "wk", "wo", "wq",
+             "wv")
 # the axis each sharded leaf splits over the tensor axis (param_specs): the
 # output columns of the column-parallel products, the input rows of wo and
-# w_down
+# w_down; an MoE layer's expert stacks split on their leading expert axis
 _SHARD_AXIS = {"wq": 1, "wk": 1, "wv": 1, "w_gate": 1, "w_up": 1, "wo": 0, "w_down": 0,
                "lm_head": 1}
+_EXPERTS = ("w_gate", "w_up", "w_down")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,6 +121,15 @@ class LlamaConfig:
         if self.ffn % tensor_size or self.vocab_size % tensor_size:
             raise ValueError(f"ffn ({self.ffn}) and vocab ({self.vocab_size}) must divide "
                              f"by tensor axis size {tensor_size}")
+        if self.n_experts and self.n_experts % tensor_size:
+            raise ValueError(f"n_experts ({self.n_experts}) must divide by tensor axis "
+                             f"size {tensor_size}")
+
+    def is_moe_layer(self, i: int) -> bool:
+        """Whether layer ``i``'s FFN is the mixture of experts: every
+        ``moe_every``-th layer, the last of each run."""
+        every = max(self.moe_every, 1)
+        return bool(self.n_experts) and i % every == every - 1
 
 
 def llama3_8b() -> LlamaConfig:
@@ -127,20 +145,26 @@ def tiny_llama(vocab: int = 256, dim: int = 64, layers: int = 2) -> LlamaConfig:
                        n_kv_heads=2, ffn_hidden=128)
 
 
-def _check_ported(cfg: LlamaConfig) -> None:
-    if cfg.n_experts > 0:
-        raise NotImplementedError(f"mixture-of-experts layers are not ported yet: {_ITEM}")
-
-
 def _dense(gen: torch.Generator, fan_in: int, shape, device) -> torch.Tensor:
     return torch.randn(shape, generator=gen, device=device) / math.sqrt(fan_in)
 
 
-def _shard(a, key: str, tensor_rank: int, tensor_size: int):
+def shard_axis(key: str, moe: bool = False) -> Optional[int]:
+    """The axis along which ``param_specs`` splits the leaf ``key`` (a layer
+    key or a :func:`param_leaves` name) over the tensor axis, ``None`` where
+    it is replicated; ``moe`` for a leaf of an MoE layer, whose expert stacks
+    split on the expert axis."""
+    key = key.rsplit(".", 1)[-1]
+    if moe and key in _EXPERTS:
+        return 0
+    return _SHARD_AXIS.get(key)
+
+
+def _shard(a, key: str, tensor_rank: int, tensor_size: int, moe: bool = False):
     """Tensor rank ``tensor_rank``'s slice of the whole leaf ``a`` (a tensor
     or a numpy array) named ``key``, as ``param_specs`` shards it; the leaf
     itself where it is replicated or the axis has size 1."""
-    axis = _SHARD_AXIS.get(key.rsplit(".", 1)[-1])
+    axis = shard_axis(key, moe)
     if axis is None or tensor_size == 1:
         return a
     n = a.shape[axis] // tensor_size
@@ -154,16 +178,18 @@ class LlamaLayer(nn.Module):
     """One decoder layer's parameters (the JAX layer dict), tensor rank
     ``tensor_rank``'s shard: every leaf is drawn whole, in the order of the
     unsharded model, and sliced, so the shards of one seed make up the
-    unsharded model of that seed."""
+    unsharded model of that seed.  ``moe``: the FFN is the mixture of
+    experts (``router`` and the expert stacks)."""
 
     def __init__(self, cfg: LlamaConfig, gen: torch.Generator, device=None,
-                 tensor_rank: int = 0, tensor_size: int = 1):
+                 tensor_rank: int = 0, tensor_size: int = 1, moe: bool = False):
         super().__init__()
-        d, hd = cfg.dim, cfg.head_dim
+        d, hd, f = cfg.dim, cfg.head_dim, cfg.ffn
+        self.moe = moe
 
         def leaf(key, fan_in, shape):
             return nn.Parameter(_shard(_dense(gen, fan_in, shape, device), key, tensor_rank,
-                                       tensor_size))
+                                       tensor_size, moe))
 
         self.attn_norm = nn.Parameter(torch.ones(d, device=device))
         self.wq = leaf("wq", d, (d, cfg.n_heads * hd))
@@ -171,9 +197,16 @@ class LlamaLayer(nn.Module):
         self.wv = leaf("wv", d, (d, cfg.n_kv_heads * hd))
         self.wo = leaf("wo", cfg.n_heads * hd, (cfg.n_heads * hd, d))
         self.mlp_norm = nn.Parameter(torch.ones(d, device=device))
-        self.w_gate = leaf("w_gate", d, (d, cfg.ffn))
-        self.w_up = leaf("w_up", d, (d, cfg.ffn))
-        self.w_down = leaf("w_down", cfg.ffn, (cfg.ffn, d))
+        e = (cfg.n_experts,) if moe else ()
+        self.w_gate = leaf("w_gate", d, e + (d, f))
+        self.w_up = leaf("w_up", d, e + (d, f))
+        self.w_down = leaf("w_down", f, e + (f, d))
+        if moe:
+            self.router = leaf("router", d, (d, cfg.n_experts))
+
+    def leaves(self) -> Dict[str, nn.Parameter]:
+        """The layer's leaves in the JAX tree's (sorted) key order."""
+        return {k: getattr(self, k) for k in (_MOE_KEYS if self.moe else _LAYER_KEYS)}
 
 
 def _rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -196,51 +229,134 @@ def _rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
     return out.reshape(x.shape).to(x.dtype)
 
 
+def _moe_ffn(cfg: LlamaConfig, lp: Mapping[str, torch.Tensor], x: torch.Tensor,
+             tensor_group=None):
+    """The JAX Switch-style top-1 MoE FFN of the normed input ``x`` ``[B, T,
+    D]``, experts split over ``tensor_group``: ``(out, aux)``.
+
+    Every tensor rank routes all its tokens with the replicated router (a
+    float32 softmax; the first maximum wins, as ``jnp.argmax``), fills the
+    ``cap = max(ceil(n / E * cf), 1)`` slots of each expert in token order
+    (the 1-based queue rank by a cumulative sum; tokens past capacity fall
+    through to the residual), dispatches into and combines out of its local
+    experts with one-hot products, runs SwiGLU per expert and sums over the
+    group.  ``aux`` is the Switch load-balance loss ``E * sum_e f_e P_e``.
+    The cotangents of the tokens and their gate that enter the local experts
+    are summed over the group (Megatron's *f*, the psum JAX's AD puts at the
+    implicit ``pvary`` of the local slices); the router's aux path is not, as
+    every rank computes the same aux."""
+    dt = cfg.dtype
+    b, t, d = x.shape
+    n, e = b * t, cfg.n_experts
+    xf = x.reshape(n, d)
+    probs = torch.softmax((xf @ lp["router"].to(dt)).to(torch.float32), dim=-1)  # [N, E]
+    top = torch.argmax(probs, dim=-1)
+    top_p = probs.amax(dim=-1)
+    onehot = F.one_hot(top, e).to(torch.float32)
+    aux = e * (onehot.mean(0) * probs.mean(0)).sum()
+
+    cap = max(int(math.ceil(n / e * cfg.capacity_factor)), 1)
+    pos = torch.cumsum(onehot, dim=0) * onehot                      # 1-based queue rank
+    within = (pos > 0) & (pos <= cap)
+    slots = 1.0 + torch.arange(cap, dtype=torch.float32, device=x.device)
+    disp = within[..., None] & (pos[..., None] == slots[None, None, :])   # [N, E, cap]
+    e_local = lp["w_gate"].shape[0]
+    if e_local != e:
+        off = mesh.group_rank(tensor_group) * e_local
+        disp = disp[:, off:off + e_local]
+    disp = disp.to(dt)
+    combine = disp * mesh.copy_to_group(top_p, tensor_group)[:, None, None].to(dt)
+    xe = torch.einsum("nec,nd->ecd", disp, mesh.copy_to_group(xf, tensor_group))
+    h = F.silu(torch.einsum("ecd,edf->ecf", xe, lp["w_gate"].to(dt)))
+    h = h * torch.einsum("ecd,edf->ecf", xe, lp["w_up"].to(dt))
+    ye = torch.einsum("ecf,efd->ecd", h, lp["w_down"].to(dt))
+    out = mesh.reduce_from_group(torch.einsum("ecd,nec->nd", ye, combine), tensor_group)
+    return out.reshape(b, t, d), aux
+
+
+def decoder_layer(cfg: LlamaConfig, lp: Mapping[str, torch.Tensor], h: torch.Tensor,
+                  pos: torch.Tensor, tensor_group=None, seq_group=None, moe: bool = False):
+    """One pre-norm decoder layer of this rank's shard ``lp`` (a layer's
+    leaves by key) on ``h`` ``[B, T, D]`` at rope positions ``pos``:
+    ``(h, aux)``, ``aux`` ``None`` for the dense FFN."""
+    dt, hd = cfg.dtype, cfg.head_dim
+    b, t = h.shape[:2]
+    x = mesh.copy_to_group(_rms_norm(h, lp["attn_norm"], cfg.norm_eps), tensor_group)
+    q = (x @ lp["wq"].to(dt)).reshape(b, t, -1, hd).transpose(1, 2)
+    k = (x @ lp["wk"].to(dt)).reshape(b, t, -1, hd).transpose(1, 2)
+    v = (x @ lp["wv"].to(dt)).reshape(b, t, -1, hd).transpose(1, 2)
+    q = _rope(q, pos, cfg.rope_theta)
+    k = _rope(k, pos, cfg.rope_theta)
+    o = ring_attention(q, k, v, group=seq_group)
+    o = o.transpose(1, 2).reshape(b, t, -1)
+    h = h + mesh.reduce_from_group(o @ lp["wo"].to(dt), tensor_group)
+    x = _rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
+    if moe:
+        # the router sees the replicated x: only the expert paths sum
+        # their cotangents over the group
+        out, aux = _moe_ffn(cfg, lp, x, tensor_group)
+        return h + out, aux
+    x = mesh.copy_to_group(x, tensor_group)
+    gate = F.silu(x @ lp["w_gate"].to(dt))
+    return h + mesh.reduce_from_group((gate * (x @ lp["w_up"].to(dt))) @ lp["w_down"].to(dt),
+                                      tensor_group), None
+
+
+def run_layer(cfg: LlamaConfig, lp: Mapping[str, torch.Tensor], h: torch.Tensor,
+              pos: torch.Tensor, tensor_group=None, seq_group=None, moe: bool = False):
+    """:func:`decoder_layer`, recomputed in the backward pass where
+    ``cfg.remat``: the whole layer, never stopped early, since a recompute
+    must run every collective of the layer's forward on every rank of its
+    groups."""
+    if not cfg.remat:
+        return decoder_layer(cfg, lp, h, pos, tensor_group, seq_group, moe)
+    with set_checkpoint_early_stop(False):
+        return checkpoint(decoder_layer, cfg, lp, h, pos, tensor_group, seq_group, moe,
+                          use_reentrant=False)
+
+
 class Llama(nn.Module):
     """The decoder, tensor rank ``tensor_rank`` of ``tensor_size``'s shard;
     ``forward(tokens)`` gives this rank's logits ``[B, T, V / tp]`` in
     ``cfg.dtype``, ``forward(tokens, return_hidden=True)`` the final-normed
-    hidden states (the input of :func:`fused_head_xent`).  ``tensor_group``
+    hidden states (the input of :func:`fused_head_xent`); ``with_aux=True``
+    returns ``(out, aux)``, the MoE load-balance loss averaged over the MoE
+    layers (0 for the dense FFN).  ``tensor_group``
     (of ``tensor_size`` ranks) and ``seq_group`` are the process groups of
-    the model axes, ``None`` where an axis has size 1."""
+    the model axes, ``None`` where an axis has size 1.  ``layers`` (default
+    all): the indices of the layers to hold.  Every layer is drawn in the
+    seed's order and the others are dropped as soon as they are drawn, so
+    the held leaves are those of the seed's whole model while the process
+    holds at most one layer more; such a part is a pipeline stage's store
+    (``train/pp_step.PipelineStage.build``) and has no forward."""
 
     def __init__(self, cfg: LlamaConfig, *, seed: int = 0, device=None, tensor_rank: int = 0,
-                 tensor_size: int = 1):
+                 tensor_size: int = 1, layers=None):
         super().__init__()
-        _check_ported(cfg)
         cfg.validate_mesh(tensor_size)
         self.cfg = cfg
         self.tensor_rank, self.tensor_size = tensor_rank, tensor_size
+        self.layer_ids = tuple(range(cfg.n_layers) if layers is None else layers)
         gen = torch.Generator(device=device if device is not None else "cpu").manual_seed(seed)
-        self.layers = nn.ModuleList(LlamaLayer(cfg, gen, device, tensor_rank, tensor_size)
-                                    for _ in range(cfg.n_layers))
+        held = []
+        for i in range(cfg.n_layers):
+            lp = LlamaLayer(cfg, gen, device, tensor_rank, tensor_size, cfg.is_moe_layer(i))
+            if i in self.layer_ids:
+                held.append(lp)
+            del lp
+        self.layers = nn.ModuleList(held)
         self.embed = nn.Parameter(
             torch.randn((cfg.vocab_size, cfg.dim), generator=gen, device=device) * 0.02)
         self.final_norm = nn.Parameter(torch.ones(cfg.dim, device=device))
         self.lm_head = nn.Parameter(_shard(_dense(gen, cfg.dim, (cfg.dim, cfg.vocab_size),
                                                   device), "lm_head", tensor_rank, tensor_size))
 
-    def _layer(self, h, lp, pos, tensor_group, seq_group):
-        cfg = self.cfg
-        dt, hd = cfg.dtype, cfg.head_dim
-        b, t = h.shape[:2]
-        x = mesh.copy_to_group(_rms_norm(h, lp.attn_norm, cfg.norm_eps), tensor_group)
-        q = (x @ lp.wq.to(dt)).reshape(b, t, -1, hd).transpose(1, 2)
-        k = (x @ lp.wk.to(dt)).reshape(b, t, -1, hd).transpose(1, 2)
-        v = (x @ lp.wv.to(dt)).reshape(b, t, -1, hd).transpose(1, 2)
-        q = _rope(q, pos, cfg.rope_theta)
-        k = _rope(k, pos, cfg.rope_theta)
-        o = ring_attention(q, k, v, group=seq_group)
-        o = o.transpose(1, 2).reshape(b, t, -1)
-        h = h + mesh.reduce_from_group(o @ lp.wo.to(dt), tensor_group)
-        x = mesh.copy_to_group(_rms_norm(h, lp.mlp_norm, cfg.norm_eps), tensor_group)
-        gate = F.silu(x @ lp.w_gate.to(dt))
-        return h + mesh.reduce_from_group((gate * (x @ lp.w_up.to(dt))) @ lp.w_down.to(dt),
-                                          tensor_group)
-
     def forward(self, tokens: torch.Tensor, return_hidden: bool = False, *, tensor_group=None,
-                seq_group=None) -> torch.Tensor:
+                seq_group=None, with_aux: bool = False):
         cfg = self.cfg
+        if len(self.layers) != cfg.n_layers:
+            raise ValueError(f"this Llama holds layers {list(self.layer_ids)} of "
+                             f"{cfg.n_layers}: a pipeline stage's store has no forward")
         if mesh.axis_size(tensor_group) != self.tensor_size:
             raise ValueError(f"a tensor shard of {self.tensor_size} needs a tensor group of that "
                              f"size, got {mesh.axis_size(tensor_group)}")
@@ -251,41 +367,43 @@ class Llama(nn.Module):
         # gather, then cast: the same values as the JAX embed.astype(dt)[tokens]
         # without a cast copy of the whole table
         h = F.embedding(tokens.long(), self.embed).to(cfg.dtype)
+        aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
+        n_moe = 0
         for lp in self.layers:
-            if cfg.remat:
-                # the whole layer is recomputed, never stopped early: a
-                # recompute must run every collective of the layer's forward
-                # on every rank of its groups
-                with set_checkpoint_early_stop(False):
-                    h = checkpoint(self._layer, h, lp, pos, tensor_group, seq_group,
-                                   use_reentrant=False)
-            else:
-                h = self._layer(h, lp, pos, tensor_group, seq_group)
+            h, aux = run_layer(cfg, lp.leaves(), h, pos, tensor_group, seq_group, lp.moe)
+            if aux is not None:
+                aux_total = aux_total + aux
+                n_moe += 1
         h = _rms_norm(h, self.final_norm, cfg.norm_eps)
-        if return_hidden:
-            return h
-        return mesh.copy_to_group(h, tensor_group) @ self.lm_head.to(cfg.dtype)
+        out = h if return_hidden else (
+            mesh.copy_to_group(h, tensor_group) @ self.lm_head.to(cfg.dtype))
+        return (out, aux_total / max(n_moe, 1)) if with_aux else out
 
 
 def param_leaves(model: Llama) -> Dict[str, nn.Parameter]:
     """The parameters in ``jax.tree.leaves`` order of the JAX tree (dict keys
     sorted): ``embed``, ``final_norm``, ``layers.<i>.<key>``, ``lm_head``."""
     out = {"embed": model.embed, "final_norm": model.final_norm}
-    for i, lp in enumerate(model.layers):
-        for key in _LAYER_KEYS:
-            out[f"layers.{i}.{key}"] = getattr(lp, key)
+    for i, lp in zip(model.layer_ids, model.layers):
+        for key, p in lp.leaves().items():
+            out[f"layers.{i}.{key}"] = p
     out["lm_head"] = model.lm_head
     return out
+
+
+def layer_keys(cfg: LlamaConfig, i: int):
+    """Layer ``i``'s keys in the JAX tree's (sorted) order."""
+    return _MOE_KEYS if cfg.is_moe_layer(i) else _LAYER_KEYS
 
 
 def is_sharded(cfg: LlamaConfig):
     """Per leaf of :func:`param_leaves`, whether the JAX ``param_specs``
     shard it over the tensor axis (``lm_step._lm_is_sharded``): the
-    projections and the LM head; the embedding and the norms are
-    replicated."""
-    _check_ported(cfg)
-    per_layer = [key not in _NORMS for key in _LAYER_KEYS]
-    return [False, False] + per_layer * cfg.n_layers + [True]
+    projections, the expert stacks and the LM head; the embedding, the norms
+    and the router are replicated."""
+    per_layer = [shard_axis(key, cfg.is_moe_layer(i)) is not None for i in range(cfg.n_layers)
+                 for key in layer_keys(cfg, i)]
+    return [False, False] + per_layer + [True]
 
 
 def load_jax_params(cfg: LlamaConfig, tree: Mapping, tensor_rank: int = 0,
@@ -299,12 +417,14 @@ def load_jax_params(cfg: LlamaConfig, tree: Mapping, tensor_rank: int = 0,
     if len(tree["layers"]) != cfg.n_layers:
         raise ValueError(f"tree has {len(tree['layers'])} layers, cfg {cfg.n_layers}")
     for i, layer in enumerate(tree["layers"]):
-        if set(layer) != set(_LAYER_KEYS):
-            raise ValueError(f"layer {i} keys {sorted(layer)} are not {list(_LAYER_KEYS)}")
+        keys = layer_keys(cfg, i)
+        if set(layer) != set(keys):
+            raise ValueError(f"layer {i} keys {sorted(layer)} are not {list(keys)}")
         want.update({f"layers.{i}.{k}": v for k, v in layer.items()})
     with torch.no_grad():
         for name, p in leaves.items():
-            a = np.array(_shard(np.asarray(want[name]), name, tensor_rank, tensor_size),
+            moe = name.startswith("layers.") and cfg.is_moe_layer(int(name.split(".")[1]))
+            a = np.array(_shard(np.asarray(want[name]), name, tensor_rank, tensor_size, moe),
                          dtype=np.float32)
             if a.shape != tuple(p.shape):
                 raise ValueError(f"{name}: shape {a.shape}, expected {tuple(p.shape)}")

@@ -15,9 +15,11 @@ the outputs are in group-rank order.
 
 The LM's ``(data, seq, tensor)`` mesh (the JAX ``make_lm_mesh``) is one
 process per mesh position, numbered row-major as the JAX mesh lays out its
-devices: rank ``(d * sp + s) * tp + t``.  :func:`lm_groups` gives a rank its
-``workers`` group (the ``dp * sp`` ranks of its tensor index, over which the
-gradient sync runs), its ``seq`` ring and its ``tensor`` group.  Inside the
+devices: rank ``(d * sp + s) * tp + t``; with pipeline stages it is the JAX
+``make_pp_mesh``'s ``(data, seq, pipe, tensor)``, rank ``((d * sp + s) * pp +
+p) * tp + t``.  :func:`lm_groups` gives a rank its ``workers`` group (the ``dp
+* sp`` ranks of its pipe and tensor index, over which the gradient sync
+runs), its ``seq`` ring, its ``tensor`` group and its ``pipe`` ring.  Inside the
 model the axes' collectives carry hand-placed gradients, as ``shard_map``'s
 AD places them in JAX: :func:`ppermute` (the ring's block rotation, whose
 backward is the reverse rotation), :func:`copy_to_group` (Megatron's *f*:
@@ -39,7 +41,8 @@ import torch.distributed as dist
 __all__ = ["resolve_device", "init_process_group", "world", "rank", "free_port",
            "all_gather", "all_reduce_sum", "all_reduce_max", "all_to_all", "hier_groups",
            "destroy", "size", "group_rank", "group_ranks", "axis_size", "LmGroups",
-           "lm_groups", "ppermute", "ring_perm", "copy_to_group", "reduce_from_group"]
+           "lm_groups", "ppermute", "ring_perm", "copy_to_group", "reduce_from_group",
+           "sum_over_group"]
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -244,12 +247,13 @@ def hier_groups(world_size: int, pods: int, group=None):
 
 
 class LmGroups(NamedTuple):
-    """A rank's place on the ``(dp, sp, tp)`` mesh and its groups: ``workers``
-    (the ``dp * sp`` compression workers of its tensor index, in ``(data,
-    seq)`` row-major order, the JAX ``("data", "seq")`` axes), ``seq`` (its
-    ring, in seq order) and ``tensor`` (in tensor order).  ``seq`` and
-    ``tensor`` are ``None`` where the axis has size 1; ``workers`` is
-    ``None`` only without a process group (one process)."""
+    """A rank's place on the ``(dp, sp, [pp,] tp)`` mesh and its groups:
+    ``workers`` (the ``dp * sp`` compression workers of its pipe and tensor
+    index, in ``(data, seq)`` row-major order, the JAX ``("data", "seq")``
+    axes), ``seq`` (its ring, in seq order), ``tensor`` (in tensor order)
+    and ``pipe`` (its stages, in pipe order).  ``seq``, ``tensor`` and
+    ``pipe`` are ``None`` where the axis has size 1; ``workers`` is ``None``
+    only without a process group (one process)."""
 
     dp: int
     sp: int
@@ -260,32 +264,41 @@ class LmGroups(NamedTuple):
     workers: object
     seq: object
     tensor: object
+    pp: int = 1
+    pipe_index: int = 0
+    pipe: object = None
 
 
-_LM: Dict[Tuple[int, int, int], LmGroups] = {}
+_LM: Dict[Tuple[int, int, int, int], LmGroups] = {}
 
 
-def lm_groups(dp: int, sp: int = 1, tp: int = 1) -> LmGroups:
-    """This rank's :class:`LmGroups` on the ``(dp, sp, tp)`` mesh, whose
+def lm_groups(dp: int, sp: int = 1, tp: int = 1, pp: int = 1) -> LmGroups:
+    """This rank's :class:`LmGroups` on the ``(dp, sp, pp, tp)`` mesh, whose
     size must be the world's.  Collective on first use: every rank creates
-    every workers group, then every seq group, then every tensor group
-    (cached, as :func:`hier_groups`)."""
-    if dp * sp * tp != world():
-        raise ValueError(f"mesh dp{dp} x sp{sp} x tp{tp} has {dp * sp * tp} positions, "
-                         f"the world {world()} ranks")
-    key = (dp, sp, tp)
+    every workers group, then every seq group, then every tensor group, then
+    every pipe group (cached, as :func:`hier_groups`)."""
+    if dp * sp * pp * tp != world():
+        raise ValueError(f"mesh dp{dp} x sp{sp} x pp{pp} x tp{tp} has {dp * sp * pp * tp} "
+                         f"positions, the world {world()} ranks")
+    key = (dp, sp, tp, pp)
     if key not in _LM:
-        def at(d, s, t):
-            return (d * sp + s) * tp + t
+        def at(d, s, p, t):
+            return ((d * sp + s) * pp + p) * tp + t
 
-        workers = [[at(d, s, t) for d in range(dp) for s in range(sp)] for t in range(tp)]
-        seqs = [[at(d, s, t) for s in range(sp)] for d in range(dp) for t in range(tp)]
-        tensors = [[at(d, s, t) for t in range(tp)] for d in range(dp) for s in range(sp)]
+        workers = [[at(d, s, p, t) for d in range(dp) for s in range(sp)]
+                   for p in range(pp) for t in range(tp)]
+        seqs = [[at(d, s, p, t) for s in range(sp)]
+                for d in range(dp) for p in range(pp) for t in range(tp)]
+        tensors = [[at(d, s, p, t) for t in range(tp)]
+                   for d in range(dp) for s in range(sp) for p in range(pp)]
+        pipes = [[at(d, s, p, t) for p in range(pp)]
+                 for d in range(dp) for s in range(sp) for t in range(tp)]
         me = rank()
         mine = []
-        # a seq or tensor axis of size 1 is no axis (None); the workers
+        # a seq, tensor or pipe axis of size 1 is no axis (None); the workers
         # always form a group, the sync's
-        for lists in (workers, seqs if sp > 1 else [], tensors if tp > 1 else []):
+        for lists in (workers, seqs if sp > 1 else [], tensors if tp > 1 else [],
+                      pipes if pp > 1 else []):
             pick = None
             for ranks in lists:
                 g = _group_of(ranks)
@@ -295,7 +308,8 @@ def lm_groups(dp: int, sp: int = 1, tp: int = 1) -> LmGroups:
         family = [tuple(r) for r in workers]
         for ranks in family:
             _FAMILY[ranks] = family
-        _LM[key] = LmGroups(dp, sp, tp, me // (sp * tp), (me // tp) % sp, me % tp, *mine)
+        _LM[key] = LmGroups(dp, sp, tp, me // (sp * pp * tp), (me // (pp * tp)) % sp, me % tp,
+                            *mine[:3], pp, (me // tp) % pp, mine[3])
     return _LM[key]
 
 
@@ -370,6 +384,25 @@ def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
     is where the JAX ``shard_map`` AD psums the cotangent of the implicit
     ``pvary``.  The identity without an axis."""
     return x if axis_size(group) == 1 else _CopyToGroup.apply(x, group)
+
+
+class _SumOverGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _sum_exact(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_exact(g, ctx.group), None
+
+
+def sum_over_group(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group``, and its cotangent summed over ``group``
+    too: the JAX ``psum`` of a value that each rank then uses in a term of
+    its own (a pipeline stage's share of the head), where ``shard_map``'s AD
+    psums the cotangents of those uses.  The identity without an axis."""
+    return x if axis_size(group) == 1 else _SumOverGroup.apply(x, group)
 
 
 def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:

@@ -7,15 +7,17 @@ one mesh position.  It holds its tensor shard of the model
 batch (``P("data", "seq")``): the rows of its data index and the positions
 of its seq index.  A ``(data, seq)`` pair is one compression worker.
 
-Each rank takes the gradient of its local mean loss ``xent + moe_aux_weight
-* aux`` (aux is 0 for the dense FFN).  The ring's backward sends the K/V
+Each rank takes the gradient of its local objective ``xent + moe_aux_weight
+* aux`` (aux is the MoE load-balance loss, 0 for the dense FFN) and logs
+``xent``.  The ring's backward sends the K/V
 cotangents back around the seq group, so each worker's gradient is that of
 the sum of the ring's losses, as JAX's AD gives it inside ``shard_map``;
 the tensor group's collectives make the replicated leaves' gradients whole
 and equal on every tensor rank.  The gradient is clipped by the full-model
 norm where asked and synced over the workers group in two groups, the
-tensor-replicated leaves (embedding and norms) and the tensor-sharded ones
-(every projection and the head), in that sorted-signature order, as the JAX
+tensor-replicated leaves (embedding, norms, routers) and the tensor-sharded
+ones (every projection, expert stack and the head), in that sorted-signature
+order, as the JAX
 step does even at tensor size 1; entire-model granularity therefore makes
 two compress calls.  The EF residual is this worker's, per shard on the
 sharded leaves.  SGD then applies the workers' mean gradient at the step's
@@ -114,17 +116,23 @@ def local_block(batch_size: int, seq_len: int, groups: mesh.LmGroups):
 
 
 def lm_loss(cfg: LlamaConfig, model, x: torch.Tensor, y: torch.Tensor,
-            groups: Optional[mesh.LmGroups] = None) -> torch.Tensor:
-    """The local mean next-token loss, through the fused head + xent where
-    the logits would exceed 1 GiB (per worker tokens x the vocab shard at
-    the config's width), else through the logits."""
+            groups: Optional[mesh.LmGroups] = None):
+    """``(objective, xent)``: the local mean next-token loss ``xent`` and the
+    objective the step backpropagates, ``xent + moe_aux_weight * aux`` (aux
+    the MoE load-balance loss, 0 for the dense FFN).  The loss goes through
+    the fused head + xent where the logits would exceed 1 GiB (per worker
+    tokens x the vocab shard at the config's width), else through the
+    logits."""
     tg, sg = (groups.tensor, groups.seq) if groups is not None else (None, None)
     itemsize = torch.empty((), dtype=cfg.dtype).element_size()
     if use_fused_head_xent(x.shape[0] * x.shape[1], cfg.vocab_size // mesh.axis_size(tg),
                            itemsize):
-        h = model(x, return_hidden=True, tensor_group=tg, seq_group=sg)
-        return fused_head_xent(h, model.lm_head.to(cfg.dtype), y, tensor_group=tg)
-    return vocab_parallel_xent(model(x, tensor_group=tg, seq_group=sg), y, tg)
+        h, aux = model(x, return_hidden=True, tensor_group=tg, seq_group=sg, with_aux=True)
+        xent = fused_head_xent(h, model.lm_head.to(cfg.dtype), y, tensor_group=tg)
+    else:
+        logits, aux = model(x, tensor_group=tg, seq_group=sg, with_aux=True)
+        xent = vocab_parallel_xent(logits, y, tg)
+    return xent + cfg.moe_aux_weight * aux, xent
 
 
 def make_lm_train_step(cfg: LlamaConfig, optimizer: SGD, comp_cfg: CompressionConfig, *,
@@ -161,7 +169,8 @@ def make_lm_train_step(cfg: LlamaConfig, optimizer: SGD, comp_cfg: CompressionCo
         model = state.model
         params = param_leaves(model)
         x, y = batch["input"], batch["target"]
-        loss = lm_loss(cfg, model, x, y, g)
+        # backpropagate the objective, log the cross-entropy (as JAX)
+        objective, loss = lm_loss(cfg, model, x, y, g)
         # the step's compression seed: fold_in(state.rng, step) of the JAX step
         seed = fold_in(state.seed, state.step)
         if hooked:
@@ -170,13 +179,13 @@ def make_lm_train_step(cfg: LlamaConfig, optimizer: SGD, comp_cfg: CompressionCo
             hooks = [p.register_hook(lambda gr, i=i: rnd.land(i, gr.to(torch.float32)))
                      for i, p in enumerate(params.values())]
             try:
-                torch.autograd.grad(loss, list(params.values()))
+                torch.autograd.grad(objective, list(params.values()))
             finally:
                 for h in hooks:
                     h.remove()
             synced, new_ef, new_comp, comm = rnd.collect()
         else:
-            grads = torch.autograd.grad(loss, list(params.values()))
+            grads = torch.autograd.grad(objective, list(params.values()))
             grads = {k: gr.to(torch.float32) for k, gr in zip(params, grads)}
             if clip_norm > 0.0:
                 grads = clip_tree(grads, clip_norm)
