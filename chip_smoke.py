@@ -145,7 +145,26 @@ printing no result, where either is missing or any phase fails.
      to their plain versions, and holds ``sync_overlap = 4`` bitwise to 1 on
      the card (one sync, then 2 steps) at W = 1, and (phase 5's W = 2
      workers) across 2 gloo ranks;
-  9. prints the kernels' JSON line (18 entries), the ``nvidia-smi``
+  9. the robustness layer: (a) two gloo ranks on the card, full-width
+     ResNet-9, batch 512, fp32, layer-wise Top-K 1 % + EF, the step guard
+     and NaN into worker 1's gradients at step 2: that step holds every
+     rank's params, momentum, BatchNorm statistics and EF bitwise, steps 1
+     and 3 move them, ``guard/nonfinite`` and ``guard/skipped`` read 1, the
+     ranks' replicated bits agree; (b) the same in bf16 with an Inf on the
+     loss at step 1: the loss scale goes 32768 -> 16384 and regrows after 2
+     good steps; (c) an asynchronous save at step 3 and a synchronous one
+     at step 6; fresh processes restore step 3 and end at step 6 bitwise
+     the uninterrupted run on both ranks, and one flipped byte of step 6
+     walks the restore back to step 3; (d) ``crash=preempt`` at step 4
+     through the harness loop: a real SIGTERM, an emergency save, exit 75,
+     and a relaunch that finishes bitwise the uninterrupted run; (e)
+     phase 7's LM guarded: an Inf on the loss holds the state (a digest of
+     params, momentum and EF) and backs the scale off, with step ms and peak
+     memory of unguarded and guarded blocks alternated; (f) the guard's
+     step ms at ResNet-9 entire-model and layer-wise Top-K (alternated
+     blocks) and an asynchronous save's ``ckpt/save_ms`` and
+     ``ckpt/blocked_ms``;
+ 10. prints the kernels' JSON line (18 entries), the ``nvidia-smi``
      name/power line and, last, ``{"ok": true, "device": {...}}``.
 
 ``--record FILE`` also writes the full record (every timing, the profiles)
@@ -3888,6 +3907,567 @@ def phase_lm_moe(kernels, compressors, torch, record):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the robustness layer (step guard, chaos, checkpoint, preemption)
+# ---------------------------------------------------------------------------
+
+ROBUST_BATCH = 512                      # global batch of the ResNet-9 rows
+CIFAR_MEAN = [125.307, 122.961, 113.8575]
+CIFAR_STD = [62.9932, 62.0887, 66.7048]
+ROBUST_LM_BAD = 5                       # the LM step whose loss is Inf in 9e
+GUARD_COST_STEPS = 6
+
+
+def _robust_setup(torch, dev, gran: str, dtype, guard_cfg, chaos):
+    """Full-width ResNet-9, Nesterov SGD, Top-K 1 % + EF at ``gran`` and the
+    guarded step of ``guard_cfg`` / ``chaos`` (``None``: off)."""
+    import numpy as np
+
+    from tpu_compressed_dp_torch.harness import dawn
+    from tpu_compressed_dp_torch.models.common import make_normalizing_apply_fn, param_leaves
+    from tpu_compressed_dp_torch.parallel.dp import CompressionConfig, init_ef_state
+    from tpu_compressed_dp_torch.train.guard import init_guard_state
+    from tpu_compressed_dp_torch.train.optim import SGD
+    from tpu_compressed_dp_torch.train.state import TrainState
+    from tpu_compressed_dp_torch.train.step import make_train_step
+
+    model = dawn.MODELS["resnet9"](1.0, dtype, 0, dev)
+    params = param_leaves(model)
+    comp = CompressionConfig(method="topk", ratio=RATIO, error_feedback=True, granularity=gran)
+    bs = np.float32(ROBUST_BATCH)
+    opt = SGD(lr=lambda s: np.float32(0.4) * np.float32(min(s, 5)) / np.float32(5) / bs,
+              momentum=0.9, nesterov=True, weight_decay=5e-4 * ROBUST_BATCH)
+    state = TrainState.create(model, opt.init(params), init_ef_state(params, comp), seed=1,
+                              guard=init_guard_state(guard_cfg))
+    step = make_train_step(make_normalizing_apply_fn(CIFAR_MEAN, CIFAR_STD), opt, comp,
+                           grad_scale=float(ROBUST_BATCH), guard_cfg=guard_cfg, chaos=chaos)
+    return state, step
+
+
+def _robust_batch(step: int, rank: int, world: int):
+    """This rank's share of step ``step``'s batch: numpy uint8 images, a
+    function of the step and the rank alone (a resumed run sees the same)."""
+    import numpy as np
+
+    rng = np.random.default_rng([step, rank])
+    per = ROBUST_BATCH // world
+    return {"input": rng.integers(0, 256, (per, 32, 32, 3), dtype=np.uint8),
+            "target": rng.integers(0, 10, per).astype(np.int64)}
+
+
+def _state_tensors(state):
+    from tpu_compressed_dp_torch.models.common import param_leaves
+
+    ts = [*param_leaves(state.model).values(), *state.model.buffers(),
+          *state.opt_state["momentum"].values()]
+    return ts + (list(state.ef.values()) if isinstance(state.ef, dict) else [])
+
+
+def _sha(torch, tensors) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _guarded_steps(torch, dev, state, step, n: int, rank: int, world: int, first: int = 0):
+    """``n`` steps from step ``first``: per step, whether every tensor of the
+    state kept its bits, whether any parameter changed, and the metrics."""
+    from tpu_compressed_dp_torch.harness.loop import to_device
+    from tpu_compressed_dp_torch.models.common import param_leaves
+
+    held, moved, metrics = [], [], []
+    n_params = len(param_leaves(state.model))
+    for s in range(first, first + n):
+        pre = [t.detach().clone() for t in _state_tensors(state)]
+        state, m = step(state, to_device(_robust_batch(s, rank, world), dev))
+        same = [torch.equal(a, b) for a, b in zip(pre, _state_tensors(state))]
+        held.append(all(same))
+        # the BatchNorm statistics change on every step that is not vetoed:
+        # the parameters say whether SGD ran
+        moved.append(not all(same[:n_params]))
+        metrics.append({k: float(v) for k, v in m.items()})
+    torch.cuda.synchronize()
+    return state, (held, moved), metrics
+
+
+def robust_worker(what: str, rank: int, world: int, port: int, out_path: str, ck: str) -> int:
+    """One process of phase 9 (``--robust_worker``): ``guard`` and ``resume``
+    are W = 2 gloo ranks on the card, ``cut`` and ``relaunch`` one rank."""
+    import torch
+
+    from tpu_compressed_dp_torch.harness.loop import (make_preemption, preempt_exit,
+                                                      run_train_epoch)
+    from tpu_compressed_dp_torch.ops import kernels
+    from tpu_compressed_dp_torch.parallel import mesh
+    from tpu_compressed_dp_torch.train.guard import GuardConfig
+    from tpu_compressed_dp_torch.utils import resilience
+    from tpu_compressed_dp_torch.utils.chaos import ChaosConfig, maybe_crash_injector
+    from tpu_compressed_dp_torch.utils.checkpoint import Checkpointer
+
+    dev = torch.device("cuda", 0)
+    # bitwise replays: cuDNN's default weight-gradient kernels may add in
+    # another order from run to run
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if world > 1:
+        mesh.init_process_group(dev, backend="gloo", init_method=f"tcp://localhost:{port}",
+                                world_size=world, rank=rank)
+    kernels.build()      # the parent built them: this loads the libraries
+    fp32 = GuardConfig.for_dtype(torch.float32)
+    nan2 = ChaosConfig(kind="nan", target="grads", steps=(2,), worker=1)
+    res = {}
+    try:
+        if what == "guard":
+            # (a) fp32, NaN into worker 1's gradients at step 2
+            state, step = _robust_setup(torch, dev, "layerwise", torch.float32, fp32, nan2)
+            kernels.reset_launches()
+            state, (held, moved), metrics = _guarded_steps(torch, dev, state, step, 4, rank,
+                                                           world)
+            res["a"] = {"held": held, "moved": moved, "metrics": metrics,
+                        "launches": dict(kernels.LAUNCHES),
+                        "replicated_sha": _sha(torch, _state_tensors(state)[:-len(state.ef)]),
+                        "ef_finite": all(bool(torch.isfinite(e).all())
+                                         for e in state.ef.values())}
+            # (b) bf16 compute, Inf on worker 1's loss at step 1, regrowth
+            # after 2 good steps
+            bf16 = GuardConfig.for_dtype(torch.bfloat16, growth_interval=2)
+            state, step = _robust_setup(torch, dev, "layerwise", torch.bfloat16, bf16,
+                                        ChaosConfig(kind="inf", target="loss", steps=(1,),
+                                                    worker=1))
+            kernels.reset_launches()
+            state, (held, moved), metrics = _guarded_steps(torch, dev, state, step, 4, rank,
+                                                           world)
+            res["b"] = {"held": held, "moved": moved, "metrics": metrics,
+                        "launches": dict(kernels.LAUNCHES)}
+            # (c) the (a) run to step 6 with an asynchronous save at step 3
+            # and a synchronous one at step 6
+            state, step = _robust_setup(torch, dev, "layerwise", torch.float32, fp32, nan2)
+            ckpt = Checkpointer(ck)
+            kernels.reset_launches()
+            state, _, _ = _guarded_steps(torch, dev, state, step, 3, rank, world)
+            t0 = time.perf_counter()
+            ckpt.save_async(state, {"step": 3})
+            async_return_ms = (time.perf_counter() - t0) * 1e3
+            state, _, _ = _guarded_steps(torch, dev, state, step, 3, rank, world, first=3)
+            ckpt.save(state, {"step": 6})
+            res["c"] = {"final_sha": _sha(torch, _state_tensors(state)),
+                        "launches": dict(kernels.LAUNCHES), "ckpt": ckpt.metrics(),
+                        "async_return_ms": async_return_ms, "guard": list(map(
+                            float, dataclasses.astuple(state.guard)))}
+            ckpt.close()
+        elif what == "resume":
+            # (c) fresh processes restore step 3 and run to step 6; then one
+            # flipped byte of step 6 walks the restore back to step 3
+            state, step = _robust_setup(torch, dev, "layerwise", torch.float32, fp32, nan2)
+            restorer = Checkpointer(ck)
+            state, meta = restorer.restore(state, step=3)
+            restorer.close()
+            kernels.reset_launches()
+            state, _, _ = _guarded_steps(torch, dev, state, step, 3, rank, world, first=3)
+            res["c"] = {"meta": meta, "final_sha": _sha(torch, _state_tensors(state)),
+                        "launches": dict(kernels.LAUNCHES), "guard": list(map(
+                            float, dataclasses.astuple(state.guard)))}
+            torch.distributed.barrier()
+            if rank == 0:
+                path = os.path.join(ck, "6", "state.pt")
+                with open(path, "r+b") as f:
+                    f.seek(os.path.getsize(path) // 2)
+                    b = f.read(1)
+                    f.seek(os.path.getsize(path) // 2)
+                    f.write(bytes([b[0] ^ 0xFF]))
+            torch.distributed.barrier()
+            fresh, _ = _robust_setup(torch, dev, "layerwise", torch.float32, fp32, nan2)
+            walker = Checkpointer(ck)
+            back, meta = walker.restore(fresh)
+            res["walk"] = {"step": back.step, "meta": meta, "metrics": walker.metrics()}
+            walker.close()
+            torch.distributed.barrier()
+        else:
+            # (d) crash=preempt at step 4 (an epoch boundary: 2 steps an
+            # epoch) through the harness loop; a NaN at step 5 lines the
+            # replay up; ``cut`` exits 75, ``relaunch`` runs the
+            # uninterrupted run and the resume from the emergency save
+            chaos = ChaosConfig(kind="nan", steps=(5,), crash_at_step=4, crash_mode="preempt")
+
+            def epochs(state, step, first, crash=None, preempt=None, ckpt=None):
+                for epoch in range(first, 3):
+                    if preempt is not None:
+                        preempt.check(state.step)
+                    batches = [_robust_batch(s, 0, 1) for s in (2 * epoch, 2 * epoch + 1)]
+                    try:
+                        state, _ = run_train_epoch(step, state, batches, dev, crash=crash,
+                                                   step_offset=state.step, guard_cfg=fp32,
+                                                   preempt=preempt)
+                    except resilience.Preempted as err:
+                        err.epoch = epoch
+                        raise
+                    if ckpt is not None and epoch == 0:
+                        # one periodic save, at step 2: the emergency save
+                        # at step 4 is then a step of its own
+                        ckpt.save_async(state, {"epoch": epoch})
+                torch.cuda.synchronize()
+                return state
+
+            if what == "cut":
+                state, step = _robust_setup(torch, dev, "layerwise", torch.float32, fp32, chaos)
+                ckpt = Checkpointer(ck)
+                preempt = make_preemption()
+                try:
+                    epochs(state, step, 0, maybe_crash_injector(chaos), preempt, ckpt)
+                    raise AssertionError("the preemption never fired")
+                except resilience.Preempted as err:
+                    raise preempt_exit(err, ckpt=ckpt, state=err.train_state,
+                                       meta={"epoch": err.epoch - 1}) from None
+                finally:
+                    preempt.uninstall()
+                    ckpt.close()
+            state, step = _robust_setup(torch, dev, "layerwise", torch.float32, fp32, chaos)
+            kernels.reset_launches()
+            clean = epochs(state, step, 0)
+            res["clean_sha"] = _sha(torch, _state_tensors(clean))
+            state, step = _robust_setup(torch, dev, "layerwise", torch.float32, fp32, chaos)
+            restorer = Checkpointer(ck)
+            state, meta = restorer.restore(state)
+            restorer.close()
+            res["meta"] = meta
+            res["restored_step"] = state.step
+            state = epochs(state, step, int(meta["epoch"]) + 1)
+            res["resumed_sha"] = _sha(torch, _state_tensors(state))
+            res["launches"] = dict(kernels.LAUNCHES)
+            res["guard"] = [list(map(float, dataclasses.astuple(s.guard)))
+                            for s in (clean, state)]
+        with open(out_path, "w") as f:
+            json.dump(res, f, default=str)
+    finally:
+        if world > 1:
+            mesh.destroy()
+    return 0
+
+
+def _run_robust(what: str, world: int, out_dir: str, ck: str, expect_rc: int = 0) -> list:
+    from tpu_compressed_dp_torch.parallel.mesh import free_port
+
+    port = free_port()
+    paths = [os.path.join(out_dir, f"{what}_rank{r}.json") for r in range(world)]
+    for path in paths:
+        if os.path.exists(path):
+            os.remove(path)
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--robust_worker",
+                               what, str(r), str(world), str(port), paths[r], ck],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        for line in text.strip().splitlines()[-12:]:
+            log(f"[9 {what} rank {r}] {line}")
+        if p.returncode != expect_rc:
+            raise AssertionError(f"phase 9 {what} rank {r} exited {p.returncode}, "
+                                 f"want {expect_rc}")
+    if expect_rc:
+        return []
+    results = []
+    for path in paths:
+        with open(path) as f:
+            results.append(json.load(f))
+    return results
+
+
+def _sum_launches(dicts) -> dict:
+    out: dict = {}
+    for d in dicts:
+        for k, v in d.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def _block_ms(torch, box: list, step, batches, n: int, around=None):
+    """Per-step ms of ``n`` steps (synchronised) of the state in ``box`` (a
+    one-element list, so no caller's name keeps an earlier step's EF
+    alive), their median past the first, the last metrics, and the block's
+    peak allocation in GB (phase 7's unit).  ``around(i, state, m)`` is
+    called before each step (``m`` None) and after it."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(n):
+        if around is not None:
+            around(i, box[0], None)
+        t0 = time.perf_counter()
+        box[0], m = step(box[0], batches[i % len(batches)])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if around is not None:
+            around(i, box[0], m)
+    rest = sorted(times[1:] or times)
+    return m, times, rest[len(rest) // 2], torch.cuda.max_memory_allocated() / 1e9
+
+
+def _lm_digest(torch, tensors) -> list:
+    """Per tensor, the int64 sum of its 32-bit words and the float64 sum of
+    its values: a digest of a state too large to copy, made by reductions
+    that allocate no tensor-sized buffer (so a block's peak stays the
+    step's)."""
+    out = []
+    for t in tensors:
+        w = t.detach().reshape(-1)
+        bits = (int(w.view(torch.int32).sum(dtype=torch.int64)) if w.element_size() == 4
+                else None)
+        out.append((bits, float(w.sum(dtype=torch.float64))))
+    return out
+
+
+def phase_robust_lm(kernels, torch, record):
+    """9e: phase 7's LM (llama3_8b widths, 2 layers, seq 8192, bf16,
+    entire-model Top-K 1 % + EF) in blocks of unguarded and guarded steps on
+    one state (U, G, G, U), the guard's loss scale dynamic (bf16), an Inf on
+    the loss at one step of the first guarded block."""
+    from tpu_compressed_dp_torch.data import lm as lm_data
+    from tpu_compressed_dp_torch.harness.loop import to_device
+    from tpu_compressed_dp_torch.models import transformer as tf
+    from tpu_compressed_dp_torch.parallel.dp import CompressionConfig
+    from tpu_compressed_dp_torch.train import lm_step
+    from tpu_compressed_dp_torch.train.guard import GuardConfig, init_guard_state
+    from tpu_compressed_dp_torch.train.optim import SGD
+    from tpu_compressed_dp_torch.train.schedules import piecewise_linear
+    from tpu_compressed_dp_torch.train.state import TrainState
+    from tpu_compressed_dp_torch.utils.chaos import ChaosConfig
+
+    dev = torch.device("cuda", 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(tf.llama3_8b(), n_layers=2)
+    model = tf.Llama(cfg, seed=0, device=dev)
+    params = tf.param_leaves(model)
+    comp = CompressionConfig(method="topk", ratio=RATIO, error_feedback=True,
+                             granularity="entiremodel")
+    opt = SGD(lr=piecewise_linear([0, 1, 12], [0.0, 3e-3, 3e-4]), momentum=0.9)
+    gcfg = GuardConfig.for_dtype(torch.bfloat16)
+    box = [TrainState.create(model, opt.init(params), lm_step.init_lm_ef_state(cfg, params, comp),
+                             seed=1, guard=init_guard_state(gcfg))]
+    unguarded = lm_step.make_lm_train_step(cfg, opt, comp)
+    guarded = lm_step.make_lm_train_step(cfg, opt, comp, guard_cfg=gcfg,
+                                         chaos=ChaosConfig(kind="inf", target="loss",
+                                                           steps=(ROBUST_LM_BAD,)))
+    ds = lm_data.SyntheticTokens(cfg.vocab_size, 8192, 1, seed=0)
+    batches = [to_device(ds.batch(i), dev) for i in range(3)]
+    card = record["card"]
+    kernels.reset_launches()
+    # one unguarded step first: the allocator's and the libraries' warm-up
+    _, warm, _, _ = _block_ms(torch, box, unguarded, batches, 1)
+    seen = {}
+
+    def veto(i, st, m):
+        # the block's second step is state.step == ROBUST_LM_BAD: its loss
+        # is Inf; digest the state around it
+        if i != 1:
+            return
+        if m is None:
+            seen["pre"] = _lm_digest(torch, _state_tensors(st))
+            seen["scale"] = float(st.guard.loss_scale)
+        else:
+            seen["held"] = _lm_digest(torch, _state_tensors(st)) == seen["pre"]
+            seen["m"] = {k: float(v) for k, v in m.items()}
+
+    blocks = []
+    for label, step in (("unguarded", unguarded), ("guarded", guarded), ("guarded", guarded),
+                        ("unguarded", unguarded)):
+        first_guarded = label == "guarded" and not seen
+        if first_guarded and box[0].step + 1 != ROBUST_LM_BAD:
+            raise AssertionError(f"9e: the Inf would land at step {box[0].step + 1}")
+        m, times, med, peak = _block_ms(torch, box, step, batches, 3,
+                                        veto if first_guarded else None)
+        if not math.isfinite(float(m["loss"])):
+            raise AssertionError(f"9e {label}: loss {m['loss']}")
+        row = {"label": label, "times": times, "median_ms": med, "peak_gb": peak}
+        if first_guarded:
+            bad = seen["m"]
+            if not seen["held"] or bad["guard/nonfinite"] != 1.0 or bad["guard/skipped"] != 1.0:
+                raise AssertionError(f"9e: the vetoed LM step moved the state (held "
+                                     f"{seen['held']}) or was not vetoed: {bad}")
+            if bad["guard/loss_scale"] != seen["scale"] / 2:
+                raise AssertionError(f"9e: the loss scale did not back off {seen['scale']} "
+                                     f"-> {bad['guard/loss_scale']}")
+            row.update(vetoed_ms=times[1], scales=[seen["scale"], bad["guard/loss_scale"]],
+                       median_ms=(times[0] + times[2]) / 2)
+        blocks.append(row)
+    held = seen["held"]
+    launches = dict(kernels.LAUNCHES)
+    if launches["fused_sparsify"] < 1 or any(launches[r] != 2 * 13 for r in FLASH_ROUTES):
+        raise AssertionError(f"9e: launches {launches}")
+    for b in blocks:
+        log(f"9e lm {b['label']}: step ms {[round(t, 1) for t in b['times']]} "
+            f"({'mean of the good steps' if 'vetoed_ms' in b else 'median past the first'} "
+            f"{b['median_ms']:.1f}"
+            + (f", vetoed step {b['vetoed_ms']:.1f}, scale {b['scales'][0]:g} -> "
+               f"{b['scales'][1]:g}" if "vetoed_ms" in b else "")
+            + f"), peak {b['peak_gb']:.2f} GB on {card}")
+    del box, model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"blocks": blocks, "held": held, "launches": launches, "warm_up_ms": warm}
+
+
+def phase_guard_cost(kernels, torch, record):
+    """9f: one rank, full-width ResNet-9, batch 512, fp32, entire-model and
+    layer-wise Top-K 1 % + EF: unguarded and guarded steps alternated on one
+    state (U, G, G, U, ``GUARD_COST_STEPS`` each), then an asynchronous save
+    with the steps that follow it."""
+    import tempfile
+
+    from tpu_compressed_dp_torch.harness.loop import to_device
+    from tpu_compressed_dp_torch.train.guard import GuardConfig
+    from tpu_compressed_dp_torch.utils.checkpoint import Checkpointer
+
+    dev = torch.device("cuda", 0)
+    card = record["card"]
+    batches = [to_device(_robust_batch(s, 0, 1), dev) for s in range(2)]
+    rows, launches = {}, []
+    for gran in ("entiremodel", "layerwise"):
+        gcfg = GuardConfig.for_dtype(torch.float32)
+        state, guarded = _robust_setup(torch, dev, gran, torch.float32, gcfg, None)
+        _, unguarded = _robust_setup(torch, dev, gran, torch.float32, None, None)
+        box = [state]
+        del state
+        kernels.reset_launches()
+        meds = {"unguarded": [], "guarded": []}
+        for label in ("unguarded", "guarded", "guarded", "unguarded"):
+            step = guarded if label == "guarded" else unguarded
+            _, _, med, _ = _block_ms(torch, box, step, batches, GUARD_COST_STEPS)
+            meds[label].append(med)
+        launches.append(dict(kernels.LAUNCHES))
+        rows[gran] = meds
+        log(f"9f resnet9 {gran} Top-K 1 % + EF, batch {ROBUST_BATCH}: step ms unguarded "
+            f"{[round(v, 2) for v in meds['unguarded']]}, guarded "
+            f"{[round(v, 2) for v in meds['guarded']]} (U, G, G, U medians) on {card}")
+        if gran == "layerwise":
+            with tempfile.TemporaryDirectory() as td:
+                ckpt = Checkpointer(td)
+                t0 = time.perf_counter()
+                ckpt.save_async(box[0], {"epoch": 0})
+                ret_ms = (time.perf_counter() - t0) * 1e3
+                _, during, _, _ = _block_ms(torch, box, guarded, batches, 3)
+                t0 = time.perf_counter()
+                ckpt.save_async(box[0], {"epoch": 1})
+                ret2_ms = (time.perf_counter() - t0) * 1e3
+                ckpt.drain()
+                m = ckpt.metrics()
+                ckpt.close()
+            nbytes = sum(t.numel() * t.element_size() for t in _state_tensors(box[0]))
+            rows["ckpt"] = {"save_async_return_ms": [ret_ms, ret2_ms],
+                            "steps_during_write_ms": during, "state_bytes": nbytes, **m}
+            log(f"9f resnet9 checkpoint ({nbytes / 1e6:.1f} MB of params, BatchNorm, momentum "
+                f"and EF: a host copy, then a background write): save_async returned in "
+                f"{ret_ms:.1f} / {ret2_ms:.1f} ms, "
+                f"ckpt/save_ms {m['ckpt/save_ms']:.1f}, ckpt/blocked_ms "
+                f"{m['ckpt/blocked_ms']:.1f}, steps during the write "
+                f"{[round(t, 1) for t in during]} ms on {card}")
+        del box
+        gc.collect()
+        torch.cuda.empty_cache()
+    rows["launches"] = _sum_launches(launches)
+    return rows
+
+
+def phase_robust(kernels, torch, record):
+    """Phase 9: the robustness layer on the card.  (a)-(c) two gloo ranks,
+    (d) a preempted process and its relaunch, (e) the LM guarded, (f) the
+    guard's and the checkpoint's cost.  Returns the runs' launches."""
+    import shutil
+
+    # fp32 stays fp32, as the harnesses set it
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out_dir = os.path.join(HERE, "build", "chip_smoke_robust")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    card = record["card"]
+    t0 = time.perf_counter()
+    ck = os.path.join(out_dir, "ck_w2")
+    guard = _run_robust("guard", 2, out_dir, ck)
+    for part, want_held in (("a", [False, False, True, False]),
+                            ("b", [False, True, False, False])):
+        # every step the guard lets through moves the parameters
+        want_moved = [not h for h in want_held]
+        for r, res in enumerate(guard):
+            got = res[part]
+            if got["held"] != want_held:
+                raise AssertionError(f"9{part} rank {r}: held {got['held']}, want {want_held}")
+            if got["moved"] != want_moved:
+                raise AssertionError(f"9{part} rank {r}: parameters moved {got['moved']}, "
+                                     f"want {want_moved}")
+            for key in ("count_ge", "fused_sparsify"):
+                if got["launches"][key] < 1:
+                    raise AssertionError(f"9{part} rank {r}: {key} never launched")
+    for r, res in enumerate(guard):
+        m = res["a"]["metrics"]
+        if ([x["guard/nonfinite"] for x in m] != [0.0, 0.0, 1.0, 0.0]
+                or m[2]["guard/skipped"] != 1.0 or m[3]["guard/skipped"] != 1.0
+                or not res["a"]["ef_finite"]):
+            raise AssertionError(f"9a rank {r}: guard metrics {m}")
+        scales = [x["guard/loss_scale"] for x in res["b"]["metrics"]]
+        if scales != [32768.0, 16384.0, 16384.0, 32768.0]:
+            raise AssertionError(f"9b rank {r}: loss scales {scales}")
+    if guard[0]["a"]["replicated_sha"] != guard[1]["a"]["replicated_sha"]:
+        raise AssertionError("9a: the ranks' replicated state differs")
+    resume = _run_robust("resume", 2, out_dir, ck)
+    for r in range(2):
+        if resume[r]["c"]["final_sha"] != guard[r]["c"]["final_sha"]:
+            raise AssertionError(f"9c rank {r}: the resumed run ends elsewhere than the "
+                                 "uninterrupted one")
+        if resume[r]["c"]["guard"] != guard[r]["c"]["guard"]:
+            raise AssertionError(f"9c rank {r}: guard state {resume[r]['c']['guard']}")
+        walk = resume[r]["walk"]
+        if walk["step"] != 3 or walk["metrics"]["ckpt/rollback_steps"] != 3.0:
+            raise AssertionError(f"9c rank {r}: the walk-back gave {walk}")
+    ck1 = os.path.join(out_dir, "ck_w1")
+    _run_robust("cut", 1, out_dir, ck1, expect_rc=75)
+    relaunch = _run_robust("relaunch", 1, out_dir, ck1)[0]
+    if (relaunch["clean_sha"] != relaunch["resumed_sha"] or relaunch["restored_step"] != 4
+            or not relaunch["meta"].get("emergency")
+            or relaunch["guard"][0] != relaunch["guard"][1]):
+        raise AssertionError(f"9d: the relaunch does not finish the uninterrupted run: "
+                             f"{relaunch}")
+    for part in ("a", "b"):
+        log(f"9{part} W=2 gloo ranks, full-width ResNet-9 batch {ROBUST_BATCH} "
+            f"{'fp32' if part == 'a' else 'bf16'} layer-wise Top-K 1 % + EF: held "
+            f"{guard[0][part]['held']}, parameters moved {guard[0][part]['moved']}, "
+            f"guard/nonfinite "
+            f"{[x['guard/nonfinite'] for x in guard[0][part]['metrics']]}, loss scale "
+            f"{[x['guard/loss_scale'] for x in guard[0][part]['metrics']]}, launches "
+            f"(summed over ranks) {_sum_launches(r[part]['launches'] for r in guard)}")
+    c = guard[0]["c"]
+    log(f"9c checkpoint W=2: save_async returned in {c['async_return_ms']:.1f} ms, "
+        f"ckpt/save_ms {c['ckpt']['ckpt/save_ms']:.1f} (the sync save at step 6), "
+        f"ckpt/blocked_ms {c['ckpt']['ckpt/blocked_ms']:.1f}; resume from step 3 bitwise the "
+        f"uninterrupted run on both ranks; a flipped byte of step 6 walked back to step 3 "
+        f"(ckpt/rollback_steps 3)")
+    log(f"9d crash=preempt at step 4: exit 75 with an emergency save at step 4, the relaunch "
+        f"finishes bitwise the uninterrupted 6 steps (guard {relaunch['guard'][1]})")
+    lm_rows = phase_robust_lm(kernels, torch, record)
+    cost = phase_guard_cost(kernels, torch, record)
+    wall = time.perf_counter() - t0
+    log(f"phase 9 took {wall:.1f} s on {card}")
+    record["robust"] = {"guard": guard, "resume": resume, "relaunch": relaunch,
+                        "lm": lm_rows, "cost": cost, "wall_s": wall}
+    return {"robust a-c": {"launches": _sum_launches(
+                [r[p]["launches"] for r in guard for p in ("a", "b", "c")]
+                + [r["c"]["launches"] for r in resume])},
+            "robust d": {"launches": relaunch["launches"]},
+            "robust e": {"launches": lm_rows["launches"]},
+            "robust f": {"launches": cost["launches"]}}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3901,6 +4481,9 @@ def main(argv=None) -> int:
     parser.add_argument("--lm_axes_worker", nargs=6, default=None,
                         metavar=("LABEL", "RANK", "PORT", "OUT", "LAYERS", "SEQ"),
                         help="internal: run one rank of phase 7c")
+    parser.add_argument("--robust_worker", nargs=6, default=None,
+                        metavar=("WHAT", "RANK", "WORLD", "PORT", "OUT", "CKPT"),
+                        help="internal: run one process of phase 9")
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -3917,6 +4500,9 @@ def main(argv=None) -> int:
     if args.lm_axes_worker:
         label, rank, port, out, layers, seq = args.lm_axes_worker
         return lm_axes_worker(label, int(rank), int(port), out, int(layers), int(seq))
+    if args.robust_worker:
+        what, rank, world, port, out, ck = args.robust_worker
+        return robust_worker(what, int(rank), int(world), int(port), out, ck)
     from tpu_compressed_dp_torch.harness import dawn, imagenet
     from tpu_compressed_dp_torch.ops import compressors, kernels, wire
 
@@ -3973,6 +4559,7 @@ def main(argv=None) -> int:
     phase_steady_imagenet(kernels, torch, record)
     phase_resnet50_holds(kernels, compressors, torch, record)
     worlds = phase_multirank(torch, record)
+    robust_runs = phase_robust(kernels, torch, record)
 
     replaces = {"count_ge": "tpu_compressed_dp/ops/kernels.py:173",
                 "count_edges": "tpu_compressed_dp/ops/kernels.py:206",
@@ -4014,14 +4601,16 @@ def main(argv=None) -> int:
         r = rows[FULL_MODEL][name]
         # the main paths' launches: phase 3's and 3b's dawn runs, the LM runs
         # of phases 7, 7c (7c's ranks summed) and 7d, the segmented-path runs,
-        # phase 8's ImageNet runs and the multi-rank dawn runs
+        # phase 8's ImageNet runs, the multi-rank dawn runs and phase 9's
+        # guarded runs (9a-9d's ranks summed, 9e's LM, 9f)
         launches = (sum(run["launches"][name] for run in runs.values())
                     + sum(run["launches"][name] for run in cifar_runs.values())
                     + sum(run["launches"][name] for run in imagenet_runs.values())
                     + sum(run["launches"][name] for run in lm_runs.values())
                     + sum(run["launches"][name] for run in seg_runs.values())
                     + sum(w["launches"].get(name, 0) for w in worlds.values())
-                    + sum(run["launches"].get(name, 0) for run in axes_runs.values()))
+                    + sum(run["launches"].get(name, 0) for run in axes_runs.values())
+                    + sum(run["launches"].get(name, 0) for run in robust_runs.values()))
         entry = {
             "name": name, "route": "cuda", "source": source[name],
             "replaces": replaces[name], "launches": launches,
@@ -4044,7 +4633,7 @@ def main(argv=None) -> int:
     if not by_name["bucket_route"]["launches"]:
         raise AssertionError("the multi-rank runs never launched bucket_route")
     lm_all = (list(lm_runs.values()) + [seg_runs["lm llama3_8b 2 layers"]]
-              + list(axes_runs.values()))
+              + list(axes_runs.values()) + [robust_runs["robust e"]])
     if any(by_name[r]["launches"] != sum(run["launches"][r] for run in lm_all)
            for r in FLASH_ROUTES):
         raise AssertionError("a flash kernel launched off the LM runs")

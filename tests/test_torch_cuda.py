@@ -775,3 +775,90 @@ def _resnet50_overlap_check(method):
     for a, b in zip(*ends):
         assert list(a) == list(b)
         assert all(_bits_equal(a[k], b[k]) for k in a)
+
+
+@pytest.mark.cuda
+def test_cuda_guarded_step_holds_and_checkpoint_roundtrips(tmp_path):
+    """The step guard on the card: full-width ResNet-9, batch 64, fp32,
+    layer-wise Top-K 1 % + EF, NaN into the gradients at step 1 of 3: the
+    vetoed step leaves parameters, BatchNorm statistics, momentum and EF
+    bitwise, the others move them, the Top-K kernels launch; the guarded
+    fp32 step is bitwise the unguarded one; the state saved asynchronously
+    (a host copy before the next step writes in place) restores bitwise
+    onto the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; run with -m cuda where there is one")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _guard_check(tmp_path)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _guard_check(tmp_path):
+    from tpu_compressed_dp_torch.models import resnet9 as r9
+    from tpu_compressed_dp_torch.models.common import make_normalizing_apply_fn, param_leaves
+    from tpu_compressed_dp_torch.parallel import dp as tdp
+    from tpu_compressed_dp_torch.train.guard import GuardConfig, init_guard_state
+    from tpu_compressed_dp_torch.train.optim import SGD
+    from tpu_compressed_dp_torch.train.state import TrainState
+    from tpu_compressed_dp_torch.train.step import make_train_step
+    from tpu_compressed_dp_torch.utils.chaos import ChaosConfig
+    from tpu_compressed_dp_torch.utils.checkpoint import Checkpointer
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    batch = {"input": torch.randint(0, 256, (64, 32, 32, 3), generator=g, device=dev,
+                                    dtype=torch.uint8),
+             "target": torch.randint(0, 10, (64,), generator=g, device=dev)}
+    apply_fn = make_normalizing_apply_fn([125.0] * 3, [63.0] * 3)
+    cfg = tdp.CompressionConfig(method="topk", ratio=0.01, error_feedback=True)
+    gcfg = GuardConfig.for_dtype(torch.float32)
+
+    def fresh():
+        model = r9.ResNet9(seed=0, device=dev)
+        params = param_leaves(model)
+        opt = SGD(lr=0.01, momentum=0.9, nesterov=True)
+        state = TrainState.create(model, opt.init(params), tdp.init_ef_state(params, cfg),
+                                  seed=1, guard=init_guard_state(gcfg))
+        return opt, state
+
+    def tensors(state):
+        return [t.detach().clone() for t in [*param_leaves(state.model).values(),
+                                             *state.model.buffers(),
+                                             *state.opt_state["momentum"].values(),
+                                             *state.ef.values()]]
+
+    opt, state = fresh()
+    guarded = make_train_step(apply_fn, opt, cfg, grad_scale=64.0, guard_cfg=gcfg,
+                              chaos=ChaosConfig(kind="nan", steps=(1,)))
+    tk.reset_launches()
+    held = []
+    for _ in range(3):
+        pre = tensors(state)
+        state, m = guarded(state, batch)
+        held.append(all(_bits_equal(a, b) for a, b in zip(pre, tensors(state))))
+    assert held == [False, True, False] and float(m["guard/skipped"]) == 1.0
+    assert tk.LAUNCHES["count_ge"] > 0 and tk.LAUNCHES["fused_sparsify"] > 0
+    # fp32: the guarded step without a fault is the unguarded step, bit for bit
+    ends = []
+    for guard in (gcfg, None):
+        opt, st = fresh()
+        step = make_train_step(apply_fn, opt, cfg, grad_scale=64.0, guard_cfg=guard)
+        for _ in range(2):
+            st, _ = step(st, batch)
+        ends.append(tensors(st))
+    assert all(_bits_equal(a, b) for a, b in zip(*ends))
+    ckpt = Checkpointer(str(tmp_path))
+    want, want_guard = tensors(state), state.guard
+    ckpt.save_async(state, {"epoch": 0})
+    state, _ = guarded(state, batch)            # writes the live tensors in place
+    ckpt.drain()
+    _, target = fresh()
+    back, meta = ckpt.restore(target)
+    ckpt.close()
+    assert meta["epoch"] == 0 and back.step == 3 and back.guard == want_guard
+    got = tensors(back)
+    assert all(t.device.type == "cuda" for t in got)
+    assert all(_bits_equal(a, b) for a, b in zip(got, want))

@@ -107,12 +107,12 @@ def test_dawn_deferred_protocol_flags_raise(flag):
     assert np.isfinite(summary["test loss"])
 
 
-# --dtype, --network vgg16 and --overlap were cases here until they were
-# ported (the drives below, tests/test_torch_overlap.py); flags that still
-# raise took their places
-@pytest.mark.parametrize("argv", [["--chaos", "nan"], ["--resume", "ckpt"],
-                                  ["--guard"], ["--stream_dir", "s"],
-                                  ["--job_id", "j0"]])
+# --dtype, --network vgg16, --overlap, --guard, --resume and in-step chaos
+# were cases here until they were ported (the drives below,
+# tests/test_torch_overlap.py); flags that still raise took their places
+@pytest.mark.parametrize("argv", [["--chaos", "crash=mid_collective,crash_at_step=1"],
+                                  ["--elastic"], ["--peer_timeout", "5"],
+                                  ["--stream_dir", "s"], ["--job_id", "j0"]])
 def test_dawn_unported_flags_raise(argv):
     from tpu_compressed_dp_torch.harness import dawn
 
@@ -244,3 +244,62 @@ def test_dawn_cpu_drive_powersgd(granularity):
     bits = sum(jlr.powersgd_group_bits(n, 2) for n in ns)
     assert summary["wire frac"] == pytest.approx(bits / (32.0 * sum(ns)), rel=1e-12)
     assert summary["sent frac"] == pytest.approx(bits / (32.0 * sum(ns)), rel=1e-12)
+
+
+_ROBUST = ["--device", "cpu", "--synthetic", "--synthetic_n", "64", "--batch_size", "32",
+           "--compress", "layerwise", "--method", "topk", "--ratio", "0.05",
+           "--error_feedback", "--momentum", "0.9", "--channels_scale", "0.125", "--log_dir", ""]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this module's in-process drives: under the
+    tier-1 run's parallel workers a thread per core in every worker
+    oversubscribes the machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_dawn_guard_chaos_checkpoint_resume(tmp_path, one_torch_thread):
+    """``--guard --chaos ... --checkpoint_dir ... --heartbeat``, then
+    ``--resume``: the poisoned step is skipped (the epoch's loss stays
+    finite), each epoch ends in a verifiable checkpoint, the heartbeat
+    carries the step, the applied-update watermark and the checkpoint's
+    step, and the resumed run starts at the next epoch with the guard's
+    count carried over."""
+    from tpu_compressed_dp_torch.harness import dawn
+    from tpu_compressed_dp_torch.utils import checkpoint as tckpt
+    from tpu_compressed_dp_torch.utils import resilience as tres_mod
+
+    ck, hb = str(tmp_path / "ck"), str(tmp_path / "hb.json")
+    s1 = dawn.main(_ROBUST + ["--epochs", "2", "--guard", "--chaos", "nan,steps=1",
+                              "--checkpoint_dir", ck, "--heartbeat", hb])
+    assert s1["skipped"] == 1.0 and s1["loss scale"] == 1.0 and np.isfinite(s1["train loss"])
+    assert tckpt.list_step_dirs(ck) == [2, 4]
+    assert all(tckpt.verify_step_dir(ck, s) == [] for s in (2, 4))
+    rec = tres_mod.read_heartbeat(hb)
+    assert rec["step"] == 4 and rec["last_good_step"] == 4 and rec["epoch"] == 1
+    s2 = dawn.main(_ROBUST + ["--epochs", "3", "--guard", "--resume", ck, "--checkpoint_dir",
+                              str(tmp_path / "ck2")])
+    assert s2["epoch"] == 3 and s2["steps"] == 2 and s2["skipped"] == 1.0
+    assert tckpt.list_step_dirs(str(tmp_path / "ck2")) == [6]
+
+
+def test_dawn_crash_recovery_and_wedge(tmp_path, one_torch_thread):
+    """``--chaos crash=3`` with ``--checkpoint_dir`` recovers through
+    ``run_with_recovery`` and finishes; every step poisoned trips the
+    wedge check (``GuardExceeded``) at the epoch's end."""
+    from tpu_compressed_dp_torch.harness import dawn
+    from tpu_compressed_dp_torch.train.guard import GuardExceeded
+    from tpu_compressed_dp_torch.utils.chaos import ChaosCrash
+
+    s = dawn.main(_ROBUST + ["--epochs", "3", "--chaos", "crash=3", "--checkpoint_dir",
+                             str(tmp_path / "ck")])
+    assert s["epoch"] == 3 and np.isfinite(s["train loss"])
+    with pytest.raises(ChaosCrash):
+        dawn.main(_ROBUST + ["--epochs", "2", "--chaos", "crash=3"])
+    with pytest.raises(GuardExceeded, match="consecutive nonfinite steps"):
+        dawn.main(_ROBUST + ["--epochs", "1", "--chaos", "inf,every=1", "--guard_max_skips",
+                             "1"])

@@ -75,7 +75,8 @@ def test_first_epoch_matches_jax_harness(monkeypatch):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--resume", "ckpt"], 12), (["--checkpoint_dir", "ck"], 12), (["--guard"], 12),
+    (["--elastic"], 12), (["--chaos", "crash=during_remesh,crash_at_step=1"], 12),
+    (["--peer_timeout", "5"], 12),
     (["--devices", "2"], 12), (["--events", "ev.jsonl"], 13), (["--adaptive"], 13),
     (["--profile_epoch", "1"], 13), (["--stream_dir", "s"], 14)])
 def test_unported_flags_raise(argv, item):
@@ -144,3 +145,36 @@ def test_cnn_flops_and_peaks():
     rec = tflops.throughput_record(1e12, 2.0, examples_per_sec=10.0, device="cpu",
                                    dtype=torch.float32)
     assert rec == {"throughput/examples_per_sec": 10.0, "throughput/model_tflops_per_chip": 6.0}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this module's in-process drives: under the
+    tier-1 run's parallel workers a thread per core in every worker
+    oversubscribes the machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_best_floor_checkpoint_and_resume(tmp_path, one_torch_thread):
+    """``--checkpoint_dir`` with ``--best_floor``: ``save_if_best`` saves
+    each epoch whose top-5 beats the best and reaches the floor; the
+    phase-boundary save and the resume carry on from it (``--guard`` and a
+    poisoned step on the way)."""
+    from tpu_compressed_dp_torch.utils import checkpoint as tckpt
+
+    ck = str(tmp_path / "ck")
+    two = '[{"ep": 0, "sz": 32, "bs": 32}, {"ep": 1, "sz": 48, "bs": 32}, ' \
+          '{"ep": [0, 3], "lr": [0.1, 0.01]}]'
+    argv = FLAGS + ["--synthetic_n", "64", "--phases", two, "--device", "cpu", "--guard",
+                    "--checkpoint_dir", ck, "--best_floor", "0"]
+    first = tharness.main(argv + ["--chaos", "nan,steps=1"])
+    assert first["epoch"] == 2 and first["skipped"] == 1.0 and np.isfinite(first["train loss"])
+    steps = tckpt.list_step_dirs(ck)
+    assert steps and all(tckpt.verify_step_dir(ck, s) == [] for s in steps)
+    man = tckpt.read_manifest(ck, steps[-1])
+    assert "best_metric" in man["meta"]
+    resumed = tharness.main(argv + ["--resume", ck])
+    assert resumed["epoch"] == 2

@@ -15,7 +15,11 @@
     JAX harness's ``init_llama`` parameters, injected as the tests inject
     JAX's draws elsewhere);
   * the MFU accounting matches the JAX closed form and is absent off the
-    card.
+    card;
+  * the robustness flags on 2 gloo processes of ``--pp 2`` (``--guard``,
+    Inf on the loss at step 1, ``--checkpoint_dir --ckpt_every 2``): a
+    ``--resume`` from step 2 ends at the uninterrupted run's step-4
+    checkpoint, every rank's file bitwise.
 """
 
 import json
@@ -39,6 +43,17 @@ import torch
 from tpu_compressed_dp_torch.data import lm as tdata
 from tpu_compressed_dp_torch.harness import lm as tharness
 from tpu_compressed_dp_torch.utils import flops as tflops
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's in-process torch work: under
+    the tier-1 run's parallel workers, a thread per core in every worker
+    oversubscribes the machine, and small ops wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("kw", [dict(seed=0), dict(seed=7, motif_len=5, noise=0.3),
@@ -106,9 +121,9 @@ def test_parser_surface_matches_jax():
 
 
 _UNPORTED = [
-    (["--guard"], 12), (["--guard_max_skips", "3"], 12),
-    (["--chaos", "nan,target=grads,steps=1"], 12), (["--checkpoint_dir", "ck"], 12),
-    (["--resume", "ck"], 12), (["--elastic"], 12), (["--elastic_dir", "d"], 12),
+    (["--peer_timeout", "5"], 12), (["--elastic_ef", "drop"], 12),
+    (["--chaos", "crash=mid_collective,crash_at_step=1"], 12), (["--coordinator", "h:1"], 12),
+    (["--elastic_min_world", "1"], 12), (["--elastic"], 12), (["--elastic_dir", "d"], 12),
     (["--stream_dir", "s"], 14), (["--stream_rejoin"], 14), (["--adaptive"], 13),
     (["--adaptive_window", "4"], 13), (["--events", "e.jsonl"], 13), (["--prom", "m.prom"], 13),
 ]
@@ -243,3 +258,71 @@ def test_flops_and_mfu():
     assert rec == {"throughput/tokens_per_sec": 5.0, "throughput/model_tflops_per_chip": 6.0}
     assert tflops.PEAK_FLOPS_BF16["NVIDIA H100 80GB HBM3"] == 989e12
 
+
+
+_PP_CKPT_WORKER = r"""
+import json, sys
+from tpu_compressed_dp_torch.harness import lm
+from tpu_compressed_dp_torch.parallel import mesh
+port, rank = sys.argv[1], int(sys.argv[2])
+mesh.init_process_group("cpu", init_method=f"tcp://localhost:{port}", world_size=2, rank=rank)
+lm.main(json.loads(sys.argv[3]))
+mesh.destroy()
+"""
+
+
+def _pp_world(argv):
+    from tpu_compressed_dp_torch.parallel.mesh import free_port
+
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               OMP_NUM_THREADS="1")
+    port = str(free_port())
+    procs = [subprocess.Popen([sys.executable, "-c", _PP_CKPT_WORKER, port, str(r),
+                               json.dumps(argv)], env=env, cwd=REPO, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    logs = [p.communicate(timeout=300)[0] for p in procs]
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log[-3000:]
+    return logs
+
+
+def test_pp_guard_checkpoint_resume_bitwise(tmp_path):
+    import shutil
+
+    from tpu_compressed_dp_torch.utils import checkpoint as tckpt
+
+    argv = ["--preset", "tiny", "--device", "cpu", "--steps", "4", "--seq_len", "64",
+            "--global_batch", "4", "--fp32", "--pp", "2", "--microbatches", "2",
+            "--compress", "entiremodel", *_TOPK, "--guard", "--chaos",
+            "inf,target=loss,steps=1", "--ckpt_every", "2", "--log_every", "2"]
+    full, cut, rest = (str(tmp_path / n) for n in ("full", "cut", "rest"))
+    _pp_world(argv + ["--checkpoint_dir", full])
+    assert tckpt.list_step_dirs(full) == [2, 4]
+    man = tckpt.read_manifest(full, 4)
+    assert set(man["files"]) == {"state.pt", "rank0.pt", "rank1.pt"}
+    assert man["meta"]["layout"] == {"world": 2, "mesh": "dp1xsp1xpp2xtp1(mb2)"}
+    shutil.copytree(full, cut)
+    shutil.rmtree(os.path.join(cut, "4"))
+    os.remove(tckpt.manifest_path(cut, 4))
+    logs = _pp_world(argv + ["--resume", cut, "--checkpoint_dir", rest])
+    assert "resumed step 2" in logs[0]
+    for rel in ("state.pt", "rank0.pt", "rank1.pt"):
+        want = torch.load(os.path.join(full, "4", rel), weights_only=True)
+        got = torch.load(os.path.join(rest, "4", rel), weights_only=True)
+        _same_tree(got, want, rel)
+    # each stage's file holds its own layers
+    r0 = torch.load(os.path.join(full, "4", "rank0.pt"), weights_only=True)
+    r1 = torch.load(os.path.join(full, "4", "rank1.pt"), weights_only=True)
+    assert not all(torch.equal(r0["model"][k], r1["model"][k]) for k in r0["model"]
+                   if k.startswith("layers"))
+
+
+def _same_tree(got, want, where):
+    if isinstance(want, dict):
+        assert set(got) == set(want), where
+        for k in want:
+            _same_tree(got[k], want[k], f"{where}/{k}")
+    elif isinstance(want, torch.Tensor):
+        assert got.dtype == want.dtype and torch.equal(got, want), where
+    else:
+        assert got == want, where

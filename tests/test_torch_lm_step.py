@@ -295,9 +295,13 @@ def test_step_surface():
 
     cfg = dataclasses.replace(ttf.tiny_llama(), dtype=torch.float32)
     opt = toptim.SGD(lr=0.1)
-    for kw, item in ((dict(guard_cfg=object()), "item 12"), (dict(chaos=object()), "item 12")):
-        with pytest.raises(NotImplementedError, match=item):
-            tlm.make_lm_train_step(cfg, opt, tdp.CompressionConfig(), **kw)
+    # the step guard and chaos injection build (tests/test_torch_guard.py
+    # holds them to JAX)
+    from tpu_compressed_dp_torch.train.guard import GuardConfig
+    from tpu_compressed_dp_torch.utils.chaos import ChaosConfig
+
+    for kw in (dict(guard_cfg=GuardConfig()), dict(chaos=ChaosConfig(steps=(1,)))):
+        assert callable(tlm.make_lm_train_step(cfg, opt, tdp.CompressionConfig(), **kw))
     # PowerSGD and the chunked sync build on the data-parallel mesh; the
     # warm starts are per signature group
     for comp in (tdp.CompressionConfig(sync_overlap=2), tdp.CompressionConfig(method="powersgd")):

@@ -45,6 +45,18 @@ from tpu_compressed_dp_torch.models import graph as tgraph
 from tpu_compressed_dp_torch.models import resnet9 as tres
 from tpu_compressed_dp_torch.models import vgg as tvgg
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's in-process torch work: under
+    the tier-1 run's parallel workers, a thread per core in every worker
+    oversubscribes the machine, and small ops wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SCALE = 0.125
 BS = 2
 SMALL_VGG = [8, "M", 16, "M"]  # 32x32 -> 8x8, pooled to 7x7 in overlapping bins

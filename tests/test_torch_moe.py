@@ -55,6 +55,18 @@ import torch
 
 from tpu_compressed_dp_torch.models import transformer as ttf
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's in-process torch work: under
+    the tier-1 run's parallel workers, a thread per core in every worker
+    oversubscribes the machine, and small ops wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG_J = dataclasses.replace(jtf.tiny_llama(), dtype=jnp.float32, n_experts=4)
 CFG_T = dataclasses.replace(ttf.tiny_llama(), dtype=torch.float32, n_experts=4)

@@ -36,6 +36,20 @@ from tpu_compressed_dp.parallel import dp as jdp
 from tpu_compressed_dp.parallel import overlap as jov
 from tpu_compressed_dp.parallel.mesh import make_data_mesh
 
+import torch
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's in-process torch work: under
+    the tier-1 run's parallel workers, a thread per core in every worker
+    oversubscribes the machine, and small ops wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPES = {"a": (3000,), "b": (40,), "c": (12, 100), "d": (8, 3, 5, 5), "e": (700,)}
 RATIO = 0.05

@@ -45,6 +45,18 @@ import torch
 from tpu_compressed_dp_torch.models import common as tcommon
 from tpu_compressed_dp_torch.models import resnet as tres
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's in-process torch work: under
+    the tier-1 run's parallel workers, a thread per core in every worker
+    oversubscribes the machine, and small ops wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 WIDTH, CLASSES, HW, BS = 8, 10, 32, 4
 FWD_REL = 1e-5
 TRAIN_FWD_REL = 1e-3

@@ -9,8 +9,17 @@ vgg16,resnet9_graph,alexnet_graph} --channels_scale --dtype
 --wire_cap_ratio --transport {allgather,sharded,hierarchical} --dp_pods
 --hier_route_factor_ici --hier_route_factor_dcn --epochs --batch_size
 --peak_lr --lr_schedule {dawn,step} --momentum --clip_norm --clip_sent_norm
---ratio_warmup_epochs --synthetic --synthetic_hard --synthetic_n --seed``
-plus ``--device``.  Protocol as in the JAX harness:
+--ratio_warmup_epochs --synthetic --synthetic_hard --synthetic_n --seed``,
+the robustness flags ``--guard --guard_init_scale --guard_backoff
+--guard_growth_interval --guard_max_skips --chaos --heartbeat
+--heartbeat_interval --checkpoint_dir --resume --ckpt_every``, plus
+``--device``.  With ``--checkpoint_dir`` the epochs run under
+``utils/resilience.run_with_recovery`` (a failure restores the newest
+checkpoint and replays), each ``--ckpt_every`` epochs end in an
+asynchronous save, and a SIGTERM/SIGINT cuts an emergency save and exits
+75; ``--resume DIR`` starts from the epoch after the checkpoint's.  As in
+the JAX harness the data stream restarts with the process, so a resume is
+bitwise the uninterrupted run only where the data is the same.  Protocol as in the JAX harness:
 ``PiecewiseLinear([0, 5, epochs], [0, peak, 0])`` (or the ``step`` shape)
 at fractional epochs divided by the batch size, weight decay ``5e-4 *
 batch_size``, Nesterov when momentum > 0, Crop/FlipLR/Cutout augmentation,
@@ -36,7 +45,10 @@ import numpy as np
 import torch
 
 from tpu_compressed_dp_torch.data import cifar10 as data
-from tpu_compressed_dp_torch.harness.loop import local_device, train_epoch
+from tpu_compressed_dp_torch.harness.loop import (add_checkpoint_args, add_robustness_args,
+                                                  build_robustness, local_device,
+                                                  make_heartbeat, make_preemption,
+                                                  preempt_exit, train_epoch)
 from tpu_compressed_dp_torch.models import alexnet as alexnet_mod
 from tpu_compressed_dp_torch.models import graph as graph_mod
 from tpu_compressed_dp_torch.models import resnet9 as resnet9_mod
@@ -47,9 +59,12 @@ from tpu_compressed_dp_torch.parallel import mesh
 from tpu_compressed_dp_torch.parallel.dp import (CompressionConfig, init_comp_state,
                                                  init_ef_state)
 from tpu_compressed_dp_torch.train.optim import SGD
+from tpu_compressed_dp_torch.train.guard import init_guard_state
 from tpu_compressed_dp_torch.train.schedules import lr_phases_to_knots, piecewise_linear
 from tpu_compressed_dp_torch.train.state import TrainState
 from tpu_compressed_dp_torch.train.step import make_eval_step, make_train_step
+from tpu_compressed_dp_torch.utils import resilience
+from tpu_compressed_dp_torch.utils.checkpoint import Checkpointer
 from tpu_compressed_dp_torch.utils.loggers import TableLogger, TSVLogger
 from tpu_compressed_dp_torch.utils.timer import Timer, device_sync
 
@@ -57,11 +72,8 @@ _ITEM = "ROADMAP.md queue 1, item {}"
 # flags of the JAX harness, by the ROADMAP item that ports them
 _LATER_FLAGS = {
     **dict.fromkeys(("--devices", "--coordinator", "--num_processes", "--process_id",
-                     "--guard", "--guard_backoff", "--guard_growth_interval",
-                     "--guard_init_scale", "--guard_max_skips", "--chaos", "--heartbeat",
-                     "--heartbeat_interval", "--elastic", "--elastic_dir", "--elastic_ef",
-                     "--elastic_min_world", "--peer_timeout", "--checkpoint_dir",
-                     "--resume", "--ckpt_every"), 12),
+                     "--elastic", "--elastic_dir", "--elastic_ef", "--elastic_min_world",
+                     "--peer_timeout"), "12 (elastic)"),
     **dict.fromkeys(("--adaptive", "--adaptive_budget_ms", "--adaptive_bw_mbps",
                      "--adaptive_deadband", "--adaptive_model", "--adaptive_rungs",
                      "--adaptive_signal", "--adaptive_window", "--twin_records",
@@ -182,6 +194,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dtype", type=str, default="float32", choices=sorted(DTYPES),
                    help="compute dtype of the graph-family nets (parameters stay fp32)")
     p.add_argument("--seed", type=int, default=0)
+    add_robustness_args(p, check_note="checked at epoch end")
+    add_checkpoint_args(p, cadence_help="epochs between asynchronous checkpoint saves "
+                                        "(requires --checkpoint_dir; 0 = emergency saves only)")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises where CUDA is missing) or cpu")
     return p
@@ -289,8 +304,10 @@ def _run(args, device: torch.device, comp: CompressionConfig) -> dict:
     opt = SGD(lr=lambda step: sched(np.float32(step) / spe) / bs32,  # `dawn.py:142`
               momentum=args.momentum, nesterov=args.momentum > 0,
               weight_decay=5e-4 * bs)
+    guard_cfg, chaos, crash = build_robustness(args, DTYPES[args.dtype])
     state = TrainState.create(model, opt.init(params), init_ef_state(params, comp),
-                              seed=args.seed, comp=init_comp_state(params, comp))
+                              seed=args.seed, comp=init_comp_state(params, comp),
+                              guard=init_guard_state(guard_cfg))
     apply_fn = make_normalizing_apply_fn(np.asarray(data.CIFAR10_MEAN) * 255.0,
                                          np.asarray(data.CIFAR10_STD) * 255.0)
     step_cache: dict = {}
@@ -303,18 +320,55 @@ def _run(args, device: torch.device, comp: CompressionConfig) -> dict:
         if ratio not in step_cache:
             step_cache[ratio] = make_train_step(
                 apply_fn, opt, comp_for_ratio(args, ratio), grad_scale=float(bs),
-                clip_norm=args.clip_norm, clip_sent_norm=args.clip_sent_norm)
+                clip_norm=args.clip_norm, clip_sent_norm=args.clip_sent_norm,
+                guard_cfg=guard_cfg, chaos=chaos)
         return step_cache[ratio]
 
     eval_step = make_eval_step(apply_fn)
 
+    ckpt = Checkpointer(args.checkpoint_dir) if args.checkpoint_dir else None
+    start_epoch = 0
+    if args.resume:
+        restorer = Checkpointer(args.resume)
+        try:
+            state, meta = restorer.restore(state)
+        finally:
+            restorer.close()
+        start_epoch = int(meta.get("epoch", -1)) + 1
+        if rank == 0:
+            print(f"resumed step {state.step} from {args.resume} "
+                  f"(starting epoch {start_epoch})")
+
     table, tsv = TableLogger(), TSVLogger()
     timer = Timer(lambda: device_sync(device))
+    hb = make_heartbeat(args)
+    preempt = make_preemption()
     summary: dict = {}
-    for epoch in range(epochs):
-        state, epoch_stats, acc = train_epoch(
-            train_step_for(epoch), eval_step, state, train_batches, test_batches, timer, bs,
-            device, rank=rank, world=world)
+
+    def run_epoch(state: TrainState, epoch: int) -> TrainState:
+        nonlocal summary
+        try:
+            # a signal that landed during eval stops the run before the
+            # next epoch dispatches anything
+            preempt.check(state.step)
+            state, epoch_stats, acc = train_epoch(
+                train_step_for(epoch), eval_step, state, train_batches, test_batches, timer,
+                bs, device, rank=rank, world=world, crash=crash, step_offset=state.step,
+                guard_cfg=guard_cfg, preempt=preempt)
+        except resilience.Preempted as err:
+            err.epoch = epoch
+            if not hasattr(err, "train_state"):
+                err.train_state = state
+            raise
+        if ckpt is not None and args.ckpt_every > 0 and (epoch + 1) % args.ckpt_every == 0:
+            # the write overlaps the next epoch; the next save (or a
+            # preemption) waits for it
+            ckpt.save_async(state, {"epoch": epoch})
+        if hb is not None:
+            hb.update(step=state.step, epoch=epoch,
+                      last_good_step=(int(state.guard.last_good_step)
+                                      if guard_cfg is not None else state.step),
+                      **(ckpt.heartbeat_fields() if ckpt is not None else {}))
         train_time = epoch_stats["train time"]
         summary = {
             "epoch": epoch + 1,
@@ -326,8 +380,24 @@ def _run(args, device: torch.device, comp: CompressionConfig) -> dict:
         if rank == 0:
             table.append(summary)
             tsv.append(summary)
-    if args.log_dir and rank == 0:
-        tsv.save(args.log_dir)
+        return state
+
+    try:
+        state, _ = resilience.run_with_recovery(run_epoch, state, epochs, checkpointer=ckpt,
+                                                start_epoch=start_epoch)
+        if args.log_dir and rank == 0:
+            tsv.save(args.log_dir)
+    except resilience.Preempted as err:
+        # drain the write in flight, cut a synchronous emergency save of the
+        # live state and exit 75 (the finally still runs)
+        raise preempt_exit(err, ckpt=ckpt, state=getattr(err, "train_state", state),
+                           meta={"epoch": getattr(err, "epoch", start_epoch) - 1}) from None
+    finally:
+        preempt.uninstall()
+        if ckpt is not None:
+            ckpt.close()
+        if hb is not None:
+            hb.stop()
     return summary
 
 

@@ -36,18 +36,24 @@ from typing import Dict, List, Optional
 import torch
 
 from tpu_compressed_dp_torch.data import imagenet as data
-from tpu_compressed_dp_torch.harness.loop import (comm_summary, local_device, run_local_eval,
+from tpu_compressed_dp_torch.harness.loop import (add_robustness_args, build_robustness,
+                                                  comm_summary, guard_summary, local_device,
+                                                  make_heartbeat, make_preemption, preempt_exit,
+                                                  run_local_eval,
                                                   run_train_epoch)
 from tpu_compressed_dp_torch.models import resnet as resnet_mod
 from tpu_compressed_dp_torch.models.common import make_normalizing_apply_fn, param_leaves
 from tpu_compressed_dp_torch.parallel import mesh
 from tpu_compressed_dp_torch.parallel.dp import (CompressionConfig, init_comp_state,
                                                  init_ef_state)
+from tpu_compressed_dp_torch.train.guard import init_guard_state
 from tpu_compressed_dp_torch.train.optim import SGD, bn_wd_mask
 from tpu_compressed_dp_torch.train.schedules import phase_lr_schedule_variable_bs
 from tpu_compressed_dp_torch.train.state import TrainState
 from tpu_compressed_dp_torch.train.step import make_eval_step, make_train_step
 from tpu_compressed_dp_torch.utils import flops as flops_mod
+from tpu_compressed_dp_torch.utils import resilience
+from tpu_compressed_dp_torch.utils.checkpoint import Checkpointer
 from tpu_compressed_dp_torch.utils.loggers import TableLogger, TSVLogger
 from tpu_compressed_dp_torch.utils.meters import per_chip_comm_bytes
 from tpu_compressed_dp_torch.utils.timer import Timer, device_sync
@@ -67,11 +73,8 @@ _ITEM = "ROADMAP.md queue 1, item {}"
 # flags of the JAX harness, by the ROADMAP item that ports them
 _LATER_FLAGS = {
     **dict.fromkeys(("--devices", "--coordinator", "--num_processes", "--process_id",
-                     "--resume", "--checkpoint_dir", "--best_floor", "--guard",
-                     "--guard_init_scale", "--guard_backoff", "--guard_growth_interval",
-                     "--guard_max_skips", "--chaos", "--heartbeat", "--heartbeat_interval",
                      "--elastic", "--elastic_dir", "--peer_timeout", "--elastic_ef",
-                     "--elastic_min_world"), 12),
+                     "--elastic_min_world"), "12 (elastic)"),
     **dict.fromkeys(("--adaptive", "--adaptive_window", "--adaptive_deadband",
                      "--adaptive_rungs", "--adaptive_budget_ms", "--adaptive_bw_mbps",
                      "--adaptive_signal", "--adaptive_model", "--twin_records", "--events",
@@ -247,6 +250,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--synthetic", action="store_true")
     p.add_argument("--synthetic_n", type=int, default=512)
     p.add_argument("--logdir", type=str, default=None)
+    p.add_argument("--resume", type=str, default=None)
+    p.add_argument("--checkpoint_dir", type=str, default=None)
+    p.add_argument("--best_floor", type=float, default=0.0,
+                   help="save_if_best floor on top-5 (the reference gated at 93)")
+    add_robustness_args(p, check_note="checked at epoch end")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises where CUDA is missing) or cpu")
     return p
@@ -336,11 +344,29 @@ def _run(args, device: torch.device, comp: CompressionConfig) -> Dict[str, float
     opt = SGD(lr=lr_sched, momentum=args.momentum, nesterov=False,
               weight_decay=args.weight_decay,
               wd_mask=bn_wd_mask(params) if args.no_bn_wd else None)
+    guard_cfg, chaos, crash = build_robustness(args, dtype)
     state = TrainState.create(model, opt.init(params), init_ef_state(params, comp),
                               seed=(args.seed + 1) % (2 ** 31),
-                              comp=init_comp_state(params, comp))
+                              comp=init_comp_state(params, comp),
+                              guard=init_guard_state(guard_cfg))
     train_step = make_train_step(apply_fn, opt, comp, grad_scale=1.0, clip_norm=args.clip_norm,
-                                 clip_sent_norm=args.clip_sent_norm)
+                                 clip_sent_norm=args.clip_sent_norm, guard_cfg=guard_cfg,
+                                 chaos=chaos)
+    ckpt = Checkpointer(args.checkpoint_dir) if args.checkpoint_dir else None
+    start_epoch = 0
+    if args.resume:
+        restorer = Checkpointer(args.resume)
+        try:
+            state, meta = restorer.restore(state)
+        finally:
+            restorer.close()
+        start_epoch = int(meta.get("epoch", 0)) + 1
+        if ckpt is not None and restorer.best_metric is not None:
+            # carry best-so-far forward, so a worse epoch cannot evict the
+            # true best (`train_imagenet_nv.py:195-197`)
+            ckpt.best_metric = restorer.best_metric
+        if rank == 0:
+            print(f"resumed step {state.step} (epoch {start_epoch})")
     eval_step = make_eval_step(apply_fn)
     if rank == 0:
         n_params = sum(p.numel() for p in params.values())
@@ -368,40 +394,74 @@ def _run(args, device: torch.device, comp: CompressionConfig) -> Dict[str, float
     timer = Timer(lambda: device_sync(device))
     summary: Dict[str, float] = {}
     if args.evaluate:
-        pd.set_epoch(0)
+        pd.set_epoch(min(start_epoch, epochs - 1))
         val = validate(state)
         if rank == 0:
             print(f"top1 {val['acc'] * 100:.2f} top5 {val['acc5'] * 100:.2f}")
         return val
-    for epoch in range(epochs):
-        pd.set_epoch(epoch)
-        batches = _truncate(pd.train_loader, 10 if args.short_epoch else None)
-        state, acc = run_train_epoch(train_step, state, batches, device)
-        train_time = timer()
-        val = validate(state)
-        timer(False)  # eval time stays out of the training total
-        examples = int(acc.sums.get("count", 0.0))
-        img_s = examples / train_time if train_time > 0 else 0.0
-        thr = flops_mod.throughput_record(fwd_flops(pd.cur), acc.steps / max(train_time, 1e-9),
-                                          examples_per_sec=img_s, device=device, dtype=dtype)
-        summary = {
-            "epoch": epoch, "train time": train_time, "train loss": acc.mean("loss"),
-            "test loss": val["loss"], "top1": val["acc"] * 100, "top5": val["acc5"] * 100,
-            "test acc": val["acc"], "total time": timer.total_time,
-            "img/s": round(img_s, 1), "steps": acc.steps,
-        }
-        if "throughput/mfu" in thr:
-            summary["mfu"] = round(thr["throughput/mfu"], 4)
-        summary.update(comm_summary(acc))
-        comm_means = {k: acc.mean(k) for k in acc.sums if k.startswith("comm/")}
-        per_chip_b = per_chip_comm_bytes(comm_means, world, args.dp_pods)
-        if per_chip_b is not None and train_time > 0:
-            summary["comm MB/s"] = per_chip_b * acc.steps / train_time / 1e6
-        if rank == 0:
-            table.append(summary)
-            tsv.append(summary)
-    if args.logdir and rank == 0:
-        tsv.save(args.logdir)
+    hb = make_heartbeat(args)
+    preempt = make_preemption()
+    epoch = start_epoch
+    try:
+        while epoch < epochs:
+            # a SIGTERM between epochs cuts the emergency save here
+            preempt.check(state.step)
+            swapped = pd.set_epoch(epoch)
+            if swapped and ckpt is not None and epoch > 0:
+                # phase-boundary save (`train_imagenet_nv.py:251-253`)
+                ckpt.save_async(state, {"epoch": epoch - 1, "phase_boundary": True})
+            batches = _truncate(pd.train_loader, 10 if args.short_epoch else None)
+            state, acc = run_train_epoch(train_step, state, batches, device, crash=crash,
+                                         step_offset=state.step, guard_cfg=guard_cfg,
+                                         preempt=preempt)
+            train_time = timer()
+            val = validate(state)
+            timer(False)  # eval time stays out of the training total
+            examples = int(acc.sums.get("count", 0.0))
+            img_s = examples / train_time if train_time > 0 else 0.0
+            thr = flops_mod.throughput_record(fwd_flops(pd.cur),
+                                              acc.steps / max(train_time, 1e-9),
+                                              examples_per_sec=img_s, device=device,
+                                              dtype=dtype)
+            top1, top5 = val["acc"] * 100, val["acc5"] * 100
+            summary = {
+                "epoch": epoch, "train time": train_time, "train loss": acc.mean("loss"),
+                "test loss": val["loss"], "top1": top1, "top5": top5,
+                "test acc": val["acc"], "total time": timer.total_time,
+                "img/s": round(img_s, 1), "steps": acc.steps,
+            }
+            if "throughput/mfu" in thr:
+                summary["mfu"] = round(thr["throughput/mfu"], 4)
+            summary.update(comm_summary(acc))
+            summary.update(guard_summary(acc))
+            comm_means = {k: acc.mean(k) for k in acc.sums if k.startswith("comm/")}
+            per_chip_b = per_chip_comm_bytes(comm_means, world, args.dp_pods)
+            if per_chip_b is not None and train_time > 0:
+                summary["comm MB/s"] = per_chip_b * acc.steps / train_time / 1e6
+            if rank == 0:
+                table.append(summary)
+                tsv.append(summary)
+            if hb is not None:
+                hb.update(step=state.step, epoch=epoch,
+                          last_good_step=(int(state.guard.last_good_step)
+                                          if guard_cfg is not None else state.step),
+                          **(ckpt.heartbeat_fields() if ckpt is not None else {}))
+            if ckpt is not None:
+                ckpt.save_if_best(state, top5, floor=args.best_floor,
+                                  meta={"epoch": epoch, "top1": top1, "top5": top5})
+            epoch += 1
+        if args.logdir and rank == 0:
+            tsv.save(args.logdir)
+    except resilience.Preempted as err:
+        # drain the write in flight, cut the emergency save, exit 75
+        raise preempt_exit(err, ckpt=ckpt, state=getattr(err, "train_state", state),
+                           meta={"epoch": epoch - 1}) from None
+    finally:
+        preempt.uninstall()
+        if ckpt is not None:
+            ckpt.close()
+        if hb is not None:
+            hb.stop()
     return summary
 
 

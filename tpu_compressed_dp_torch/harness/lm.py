@@ -13,7 +13,13 @@ with ``--overlap``).  ``--experts E`` makes every ``--moe_every``-th layer's
 FFN a top-1 mixture of ``E`` experts at ``--capacity_factor`` (experts split
 over ``--tp``).  The flag names and defaults are the JAX harness's, plus
 ``--device``; a flag this port does not carry yet raises
-``NotImplementedError`` naming the ROADMAP item that brings it.
+``NotImplementedError`` naming the ROADMAP item that brings it.  The
+robustness flags run as in the JAX harness: ``--guard*`` and ``--chaos``
+arm the step guard and the fault injection, the wedge check runs every
+``--log_every``, ``--checkpoint_dir`` saves asynchronously every
+``--ckpt_every`` steps and at the end (each rank its EF, and its model
+shard under ``--tp`` / ``--pp``), ``--resume DIR`` continues from the
+checkpoint's step, and a SIGTERM/SIGINT cuts an emergency save and exits 75.
 Steady-state tokens/s excludes the first two steps (as the JAX harness
 does) and is closed by a device synchronise.
 
@@ -38,18 +44,23 @@ from typing import Dict, Optional
 import torch
 
 from tpu_compressed_dp_torch.data import lm as lm_data
-from tpu_compressed_dp_torch.harness.loop import to_device
+from tpu_compressed_dp_torch.harness.loop import (build_robustness, make_heartbeat,
+                                                  make_preemption, preempt_exit, to_device)
 from tpu_compressed_dp_torch.models import transformer as tf
 from tpu_compressed_dp_torch.parallel import mesh
 from tpu_compressed_dp_torch.parallel.dp import CompressionConfig, init_ef_state
 from tpu_compressed_dp_torch.train.lm_step import (init_lm_comp_state, init_lm_ef_state,
                                                    local_block, make_lm_train_step)
 from tpu_compressed_dp_torch.train import pp_step
+from tpu_compressed_dp_torch.train.guard import check_guard_metrics, init_guard_state
 from tpu_compressed_dp_torch.train.optim import SGD
 from tpu_compressed_dp_torch.train.schedules import piecewise_linear
 from tpu_compressed_dp_torch.train.state import TrainState
 from tpu_compressed_dp_torch.utils import flops as flops_mod
+from tpu_compressed_dp_torch.utils import resilience
+from tpu_compressed_dp_torch.utils.checkpoint import Checkpointer
 from tpu_compressed_dp_torch.utils.loggers import TableLogger
+from tpu_compressed_dp_torch.utils.meters import GuardMeter
 from tpu_compressed_dp_torch.utils.timer import device_sync
 
 PRESETS = {
@@ -61,11 +72,9 @@ _ITEM = "ROADMAP.md queue 1, item {}"
 # flags of the JAX harness this port does not carry yet, by the ROADMAP item
 # that ports them: any value but the default raises
 _LATER = {
-    **dict.fromkeys(("guard", "guard_init_scale", "guard_backoff", "guard_growth_interval",
-                     "guard_max_skips", "chaos", "heartbeat", "heartbeat_interval", "elastic",
-                     "elastic_dir", "peer_timeout", "elastic_ef", "elastic_min_world",
-                     "checkpoint_dir", "ckpt_every", "resume", "coordinator",
-                     "num_processes", "process_id"), 12),
+    **dict.fromkeys(("elastic", "elastic_dir", "peer_timeout", "elastic_ef",
+                     "elastic_min_world", "coordinator", "num_processes", "process_id"),
+                    "12 (elastic)"),
     **dict.fromkeys(("adaptive", "adaptive_window", "adaptive_deadband", "adaptive_rungs",
                      "adaptive_budget_ms", "adaptive_bw_mbps", "adaptive_signal",
                      "adaptive_model", "twin_records", "events", "prom", "job_id",
@@ -138,7 +147,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="hierarchical transport: pod count (must divide the world size)")
     p.add_argument("--hier_route_factor_ici", type=float, default=1.25)
     p.add_argument("--hier_route_factor_dcn", type=float, default=1.25)
-    # robustness, telemetry, control and streaming (not ported)
+    # robustness (the elastic runtime's flags are not ported), telemetry,
+    # control and streaming (not ported)
     p.add_argument("--guard", action="store_true")
     p.add_argument("--guard_init_scale", type=float, default=2.0 ** 15)
     p.add_argument("--guard_backoff", type=float, default=0.5)
@@ -265,10 +275,12 @@ def _mesh(args) -> mesh.LmGroups:
     return mesh.lm_groups(dp, args.sp, args.tp, args.pp)
 
 
-def _build(args, cfg: tf.LlamaConfig, comp: CompressionConfig, opt: SGD, groups, device):
+def _build(args, cfg: tf.LlamaConfig, comp: CompressionConfig, opt: SGD, groups, device,
+           guard_cfg=None, chaos=None):
     """This rank's ``(state, train_step, n_params)``: the model (or its
     pipeline stage), the LM or GPipe step, and the whole model's parameter
     count (the JAX tree's: every expert, every tensor shard and stage)."""
+    guard = init_guard_state(guard_cfg)
     if groups.pp > 1:
         stage = pp_step.PipelineStage.build(
             cfg, seed=args.seed, device=device, pipe_rank=groups.pipe_index,
@@ -279,11 +291,12 @@ def _build(args, cfg: tf.LlamaConfig, comp: CompressionConfig, opt: SGD, groups,
                        for p, ax in zip(params.values(),
                                         pp_step.stage_leaf_axes(cfg, groups.tp)))
         state = TrainState.create(stage, opt.init(params), init_ef_state(params, comp),
-                                  seed=args.seed + 1)
+                                  seed=args.seed + 1, guard=guard)
         step = pp_step.make_pp_train_step(cfg, opt, comp, groups=groups,
                                           microbatches=args.microbatches,
                                           clip_norm=args.clip_norm,
-                                          clip_sent_norm=args.clip_sent_norm)
+                                          clip_sent_norm=args.clip_sent_norm,
+                                          guard_cfg=guard_cfg, chaos=chaos)
         return state, step, n_params
     model = tf.Llama(cfg, seed=args.seed, device=device, tensor_rank=groups.tensor_index,
                      tensor_size=groups.tp)
@@ -292,9 +305,10 @@ def _build(args, cfg: tf.LlamaConfig, comp: CompressionConfig, opt: SGD, groups,
                    for p, sh in zip(params.values(), tf.is_sharded(cfg)))
     state = TrainState.create(model, opt.init(params), init_lm_ef_state(cfg, params, comp),
                               seed=args.seed + 1,
-                              comp=init_lm_comp_state(cfg, params, comp, groups))
+                              comp=init_lm_comp_state(cfg, params, comp, groups), guard=guard)
     step = make_lm_train_step(cfg, opt, comp, groups=groups, clip_norm=args.clip_norm,
-                              clip_sent_norm=args.clip_sent_norm)
+                              clip_sent_norm=args.clip_sent_norm, guard_cfg=guard_cfg,
+                              chaos=chaos)
     return state, step, n_params
 
 
@@ -316,10 +330,22 @@ def _run(args, device: torch.device, comp: CompressionConfig) -> Dict[str, float
         [0, max(args.warmup_steps, 1), max(args.steps, args.warmup_steps + 1)],
         [0.0, args.lr, args.lr * 0.1])
     opt = SGD(lr=sched, momentum=args.momentum, weight_decay=args.weight_decay)
-    state, train_step, n_params = _build(args, cfg, comp, opt, groups, device)
+    guard_cfg, chaos, crash = build_robustness(args, cfg.dtype)
+    state, train_step, n_params = _build(args, cfg, comp, opt, groups, device, guard_cfg, chaos)
     n_chips = groups.dp * groups.sp * groups.tp * groups.pp
     mesh_str = (f"dp{groups.dp}xsp{groups.sp}xpp{groups.pp}xtp{groups.tp}(mb{args.microbatches})"
                 if groups.pp > 1 else f"dp{groups.dp}xsp{groups.sp}xtp{groups.tp}")
+    # each rank's file holds its EF, and its model shard where the mesh shards it
+    ckpt_kw = dict(sharded_model=groups.tp * groups.pp > 1, layout={"mesh": mesh_str})
+    ckpt = Checkpointer(args.checkpoint_dir, **ckpt_kw) if args.checkpoint_dir else None
+    if args.resume:
+        restorer = Checkpointer(args.resume, **ckpt_kw)
+        try:
+            state, _ = restorer.restore(state)
+        finally:
+            restorer.close()
+        if rank == 0:
+            print(f"resumed step {state.step}")
     if rank == 0:
         print(f"params={n_params / 1e6:.1f}M mesh={mesh_str} "
               f"seq={args.seq_len} batch={args.global_batch} "
@@ -327,42 +353,78 @@ def _run(args, device: torch.device, comp: CompressionConfig) -> Dict[str, float
               f"device={device} dtype={cfg.dtype}")
 
     table = TableLogger()
+    guard_meter = GuardMeter()
+    hb = make_heartbeat(args)
+    preempt = make_preemption()
     summary: Dict[str, float] = {}
-    t0, timed_from = time.perf_counter(), 0
-    for step_i in range(args.steps):
-        batch = {k: v[rows, cols] for k, v in ds.batch(step_i).items()}
-        state, metrics = train_step(state, to_device(batch, device))
-        if step_i <= 1:
-            # steady state starts after the first two steps (allocator and
-            # library warm-up; the JAX harness excludes its two compiles)
-            device_sync(device)
-            t0, timed_from = time.perf_counter(), step_i + 1
-        if (step_i + 1) % args.log_every == 0 or step_i == args.steps - 1:
-            m = {k: float(v) for k, v in metrics.items()}  # waits for the step
-            dt = time.perf_counter() - t0
-            steps_timed = step_i + 1 - timed_from
-            tokens_done = steps_timed * args.global_batch * args.seq_len
-            summary = {"step": step_i + 1, "loss": m["loss"], "lr": m["lr"],
-                       "tok/s": round(tokens_done / dt, 1) if steps_timed > 0 else 0.0}
-            if steps_timed > 0:
-                # MFU: closed-form 6N + 12 L d s per token (N counts every
-                # expert, as the JAX harness's), per card of the mesh,
-                # against the card's bf16 peak (absent on the CPU and unknown
-                # cards)
-                tok_flops = flops_mod.transformer_train_flops_per_token(
-                    n_params, cfg.n_layers, cfg.dim, args.seq_len)
-                fwd_per_card = (tok_flops / 3.0) * args.global_batch * args.seq_len / n_chips
-                thr = flops_mod.throughput_record(fwd_per_card, steps_timed / dt,
-                                                  tokens_per_sec=tokens_done / dt,
-                                                  device=device)
-                if "throughput/mfu" in thr:
-                    summary["mfu"] = round(thr["throughput/mfu"], 4)
-            if "comm/sent_elems" in m:
-                dense = max(m["comm/dense_elems"], 1.0)
-                summary["sent frac"] = m["comm/sent_elems"] / dense
-                summary["wire frac"] = m["comm/sent_bits"] / (32.0 * dense)
-            if rank == 0:
-                table.append(summary)
+    start = state.step
+    t0, timed_from = time.perf_counter(), start
+    try:
+        for step_i in range(start, args.steps):
+            if crash is not None:
+                crash.check(step_i)
+            # after the crash check: crash=preempt signals there
+            preempt.check(step_i)
+            batch = {k: v[rows, cols] for k, v in ds.batch(step_i).items()}
+            state, metrics = train_step(state, to_device(batch, device))
+            if step_i <= start + 1:
+                # steady state starts after the first two steps (allocator and
+                # library warm-up; the JAX harness excludes its two compiles)
+                device_sync(device)
+                t0, timed_from = time.perf_counter(), step_i + 1
+            if (step_i + 1) % args.log_every == 0 or step_i == args.steps - 1:
+                m = {k: float(v) for k, v in metrics.items()}  # waits for the step
+                if guard_cfg is not None:
+                    # the wedge check at the log cadence
+                    guard_meter.update(m, step_i + 1)
+                    check_guard_metrics(m, guard_cfg)
+                if hb is not None:
+                    hb.update(step=step_i + 1,
+                              last_good_step=(int(m["guard/last_good_step"])
+                                              if guard_cfg is not None else step_i + 1),
+                              **(ckpt.heartbeat_fields() if ckpt is not None else {}))
+                dt = time.perf_counter() - t0
+                steps_timed = step_i + 1 - timed_from
+                tokens_done = steps_timed * args.global_batch * args.seq_len
+                summary = {"step": step_i + 1, "loss": m["loss"], "lr": m["lr"],
+                           "tok/s": round(tokens_done / dt, 1) if steps_timed > 0 else 0.0}
+                if steps_timed > 0:
+                    # MFU: closed-form 6N + 12 L d s per token (N counts every
+                    # expert, as the JAX harness's), per card of the mesh,
+                    # against the card's bf16 peak (absent on the CPU and
+                    # unknown cards)
+                    tok_flops = flops_mod.transformer_train_flops_per_token(
+                        n_params, cfg.n_layers, cfg.dim, args.seq_len)
+                    fwd_per_card = (tok_flops / 3.0) * args.global_batch * args.seq_len / n_chips
+                    thr = flops_mod.throughput_record(fwd_per_card, steps_timed / dt,
+                                                      tokens_per_sec=tokens_done / dt,
+                                                      device=device)
+                    if "throughput/mfu" in thr:
+                        summary["mfu"] = round(thr["throughput/mfu"], 4)
+                if "comm/sent_elems" in m:
+                    dense = max(m["comm/dense_elems"], 1.0)
+                    summary["sent frac"] = m["comm/sent_elems"] / dense
+                    summary["wire frac"] = m["comm/sent_bits"] / (32.0 * dense)
+                if guard_cfg is not None:
+                    gsum = guard_meter.summary()
+                    summary["skipped"] = gsum.get("guard/skipped", 0.0)
+                    summary["loss_scale"] = gsum.get("guard/loss_scale", 1.0)
+                if rank == 0:
+                    table.append(summary)
+            if ckpt is not None and args.ckpt_every and (step_i + 1) % args.ckpt_every == 0:
+                # a host copy now, the write in the background
+                ckpt.save_async(state, {"step": step_i + 1})
+        if ckpt is not None:
+            ckpt.save(state, {"step": state.step})
+    except resilience.Preempted as err:
+        # drain the write in flight, cut the emergency save, exit 75
+        raise preempt_exit(err, ckpt=ckpt, state=state, meta={"step": state.step}) from None
+    finally:
+        preempt.uninstall()
+        if ckpt is not None:
+            ckpt.close()
+        if hb is not None:
+            hb.stop()
     return summary
 
 

@@ -35,6 +35,14 @@ the LM's ``workers`` group of ``parallel/mesh.lm_groups``).  Every
 collective, the world size and each rank's seed (its rank within the
 group, the JAX ``axis_index`` over the sync axes) come from it.
 
+Every engine takes the step guard's verdict ``ok`` (``train/guard.py``;
+``None``, the default, is the ungated sync), as the JAX engines' ``_with_guard``
+gives it: on a vetoed step (``ok`` False, the same on every rank) the
+gradients are zeroed in place before the collectives, so every rank runs the
+same collectives on finite data, and the EF residual and compressor state
+come back as the very tensors that went in; the stats gain
+``guard/nonfinite`` (1.0 on a vetoed step).
+
 Gradients, EF residuals and outputs are ordered dicts of tensors keyed by
 parameter path, in the JAX package's leaf order (see
 ``models/common.param_leaves``), so entire-model concatenation and EF rows
@@ -264,6 +272,35 @@ def group_split(flat, leaves, idxs, out, dtype=None) -> None:
         off += n
 
 
+def _with_guard(issue):
+    """``issue(grads, ef, comp, seed) -> finish`` with the guard's gate:
+    ``issue(..., ok=None)``.  On a vetoed step the gradients (the step's own)
+    are zeroed in place before the engine runs and ``finish`` hands back the
+    EF and compressor state it was given; the stats gain
+    ``guard/nonfinite``."""
+
+    def guarded(grads: Tree, ef: Any, comp: Any, seed: int, ok: Optional[bool] = None):
+        if ok is None:
+            return issue(grads, ef, comp, seed)
+        if not ok:
+            with torch.no_grad():
+                for g in grads.values():
+                    g.zero_()
+        fin = issue(grads, ef, comp, seed)
+
+        def finish():
+            out, new_ef, new_comp, stats = fin()
+            stats = dict(stats)
+            stats["guard/nonfinite"] = torch.full(
+                (), 0.0 if ok else 1.0, dtype=torch.float32,
+                device=next(iter(grads.values())).device)
+            return (out, new_ef, new_comp, stats) if ok else (out, ef, comp, stats)
+
+        return finish
+
+    return guarded
+
+
 def make_grad_sync(cfg: CompressionConfig, group_offset: int = 0, group=None):
     """Build ``sync(grads, ef, seed) -> (synced, new_ef, stats)`` over the
     workers of ``group`` (``None``: the default process group), for every
@@ -277,12 +314,26 @@ def make_grad_sync(cfg: CompressionConfig, group_offset: int = 0, group=None):
     gradients' device, keyed as in the JAX engine (``sent_elems``,
     ``sent_bits`` and its per-collective split, ``dense_elems``,
     ``num_collectives``)."""
-    issue = _make_stateless_issue(cfg, group_offset, group)
+    base = _make_stateless_issue(cfg, group_offset, group)
+    issue = _with_guard(lambda grads, ef, comp, seed: _no_comp(base(grads, ef, seed), comp))
 
-    def sync(grads: Tree, ef: Any, seed: int) -> Tuple[Tree, Any, Dict[str, torch.Tensor]]:
-        return issue(grads, ef, seed)()
+    def sync(grads: Tree, ef: Any, seed: int, ok: Optional[bool] = None
+             ) -> Tuple[Tree, Any, Dict[str, torch.Tensor]]:
+        out, new_ef, _, stats = issue(grads, ef, (), seed, ok=ok)()
+        return out, new_ef, stats
 
     return sync
+
+
+def _no_comp(fin, comp):
+    """A stateless engine's ``finish`` as the stateful engines': ``comp``
+    passes through."""
+
+    def finish():
+        out, new_ef, stats = fin()
+        return out, new_ef, comp, stats
+
+    return finish
 
 
 def _make_stateless_issue(cfg: CompressionConfig, group_offset: int, group=None):
@@ -472,19 +523,9 @@ def make_issue_grad_sync(cfg: CompressionConfig, group_offset: int = 0, group=No
     PowerSGD engines feed each collective's result to the next step, so they
     finish inside ``issue``."""
     if compressors.canonical_name(cfg.method) == "powersgd":
-        return _done(_make_powersgd_sync(cfg, group_offset, group))
+        return _with_guard(_done(_make_powersgd_sync(cfg, group_offset, group)))
     base = _make_stateless_issue(cfg, group_offset, group)
-
-    def issue(grads: Tree, ef: Any, comp: Any, seed: int):
-        fin = base(grads, ef, seed)
-
-        def finish():
-            out, new_ef, stats = fin()
-            return out, new_ef, comp, stats
-
-        return finish
-
-    return issue
+    return _with_guard(lambda grads, ef, comp, seed: _no_comp(base(grads, ef, seed), comp))
 
 
 def make_stateful_grad_sync(cfg: CompressionConfig, group_offset: int = 0, group=None):
@@ -495,8 +536,8 @@ def make_stateful_grad_sync(cfg: CompressionConfig, group_offset: int = 0, group
     runs :func:`make_grad_sync`'s sync and returns ``comp`` unchanged."""
     issue = make_issue_grad_sync(cfg, group_offset, group)
 
-    def sync(grads: Tree, ef: Any, comp: Any, seed: int):
-        return issue(grads, ef, comp, seed)()
+    def sync(grads: Tree, ef: Any, comp: Any, seed: int, ok: Optional[bool] = None):
+        return issue(grads, ef, comp, seed, ok=ok)()
 
     return sync
 
@@ -624,16 +665,16 @@ def _make_powersgd_sync(cfg: CompressionConfig, group_offset: int = 0, group=Non
 # Partitioned sync: one reduction per replication signature
 # ---------------------------------------------------------------------------
 
-# 0/1 diagnostics, combined across signature groups by their min reduction
-# instead of summed (the JAX engine's _DIAG_STATS; its guard/nonfinite comes
-# with the step guard, ROADMAP item 12): key -> (collective, combine)
-_DIAG_COMBINE = {"sync_agree": (dist.ReduceOp.MIN, torch.minimum)}
+# 0/1 diagnostics, combined across signature groups by their own reduction
+# instead of summed (the JAX engine's _DIAG_STATS): key -> (collective, combine)
+_DIAG_COMBINE = {"sync_agree": (dist.ReduceOp.MIN, torch.minimum),
+                 "guard/nonfinite": (dist.ReduceOp.MAX, torch.maximum)}
 
 
 def merge_stat_dicts(a: Dict[str, Any], b: Dict[str, Any]) -> Dict[str, Any]:
     """Combine the stats of two disjoint slices of one sync: additive volumes
-    sum; the diagnostic ``sync_agree`` combines by min, and survives when
-    either side reports it.  Keys keep ``a``'s
+    sum; the diagnostics combine by their reduction (``sync_agree`` min,
+    ``guard/nonfinite`` max), and survive when either side reports them.  Keys keep ``a``'s
     order, then ``b``'s new ones: every rank must list the stats in one order
     (the step all-reduces them stacked), which set order would not give."""
     keys = list(a) + [k for k in b if k not in a]
@@ -710,21 +751,22 @@ class PartitionedSync:
         self.axis_groups = axis_groups
         self.chunked = [ChunkedSync(cfg, group) for _ in self.sigs]
 
-    def begin(self, grads_like: Tree, ef: Any, comp: Any, seed: int) -> "_PartitionedRound":
+    def begin(self, grads_like: Tree, ef: Any, comp: Any, seed: int,
+              ok: Optional[bool] = None) -> "_PartitionedRound":
         if len(grads_like) != len(self.group_of):
             raise ValueError(f"{len(grads_like)} gradient leaves, {len(self.group_of)} leaf "
                              "signatures")
-        return _PartitionedRound(self, list(grads_like), grads_like, ef, comp, seed)
+        return _PartitionedRound(self, list(grads_like), grads_like, ef, comp, seed, ok)
 
-    def __call__(self, grads: Tree, ef: Any, comp: Any, seed: int):
-        rnd = self.begin(grads, ef, comp, seed)
+    def __call__(self, grads: Tree, ef: Any, comp: Any, seed: int, ok: Optional[bool] = None):
+        rnd = self.begin(grads, ef, comp, seed, ok)
         rnd.land_all(grads)
         return rnd.collect()
 
 
 class _PartitionedRound:
     def __init__(self, ps: PartitionedSync, names, grads_like: Tree, ef: Any, comp: Any,
-                 seed: int):
+                 seed: int, ok: Optional[bool] = None):
         self.ps, self.names = ps, names
         use_ef = ps.cfg.error_feedback
         self.keys = [[k for k, g in zip(names, ps.group_of) if g == gi]
@@ -734,7 +776,7 @@ class _PartitionedRound:
             ps.chunked[gi].begin({k: grads_like[k] for k in keys},
                                  {k: ef[k] for k in keys} if use_ef else (),
                                  comp.get(f"sig{gi}", ()) if isinstance(comp, dict) else (),
-                                 compressors.fold_in(seed, gi))
+                                 compressors.fold_in(seed, gi), ok)
             for gi, keys in enumerate(self.keys)]
 
     def land(self, i: int, g: torch.Tensor) -> None:
@@ -771,8 +813,8 @@ def make_partitioned_grad_sync(cfg: CompressionConfig, leaf_axes, *, group=None,
                          "PartitionedSync")
     full = PartitionedSync(cfg, leaf_axes, group=group, axis_groups=axis_groups)
 
-    def sync(grads: Tree, ef: Any, seed: int):
-        synced, new_ef, _, comm = full(grads, ef, (), seed)
+    def sync(grads: Tree, ef: Any, seed: int, ok: Optional[bool] = None):
+        synced, new_ef, _, comm = full(grads, ef, (), seed, ok)
         return synced, new_ef, comm
 
     return sync

@@ -28,7 +28,10 @@ during the backward pass.  ``clip_norm`` needs the whole gradient's norm
 before any chunk compresses, so with it the chunks are issued after the
 backward pass (reverse leaf order); ``clip_sent_norm`` needs the synced
 gradient's norm, so with it the step applies the whole tree after the
-chunked sync, as the JAX step does.
+chunked sync, as the JAX step does.  The step guard's vote needs every
+gradient too, so a guarded step lands them after the backward pass and hands
+the verdict to :meth:`ChunkedSync.begin` (the JAX driver takes the vote once
+before its chunks).
 """
 
 from __future__ import annotations
@@ -150,10 +153,12 @@ class ChunkedSync:
                              for _ in range(p.leaf_lo, p.leaf_hi)]
             self._layout = layout
 
-    def begin(self, grads_like: Tree, ef: Any, comp: Any, seed: int) -> "_Round":
-        """A round over gradients shaped like ``grads_like`` (fp32)."""
+    def begin(self, grads_like: Tree, ef: Any, comp: Any, seed: int,
+              ok: Optional[bool] = None) -> "_Round":
+        """A round over gradients shaped like ``grads_like`` (fp32), gated by
+        the guard's verdict ``ok`` (``None``: ungated; ``dp._with_guard``)."""
         self._plan(grads_like)
-        return _Round(self, list(grads_like), ef, comp, seed)
+        return _Round(self, list(grads_like), ef, comp, seed, ok)
 
 
 class _Round:
@@ -161,8 +166,10 @@ class _Round:
     chunk's sync is issued when its last one lands, and :meth:`results`
     waits for the chunks in the order they went out."""
 
-    def __init__(self, chunked: ChunkedSync, names: List[str], ef: Any, comp: Any, seed: int):
+    def __init__(self, chunked: ChunkedSync, names: List[str], ef: Any, comp: Any, seed: int,
+                 ok: Optional[bool] = None):
         self.c, self.names, self.ef, self.comp, self.seed = chunked, names, ef, comp, seed
+        self.ok = ok
         self.grads: List[Optional[torch.Tensor]] = [None] * len(names)
         self.missing = [p.leaf_hi - p.leaf_lo for p in chunked.plans]
         self.ranks = [-1] * len(names)    # each leaf's production rank
@@ -193,7 +200,8 @@ class _Round:
         keys = self.names[plan.leaf_lo:plan.leaf_hi]
         sub = dict(zip(keys, self.grads[plan.leaf_lo:plan.leaf_hi]))
         sub_ef = {k: self.ef[k] for k in keys} if self.c.cfg.error_feedback else ()
-        fin = self.c.issues[ci](sub, sub_ef, _comp_slice(self.comp, plan), self.seed)
+        fin = self.c.issues[ci](sub, sub_ef, _comp_slice(self.comp, plan), self.seed,
+                                ok=self.ok)
         self.pending.append((plan, fin))
 
     def results(self):
@@ -247,8 +255,8 @@ def make_chunked_grad_sync(cfg):
     chunk syncs issued in reverse leaf order: bitwise the single sync."""
     chunked = ChunkedSync(cfg)
 
-    def sync(grads: Tree, ef: Any, comp: Any, seed: int):
-        rnd = chunked.begin(grads, ef, comp, seed)
+    def sync(grads: Tree, ef: Any, comp: Any, seed: int, ok: Optional[bool] = None):
+        rnd = chunked.begin(grads, ef, comp, seed, ok)
         rnd.land_all(grads)
         return rnd.collect()
 
@@ -264,9 +272,13 @@ def make_overlap_sync_apply(cfg, optimizer):
     chunked = ChunkedSync(cfg)
 
     def fused(params: Tree, grads: Tree, ef: Any, comp: Any, opt_state: Dict[str, Any],
-              seed: int, step: int):
-        rnd = chunked.begin(grads, ef, comp, seed)
+              seed: int, step: int, ok: Optional[bool] = None):
+        rnd = chunked.begin(grads, ef, comp, seed, ok)
         rnd.land_all(grads)
+        if ok is False:
+            # a vetoed step updates nothing: the sync ran for its stats
+            _, new_ef, new_comp, stats = rnd.collect()
+            return new_ef, new_comp, stats
         return rnd.apply(params, optimizer, opt_state, step)
 
     return fused

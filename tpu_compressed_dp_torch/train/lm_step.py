@@ -30,8 +30,16 @@ gradients as the backward pass produces them and a chunk's collectives go
 out when its last gradient lands; the update runs on the whole tree after
 the sync, as the JAX LM step does.
 
-Not ported yet: the step guard (ROADMAP.md queue 1, item 12) and in-graph
-chaos injection (item 12).
+``guard_cfg`` arms the step guard (``train/guard.py``) and ``chaos``
+(``utils/chaos.py``) the fault injection, in the JAX step's order: the
+objective is backpropagated at the loss scale (dynamic on bf16, the
+identity on fp32), the chosen worker's (``guard.worker_index`` over the
+workers group, the JAX ``(data, seq)`` axes) gradients or loss are
+poisoned, every rank of the mesh (data, seq and tensor) votes, and the
+gradients are unscaled in place.  A guarded step runs the whole backward
+pass before the sync and reads the verdict on the host; on a veto the sync
+runs on zeroed gradients, hands back the EF and compressor state, and SGD
+does not run.
 """
 
 from __future__ import annotations
@@ -59,6 +67,7 @@ from tpu_compressed_dp_torch.parallel.dp import (
     init_ef_state,
     make_partitioned_clip,
 )
+from tpu_compressed_dp_torch.train import guard as guard_mod
 from tpu_compressed_dp_torch.train.optim import SGD, _value
 from tpu_compressed_dp_torch.train.state import TrainState
 
@@ -67,10 +76,6 @@ __all__ = ["make_lm_train_step", "make_lm_eval_step", "init_lm_ef_state", "init_
 
 _POWERSGD_TP = ("powersgd over tensor-sharded params needs shard-local warm starts; run it on "
                 "a (data[, seq]) mesh (tensor=1)")
-
-
-def _item(n: int) -> str:
-    return f"ROADMAP.md queue 1, item {n}"
 
 
 def _groups(groups: Optional[mesh.LmGroups]) -> mesh.LmGroups:
@@ -147,11 +152,8 @@ def make_lm_train_step(cfg: LlamaConfig, optimizer: SGD, comp_cfg: CompressionCo
     ``clip_norm`` / ``clip_sent_norm`` clip the local / the synced gradient
     by the full-model L2 norm (0 = off).  Metrics are 0-d tensors: ``loss``
     (workers' mean), ``tokens`` (workers' sum), ``lr`` and ``comm/*``
-    (workers' means of model-wide totals)."""
-    if guard_cfg is not None:
-        raise NotImplementedError(f"the step guard is not ported yet: {_item(12)}")
-    if chaos is not None:
-        raise NotImplementedError(f"chaos injection is not ported yet: {_item(12)}")
+    (workers' means of model-wide totals), and with ``guard_cfg`` the
+    ``guard/*`` scalars."""
     g = _groups(groups)
     cfg.validate_mesh(g.tp)
     if canonical_name(comp_cfg.method) == "powersgd" and g.tp > 1:
@@ -160,19 +162,24 @@ def make_lm_train_step(cfg: LlamaConfig, optimizer: SGD, comp_cfg: CompressionCo
     axis_groups = {"tensor": g.tensor}
     grad_sync = PartitionedSync(comp_cfg, leaf_axes, group=g.workers, axis_groups=axis_groups)
     clip_tree = make_partitioned_clip(leaf_axes, axis_groups)
-    hooked = comp_cfg.sync_overlap > 1 and clip_norm == 0.0
+    guard_mod.check_chaos_worker(chaos, g.dp * g.sp, "(data x seq) workers")
+    hooked = (comp_cfg.sync_overlap > 1 and clip_norm == 0.0
+              and not guard_mod.needs_whole_backward(guard_cfg, chaos))
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         if comp_cfg.error_feedback and not isinstance(state.ef, dict):
             raise ValueError("error_feedback=True but state.ef is empty; build it with "
                              "init_lm_ef_state(cfg, params, comp)")
+        guard_mod.check_state(guard_cfg, state.guard)
         model = state.model
         params = param_leaves(model)
         x, y = batch["input"], batch["target"]
         # backpropagate the objective, log the cross-entropy (as JAX)
         objective, loss = lm_loss(cfg, model, x, y, g)
+        objective = guard_mod.scale_objective(guard_cfg, state.guard, objective)
         # the step's compression seed: fold_in(state.rng, step) of the JAX step
         seed = fold_in(state.seed, state.step)
+        ok = None
         if hooked:
             # each chunk's sync goes out as its last gradient lands
             rnd = grad_sync.begin(params, state.ef, state.comp, seed)
@@ -187,14 +194,20 @@ def make_lm_train_step(cfg: LlamaConfig, optimizer: SGD, comp_cfg: CompressionCo
         else:
             grads = torch.autograd.grad(objective, list(params.values()))
             grads = {k: gr.to(torch.float32) for k, gr in zip(params, grads)}
+            # every rank of the mesh votes: the tensor shards' gradients
+            # differ, and every replica must branch alike
+            ok, loss, grads = guard_mod.vet(guard_cfg, chaos, state, loss, grads, g.workers)
             if clip_norm > 0.0:
                 grads = clip_tree(grads, clip_norm)
-            synced, new_ef, new_comp, comm = grad_sync(grads, state.ef, state.comp, seed)
+            synced, new_ef, new_comp, comm = grad_sync(grads, state.ef, state.comp, seed, ok)
             del grads   # the update's peak memory holds no raw gradient
-        if clip_sent_norm > 0.0:
-            synced = clip_tree(synced, clip_sent_norm)
         new_step = state.step + 1
-        optimizer.apply(params, synced, state.opt_state, new_step)
+        sched_step = guard_mod.schedule_step(guard_cfg, state.guard, new_step)
+        if ok is not False:
+            if clip_sent_norm > 0.0:
+                synced = clip_tree(synced, clip_sent_norm)
+            optimizer.apply(params, synced, state.opt_state, sched_step)
+        del synced
 
         workers = mesh.size(g.workers)
         with torch.no_grad():
@@ -207,10 +220,11 @@ def make_lm_train_step(cfg: LlamaConfig, optimizer: SGD, comp_cfg: CompressionCo
                 dist.all_reduce(vals, group=g.workers)
             means = vals / workers
         metrics = {"loss": means[0], "tokens": vals[1],
-                   "lr": _value(optimizer.lr, new_step)}
-        for i, k in enumerate(comm):
-            metrics[f"comm/{k}"] = means[2 + i]
-        return dataclasses.replace(state, step=new_step, ef=new_ef, comp=new_comp), metrics
+                   "lr": _value(optimizer.lr, sched_step)}
+        new_guard = guard_mod.finish(guard_cfg, state.guard, ok, new_step, metrics, comm,
+                                     means[2:])
+        return dataclasses.replace(state, step=new_step, ef=new_ef, comp=new_comp,
+                                   guard=new_guard), metrics
 
     return train_step
 

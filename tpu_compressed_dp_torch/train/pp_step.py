@@ -33,8 +33,11 @@ The tensor axis keeps the model's Megatron pair.  The sync is
 replication signature over ``(pipe[, tensor])``, its stats summed over the
 model axes; EF is per worker, and ``clip_norm`` / ``clip_sent_norm`` and the
 ``sync_overlap`` hooks behave as in ``train/lm_step.py``.  PowerSGD is
-refused, as JAX refuses it; the step guard and chaos injection are not
-ported yet (ROADMAP.md queue 1, item 12).
+refused, as JAX refuses it.  ``guard_cfg`` / ``chaos`` arm the step guard
+and the fault injection as in ``train/lm_step.py``: the loss the vote and
+the metrics read is the pipe-summed one, and every rank of the mesh (every
+stage included) votes, so a NaN in one stage's layers vetoes the update on
+all of them.
 """
 
 from __future__ import annotations
@@ -66,7 +69,7 @@ from tpu_compressed_dp_torch.parallel.dp import (
     PartitionedSync,
     make_partitioned_clip,
 )
-from tpu_compressed_dp_torch.train.lm_step import _item
+from tpu_compressed_dp_torch.train import guard as guard_mod
 from tpu_compressed_dp_torch.train.optim import SGD, _value
 from tpu_compressed_dp_torch.train.state import TrainState
 
@@ -220,10 +223,6 @@ def make_pp_train_step(cfg: LlamaConfig, optimizer: SGD, comp_cfg: CompressionCo
     ``lm_step.make_lm_train_step``'s: ``loss`` (the workers' mean of the
     pipe-summed loss), ``tokens``, ``lr`` and ``comm/*`` (model-wide totals,
     the workers' means)."""
-    if guard_cfg is not None:
-        raise NotImplementedError(f"the step guard is not ported yet: {_item(12)}")
-    if chaos is not None:
-        raise NotImplementedError(f"chaos injection is not ported yet: {_item(12)}")
     if canonical_name(comp_cfg.method) == "powersgd":
         # the stacked layers shard over pipe, so warm starts would need
         # per-stage shapes no init builds (the JAX refusal)
@@ -241,7 +240,9 @@ def make_pp_train_step(cfg: LlamaConfig, optimizer: SGD, comp_cfg: CompressionCo
     axis_groups = {"pipe": g.pipe, "tensor": g.tensor}
     grad_sync = PartitionedSync(comp_cfg, leaf_axes, group=g.workers, axis_groups=axis_groups)
     clip_tree = make_partitioned_clip(leaf_axes, axis_groups)
-    hooked = comp_cfg.sync_overlap > 1 and clip_norm == 0.0
+    guard_mod.check_chaos_worker(chaos, g.dp * g.sp, "(data x seq) workers")
+    hooked = (comp_cfg.sync_overlap > 1 and clip_norm == 0.0
+              and not guard_mod.needs_whole_backward(guard_cfg, chaos))
 
     def pipe_sum(k: str, gr: torch.Tensor) -> torch.Tensor:
         # a pipe-replicated leaf's gradient is the sum of the stages' parts
@@ -254,47 +255,59 @@ def make_pp_train_step(cfg: LlamaConfig, optimizer: SGD, comp_cfg: CompressionCo
         if comp_cfg.error_feedback and not isinstance(state.ef, dict):
             raise ValueError("error_feedback=True but state.ef is empty; build it with "
                              "dp.init_ef_state(stage_leaves(stage), comp)")
+        guard_mod.check_state(guard_cfg, state.guard)
         params = stage_leaves(state.model)
         x, y = batch["input"], batch["target"]
         share = pp_loss(cfg, state.model, x, y, g, microbatches)
+        objective = guard_mod.scale_objective(guard_cfg, state.guard, share)
+        with torch.no_grad():
+            # the pipe-summed loss (the JAX step's psum over pipe): what the
+            # vote and the metrics read
+            loss = share.detach().to(torch.float32)
+            if stages > 1:
+                loss = mesh.all_reduce_sum(loss, g.pipe)
         seed = fold_in(state.seed, state.step)
+        ok = None
         if hooked:
             # each chunk's sync goes out as its last gradient lands
             rnd = grad_sync.begin(params, state.ef, state.comp, seed)
             hooks = [p.register_hook(lambda gr, i=i, k=k: rnd.land(i, pipe_sum(k, gr)))
                      for i, (k, p) in enumerate(params.items())]
             try:
-                torch.autograd.grad(share, list(params.values()))
+                torch.autograd.grad(objective, list(params.values()))
             finally:
                 for h in hooks:
                     h.remove()
             synced, new_ef, new_comp, comm = rnd.collect()
         else:
-            grads = torch.autograd.grad(share, list(params.values()))
+            grads = torch.autograd.grad(objective, list(params.values()))
             grads = {k: pipe_sum(k, gr) for k, gr in zip(params, grads)}
+            # every stage and tensor shard votes
+            ok, loss, grads = guard_mod.vet(guard_cfg, chaos, state, loss, grads, g.workers)
             if clip_norm > 0.0:
                 grads = clip_tree(grads, clip_norm)
-            synced, new_ef, new_comp, comm = grad_sync(grads, state.ef, state.comp, seed)
+            synced, new_ef, new_comp, comm = grad_sync(grads, state.ef, state.comp, seed, ok)
             del grads
-        if clip_sent_norm > 0.0:
-            synced = clip_tree(synced, clip_sent_norm)
         new_step = state.step + 1
-        optimizer.apply(params, synced, state.opt_state, new_step)
+        sched_step = guard_mod.schedule_step(guard_cfg, state.guard, new_step)
+        if ok is not False:
+            if clip_sent_norm > 0.0:
+                synced = clip_tree(synced, clip_sent_norm)
+            optimizer.apply(params, synced, state.opt_state, sched_step)
+        del synced
 
         workers = mesh.size(g.workers)
         with torch.no_grad():
-            loss = share.detach().to(torch.float32)
-            if stages > 1:
-                loss = mesh.all_reduce_sum(loss, g.pipe)
             vals = torch.stack([loss, torch.full((), float(x.numel()), device=loss.device),
                                 *comm.values()])
             if workers > 1:
                 dist.all_reduce(vals, group=g.workers)
             means = vals / workers
-        metrics = {"loss": means[0], "tokens": vals[1], "lr": _value(optimizer.lr, new_step)}
-        for i, k in enumerate(comm):
-            metrics[f"comm/{k}"] = means[2 + i]
-        return dataclasses.replace(state, step=new_step, ef=new_ef, comp=new_comp), metrics
+        metrics = {"loss": means[0], "tokens": vals[1], "lr": _value(optimizer.lr, sched_step)}
+        new_guard = guard_mod.finish(guard_cfg, state.guard, ok, new_step, metrics, comm,
+                                     means[2:])
+        return dataclasses.replace(state, step=new_step, ef=new_ef, comp=new_comp,
+                                   guard=new_guard), metrics
 
     return train_step
 

@@ -6,7 +6,8 @@ and the EF residual are dicts of tensors keyed like
 ``models/common.param_leaves``.  The EF residual is this rank's own (one
 process per worker, so no leading device axis); the compressor state
 (PowerSGD's warm starts, ``parallel/dp.init_comp_state``) is the same on
-every rank.
+every rank, as is the step guard's state (``train/guard.GuardState``, ``()``
+when the guard is off).
 """
 
 from __future__ import annotations
@@ -28,8 +29,10 @@ class TrainState:
     seed: int = 0        # base seed of the run; each step's compression seed is
                          # compressors.fold_in(seed, step)
     comp: Any = ()       # persistent compressor state, or () for stateless methods
+    guard: Any = ()      # the step guard's state (train/guard.py), or () when off
 
     @classmethod
     def create(cls, model: nn.Module, opt_state: Any, ef: Any, seed: int = 0,
-               comp: Any = ()) -> "TrainState":
-        return cls(step=0, model=model, opt_state=opt_state, ef=ef, seed=seed, comp=comp)
+               comp: Any = (), guard: Any = ()) -> "TrainState":
+        return cls(step=0, model=model, opt_state=opt_state, ef=ef, seed=seed, comp=comp,
+                   guard=guard)

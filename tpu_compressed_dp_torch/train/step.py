@@ -20,8 +20,20 @@ pass produces it, each chunk's sync starts when its last gradient lands,
 and each chunk's slice of SGD runs once its collectives are waited on.  The
 numerics are the single sync's, bit for bit.
 
-Metrics stay on the device (0-d tensors) so a step never waits for the
-host; ``harness/loop.py`` fetches them once per epoch.
+``guard_cfg`` arms the step guard (``train/guard.py``): the loss is
+backpropagated at the guard's loss scale, ``chaos`` (``utils/chaos.py``)
+poisons the chosen worker's gradients or loss, the workers vote on the
+finiteness of the loss and the gradients, and the gradients are unscaled,
+in the JAX step's order.  A guarded step runs the whole backward pass
+before the sync (the vote needs every gradient) and reads the verdict on
+the host once; on a vetoed step the sync runs on zeroed gradients and hands
+back the EF and compressor state unchanged, SGD does not run, and the
+BatchNorm running statistics go back to their snapshot from before the
+forward pass, so every tensor of the state keeps its bits.  Schedules read
+``guard.schedule_step`` (the applied updates).
+
+Metrics stay on the device (0-d tensors) so an unguarded step never waits
+for the host; ``harness/loop.py`` fetches them once per epoch.
 """
 
 from __future__ import annotations
@@ -37,6 +49,7 @@ from tpu_compressed_dp_torch.ops.compressors import fold_in
 from tpu_compressed_dp_torch.parallel import mesh
 from tpu_compressed_dp_torch.parallel.dp import CompressionConfig, make_stateful_grad_sync
 from tpu_compressed_dp_torch.parallel.overlap import ChunkedSync
+from tpu_compressed_dp_torch.train import guard as guard_mod
 from tpu_compressed_dp_torch.train.optim import SGD, _value
 from tpu_compressed_dp_torch.train.state import TrainState
 
@@ -72,7 +85,7 @@ def cross_entropy_sum(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tenso
 
 def make_train_step(apply_fn: ApplyFn, optimizer: SGD, comp_cfg: CompressionConfig, *,
                     grad_scale: float = 1.0, clip_norm: float = 0.0,
-                    clip_sent_norm: float = 0.0):
+                    clip_sent_norm: float = 0.0, guard_cfg=None, chaos=None):
     """Build ``train_step(state, batch) -> (state, metrics)``.
 
     ``batch`` is ``{'input': [B, 32, 32, 3], 'target': [B]}`` on the model's
@@ -80,27 +93,39 @@ def make_train_step(apply_fn: ApplyFn, optimizer: SGD, comp_cfg: CompressionConf
     units; 0 = off) clips the local gradient by L2 norm before EF
     accumulation; ``clip_sent_norm`` (the same units) clips the synced
     gradient by its global L2 norm before the optimizer, which bounds the
-    residual's release itself.  Metrics are world-reduced 0-d tensors: ``loss`` (mean),
-    ``correct`` and ``count`` (sums), ``comm/*`` (means), plus ``lr``."""
+    residual's release itself.  ``guard_cfg`` / ``chaos``: the step guard and
+    fault injection (module docstring); ``state.guard`` comes from
+    ``guard.init_guard_state``.  Metrics are world-reduced 0-d tensors:
+    ``loss`` (mean), ``correct`` and ``count`` (sums), ``comm/*`` (means),
+    plus ``lr`` and the guard's ``guard/*``."""
     grad_sync = make_stateful_grad_sync(comp_cfg)
     chunked = ChunkedSync(comp_cfg) if comp_cfg.sync_overlap > 1 else None
+    # the clip, the vote and the injection need every gradient before any
+    # chunk compresses
+    whole = clip_norm > 0.0 or guard_mod.needs_whole_backward(guard_cfg, chaos)
 
     def sync_and_apply(state: TrainState, params, loss, seed: int, new_step: int):
-        """Backward, sync and the optimizer: ``(new_ef, new_comp, comm)``."""
-        if chunked is None or clip_norm > 0.0:
-            grads = torch.autograd.grad(loss, list(params.values()))
+        """Backward, vote, sync and the optimizer: ``(new_ef, new_comp, comm,
+        ok, loss)``, ``ok`` the guard's verdict (None unguarded) and ``loss``
+        the local loss after any injection (0 on a veto)."""
+        sched_step = guard_mod.schedule_step(guard_cfg, state.guard, new_step)
+        ok = None
+        objective = guard_mod.scale_objective(guard_cfg, state.guard, loss)
+        if chunked is None or whole:
+            grads = torch.autograd.grad(objective, list(params.values()))
             scaled = {k: g.to(torch.float32) * grad_scale for k, g in zip(params, grads)}
+            del grads
+            ok, loss, scaled = guard_mod.vet(guard_cfg, chaos, state, loss, scaled)
             if clip_norm > 0.0:
                 gnorm = torch.sqrt(sum((g * g).sum() for g in scaled.values()))
                 factor = torch.clamp(clip_norm * grad_scale / torch.clamp(gnorm, min=1e-20),
                                      max=1.0)
                 scaled = {k: g * factor for k, g in scaled.items()}
         if chunked is None:
-            synced, new_ef, new_comp, comm = grad_sync(scaled, state.ef, state.comp, seed)
+            synced, new_ef, new_comp, comm = grad_sync(scaled, state.ef, state.comp, seed, ok=ok)
         else:
-            rnd = chunked.begin(params, state.ef, state.comp, seed)
-            if clip_norm > 0.0:
-                # the clip needs every gradient before any chunk compresses
+            rnd = chunked.begin(params, state.ef, state.comp, seed, ok)
+            if whole:
                 rnd.land_all(scaled)
             else:
                 def land(i):
@@ -108,29 +133,40 @@ def make_train_step(apply_fn: ApplyFn, optimizer: SGD, comp_cfg: CompressionConf
 
                 hooks = [p.register_hook(land(i)) for i, p in enumerate(params.values())]
                 try:
-                    torch.autograd.grad(loss, list(params.values()))
+                    torch.autograd.grad(objective, list(params.values()))
                 finally:
                     for h in hooks:
                         h.remove()
-            if clip_sent_norm == 0.0:
-                return rnd.apply(params, optimizer, state.opt_state, new_step)
+            if clip_sent_norm == 0.0 and ok is not False:
+                new_ef, new_comp, comm = rnd.apply(params, optimizer, state.opt_state,
+                                                   sched_step)
+                return new_ef, new_comp, comm, ok, loss
             synced, new_ef, new_comp, comm = rnd.collect()
+        if ok is False:
+            return new_ef, new_comp, comm, ok, loss   # a vetoed step updates nothing
         if clip_sent_norm > 0.0:
             snorm = torch.sqrt(sum((g * g).sum() for g in synced.values()))
             sfactor = torch.clamp(clip_sent_norm * grad_scale / torch.clamp(snorm, min=1e-20),
                                   max=1.0)
             synced = {k: g * sfactor for k, g in synced.items()}
-        optimizer.apply(params, synced, state.opt_state, new_step)
-        return new_ef, new_comp, comm
+        optimizer.apply(params, synced, state.opt_state, sched_step)
+        return new_ef, new_comp, comm, ok, loss
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         if comp_cfg.error_feedback and not isinstance(state.ef, dict):
             raise ValueError("error_feedback=True but state.ef is empty; build it "
                              "with init_ef_state(params, cfg)")
+        guard_mod.check_state(guard_cfg, state.guard)
+        world = mesh.world()
+        guard_mod.check_chaos_worker(chaos, world, "data-parallel workers")
         model = state.model
         params = param_leaves(model)
         x, y = batch["input"], batch["target"]
         model.train()
+        # the forward pass updates the BatchNorm running statistics in place:
+        # a vetoed step puts them back
+        bn_snapshot = ([b.detach().clone() for b in model.buffers()]
+                       if guard_cfg is not None else None)
         if getattr(model, "dropout_rate", 0.0) > 0.0:
             gen = torch.Generator(device=x.device).manual_seed(
                 dropout_seed(state.seed, state.step, mesh.rank()))
@@ -140,12 +176,14 @@ def make_train_step(apply_fn: ApplyFn, optimizer: SGD, comp_cfg: CompressionConf
         loss = cross_entropy_sum(logits, y) / x.shape[0]  # local mean
         new_step = state.step + 1
         # the step's compression seed: fold_in(state.rng, step) of the JAX step
-        new_ef, new_comp, comm = sync_and_apply(state, params, loss,
-                                                fold_in(state.seed, state.step), new_step)
+        new_ef, new_comp, comm, ok, loss = sync_and_apply(
+            state, params, loss, fold_in(state.seed, state.step), new_step)
 
-        world = mesh.world()
         local_bs = float(x.shape[0])
         with torch.no_grad():
+            if ok is False:
+                for buf, old in zip(model.buffers(), bn_snapshot):
+                    buf.copy_(old)
             correct = (logits.argmax(dim=1) == y).sum().to(torch.float32)
             totals = torch.stack([loss.detach() * local_bs, correct,
                                   torch.full_like(correct, local_bs)])
@@ -153,9 +191,10 @@ def make_train_step(apply_fn: ApplyFn, optimizer: SGD, comp_cfg: CompressionConf
             if world > 1:
                 # BN running stats and comm stats are world means; loss,
                 # correct and count world sums (one all_reduce each)
-                for buf in model.buffers():
-                    dist.all_reduce(buf)
-                    buf.div_(world)
+                if ok is not False:
+                    for buf in model.buffers():
+                        dist.all_reduce(buf)
+                        buf.div_(world)
                 dist.all_reduce(totals)
                 dist.all_reduce(comm_vals)
                 comm_vals = comm_vals / world
@@ -163,11 +202,13 @@ def make_train_step(apply_fn: ApplyFn, optimizer: SGD, comp_cfg: CompressionConf
             "loss": totals[0] / totals[2],
             "correct": totals[1],
             "count": totals[2],
-            "lr": _value(optimizer.lr, new_step),
+            "lr": _value(optimizer.lr, guard_mod.schedule_step(guard_cfg, state.guard,
+                                                                new_step)),
         }
-        for k, v in zip(comm, comm_vals):
-            metrics[f"comm/{k}"] = v
-        return dataclasses.replace(state, step=new_step, ef=new_ef, comp=new_comp), metrics
+        new_guard = guard_mod.finish(guard_cfg, state.guard, ok, new_step, metrics, comm,
+                                     comm_vals)
+        return dataclasses.replace(state, step=new_step, ef=new_ef, comp=new_comp,
+                                   guard=new_guard), metrics
 
     return train_step
 

@@ -57,6 +57,9 @@ class MetricAccumulator:
     def __init__(self):
         self.sums: Dict[str, float] = {}
         self.weights: Dict[str, float] = {}
+        #: the newest value of each key: the honest summary of cumulative or
+        #: stateful metrics (``guard/skipped``, ``guard/loss_scale``)
+        self.last: Dict[str, float] = {}
         self.steps: int = 0
 
     def update(self, metrics: Dict[str, float]) -> None:
@@ -64,6 +67,7 @@ class MetricAccumulator:
         w = float(metrics.get("count", 1.0))
         for k, v in metrics.items():
             v = float(v)
+            self.last[k] = v
             if k in self.SUM_KEYS:
                 self.sums[k] = self.sums.get(k, 0.0) + v
             else:

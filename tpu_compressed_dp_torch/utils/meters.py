@@ -8,9 +8,9 @@ reference's ``IMAGENET/training/meter.py``):
     device time is the epoch barrier's, ``harness/loop.py``);
   * ``NetworkMeter``: real NIC Gbit/s from ``/proc/net/dev`` deltas;
   * ``CommMeter`` and the traffic helpers: analytic bytes on the wire from
-    the train step's ``comm/*`` metrics, split by collective kind.
-
-``GuardMeter`` comes with the step guard (ROADMAP.md queue 1, item 12).
+    the train step's ``comm/*`` metrics, split by collective kind;
+  * ``GuardMeter``: the step guard's skip rate from its ``guard/*``
+    metrics (``train/guard.py``).
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ from __future__ import annotations
 import time
 from typing import Dict, Optional, Tuple
 
-__all__ = ["TimeMeter", "NetworkMeter", "CommMeter",
+__all__ = ["TimeMeter", "NetworkMeter", "CommMeter", "GuardMeter",
            "network_bytes", "per_chip_traffic_bytes", "per_chip_comm_bytes",
            "per_fabric_traffic_bytes", "per_fabric_comm_bytes"]
 
@@ -173,6 +173,40 @@ class NetworkMeter:
         self.last_t, self.last_recv, self.last_transmit = now, recv, transmit
         return rg, tg
 
+
+
+class GuardMeter:
+    """Step-guard bookkeeping from the train step's ``guard/*`` metrics.
+
+    ``update(metrics, step)`` takes fetched metrics at global step ``step``;
+    the skip rate is the delta of the cumulative ``guard/skipped`` over the
+    step delta since the previous update (sampling per-step verdicts at the
+    log cadence would alias against periodic faults).  The first update
+    only seeds the window (a resumed run's counters start nonzero).
+    ``summary`` gives the latest guard scalars and ``guard/skip_rate``;
+    empty while the guard is off."""
+
+    def __init__(self):
+        self.last: Dict[str, float] = {}
+        self._prev_skipped = 0.0
+        self._prev_step = 0.0
+        self._seeded = False
+        self._rate = 0.0
+
+    def update(self, metrics: Dict[str, float], step: float) -> None:
+        if "guard/skipped" not in metrics:
+            return
+        self.last = {k: float(v) for k, v in metrics.items() if k.startswith("guard/")}
+        cur = float(metrics["guard/skipped"])
+        if self._seeded and step > self._prev_step:
+            self._rate = (cur - self._prev_skipped) / (step - self._prev_step)
+        self._prev_skipped, self._prev_step = cur, float(step)
+        self._seeded = True
+
+    def summary(self) -> Dict[str, float]:
+        if not self.last:
+            return {}
+        return {**self.last, "guard/skip_rate": self._rate}
 
 class CommMeter:
     """Analytic gradient-sync traffic accumulated from ``comm/*`` metrics.
