@@ -164,7 +164,28 @@ printing no result, where either is missing or any phase fails.
      step ms at ResNet-9 entire-model and layer-wise Top-K (alternated
      blocks) and an asynchronous save's ``ckpt/save_ms`` and
      ``ckpt/blocked_ms``;
- 10. prints the kernels' JSON line (18 entries), the ``nvidia-smi``
+ 10. the elastic runtime, gloo ranks on the card through
+     ``harness.dawn.main`` (full-width ResNet-9, batch 512, entire-model
+     Top-K 1 % + EF, ``--elastic``): (a) simulate mode at W = 4 with
+     ``--elastic_ef drop --chaos crash=mid_collective,crash_at_step=2,
+     worker=1``: worker 1 exits non-zero, the 3 survivors commit epoch 1
+     over the original ranks [0, 2, 3], trim the batch to 510 and finish;
+     their replicated state (parameters, BatchNorm, momentum) is bitwise
+     equal across ranks, and the next 2 steps are bitwise those of a fresh
+     3-rank world started from the survivors' state as dumped at the
+     remesh; (b) the same in wire mode over ``--transport sharded``: the
+     owner partition at W = 3 and ``sent_bits_*`` equal to the analytic
+     ones; (c) a real SIGKILL of rank 2 of 3 during an epoch: the survivors
+     detect it through gloo or the gossip and remesh to 2;
+     ``harness/watchdog.py --relaunch --elastic_dir`` relaunches the rank,
+     which is readmitted at the next epoch boundary with the survivors'
+     parameter and momentum digests and a zero EF, and the final
+     ``epoch.json`` ranks are [0, 1, 2]; then holds each kernel those runs
+     launched at W = 3 (the search, fused sparsify, select+pack, the bucket
+     route) to its plain version on the inputs the runs gave it; prints the
+     detection time, ``elastic/remesh_latency_ms``, the readmit time and
+     the step time at W = 4 and W = 3;
+ 11. prints the kernels' JSON line (18 entries), the ``nvidia-smi``
      name/power line and, last, ``{"ok": true, "device": {...}}``.
 
 ``--record FILE`` also writes the full record (every timing, the profiles)
@@ -4468,6 +4489,524 @@ def phase_robust(kernels, torch, record):
             "robust f": {"launches": cost["launches"]}}
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the elastic runtime (gloo ranks on the card)
+# ---------------------------------------------------------------------------
+
+ELASTIC_TIMEOUT = 4.0    # --peer_timeout of the phase's runs, seconds
+ELASTIC_KILL_STEP = 2    # 10a/10b: crash=mid_collective after this step
+ELASTIC_N = 2048         # synthetic training images: 4 steps of 512 an epoch
+ELASTIC_C_EPOCHS = 8     # 10c: the readmitted world trains to the end
+ELASTIC_C_BATCH = 510    # 10c starts at W = 3, which 512 does not divide
+ELASTIC_CAPTURE = ("topk_threshold", "fused_sparsify", "fused_select_pack", "route_buckets")
+
+
+def elastic_argv(port: int, world: int, rank: int, edir: str, extra) -> list:
+    """A phase-10 worker's ``harness.dawn`` flags."""
+    return ["--network", "resnet9", "--synthetic", "--synthetic_n", str(ELASTIC_N),
+            "--compress", "entiremodel", "--method", "topk", "--ratio", str(RATIO),
+            "--error_feedback", "--momentum", "0.9", "--device", "cuda", "--dist_backend",
+            "gloo", "--seed", "0", "--log_dir", "", "--elastic", "--elastic_dir", edir,
+            "--peer_timeout", str(ELASTIC_TIMEOUT), "--coordinator", f"127.0.0.1:{port}",
+            "--num_processes", str(world), "--process_id", str(rank), *extra]
+
+
+def _host_state(state) -> dict:
+    """A state's tensors on the host: the module's state_dict (parameters
+    and BatchNorm), momentum, EF, and the step."""
+    cpu = lambda d: {k: v.detach().to("cpu", copy=True) for k, v in d.items()}  # noqa: E731
+    return {"model": cpu(state.model.state_dict()), "momentum": cpu(state.opt_state["momentum"]),
+            "ef": cpu(state.ef) if isinstance(state.ef, dict) else {}, "step": int(state.step)}
+
+
+def _digests(torch, host: dict) -> dict:
+    return {k: _sha(torch, list(host[k].values())) for k in ("model", "momentum", "ef")}
+
+
+def elastic_worker(what: str, out: str, edir: str, argv: list) -> int:
+    """One process of phase 10 (``--elastic_worker``).  ``run``:
+    ``harness.dawn.main(argv)`` with its transitions recorded (the state at
+    a remesh, the 2 steps after it with their batches, each step's time, the
+    first post-remesh inputs of the kernels' wrappers, the detection time,
+    the readmission's digests); in 10c a survivor also waits at its first
+    epoch boundary after the remesh until the relaunched rank has asked to
+    join.  ``fresh``: one rank of a new 3-rank world started from a
+    survivor's dumped state, running its 2 captured batches."""
+    import torch
+
+    from tpu_compressed_dp_torch.harness import dawn
+    from tpu_compressed_dp_torch.ops import kernels
+    from tpu_compressed_dp_torch.train import elastic
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    kernels.build()      # the parent built them: this loads the libraries
+    wait_join, perturb = "--elastic_wait_join" in argv, "--elastic_perturb" in argv
+    argv = [a for a in argv if a not in ("--elastic_wait_join", "--elastic_perturb")]
+    if what == "fresh":
+        return _elastic_fresh(torch, dawn, out, edir, argv)
+    rec = {"step_ms": {}, "argv": argv, "steps": []}
+    cap = {"armed": 0, "batches": [], "kernels": {}}
+    orig = int(argv[argv.index("--process_id") + 1])
+
+    def flush():
+        with open(out, "w") as f:
+            json.dump(rec, f, default=str)
+
+    hf, ff = elastic.ElasticRuntime.handle_failure, elastic.ElasticRuntime.failure_from
+    rb, jw = elastic.ElasticRuntime.rejoin_barrier, elastic.ElasticRuntime.join_world
+
+    def handle_failure(self, state, failure):
+        if perturb and orig == 2:
+            # a step half-applied on this survivor alone: the remesh's
+            # broadcast from the new coordinator must undo it
+            with torch.no_grad():
+                next(iter(state.model.parameters())).add_(1.0)
+                next(iter(state.opt_state["momentum"].values())).add_(1.0)
+                next(b for n, b in state.model.named_buffers() if n.endswith(".mean")).add_(1.0)
+            state.step += 7
+            rec["perturbed"] = True
+        t0 = time.time()
+        state = hf(self, state, failure)
+        host = _host_state(state)
+        torch.save(host, os.path.join(edir, f"remesh_rank{orig}.pt"))
+        rec["remesh"] = {"t": t0, "latency_ms": self.remesh_latency_ms, "ranks": self.ranks,
+                         "rank": self.rank, "world": self.world, "failed": failure.failed,
+                         "digests": _digests(torch, host), "step": host["step"],
+                         "metrics": self.metrics()}
+        cap["armed"] = 2
+        flush()
+        return state
+
+    def failure_from(self, exc):
+        got = ff(self, exc)
+        if got is not None and "detect_t" not in rec:
+            rec["detect_t"] = time.time()
+            rec["detect_reason"] = got.reason[:300]
+        return got
+
+    def rejoin_barrier(self, state):
+        if wait_join and "remesh" in rec and "readmit" not in rec:
+            deadline = time.time() + 120.0
+            while not set(self.rendezvous.pending_joins()) - set(self.ranks):
+                if time.time() > deadline:
+                    raise AssertionError("10c: the relaunched rank never asked to join")
+                time.sleep(0.05)
+        state, grew = rb(self, state)
+        if grew:
+            rec["readmit"] = {"t": time.time(), "ms": self.readmit_ms, "ranks": self.ranks,
+                              "digests": _digests(torch, _host_state(state))}
+            flush()
+        return state, grew
+
+    def join_world(self, state, decision):
+        state = jw(self, state, decision)
+        host = _host_state(state)
+        rec["joined"] = {"t": time.time(), "ranks": self.ranks, "digests": _digests(torch, host),
+                         "ef_zero": all(not bool(v.any()) for v in host["ef"].values()),
+                         "step": host["step"]}
+        flush()
+        return state
+
+    elastic.ElasticRuntime.handle_failure = handle_failure
+    elastic.ElasticRuntime.failure_from = failure_from
+    elastic.ElasticRuntime.rejoin_barrier = rejoin_barrier
+    elastic.ElasticRuntime.join_world = join_world
+
+    def capture(name):
+        wrapped = getattr(kernels, name)
+
+        def call(*a, **kw):
+            if cap["armed"] and name not in cap["kernels"] and orig == 0:
+                cap["kernels"][name] = {"args": [x.detach().cpu() if isinstance(x, torch.Tensor)
+                                                 else x for x in a], "kw": kw}
+            return wrapped(*a, **kw)
+        return call
+
+    for name in ELASTIC_CAPTURE:
+        setattr(kernels, name, capture(name))
+    make = dawn.make_train_step
+
+    def make_train_step(*a, **kw):
+        step = make(*a, **kw)
+
+        def timed(state, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            w = str(torch.distributed.get_world_size())
+            rec["step_ms"].setdefault(w, []).append(ms)
+            rec["steps"].append({"world": int(w), "step": int(state.step), "ms": ms,
+                                 **{k: float(v) for k, v in m.items() if k.startswith("comm/")}})
+            if cap["armed"]:
+                cap["batches"].append({k: v.detach().cpu() for k, v in batch.items()})
+                cap["armed"] -= 1
+                if not cap["armed"]:
+                    host = _host_state(state)
+                    torch.save(cap["batches"], os.path.join(edir, f"batches_rank{orig}.pt"))
+                    rec["after2"] = {"digests": _digests(torch, host), "step": host["step"]}
+            return state, m
+        return timed
+
+    dawn.make_train_step = make_train_step
+    kernels.reset_launches()
+    rec["summary"] = dawn.main(argv)
+    torch.cuda.synchronize()
+    rec["launches"] = dict(kernels.LAUNCHES)
+    if cap["kernels"]:
+        torch.save(cap["kernels"], os.path.join(edir, "kernel_inputs.pt"))
+        rec["captured"] = sorted(cap["kernels"])
+    flush()
+    return 0
+
+
+def _elastic_fresh(torch, dawn, out: str, edir: str, argv: list) -> int:
+    """A rank of the fresh 3-rank world of 10a (its argv: the run's, with
+    this rank's ``--process_id`` among 0-2 and a new ``--coordinator``)."""
+    from tpu_compressed_dp_torch.harness.loop import to_device
+    from tpu_compressed_dp_torch.models.common import param_leaves
+    from tpu_compressed_dp_torch.parallel import mesh
+    from tpu_compressed_dp_torch.parallel.dp import init_ef_state
+    from tpu_compressed_dp_torch.train.state import TrainState
+    from tpu_compressed_dp_torch.utils.chaos import ChaosConfig
+
+    args = dawn.parse_args(argv)
+    dev = torch.device("cuda", 0)
+    # as dawn.run sets them: fp32 stays fp32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh.init_process_group(dev, backend="gloo", init_method=f"tcp://{args.coordinator}",
+                            world_size=args.num_processes, rank=args.process_id)
+    try:
+        ranks = sorted(int(f[len("remesh_rank"):-3]) for f in os.listdir(edir)
+                       if f.startswith("remesh_rank"))
+        mine = ranks[args.process_id]
+        host = torch.load(os.path.join(edir, f"remesh_rank{mine}.pt"), weights_only=True)
+        batches = torch.load(os.path.join(edir, f"batches_rank{mine}.pt"), weights_only=True)
+        model = dawn.MODELS["resnet9"](1.0, torch.float32, args.seed, dev)
+        model.load_state_dict(host["model"])
+        params = param_leaves(model)
+        epochs = args.epochs
+        opt = dawn.make_optimizer(args, epochs, ELASTIC_N // args.batch_size)
+        comp = dawn.comp_for_ratio(args, args.ratio)
+        state = TrainState.create(model, opt.init(params), init_ef_state(params, comp),
+                                  seed=args.seed)
+        with torch.no_grad():
+            for k, v in state.opt_state["momentum"].items():
+                v.copy_(host["momentum"][k])
+            for k, v in state.ef.items():
+                v.copy_(host["ef"][k])
+        state.step = host["step"]
+        chaos = ChaosConfig.parse(args.chaos) if args.chaos else None
+        step = dawn.make_train_step(dawn.cifar_apply_fn(), opt, comp,
+                                    grad_scale=float(args.batch_size), chaos=chaos)
+        for b in batches:
+            state, _ = step(state, to_device({k: v.numpy() for k, v in b.items()}, dev))
+        torch.cuda.synchronize()
+        with open(out, "w") as f:
+            json.dump({"orig": mine, "digests": _digests(torch, _host_state(state)),
+                       "step": int(state.step)}, f)
+    finally:
+        mesh.destroy()
+    return 0
+
+
+def _spawn_elastic(what: str, outs, edir: str, argvs, extra_cmd=None):
+    cmds = [[sys.executable, os.path.abspath(__file__), "--elastic_worker", what, out, edir,
+             "--", *argv] for out, argv in zip(outs, argvs)]
+    return [subprocess.Popen(cmd if extra_cmd is None or r not in extra_cmd
+                             else extra_cmd[r](cmd),
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r, cmd in enumerate(cmds)]
+
+
+def _reap(procs, label: str, timeout: float = 300.0) -> list:
+    try:
+        logs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        for line in text.strip().splitlines()[-8:]:
+            log(f"[10{label} rank {r}] {line}")
+    return [p.returncode for p in procs]
+
+
+def _elastic_world(label: str, out_dir: str, extra) -> dict:
+    """10a / 10b: 4 ranks, the mid-collective kill of worker 1 at step
+    ``ELASTIC_KILL_STEP``, then the fresh 3-rank world from the dumps."""
+    import shutil
+
+    import torch
+
+    from tpu_compressed_dp_torch.parallel.mesh import free_port
+
+    edir = os.path.join(out_dir, label)
+    shutil.rmtree(edir, ignore_errors=True)
+    os.makedirs(edir)
+    port = free_port()
+    outs = [os.path.join(edir, f"run_rank{r}.json") for r in range(4)]
+    chaos = ["--chaos", f"crash=mid_collective,crash_at_step={ELASTIC_KILL_STEP},worker=1"]
+    argvs = [elastic_argv(port, 4, r, os.path.join(edir, "el"),
+                          ["--batch_size", "512", "--epochs", "2", "--elastic_ef", "drop",
+                           "--elastic_perturb", *chaos, *extra]) for r in range(4)]
+    t0 = time.perf_counter()
+    rcs = _reap(_spawn_elastic("run", outs, edir, argvs), label)
+    wall = time.perf_counter() - t0
+    if rcs[1] == 0 or any(rcs[r] != 0 for r in (0, 2, 3)):
+        raise AssertionError(f"10{label}: exit codes {rcs}, want the victim (rank 1) non-zero "
+                             "and the survivors 0")
+    runs = {r: json.load(open(outs[r])) for r in (0, 2, 3)}
+    with open(os.path.join(edir, "el", "epoch.json")) as f:
+        epoch = json.load(f)
+    if epoch["epoch"] != 1 or epoch["ranks"] != [0, 2, 3]:
+        raise AssertionError(f"10{label}: committed {epoch}, want epoch 1 over [0, 2, 3]")
+    for r, run in runs.items():
+        rm = run["remesh"]
+        if rm["world"] != 3 or rm["failed"] != [1] or run["summary"]["world"] != 3:
+            raise AssertionError(f"10{label} rank {r}: remesh {rm}, summary {run['summary']}")
+        # the replayed epoch and the next run at W = 3 on batches of 510
+        if run["summary"]["steps"] != ELASTIC_N // 512:
+            raise AssertionError(f"10{label} rank {r}: {run['summary']['steps']} steps in the "
+                                 "last epoch")
+        if not (math.isfinite(run["summary"]["train loss"])
+                and math.isfinite(run["summary"]["test loss"])):
+            raise AssertionError(f"10{label} rank {r}: loss {run['summary']}")
+    # rank 2 half-applied a step before the remesh; the coordinator's
+    # broadcast makes every survivor's replicated state its own
+    if not runs[2].get("perturbed"):
+        raise AssertionError(f"10{label}: rank 2 never perturbed its state before the remesh")
+    for key in ("model", "momentum"):
+        if len({run["remesh"]["digests"][key] for run in runs.values()}) != 1:
+            raise AssertionError(f"10{label}: the survivors' {key} differs across ranks "
+                                 "right after the remesh")
+    if {run["remesh"]["step"] for run in runs.values()} != {ELASTIC_KILL_STEP + 1}:
+        raise AssertionError(f"10{label}: the survivors' steps after the remesh are "
+                             f"{[run['remesh']['step'] for run in runs.values()]}")
+    batches = {r: torch.load(os.path.join(edir, f"batches_rank{r}.pt"), weights_only=True)
+               for r in runs}
+    if any(b["input"].shape[0] != 170 for bs in batches.values() for b in bs):
+        raise AssertionError(f"10{label}: a W = 3 shard is not 510 / 3 = 170 rows")
+    del batches
+    # the fresh 3-rank world from the dumps
+    fport = free_port()
+    fouts = [os.path.join(edir, f"fresh_rank{r}.json") for r in range(3)]
+    fargvs = []
+    for r in range(3):
+        a = list(argvs[0])
+        a[a.index("--coordinator") + 1] = f"127.0.0.1:{fport}"
+        a[a.index("--num_processes") + 1] = "3"
+        a[a.index("--process_id") + 1] = str(r)
+        fargvs.append(a)
+    rcs = _reap(_spawn_elastic("fresh", fouts, edir, fargvs), f"{label} fresh")
+    if any(rcs):
+        raise AssertionError(f"10{label}: the fresh world exited {rcs}")
+    for r in range(3):
+        fresh = json.load(open(fouts[r]))
+        run = runs[fresh["orig"]]
+        differ = [k for k, v in fresh["digests"].items() if run["after2"]["digests"][k] != v]
+        if differ or fresh["step"] != run["after2"]["step"]:
+            raise AssertionError(f"10{label}: the remeshed rank {fresh['orig']}'s 2 steps "
+                                 f"differ from the fresh world's in {differ} (steps "
+                                 f"{run['after2']['step']} / {fresh['step']})")
+    ms = {w: sorted(ms for run in runs.values() for ms in run["step_ms"].get(w, [])[1:])
+          for w in ("4", "3")}
+    return {"runs": runs, "epoch": epoch, "wall_s": wall, "edir": edir,
+            "step_ms": {w: v[len(v) // 2] if v else None for w, v in ms.items()},
+            "launches": _sum_launches(run["launches"] for run in runs.values())}
+
+
+def _elastic_kill_readmit(out_dir: str) -> dict:
+    """10c: rank 2 of 3 under the port's watchdog, SIGKILLed during an
+    epoch; the survivors remesh to 2 and readmit the relaunched rank."""
+    import shutil
+    import signal
+
+    from tpu_compressed_dp_torch.parallel.mesh import free_port
+
+    edir = os.path.join(out_dir, "c")
+    shutil.rmtree(edir, ignore_errors=True)
+    os.makedirs(edir)
+    port = free_port()
+    hb = os.path.join(edir, "hb.json")
+    outs = [os.path.join(edir, f"run_rank{r}.json") for r in range(3)]
+    argvs = [elastic_argv(port, 3, r, os.path.join(edir, "el"),
+                          ["--batch_size", str(ELASTIC_C_BATCH), "--epochs",
+                           str(ELASTIC_C_EPOCHS), "--heartbeat", hb, "--heartbeat_interval",
+                           "0.5", "--elastic_wait_join"]) for r in range(3)]
+
+    def under_watchdog(cmd):
+        # the relaunch must see the survivors' commit: the heartbeat's age
+        # (12 s) outlasts their detection (at most 2 x the peer timeout)
+        return [sys.executable, "-m", "tpu_compressed_dp_torch.harness.watchdog", "--relaunch",
+                "--heartbeat", f"{hb}.rank2", "--elastic_dir", os.path.join(edir, "el"),
+                "--interval", "0.5", "--grace", "10", "--max_age", "12", "--backoff", "1",
+                "--max_relaunches", "3", "--", *cmd]
+
+    t0 = time.perf_counter()
+    procs = _spawn_elastic("run", outs, edir, argvs, extra_cmd={2: under_watchdog})
+    wd = procs[2]
+    victim = None
+    deadline = time.time() + 240
+    while victim is None:
+        if time.time() > deadline or any(p.poll() is not None for p in procs):
+            _reap(procs, "c")
+            raise AssertionError("10c: rank 2 never finished an epoch before the kill")
+        try:
+            with open(f"{hb}.rank2") as f:
+                if int(json.load(f).get("epoch", -1)) >= 1:
+                    victim = next(int(pid) for pid in os.listdir("/proc") if pid.isdigit()
+                                  and _ppid(pid) == wd.pid)
+        except (OSError, ValueError, StopIteration):
+            pass
+        time.sleep(0.05)
+    time.sleep(0.2)         # into the epoch's steps
+    t_kill = time.time()
+    os.kill(victim, signal.SIGKILL)
+    rcs = _reap(procs, "c", timeout=400)
+    wall = time.perf_counter() - t0
+    if any(rcs):
+        raise AssertionError(f"10c: exit codes {rcs} (the last is the watchdog's)")
+    runs = {r: json.load(open(outs[r])) for r in range(3)}
+    with open(os.path.join(edir, "el", "epoch.json")) as f:
+        epoch = json.load(f)
+    if epoch["ranks"] != [0, 1, 2] or epoch["epoch"] != 2:
+        raise AssertionError(f"10c: the final epoch.json is {epoch}, want epoch 2 over [0, 1, 2]")
+    joiner, survivors = runs[2], [runs[0], runs[1]]
+    for r, run in enumerate(survivors):
+        if run["remesh"]["failed"] != [2] or run["remesh"]["world"] != 2:
+            raise AssertionError(f"10c rank {r}: remesh {run['remesh']}")
+    for key in ("model", "momentum"):
+        if len({run["remesh"]["digests"][key] for run in survivors}) != 1:
+            raise AssertionError(f"10c: the survivors' {key} differs right after the remesh")
+        if "readmit" not in run or run["summary"]["world"] != 3:
+            raise AssertionError(f"10c rank {r}: never readmitted: {run.get('readmit')}")
+    j = joiner["joined"]
+    if not j["ef_zero"]:
+        raise AssertionError("10c: the joiner's EF is not zero")
+    for key in ("model", "momentum"):
+        if {run["readmit"]["digests"][key] for run in survivors} != {j["digests"][key]}:
+            raise AssertionError(f"10c: the joiner's {key} digest is not the survivors'")
+    detect = [run["detect_t"] - t_kill for run in survivors]
+    return {"runs": runs, "epoch": epoch, "wall_s": wall, "detect_s": detect,
+            "remesh_ms": [run["remesh"]["latency_ms"] for run in survivors],
+            "readmit_ms": [run["readmit"]["ms"] for run in survivors],
+            "kill_to_world3_s": max(run["readmit"]["t"] for run in survivors) - t_kill,
+            "reasons": [run["detect_reason"] for run in survivors],
+            "launches": _sum_launches(run["launches"] for run in runs.values())}
+
+
+def _ppid(pid: str) -> int:
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return int(f.read().rsplit(")", 1)[1].split()[1])
+    except (OSError, ValueError, IndexError):
+        return -1
+
+
+def hold_elastic_inputs(kernels, torch, edir: str, label: str) -> dict:
+    """The kernels a phase-10 run launched at W = 3, held bitwise against
+    their plain versions on the inputs that run gave them (captured on
+    original rank 0 at the first steps after the remesh)."""
+    got = torch.load(os.path.join(edir, "kernel_inputs.pt"), weights_only=False)
+    dev = torch.device("cuda", 0)
+    on = lambda a: [x.to(dev) if isinstance(x, torch.Tensor) else x for x in a]  # noqa: E731
+    err, held = {}, []
+    if "topk_threshold" in got:
+        mag, keep = on(got["topk_threshold"]["args"])
+        check_search(kernels, torch, mag, int(keep), f"10{label} W=3")
+        err.update(count_ge=0.0, count_edges=0.0, search_init=0.0)
+        held.append("search")
+    if "fused_sparsify" in got:
+        acc, t = on(got["fused_sparsify"]["args"])
+        want_ef = got["fused_sparsify"]["kw"].get("want_ef", True)
+        err["fused_sparsify"] = _hold(torch, kernels.fused_sparsify(acc, t, want_ef=want_ef),
+                                      kernels.fused_sparsify_plain(acc, t, want_ef),
+                                      "fused_sparsify", f"10{label} W=3")
+        held.append("fused_sparsify")
+    if "fused_select_pack" in got:
+        v, t, k = on(got["fused_select_pack"]["args"])
+        err["select_pack"] = hold_select_pack(kernels, torch, [(f"10{label} W=3", v, t, int(k))],
+                                              f"at 10{label}'s W = 3 inputs")[0]
+        held.append("select_pack")
+    if "route_buckets" in got:
+        vals, idx, valid, w, cap, shard_n = on(got["route_buckets"]["args"])
+        if int(w) != 3:
+            raise AssertionError(f"10{label}: the first route after the remesh ran at W = {w}")
+        err["bucket_route"] = _hold(torch, kernels.route_buckets(vals, idx, valid, w, cap, shard_n),
+                                    kernels.route_buckets_plain(vals, idx, valid, w, cap, shard_n),
+                                    "bucket_route", f"10{label} W=3")
+        held.append(f"bucket_route (W={w} cap={cap} shard_n={shard_n} k={idx.numel()})")
+    log(f"10{label}: held bitwise to the plain versions on the W = 3 inputs: {', '.join(held)}")
+    return err
+
+
+def phase_elastic(kernels, compressors, torch, record):
+    """Phase 10: the elastic runtime's remesh and readmission on the card.
+    Returns each run's launches and the kernels' largest |kernel - plain|."""
+    from tpu_compressed_dp_torch.parallel import dp
+
+    out_dir = os.path.join(HERE, "build", "chip_smoke_elastic")
+    os.makedirs(out_dir, exist_ok=True)
+    card = record["card"]
+    t0 = time.perf_counter()
+    a = _elastic_world("a", out_dir, [])
+    b = _elastic_world("b", out_dir, ["--mode", "wire", "--transport", "sharded"])
+    cfg = dp.CompressionConfig(method="topk", ratio=RATIO, mode="wire",
+                               granularity="entiremodel", error_feedback=True,
+                               transport="sharded")
+    want = analytic_bits(dp, cfg, "topk", [FULL_MODEL], 3)
+    for r, run in b["runs"].items():
+        after = [st for st in run["steps"] if st["world"] == 3]
+        for st in after:
+            for key in BITS_KEYS:
+                if st.get(f"comm/{key}", 0.0) != want[key]:
+                    raise AssertionError(f"10b rank {r} step {st['step']}: comm/{key} "
+                                         f"{st.get(f'comm/{key}')} is not the analytic "
+                                         f"{want[key]} at W = 3")
+    c = _elastic_kill_readmit(out_dir)
+    err = hold_elastic_inputs(kernels, torch, a["edir"], "a")
+    for name, e in hold_elastic_inputs(kernels, torch, b["edir"], "b").items():
+        err[name] = max(err.get(name, 0.0), e)
+    wire_topk = ("count_ge", "count_edges", "search_init", "select_pack", "bucket_route")
+    for label, res, want_k in (("a", a, TOPK_KERNELS), ("b", b, wire_topk),
+                               ("c", c, TOPK_KERNELS)):
+        for name in want_k:
+            if res["launches"].get(name, 0) < 1:
+                raise AssertionError(f"10{label}: {name} never launched: {res['launches']}")
+    ra = a["runs"][0]["remesh"]
+    log(f"10a W=4 -> 3 simulate Top-K 1 % + EF em, crash=mid_collective after step "
+        f"{ELASTIC_KILL_STEP} of worker 1: committed {a['epoch']['ranks']} (epoch "
+        f"{a['epoch']['epoch']}), elastic/remesh_latency_ms {ra['latency_ms']:.1f} (rank 0), "
+        f"survivors' replicated state bitwise equal, 2 steps bitwise a fresh W=3 world; step "
+        f"ms W=4 {a['step_ms']['4']:.2f}, W=3 {a['step_ms']['3']:.2f} on {card}; launches "
+        f"{a['launches']}")
+    rb_ = b["runs"][0]["remesh"]
+    log(f"10b W=4 -> 3 wire Top-K sharded: remesh {rb_['latency_ms']:.1f} ms, sent_bits at W=3 "
+        f"== analytic {want['sent_bits']:.0f}, 2 steps bitwise a fresh W=3 world; step ms W=4 "
+        f"{b['step_ms']['4']:.2f}, W=3 {b['step_ms']['3']:.2f} on {card}; launches "
+        f"{b['launches']}")
+    log(f"10c SIGKILL of rank 2 of 3: detected after {c['detect_s'][0]:.2f} / "
+        f"{c['detect_s'][1]:.2f} s (ranks 0 / 1; {c['reasons'][0][:90]} / "
+        f"{c['reasons'][1][:90]}), elastic/remesh_latency_ms {c['remesh_ms'][0]:.1f} / "
+        f"{c['remesh_ms'][1]:.1f}, readmit {c['readmit_ms'][0]:.1f} / {c['readmit_ms'][1]:.1f} "
+        f"ms, kill to world 3 {c['kill_to_world3_s']:.2f} s; the joiner's digests are the "
+        f"survivors', its EF zero, epoch.json {c['epoch']['ranks']} on {card}")
+    wall = time.perf_counter() - t0
+    log(f"phase 10 took {wall:.1f} s on {card}")
+    record["elastic"] = {"a": {k: v for k, v in a.items() if k != "runs"},
+                         "b": {k: v for k, v in b.items() if k != "runs"},
+                         "c": {k: v for k, v in c.items() if k != "runs"},
+                         "runs": {"a": a["runs"], "b": b["runs"], "c": c["runs"]},
+                         "wall_s": wall}
+    return ({"elastic a": {"launches": a["launches"]}, "elastic b": {"launches": b["launches"]},
+             "elastic c": {"launches": c["launches"]}}, err)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4484,6 +5023,14 @@ def main(argv=None) -> int:
     parser.add_argument("--robust_worker", nargs=6, default=None,
                         metavar=("WHAT", "RANK", "WORLD", "PORT", "OUT", "CKPT"),
                         help="internal: run one process of phase 9")
+    parser.add_argument("--elastic_worker", nargs=3, default=None,
+                        metavar=("WHAT", "OUT", "DIR"),
+                        help="internal: run one process of phase 10 (the harness's flags "
+                             "follow a --)")
+    argv = list(sys.argv[1:] if argv is None else argv)
+    rest = []
+    if "--" in argv:
+        argv, rest = argv[:argv.index("--")], argv[argv.index("--") + 1:]
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -4503,6 +5050,9 @@ def main(argv=None) -> int:
     if args.robust_worker:
         what, rank, world, port, out, ck = args.robust_worker
         return robust_worker(what, int(rank), int(world), int(port), out, ck)
+    if args.elastic_worker:
+        what, out, edir = args.elastic_worker
+        return elastic_worker(what, out, edir, rest)
     from tpu_compressed_dp_torch.harness import dawn, imagenet
     from tpu_compressed_dp_torch.ops import compressors, kernels, wire
 
@@ -4560,6 +5110,9 @@ def main(argv=None) -> int:
     phase_resnet50_holds(kernels, compressors, torch, record)
     worlds = phase_multirank(torch, record)
     robust_runs = phase_robust(kernels, torch, record)
+    elastic_runs, e_err = phase_elastic(kernels, compressors, torch, record)
+    for name, e in e_err.items():
+        err[name] = max(err[name], e)
 
     replaces = {"count_ge": "tpu_compressed_dp/ops/kernels.py:173",
                 "count_edges": "tpu_compressed_dp/ops/kernels.py:206",
@@ -4602,7 +5155,8 @@ def main(argv=None) -> int:
         # the main paths' launches: phase 3's and 3b's dawn runs, the LM runs
         # of phases 7, 7c (7c's ranks summed) and 7d, the segmented-path runs,
         # phase 8's ImageNet runs, the multi-rank dawn runs and phase 9's
-        # guarded runs (9a-9d's ranks summed, 9e's LM, 9f)
+        # guarded runs (9a-9d's ranks summed, 9e's LM, 9f) and phase 10's
+        # elastic runs (each world's ranks summed, the readmitted rank's too)
         launches = (sum(run["launches"][name] for run in runs.values())
                     + sum(run["launches"][name] for run in cifar_runs.values())
                     + sum(run["launches"][name] for run in imagenet_runs.values())
@@ -4610,7 +5164,8 @@ def main(argv=None) -> int:
                     + sum(run["launches"][name] for run in seg_runs.values())
                     + sum(w["launches"].get(name, 0) for w in worlds.values())
                     + sum(run["launches"].get(name, 0) for run in axes_runs.values())
-                    + sum(run["launches"].get(name, 0) for run in robust_runs.values()))
+                    + sum(run["launches"].get(name, 0) for run in robust_runs.values())
+                    + sum(run["launches"].get(name, 0) for run in elastic_runs.values()))
         entry = {
             "name": name, "route": "cuda", "source": source[name],
             "replaces": replaces[name], "launches": launches,

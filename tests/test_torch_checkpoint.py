@@ -24,6 +24,7 @@ import dataclasses
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -248,7 +249,7 @@ for sharded in (False, True):
 try:
     tckpt.Checkpointer(f"{d}/sharded0", world=1, rank=0).restore(_state(3))
 except NotImplementedError as e:
-    assert "item 12 (elastic)" in str(e), e
+    assert "restores only onto the layout that wrote it" in str(e), e
 else:
     raise AssertionError("a W = 2 checkpoint restored at W = 1")
 torch.distributed.barrier()
@@ -281,3 +282,30 @@ def test_world2_per_rank_files(tmp_path):
         assert ("model" in rank1) == bool(sharded)
         rep = torch.load(os.path.join(sub, "7", "state.pt"), weights_only=True)
         assert ("model" in rep) != bool(sharded)
+
+
+def test_follow_world_after_a_remesh(tmp_path):
+    """An elastic remesh (``Checkpointer.follow_world``): a write that still
+    waits for a gone rank's file is abandoned (its error kept, no hang), and
+    the next saves are written, and restore, at the new world; a joiner's
+    Checkpointer takes the survivors' pending-directory sequence."""
+    src = _state(4)
+    ck = tckpt.Checkpointer(str(tmp_path), rank=0, world=3, layout={"mesh": "dp3"})
+    ck.save_async(src, {"epoch": 0})           # rank 0 waits for ranks 1-2's files
+    time.sleep(0.05)
+    t0 = time.monotonic()
+    ck.follow_world(0, 2, layout={"mesh": "dp2"})
+    assert time.monotonic() - t0 < 5.0 and "abandoned" in str(ck.last_save_error)
+    assert ck.layout == {"world": 2, "mesh": "dp2"}
+    assert tckpt.list_step_dirs(str(tmp_path)) == []
+    ck.follow_world(0, 1)
+    assert ck.save(src, {"epoch": 1}) == src.step
+    man = tckpt.read_manifest(str(tmp_path), src.step)
+    assert man["meta"]["layout"] == {"world": 1, "mesh": "dp2"}
+    joiner = tckpt.Checkpointer(str(tmp_path), rank=0, world=1, token="joining")
+    joiner.follow_world(0, 1, layout={"mesh": "dp2"}, sequence=ck.sequence())
+    assert joiner.sequence() == ck.sequence()
+    got, meta = joiner.restore(_state(5))
+    _same_state(got, src)
+    ck.close()
+    joiner.close()

@@ -110,8 +110,10 @@ def test_dawn_deferred_protocol_flags_raise(flag):
 # --dtype, --network vgg16, --overlap, --guard, --resume and in-step chaos
 # were cases here until they were ported (the drives below,
 # tests/test_torch_overlap.py); flags that still raise took their places
-@pytest.mark.parametrize("argv", [["--chaos", "crash=mid_collective,crash_at_step=1"],
-                                  ["--elastic"], ["--peer_timeout", "5"],
+# the elastic flags (item 12) were cases here until they were ported
+# (test_dawn_elastic_* below); flags that still raise took their places
+@pytest.mark.parametrize("argv", [["--events", "e.jsonl"], ["--flight_dir", "f"],
+                                  ["--stream_every", "2"],
                                   ["--stream_dir", "s"], ["--job_id", "j0"]])
 def test_dawn_unported_flags_raise(argv):
     from tpu_compressed_dp_torch.harness import dawn
@@ -303,3 +305,53 @@ def test_dawn_crash_recovery_and_wedge(tmp_path, one_torch_thread):
     with pytest.raises(GuardExceeded, match="consecutive nonfinite steps"):
         dawn.main(_ROBUST + ["--epochs", "1", "--chaos", "inf,every=1", "--guard_max_skips",
                              "1"])
+
+
+def test_dawn_elastic_remesh_w3_to_w2(tmp_path):
+    """``--elastic --chaos crash=mid_collective,crash_at_step=2,worker=1``
+    on 3 gloo processes of the entry point: worker 1 exits for the watchdog,
+    ranks 0 and 2 commit epoch 1 over [0, 2], re-shard the batch of 24 over
+    2 and finish the run with finite losses (the remesh itself is held to
+    JAX in ``tests/test_torch_elastic_world.py``).  The checkpoints after
+    the remesh are written at W = 2, and 2 fresh processes ``--resume``
+    them."""
+    from test_torch_elastic_world import harness_world
+    from tpu_compressed_dp_torch.utils import checkpoint as tckpt
+
+    ck = str(tmp_path / "ck")
+    argv = ["--synthetic", "--synthetic_n", "96", "--batch_size", "24", "--epochs", "2",
+            "--compress", "entiremodel", "--method", "topk", "--ratio", "0.05",
+            "--error_feedback", "--channels_scale", "0.125", "--log_dir", "",
+            "--peer_timeout", "20", "--checkpoint_dir", ck]
+    rcs, logs, summaries, epoch = harness_world(
+        "tpu_compressed_dp_torch.harness.dawn",
+        argv + ["--chaos", "crash=mid_collective,crash_at_step=2,worker=1"], 3, tmp_path / "a")
+    assert rcs[0] == rcs[2] == 0 and rcs[1] != 0, [lg[-2000:] for lg in logs]
+    assert "among the declared dead" in logs[1]
+    assert epoch["epoch"] == 1 and epoch["ranks"] == [0, 2]
+    for r in (0, 2):
+        s = summaries[r]
+        assert s["world"] == 2 and s["epoch"] == 2 and s["steps"] == 4
+        assert np.isfinite(s["train loss"]) and np.isfinite(s["test loss"])
+    steps = tckpt.list_step_dirs(ck)
+    assert steps and tckpt.read_manifest(ck, steps[-1])["meta"]["layout"] == {"world": 2}
+    resume = [a for a in argv if a not in ("--checkpoint_dir", ck)]
+    resume[resume.index("--epochs") + 1] = "3"
+    rcs, logs, summaries, _ = harness_world("tpu_compressed_dp_torch.harness.dawn",
+                                            resume + ["--resume", ck], 2, tmp_path / "b")
+    assert rcs == [0, 0], [lg[-2000:] for lg in logs]
+    assert summaries[0]["epoch"] == 3 and summaries[0]["steps"] == 4
+
+
+def test_dawn_elastic_alone_and_devices():
+    """One process with ``--elastic`` runs (no peers: the runtime only
+    polls); ``--devices`` must be the world's process count."""
+    from tpu_compressed_dp_torch.harness import dawn
+
+    argv = ["--device", "cpu", "--synthetic", "--synthetic_n", "64", "--batch_size", "32",
+            "--epochs", "1", "--channels_scale", "0.125", "--log_dir", ""]
+    s = dawn.main(argv + ["--elastic", "--elastic_ef", "drop", "--elastic_min_world", "1",
+                          "--peer_timeout", "5", "--devices", "1"])
+    assert s["world"] == 1 and s["steps"] == 2
+    with pytest.raises(ValueError, match="workers are processes"):
+        dawn.main(argv + ["--devices", "2"])

@@ -183,13 +183,20 @@ def test_chaos_parse_matches_jax(spec):
     assert got.injects_in_graph == want.injects_in_graph
     for step in range(0, 120, 7):
         assert tchaos.fires_at(got, step) == bool(jchaos.fires_at(want, jnp.asarray(step)))
-    # the elastic runtime's parts are refused, never accepted and ignored
-    elastic = got.crash_mode in ("mid_collective", "during_remesh") or got.peer_timeout > 0
-    if elastic:
-        with pytest.raises(NotImplementedError, match=r"item 12 \(elastic\)"):
-            got.check_ported()
-    else:
-        got.check_ported()
+    # the elastic runtime's crash modes arm an injector that fires in its
+    # own phase, at JAX's step, with JAX's message
+    jinj, tinj = jchaos.maybe_crash_injector(want), tchaos.maybe_crash_injector(got)
+    assert (jinj is None) == (tinj is None)
+    if tinj is not None and got.crash_mode != "preempt":
+        for phase in ("step", "mid_collective", "during_remesh"):
+            fired = []
+            for inj, exc in ((jinj, jchaos.ChaosCrash), (tinj, tchaos.ChaosCrash)):
+                try:
+                    inj.check(max(got.crash_at_step, 0) + 1, phase=phase)
+                    fired.append(None)
+                except exc as e:
+                    fired.append((str(e), e.mode, e.worker))
+            assert fired[0] == fired[1], phase
 
 
 def test_chaos_inject_and_crash_injector():
@@ -209,8 +216,12 @@ def test_chaos_inject_and_crash_injector():
         crash.check(4)          # >=, and once a process
     crash.check(5)
     assert tchaos.maybe_crash_injector(tchaos.ChaosConfig()) is None
-    with pytest.raises(NotImplementedError, match="elastic"):
-        tchaos.CrashInjector(3, mode="mid_collective")
+    # the elastic runtime's modes fire after the dispatch, in their phase only
+    mid = tchaos.CrashInjector(3, mode="mid_collective", worker=2)
+    mid.check(4)
+    with pytest.raises(tchaos.ChaosCrash, match="mid-collective") as e:
+        mid.check(4, phase="mid_collective")
+    assert (e.value.step, e.value.mode, e.value.worker) == (4, "mid_collective", 2)
 
 
 def test_guard_meter_matches_jax():

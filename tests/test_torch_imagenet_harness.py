@@ -74,10 +74,12 @@ def test_first_epoch_matches_jax_harness(monkeypatch):
     assert np.isfinite(got["test loss"])
 
 
+# the elastic flags (item 12) were cases here until they were ported
+# (test_elastic_* below); flags that still raise took their places
 @pytest.mark.parametrize("argv,item", [
-    (["--elastic"], 12), (["--chaos", "crash=during_remesh,crash_at_step=1"], 12),
-    (["--peer_timeout", "5"], 12),
-    (["--devices", "2"], 12), (["--events", "ev.jsonl"], 13), (["--adaptive"], 13),
+    (["--flight_dir", "f"], 13), (["--tensorboard", "tb"], 13),
+    (["--stream_every", "2"], 14),
+    (["--twin_records", "r"], 13), (["--events", "ev.jsonl"], 13), (["--adaptive"], 13),
     (["--profile_epoch", "1"], 13), (["--stream_dir", "s"], 14)])
 def test_unported_flags_raise(argv, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, item {item}"):
@@ -178,3 +180,24 @@ def test_best_floor_checkpoint_and_resume(tmp_path, one_torch_thread):
     assert "best_metric" in man["meta"]
     resumed = tharness.main(argv + ["--resume", ck])
     assert resumed["epoch"] == 2
+
+
+def test_elastic_remesh_redivides_the_loaders(tmp_path):
+    """``--elastic`` with worker 1 killed after step 1 on 3 gloo processes:
+    ranks 0 and 2 re-form the world, re-divide the loaders (12 images a
+    process of the batch of 24) and finish the 2 epochs."""
+    from test_torch_elastic_world import harness_world
+
+    argv = ["--synthetic", "--arch", "resnet18", "--width", "8", "--num_classes", "8",
+            "--compress", "layerwise", "--method", "topk", "--ratio", "0.05",
+            "--error_feedback", "--workers", "1", "--synthetic_n", "72", "--phases",
+            '[{"ep": 0, "sz": 32, "bs": 24}, {"ep": [0, 2], "lr": [0.1, 0.01]}]',
+            "--peer_timeout", "20", "--chaos", "crash=mid_collective,crash_at_step=1,worker=1"]
+    rcs, logs, summaries, epoch = harness_world("tpu_compressed_dp_torch.harness.imagenet",
+                                                argv, 3, tmp_path)
+    assert rcs[0] == rcs[2] == 0 and rcs[1] != 0, [lg[-2000:] for lg in logs]
+    assert epoch["ranks"] == [0, 2]
+    for r in (0, 2):
+        s = summaries[r]
+        assert s["world"] == 2 and s["epoch"] == 1 and s["steps"] == 3
+        assert np.isfinite(s["train loss"])

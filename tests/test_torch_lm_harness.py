@@ -114,16 +114,21 @@ def test_parser_surface_matches_jax():
     tflags = {a.dest: a.default for a in tharness.build_parser()._actions if a.dest != "help"}
     assert set(tflags) - set(jflags) == {"device"}
     assert tflags["device"] == "cuda"
+    # a dead process's EF is lost with it: the port drops it and refuses
+    # fold, where JAX's multi-process runtime accepts fold and drops
+    assert (tflags["elastic_ef"], jflags["elastic_ef"]) == ("drop", "fold")
     for dest, default in jflags.items():
-        if dest == "job_id":
+        if dest in ("job_id", "elastic_ef"):
             continue  # the JAX default reads $TCDP_JOB_ID
         assert tflags[dest] == default, dest
 
 
+# the elastic flags (item 12) were cases here until they were ported
+# (test_elastic_lm_* below); flags that still raise took their places
 _UNPORTED = [
-    (["--peer_timeout", "5"], 12), (["--elastic_ef", "drop"], 12),
-    (["--chaos", "crash=mid_collective,crash_at_step=1"], 12), (["--coordinator", "h:1"], 12),
-    (["--elastic_min_world", "1"], 12), (["--elastic"], 12), (["--elastic_dir", "d"], 12),
+    (["--stream_every", "2"], 14), (["--stream_keyframe_every", "4"], 14),
+    (["--stream_ratio", "0.1"], 14), (["--adaptive_deadband", "0.5"], 13),
+    (["--adaptive_rungs", "a"], 13), (["--job_id", "j1"], 13), (["--flight_dir", "f"], 13),
     (["--stream_dir", "s"], 14), (["--stream_rejoin"], 14), (["--adaptive"], 13),
     (["--adaptive_window", "4"], 13), (["--events", "e.jsonl"], 13), (["--prom", "m.prom"], 13),
 ]
@@ -326,3 +331,31 @@ def _same_tree(got, want, where):
         assert got.dtype == want.dtype and torch.equal(got, want), where
     else:
         assert got == want, where
+
+
+def test_elastic_lm_remesh_on_the_data_axis(tmp_path):
+    """``--elastic`` on 3 gloo processes of the tiny LM, worker 2 killed
+    after step 3: ranks 0 and 1 re-form the world, re-run step 3 on 2 ranks
+    over the batch cut to 6 rows and finish at step 6."""
+    from test_torch_elastic_world import harness_world
+
+    argv = ["--preset", "tiny", "--steps", "6", "--seq_len", "32", "--global_batch", "6",
+            "--fp32", "--compress", "entiremodel", "--method", "topk", "--ratio", "0.05",
+            "--error_feedback", "--log_every", "2", "--peer_timeout", "20", "--chaos",
+            "crash=mid_collective,crash_at_step=3,worker=2"]
+    rcs, logs, summaries, epoch = harness_world("tpu_compressed_dp_torch.harness.lm", argv, 3,
+                                                tmp_path)
+    assert rcs[:2] == [0, 0] and rcs[2] != 0, [lg[-2000:] for lg in logs]
+    assert epoch["ranks"] == [0, 1]
+    for r in (0, 1):
+        assert summaries[r]["step"] == 6 and summaries[r]["world"] == 2
+        assert math.isfinite(summaries[r]["loss"])
+
+
+@pytest.mark.parametrize("argv,err,match", [
+    (["--pp", "2"], ValueError, "orphans a pipeline stage"),
+    (["--sp", "2"], NotImplementedError, r"item 12 \(elastic, model axes\)"),
+    (["--tp", "2"], NotImplementedError, r"item 12 \(elastic, model axes\)")])
+def test_elastic_lm_model_axes_refused(argv, err, match):
+    with pytest.raises(err, match=match):
+        tharness.main(["--device", "cpu", "--steps", "1", "--elastic", *argv])

@@ -110,7 +110,7 @@ def test_heartbeat_file(tmp_path, monkeypatch):
     assert not any(n.endswith(".tmp") for n in os.listdir(tmp_path))
 
 
-def test_spawn_supervised_env_matches_jax():
+def test_spawn_supervised_env_matches_jax(tmp_path):
     seen = []
 
     def popen(cmd, env):
@@ -124,8 +124,19 @@ def test_spawn_supervised_env_matches_jax():
     assert seen[0] == seen[1]
     assert seen[0][1]["TCDP_RESTART_COUNT"] == "4" and seen[0][1]["MINE"] == "keep"
     assert base["TCDP_RESTART_COUNT"] == "0"
-    with pytest.raises(NotImplementedError, match=r"item 12 \(elastic\)"):
-        tres_mod.spawn_supervised(["x"], restart_count=1, elastic_dir="d", popen=popen)
+    # the elastic rejoin hint: the directory, and the committed epoch where
+    # the directory holds one, as the JAX supervisor exports them
+    d = str(tmp_path)
+    for rec in (None, {"epoch": 3, "ranks": [0, 2], "address": "h:5"}):
+        if rec is not None:
+            with open(os.path.join(d, "epoch.json"), "w") as f:
+                json.dump(rec, f)
+        seen.clear()
+        for mod in (tres_mod, jres):
+            mod.spawn_supervised(["x"], restart_count=1, elastic_dir=d, env=base, popen=popen,
+                                 log=lambda s: None)
+        assert seen[0] == seen[1] and seen[0][1]["TCDP_ELASTIC_DIR"] == d
+        assert seen[0][1].get("TCDP_RENDEZVOUS_EPOCH") == (None if rec is None else "3")
 
 
 def test_preemption_handler_real_sigterm():
@@ -299,7 +310,12 @@ def test_chaos_drill_lists_its_rows(capsys):
     from tpu_compressed_dp_torch.harness import chaos_drill
 
     assert chaos_drill.main(["--list"]) == 0
-    assert capsys.readouterr().out.split() == ["quick:", *chaos_drill.QUICK, "full:",
-                                               "comp_hold", "ef_identity", "poison_control"]
+    assert capsys.readouterr().out.split() == [
+        "quick:", *chaos_drill.QUICK, "full:", "comp_hold", "ef_identity", "poison_control",
+        "elastic:", "elastic_gossip", "elastic_remesh", "elastic_readmit", "elastic_cascade",
+        *[f"elastic[{p},w{w},s{s}]" for p in ("fold", "drop") for w in (0, 3) for s in (0, 3)],
+        "elastic[sharded-wire]"]
+    # the elastic rows are ported (tests/test_torch_elastic.py runs them); the
+    # stream, control and fleet rows are not
     with pytest.raises(SystemExit):
-        chaos_drill.main(["--drill", "elastic_remesh"])
+        chaos_drill.main(["--drill", "fleet"])

@@ -253,6 +253,29 @@ class Batches:
                 raise ValueError("sharded iteration requires drop_last=True "
                                  "(pad + slice short batches at the caller)")
         self.shard = shard
+        self.rows = batch_size
+
+    def trim(self, rows: int) -> None:
+        """From the next epoch on, cut every global batch to its first
+        ``rows`` rows (a shorter final batch passes as it is): the elastic
+        remesh's batch of ``(bs // W') * W'`` rows, as
+        ``train/elastic.TrimBatches`` trims it.  The RNG stream carries
+        on."""
+        rows = int(rows)
+        if not 0 < rows <= self.batch_size:
+            raise ValueError(f"cannot trim batches of {self.batch_size} rows to {rows}")
+        self.rows = rows
+
+    def reshard(self, rank: int, procs: int, rows: Optional[int] = None) -> None:
+        """From the next epoch on, yield ``rank``'s ``rows/procs``-row slice
+        of every global batch trimmed to ``rows`` rows (default: all; see
+        :meth:`trim`): the elastic remesh's new world."""
+        rows = self.batch_size if rows is None else int(rows)
+        if rows % procs or not self.drop_last:
+            raise ValueError(f"cannot shard {rows} of {self.batch_size} rows over {procs} "
+                             "processes")
+        self.trim(rows)
+        self.shard = (int(rank), int(procs))
 
     def __len__(self) -> int:
         n = len(self.labels)
@@ -267,14 +290,15 @@ class Batches:
             x = apply_augment(self.data, choices) if self.augment else self.data
             stop = len(self) * self.batch_size if self.drop_last else n
             for lo in range(0, stop, self.batch_size):
-                sel = idx[lo : lo + self.batch_size]
+                sel = idx[lo : lo + self.batch_size][:self.rows]
                 yield {"input": x[sel], "target": self.labels[sel]}
             return
         rank, procs = self.shard
-        per = self.batch_size // procs
+        per = self.rows // procs
         nb = len(self)
         # this rank's rows of every batch, in batch order
-        sel = idx[: nb * self.batch_size].reshape(nb, procs, per)[:, rank, :]
+        sel = idx[: nb * self.batch_size].reshape(nb, self.batch_size)[:, :self.rows]
+        sel = sel.reshape(nb, procs, per)[:, rank, :]
         sel = sel.reshape(-1)
         x = (apply_augment(self.data, choices, rows=sel)
              if self.augment else self.data[sel])

@@ -1,12 +1,12 @@
-"""Chaos drill: the fault-injection rows that assert the step guard's and the
-checkpoints' invariants end to end, on the port.
+"""Chaos drill: the fault-injection rows that assert the step guard's, the
+checkpoints' and the elastic runtime's invariants end to end, on the port.
 
 PyTorch-port counterpart of the rows of ``tools/chaos_drill.py`` that need
-neither the elastic runtime nor the stream, control or fleet layers.  Each
-row drives the port's guarded ResNet-9 step (channels_scale 0.125, a batch
-of 8 a worker, Top-K + EF unless the row says otherwise) in this process's
-world: alone it is one worker; under ``torchrun`` every rank runs the rows
-together, and the poisoned worker is the last one.
+none of the stream, control or fleet layers.  Each row drives the port's
+guarded ResNet-9 step (channels_scale 0.125, a batch of 8 a worker, Top-K +
+EF unless the row says otherwise).  The guard and checkpoint rows run in
+this process's world: alone it is one worker; under ``torchrun`` every rank
+runs the rows together, and the poisoned worker is the last one.
 
 Quick rows (``--quick``):
 
@@ -33,16 +33,49 @@ starts held bitwise on the vetoed step, moved on good ones),
 sent, ``acc - new_ef``, is the synced gradient) and ``poison_control``
 (the same injection with the guard off makes the parameters nonfinite).
 
+Elastic rows (``--elastic``; ``train/elastic.py``): each spawns its own
+world of ``W = 4`` gloo processes of this module, since a remesh takes a
+process out of its world (run them from one process, not under
+``torchrun``):
+
+  * ``elastic_gossip``: heartbeat-directory detection on a simulated clock
+    (one process): silence past the timeout is death, and only then; a
+    restarted rank (higher incarnation) is a rejoin candidate, never the
+    dead life's liveness;
+  * ``elastic_remesh``: ``crash=mid_collective`` kills worker 3 after step
+    2; it leaves, the survivors commit a W - 1 world through the
+    rendezvous and finish the run.  The replicated state (parameters,
+    BatchNorm, momentum) is bitwise the pre-kill one on every survivor and
+    each survivor's EF row passes bitwise; the dead row, which the victim
+    leaves behind before it exits, is migrated by ``migrate_ef``: ``drop``
+    gives the survivors' live rows bitwise and the dead row's float64 norm,
+    ``fold`` adds it into survivor row 0 with one float32 add (a live
+    remesh cannot fold: the dead process's EF is gone with it);
+  * ``elastic_readmit``: PowerSGD r 2 + EF; worker 2 dies at step 0, the
+    survivors step at W = 3, then the dead process rejoins (the rendezvous
+    join barrier, a new group, ``join_world``): its warm starts are the
+    survivors' bitwise and its EF zero, and the world steps at W = 4 again;
+  * ``elastic_cascade``: ``crash=during_remesh`` kills worker 3 while the
+    survivors are past worker 1: at ``min_world`` 2 the union commits over
+    [0, 2] (one cascade); at ``min_world`` 3 every survivor raises a
+    ``PeerFailed`` naming [1, 3] and nothing is committed;
+  * ``elastic_matrix``: the remesh row over policy x worker x kill step
+    (``fold``/``drop`` x workers 0 and 3 x steps 0 and 3), plus wire Top-K
+    over the sharded transport (the owner partition rebuilt at W = 3).
+
 Run: ``python -m tpu_compressed_dp_torch.harness.chaos_drill --quick`` (on
 the card; ``--device cpu`` elsewhere, ``--drill NAME`` for one row,
-``--list`` for the rows).
+``--elastic`` for the elastic rows, ``--list`` for the rows).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
+import subprocess
+import sys
 import tempfile
 import time
 from typing import Dict, List, Optional
@@ -62,14 +95,21 @@ from tpu_compressed_dp_torch.train.optim import SGD
 from tpu_compressed_dp_torch.train.state import TrainState
 from tpu_compressed_dp_torch.train.step import make_train_step
 from tpu_compressed_dp_torch.utils import resilience
-from tpu_compressed_dp_torch.utils.chaos import ChaosConfig, CrashInjector
+from tpu_compressed_dp_torch.utils.chaos import ChaosConfig, ChaosCrash, CrashInjector
 from tpu_compressed_dp_torch.utils.checkpoint import Checkpointer
 
-__all__ = ["QUICK", "FULL", "run_drills", "main"]
+__all__ = ["QUICK", "FULL", "ELASTIC", "run_drills", "run_elastic_drills", "expand_rows",
+           "main"]
 
 QUICK = ["skip_consistency", "loss_scale", "max_skips", "crash_recovery", "ckpt_preempt",
          "ckpt_corrupt"]
 FULL = QUICK + ["comp_hold", "ef_identity", "poison_control"]
+ELASTIC = ["elastic_gossip", "elastic_remesh", "elastic_readmit", "elastic_cascade",
+           "elastic_matrix"]
+#: the JAX runtime's ``metrics()`` keys
+ELASTIC_KEYS = {"elastic/peer_failures", "elastic/remesh_count", "elastic/dropped_ef_norm",
+                "elastic/remesh_latency_ms", "elastic/remesh_ms", "stream/rejoin_bytes"}
+ELASTIC_WORLD = 4
 TOPK_EF = CompressionConfig(method="topk", ratio=0.25, error_feedback=True)
 
 
@@ -351,6 +391,345 @@ def drill_ckpt_corrupt(env: _Env, *, n_steps: int = 4) -> Dict:
     return {"rollback_steps": 1, "restored_step": n_steps - 1}
 
 
+# ----------------------------------------------------------- elastic rows
+
+def drill_elastic_gossip() -> Dict:
+    """Heartbeat-gossip failure detection on a simulated clock."""
+    from tpu_compressed_dp_torch.train.elastic import (PeerFailed, PeerGossip,
+                                                       write_peer_heartbeat)
+
+    clock = {"t": 1000.0}
+    with tempfile.TemporaryDirectory() as td:
+        g = PeerGossip(td, 0, 4, peer_timeout_s=5.0, now=lambda: clock["t"])
+        for r in (1, 2, 3):
+            write_peer_heartbeat(td, r, 0, ts=clock["t"])
+        assert g.check() == {}, "fresh peers misread as dead"
+        clock["t"] += 4.0                       # rank 2 goes silent here
+        for r in (1, 3):
+            write_peer_heartbeat(td, r, 1, ts=clock["t"])
+        assert g.check() == {}, "silence below the timeout misread as death"
+        clock["t"] += 4.0                       # rank 2 now 8 s stale (> 5 s)
+        for r in (1, 3):
+            write_peer_heartbeat(td, r, 2, ts=clock["t"])
+        try:
+            g.raise_if_dead(step=7)
+            raise AssertionError("gossip missed the dead peer")
+        except PeerFailed as pf:
+            assert pf.failed == (2,) and pf.step == 7, pf
+        assert g.dead == (2,)
+        clock["t"] += 1.0
+        write_peer_heartbeat(td, 2, 0, incarnation=1, ts=clock["t"])
+        assert g.rejoin_candidates() == {2: 1}
+        assert g.dead == (2,), "rejoin candidacy must not undeclare death"
+        g.readmit(2)
+        assert g.dead == () and g.check() == {}
+    return {"detected": [2]}
+
+
+def _digest(tensors) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _replicated(state) -> str:
+    return _digest([*state.model.state_dict().values(),
+                    *state.opt_state["momentum"].values()])
+
+
+def _ef_rows(state) -> Dict[str, np.ndarray]:
+    return {k: v.detach().cpu().numpy().copy() for k, v in state.ef.items()}
+
+
+def elastic_rank(row: str, rank: int, world: int, port: int, out: str, device: str,
+                 kw: dict) -> int:
+    """One process of an elastic row's world: the row's steps, the kill and
+    the remesh (or the readmission); its record goes to
+    ``<out>/rank<r>.json`` and its EF rows around the remesh to
+    ``<out>/ef_rank<r>.npz``.  Exits 3 where the runtime declared it dead."""
+    from tpu_compressed_dp_torch.train.elastic import ElasticConfig, ElasticRuntime, PeerFailed
+    from tpu_compressed_dp_torch.train.rendezvous import Rendezvous
+
+    torch.set_num_threads(1)
+    dev = mesh.resolve_device(device)
+    edir = os.path.join(out, "el")
+    mesh.init_process_group(dev, backend="gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank, timeout_s=30.0)
+    comp = (CompressionConfig(method="powersgd", rank=2, error_feedback=True)
+            if kw.get("powersgd") else
+            CompressionConfig(method="topk", ratio=0.25, error_feedback=True,
+                              granularity="entiremodel", mode=kw.get("mode", "simulate"),
+                              transport=kw.get("transport", "allgather")))
+    state, step = _setup(_Env(dev, world, rank), comp, None, None)
+    kill = CrashInjector(kw["kill_step"], mode="mid_collective", worker=kw["worker"])
+    cascade = (CrashInjector(kw["kill_step"], mode="during_remesh", worker=kw["cascade"])
+               if "cascade" in kw else None)
+    cfg = ElasticConfig(gossip_dir=edir, rank=rank, peer_timeout_s=30.0,
+                        min_world=kw.get("min_world", 2))
+    el = ElasticRuntime(cfg, crash=cascade, rendezvous=Rendezvous(edir, rank, base_port=port),
+                        device=dev, log=lambda s: None)
+    rec: Dict = {"rank": rank}
+
+    def save(name, payload):
+        with open(os.path.join(out, name), "w") as f:
+            json.dump(payload, f, default=str)
+
+    i = 0
+    while i < kw["n_steps"]:
+        state, m = step(state, _batch(_Env(dev, el.world, el.rank), i))
+        rec.setdefault("comm", []).append({k: float(v) for k, v in m.items()
+                                           if k.startswith("comm/sent_bits")})
+        try:
+            kill.check(i, phase="mid_collective")
+        except ChaosCrash as err:
+            pre, pre_ef = _replicated(state), _ef_rows(state)
+            np.savez(os.path.join(out, f"ef_rank{rank}.npz"), **pre_ef)
+            try:
+                state = el.handle_failure(state, el.failure_from(err))
+            except PeerFailed as pf:
+                rec["left"] = str(pf)
+                save(f"rank{rank}.json", rec)
+                if not kw.get("powersgd"):
+                    mesh.destroy()
+                    return 3
+                # the readmission row: this process plays the relaunched
+                # worker, parked in the join barrier until the survivors
+                # admit it into a new world
+                mesh.destroy()
+                decision = Rendezvous(edir, rank).join(incarnation=1, stale_epoch=el.epoch + 1,
+                                                       deadline_s=120.0)
+                mesh.init_process_group(dev, backend="gloo",
+                                        init_method=f"tcp://{decision.address}",
+                                        world_size=decision.num_processes,
+                                        rank=decision.process_id, timeout_s=30.0)
+                state, step = _setup(_Env(dev, decision.num_processes, decision.process_id),
+                                     comp, None, None)
+                el = ElasticRuntime(cfg, ranks=decision.ranks, device=dev,
+                                    rendezvous=Rendezvous(edir, rank, base_port=port),
+                                    log=lambda s: None)
+                state = el.join_world(state, decision)
+                rec["joined"] = {"comp": _digest(list(state.comp.values())),
+                                 "ef_zero": all(not bool(t.any()) for t in state.ef.values()),
+                                 "step": state.step}
+                i = state.step
+                continue
+            rec["remesh"] = {"pre": pre, "post": _replicated(state), "ranks": list(el.ranks),
+                             "rank": el.rank, "ef_held": all(
+                                 np.array_equal(v.view(np.uint32), pre_ef[k].view(np.uint32))
+                                 for k, v in _ef_rows(state).items()),
+                             "cascades": el.cascade_count, "metrics": el.metrics()}
+            if kw.get("powersgd"):
+                # one step at W - 1, then wait at the barrier for the rejoin
+                state, _ = step(state, _batch(_Env(dev, el.world, el.rank), i + 1))
+                deadline = time.time() + 120.0
+                while not set(el.rendezvous.pending_joins()) - set(el.ranks):
+                    assert time.time() < deadline, "the dead rank never asked to join"
+                    time.sleep(0.05)
+                state, grew = el.rejoin_barrier(state)
+                rec["readmit"] = {"grew": grew, "comp": _digest(list(state.comp.values())),
+                                  "world": el.world, "readmits": el.readmit_count}
+                i += 1
+        i += 1
+    torch.cuda.synchronize() if dev.type == "cuda" else None
+    rec.update(step=state.step, world=el.world, final=_replicated(state),
+               metric_keys=sorted(el.metrics()), metrics=el.metrics())
+    save(f"rank{rank}.json", rec)
+    mesh.destroy()
+    return 0
+
+
+# the elastic rows' world directories, removed when the rows are done
+_ELASTIC_DIRS: List[str] = []
+
+
+def _elastic_world(row: str, kw: dict, device: str, world: int = ELASTIC_WORLD):
+    """Spawn the row's world; ``(exit codes, records, directory, logs)``."""
+    out = tempfile.mkdtemp(prefix=f"tcdp_{row}_")
+    _ELASTIC_DIRS.append(out)
+    port = mesh.free_port()
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(key, None)
+    procs = [subprocess.Popen([sys.executable, "-m", "tpu_compressed_dp_torch.harness.chaos_drill",
+                               "--elastic_rank", row, str(r), str(world), str(port), out, device,
+                               json.dumps(kw)], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    recs = {}
+    for r in range(world):
+        path = os.path.join(out, f"rank{r}.json")
+        if os.path.exists(path):
+            with open(path) as f:
+                recs[r] = json.load(f)
+    rcs = [p.returncode for p in procs]
+    return rcs, recs, out, logs
+
+
+def _check_remesh(label: str, kw: dict, rcs, recs, out) -> Dict:
+    from tpu_compressed_dp_torch.train.elastic import migrate_ef
+    from tpu_compressed_dp_torch.train.rendezvous import read_epoch
+
+    w = kw["worker"]
+    survivors = [r for r in range(ELASTIC_WORLD) if r != w]
+    assert rcs[w] == 3 and "among the declared dead" in recs[w]["left"], (label, rcs)
+    assert all(rcs[r] == 0 for r in survivors), (label, rcs)
+    assert read_epoch(os.path.join(out, "el"))["ranks"] == survivors
+    for new, r in enumerate(survivors):
+        rm = recs[r]["remesh"]
+        assert rm["ranks"] == survivors and rm["rank"] == new and rm["ef_held"], (label, rm)
+        assert rm["pre"] == rm["post"] == recs[survivors[0]]["remesh"]["post"], \
+            f"{label}: the replicated state moved through the remesh"
+        assert recs[r]["step"] == kw["n_steps"] and recs[r]["world"] == ELASTIC_WORLD - 1
+        assert set(recs[r]["metric_keys"]) == ELASTIC_KEYS
+        assert recs[r]["metrics"]["elastic/remesh_count"] == 1.0
+        assert recs[r]["metrics"]["elastic/peer_failures"] == 1.0
+    assert len({recs[r]["final"] for r in survivors}) == 1, f"{label}: the survivors differ"
+    # the EF migration over the world's stacked rows, the dead one included
+    rows = [dict(np.load(os.path.join(out, f"ef_rank{r}.npz"))) for r in range(ELASTIC_WORLD)]
+    stacked = {k: torch.from_numpy(np.stack([row[k] for row in rows])) for k in rows[0]}
+    dropped, norm = migrate_ef(stacked, [w], policy="drop")
+    for k, v in dropped.items():
+        assert np.array_equal(v.numpy().view(np.uint32),
+                              np.stack([rows[r][k] for r in survivors]).view(np.uint32)), k
+    want_sq = sum(float(np.sum(rows[w][k].astype(np.float64) ** 2)) for k in sorted(rows[w]))
+    assert norm == float(np.sqrt(want_sq)) > 0.0
+    folded, fnorm = migrate_ef(stacked, [w], policy="fold")
+    for k, v in folded.items():
+        want = rows[survivors[0]][k] + rows[w][k]
+        assert np.array_equal(v[0].numpy().view(np.uint32), want.view(np.uint32)), k
+    assert fnorm == 0.0
+    return {"world": ELASTIC_WORLD - 1, "ef_unrecoverable": True,
+            "dropped_ef_norm": norm if kw.get("policy") == "drop" else 0.0}
+
+
+def drill_elastic_remesh(device: str, *, kill_step: int = 2, worker: int = 3,
+                         policy: str = "fold", n_steps: int = 5, transport: str = "allgather",
+                         mode: str = "simulate") -> Dict:
+    kw = dict(kill_step=kill_step, worker=worker, policy=policy, n_steps=n_steps,
+              transport=transport, mode=mode)
+    rcs, recs, out, logs = _elastic_world("elastic_remesh", kw, device)
+    try:
+        res = _check_remesh(f"elastic_remesh {kw}", kw, rcs, recs, out)
+    except Exception:
+        print("\n".join(lg[-2000:] for lg in logs))
+        raise
+    if mode == "wire" and transport == "sharded":
+        from tpu_compressed_dp_torch.parallel.dp import _sharded_group_bits
+
+        n = sum(p.numel() for p in param_leaves(r9.ResNet9(channels=r9.scaled_channels(0.125),
+                                                            seed=0, device="cpu")).values())
+        cfg = CompressionConfig(method="topk", ratio=0.25, mode="wire", transport="sharded",
+                                granularity="entiremodel", error_feedback=True)
+        for r, rec in recs.items():
+            if r == worker:
+                continue
+            for i, c in enumerate(rec["comm"]):
+                route, ret = _sharded_group_bits("topk", n, 4 if i <= kill_step else 3, cfg)
+                assert c["comm/sent_bits"] == route + ret, (r, i, c)
+    return res
+
+
+def drill_elastic_readmit(device: str) -> Dict:
+    kw = dict(kill_step=0, worker=2, n_steps=3, powersgd=True)
+    rcs, recs, out, logs = _elastic_world("elastic_readmit", kw, device)
+    try:
+        assert rcs == [0] * ELASTIC_WORLD, rcs
+        joined = recs[2]["joined"]
+        assert joined["ef_zero"], "the rejoiner's EF is not zero"
+        for r in (0, 1, 3):
+            rd = recs[r]["readmit"]
+            assert rd["grew"] and rd["world"] == ELASTIC_WORLD and rd["readmits"] == 1, rd
+            assert rd["comp"] == joined["comp"], "the warm starts were not broadcast"
+        assert len({rec["final"] for rec in recs.values()}) == 1
+        assert all(rec["world"] == ELASTIC_WORLD for rec in recs.values())
+    except Exception:
+        print("\n".join(lg[-2000:] for lg in logs))
+        raise
+    return {"world": ELASTIC_WORLD, "readmits": 1}
+
+
+def drill_elastic_cascade(device: str) -> Dict:
+    from tpu_compressed_dp_torch.train.rendezvous import read_epoch
+
+    kw = dict(kill_step=2, worker=1, cascade=3, n_steps=4, min_world=2)
+    rcs, recs, out, logs = _elastic_world("elastic_cascade", kw, device)
+    try:
+        assert rcs == [0, 3, 0, 3], rcs
+        assert read_epoch(os.path.join(out, "el"))["ranks"] == [0, 2]
+        for r in (0, 2):
+            assert recs[r]["remesh"]["cascades"] == 1 and recs[r]["world"] == 2
+            assert recs[r]["metrics"]["elastic/peer_failures"] == 2.0
+        rcs, recs, out, logs = _elastic_world("elastic_cascade", dict(kw, min_world=3), device)
+        assert rcs == [3] * ELASTIC_WORLD, rcs
+        for r in (0, 2):
+            assert "[1, 3] failed" in recs[r]["left"] and "below min_world 3" in recs[r]["left"]
+        assert read_epoch(os.path.join(out, "el")) is None, "a stale world was committed"
+    except Exception:
+        print("\n".join(lg[-2000:] for lg in logs))
+        raise
+    return {"world": 2, "cascades": 1}
+
+
+def expand_rows(names) -> List[str]:
+    """The concrete rows a name list runs (``elastic_matrix`` expands to its
+    cells), the JAX drill's naming."""
+    rows = []
+    for name in names:
+        if name == "elastic_matrix":
+            rows += [f"elastic[{policy},w{worker},s{kill_step}]" for policy in ("fold", "drop")
+                     for worker in (0, ELASTIC_WORLD - 1) for kill_step in (0, 3)]
+            rows.append("elastic[sharded-wire]")
+        else:
+            rows.append(name)
+    return rows
+
+
+def run_elastic_drills(names, device: str = "cuda") -> Dict[str, Dict]:
+    """The named elastic rows, each in a world of its own; raises on the
+    first failing invariant."""
+    import shutil
+
+    mesh.resolve_device(device)
+    results = {}
+    try:
+        _run_elastic(names, device, results)
+    finally:
+        while _ELASTIC_DIRS:
+            shutil.rmtree(_ELASTIC_DIRS.pop(), ignore_errors=True)
+    return results
+
+
+def _run_elastic(names, device: str, results: Dict) -> None:
+    for name in names:
+        if name == "elastic_gossip":
+            results[name] = drill_elastic_gossip()
+        elif name == "elastic_matrix":
+            for policy in ("fold", "drop"):
+                for worker in (0, ELASTIC_WORLD - 1):
+                    for kill_step in (0, 3):
+                        key = f"elastic[{policy},w{worker},s{kill_step}]"
+                        results[key] = drill_elastic_remesh(device, kill_step=kill_step,
+                                                            worker=worker, policy=policy)
+                        print(f"PASS {key}")
+            key = "elastic[sharded-wire]"
+            results[key] = drill_elastic_remesh(device, transport="sharded", mode="wire",
+                                                worker=2, policy="fold")
+            print(f"PASS {key}")
+            continue
+        else:
+            results[name] = globals()[f"drill_{name}"](device)
+        print(f"PASS {name}")
+
+
 def run_drills(names, device: str = "cuda") -> Dict[str, Dict]:
     """Run the named rows in this process's world; raises on the first
     failing invariant."""
@@ -373,11 +752,17 @@ def run_drills(names, device: str = "cuda") -> Dict[str, Dict]:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--quick", action="store_true", help=f"the quick rows ({', '.join(QUICK)})")
+    p.add_argument("--elastic", action="store_true",
+                   help=f"the elastic rows ({', '.join(ELASTIC)}), each in a world of its own")
+    p.add_argument("--elastic_rank", nargs=7, default=None, help=argparse.SUPPRESS)
     p.add_argument("--drill", action="append", default=None, help="run only the named row(s)")
     p.add_argument("--list", action="store_true", help="print the rows and exit")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises where CUDA is missing) or cpu")
     args = p.parse_args(argv)
+    if args.elastic_rank:
+        row, rank, world, port, out, device, kw = args.elastic_rank
+        return elastic_rank(row, int(rank), int(world), int(port), out, device, json.loads(kw))
     if args.list:
         print("quick:")
         for row in QUICK:
@@ -386,12 +771,20 @@ def main(argv=None) -> int:
         for row in FULL:
             if row not in QUICK:
                 print(f"  {row}")
+        print("elastic:")
+        for row in expand_rows(ELASTIC):
+            print(f"  {row}")
         return 0
-    names = args.drill or (QUICK if args.quick else FULL)
-    unknown = [n for n in names if n not in FULL]
+    names = args.drill or (ELASTIC if args.elastic else QUICK if args.quick else FULL)
+    unknown = [n for n in names if n not in FULL + ELASTIC]
     if unknown:
         p.error(f"unknown drill(s) {unknown}; --list prints the rows")
-    run_drills(names, args.device)
+    elastic = [n for n in names if n in ELASTIC]
+    if elastic and mesh.world() == 1 and "WORLD_SIZE" not in os.environ:
+        run_elastic_drills(elastic, args.device)
+    elif elastic:
+        p.error("the elastic rows start their own worlds: run them from one process")
+    run_drills([n for n in names if n not in ELASTIC], args.device)
     print(f"chaos drill: {len(names)} row(s) passed")
     return 0
 

@@ -12,14 +12,23 @@ vgg16,resnet9_graph,alexnet_graph} --channels_scale --dtype
 --ratio_warmup_epochs --synthetic --synthetic_hard --synthetic_n --seed``,
 the robustness flags ``--guard --guard_init_scale --guard_backoff
 --guard_growth_interval --guard_max_skips --chaos --heartbeat
---heartbeat_interval --checkpoint_dir --resume --ckpt_every``, plus
+--heartbeat_interval --checkpoint_dir --resume --ckpt_every``, the elastic
+flags ``--elastic --elastic_dir --elastic_ef --elastic_min_world
+--peer_timeout``, the process flags ``--devices --coordinator
+--num_processes --process_id`` (plus the port's ``--dist_backend``), and
 ``--device``.  With ``--checkpoint_dir`` the epochs run under
 ``utils/resilience.run_with_recovery`` (a failure restores the newest
 checkpoint and replays), each ``--ckpt_every`` epochs end in an
 asynchronous save, and a SIGTERM/SIGINT cuts an emergency save and exits
 75; ``--resume DIR`` starts from the epoch after the checkpoint's.  As in
 the JAX harness the data stream restarts with the process, so a resume is
-bitwise the uninterrupted run only where the data is the same.  Protocol as in the JAX harness:
+bitwise the uninterrupted run only where the data is the same.  With
+``--elastic`` a dead worker (``train/elastic.py``) is answered in place:
+the survivors agree a new world through ``--elastic_dir``, re-initialise the
+process group over it, re-shard the data (each global batch trimmed to
+``(bs // W) * W`` rows) and replay the epoch from its first batch; at each
+epoch boundary, workers relaunched by ``harness/watchdog.py --relaunch
+--elastic_dir`` are readmitted.  Protocol as in the JAX harness:
 ``PiecewiseLinear([0, 5, epochs], [0, peak, 0])`` (or the ``step`` shape)
 at fractional epochs divided by the batch size, weight decay ``5e-4 *
 batch_size``, Nesterov when momentum > 0, Crop/FlipLR/Cutout augmentation,
@@ -45,10 +54,11 @@ import numpy as np
 import torch
 
 from tpu_compressed_dp_torch.data import cifar10 as data
-from tpu_compressed_dp_torch.harness.loop import (add_checkpoint_args, add_robustness_args,
-                                                  build_robustness, local_device,
-                                                  make_heartbeat, make_preemption,
-                                                  preempt_exit, train_epoch)
+from tpu_compressed_dp_torch.harness.loop import (add_checkpoint_args, add_process_args,
+                                                  add_robustness_args, build_elastic,
+                                                  build_robustness, elastic_distributed_init,
+                                                  local_device, make_heartbeat,
+                                                  make_preemption, preempt_exit, train_epoch)
 from tpu_compressed_dp_torch.models import alexnet as alexnet_mod
 from tpu_compressed_dp_torch.models import graph as graph_mod
 from tpu_compressed_dp_torch.models import resnet9 as resnet9_mod
@@ -58,8 +68,10 @@ from tpu_compressed_dp_torch.ops.compressors import canonical_name
 from tpu_compressed_dp_torch.parallel import mesh
 from tpu_compressed_dp_torch.parallel.dp import (CompressionConfig, init_comp_state,
                                                  init_ef_state)
+from tpu_compressed_dp_torch.train.elastic import PeerFailed
 from tpu_compressed_dp_torch.train.optim import SGD
 from tpu_compressed_dp_torch.train.guard import init_guard_state
+from tpu_compressed_dp_torch.train.rendezvous import RendezvousError
 from tpu_compressed_dp_torch.train.schedules import lr_phases_to_knots, piecewise_linear
 from tpu_compressed_dp_torch.train.state import TrainState
 from tpu_compressed_dp_torch.train.step import make_eval_step, make_train_step
@@ -71,9 +83,6 @@ from tpu_compressed_dp_torch.utils.timer import Timer, device_sync
 _ITEM = "ROADMAP.md queue 1, item {}"
 # flags of the JAX harness, by the ROADMAP item that ports them
 _LATER_FLAGS = {
-    **dict.fromkeys(("--devices", "--coordinator", "--num_processes", "--process_id",
-                     "--elastic", "--elastic_dir", "--elastic_ef", "--elastic_min_world",
-                     "--peer_timeout"), "12 (elastic)"),
     **dict.fromkeys(("--adaptive", "--adaptive_budget_ms", "--adaptive_bw_mbps",
                      "--adaptive_deadband", "--adaptive_model", "--adaptive_rungs",
                      "--adaptive_signal", "--adaptive_window", "--twin_records",
@@ -197,6 +206,7 @@ def build_parser() -> argparse.ArgumentParser:
     add_robustness_args(p, check_note="checked at epoch end")
     add_checkpoint_args(p, cadence_help="epochs between asynchronous checkpoint saves "
                                         "(requires --checkpoint_dir; 0 = emergency saves only)")
+    add_process_args(p)
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises where CUDA is missing) or cpu")
     return p
@@ -258,20 +268,25 @@ def run(args) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     comp = comp_for_ratio(args, args.ratio)
-    made_group = not torch.distributed.is_initialized()
-    mesh.init_process_group(device)
+    hb = make_heartbeat(args)
     try:
-        return _run(args, device, comp)
+        launch = elastic_distributed_init(args, device)
+        try:
+            return _run(args, device, comp, launch, hb)
+        finally:
+            if launch.made_group:
+                mesh.destroy()
     finally:
-        if made_group:
-            mesh.destroy()
+        if hb is not None:
+            hb.stop()
 
 
-def _run(args, device: torch.device, comp: CompressionConfig) -> dict:
+def _run(args, device: torch.device, comp: CompressionConfig, launch, hb) -> dict:
     world, rank = mesh.world(), mesh.rank()
     epochs = args.epochs if args.epochs is not None else default_epochs(args.method)
     bs = args.batch_size
-    if bs % world:
+    if bs % world and launch.decision is None:
+        # a worker joining a running world takes its trimmed batch
         raise ValueError(f"batch_size {bs} not divisible by world size {world}")
     if rank == 0:
         print(f"world: {world} x {device}; network={args.network} dtype={args.dtype} "
@@ -292,7 +307,8 @@ def _run(args, device: torch.device, comp: CompressionConfig) -> dict:
     test_x = dataset["test"]["data"]
     train_batches = data.Batches(
         train_x, dataset["train"]["labels"], bs, shuffle=True, augment=True,
-        drop_last=True, seed=args.seed, shard=(rank, world) if world > 1 else None)
+        drop_last=True, seed=args.seed,
+        shard=(rank, world) if world > 1 or args.elastic else None)
     test_batches = data.Batches(test_x, dataset["test"]["labels"], bs,
                                 shuffle=False, augment=False, drop_last=False)
 
@@ -300,16 +316,12 @@ def _run(args, device: torch.device, comp: CompressionConfig) -> dict:
     params = param_leaves(model)
     steps_per_epoch = len(train_batches)
     sched = lr_schedule(args, epochs)
-    spe, bs32 = np.float32(steps_per_epoch), np.float32(bs)
-    opt = SGD(lr=lambda step: sched(np.float32(step) / spe) / bs32,  # `dawn.py:142`
-              momentum=args.momentum, nesterov=args.momentum > 0,
-              weight_decay=5e-4 * bs)
+    opt = make_optimizer(args, epochs, steps_per_epoch)
     guard_cfg, chaos, crash = build_robustness(args, DTYPES[args.dtype])
     state = TrainState.create(model, opt.init(params), init_ef_state(params, comp),
                               seed=args.seed, comp=init_comp_state(params, comp),
                               guard=init_guard_state(guard_cfg))
-    apply_fn = make_normalizing_apply_fn(np.asarray(data.CIFAR10_MEAN) * 255.0,
-                                         np.asarray(data.CIFAR10_STD) * 255.0)
+    apply_fn = cifar_apply_fn()
     step_cache: dict = {}
 
     def train_step_for(epoch: int):
@@ -326,7 +338,9 @@ def _run(args, device: torch.device, comp: CompressionConfig) -> dict:
 
     eval_step = make_eval_step(apply_fn)
 
-    ckpt = Checkpointer(args.checkpoint_dir) if args.checkpoint_dir else None
+    # a joining worker takes the survivors' checkpoint sequence when it joins
+    ckpt = (Checkpointer(args.checkpoint_dir, token="joining" if launch.decision else None)
+            if args.checkpoint_dir else None)
     start_epoch = 0
     if args.resume:
         restorer = Checkpointer(args.resume)
@@ -339,27 +353,70 @@ def _run(args, device: torch.device, comp: CompressionConfig) -> dict:
             print(f"resumed step {state.step} from {args.resume} "
                   f"(starting epoch {start_epoch})")
 
+    el = build_elastic(args, launch, chaos=chaos, crash=crash, device=device, ckpt=ckpt)
+    # the current world: its size, this rank and the global batch it divides
+    cur = {"rank": rank, "world": world, "bs": bs}
+
+    def follow_world() -> None:
+        """Re-shard the data (both trimmed to the new world's global batch)
+        and rebuild the steps for ``el``'s world."""
+        w = el.world
+        cur.update(rank=el.rank, world=w, bs=(bs // w) * w)
+        train_batches.reshard(el.rank, w, cur["bs"])
+        test_batches.trim(cur["bs"])
+        step_cache.clear()
+
+    if el is not None and launch.decision is not None:
+        # a watchdog-relaunched worker: adopt the running world's replicated
+        # state from its coordinator's broadcast (EF starts at zero), its
+        # next epoch and its data order
+        state = el.join_world(state, launch.decision)
+        start_epoch = int(el.shared.get("next_epoch", start_epoch))
+        if "data_rng" in el.shared:
+            train_batches.rng.set_state(el.shared["data_rng"])
+        follow_world()
     table, tsv = TableLogger(), TSVLogger()
     timer = Timer(lambda: device_sync(device))
-    hb = make_heartbeat(args)
     preempt = make_preemption()
     summary: dict = {}
 
     def run_epoch(state: TrainState, epoch: int) -> TrainState:
         nonlocal summary
-        try:
-            # a signal that landed during eval stops the run before the
-            # next epoch dispatches anything
-            preempt.check(state.step)
-            state, epoch_stats, acc = train_epoch(
-                train_step_for(epoch), eval_step, state, train_batches, test_batches, timer,
-                bs, device, rank=rank, world=world, crash=crash, step_offset=state.step,
-                guard_cfg=guard_cfg, preempt=preempt)
-        except resilience.Preempted as err:
-            err.epoch = epoch
-            if not hasattr(err, "train_state"):
-                err.train_state = state
-            raise
+        while True:
+            try:
+                # a signal that landed during eval stops the run before the
+                # next epoch dispatches anything
+                preempt.check(state.step)
+                state, epoch_stats, acc = train_epoch(
+                    train_step_for(epoch), eval_step, state, train_batches, test_batches,
+                    timer, cur["bs"], device, rank=cur["rank"], world=cur["world"],
+                    crash=crash, step_offset=state.step, guard_cfg=guard_cfg,
+                    preempt=preempt, elastic=el)
+            except resilience.Preempted as err:
+                err.epoch = epoch
+                if not hasattr(err, "train_state"):
+                    err.train_state = state
+                raise
+            except Exception as err:
+                failure = el.failure_from(err) if el is not None else None
+                if failure is None:
+                    raise
+                # coordinated abort: the survivors move to the new world from
+                # the last live state and replay the epoch from its first
+                # batch; the injectors fire once a process, so the replay
+                # does not crash again
+                state = el.handle_failure(getattr(err, "train_state", state), failure)
+                follow_world()
+                continue
+            break
+        if el is not None:
+            # epoch-boundary readmission of relaunched workers parked in the
+            # rendezvous join barrier (no-op when none is waiting); a joiner
+            # starts at the next epoch with the survivors' data order
+            el.shared.update(next_epoch=epoch + 1, data_rng=train_batches.rng.get_state())
+            state, grew = el.rejoin_barrier(state)
+            if grew:
+                follow_world()
         if ckpt is not None and args.ckpt_every > 0 and (epoch + 1) % args.ckpt_every == 0:
             # the write overlaps the next epoch; the next save (or a
             # preemption) waits for it
@@ -368,24 +425,28 @@ def _run(args, device: torch.device, comp: CompressionConfig) -> dict:
             hb.update(step=state.step, epoch=epoch,
                       last_good_step=(int(state.guard.last_good_step)
                                       if guard_cfg is not None else state.step),
-                      **(ckpt.heartbeat_fields() if ckpt is not None else {}))
+                      **(ckpt.heartbeat_fields() if ckpt is not None else {}),
+                      **({"elastic": el.metrics()} if el is not None else {}))
         train_time = epoch_stats["train time"]
         summary = {
             "epoch": epoch + 1,
             "lr": float(sched(epoch + 1)),
             **epoch_stats,
-            "img/s": round(steps_per_epoch * bs / max(train_time, 1e-9), 1),
+            "img/s": round(acc.steps * cur["bs"] / max(train_time, 1e-9), 1),
             "steps": acc.steps,
         }
-        if rank == 0:
+        if el is not None:
+            summary["world"] = el.world
+        if cur["rank"] == 0:
             table.append(summary)
             tsv.append(summary)
         return state
 
     try:
         state, _ = resilience.run_with_recovery(run_epoch, state, epochs, checkpointer=ckpt,
-                                                start_epoch=start_epoch)
-        if args.log_dir and rank == 0:
+                                                start_epoch=start_epoch,
+                                                passthrough=(PeerFailed, RendezvousError))
+        if args.log_dir and cur["rank"] == 0:
             tsv.save(args.log_dir)
     except resilience.Preempted as err:
         # drain the write in flight, cut a synchronous emergency save of the
@@ -394,11 +455,28 @@ def _run(args, device: torch.device, comp: CompressionConfig) -> dict:
                            meta={"epoch": getattr(err, "epoch", start_epoch) - 1}) from None
     finally:
         preempt.uninstall()
+        if el is not None:
+            el.close()
         if ckpt is not None:
             ckpt.close()
-        if hb is not None:
-            hb.stop()
     return summary
+
+
+def make_optimizer(args, epochs: int, steps_per_epoch: int) -> SGD:
+    """The protocol's SGD (`dawn.py:142`): the schedule's rate at the
+    fractional epoch over the batch size, weight decay ``5e-4 * batch_size``,
+    Nesterov when momentum > 0."""
+    sched = lr_schedule(args, epochs)
+    spe, bs32 = np.float32(steps_per_epoch), np.float32(args.batch_size)
+    return SGD(lr=lambda step: sched(np.float32(step) / spe) / bs32,
+               momentum=args.momentum, nesterov=args.momentum > 0,
+               weight_decay=5e-4 * args.batch_size)
+
+
+def cifar_apply_fn():
+    """The nets' apply with the CIFAR-10 normalisation of uint8 pixels."""
+    return make_normalizing_apply_fn(np.asarray(data.CIFAR10_MEAN) * 255.0,
+                                     np.asarray(data.CIFAR10_STD) * 255.0)
 
 
 def lr_schedule(args, epochs: int):

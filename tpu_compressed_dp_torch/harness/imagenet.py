@@ -17,10 +17,15 @@ reference's ``IMAGENET/training/train_imagenet_nv.py``):
     (``grad_scale = 1``, as the reference backpropagates the mean loss);
   * validation every epoch with world top-1 / top-5 sums, every process
     running the same number of (possibly empty, padded) batches;
-  * ``--short_epoch`` (10 batches) and ``--evaluate`` (validation only).
+  * ``--short_epoch`` (10 batches) and ``--evaluate`` (validation only);
+  * the robustness flags, ``--elastic*`` included (``train/elastic.py``):
+    on a dead worker the survivors re-form the world, re-divide the loaders
+    (``bs // world`` each) and replay the epoch; relaunched workers are
+    readmitted at epoch boundaries.
 
-One process is one worker (``torchrun`` for several); batches are split by
-process (``bs // world`` each).  Runs on CUDA unless ``--device cpu``.  A flag
+One process is one worker (``torchrun`` for several, or ``--coordinator
+--num_processes --process_id``); batches are split by process (``bs //
+world`` each).  Runs on CUDA unless ``--device cpu``.  A flag
 of the JAX harness that this port does not carry yet raises
 ``NotImplementedError`` naming the ROADMAP item that brings it.
 
@@ -36,11 +41,12 @@ from typing import Dict, List, Optional
 import torch
 
 from tpu_compressed_dp_torch.data import imagenet as data
-from tpu_compressed_dp_torch.harness.loop import (add_robustness_args, build_robustness,
-                                                  comm_summary, guard_summary, local_device,
-                                                  make_heartbeat, make_preemption, preempt_exit,
-                                                  run_local_eval,
-                                                  run_train_epoch)
+from tpu_compressed_dp_torch.harness.loop import (add_process_args, add_robustness_args,
+                                                  build_elastic, build_robustness,
+                                                  comm_summary, elastic_distributed_init,
+                                                  guard_summary, local_device, make_heartbeat,
+                                                  make_preemption, preempt_exit,
+                                                  run_local_eval, run_train_epoch)
 from tpu_compressed_dp_torch.models import resnet as resnet_mod
 from tpu_compressed_dp_torch.models.common import make_normalizing_apply_fn, param_leaves
 from tpu_compressed_dp_torch.parallel import mesh
@@ -72,9 +78,6 @@ ARCHS = {
 _ITEM = "ROADMAP.md queue 1, item {}"
 # flags of the JAX harness, by the ROADMAP item that ports them
 _LATER_FLAGS = {
-    **dict.fromkeys(("--devices", "--coordinator", "--num_processes", "--process_id",
-                     "--elastic", "--elastic_dir", "--peer_timeout", "--elastic_ef",
-                     "--elastic_min_world"), "12 (elastic)"),
     **dict.fromkeys(("--adaptive", "--adaptive_window", "--adaptive_deadband",
                      "--adaptive_rungs", "--adaptive_budget_ms", "--adaptive_bw_mbps",
                      "--adaptive_signal", "--adaptive_model", "--twin_records", "--events",
@@ -255,6 +258,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--best_floor", type=float, default=0.0,
                    help="save_if_best floor on top-5 (the reference gated at 93)")
     add_robustness_args(p, check_note="checked at epoch end")
+    add_process_args(p)
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises where CUDA is missing) or cpu")
     return p
@@ -300,16 +304,20 @@ def run(args) -> Dict[str, float]:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     comp = comp_config(args)
-    made_group = not torch.distributed.is_initialized()
-    mesh.init_process_group(device)
+    hb = make_heartbeat(args)
     try:
-        return _run(args, device, comp)
+        launch = elastic_distributed_init(args, device)
+        try:
+            return _run(args, device, comp, launch, hb)
+        finally:
+            if launch.made_group:
+                mesh.destroy()
     finally:
-        if made_group:
-            mesh.destroy()
+        if hb is not None:
+            hb.stop()
 
 
-def _run(args, device: torch.device, comp: CompressionConfig) -> Dict[str, float]:
+def _run(args, device: torch.device, comp: CompressionConfig, launch, hb) -> Dict[str, float]:
     world, rank = mesh.world(), mesh.rank()
     if args.synthetic:
         ds_train = data.SyntheticImages(args.synthetic_n, args.num_classes, seed=0)
@@ -352,7 +360,9 @@ def _run(args, device: torch.device, comp: CompressionConfig) -> Dict[str, float
     train_step = make_train_step(apply_fn, opt, comp, grad_scale=1.0, clip_norm=args.clip_norm,
                                  clip_sent_norm=args.clip_sent_norm, guard_cfg=guard_cfg,
                                  chaos=chaos)
-    ckpt = Checkpointer(args.checkpoint_dir) if args.checkpoint_dir else None
+    # a joining worker takes the survivors' checkpoint sequence when it joins
+    ckpt = (Checkpointer(args.checkpoint_dir, token="joining" if launch.decision else None)
+            if args.checkpoint_dir else None)
     start_epoch = 0
     if args.resume:
         restorer = Checkpointer(args.resume)
@@ -368,6 +378,29 @@ def _run(args, device: torch.device, comp: CompressionConfig) -> Dict[str, float
         if rank == 0:
             print(f"resumed step {state.step} (epoch {start_epoch})")
     eval_step = make_eval_step(apply_fn)
+    el = build_elastic(args, launch, chaos=chaos, crash=crash, device=device, ckpt=ckpt)
+    cur = {"rank": rank, "world": world}
+
+    def follow_world() -> None:
+        """Re-divide the loaders (``PhaseData`` rebuilds them for the new
+        world at the next ``set_epoch``) and rebuild the steps."""
+        nonlocal train_step, eval_step
+        cur.update(rank=el.rank, world=el.world)
+        pd.pi, pd.pc, pd.cur = el.rank, el.world, None
+        fwd_cache.clear()
+        train_step = make_train_step(apply_fn, opt, comp, grad_scale=1.0,
+                                     clip_norm=args.clip_norm,
+                                     clip_sent_norm=args.clip_sent_norm, guard_cfg=guard_cfg,
+                                     chaos=chaos)
+        eval_step = make_eval_step(apply_fn)
+
+    fwd_cache: Dict[tuple, float] = {}
+    if el is not None and launch.decision is not None:
+        # a watchdog-relaunched worker: the running world's replicated state
+        # from its coordinator (EF starts at zero) and its next epoch
+        state = el.join_world(state, launch.decision)
+        start_epoch = int(el.shared.get("next_epoch", start_epoch))
+        follow_world()
     if rank == 0:
         n_params = sum(p.numel() for p in params.values())
         print(f"world: {world} x {device}; arch={args.arch} width={args.width} "
@@ -378,14 +411,12 @@ def _run(args, device: torch.device, comp: CompressionConfig) -> Dict[str, float
         batches = _truncate(pd.val_loader, 10 if args.short_epoch else None)
         return run_local_eval(eval_step, state, batches, pd.val_loader.batch_size, device)
 
-    fwd_cache: Dict[tuple, float] = {}
-
     def fwd_flops(phase) -> Optional[float]:
         """The forward FLOPs of one local batch of the phase, where the card's
         peak is known (MFU needs it)."""
         if flops_mod.device_peak_flops(device, dtype) is None:
             return None
-        key = (int(phase["sz"]), int(phase["bs"]) // world)
+        key = (int(phase["sz"]), int(phase["bs"]) // cur["world"])
         if key not in fwd_cache:
             fwd_cache[key] = flops_mod.cnn_fwd_flops(model, (key[1], key[0], key[0], 3), device)
         return fwd_cache[key]
@@ -399,23 +430,36 @@ def _run(args, device: torch.device, comp: CompressionConfig) -> Dict[str, float
         if rank == 0:
             print(f"top1 {val['acc'] * 100:.2f} top5 {val['acc5'] * 100:.2f}")
         return val
-    hb = make_heartbeat(args)
     preempt = make_preemption()
     epoch = start_epoch
+    el_replay = False
     try:
         while epoch < epochs:
             # a SIGTERM between epochs cuts the emergency save here
             preempt.check(state.step)
             swapped = pd.set_epoch(epoch)
-            if swapped and ckpt is not None and epoch > 0:
+            if swapped and ckpt is not None and epoch > 0 and not el_replay:
                 # phase-boundary save (`train_imagenet_nv.py:251-253`)
                 ckpt.save_async(state, {"epoch": epoch - 1, "phase_boundary": True})
             batches = _truncate(pd.train_loader, 10 if args.short_epoch else None)
-            state, acc = run_train_epoch(train_step, state, batches, device, crash=crash,
-                                         step_offset=state.step, guard_cfg=guard_cfg,
-                                         preempt=preempt)
-            train_time = timer()
-            val = validate(state)
+            try:
+                state, acc = run_train_epoch(train_step, state, batches, device, crash=crash,
+                                             step_offset=state.step, guard_cfg=guard_cfg,
+                                             preempt=preempt, elastic=el)
+                train_time = timer()
+                val = validate(state)
+            except Exception as err:
+                failure = el.failure_from(err) if el is not None else None
+                if failure is None or isinstance(err, resilience.Preempted):
+                    raise
+                # coordinated abort: the survivors move to the new world from
+                # the last live state, re-divide the loaders and replay the
+                # epoch from its first batch
+                state = el.handle_failure(getattr(err, "train_state", state), failure)
+                follow_world()
+                el_replay = True
+                continue
+            el_replay = False
             timer(False)  # eval time stays out of the training total
             examples = int(acc.sums.get("count", 0.0))
             img_s = examples / train_time if train_time > 0 else 0.0
@@ -438,19 +482,29 @@ def _run(args, device: torch.device, comp: CompressionConfig) -> Dict[str, float
             per_chip_b = per_chip_comm_bytes(comm_means, world, args.dp_pods)
             if per_chip_b is not None and train_time > 0:
                 summary["comm MB/s"] = per_chip_b * acc.steps / train_time / 1e6
-            if rank == 0:
+            if el is not None:
+                summary["world"] = el.world
+            if cur["rank"] == 0:
                 table.append(summary)
                 tsv.append(summary)
             if hb is not None:
                 hb.update(step=state.step, epoch=epoch,
                           last_good_step=(int(state.guard.last_good_step)
                                           if guard_cfg is not None else state.step),
-                          **(ckpt.heartbeat_fields() if ckpt is not None else {}))
+                          **(ckpt.heartbeat_fields() if ckpt is not None else {}),
+                          **({"elastic": el.metrics()} if el is not None else {}))
+            if el is not None:
+                # epoch-boundary readmission of relaunched workers parked in
+                # the rendezvous join barrier; a joiner starts at the next epoch
+                el.shared.update(next_epoch=epoch + 1)
+                state, grew = el.rejoin_barrier(state)
+                if grew:
+                    follow_world()
             if ckpt is not None:
                 ckpt.save_if_best(state, top5, floor=args.best_floor,
                                   meta={"epoch": epoch, "top1": top1, "top5": top5})
             epoch += 1
-        if args.logdir and rank == 0:
+        if args.logdir and cur["rank"] == 0:
             tsv.save(args.logdir)
     except resilience.Preempted as err:
         # drain the write in flight, cut the emergency save, exit 75
@@ -458,10 +512,10 @@ def _run(args, device: torch.device, comp: CompressionConfig) -> Dict[str, float
                            meta={"epoch": epoch - 1}) from None
     finally:
         preempt.uninstall()
+        if el is not None:
+            el.close()
         if ckpt is not None:
             ckpt.close()
-        if hb is not None:
-            hb.stop()
     return summary
 
 

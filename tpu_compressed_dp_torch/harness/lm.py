@@ -20,11 +20,18 @@ arm the step guard and the fault injection, the wedge check runs every
 ``--ckpt_every`` steps and at the end (each rank its EF, and its model
 shard under ``--tp`` / ``--pp``), ``--resume DIR`` continues from the
 checkpoint's step, and a SIGTERM/SIGINT cuts an emergency save and exits 75.
+``--elastic`` (``train/elastic.py``) runs on a pure data axis: on a dead
+worker the survivors re-form the world and re-run the step index on the
+``dp - 1`` ranks (each batch cut to ``(global_batch // dp) * dp`` rows), and
+relaunched workers are readmitted every ``--log_every`` steps; ``--pp``
+raises the JAX harness's ``ValueError``, and ``--sp`` / ``--tp`` above 1
+are ROADMAP item 12's model-axes remesh, not ported.
 Steady-state tokens/s excludes the first two steps (as the JAX harness
 does) and is closed by a device synchronise.
 
 Runs on CUDA unless ``--device cpu``; launch ``dp * sp * pp * tp`` processes
-with ``torchrun`` (e.g. ``torchrun --nproc_per_node 4 -m
+with ``torchrun`` or ``--coordinator --num_processes --process_id`` (e.g.
+``torchrun --nproc_per_node 4 -m
 tpu_compressed_dp_torch.harness.lm --sp 2 --tp 2 ...``; ``--dp`` defaults to
 the world over ``sp * tp * pp``); alone, it runs a 1-rank group.
 
@@ -44,7 +51,8 @@ from typing import Dict, Optional
 import torch
 
 from tpu_compressed_dp_torch.data import lm as lm_data
-from tpu_compressed_dp_torch.harness.loop import (build_robustness, make_heartbeat,
+from tpu_compressed_dp_torch.harness.loop import (build_elastic, build_robustness,
+                                                  elastic_distributed_init, make_heartbeat,
                                                   make_preemption, preempt_exit, to_device)
 from tpu_compressed_dp_torch.models import transformer as tf
 from tpu_compressed_dp_torch.parallel import mesh
@@ -72,9 +80,6 @@ _ITEM = "ROADMAP.md queue 1, item {}"
 # flags of the JAX harness this port does not carry yet, by the ROADMAP item
 # that ports them: any value but the default raises
 _LATER = {
-    **dict.fromkeys(("elastic", "elastic_dir", "peer_timeout", "elastic_ef",
-                     "elastic_min_world", "coordinator", "num_processes", "process_id"),
-                    "12 (elastic)"),
     **dict.fromkeys(("adaptive", "adaptive_window", "adaptive_deadband", "adaptive_rungs",
                      "adaptive_budget_ms", "adaptive_bw_mbps", "adaptive_signal",
                      "adaptive_model", "twin_records", "events", "prom", "job_id",
@@ -147,8 +152,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="hierarchical transport: pod count (must divide the world size)")
     p.add_argument("--hier_route_factor_ici", type=float, default=1.25)
     p.add_argument("--hier_route_factor_dcn", type=float, default=1.25)
-    # robustness (the elastic runtime's flags are not ported), telemetry,
-    # control and streaming (not ported)
+    # robustness, telemetry, control and streaming (not ported)
     p.add_argument("--guard", action="store_true")
     p.add_argument("--guard_init_scale", type=float, default=2.0 ** 15)
     p.add_argument("--guard_backoff", type=float, default=0.5)
@@ -160,7 +164,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--elastic", action="store_true")
     p.add_argument("--elastic_dir", type=str, default=None)
     p.add_argument("--peer_timeout", type=float, default=60.0)
-    p.add_argument("--elastic_ef", type=str, default="fold", choices=("fold", "drop"))
+    p.add_argument("--elastic_ef", type=str, default="drop", choices=("fold", "drop"))
     p.add_argument("--elastic_min_world", type=int, default=2)
     p.add_argument("--stream_dir", type=str, default=None)
     p.add_argument("--stream_every", type=int, default=1)
@@ -204,6 +208,17 @@ def _check_ported(args) -> None:
     for dest, item in _LATER.items():
         if getattr(args, dest) != getattr(defaults, dest):
             raise NotImplementedError(f"--{dest} is not ported yet: {_ITEM.format(item)}")
+    if args.elastic and args.pp > 1:
+        # the JAX harness's refusal: a pipeline stage has no replica to
+        # recover from
+        raise ValueError(
+            "--elastic supports dp/dp x sp/dp x tp meshes; losing a worker "
+            "of a pp mesh orphans a pipeline stage (that is a checkpoint "
+            "restart, not a remesh)")
+    if args.elastic and (args.sp > 1 or args.tp > 1):
+        raise NotImplementedError(
+            "--elastic with --sp or --tp above 1 is not ported yet: losing a rank takes its "
+            f"data row's model-axis peers out too, {_ITEM.format('12 (elastic, model axes)')}")
 
 
 def build_config(args) -> tf.LlamaConfig:
@@ -247,13 +262,17 @@ def run(args) -> Dict[str, float]:
         hier_route_factor_dcn=args.hier_route_factor_dcn, rank=args.rank,
         error_feedback=args.error_feedback, sync_overlap=args.overlap,
     )
-    made_group = not torch.distributed.is_initialized()
-    mesh.init_process_group(device)
+    hb = make_heartbeat(args)
     try:
-        return _run(args, device, comp)
+        launch = elastic_distributed_init(args, device)
+        try:
+            return _run(args, device, comp, launch, hb)
+        finally:
+            if launch.made_group:
+                mesh.destroy()
     finally:
-        if made_group:
-            mesh.destroy()
+        if hb is not None:
+            hb.stop()
 
 
 def _mesh(args) -> mesh.LmGroups:
@@ -273,6 +292,14 @@ def _mesh(args) -> mesh.LmGroups:
     if args.seq_len % args.sp:
         raise ValueError(f"--seq_len {args.seq_len} must divide by sp={args.sp}")
     return mesh.lm_groups(dp, args.sp, args.tp, args.pp)
+
+
+def _data_step(args, cfg: tf.LlamaConfig, comp: CompressionConfig, opt: SGD, groups,
+               guard_cfg=None, chaos=None):
+    """The LM step (no pipeline) on ``groups``."""
+    return make_lm_train_step(cfg, opt, comp, groups=groups, clip_norm=args.clip_norm,
+                              clip_sent_norm=args.clip_sent_norm, guard_cfg=guard_cfg,
+                              chaos=chaos)
 
 
 def _build(args, cfg: tf.LlamaConfig, comp: CompressionConfig, opt: SGD, groups, device,
@@ -306,13 +333,11 @@ def _build(args, cfg: tf.LlamaConfig, comp: CompressionConfig, opt: SGD, groups,
     state = TrainState.create(model, opt.init(params), init_lm_ef_state(cfg, params, comp),
                               seed=args.seed + 1,
                               comp=init_lm_comp_state(cfg, params, comp, groups), guard=guard)
-    step = make_lm_train_step(cfg, opt, comp, groups=groups, clip_norm=args.clip_norm,
-                              clip_sent_norm=args.clip_sent_norm, guard_cfg=guard_cfg,
-                              chaos=chaos)
-    return state, step, n_params
+    return state, _data_step(args, cfg, comp, opt, groups, guard_cfg, chaos), n_params
 
 
-def _run(args, device: torch.device, comp: CompressionConfig) -> Dict[str, float]:
+def _run(args, device: torch.device, comp: CompressionConfig, launch,
+         hb) -> Dict[str, float]:
     cfg = build_config(args)
     cfg.validate_mesh(args.tp)
     groups = _mesh(args)
@@ -337,7 +362,8 @@ def _run(args, device: torch.device, comp: CompressionConfig) -> Dict[str, float
                 if groups.pp > 1 else f"dp{groups.dp}xsp{groups.sp}xtp{groups.tp}")
     # each rank's file holds its EF, and its model shard where the mesh shards it
     ckpt_kw = dict(sharded_model=groups.tp * groups.pp > 1, layout={"mesh": mesh_str})
-    ckpt = Checkpointer(args.checkpoint_dir, **ckpt_kw) if args.checkpoint_dir else None
+    ckpt = (Checkpointer(args.checkpoint_dir, token="joining" if launch.decision else None,
+                         **ckpt_kw) if args.checkpoint_dir else None)
     if args.resume:
         restorer = Checkpointer(args.resume, **ckpt_kw)
         try:
@@ -352,68 +378,116 @@ def _run(args, device: torch.device, comp: CompressionConfig) -> Dict[str, float
               f"method={comp.method or 'dense'}/{comp.granularity}/{comp.mode} "
               f"device={device} dtype={cfg.dtype}")
 
+    el = build_elastic(args, launch, chaos=chaos, crash=crash, device=device, ckpt=ckpt,
+                       ckpt_layout=lambda w: {"mesh": f"dp{w}xsp1xtp1"})
+    # the global batch cut to the current world's data ranks
+    cut = {"rows": args.global_batch}
+
+    def follow_world() -> None:
+        """The step and this rank's batch block in ``el``'s world."""
+        nonlocal groups, rows, cols, train_step, n_chips
+        groups = mesh.lm_groups(el.world)
+        cut["rows"] = (args.global_batch // el.world) * el.world
+        rows, cols = local_block(cut["rows"], args.seq_len, groups)
+        train_step = _data_step(args, cfg, comp, opt, groups, guard_cfg, chaos)
+        n_chips = el.world
+
+    if el is not None and launch.decision is not None:
+        # a watchdog-relaunched worker: the running world's replicated state
+        # from its coordinator (EF starts at zero); the state's step is the
+        # survivors'
+        state = el.join_world(state, launch.decision)
+        follow_world()
     table = TableLogger()
     guard_meter = GuardMeter()
-    hb = make_heartbeat(args)
     preempt = make_preemption()
     summary: Dict[str, float] = {}
     start = state.step
     t0, timed_from = time.perf_counter(), start
     try:
-        for step_i in range(start, args.steps):
-            if crash is not None:
-                crash.check(step_i)
-            # after the crash check: crash=preempt signals there
-            preempt.check(step_i)
-            batch = {k: v[rows, cols] for k, v in ds.batch(step_i).items()}
-            state, metrics = train_step(state, to_device(batch, device))
-            if step_i <= start + 1:
-                # steady state starts after the first two steps (allocator and
-                # library warm-up; the JAX harness excludes its two compiles)
-                device_sync(device)
-                t0, timed_from = time.perf_counter(), step_i + 1
-            if (step_i + 1) % args.log_every == 0 or step_i == args.steps - 1:
-                m = {k: float(v) for k, v in metrics.items()}  # waits for the step
-                if guard_cfg is not None:
-                    # the wedge check at the log cadence
-                    guard_meter.update(m, step_i + 1)
-                    check_guard_metrics(m, guard_cfg)
-                if hb is not None:
-                    hb.update(step=step_i + 1,
-                              last_good_step=(int(m["guard/last_good_step"])
-                                              if guard_cfg is not None else step_i + 1),
-                              **(ckpt.heartbeat_fields() if ckpt is not None else {}))
-                dt = time.perf_counter() - t0
-                steps_timed = step_i + 1 - timed_from
-                tokens_done = steps_timed * args.global_batch * args.seq_len
-                summary = {"step": step_i + 1, "loss": m["loss"], "lr": m["lr"],
-                           "tok/s": round(tokens_done / dt, 1) if steps_timed > 0 else 0.0}
-                if steps_timed > 0:
-                    # MFU: closed-form 6N + 12 L d s per token (N counts every
-                    # expert, as the JAX harness's), per card of the mesh,
-                    # against the card's bf16 peak (absent on the CPU and
-                    # unknown cards)
-                    tok_flops = flops_mod.transformer_train_flops_per_token(
-                        n_params, cfg.n_layers, cfg.dim, args.seq_len)
-                    fwd_per_card = (tok_flops / 3.0) * args.global_batch * args.seq_len / n_chips
-                    thr = flops_mod.throughput_record(fwd_per_card, steps_timed / dt,
-                                                      tokens_per_sec=tokens_done / dt,
-                                                      device=device)
-                    if "throughput/mfu" in thr:
-                        summary["mfu"] = round(thr["throughput/mfu"], 4)
-                if "comm/sent_elems" in m:
-                    dense = max(m["comm/dense_elems"], 1.0)
-                    summary["sent frac"] = m["comm/sent_elems"] / dense
-                    summary["wire frac"] = m["comm/sent_bits"] / (32.0 * dense)
-                if guard_cfg is not None:
-                    gsum = guard_meter.summary()
-                    summary["skipped"] = gsum.get("guard/skipped", 0.0)
-                    summary["loss_scale"] = gsum.get("guard/loss_scale", 1.0)
-                if rank == 0:
-                    table.append(summary)
-            if ckpt is not None and args.ckpt_every and (step_i + 1) % args.ckpt_every == 0:
-                # a host copy now, the write in the background
-                ckpt.save_async(state, {"step": step_i + 1})
+        step_i = start
+        while step_i < args.steps:
+            try:
+                if crash is not None:
+                    crash.check(step_i)
+                # after the crash check: crash=preempt signals there
+                preempt.check(step_i)
+                if el is not None:
+                    el.poll(step_i)
+                batch = {k: v[:cut["rows"]][rows, cols] for k, v in ds.batch(step_i).items()}
+                state, metrics = train_step(state, to_device(batch, device))
+                if crash is not None:
+                    crash.check(step_i, phase="mid_collective")
+                if step_i <= start + 1:
+                    # steady state starts after the first two steps (allocator and
+                    # library warm-up; the JAX harness excludes its two compiles)
+                    device_sync(device)
+                    t0, timed_from = time.perf_counter(), step_i + 1
+                if (step_i + 1) % args.log_every == 0 or step_i == args.steps - 1:
+                    def fetch():
+                        return {k: float(v) for k, v in metrics.items()}  # waits for the step
+
+                    m = fetch() if el is None else el.bounded_get(fetch, step=step_i + 1)
+                    if guard_cfg is not None:
+                        # the wedge check at the log cadence
+                        guard_meter.update(m, step_i + 1)
+                        check_guard_metrics(m, guard_cfg)
+                    if hb is not None:
+                        hb.update(step=step_i + 1,
+                                  last_good_step=(int(m["guard/last_good_step"])
+                                                  if guard_cfg is not None else step_i + 1),
+                                  **(ckpt.heartbeat_fields() if ckpt is not None else {}),
+                                  **({"elastic": el.metrics()} if el is not None else {}))
+                    dt = time.perf_counter() - t0
+                    steps_timed = step_i + 1 - timed_from
+                    tokens_done = steps_timed * cut["rows"] * args.seq_len
+                    summary = {"step": step_i + 1, "loss": m["loss"], "lr": m["lr"],
+                               "tok/s": round(tokens_done / dt, 1) if steps_timed > 0 else 0.0}
+                    if steps_timed > 0:
+                        # MFU: closed-form 6N + 12 L d s per token (N counts every
+                        # expert, as the JAX harness's), per card of the mesh,
+                        # against the card's bf16 peak (absent on the CPU and
+                        # unknown cards)
+                        tok_flops = flops_mod.transformer_train_flops_per_token(
+                            n_params, cfg.n_layers, cfg.dim, args.seq_len)
+                        fwd_per_card = (tok_flops / 3.0) * cut["rows"] * args.seq_len / n_chips
+                        thr = flops_mod.throughput_record(fwd_per_card, steps_timed / dt,
+                                                          tokens_per_sec=tokens_done / dt,
+                                                          device=device)
+                        if "throughput/mfu" in thr:
+                            summary["mfu"] = round(thr["throughput/mfu"], 4)
+                    if "comm/sent_elems" in m:
+                        dense = max(m["comm/dense_elems"], 1.0)
+                        summary["sent frac"] = m["comm/sent_elems"] / dense
+                        summary["wire frac"] = m["comm/sent_bits"] / (32.0 * dense)
+                    if guard_cfg is not None:
+                        gsum = guard_meter.summary()
+                        summary["skipped"] = gsum.get("guard/skipped", 0.0)
+                        summary["loss_scale"] = gsum.get("guard/loss_scale", 1.0)
+                    if el is not None:
+                        summary["world"] = el.world
+                    if mesh.rank() == 0:
+                        table.append(summary)
+                if el is not None and (step_i + 1) % args.log_every == 0:
+                    # log-cadence readmission of relaunched workers parked in the
+                    # rendezvous join barrier (no-op when none is waiting)
+                    state, grew = el.rejoin_barrier(state)
+                    if grew:
+                        follow_world()
+                if ckpt is not None and args.ckpt_every and (step_i + 1) % args.ckpt_every == 0:
+                    # a host copy now, the write in the background
+                    ckpt.save_async(state, {"step": step_i + 1})
+            except Exception as err:
+                failure = el.failure_from(err) if el is not None else None
+                if failure is None or isinstance(err, resilience.Preempted):
+                    raise
+                # coordinated abort: the survivors move to the new world and
+                # re-run this step index there (the JAX harness's granularity)
+                state = el.handle_failure(state, failure)
+                follow_world()
+                t0, timed_from = time.perf_counter(), step_i
+                continue
+            step_i += 1
         if ckpt is not None:
             ckpt.save(state, {"step": state.step})
     except resilience.Preempted as err:
@@ -421,10 +495,10 @@ def _run(args, device: torch.device, comp: CompressionConfig) -> Dict[str, float
         raise preempt_exit(err, ckpt=ckpt, state=state, meta={"step": state.step}) from None
     finally:
         preempt.uninstall()
+        if el is not None:
+            el.close()
         if ckpt is not None:
             ckpt.close()
-        if hb is not None:
-            hb.stop()
     return summary
 
 

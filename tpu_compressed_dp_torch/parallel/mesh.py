@@ -5,7 +5,9 @@ package builds a ``('data',)`` mesh and lets ``shard_map`` collectives run
 over it, the port runs one process per worker in a ``torch.distributed``
 process group (NCCL for CUDA devices, gloo for the CPU).  Run without
 ``torchrun`` (no ``RANK``/``WORLD_SIZE`` in the environment) it makes a
-1-rank group on a free localhost port.
+1-rank group on a free localhost port.  An elastic world change
+(``train/rendezvous.reinit_distributed``) leaves the group with
+:func:`destroy` and joins the committed one with the same :func:`backend`.
 
 The collectives take an optional ``group``: the hierarchical transport's
 pod (ICI) and chip-rank column (DCN) subgroups of
@@ -31,6 +33,7 @@ identity backward, the JAX ``psum`` of a row-parallel output).  These take
 
 from __future__ import annotations
 
+import datetime
 import os
 import socket
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
@@ -38,11 +41,21 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-__all__ = ["resolve_device", "init_process_group", "world", "rank", "free_port",
-           "all_gather", "all_reduce_sum", "all_reduce_max", "all_to_all", "hier_groups",
+__all__ = ["resolve_device", "init_process_group", "backend", "port_of", "world", "rank",
+           "free_port", "all_gather", "all_reduce_sum", "all_reduce_max", "all_to_all", "hier_groups",
            "destroy", "size", "group_rank", "group_ranks", "axis_size", "LmGroups",
            "lm_groups", "ppermute", "ring_perm", "copy_to_group", "reduce_from_group",
            "sum_over_group"]
+
+# the backend of the last group init_process_group made
+_BACKEND: Optional[str] = None
+# the collective timeout init_process_group was given (None: torch's
+# default), which the subgroups of _group_of take too
+_TIMEOUT: Optional[datetime.timedelta] = None
+#: how long the ranks of a new group wait for each other to join, at least:
+#: a worker the watchdog relaunches, or one that starts late, still imports
+#: its libraries while the others wait
+JOIN_TIMEOUT_S = 300.0
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -67,20 +80,30 @@ def free_port() -> int:
 def init_process_group(device, *, backend: Optional[str] = None,
                        init_method: Optional[str] = None,
                        world_size: Optional[int] = None,
-                       rank: Optional[int] = None) -> None:
+                       rank: Optional[int] = None,
+                       timeout_s: Optional[float] = None) -> None:
     """Join (or create) the default process group for ``device``.
 
     ``backend`` defaults to NCCL for a CUDA device and gloo for the CPU.
     ``backend='gloo'`` on a CUDA device puts several ranks on one card (NCCL
     refuses two ranks on one device); it is only ever asked for explicitly.
     Explicit ``init_method``/``world_size``/``rank`` win; otherwise the
-    ``torchrun`` environment; otherwise a 1-rank group.  No-op when a group
-    already exists."""
+    ``torchrun`` environment; otherwise a 1-rank group.  ``timeout_s`` is the
+    group's collective timeout (the elastic runtime passes
+    ``--peer_timeout``: a collective blocked on a dead peer raises after
+    it); the ranks wait for each other to join for at least
+    :data:`JOIN_TIMEOUT_S`, and the group's timeout is set to ``timeout_s``
+    once they have (where torch offers ``_set_pg_timeout``; else the join's
+    timeout stays).  No-op when a group already exists: a new world first
+    leaves the old one (:func:`destroy`;
+    ``train/rendezvous.reinit_distributed``)."""
     if dist.is_initialized():
         return
     device = torch.device(device)
     if backend is None:
         backend = "nccl" if device.type == "cuda" else "gloo"
+    global _BACKEND, _TIMEOUT
+    _BACKEND = backend
     if init_method is None and "RANK" in os.environ and "WORLD_SIZE" in os.environ:
         init_method = "env://"
         world_size = int(os.environ["WORLD_SIZE"])
@@ -90,8 +113,34 @@ def init_process_group(device, *, backend: Optional[str] = None,
         world_size, rank = 1, 0
     if device.type == "cuda":
         torch.cuda.set_device(device)
+    kw = {} if timeout_s is None else {
+        "timeout": datetime.timedelta(seconds=max(float(timeout_s), JOIN_TIMEOUT_S))}
     dist.init_process_group(backend, init_method=init_method, world_size=world_size,
-                            rank=rank)
+                            rank=rank, **kw)
+    _TIMEOUT = None if timeout_s is None else datetime.timedelta(seconds=float(timeout_s))
+    set_timeout = getattr(dist.distributed_c10d, "_set_pg_timeout", None)
+    if _TIMEOUT is not None and set_timeout is not None:
+        set_timeout(_TIMEOUT)
+    elif timeout_s is not None:
+        _TIMEOUT = kw["timeout"]
+
+
+def backend() -> Optional[str]:
+    """The backend of the last group :func:`init_process_group` made (kept
+    across :func:`destroy`, so a re-initialised world keeps it: gloo ranks
+    sharing one card stay gloo)."""
+    return _BACKEND
+
+
+def port_of(init_method: Optional[str] = None) -> Optional[int]:
+    """The TCP port of a ``tcp://host:port`` init method, or the
+    ``torchrun`` environment's ``MASTER_PORT``; None where there is neither.
+    The elastic rendezvous counts its epochs' ports up from it."""
+    if init_method and init_method.startswith("tcp://"):
+        return int(init_method.rsplit(":", 1)[1])
+    if "MASTER_PORT" in os.environ:
+        return int(os.environ["MASTER_PORT"])
+    return None
 
 
 def world() -> int:
@@ -204,7 +253,7 @@ def _group_of(ranks: Sequence[int]):
     if ranks == tuple(range(world())):
         return dist.group.WORLD
     if ranks not in _GROUPS:
-        _GROUPS[ranks] = dist.new_group(ranks=list(ranks))
+        _GROUPS[ranks] = dist.new_group(ranks=list(ranks), timeout=_TIMEOUT)
     return _GROUPS[ranks]
 
 

@@ -8,8 +8,12 @@ replay after a restore meets the same faults:
     NaN/Inf at chosen steps, before the guard's vote
     (``train/guard.py``);
   * **on the host** (:class:`CrashInjector`): :class:`ChaosCrash` raised
-    before a chosen step is dispatched (``crash=N``), or a real ``SIGTERM``
-    to this process there (``crash=preempt,crash_at_step=N``), which
+    before a chosen step is dispatched (``crash=N``), right after it
+    (``crash=mid_collective,crash_at_step=N``: the elastic runtime reads it
+    as the death of ``worker``), inside the elastic remesh handler
+    (``crash=during_remesh``: a second death, which cascades), or a real
+    ``SIGTERM`` to this process before the step
+    (``crash=preempt,crash_at_step=N``), which
     ``utils/resilience.PreemptionHandler`` turns into an emergency
     checkpoint and exit code 75.  Each fires once a process.
 
@@ -21,10 +25,10 @@ them::
     --chaos "inf,target=loss,every=50"
     --chaos "crash=120"
     --chaos "crash=preempt,crash_at_step=12"
+    --chaos "crash=mid_collective,crash_at_step=3,worker=1,peer_timeout=30"
 
-The crash modes ``mid_collective`` and ``during_remesh`` and the
-``peer_timeout`` key parse, but belong to the elastic runtime, which is not
-ported: :func:`maybe_crash_injector` and the harnesses refuse them.
+``peer_timeout`` overrides the elastic runtime's ``--peer_timeout``
+(``harness/loop.build_elastic``).
 """
 
 from __future__ import annotations
@@ -36,10 +40,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 __all__ = ["ChaosConfig", "ChaosCrash", "CrashInjector", "fires_at", "inject",
-           "maybe_crash_injector", "ELASTIC_ITEM"]
-
-#: where the elastic runtime's parts of this surface are queued
-ELASTIC_ITEM = "ROADMAP.md queue 1, item 12 (elastic)"
+           "maybe_crash_injector"]
 
 
 class ChaosCrash(RuntimeError):
@@ -57,10 +58,13 @@ class ChaosConfig:
     every:         also fire whenever ``step % every == 0`` (0 = off)
     worker:        the compression worker to poison (``guard.worker_index``)
     crash_at_step: raise :class:`ChaosCrash` (or send SIGTERM in mode
-                   'preempt') before dispatching this step (-1 = off)
-    crash_mode:    'step' | 'preempt' ('mid_collective' and
-                   'during_remesh' belong to the elastic runtime)
-    peer_timeout:  the elastic runtime's failure-detection budget (0 = off)
+                   'preempt') at this step (-1 = off)
+    crash_mode:    'step' (before dispatch) | 'mid_collective' (after
+                   dispatch: the elastic runtime's simulated death of
+                   ``worker``) | 'during_remesh' (inside the remesh
+                   handler: a cascading death) | 'preempt'
+    peer_timeout:  the elastic runtime's failure-detection budget in
+                   seconds (0 = the ``--peer_timeout`` flag's)
     """
 
     kind: str = "nan"
@@ -144,16 +148,6 @@ class ChaosConfig:
             toks.append(f"peer_timeout={self.peer_timeout:g}")
         return ",".join(toks)
 
-    def check_ported(self) -> None:
-        """Refuse the parts of the surface that belong to the elastic
-        runtime, rather than accept and ignore them."""
-        if self.crash_mode in ("mid_collective", "during_remesh"):
-            raise NotImplementedError(
-                f"chaos crash={self.crash_mode} needs the elastic runtime: {ELASTIC_ITEM}")
-        if self.peer_timeout:
-            raise NotImplementedError(
-                f"chaos peer_timeout needs the elastic runtime: {ELASTIC_ITEM}")
-
 
 def fires_at(chaos: ChaosConfig, step: int) -> bool:
     """Does the in-step fault fire at ``step``?  A function of the step
@@ -184,25 +178,30 @@ class CrashInjector:
     >>> crash = CrashInjector(chaos.crash_at_step)
     >>> crash.check(global_step)   # raises ChaosCrash at/after the step
 
-    Mode ``'preempt'`` raises nothing: it sends this process a real
-    ``SIGTERM`` at the armed step.
+    ``check(step, phase)`` fires only in the injector's own phase: the loop
+    calls ``check(step)`` before dispatch (phase ``'step'``) and
+    ``check(step, phase='mid_collective')`` right after it; the elastic
+    remesh handler probes ``phase='during_remesh'``.  The raised
+    :class:`ChaosCrash` carries ``step`` / ``mode`` / ``worker``, which the
+    elastic runtime turns into the death of ``worker``.  Mode
+    ``'preempt'`` raises nothing: it sends this process a real ``SIGTERM``
+    at the armed step, in phase ``'step'``.
     """
 
     def __init__(self, crash_at_step: int, mode: str = "step", worker: int = 0):
-        if mode in ("mid_collective", "during_remesh"):
-            raise NotImplementedError(
-                f"chaos crash={mode} needs the elastic runtime: {ELASTIC_ITEM}")
-        if mode not in ("step", "preempt"):
-            raise ValueError(f"crash mode must be step|preempt, got {mode!r}")
+        if mode not in ("step", "mid_collective", "during_remesh", "preempt"):
+            raise ValueError("crash mode must be step|mid_collective|during_remesh|preempt, "
+                             f"got {mode!r}")
         self.crash_at_step = int(crash_at_step)
         self.mode = mode
         self.worker = int(worker)
         self.fired = False
 
-    def check(self, step: int) -> None:
+    def check(self, step: int, phase: str = "step") -> None:
         # >= not ==: epoch-granular callers must not miss the mark when a
         # resume lands the counter past it
-        if self.fired or self.crash_at_step < 0 or int(step) < self.crash_at_step:
+        if (self.fired or self.crash_at_step < 0 or int(step) < self.crash_at_step
+                or phase != ("step" if self.mode == "preempt" else self.mode)):
             return
         self.fired = True
         if self.mode == "preempt":
@@ -211,7 +210,8 @@ class CrashInjector:
             # checked right after, turns it into the emergency save
             signal.raise_signal(signal.SIGTERM)
             return
-        err = ChaosCrash(f"chaos: injected host crash at step {int(step)}")
+        err = ChaosCrash(f"chaos: injected host crash at step {int(step)}"
+                         + (" (mid-collective)" if self.mode == "mid_collective" else ""))
         err.step = int(step)
         err.mode = self.mode
         err.worker = self.worker

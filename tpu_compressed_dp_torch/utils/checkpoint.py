@@ -31,7 +31,13 @@ directory too.
   * :meth:`Checkpointer.restore` with no step walks newest to oldest past
     steps that fail verification or loading; the walk-back accrues to
     ``ckpt/rollback_steps``.  A checkpoint of another world or mesh is
-    refused: resharding on restore is the elastic runtime's work.
+    refused (:class:`LayoutMismatch`): the JAX ``Checkpointer`` restores
+    onto the target's layout too, and its EF carries the world on its
+    leading axis, so neither package restores across worlds.
+  * :meth:`Checkpointer.follow_world`: after an elastic remesh or readmit
+    (``train/elastic.py``) the rank, the world and the layout follow the
+    new world, so the saves after the transition are written at its size
+    and a later ``--resume`` at that size restores them.
 """
 
 from __future__ import annotations
@@ -197,11 +203,15 @@ class Checkpointer:
     ``{'world': world}``) is what a restore must match.  One Checkpointer
     a rank owns the directory; ``events`` / ``flight`` / ``stream`` are
     hooks of the telemetry layers and stay ``None`` until those are ported.
+    ``token`` names the pending directories without the broadcast that
+    draws one (a worker joining a running world takes the survivors' from
+    :meth:`follow_world`).
     """
 
     def __init__(self, directory: str, *, max_to_keep: Optional[int] = 3,
                  rank: Optional[int] = None, world: Optional[int] = None,
-                 sharded_model: bool = False, layout: Optional[Dict[str, Any]] = None):
+                 sharded_model: bool = False, layout: Optional[Dict[str, Any]] = None,
+                 token: Optional[str] = None):
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         self.rank = mesh.rank() if rank is None else int(rank)
@@ -229,11 +239,14 @@ class Checkpointer:
         self._mark_mono = time.monotonic()
         # this run's pending-directory token, the same on every rank (a
         # collective: every rank makes its Checkpointers in one order)
-        token = [uuid.uuid4().hex[:12]]
-        if self.world > 1 and dist.is_initialized() and dist.get_world_size() == self.world:
-            dist.broadcast_object_list(token, src=0)
-        self._token = token[0]
+        drawn = [uuid.uuid4().hex[:12]]
+        if (token is None and self.world > 1 and dist.is_initialized()
+                and dist.get_world_size() == self.world):
+            dist.broadcast_object_list(drawn, src=0)
+        self._token = drawn[0] if token is None else token
         self._saves = 0
+        # set by follow_world: rank 0's wait for a gone world's files ends
+        self._abandon = threading.Event()
 
     # ------------------------------------------------------------------ saves
 
@@ -337,6 +350,9 @@ class Checkpointer:
         want = [os.path.join(pending, f"rank{r}.pt") for r in range(self.world)]
         deadline = time.monotonic() + _WORLD_FILES_WAIT_S
         while not all(os.path.exists(p) for p in want):
+            if self._abandon.is_set():
+                raise RuntimeError(f"checkpoint step {step}: abandoned, its world changed "
+                                   "before every rank's file arrived")
             if time.monotonic() > deadline:
                 raise TimeoutError(f"checkpoint step {step}: the world's rank files did not "
                                    f"arrive within {_WORLD_FILES_WAIT_S:g} s")
@@ -406,6 +422,28 @@ class Checkpointer:
             if raise_error:
                 raise err
 
+    def follow_world(self, rank: int, world: int, *, layout: Optional[Dict[str, Any]] = None,
+                     sequence: Optional[Tuple[str, int]] = None) -> None:
+        """Move to a new world after an elastic transition: a write in flight
+        is abandoned where it still waits for a gone world's files (its
+        failure goes to ``last_save_error``), and later saves are written by
+        ``rank`` of ``world``, under ``layout`` (default: the old one's keys
+        with the new world).  ``sequence`` (:meth:`sequence` of a survivor)
+        makes a joiner's pending directories the survivors'."""
+        self._abandon.set()
+        try:
+            self._barrier(accrue=False, raise_error=False)
+        finally:
+            self._abandon.clear()
+        self.rank, self.world = int(rank), int(world)
+        self.layout = {**self.layout, **(layout or {}), "world": self.world}
+        if sequence is not None:
+            self._token, self._saves = str(sequence[0]), int(sequence[1])
+
+    def sequence(self) -> Tuple[str, int]:
+        """``(token, saves)``: what names the next pending directory."""
+        return self._token, self._saves
+
     def drain(self, *, raise_error: bool = True) -> None:
         """Wait for any write in flight; with ``raise_error=False`` (the
         emergency path) a failure goes to ``last_save_error``."""
@@ -469,8 +507,8 @@ class Checkpointer:
         if rep.get("layout") != self.layout:
             raise LayoutMismatch(
                 f"checkpoint step {step} was written by {rep.get('layout')}, this run is "
-                f"{self.layout}: restoring onto another world or mesh is the elastic "
-                "runtime's work, ROADMAP.md queue 1, item 12 (elastic)")
+                f"{self.layout}: a checkpoint restores only onto the layout that wrote it "
+                "(the JAX Checkpointer restores onto the target's layout too)")
         mine = torch.load(os.path.join(step_dir, f"rank{self.rank}.pt"), map_location="cpu",
                           weights_only=True)
         src = mine if self.sharded_model else rep

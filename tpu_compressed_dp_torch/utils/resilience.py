@@ -15,8 +15,10 @@ copy of its host-side Python; the port imports nothing of the JAX package):
     at the next step boundary, which the harnesses answer with an emergency
     checkpoint and exit code :data:`PREEMPT_EXIT`;
   * :func:`spawn_supervised` launches one supervised child with the
-    incarnation environment (``TCDP_RESTART_COUNT``).  Its elastic-rejoin
-    half (``elastic_dir``) belongs to the elastic runtime, not ported.
+    incarnation environment (``TCDP_RESTART_COUNT``) and, given the elastic
+    run's directory, the rejoin hint (``TCDP_ELASTIC_DIR``, and the
+    committed world epoch and address where the directory holds one:
+    ``train/rendezvous.py``).
 """
 
 from __future__ import annotations
@@ -182,16 +184,22 @@ def spawn_supervised(cmd: Sequence[str], *, restart_count: int,
                      popen: Callable[..., "subprocess.Popen"] = subprocess.Popen,
                      log: Callable[[str], None] = print):
     """Launch one supervised child: a copy of ``env`` (default
-    ``os.environ``) with ``TCDP_RESTART_COUNT`` set to ``restart_count`` and
-    ``extra_env`` layered last.  ``popen`` is injectable for tests.  The
-    elastic-rejoin hint (``elastic_dir``) is refused: the rendezvous it
-    reads belongs to the elastic runtime."""
-    if elastic_dir:
-        raise NotImplementedError(
-            "spawn_supervised(elastic_dir=...) needs the elastic rendezvous: "
-            "ROADMAP.md queue 1, item 12 (elastic)")
+    ``os.environ``) with ``TCDP_RESTART_COUNT`` set to ``restart_count``;
+    with ``elastic_dir``, ``TCDP_ELASTIC_DIR`` and, when the directory holds
+    a committed world epoch, ``TCDP_RENDEZVOUS_EPOCH`` / ``_ADDR``, the hint
+    that lands a restarted worker in the running world's join barrier
+    (``train/rendezvous.maybe_rejoin_from_env``) instead of a fresh world;
+    ``extra_env`` layered last.  ``popen`` is injectable for tests."""
     child_env = dict(os.environ if env is None else env)
     child_env["TCDP_RESTART_COUNT"] = str(int(restart_count))
+    if elastic_dir:
+        from tpu_compressed_dp_torch.train.rendezvous import DIR_ENV, export_env, read_epoch
+
+        child_env[DIR_ENV] = elastic_dir
+        rec = read_epoch(elastic_dir)
+        if rec is not None:
+            export_env(child_env, rec)
+            log(f"spawn: rejoin hint: world epoch {rec['epoch']} @ {rec.get('address')}")
     if extra_env:
         child_env.update({str(k): str(v) for k, v in extra_env.items()})
     return popen(list(cmd), env=child_env)
@@ -302,7 +310,8 @@ def check_heartbeat(path: str, *, max_age_s: float = 60.0,
 
 def run_with_recovery(epoch_fn: Callable[[Any, int], Any], state: Any, epochs: int, *,
                       checkpointer=None, start_epoch: int = 0, max_retries: int = 3,
-                      on_restore: Optional[Callable[[Any], Any]] = None
+                      on_restore: Optional[Callable[[Any], Any]] = None,
+                      passthrough: Tuple[type, ...] = ()
                       ) -> Tuple[Any, Dict[str, int]]:
     """Run ``state = epoch_fn(state, epoch)`` for each epoch; after an
     exception restore ``checkpointer``'s newest verifiable checkpoint and
@@ -319,7 +328,7 @@ def run_with_recovery(epoch_fn: Callable[[Any, int], Any], state: Any, epochs: i
             state = epoch_fn(state, epoch)
             failures = 0  # progress resets the retry budget
             epoch += 1
-        except (KeyboardInterrupt, SystemExit, Preempted):
+        except (KeyboardInterrupt, SystemExit, Preempted, *passthrough):
             raise
         except Exception as train_err:
             failures += 1
