@@ -185,7 +185,29 @@ printing no result, where either is missing or any phase fails.
      route) to its plain version on the inputs the runs gave it; prints the
      detection time, ``elastic/remesh_latency_ms``, the readmit time and
      the step time at W = 4 and W = 3;
- 11. prints the kernels' JSON line (18 entries), the ``nvidia-smi``
+ 11. observability and the compression controller, one rank through
+     ``harness.dawn.main`` at full-width ResNet-9 (batch 512, fp32):
+     (a) simulate entire-model Top-K 1 % + EF with ``--adaptive
+     --adaptive_window 4 --adaptive_budget_ms 0.5 --adaptive_bw_mbps 100``
+     (one decision an epoch of 4 steps) over 5 epochs with ``--events
+     --prom --flight_dir --job_id smoke --heartbeat``: the rung goes
+     0->1->2->3->3 down the ladder 0.01 / 0.005 / 0.0025 / 0.00125, the
+     ``control_decision`` records are what the pure ``Controller`` gives
+     on the run's own billed bits, the mean ``comm/sent_bits`` falls with
+     each rung, the search and ``fused_sparsify`` are held bitwise to their
+     plain versions on the inputs of the first step at each rung's keep, and
+     the event, Prometheus and profile files parse with the port's readers;
+     (b) the same in wire mode over 3 epochs, ``select_pack`` held at each
+     rung; (c) layer-wise Top-K's steady step with ``--events --prom
+     --flight_dir`` off and on (alternated runs), and the host cost of one
+     ``phase()`` enter and exit with no profiler, times the enters a step;
+     (d) ``--profile_epoch 1``: the trace holds ``tcdp.grad/ef/compress/
+     reduce/return/update`` and the Top-K kernels lie inside
+     ``tcdp.compress``; (e) a ``--chaos`` NaN run that wedges the guard
+     leaves a valid bundle whose postmortem names ``nan`` on rank 0, and
+     ``harness/watchdog.py --check`` exits 0 on (a)'s heartbeat and 1 once
+     it is stale;
+ 12. prints the kernels' JSON line (18 entries), the ``nvidia-smi``
      name/power line and, last, ``{"ok": true, "device": {...}}``.
 
 ``--record FILE`` also writes the full record (every timing, the profiles)
@@ -4841,10 +4863,13 @@ def _elastic_kill_readmit(out_dir: str) -> dict:
 
     def under_watchdog(cmd):
         # the relaunch must see the survivors' commit: the heartbeat's age
-        # (12 s) outlasts their detection (at most 2 x the peer timeout)
+        # (12 s) outlasts their detection (at most 2 x the peer timeout);
+        # the grace (30 s) covers a launch's imports and CUDA start beside
+        # two other starting ranks (at 10 s a contended host's first
+        # heartbeat came late, and the watchdog killed every launch)
         return [sys.executable, "-m", "tpu_compressed_dp_torch.harness.watchdog", "--relaunch",
                 "--heartbeat", f"{hb}.rank2", "--elastic_dir", os.path.join(edir, "el"),
-                "--interval", "0.5", "--grace", "10", "--max_age", "12", "--backoff", "1",
+                "--interval", "0.5", "--grace", "30", "--max_age", "12", "--backoff", "1",
                 "--max_relaunches", "3", "--", *cmd]
 
     t0 = time.perf_counter()
@@ -5007,6 +5032,404 @@ def phase_elastic(kernels, compressors, torch, record):
              "elastic c": {"launches": c["launches"]}}, err)
 
 
+ADAPT_RUNGS = (0.01, 0.005, 0.0025, 0.00125)
+ADAPT_CAPTURE = ("topk_threshold", "fused_sparsify", "fused_select_pack")
+
+
+def adaptive_argv(gran: str, mode: str, epochs: int, n: int = 2048) -> list:
+    return ["--network", "resnet9", "--synthetic", "--synthetic_n", str(n), "--batch_size",
+            "512", "--epochs", str(epochs), "--compress", gran, "--method", "topk", "--ratio",
+            str(RATIO), "--error_feedback", "--mode", mode, "--device", "cuda", "--seed", "0",
+            "--log_dir", ""]
+
+
+def _adaptive_run(kernels, dawn, torch, argv: list) -> dict:
+    """One ``dawn.main`` run with the Top-K kernels' calls captured: the
+    inputs and outputs of the first call at each keep (the search's keep,
+    which the fused epilogue and select+pack then serve), and the launches
+    of each epoch."""
+    cap, cur, per_epoch = {}, {"keep": None}, []
+    orig = {name: getattr(kernels, name) for name in ADAPT_CAPTURE}
+
+    def wrap(name):
+        def call(*a, **kw):
+            out = orig[name](*a, **kw)
+            if name == "topk_threshold":
+                cur["keep"] = int(a[1])
+            key = (name, int(a[2]) if name == "fused_select_pack" else cur["keep"])
+            if key not in cap:
+                det = lambda x: x.detach().clone() if isinstance(x, torch.Tensor) else x  # noqa
+                cap[key] = {"args": [det(x) for x in a], "kw": dict(kw),
+                            "out": [det(x) for x in (out if isinstance(out, tuple) else (out,))]}
+            return out
+        return call
+
+    epoch_fn = dawn.train_epoch
+
+    def counted(*a, **kw):
+        before = dict(kernels.LAUNCHES)
+        out = epoch_fn(*a, **kw)
+        per_epoch.append({k: kernels.LAUNCHES[k] - before[k] for k in before})
+        return out
+
+    for name in ADAPT_CAPTURE:
+        setattr(kernels, name, wrap(name))
+    dawn.train_epoch = counted
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        summary = dawn.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in orig.items():
+            setattr(kernels, name, fn)
+        dawn.train_epoch = epoch_fn
+    return {"summary": summary, "launches": dict(kernels.LAUNCHES), "per_epoch": per_epoch,
+            "captured": cap, "wall_s": time.perf_counter() - t0}
+
+
+def _replay_decisions(epochs: list) -> list:
+    """The pure controller, with the runs' flags (window 4, budget 0.5 ms,
+    100 Mbit/s), on the epochs' own billed bits and applied counts: the
+    decision records the run must have written."""
+    from tpu_compressed_dp_torch.control import ControlConfig, Controller, init_control_state
+
+    cfg = ControlConfig(method="topk", rungs=ADAPT_RUNGS, window=4, budget_ms=0.5,
+                        bandwidth_mbps=100.0)
+    ctl, cs, out = Controller(cfg), init_control_state(cfg), []
+    for r in epochs:
+        cs, decs = ctl.tick(cs, applied=r["step"], signals=ctl.window_signals(
+            mean_bits=r["comm"]["comm/sent_bits"]))
+        out += [d.event_fields() for d in decs]
+    return out
+
+
+def hold_adaptive(kernels, torch, run: dict, label: str) -> dict:
+    """The kernels the run launched, held bitwise against their plain
+    versions on the inputs of the first call at each keep: the search (and
+    the run's own threshold), the fused epilogue's outputs, select+pack's."""
+    err = {"count_ge": 0.0, "count_edges": 0.0, "search_init": 0.0}
+    keeps = sorted({k for (name, k) in run["captured"] if name == "topk_threshold"},
+                   reverse=True)
+    for keep in keeps:
+        c = run["captured"][("topk_threshold", keep)]
+        mag = c["args"][0]
+        check_search(kernels, torch, mag, keep, f"{label} keep {keep}")
+        t_plain = kernels._topk_threshold_hist(mag, keep, count_fn=kernels.count_ge_edges_plain)
+        if not _bits_equal(torch, c["out"][0], t_plain):
+            raise AssertionError(f"{label} keep {keep}: the run's threshold "
+                                 f"{c['out'][0].item()} is not the plain search's "
+                                 f"{t_plain.item()}")
+        fs = run["captured"].get(("fused_sparsify", keep))
+        if fs is not None:
+            acc, t = fs["args"][:2]
+            want_ef = fs["kw"].get("want_ef", True)
+            got = [x for x in fs["out"]]
+            e = _hold(torch, tuple(got), kernels.fused_sparsify_plain(acc, t, want_ef),
+                      "fused_sparsify", f"{label} keep {keep}")
+            err["fused_sparsify"] = max(err.get("fused_sparsify", 0.0), e)
+        sp = run["captured"].get(("fused_select_pack", keep))
+        if sp is not None:
+            v, t, k = sp["args"]
+            e = _hold(torch, tuple(sp["out"]), kernels.fused_select_pack_plain(v, t, k),
+                      "select_pack", f"{label} keep {keep}")
+            err["select_pack"] = max(err.get("select_pack", 0.0), e)
+    log(f"{label}: held bitwise to the plain versions on the first inputs at the keeps "
+        f"{keeps}: the search, " + ", ".join(k for k in ("fused_sparsify", "select_pack")
+                                             if k in err))
+    return err, keeps
+
+
+def _adaptive_checks(run: dict, d: str, label: str, epochs: int, compressors) -> dict:
+    """(a)/(b)'s checks on the files the run wrote: the rung schedule, the
+    decisions against the pure controller, the billed bits falling rung by
+    rung, the Prometheus file and the flight profile."""
+    from tpu_compressed_dp_torch.obs import export, flight
+
+    ev = export.read_all_events(os.path.join(d, "smoke.ev.jsonl"))
+    recs = [r for r in ev if r["kind"] == "epoch"]
+    decs = [{k: v for k, v in r.items() if k not in ("v", "kind", "ts", "seg", "knob")}
+            for r in ev if r["kind"] == "control_decision"]
+    if len(recs) != epochs:
+        raise AssertionError(f"{label}: {len(recs)} epoch records, want {epochs}")
+    used = [0] + [int(r["control"]["control/rung"]) for r in recs[:-1]]
+    want_used = [0, 1, 2, 3, 3][:epochs]
+    if used != want_used:
+        raise AssertionError(f"{label}: rungs by epoch {used}, want {want_used}")
+    want = _replay_decisions(recs)
+    if decs != want:
+        raise AssertionError(f"{label}: the decision records are not the pure controller's "
+                             f"on the run's bits: {decs} vs {want}")
+    bits = [r["comm"]["comm/sent_bits"] for r in recs]
+    if any(b >= a for a, b in zip(bits[:min(4, epochs)], bits[1:min(4, epochs)])):
+        raise AssertionError(f"{label}: the billed bits do not fall with the rung: {bits}")
+    prom = {}
+    for ln in open(os.path.join(d, "smoke.m.prom")):
+        if ln.strip() and not ln.startswith("#"):
+            name, val = ln.rsplit(" ", 1)
+            prom[name.split("{")[0]] = float(val)
+    for key in ("tcdp_control_rung", "tcdp_comm_sent_bits", "tcdp_time_step_p95_ms",
+                "tcdp_straggler_skew_s", "tcdp_flight_records"):
+        if key not in prom:
+            raise AssertionError(f"{label}: {key} missing from the Prometheus file")
+    prof = flight.read_phase_profiles(os.path.join(d, "fl", "smoke"))
+    if list(prof) != [0] or prof[0]["steps"] < 1:
+        raise AssertionError(f"{label}: no phase profile in the flight dir: {prof}")
+    if flight.read_bundles(os.path.join(d, "fl", "smoke")):
+        raise AssertionError(f"{label}: a clean run left a blackbox bundle")
+    ms = [round(r["metrics"]["train time"] * 1e3 / r["metrics"]["steps"], 2) for r in recs]
+    return {"rungs": used, "bits": bits, "decisions": decs, "ms_per_step_by_epoch": ms,
+            "prom_rung": prom["tcdp_control_rung"]}
+
+
+def phase_adaptive(kernels, compressors, dawn, torch, record):
+    """Phase 11: the controller's rung switches through the Top-K kernels,
+    the telemetry's cost, the profiler ranges and the failure evidence."""
+    from tpu_compressed_dp_torch.harness import watchdog
+
+    card = record["card"]
+    out_dir = os.path.join(HERE, "build", "chip_smoke_adaptive")
+    shutil_rm(out_dir)
+    os.makedirs(out_dir)
+    t_phase = time.perf_counter()
+    err, runs, res = {}, {}, {}
+    ctl = ["--adaptive", "--adaptive_window", "4", "--adaptive_budget_ms", "0.5",
+           "--adaptive_bw_mbps", "100"]
+    for label, mode, epochs in (("11a", "simulate", 5), ("11b", "wire", 3)):
+        d = os.path.join(out_dir, label)
+        os.makedirs(d)
+        tel = ["--events", f"{d}/ev.jsonl", "--prom", f"{d}/m.prom", "--flight_dir",
+               f"{d}/fl", "--job_id", "smoke", "--heartbeat", f"{d}/hb.json"]
+        run = _adaptive_run(kernels, dawn, torch,
+                            adaptive_argv("entiremodel", mode, epochs) + ctl + tel)
+        res[label] = _adaptive_checks(run, d, label, epochs, compressors)
+        e, keeps = hold_adaptive(kernels, torch, run, label)
+        want_keeps = sorted({compressors.topk_keep_count(FULL_MODEL, r)
+                             for r in ADAPT_RUNGS[:min(epochs, 4)]}, reverse=True)
+        if keeps != want_keeps:
+            raise AssertionError(f"{label}: the searches ran at keeps {keeps}, want "
+                                 f"{want_keeps}")
+        for k, v in e.items():
+            err[k] = max(err.get(k, 0.0), v)
+        must = TOPK_KERNELS if mode == "simulate" else TOPK_KERNELS[:3] + ("select_pack",)
+        for k in must:
+            if run["launches"][k] < 1:
+                raise AssertionError(f"{label}: {k} never launched: {run['launches']}")
+        steps = run["summary"]["steps"]
+        res[label]["launches_per_step_by_rung"] = [
+            {k: v / steps for k, v in ep.items() if v} for ep in run["per_epoch"]]
+        res[label]["ms_per_step_last"] = run["summary"]["train time"] * 1e3 / steps
+        res[label]["wall_s"] = run["wall_s"]
+        runs[f"adaptive {mode}"] = {"launches": run["launches"]}
+        log(f"{label} {mode} Top-K em adaptive over {epochs} epochs: rungs by epoch "
+            f"{res[label]['rungs']}, sent bits by epoch {res[label]['bits']}, decisions == the "
+            f"pure controller's, ms/step by epoch {res[label]['ms_per_step_by_epoch']}, "
+            f"launches a step by epoch "
+            f"{res[label]['launches_per_step_by_rung']}, last epoch "
+            f"{res[label]['ms_per_step_last']:.2f} ms/step, run wall {run['wall_s']:.1f} s on "
+            f"{card}")
+        del run
+    # (c) the telemetry's cost on layer-wise Top-K's steady step: 8 runs in
+    # the orders off, on, on, off and on, off, off, on, each 3 epochs of 12
+    # steps with the last two timed.  In the on runs the host time inside
+    # the telemetry's own calls is read too: Telemetry.window (the epoch-end
+    # publish, which falls inside the next epoch's train time) and
+    # FlightRecorder.note_step (each step's ringed metrics)
+    res["11c"] = telemetry_cost(dawn, os.path.join(out_dir, "11c"), card)
+    # (d) --profile_epoch 1: the ranges, and the Top-K kernels inside compress
+    d = os.path.join(out_dir, "11d")
+    dawn.main(adaptive_argv("entiremodel", "simulate", 2) + ["--log_dir", d, "--profile_epoch",
+                                                             "1"])
+    trace = json.load(open(os.path.join(d, "profile", "trace.json")))
+    res["11d"] = profile_checks(trace)
+    log(f"11d --profile_epoch 1: tcdp ranges {res['11d']['ranges']}; Top-K kernels inside "
+        f"tcdp.compress: {res['11d']['inside']} of {res['11d']['topk_kernels']} "
+        f"({res['11d']['how']})")
+    # (e) the failure evidence
+    d = os.path.join(out_dir, "11e")
+    from tpu_compressed_dp_torch.train.guard import GuardExceeded
+
+    try:
+        dawn.main(adaptive_argv("entiremodel", "simulate", 1) + [
+            "--chaos", "nan,target=grads,every=1", "--guard_max_skips", "2", "--flight_dir",
+            f"{d}/fl"])
+        raise AssertionError("11e: the NaN run did not wedge the guard")
+    except GuardExceeded:
+        pass
+    import contextlib
+    import io
+
+    from tpu_compressed_dp_torch.harness import postmortem
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        pm_rc = postmortem.main([f"{d}/fl", "--json"])
+    verdict = json.loads(buf.getvalue())
+    if (pm_rc != 0 or verdict["verdict"]["kind"] != "nan" or verdict["verdict"]["rank"] != 0
+            or any(r["problems"] for r in verdict["ranks"].values())):
+        raise AssertionError(f"11e: postmortem {pm_rc} {buf.getvalue()[:600]}")
+    hb = os.path.join(out_dir, "11a", "smoke.hb.json")
+    rc_live = watchdog.main(["--check", "--heartbeat", hb, "--max_age", "600"])
+    payload = json.load(open(hb))
+    payload["ts"] -= 3600.0
+    with open(hb, "w") as f:
+        json.dump(payload, f)
+    rc_stale = watchdog.main(["--check", "--heartbeat", hb, "--max_age", "600"])
+    if (rc_live, rc_stale) != (0, 1):
+        raise AssertionError(f"11e: watchdog --check exit codes {rc_live} / {rc_stale}, want "
+                             "0 / 1")
+    res["11e"] = {"verdict": verdict["verdict"], "watchdog": [rc_live, rc_stale]}
+    log(f"11e: the wedged NaN run's bundle: {verdict['verdict']['kind']} rank "
+        f"{verdict['verdict']['rank']} step {verdict['verdict']['step']}; watchdog --check "
+        f"{rc_live} live, {rc_stale} stale")
+    wall = time.perf_counter() - t_phase
+    res["wall_s"] = wall
+    log(f"phase 11 took {wall:.1f} s on {card}")
+    record["adaptive"] = res
+    return runs, err
+
+
+TELEMETRY_ORDER = (False, True, True, False, True, False, False, True)
+
+
+def telemetry_cost(dawn, d: str, card: str) -> dict:
+    """Phase 11c: layer-wise Top-K ResNet-9's steady step with ``--events
+    --prom --flight_dir`` off and on (:data:`TELEMETRY_ORDER`, each run's
+    epochs 2-3 timed), the host time inside the telemetry's own calls in
+    the on runs, and ``phase()``'s cost with no profiler."""
+    from tpu_compressed_dp_torch.harness import loop as hloop
+    from tpu_compressed_dp_torch.obs import flight as obs_flight
+    from tpu_compressed_dp_torch.obs import trace as obs_trace
+
+    real = {"phase": obs_trace.phase, "chunk": obs_trace.chunk, "epoch": dawn.train_epoch,
+            "window": hloop.Telemetry.window, "note_step": obs_flight.FlightRecorder.note_step}
+    own = {"window": [0.0, 0], "note_step": [0.0, 0]}
+    counts = {"phase": 0, "steps": 0}
+
+    def counting(fn):
+        def call(*a):
+            counts["phase"] += 1
+            return fn(*a)
+        return call
+
+    def timed(name):
+        def call(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return real[name](*a, **kw)
+            finally:
+                own[name][0] += time.perf_counter() - t
+                own[name][1] += 1
+        return call
+
+    cost = {"off": [], "on": []}
+    for i, on in enumerate(TELEMETRY_ORDER):
+        epochs = []
+
+        def epoch(*a, **kw):
+            out = real["epoch"](*a, **kw)
+            epochs.append((out[1]["train time"], out[2].steps))
+            return out
+
+        argv = adaptive_argv("layerwise", "simulate", 3, n=6144)
+        if on:
+            argv += ["--events", f"{d}{i}/ev.jsonl", "--prom", f"{d}{i}/m.prom",
+                     "--flight_dir", f"{d}{i}/fl"]
+            hloop.Telemetry.window = timed("window")
+            obs_flight.FlightRecorder.note_step = timed("note_step")
+        if i == 0:
+            # an off run also counts the phase() enters (one wrapper call each)
+            obs_trace.phase, obs_trace.chunk = counting(real["phase"]), counting(real["chunk"])
+        dawn.train_epoch = epoch
+        try:
+            dawn.main(argv)
+        finally:
+            obs_trace.phase, obs_trace.chunk = real["phase"], real["chunk"]
+            dawn.train_epoch = real["epoch"]
+            hloop.Telemetry.window = real["window"]
+            obs_flight.FlightRecorder.note_step = real["note_step"]
+        if i == 0:
+            counts["steps"] = sum(n for _, n in epochs)
+        cost["on" if on else "off"].append(
+            sum(t for t, _ in epochs[1:]) * 1e3 / sum(n for _, n in epochs[1:]))
+    enters = counts["phase"] / max(counts["steps"], 1)
+    ctx = obs_trace.phase("compress")
+    n_t = 200_000
+    t0 = time.perf_counter()
+    for _ in range(n_t):
+        with obs_trace.phase("compress"):
+            pass
+    us = (time.perf_counter() - t0) / n_t * 1e6
+    ms = {"off": iter(cost["off"]), "on": iter(cost["on"])}
+    runs = [next(ms["on" if on else "off"]) for on in TELEMETRY_ORDER]
+    pairs = [runs[j + 1] - runs[j] if TELEMETRY_ORDER[j + 1] else runs[j] - runs[j + 1]
+             for j in range(0, len(runs), 2)]
+    window_ms = own["window"][0] * 1e3 / max(own["window"][1], 1)
+    note_us = own["note_step"][0] * 1e6 / max(own["note_step"][1], 1)
+    # a timed span of 24 steps holds the two epoch-end windows before it
+    own_ms = 2 * window_ms / 24 + note_us / 1e3
+    mean = {k: sum(v) / len(v) for k, v in cost.items()}
+    out = {"order": ["on" if on else "off" for on in TELEMETRY_ORDER], "ms_by_run": runs,
+           "steady_ms_off": cost["off"], "steady_ms_on": cost["on"], "mean_ms": mean,
+           "on_minus_off_by_pair": pairs, "window_ms": window_ms, "windows": own["window"][1],
+           "note_step_us": note_us, "note_steps": own["note_step"][1],
+           "telemetry_own_ms_per_step": own_ms, "phase_enters_per_step": enters,
+           "phase_us": us, "phase_us_per_step": us * enters,
+           "shared_noop": ctx is obs_trace.phase("x")}
+    log(f"11c layer-wise Top-K steady step (epochs 2-3, 24 steps a run), runs "
+        f"{' / '.join(f'{o} {m:.2f}' for o, m in zip(out['order'], runs))} ms; mean off "
+        f"{mean['off']:.2f}, on (--events --prom --flight_dir) {mean['on']:.2f} ms; on - off by "
+        f"pair {', '.join(f'{p:+.2f}' for p in pairs)} ms; the telemetry's own host time in the "
+        f"on runs: Telemetry.window {window_ms:.2f} ms a call ({own['window'][1]} calls), "
+        f"FlightRecorder.note_step {note_us:.2f} us a call ({own['note_step'][1]} calls) = "
+        f"{own_ms:.3f} ms a timed step; phase() with no profiler {us:.3f} us an enter+exit x "
+        f"{enters:.1f} enters a step = {us * enters:.1f} us a step on {card}")
+    return out
+
+
+def profile_checks(trace: dict) -> dict:
+    """The ``tcdp.*`` ranges of a Chrome trace, and whether the Top-K
+    kernels' launches lie inside ``tcdp.compress``: each kernel's runtime
+    launch (by correlation id) inside a host ``tcdp.compress`` range on its
+    thread, or the kernel inside a ``tcdp.compress`` range on the GPU."""
+    evs = trace["traceEvents"]
+    ranges = sorted({e["name"] for e in evs if str(e.get("name", "")).startswith("tcdp.")})
+    need = {"tcdp.grad", "tcdp.ef", "tcdp.compress", "tcdp.reduce", "tcdp.return",
+            "tcdp.update"}
+    if not need <= set(ranges):
+        raise AssertionError(f"11d: the trace lacks {sorted(need - set(ranges))}")
+    comp = [e for e in evs if e.get("name") == "tcdp.compress" and e.get("ph") == "X"]
+    host = [e for e in comp if e.get("cat") != "gpu_user_annotation"]
+    gpu = [e for e in comp if e.get("cat") == "gpu_user_annotation"]
+    kern = [e for e in evs if e.get("cat") == "kernel" and (
+        "count_ge_edges_kernel" in e["name"] or "fused_sparsify" in e["name"]
+        or "search_init_kernel" in e["name"])]
+    launch = {e.get("args", {}).get("correlation"): e for e in evs
+              if e.get("cat") == "cuda_runtime" and "Launch" in e.get("name", "")}
+
+    def inside(t, tid, spans):
+        return any(s["ts"] <= t <= s["ts"] + s["dur"] and (tid is None or s["tid"] == tid)
+                   for s in spans)
+
+    n_in, how = 0, set()
+    for k in kern:
+        rt = launch.get(k.get("args", {}).get("correlation"))
+        if rt is not None and inside(rt["ts"], rt["tid"], host):
+            n_in, _ = n_in + 1, how.add("host launch")
+        elif inside(k["ts"], None, gpu):
+            n_in, _ = n_in + 1, how.add("gpu range")
+    if not kern or n_in != len(kern):
+        raise AssertionError(f"11d: {n_in} of {len(kern)} Top-K kernels inside tcdp.compress")
+    return {"ranges": ranges, "topk_kernels": len(kern), "inside": n_in,
+            "how": sorted(how)}
+
+
+def shutil_rm(path: str) -> None:
+    import shutil
+
+    shutil.rmtree(path, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -5113,6 +5536,9 @@ def main(argv=None) -> int:
     elastic_runs, e_err = phase_elastic(kernels, compressors, torch, record)
     for name, e in e_err.items():
         err[name] = max(err[name], e)
+    adaptive_runs, a_err = phase_adaptive(kernels, compressors, dawn, torch, record)
+    for name, e in a_err.items():
+        err[name] = max(err[name], e)
 
     replaces = {"count_ge": "tpu_compressed_dp/ops/kernels.py:173",
                 "count_edges": "tpu_compressed_dp/ops/kernels.py:206",
@@ -5155,8 +5581,9 @@ def main(argv=None) -> int:
         # the main paths' launches: phase 3's and 3b's dawn runs, the LM runs
         # of phases 7, 7c (7c's ranks summed) and 7d, the segmented-path runs,
         # phase 8's ImageNet runs, the multi-rank dawn runs and phase 9's
-        # guarded runs (9a-9d's ranks summed, 9e's LM, 9f) and phase 10's
+        # guarded runs (9a-9d's ranks summed, 9e's LM, 9f), phase 10's
         # elastic runs (each world's ranks summed, the readmitted rank's too)
+        # and phase 11's adaptive runs
         launches = (sum(run["launches"][name] for run in runs.values())
                     + sum(run["launches"][name] for run in cifar_runs.values())
                     + sum(run["launches"][name] for run in imagenet_runs.values())
@@ -5165,7 +5592,8 @@ def main(argv=None) -> int:
                     + sum(w["launches"].get(name, 0) for w in worlds.values())
                     + sum(run["launches"].get(name, 0) for run in axes_runs.values())
                     + sum(run["launches"].get(name, 0) for run in robust_runs.values())
-                    + sum(run["launches"].get(name, 0) for run in elastic_runs.values()))
+                    + sum(run["launches"].get(name, 0) for run in elastic_runs.values())
+                    + sum(run["launches"].get(name, 0) for run in adaptive_runs.values()))
         entry = {
             "name": name, "route": "cuda", "source": source[name],
             "replaces": replaces[name], "launches": launches,

@@ -10,6 +10,8 @@ ported yet.  (The step-by-step parity of the slice against the JAX package
 is in ``tests/test_torch_resnet9_step.py``.)
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -111,16 +113,32 @@ def test_dawn_deferred_protocol_flags_raise(flag):
 # were cases here until they were ported (the drives below,
 # tests/test_torch_overlap.py); flags that still raise took their places
 # the elastic flags (item 12) were cases here until they were ported
-# (test_dawn_elastic_* below); flags that still raise took their places
-@pytest.mark.parametrize("argv", [["--events", "e.jsonl"], ["--flight_dir", "f"],
+# (test_dawn_elastic_* below); flags that still raise took their places, and
+# the telemetry flags (item 13) moved to test_dawn_item13_flags_work
+_DAWN_TINY = ["--device", "cpu", "--synthetic", "--synthetic_n", "64", "--batch_size", "32",
+              "--epochs", "1", "--channels_scale", "0.125"]
+
+
+@pytest.mark.parametrize("argv", [["--stream_keyframe_every", "4"], ["--twin_records", "r"],
                                   ["--stream_every", "2"],
-                                  ["--stream_dir", "s"], ["--job_id", "j0"]])
+                                  ["--stream_dir", "s"], ["--adaptive_model", "twin"]])
 def test_dawn_unported_flags_raise(argv):
     from tpu_compressed_dp_torch.harness import dawn
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item"):
-        dawn.main(argv + ["--device", "cpu", "--synthetic", "--synthetic_n", "64",
-                          "--batch_size", "32", "--epochs", "1", "--channels_scale", "0.125"])
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 14"):
+        dawn.main(argv + _DAWN_TINY)
+
+
+@pytest.mark.parametrize("flag", ["--events", "--flight_dir", "--job_id"])
+def test_dawn_item13_flags_work(flag, tmp_path):
+    from tpu_compressed_dp_torch.harness import dawn
+
+    d = str(tmp_path)
+    argv, want = {"--events": (["--events", f"{d}/e.jsonl"], "e.jsonl"),
+                  "--flight_dir": (["--flight_dir", f"{d}/f"], "f/flight.rank0.phases.json"),
+                  "--job_id": (["--job_id", "j0", "--prom", f"{d}/m.prom"], "j0.m.prom")}[flag]
+    dawn.main(argv + _DAWN_TINY + ["--log_dir", ""])
+    assert os.path.exists(os.path.join(d, want))
 
 
 def _wire_billed(method: str, gran: str, bucket_mb: float, ratio: float, cap: float):

@@ -101,11 +101,15 @@ def test_synthetic_hard_bitwise():
             np.testing.assert_array_equal(a, b)
 
 
-def test_job_id_is_item_13_in_both_harnesses():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tdawn.parse_args(["--job_id", "j0"])
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tlm.main(["--job_id", "j0", "--device", "cpu"])
+def test_job_id_is_item_13_in_both_harnesses(tmp_path):
+    """``--job_id`` (item 13, ported) parses in both harnesses as in JAX's,
+    and scopes the telemetry files' names: ``dir/<job>.file``."""
+    assert tdawn.parse_args(["--job_id", "j0"]).job_id == "j0"
+    assert jdawn.build_parser().parse_args(["--job_id", "j0"]).job_id == "j0"
+    d = str(tmp_path)
+    tlm.main(["--job_id", "j0", "--device", "cpu", "--steps", "1", "--log_every", "1",
+              "--seq_len", "32", "--global_batch", "2", "--fp32", "--events", d + "/ev.jsonl"])
+    assert os.path.exists(os.path.join(d, "j0.ev.jsonl"))
 
 
 def test_ratio_warmup_rebuilds_the_sync():

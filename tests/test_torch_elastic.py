@@ -490,9 +490,13 @@ def test_metrics_keys_match_jax(tmp_path, mesh8):
     trt, _, _ = _port_runtime(tmp_path)
     assert set(trt.metrics()) == set(_jax_runtime(mesh8).metrics())
     assert all(v == 0.0 for v in trt.metrics().values())
-    for hook in ("events", "flight", "stream"):
-        with pytest.raises(NotImplementedError, match="items 13-14"):
-            te.ElasticRuntime(te.ElasticConfig(), ranks=(0,), **{hook: object()})
+    # the telemetry hooks are ported (item 13); the delta stream is item 14
+    for hook in ("events", "flight"):
+        rt = te.ElasticRuntime(te.ElasticConfig(), ranks=(0,), **{hook: object()})
+        assert getattr(rt, hook) is not None
+        rt.close()
+    with pytest.raises(NotImplementedError, match="item 14"):
+        te.ElasticRuntime(te.ElasticConfig(), ranks=(0,), stream=object())
 
 
 def test_readmission_agrees_joins_and_zeroes_joiner_ef(tmp_path):
@@ -526,10 +530,12 @@ def test_readmission_agrees_joins_and_zeroes_joiner_ef(tmp_path):
 
 
 def test_watchdog_relaunch_loop_matches_jax(tmp_path):
-    """The port's ``supervise`` and the JAX one (without its preempt path,
-    which the port's CLI does not carry) on one scripted child and check
-    sequence: the same spawns, kills, sleeps and verdict.  The check is the
-    heartbeat's staleness alone, and the CLI is the relaunch loop's."""
+    """The port's ``supervise`` and the JAX one, preempt path and storm
+    guard included, on one scripted child and check sequence: the same
+    spawns, kills, sleeps and verdict.  Then the ``--check`` verdicts on
+    the same heartbeat files (staleness here; the telemetry thresholds in
+    ``tests/test_torch_obs_harness.py::test_watchdog_check_exit_codes_match_jax``)
+    and the CLI's refusals."""
     import importlib.util
     import os
 
@@ -568,11 +574,14 @@ def test_watchdog_relaunch_loop_matches_jax(tmp_path):
                            max_checks=8, **extra)
         return rc, log
 
-    for checks, children in (([0, 1, 1, 1], [[None] * 9, [None] * 9, [None] * 9, [None] * 9]),
-                             ([1, 0, 0], [[None, None, None, -9], [None] * 4 + [0]]),
-                             ([], [[None, 75], [None] * 3 + [0]])):
-        assert drive(tw, checks, children) == drive(jw, checks, children,
-                                                    preempt_exit_code=None)
+    storm = [[None, 75]] * 4 + [[None] * 9] * 4
+    for checks, children, extra in (
+            ([0, 1, 1, 1], [[None] * 9] * 4, {}),
+            ([1, 0, 0], [[None, None, None, -9], [None] * 4 + [0]], {}),
+            ([], [[None, 75], [None] * 3 + [0]], {"preempt_exit_code": None}),
+            ([], [[None, 75], [None] * 3 + [0]], {}),
+            ([0, 0], storm, {"max_preempts": 2, "preempt_window_s": 600.0})):
+        assert drive(tw, checks, children, **extra) == drive(jw, checks, children, **extra)
     hb = tmp_path / "hb.json"
     args = argparse.Namespace(heartbeat=str(hb), max_age=60.0)
     assert tw.run_check(args) == 2
@@ -580,8 +589,7 @@ def test_watchdog_relaunch_loop_matches_jax(tmp_path):
     assert tw.run_check(args) == 0
     hb.write_text(json.dumps({"ts": time.time() - 61.0, "step": 3}))
     assert tw.run_check(args) == 1
-    for flag in (["--check"], ["--relaunch", "--max_preempts", "2"],
-                 ["--relaunch", "--min_step_rate", "0.1"]):
+    for flag in (["--check"], ["--check", "--relaunch"], ["--max_stream_lag", "5"]):
         with pytest.raises(SystemExit):
             tw.main([*flag, "--heartbeat", str(hb), "--", "true"])
 

@@ -16,8 +16,12 @@
     alike, so the two bf16 runs end 14 % apart; the bf16 forward is held in
     ``tests/test_torch_resnet.py``;
   * flags this slice does not carry raise ``NotImplementedError`` naming
-    their ROADMAP item; ``--method`` without ``--compress`` is refused.
+    their ROADMAP item; ``--method`` without ``--compress`` is refused;
+  * ``FileLogger`` and ``AverageMeter`` are JAX's, and ``--logdir`` gets
+    JAX's ``~~epoch`` line in ``event.log``.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -74,16 +78,79 @@ def test_first_epoch_matches_jax_harness(monkeypatch):
     assert np.isfinite(got["test loss"])
 
 
-# the elastic flags (item 12) were cases here until they were ported
-# (test_elastic_* below); flags that still raise took their places
+# the elastic flags (item 12) and the telemetry and control flags (item 13)
+# were cases here until they were ported (test_elastic_* and
+# test_item13_flags_work); the flags that still raise are item 14's
 @pytest.mark.parametrize("argv,item", [
-    (["--flight_dir", "f"], 13), (["--tensorboard", "tb"], 13),
-    (["--stream_every", "2"], 14),
-    (["--twin_records", "r"], 13), (["--events", "ev.jsonl"], 13), (["--adaptive"], 13),
-    (["--profile_epoch", "1"], 13), (["--stream_dir", "s"], 14)])
+    (["--stream_every", "2"], 14), (["--twin_records", "r"], 14),
+    (["--adaptive", "--adaptive_model", "twin"], 14), (["--stream_dir", "s"], 14),
+    (["--stream_rejoin"], 14), (["--stream_keyframe_every", "4"], 14)])
 def test_unported_flags_raise(argv, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, item {item}"):
         tharness.main(FLAGS + argv + ["--device", "cpu"])
+
+
+@pytest.mark.parametrize("flag", ["--flight_dir", "--tensorboard", "--events", "--adaptive",
+                                  "--profile_epoch"])
+def test_item13_flags_work(flag, tmp_path):
+    """Each flag that raised before item 13 now runs one synthetic epoch and
+    leaves its output: the flight profile, TensorBoard's scalars, the event
+    stream, the controller's columns, the profiler trace."""
+    d = str(tmp_path)
+    argv = {"--flight_dir": ["--flight_dir", d + "/fl"],
+            "--tensorboard": ["--tensorboard", "--logdir", d],
+            "--events": ["--events", d + "/ev.jsonl"],
+            "--adaptive": ["--adaptive", "--adaptive_window", "1",
+                           "--adaptive_budget_ms", "1e-6"],
+            "--profile_epoch": ["--profile_epoch", "0", "--logdir", d]}[flag]
+    got = tharness.main(FLAGS + ["--phases", ONE_EPOCH, "--synthetic_n", "64", "--device",
+                                 "cpu", *argv])
+    want = {"--flight_dir": "fl/flight.rank0.phases.json", "--tensorboard": "tb/scalars.json",
+            "--events": "ev.jsonl", "--profile_epoch": "profile/trace.json"}
+    if flag == "--adaptive":
+        # one window of one epoch, far over budget: rung 0 -> 1
+        assert (got["rung"], got["ratio"]) == (1.0, 0.25)
+    else:
+        assert os.path.exists(os.path.join(d, want[flag])), flag
+
+
+def test_file_logger_and_average_meter_match_jax(tmp_path, capsys):
+    """``FileLogger`` writes JAX's files for the same messages (the debug
+    log's timestamps aside) and writes none off the master rank;
+    ``AverageMeter`` holds JAX's values bitwise over one update sequence.
+    The harness then writes JAX's ``~~epoch`` line to ``event.log``."""
+    from tpu_compressed_dp.utils import loggers as jl
+
+    from tpu_compressed_dp_torch.utils import loggers as tl
+
+    for mod, d in ((jl, tmp_path / "jax"), (tl, tmp_path / "port")):
+        flog = mod.FileLogger(str(d), rank=0, is_master=True)
+        flog.debug("d")
+        flog.info("i")
+        flog.event("~~0\t0.00001\t\t12.500\t\t50.000\n")
+        mod.FileLogger(str(d / "r1"), rank=1, is_master=False).info("quiet")
+        assert not (d / "r1").exists()
+        for h in flog.logger.handlers:
+            h.close()
+    for name in ("verbose.log", "event.log"):
+        assert (tmp_path / "port" / name).read_bytes() == (tmp_path / "jax" / name).read_bytes()
+    strip = lambda p: [ln.split(" ", 2)[2] for ln in p.read_text().splitlines() if ln]  # noqa
+    assert strip(tmp_path / "port" / "debug.log") == strip(tmp_path / "jax" / "debug.log")
+    out = capsys.readouterr().out
+    assert out.count("0: i\n") == 2 and out.count("1: quiet\n") == 2
+    rng = np.random.default_rng(0)
+    jm, tm = jl.AverageMeter(), tl.AverageMeter()
+    for v, n in zip(rng.standard_normal(20).tolist(), rng.integers(1, 5, 20).tolist()):
+        jm.update(v, n)
+        tm.update(v, n)
+        assert vars(tm) == vars(jm)
+    d = tmp_path / "run"
+    got = tharness.main(FLAGS + ["--phases", ONE_EPOCH, "--synthetic_n", "64", "--device", "cpu",
+                                 "--logdir", str(d)])
+    (line,) = (d / "event.log").read_text().splitlines()[:1]
+    ep, hours, _, top1, _, top5 = line.split("\t")
+    assert ep == "~~0" and 0.0 < float(hours) < 1.0
+    assert (top1, top5) == (f"{got['top1']:.3f}", f"{got['top5']:.3f}")
 
 
 def test_refusals():

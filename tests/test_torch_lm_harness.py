@@ -123,14 +123,13 @@ def test_parser_surface_matches_jax():
         assert tflags[dest] == default, dest
 
 
-# the elastic flags (item 12) were cases here until they were ported
-# (test_elastic_lm_* below); flags that still raise took their places
+# the elastic flags (item 12) and the telemetry and control flags (item 13)
+# were cases here until they were ported (test_elastic_lm_* and
+# test_item13_flags_work); the flags that still raise are item 14's
 _UNPORTED = [
     (["--stream_every", "2"], 14), (["--stream_keyframe_every", "4"], 14),
-    (["--stream_ratio", "0.1"], 14), (["--adaptive_deadband", "0.5"], 13),
-    (["--adaptive_rungs", "a"], 13), (["--job_id", "j1"], 13), (["--flight_dir", "f"], 13),
-    (["--stream_dir", "s"], 14), (["--stream_rejoin"], 14), (["--adaptive"], 13),
-    (["--adaptive_window", "4"], 13), (["--events", "e.jsonl"], 13), (["--prom", "m.prom"], 13),
+    (["--stream_ratio", "0.1"], 14), (["--stream_dir", "s"], 14), (["--stream_rejoin"], 14),
+    (["--twin_records", "r"], 14), (["--adaptive_model", "twin"], 14),
 ]
 
 
@@ -138,6 +137,43 @@ _UNPORTED = [
 def test_unported_flags_raise(argv, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         tharness.main(["--device", "cpu", "--steps", "1", *argv])
+
+
+_ITEM13 = ["--adaptive_deadband", "--adaptive_rungs", "--job_id", "--flight_dir", "--adaptive",
+           "--adaptive_window", "--events", "--prom"]
+
+
+@pytest.mark.parametrize("flag", _ITEM13)
+def test_item13_flags_work(flag, tmp_path):
+    """Each flag that raised before item 13 now drives a 4-step tiny run and
+    shows its effect: the controller's rung and ratio columns (the deadband,
+    rungs and window flags on top of ``--adaptive``), the job-scoped event
+    file, the flight profile, the event stream, the Prometheus file."""
+    d = str(tmp_path)
+    adaptive = ["--compress", "entiremodel", "--method", "topk", "--ratio", "0.05",
+                "--error_feedback", "--adaptive", "--adaptive_budget_ms", "1e-6"]
+    argv = {"--adaptive_deadband": [*adaptive, "--adaptive_deadband", "0.5"],
+            "--adaptive_rungs": [*adaptive, "--adaptive_rungs", "0.05,0.02",
+                                 "--adaptive_window", "2"],
+            "--job_id": ["--job_id", "j1", "--events", d + "/e.jsonl"],
+            "--flight_dir": ["--flight_dir", d + "/f"],
+            "--adaptive": adaptive,
+            "--adaptive_window": [*adaptive, "--adaptive_window", "4"],
+            "--events": ["--events", d + "/e.jsonl"],
+            "--prom": ["--prom", d + "/m.prom"]}[flag]
+    got = tharness.main(["--device", "cpu", "--preset", "tiny", "--steps", "4", "--log_every",
+                         "2", "--seq_len", "32", "--global_batch", "2", "--fp32", *argv])
+    if flag.startswith("--adaptive"):
+        # far over budget, so each closed window steps one rung down: the
+        # default window of 8 updates never closes in 4 steps, a window of
+        # 4 closes once, one of 2 twice (on a ladder of two rungs)
+        want = {"--adaptive_window": (1.0, 0.025), "--adaptive_rungs": (1.0, 0.02)}.get(
+            flag, (0.0, 0.05))
+        assert (got["rung"], got["ratio"]) == want, (flag, got)
+    else:
+        want = {"--job_id": "j1.e.jsonl", "--flight_dir": "f/flight.rank0.phases.json",
+                "--events": "e.jsonl", "--prom": "m.prom"}[flag]
+        assert os.path.exists(os.path.join(d, want)), flag
 
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -312,10 +312,11 @@ def test_chaos_drill_lists_its_rows(capsys):
     assert chaos_drill.main(["--list"]) == 0
     assert capsys.readouterr().out.split() == [
         "quick:", *chaos_drill.QUICK, "full:", "comp_hold", "ef_identity", "poison_control",
-        "elastic:", "elastic_gossip", "elastic_remesh", "elastic_readmit", "elastic_cascade",
+        "control_resume", "forensics", "elastic:", "elastic_gossip", "elastic_remesh", "elastic_readmit", "elastic_cascade",
         *[f"elastic[{p},w{w},s{s}]" for p in ("fold", "drop") for w in (0, 3) for s in (0, 3)],
         "elastic[sharded-wire]"]
-    # the elastic rows are ported (tests/test_torch_elastic.py runs them); the
-    # stream, control and fleet rows are not
+    # the elastic rows are ported (tests/test_torch_elastic.py runs them), and
+    # the control and forensics rows (tests/test_torch_obs_harness.py); the
+    # stream and fleet rows are not
     with pytest.raises(SystemExit):
         chaos_drill.main(["--drill", "fleet"])

@@ -2,7 +2,7 @@
 checkpoints' and the elastic runtime's invariants end to end, on the port.
 
 PyTorch-port counterpart of the rows of ``tools/chaos_drill.py`` that need
-none of the stream, control or fleet layers.  Each row drives the port's
+none of the stream or fleet layers.  Each row drives the port's
 guarded ResNet-9 step (channels_scale 0.125, a batch of 8 a worker, Top-K +
 EF unless the row says otherwise).  The guard and checkpoint rows run in
 this process's world: alone it is one worker; under ``torchrun`` every rank
@@ -31,7 +31,24 @@ Full rows (the default): the quick rows and ``comp_hold`` (PowerSGD's warm
 starts held bitwise on the vetoed step, moved on good ones),
 ``ef_identity`` (on a guarded good sync the workers' mean of what they
 sent, ``acc - new_ef``, is the synced gradient) and ``poison_control``
-(the same injection with the guard off makes the parameters nonfinite).
+(the same injection with the guard off makes the parameters nonfinite),
+and the observability and control rows:
+
+  * ``control_resume``: a preemption one update into a decision window
+    (window 3, preempt at step 4) of the adaptive controller (rungs 0.5 /
+    0.25 / 0.125, 1e6 modeled bits an update against a 0.5 ms budget);
+    the relaunch restores the open window from the checkpoint, and the rung
+    schedule (down, down, hold), the state and the ``control_decision``
+    records before and after the cut are bitwise the uninterrupted run's;
+  * ``forensics``: four simulated ranks share a flight dir per case — nan
+    (a NaN on every step of the last worker wedges the guard), dead_peer (a
+    ``mid_collective`` kill of worker 2; the survivors' bundles come from
+    ``ElasticRuntime.handle_failure`` over the file rendezvous, with the
+    group re-init and broadcast stubbed), preempt (a real SIGTERM on rank
+    0, the survivors likewise) and corruption (a flipped checkpoint byte):
+    each leaves valid bundles whose ``harness/postmortem.py`` verdict names
+    the injected rank and kind; a clean run leaves none, and the recorder
+    (host floats only) leaves the trajectory bitwise unchanged.
 
 Elastic rows (``--elastic``; ``train/elastic.py``): each spawns its own
 world of ``W = 4`` gloo processes of this module, since a remesh takes a
@@ -103,7 +120,7 @@ __all__ = ["QUICK", "FULL", "ELASTIC", "run_drills", "run_elastic_drills", "expa
 
 QUICK = ["skip_consistency", "loss_scale", "max_skips", "crash_recovery", "ckpt_preempt",
          "ckpt_corrupt"]
-FULL = QUICK + ["comp_hold", "ef_identity", "poison_control"]
+FULL = QUICK + ["comp_hold", "ef_identity", "poison_control", "control_resume", "forensics"]
 ELASTIC = ["elastic_gossip", "elastic_remesh", "elastic_readmit", "elastic_cascade",
            "elastic_matrix"]
 #: the JAX runtime's ``metrics()`` keys
@@ -125,17 +142,29 @@ class _Env:
 
 
 def _setup(env: _Env, comp: CompressionConfig, guard: Optional[GuardConfig],
-           chaos: Optional[ChaosConfig], momentum: float = 0.9):
-    """The scaled ResNet-9, SGD and the guarded step on ``env``'s device."""
+           chaos: Optional[ChaosConfig], momentum: float = 0.9, control=None,
+           with_factory: bool = False):
+    """The scaled ResNet-9, SGD and the guarded step on ``env``'s device
+    (``control``: a ``ControlConfig`` for the state's controller slot;
+    ``with_factory`` adds the ``step_for(comp)`` that builds the step of
+    another compression config)."""
+    from tpu_compressed_dp_torch.control import init_control_state
+
     model = r9.ResNet9(channels=r9.scaled_channels(0.125), seed=0, device=env.device)
     params = param_leaves(model)
     opt = SGD(lr=0.05, momentum=momentum, nesterov=momentum > 0)
     state = TrainState.create(model, opt.init(params), init_ef_state(params, comp), seed=1,
                               comp=init_comp_state(params, comp),
-                              guard=init_guard_state(guard))
-    step = make_train_step(make_normalizing_apply_fn([125.0] * 3, [64.0] * 3), opt, comp,
-                           grad_scale=8.0, guard_cfg=guard, chaos=chaos)
-    return state, step
+                              guard=init_guard_state(guard),
+                              control=init_control_state(control))
+
+    def step_for(c: CompressionConfig):
+        return make_train_step(make_normalizing_apply_fn([125.0] * 3, [64.0] * 3), opt, c,
+                               grad_scale=8.0, guard_cfg=guard, chaos=chaos)
+
+    if with_factory:
+        return state, step_for(comp), step_for
+    return state, step_for(comp)
 
 
 def _batch(env: _Env, seed: int = 0) -> Dict[str, torch.Tensor]:
@@ -389,6 +418,254 @@ def drill_ckpt_corrupt(env: _Env, *, n_steps: int = 4) -> Dict:
         if env.world > 1:
             dist.barrier()
     return {"rollback_steps": 1, "restored_step": n_steps - 1}
+
+
+class _Recorder:
+    """An event-stream stand-in that keeps ``(kind, fields)`` in order."""
+
+    def __init__(self):
+        self.events: List = []
+
+    def emit(self, kind: str, **fields) -> None:
+        self.events.append((kind, fields))
+
+    def decisions(self) -> List:
+        return [(k, f) for k, f in self.events if k == "control_decision"]
+
+
+def drill_control_resume(env: _Env, *, preempt_at_step: int = 4, n_steps: int = 9) -> Dict:
+    from tpu_compressed_dp_torch.control import ControlConfig, Controller, comp_for_rung
+
+    base = CompressionConfig(method="topk", ratio=0.5, error_feedback=True)
+    # window 3, preempt at 4: the cut lands one update INTO a window; the
+    # modeled comm (1e6 bits at 100 Mbit/s = 10 ms an update) is far past
+    # the pinned 0.5 ms budget, so the schedule is down, down, hold
+    ctrl_cfg = ControlConfig(method="topk", rungs=(0.5, 0.25, 0.125), window=3,
+                             budget_ms=0.5)
+    gcfg = GuardConfig(loss_scaling=False)
+    batches = [_batch(env, s) for s in range(n_steps)]
+
+    def span(state, step_for, controller, i0, i1):
+        cache = {}
+        for i in range(i0, i1):
+            rung = int(state.control.rung)
+            if rung not in cache:
+                cache[rung] = step_for(comp_for_rung(base, ctrl_cfg, rung))
+            state, _ = cache[rung](state, batches[i])
+            new_control, _ = controller.tick(
+                state.control, applied=state.step,
+                signals=controller.window_signals(mean_bits=1e6))
+            state = dataclasses.replace(state, control=new_control)
+        return state
+
+    rec_clean = _Recorder()
+    clean, _, sf = _setup(env, base, gcfg, None, control=ctrl_cfg, with_factory=True)
+    clean = span(clean, sf, Controller(ctrl_cfg, events=rec_clean), 0, n_steps)
+    with tempfile.TemporaryDirectory() as td:
+        d = _shared_dir(env, td)
+        # first life: preempted mid-window, the emergency save
+        rec_a = _Recorder()
+        s1, _, sf1 = _setup(env, base, gcfg, None, control=ctrl_cfg, with_factory=True)
+        s1 = span(s1, sf1, Controller(ctrl_cfg, events=rec_a), 0, preempt_at_step)
+        ckpt = Checkpointer(d)
+        ckpt.save(s1, {"step_i": preempt_at_step, "emergency": True})
+        ckpt.close()
+        # the relaunch: a fresh state restored, the run finished
+        rec_b = _Recorder()
+        s2, _, sf2 = _setup(env, base, gcfg, None, control=ctrl_cfg, with_factory=True)
+        restorer = Checkpointer(d)
+        s2, meta = restorer.restore(s2)
+        restorer.close()
+        if env.world > 1:
+            dist.barrier()
+    assert int(meta["step_i"]) == preempt_at_step, meta
+    # the open window's accumulation rode the checkpoint
+    assert int(s2.control.win_updates) == preempt_at_step % ctrl_cfg.window, s2.control
+    s2 = span(s2, sf2, Controller(ctrl_cfg, events=rec_b), preempt_at_step, n_steps)
+    _assert_bitwise(_snap(clean), _snap(s2), "control_resume state")
+    assert clean.step == s2.step == n_steps and clean.control == s2.control
+    # the decision stream: before + after the cut == the uninterrupted run's
+    assert rec_a.decisions() + rec_b.decisions() == rec_clean.decisions(), (
+        rec_a.decisions() + rec_b.decisions(), rec_clean.decisions())
+    rungs = [f["rung_to"] for _, f in rec_clean.decisions()]
+    dirs = [f["direction"] for _, f in rec_clean.decisions()]
+    assert rungs == [1, 2, 2] and dirs == ["down", "down", "hold"], (rungs, dirs)
+    return {"decisions": len(rungs), "rungs": rungs, "resumed_mid_window": True}
+
+
+def drill_forensics(env: _Env) -> Dict:
+    from tpu_compressed_dp_torch.harness.postmortem import classify, merge_timeline
+    from tpu_compressed_dp_torch.obs.flight import (FlightRecorder, read_bundles,
+                                                    validate_bundle)
+    from tpu_compressed_dp_torch.train.elastic import ElasticConfig, ElasticRuntime, PeerFailed
+    from tpu_compressed_dp_torch.train.rendezvous import Rendezvous
+    from tpu_compressed_dp_torch.utils.checkpoint import CheckpointCorrupt
+
+    ranks = 4
+
+    def survivors_remesh(fls, dead, step, reason):
+        """Every survivor's ``ElasticRuntime.handle_failure`` with its flight
+        recorder, one thread a survivor over one real file rendezvous: the
+        bundles are the ones a live remesh dumps.  The process group's
+        re-init and the state broadcast are stubbed, since one process plays
+        every rank."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        live = [r for r in range(ranks) if r not in dead]
+
+        def remesh(rd, r):
+            rt = ElasticRuntime(
+                ElasticConfig(rank=r, peer_timeout_s=5.0), ranks=range(ranks),
+                rendezvous=Rendezvous(rd, r), flight=fls[r], reinit=lambda d: None,
+                broadcast=lambda st, src, extras=None: (st, extras), log=lambda s: None)
+            try:
+                rt.handle_failure(dataclasses.make_dataclass("S", ["ef"])({}),
+                                  PeerFailed(dead, step=step, reason=reason))
+                return rt.ranks
+            finally:
+                rt.close()
+
+        with tempfile.TemporaryDirectory() as rd, ThreadPoolExecutor(len(live)) as pool:
+            got = [f.result() for f in [pool.submit(remesh, rd, r) for r in live]]
+        assert got == [tuple(live)] * len(live), (got, live)
+
+    def recorders(directory, chaos=None):
+        out = []
+        for r in range(ranks):
+            fl = FlightRecorder(rank=r, capacity=32, directory=directory,
+                                meta={"drill": "forensics"})
+            if chaos is not None:
+                fl.note_chaos(chaos)
+            out.append(fl)
+        return out
+
+    def check_bundles(directory, expect):
+        bundles = read_bundles(directory)
+        assert sorted(bundles) == sorted(expect), (sorted(bundles), sorted(expect))
+        for r, b in bundles.items():
+            problems = validate_bundle(b)
+            assert not problems, (r, problems)
+        return bundles
+
+    verdicts = {}
+    # nan: a NaN on every step of the last worker wedges the guard everywhere
+    gcfg = GuardConfig(loss_scaling=False, max_consecutive_skips=2)
+    chaos = ChaosConfig(kind="nan", target="grads", every=1, worker=env.last)
+    state, step = _setup(env, TOPK_EF, gcfg, chaos)
+    batch = _batch(env)
+    for _ in range(4):
+        state, metrics = step(state, batch)
+    m = {k: float(v) for k, v in metrics.items()}
+    with tempfile.TemporaryDirectory() as td:
+        for fl in recorders(td, chaos):
+            fl.note_step(3, m)
+            try:
+                check_guard_metrics(m, gcfg, flight=fl)
+                raise AssertionError("the guard did not wedge")
+            except GuardExceeded:
+                pass
+        bundles = check_bundles(td, range(ranks))
+        assert all(b["reason"] == "guard_exceeded" for b in bundles.values()), bundles
+        v = classify(bundles)
+        assert (v["kind"], v["rank"]) == ("nan", env.last), v
+        assert merge_timeline(bundles), "empty merged timeline"
+        verdicts["nan"] = v
+    # dead_peer: a mid-collective kill of worker 2; the survivors remesh
+    # past it, the dying rank's own injector reports itself
+    chaos = ChaosConfig(crash_at_step=1, crash_mode="mid_collective", worker=2)
+    with tempfile.TemporaryDirectory() as td:
+        fls = recorders(td, chaos)
+        crash = CrashInjector(1, mode="mid_collective", worker=2)
+        crash.flight = fls[2]
+        try:
+            crash.check(1, phase="mid_collective")
+            raise AssertionError("the injector did not fire")
+        except ChaosCrash as err:
+            fls[2].observe(err)
+        survivors_remesh(fls, (2,), 1, "gossip heartbeat stale")
+        bundles = check_bundles(td, range(ranks))
+        assert bundles[2]["reason"] == "chaos_crash", bundles[2]
+        v = classify(bundles)
+        assert (v["kind"], v["rank"]) == ("dead_peer", 2), v
+        verdicts["dead_peer"] = v
+    # preempt: a real SIGTERM on rank 0 through the handler; the peers'
+    # remesh (PeerFailed) loses to it in the verdict's priority
+    chaos = ChaosConfig(crash_at_step=0, crash_mode="preempt")
+    with tempfile.TemporaryDirectory() as td:
+        fls = recorders(td, chaos)
+        crash = CrashInjector(0, mode="preempt")
+        crash.flight = fls[0]
+        handler = resilience.PreemptionHandler(log=lambda s: None).install()
+        assert handler.installed, "the drill runs on the main thread"
+        try:
+            crash.check(0)          # a real SIGTERM, no raise
+            for _ in range(1000):
+                if handler.triggered:
+                    break
+                time.sleep(0.001)
+            handler.check(0)
+            raise AssertionError("the preemption never fired")
+        except resilience.Preempted as err:
+            fls[0].observe(err)
+        finally:
+            handler.uninstall()
+        survivors_remesh(fls, (0,), 0, "peer exited")
+        bundles = check_bundles(td, range(ranks))
+        assert bundles[0]["reason"] == "preempt", bundles[0]
+        v = classify(bundles)
+        assert (v["kind"], v["rank"]) == ("preempt", 0), v
+        verdicts["preempt"] = v
+    # corruption: a flipped byte, then an explicit-step restore trips the
+    # manifest digest and the Checkpointer dumps before it raises
+    state, step = _setup(env, TOPK_EF, GuardConfig(loss_scaling=False), None)
+    with tempfile.TemporaryDirectory() as td, tempfile.TemporaryDirectory() as fl_dir:
+        ck_dir = _shared_dir(env, td)
+        fls = recorders(fl_dir)
+        ckpt = Checkpointer(ck_dir)
+        state, _ = step(state, batch)
+        ckpt.save(state, {"step_i": 1})
+        ckpt.close()
+        if env.world > 1:
+            dist.barrier()
+        if env.rank == 0:
+            _flip_byte(ck_dir, 1)
+        if env.world > 1:
+            dist.barrier()
+        reader = Checkpointer(ck_dir)
+        reader.flight = fls[0]
+        try:
+            reader.restore(state, step=1)
+            raise AssertionError("the corrupt restore did not raise")
+        except CheckpointCorrupt:
+            pass
+        finally:
+            reader.close()
+        if env.world > 1:
+            dist.barrier()
+        bundles = check_bundles(fl_dir, [0])
+        assert bundles[0]["reason"] == "ckpt_corrupt", bundles[0]
+        v = classify(bundles)
+        assert v["kind"] == "corruption", v
+        verdicts["corruption"] = v
+    # control: a clean run leaves no bundle; the recorder sees only the
+    # host's metric floats, and the two trajectories (one step function, two
+    # identically built states, one of them recorded) stay bitwise equal
+    plain, step = _setup(env, TOPK_EF, GuardConfig(loss_scaling=False), None)
+    observed, _ = _setup(env, TOPK_EF, GuardConfig(loss_scaling=False), None)
+    with tempfile.TemporaryDirectory() as td:
+        fls = recorders(td)
+        for i in range(3):
+            plain, _ = step(plain, batch)
+            observed, m2 = step(observed, batch)
+            for fl in fls:
+                fl.note_step(i, {k: float(v) for k, v in m2.items()})
+        for fl in fls:
+            fl.publish()    # phase profiles are not bundles
+        assert read_bundles(td) == {}, "a clean run left blackbox bundles"
+    _assert_bitwise(_snap(plain), _snap(observed), "forensics control")
+    return {"verdicts": {k: v["kind"] for k, v in verdicts.items()},
+            "ranks": {k: v["rank"] for k, v in verdicts.items()},
+            "clean_bundles": 0, "bitwise": True}
 
 
 # ----------------------------------------------------------- elastic rows

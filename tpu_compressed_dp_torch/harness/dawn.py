@@ -15,7 +15,11 @@ the robustness flags ``--guard --guard_init_scale --guard_backoff
 --heartbeat_interval --checkpoint_dir --resume --ckpt_every``, the elastic
 flags ``--elastic --elastic_dir --elastic_ef --elastic_min_world
 --peer_timeout``, the process flags ``--devices --coordinator
---num_processes --process_id`` (plus the port's ``--dist_backend``), and
+--num_processes --process_id`` (plus the port's ``--dist_backend``), the
+telemetry flags ``--events --events_max_mb --prom --job_id --flight_dir
+--flight_capacity --tensorboard --profile_epoch``, the controller's
+``--adaptive --adaptive_window --adaptive_deadband --adaptive_rungs
+--adaptive_budget_ms --adaptive_bw_mbps --adaptive_signal``, and
 ``--device``.  With ``--checkpoint_dir`` the epochs run under
 ``utils/resilience.run_with_recovery`` (a failure restores the newest
 checkpoint and replays), each ``--ckpt_every`` epochs end in an
@@ -28,7 +32,15 @@ the survivors agree a new world through ``--elastic_dir``, re-initialise the
 process group over it, re-shard the data (each global batch trimmed to
 ``(bs // W) * W`` rows) and replay the epoch from its first batch; at each
 epoch boundary, workers relaunched by ``harness/watchdog.py --relaunch
---elastic_dir`` are readmitted.  Protocol as in the JAX harness:
+--elastic_dir`` are readmitted.  With ``--adaptive`` the controller
+(``control/``) ticks once an epoch on the applied updates, before the
+epoch's checkpoint, and a rung switch rebuilds the sync at the new ratio
+(or rank) from the next epoch on, as ``--ratio_warmup_epochs`` does.  Each
+epoch publishes an ``epoch`` record (``--events``), the Prometheus file,
+the heartbeat's telemetry and the flight recorder's profile; a failure
+leaves a blackbox bundle in ``--flight_dir`` (``harness/postmortem.py``);
+``--profile_epoch N`` writes a ``torch.profiler`` trace of epoch N to
+``<log_dir>/profile/trace.json``.  Protocol as in the JAX harness:
 ``PiecewiseLinear([0, 5, epochs], [0, peak, 0])`` (or the ``step`` shape)
 at fractional epochs divided by the batch size, weight decay ``5e-4 *
 batch_size``, Nesterov when momentum > 0, Crop/FlipLR/Cutout augmentation,
@@ -47,22 +59,30 @@ Run: ``python -m tpu_compressed_dp_torch.harness.dawn --synthetic --epochs 2``
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import math
+import os
 from typing import Optional
 
 import numpy as np
 import torch
 
 from tpu_compressed_dp_torch.data import cifar10 as data
-from tpu_compressed_dp_torch.harness.loop import (add_checkpoint_args, add_process_args,
-                                                  add_robustness_args, build_elastic,
-                                                  build_robustness, elastic_distributed_init,
-                                                  local_device, make_heartbeat,
-                                                  make_preemption, preempt_exit, train_epoch)
+from tpu_compressed_dp_torch.harness.loop import (Telemetry, add_adaptive_args,
+                                                  add_checkpoint_args, add_process_args,
+                                                  add_robustness_args, add_telemetry_args,
+                                                  build_control, build_elastic,
+                                                  build_robustness, control_summary,
+                                                  control_tick, elastic_distributed_init,
+                                                  hideable_fraction, local_device,
+                                                  make_heartbeat, make_preemption,
+                                                  preempt_exit, profile_trace, train_epoch)
 from tpu_compressed_dp_torch.models import alexnet as alexnet_mod
 from tpu_compressed_dp_torch.models import graph as graph_mod
 from tpu_compressed_dp_torch.models import resnet9 as resnet9_mod
 from tpu_compressed_dp_torch.models import vgg as vgg_mod
+from tpu_compressed_dp_torch.control import (Controller, comp_for_rung, init_control_state,
+                                             migrate_comp_state)
 from tpu_compressed_dp_torch.models.common import make_normalizing_apply_fn, param_leaves
 from tpu_compressed_dp_torch.ops.compressors import canonical_name
 from tpu_compressed_dp_torch.parallel import mesh
@@ -75,23 +95,18 @@ from tpu_compressed_dp_torch.train.rendezvous import RendezvousError
 from tpu_compressed_dp_torch.train.schedules import lr_phases_to_knots, piecewise_linear
 from tpu_compressed_dp_torch.train.state import TrainState
 from tpu_compressed_dp_torch.train.step import make_eval_step, make_train_step
+from tpu_compressed_dp_torch.utils import flops as flops_mod
 from tpu_compressed_dp_torch.utils import resilience
 from tpu_compressed_dp_torch.utils.checkpoint import Checkpointer
 from tpu_compressed_dp_torch.utils.loggers import TableLogger, TSVLogger
 from tpu_compressed_dp_torch.utils.timer import Timer, device_sync
 
 _ITEM = "ROADMAP.md queue 1, item {}"
-# flags of the JAX harness, by the ROADMAP item that ports them
-_LATER_FLAGS = {
-    **dict.fromkeys(("--adaptive", "--adaptive_budget_ms", "--adaptive_bw_mbps",
-                     "--adaptive_deadband", "--adaptive_model", "--adaptive_rungs",
-                     "--adaptive_signal", "--adaptive_window", "--twin_records",
-                     "--events", "--events_max_mb", "--prom", "--flight_dir",
-                     "--flight_capacity", "--tensorboard", "--profile_epoch",
-                     "--job_id"), 13),
-    **dict.fromkeys(("--stream_dir", "--stream_every", "--stream_keyframe_every",
-                     "--stream_ratio", "--stream_rejoin"), 14),
-}
+# flags of the JAX harness, by the ROADMAP item that ports them (the twin
+# flags --adaptive_model twin / --twin_records parse, and build_control
+# raises naming item 14)
+_LATER_FLAGS = dict.fromkeys(("--stream_dir", "--stream_every", "--stream_keyframe_every",
+                              "--stream_ratio", "--stream_rejoin"), 14)
 
 
 def _fixed_width(name: str, ctor, scale: float, dtype: torch.dtype, seed: int, device):
@@ -203,6 +218,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dtype", type=str, default="float32", choices=sorted(DTYPES),
                    help="compute dtype of the graph-family nets (parameters stay fp32)")
     p.add_argument("--seed", type=int, default=0)
+    add_adaptive_args(p)
+    add_telemetry_args(p)
+    p.add_argument("--tensorboard", action="store_true",
+                   help="write tensorboard scalars under <log_dir>/tb (needs the tensorboard "
+                        "package)")
+    p.add_argument("--profile_epoch", type=int, default=None,
+                   help="torch.profiler-trace this epoch to <log_dir>/profile/trace.json")
     add_robustness_args(p, check_note="checked at epoch end")
     add_checkpoint_args(p, cadence_help="epochs between asynchronous checkpoint saves "
                                         "(requires --checkpoint_dir; 0 = emergency saves only)")
@@ -318,23 +340,29 @@ def _run(args, device: torch.device, comp: CompressionConfig, launch, hb) -> dic
     sched = lr_schedule(args, epochs)
     opt = make_optimizer(args, epochs, steps_per_epoch)
     guard_cfg, chaos, crash = build_robustness(args, DTYPES[args.dtype])
+    ctrl_cfg = build_control(args, comp)
     state = TrainState.create(model, opt.init(params), init_ef_state(params, comp),
                               seed=args.seed, comp=init_comp_state(params, comp),
-                              guard=init_guard_state(guard_cfg))
+                              guard=init_guard_state(guard_cfg),
+                              control=init_control_state(ctrl_cfg))
     apply_fn = cifar_apply_fn()
     step_cache: dict = {}
 
-    def train_step_for(epoch: int):
-        # the warm-up schedule's ratio for this epoch: one step per ratio
-        ratio = warmup_ratio_for_epoch(epoch, ratio=args.ratio,
-                                       warmup_epochs=args.ratio_warmup_epochs,
-                                       method=comp.method)
-        if ratio not in step_cache:
-            step_cache[ratio] = make_train_step(
-                apply_fn, opt, comp_for_ratio(args, ratio), grad_scale=float(bs),
+    def train_step_for(state: TrainState, epoch: int):
+        # the controller's checkpointed rung picks the sync, else the
+        # warm-up schedule's ratio for this epoch: one step per (ratio,
+        # rank), the knobs the ladder and the schedule vary
+        comp_cfg = (comp_for_rung(comp, ctrl_cfg, int(state.control.rung))
+                    if ctrl_cfg is not None else comp_for_ratio(args, warmup_ratio_for_epoch(
+                        epoch, ratio=args.ratio, warmup_epochs=args.ratio_warmup_epochs,
+                        method=comp.method)))
+        key = (comp_cfg.ratio, comp_cfg.rank)
+        if key not in step_cache:
+            step_cache[key] = make_train_step(
+                apply_fn, opt, comp_cfg, grad_scale=float(bs),
                 clip_norm=args.clip_norm, clip_sent_norm=args.clip_sent_norm,
                 guard_cfg=guard_cfg, chaos=chaos)
-        return step_cache[ratio]
+        return step_cache[key]
 
     eval_step = make_eval_step(apply_fn)
 
@@ -353,7 +381,15 @@ def _run(args, device: torch.device, comp: CompressionConfig, launch, hb) -> dic
             print(f"resumed step {state.step} from {args.resume} "
                   f"(starting epoch {start_epoch})")
 
-    el = build_elastic(args, launch, chaos=chaos, crash=crash, device=device, ckpt=ckpt)
+    tel = Telemetry(args, harness="dawn", log_dir=args.log_dir, chaos=chaos, crash=crash,
+                    ckpt=ckpt,
+                    meta=dict(network=args.network, method=args.method, compress=args.compress,
+                              mode=args.mode, transport=args.transport, batch_size=bs,
+                              devices=world, epochs=epochs),
+                    flight_meta=dict(network=args.network, method=args.method,
+                                     compress=args.compress, devices=world))
+    el = build_elastic(args, launch, chaos=chaos, crash=crash, device=device, ckpt=ckpt,
+                       events=tel.events, flight=tel.flight)
     # the current world: its size, this rank and the global batch it divides
     cur = {"rank": rank, "world": world, "bs": bs}
 
@@ -375,6 +411,21 @@ def _run(args, device: torch.device, comp: CompressionConfig, launch, hb) -> dic
         if "data_rng" in el.shared:
             train_batches.rng.set_state(el.shared["data_rng"])
         follow_world()
+    controller, hide_frac = None, 1.0
+    if ctrl_cfg is not None:
+        controller = Controller(ctrl_cfg, events=tel.events)
+        # the overlap schedule's hideable byte fraction scales the measured
+        # compute into the per-update budget (unless --adaptive_budget_ms
+        # pins it)
+        hide_frac = hideable_fraction(params, comp)
+        if rank == 0:
+            print(f"adaptive: method={ctrl_cfg.method} knob={controller.knob} "
+                  f"rungs={ctrl_cfg.rungs} window={ctrl_cfg.window} "
+                  f"signal={ctrl_cfg.signal} hideable_frac={hide_frac:.3f}")
+    # per-card forward FLOPs for the throughput record, counted once when
+    # an exporter can use them
+    fwd_flops = (flops_mod.cnn_fwd_flops(model, (bs // world, 32, 32, 3), device)
+                 if tel.events is not None or args.prom else None)
     table, tsv = TableLogger(), TSVLogger()
     timer = Timer(lambda: device_sync(device))
     preempt = make_preemption()
@@ -387,11 +438,15 @@ def _run(args, device: torch.device, comp: CompressionConfig, launch, hb) -> dic
                 # a signal that landed during eval stops the run before the
                 # next epoch dispatches anything
                 preempt.check(state.step)
-                state, epoch_stats, acc = train_epoch(
-                    train_step_for(epoch), eval_step, state, train_batches, test_batches,
-                    timer, cur["bs"], device, rank=cur["rank"], world=cur["world"],
-                    crash=crash, step_offset=state.step, guard_cfg=guard_cfg,
-                    preempt=preempt, elastic=el)
+                profiling = args.profile_epoch == epoch and args.log_dir
+                with profile_trace(os.path.join(args.log_dir, "profile") if profiling
+                                   else None):
+                    state, epoch_stats, acc = train_epoch(
+                        train_step_for(state, epoch), eval_step, state, train_batches,
+                        test_batches, timer, cur["bs"], device, rank=cur["rank"],
+                        world=cur["world"], crash=crash, step_offset=state.step,
+                        guard_cfg=guard_cfg, preempt=preempt, elastic=el,
+                        timeline=tel.timeline, flight=tel.flight)
             except resilience.Preempted as err:
                 err.epoch = epoch
                 if not hasattr(err, "train_state"):
@@ -400,6 +455,7 @@ def _run(args, device: torch.device, comp: CompressionConfig, launch, hb) -> dic
             except Exception as err:
                 failure = el.failure_from(err) if el is not None else None
                 if failure is None:
+                    tel.observe(err, getattr(err, "train_state", state).step)
                     raise
                 # coordinated abort: the survivors move to the new world from
                 # the last live state and replay the epoch from its first
@@ -417,29 +473,65 @@ def _run(args, device: torch.device, comp: CompressionConfig, launch, hb) -> dic
             state, grew = el.rejoin_barrier(state)
             if grew:
                 follow_world()
+        if controller is not None:
+            # the tick lands BEFORE the epoch checkpoint: the saved state
+            # holds this epoch's accumulation, so a resumed run replays the
+            # remaining windows bitwise
+            old_rung = int(state.control.rung)
+            wall_ms = epoch_stats["train time"] * 1e3 / max(acc.steps, 1)
+            state = control_tick(controller, state, guard_cfg=guard_cfg,
+                                 mean_bits=acc.mean("comm/sent_bits"), wall_ms=wall_ms,
+                                 hide_frac=hide_frac, flight=tel.flight, note={"epoch": epoch})
+            new_rung = int(state.control.rung)
+            if new_rung != old_rung and controller.knob == "rank":
+                # PowerSGD: the next rung's warm Q keeps the learnt columns
+                state = dataclasses.replace(state, comp=migrate_comp_state(
+                    state.comp, params, comp_for_rung(comp, ctrl_cfg, old_rung),
+                    comp_for_rung(comp, ctrl_cfg, new_rung)))
         if ckpt is not None and args.ckpt_every > 0 and (epoch + 1) % args.ckpt_every == 0:
             # the write overlaps the next epoch; the next save (or a
             # preemption) waits for it
             ckpt.save_async(state, {"epoch": epoch})
-        if hb is not None:
-            hb.update(step=state.step, epoch=epoch,
-                      last_good_step=(int(state.guard.last_good_step)
-                                      if guard_cfg is not None else state.step),
-                      **(ckpt.heartbeat_fields() if ckpt is not None else {}),
-                      **({"elastic": el.metrics()} if el is not None else {}))
         train_time = epoch_stats["train time"]
+        examples_per_sec = acc.steps * cur["bs"] / max(train_time, 1e-9)
+        thr = flops_mod.throughput_record(fwd_flops, acc.steps / max(train_time, 1e-9),
+                                          examples_per_sec=examples_per_sec, device=device)
         summary = {
             "epoch": epoch + 1,
             "lr": float(sched(epoch + 1)),
             **epoch_stats,
-            "img/s": round(acc.steps * cur["bs"] / max(train_time, 1e-9), 1),
+            "img/s": round(examples_per_sec, 1),
             "steps": acc.steps,
         }
+        if "throughput/mfu" in thr:
+            summary["mfu"] = round(thr["throughput/mfu"], 4)
+        summary.update(control_summary(controller, state.control))
         if el is not None:
             summary["world"] = el.world
+        control_stats = controller.metrics(state.control) if controller is not None else {}
+        tel.window(
+            "epoch", {"epoch": epoch + 1, "step": state.step}, summary=summary,
+            loss=summary["train loss"], thr=thr,
+            comm={k: acc.mean(k) for k in acc.sums if k.startswith("comm/")},
+            guard={k: v for k, v in acc.last.items() if k.startswith("guard/")},
+            control=control_stats,
+            prom_extra={"lr": summary["lr"], **(ckpt.metrics() if ckpt is not None else {}),
+                        **(el.metrics() if el is not None else {})},
+            hb=hb, hb_fields=dict(
+                step=state.step, epoch=epoch,
+                last_good_step=(int(state.guard.last_good_step)
+                                if guard_cfg is not None else state.step),
+                **(ckpt.heartbeat_fields() if ckpt is not None else {}),
+                **({"elastic": el.metrics()} if el is not None else {}),
+                **(controller.heartbeat_fields(state.control)
+                   if controller is not None else {})))
         if cur["rank"] == 0:
             table.append(summary)
             tsv.append(summary)
+            tel.tb.update_examples_count(acc.steps * cur["bs"])
+            tel.tb.log_metrics({f"losses/{k}": v for k, v in summary.items()
+                                if k in ("train loss", "test loss", "train acc", "test acc")})
+            tel.tb.log_scalar("times/epoch_seconds", summary["train time"])
         return state
 
     try:
@@ -452,13 +544,15 @@ def _run(args, device: torch.device, comp: CompressionConfig, launch, hb) -> dic
         # drain the write in flight, cut a synchronous emergency save of the
         # live state and exit 75 (the finally still runs)
         raise preempt_exit(err, ckpt=ckpt, state=getattr(err, "train_state", state),
-                           meta={"epoch": getattr(err, "epoch", start_epoch) - 1}) from None
+                           meta={"epoch": getattr(err, "epoch", start_epoch) - 1},
+                           events=tel.events, flight=tel.flight) from None
     finally:
         preempt.uninstall()
         if el is not None:
             el.close()
         if ckpt is not None:
-            ckpt.close()
+            ckpt.close()   # drains the background writer before the events close
+        tel.close()
     return summary
 
 

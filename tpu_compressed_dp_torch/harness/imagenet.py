@@ -21,7 +21,12 @@ reference's ``IMAGENET/training/train_imagenet_nv.py``):
   * the robustness flags, ``--elastic*`` included (``train/elastic.py``):
     on a dead worker the survivors re-form the world, re-divide the loaders
     (``bs // world`` each) and replay the epoch; relaunched workers are
-    readmitted at epoch boundaries.
+    readmitted at epoch boundaries;
+  * the telemetry flags (``--events``, ``--prom``, ``--job_id``,
+    ``--flight_dir``, ``--tensorboard``, ``--profile_epoch``) and the
+    compression controller (``--adaptive*``, ticking once an epoch on the
+    applied updates, before the epoch's best-checkpoint save, and pricing
+    the DCN-billed bits at ``--dp_pods > 1``).
 
 One process is one worker (``torchrun`` for several, or ``--coordinator
 --num_processes --process_id``); batches are split by process (``bs //
@@ -35,18 +40,29 @@ Run: ``python -m tpu_compressed_dp_torch.harness.imagenet --synthetic``
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import os
+import time
 from typing import Dict, List, Optional
 
 import torch
 
 from tpu_compressed_dp_torch.data import imagenet as data
-from tpu_compressed_dp_torch.harness.loop import (add_process_args, add_robustness_args,
+from tpu_compressed_dp_torch.control import (Controller, comp_for_rung, init_control_state,
+                                             migrate_comp_state)
+from tpu_compressed_dp_torch.control.signals import billed_signal_bits
+from tpu_compressed_dp_torch.harness.loop import (Telemetry, add_adaptive_args,
+                                                  add_process_args, add_robustness_args,
+                                                  add_telemetry_args, build_control,
                                                   build_elastic, build_robustness,
-                                                  comm_summary, elastic_distributed_init,
-                                                  guard_summary, local_device, make_heartbeat,
+                                                  comm_summary, control_summary, control_tick,
+                                                  elastic_distributed_init, fabric_gauges,
+                                                  guard_summary, hideable_fraction,
+                                                  local_device, make_heartbeat,
                                                   make_preemption, preempt_exit,
-                                                  run_local_eval, run_train_epoch)
+                                                  profile_trace, run_local_eval,
+                                                  run_train_epoch)
 from tpu_compressed_dp_torch.models import resnet as resnet_mod
 from tpu_compressed_dp_torch.models.common import make_normalizing_apply_fn, param_leaves
 from tpu_compressed_dp_torch.parallel import mesh
@@ -60,7 +76,7 @@ from tpu_compressed_dp_torch.train.step import make_eval_step, make_train_step
 from tpu_compressed_dp_torch.utils import flops as flops_mod
 from tpu_compressed_dp_torch.utils import resilience
 from tpu_compressed_dp_torch.utils.checkpoint import Checkpointer
-from tpu_compressed_dp_torch.utils.loggers import TableLogger, TSVLogger
+from tpu_compressed_dp_torch.utils.loggers import FileLogger, TableLogger, TSVLogger
 from tpu_compressed_dp_torch.utils.meters import per_chip_comm_bytes
 from tpu_compressed_dp_torch.utils.timer import Timer, device_sync
 
@@ -76,16 +92,11 @@ ARCHS = {
 }
 
 _ITEM = "ROADMAP.md queue 1, item {}"
-# flags of the JAX harness, by the ROADMAP item that ports them
-_LATER_FLAGS = {
-    **dict.fromkeys(("--adaptive", "--adaptive_window", "--adaptive_deadband",
-                     "--adaptive_rungs", "--adaptive_budget_ms", "--adaptive_bw_mbps",
-                     "--adaptive_signal", "--adaptive_model", "--twin_records", "--events",
-                     "--prom", "--job_id", "--events_max_mb", "--flight_dir",
-                     "--flight_capacity", "--tensorboard", "--profile_epoch"), 13),
-    **dict.fromkeys(("--stream_dir", "--stream_every", "--stream_keyframe_every",
-                     "--stream_ratio", "--stream_rejoin"), 14),
-}
+# flags of the JAX harness, by the ROADMAP item that ports them (the twin
+# flags --adaptive_model twin / --twin_records parse, and build_control
+# raises naming item 14)
+_LATER_FLAGS = dict.fromkeys(("--stream_dir", "--stream_every", "--stream_keyframe_every",
+                              "--stream_ratio", "--stream_rejoin"), 14)
 
 
 def one_machine_phases() -> List[dict]:
@@ -257,6 +268,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint_dir", type=str, default=None)
     p.add_argument("--best_floor", type=float, default=0.0,
                    help="save_if_best floor on top-5 (the reference gated at 93)")
+    add_adaptive_args(p)
+    add_telemetry_args(p)
+    p.add_argument("--tensorboard", action="store_true",
+                   help="write tensorboard scalars under <logdir>/tb (needs the tensorboard "
+                        "package)")
+    p.add_argument("--profile_epoch", type=int, default=None,
+                   help="torch.profiler-trace this epoch to <logdir>/profile/trace.json")
     add_robustness_args(p, check_note="checked at epoch end")
     add_process_args(p)
     p.add_argument("--device", type=str, default="cuda",
@@ -353,13 +371,27 @@ def _run(args, device: torch.device, comp: CompressionConfig, launch, hb) -> Dic
               weight_decay=args.weight_decay,
               wd_mask=bn_wd_mask(params) if args.no_bn_wd else None)
     guard_cfg, chaos, crash = build_robustness(args, dtype)
+    ctrl_cfg = build_control(args, comp)
     state = TrainState.create(model, opt.init(params), init_ef_state(params, comp),
                               seed=(args.seed + 1) % (2 ** 31),
                               comp=init_comp_state(params, comp),
-                              guard=init_guard_state(guard_cfg))
-    train_step = make_train_step(apply_fn, opt, comp, grad_scale=1.0, clip_norm=args.clip_norm,
-                                 clip_sent_norm=args.clip_sent_norm, guard_cfg=guard_cfg,
-                                 chaos=chaos)
+                              guard=init_guard_state(guard_cfg),
+                              control=init_control_state(ctrl_cfg))
+    step_cache: dict = {}
+
+    def train_step_for(state: TrainState):
+        # the controller's checkpointed rung picks the sync (one built step
+        # per visited rung), the static config otherwise
+        comp_cfg = (comp_for_rung(comp, ctrl_cfg, int(state.control.rung))
+                    if ctrl_cfg is not None else comp)
+        key = (comp_cfg.ratio, comp_cfg.rank)
+        if key not in step_cache:
+            step_cache[key] = make_train_step(apply_fn, opt, comp_cfg, grad_scale=1.0,
+                                              clip_norm=args.clip_norm,
+                                              clip_sent_norm=args.clip_sent_norm,
+                                              guard_cfg=guard_cfg, chaos=chaos)
+        return step_cache[key]
+
     # a joining worker takes the survivors' checkpoint sequence when it joins
     ckpt = (Checkpointer(args.checkpoint_dir, token="joining" if launch.decision else None)
             if args.checkpoint_dir else None)
@@ -378,20 +410,25 @@ def _run(args, device: torch.device, comp: CompressionConfig, launch, hb) -> Dic
         if rank == 0:
             print(f"resumed step {state.step} (epoch {start_epoch})")
     eval_step = make_eval_step(apply_fn)
-    el = build_elastic(args, launch, chaos=chaos, crash=crash, device=device, ckpt=ckpt)
+    tel = Telemetry(args, harness="imagenet", log_dir=args.logdir, chaos=chaos, crash=crash,
+                    ckpt=ckpt,
+                    meta=dict(arch=args.arch, method=args.method, compress=args.compress,
+                              mode=args.mode, transport=args.transport, devices=world,
+                              epochs=epochs),
+                    flight_meta=dict(arch=args.arch, method=args.method,
+                                     compress=args.compress, devices=world))
+    el = build_elastic(args, launch, chaos=chaos, crash=crash, device=device, ckpt=ckpt,
+                       events=tel.events, flight=tel.flight)
     cur = {"rank": rank, "world": world}
 
     def follow_world() -> None:
         """Re-divide the loaders (``PhaseData`` rebuilds them for the new
         world at the next ``set_epoch``) and rebuild the steps."""
-        nonlocal train_step, eval_step
+        nonlocal eval_step
         cur.update(rank=el.rank, world=el.world)
         pd.pi, pd.pc, pd.cur = el.rank, el.world, None
         fwd_cache.clear()
-        train_step = make_train_step(apply_fn, opt, comp, grad_scale=1.0,
-                                     clip_norm=args.clip_norm,
-                                     clip_sent_norm=args.clip_sent_norm, guard_cfg=guard_cfg,
-                                     chaos=chaos)
+        step_cache.clear()
         eval_step = make_eval_step(apply_fn)
 
     fwd_cache: Dict[tuple, float] = {}
@@ -411,10 +448,20 @@ def _run(args, device: torch.device, comp: CompressionConfig, launch, hb) -> Dic
         batches = _truncate(pd.val_loader, 10 if args.short_epoch else None)
         return run_local_eval(eval_step, state, batches, pd.val_loader.batch_size, device)
 
+    controller, hide_frac = None, 1.0
+    if ctrl_cfg is not None:
+        controller = Controller(ctrl_cfg, events=tel.events)
+        hide_frac = hideable_fraction(params, comp)
+        if rank == 0:
+            print(f"adaptive: method={ctrl_cfg.method} knob={controller.knob} "
+                  f"rungs={ctrl_cfg.rungs} window={ctrl_cfg.window} "
+                  f"signal={ctrl_cfg.signal} hideable_frac={hide_frac:.3f}")
+
     def fwd_flops(phase) -> Optional[float]:
         """The forward FLOPs of one local batch of the phase, where the card's
-        peak is known (MFU needs it)."""
-        if flops_mod.device_peak_flops(device, dtype) is None:
+        peak is known (MFU needs it) or an exporter can use them."""
+        if (flops_mod.device_peak_flops(device, dtype) is None and tel.events is None
+                and not args.prom):
             return None
         key = (int(phase["sz"]), int(phase["bs"]) // cur["world"])
         if key not in fwd_cache:
@@ -423,12 +470,15 @@ def _run(args, device: torch.device, comp: CompressionConfig, launch, hb) -> Dic
 
     table, tsv = TableLogger(), TSVLogger()
     timer = Timer(lambda: device_sync(device))
+    t0 = time.time()
+    flog = FileLogger(args.logdir if rank == 0 else None, rank=rank, is_master=rank == 0)
     summary: Dict[str, float] = {}
     if args.evaluate:
         pd.set_epoch(min(start_epoch, epochs - 1))
         val = validate(state)
         if rank == 0:
             print(f"top1 {val['acc'] * 100:.2f} top5 {val['acc5'] * 100:.2f}")
+        tel.close()
         return val
     preempt = make_preemption()
     epoch = start_epoch
@@ -443,14 +493,20 @@ def _run(args, device: torch.device, comp: CompressionConfig, launch, hb) -> Dic
                 ckpt.save_async(state, {"epoch": epoch - 1, "phase_boundary": True})
             batches = _truncate(pd.train_loader, 10 if args.short_epoch else None)
             try:
-                state, acc = run_train_epoch(train_step, state, batches, device, crash=crash,
-                                             step_offset=state.step, guard_cfg=guard_cfg,
-                                             preempt=preempt, elastic=el)
+                profiling = args.profile_epoch == epoch and args.logdir
+                with profile_trace(os.path.join(args.logdir, "profile") if profiling
+                                   else None):
+                    state, acc = run_train_epoch(train_step_for(state), state, batches, device,
+                                                 crash=crash, step_offset=state.step,
+                                                 guard_cfg=guard_cfg, preempt=preempt,
+                                                 elastic=el, timeline=tel.timeline,
+                                                 flight=tel.flight)
                 train_time = timer()
                 val = validate(state)
             except Exception as err:
                 failure = el.failure_from(err) if el is not None else None
                 if failure is None or isinstance(err, resilience.Preempted):
+                    tel.observe(err, getattr(err, "train_state", state).step)
                     raise
                 # coordinated abort: the survivors move to the new world from
                 # the last live state, re-divide the loaders and replay the
@@ -461,6 +517,22 @@ def _run(args, device: torch.device, comp: CompressionConfig, launch, hb) -> Dic
                 continue
             el_replay = False
             timer(False)  # eval time stays out of the training total
+            comm_means = {k: acc.mean(k) for k in acc.sums if k.startswith("comm/")}
+            if controller is not None:
+                # the tick lands before this epoch's best-checkpoint save and
+                # the next phase-boundary save; at dp_pods > 1 the modeled
+                # signal prices the DCN-billed share
+                old_rung = int(state.control.rung)
+                state = control_tick(controller, state, guard_cfg=guard_cfg,
+                                     mean_bits=billed_signal_bits(comm_means, args.dp_pods),
+                                     wall_ms=train_time * 1e3 / max(acc.steps, 1),
+                                     hide_frac=hide_frac, flight=tel.flight,
+                                     note={"epoch": epoch})
+                new_rung = int(state.control.rung)
+                if new_rung != old_rung and controller.knob == "rank":
+                    state = dataclasses.replace(state, comp=migrate_comp_state(
+                        state.comp, params, comp_for_rung(comp, ctrl_cfg, old_rung),
+                        comp_for_rung(comp, ctrl_cfg, new_rung)))
             examples = int(acc.sums.get("count", 0.0))
             img_s = examples / train_time if train_time > 0 else 0.0
             thr = flops_mod.throughput_record(fwd_flops(pd.cur),
@@ -468,6 +540,9 @@ def _run(args, device: torch.device, comp: CompressionConfig, launch, hb) -> Dic
                                               examples_per_sec=img_s, device=device,
                                               dtype=dtype)
             top1, top5 = val["acc"] * 100, val["acc5"] * 100
+            hours = (time.time() - t0) / 3600
+            # `~~epoch\thours\ttop1\ttop5` event line (`train_imagenet_nv.py:232,243`)
+            flog.event(f"~~{epoch}\t{hours:.5f}\t\t{top1:.3f}\t\t{top5:.3f}\n")
             summary = {
                 "epoch": epoch, "train time": train_time, "train loss": acc.mean("loss"),
                 "test loss": val["loss"], "top1": top1, "top5": top5,
@@ -478,7 +553,7 @@ def _run(args, device: torch.device, comp: CompressionConfig, launch, hb) -> Dic
                 summary["mfu"] = round(thr["throughput/mfu"], 4)
             summary.update(comm_summary(acc))
             summary.update(guard_summary(acc))
-            comm_means = {k: acc.mean(k) for k in acc.sums if k.startswith("comm/")}
+            summary.update(control_summary(controller, state.control))
             per_chip_b = per_chip_comm_bytes(comm_means, world, args.dp_pods)
             if per_chip_b is not None and train_time > 0:
                 summary["comm MB/s"] = per_chip_b * acc.steps / train_time / 1e6
@@ -487,12 +562,33 @@ def _run(args, device: torch.device, comp: CompressionConfig, launch, hb) -> Dic
             if cur["rank"] == 0:
                 table.append(summary)
                 tsv.append(summary)
-            if hb is not None:
-                hb.update(step=state.step, epoch=epoch,
-                          last_good_step=(int(state.guard.last_good_step)
-                                          if guard_cfg is not None else state.step),
-                          **(ckpt.heartbeat_fields() if ckpt is not None else {}),
-                          **({"elastic": el.metrics()} if el is not None else {}))
+            fabric_g = fabric_gauges(comm_means, cur["world"], args.dp_pods, acc.steps,
+                                     train_time)
+            tel.window(
+                "epoch", {"epoch": epoch, "step": state.step}, summary=summary,
+                loss=summary["train loss"], thr=thr, comm=comm_means,
+                guard={k: v for k, v in acc.last.items() if k.startswith("guard/")},
+                control=controller.metrics(state.control) if controller is not None else {},
+                prom_extra={**fabric_g, **(ckpt.metrics() if ckpt is not None else {}),
+                            **(el.metrics() if el is not None else {})},
+                hb=hb, hb_fields=dict(
+                    step=state.step, epoch=epoch,
+                    last_good_step=(int(state.guard.last_good_step)
+                                    if guard_cfg is not None else state.step),
+                    **(ckpt.heartbeat_fields() if ckpt is not None else {}),
+                    **({"elastic": el.metrics()} if el is not None else {}),
+                    **(controller.heartbeat_fields(state.control)
+                       if controller is not None else {})))
+            if cur["rank"] == 0:
+                # x-axis = cumulative examples (`logger.py:24-34`)
+                tel.tb.update_examples_count(examples)
+                tel.tb.log_scalar("losses/train_loss", acc.mean("loss"))
+                tel.tb.log_scalar("losses/test_loss", val["loss"])
+                tel.tb.log_scalar("losses/top1", top1)
+                tel.tb.log_scalar("losses/top5", top5)
+                tel.tb.log_scalar("times/epoch_seconds", train_time)
+                for k, v in fabric_g.items():
+                    tel.tb.log_scalar(k, v)
             if el is not None:
                 # epoch-boundary readmission of relaunched workers parked in
                 # the rendezvous join barrier; a joiner starts at the next epoch
@@ -509,13 +605,15 @@ def _run(args, device: torch.device, comp: CompressionConfig, launch, hb) -> Dic
     except resilience.Preempted as err:
         # drain the write in flight, cut the emergency save, exit 75
         raise preempt_exit(err, ckpt=ckpt, state=getattr(err, "train_state", state),
-                           meta={"epoch": epoch - 1}) from None
+                           meta={"epoch": epoch - 1}, events=tel.events,
+                           flight=tel.flight) from None
     finally:
         preempt.uninstall()
         if el is not None:
             el.close()
         if ckpt is not None:
-            ckpt.close()
+            ckpt.close()   # drains the background writer before the events close
+        tel.close()
     return summary
 
 

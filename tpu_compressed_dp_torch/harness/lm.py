@@ -25,7 +25,14 @@ worker the survivors re-form the world and re-run the step index on the
 ``dp - 1`` ranks (each batch cut to ``(global_batch // dp) * dp`` rows), and
 relaunched workers are readmitted every ``--log_every`` steps; ``--pp``
 raises the JAX harness's ``ValueError``, and ``--sp`` / ``--tp`` above 1
-are ROADMAP item 12's model-axes remesh, not ported.
+are ROADMAP item 12's model-axes remesh, not ported.  The telemetry flags
+(``--events --prom --job_id --flight_dir --logdir --profile_epoch``) and
+the compression controller (``--adaptive*``, ratio methods on the
+``(data, seq, tensor)`` step) run as in the JAX harness: every
+``--log_every`` window publishes a ``step`` record, the Prometheus file and
+the heartbeat's telemetry, and the controller ticks on the applied updates
+before that window's checkpoint save; a rung switch takes effect at the
+next step.  The stream flags (ROADMAP item 14) raise.
 Steady-state tokens/s excludes the first two steps (as the JAX harness
 does) and is closed by a device synchronise.
 
@@ -43,6 +50,7 @@ topk --ratio 0.01 --error_feedback``
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import os
 import time
@@ -51,9 +59,15 @@ from typing import Dict, Optional
 import torch
 
 from tpu_compressed_dp_torch.data import lm as lm_data
-from tpu_compressed_dp_torch.harness.loop import (build_elastic, build_robustness,
-                                                  elastic_distributed_init, make_heartbeat,
-                                                  make_preemption, preempt_exit, to_device)
+from tpu_compressed_dp_torch.control import Controller, comp_for_rung, init_control_state
+from tpu_compressed_dp_torch.control.rungs import ladder_knob
+from tpu_compressed_dp_torch.harness.loop import (Telemetry, add_adaptive_args,
+                                                  add_telemetry_args, build_control,
+                                                  build_elastic, build_robustness,
+                                                  control_tick, elastic_distributed_init,
+                                                  hideable_fraction, make_heartbeat,
+                                                  make_preemption, preempt_exit,
+                                                  profile_trace, to_device)
 from tpu_compressed_dp_torch.models import transformer as tf
 from tpu_compressed_dp_torch.parallel import mesh
 from tpu_compressed_dp_torch.parallel.dp import CompressionConfig, init_ef_state
@@ -78,16 +92,10 @@ PRESETS = {
 
 _ITEM = "ROADMAP.md queue 1, item {}"
 # flags of the JAX harness this port does not carry yet, by the ROADMAP item
-# that ports them: any value but the default raises
-_LATER = {
-    **dict.fromkeys(("adaptive", "adaptive_window", "adaptive_deadband", "adaptive_rungs",
-                     "adaptive_budget_ms", "adaptive_bw_mbps", "adaptive_signal",
-                     "adaptive_model", "twin_records", "events", "prom", "job_id",
-                     "events_max_mb", "flight_dir", "flight_capacity", "logdir",
-                     "profile_epoch"), 13),
-    **dict.fromkeys(("stream_dir", "stream_every", "stream_keyframe_every", "stream_ratio",
-                     "stream_rejoin"), 14),
-}
+# that ports them: any value but the default raises (the twin flags
+# --adaptive_model twin / --twin_records raise in build_control, item 14)
+_LATER = dict.fromkeys(("stream_dir", "stream_every", "stream_keyframe_every", "stream_ratio",
+                        "stream_rejoin"), 14)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -152,7 +160,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="hierarchical transport: pod count (must divide the world size)")
     p.add_argument("--hier_route_factor_ici", type=float, default=1.25)
     p.add_argument("--hier_route_factor_dcn", type=float, default=1.25)
-    # robustness, telemetry, control and streaming (not ported)
+    # robustness, telemetry, control and streaming (the stream flags not ported)
     p.add_argument("--guard", action="store_true")
     p.add_argument("--guard_init_scale", type=float, default=2.0 ** 15)
     p.add_argument("--guard_backoff", type=float, default=0.5)
@@ -171,24 +179,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--stream_keyframe_every", type=int, default=8)
     p.add_argument("--stream_ratio", type=float, default=0.01)
     p.add_argument("--stream_rejoin", action="store_true")
-    p.add_argument("--adaptive", action="store_true")
-    p.add_argument("--adaptive_window", type=int, default=8)
-    p.add_argument("--adaptive_deadband", type=float, default=0.25)
-    p.add_argument("--adaptive_rungs", type=str, default=None)
-    p.add_argument("--adaptive_budget_ms", type=float, default=0.0)
-    p.add_argument("--adaptive_bw_mbps", type=float, default=100.0)
-    p.add_argument("--adaptive_signal", type=str, default="modeled",
-                   choices=("modeled", "measured"))
-    p.add_argument("--adaptive_model", type=str, default="flat", choices=("flat", "twin"))
-    p.add_argument("--twin_records", type=str, default=".")
-    p.add_argument("--events", type=str, default=None)
-    p.add_argument("--prom", type=str, default=None)
-    p.add_argument("--job_id", type=str, default=None)
-    p.add_argument("--events_max_mb", type=float, default=0.0)
-    p.add_argument("--flight_dir", type=str, default=None)
-    p.add_argument("--flight_capacity", type=int, default=256)
-    p.add_argument("--logdir", type=str, default=None)
-    p.add_argument("--profile_epoch", type=int, default=None)
+    add_adaptive_args(p)
+    add_telemetry_args(p)
+    p.add_argument("--logdir", type=str, default=None, help="output dir for profiler traces")
+    p.add_argument("--profile_epoch", type=int, default=None,
+                   help="torch.profiler-trace the Nth --log_every window of steps to "
+                        "<logdir>/profile/trace.json (the LM loop's 'epoch' is one log "
+                        "window)")
     # plumbing
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--log_every", type=int, default=10)
@@ -294,6 +291,19 @@ def _mesh(args) -> mesh.LmGroups:
     return mesh.lm_groups(dp, args.sp, args.tp, args.pp)
 
 
+def _check_adaptive(args, ctrl_cfg) -> None:
+    """The JAX harness's refusals of ``--adaptive``."""
+    if ctrl_cfg is None:
+        return
+    if args.pp > 1:
+        raise ValueError("--adaptive supports the (data, seq, tensor) step; the pipeline "
+                         "step's stacked-layer layout has no rung-switch path yet")
+    if ladder_knob(ctrl_cfg.method) == "rank":
+        raise ValueError("--adaptive rank retuning (powersgd) is CNN-harness-only for now: "
+                         "the LM comp-state layout has no cross-rank migration path (use a "
+                         "ratio method, or static --rank)")
+
+
 def _data_step(args, cfg: tf.LlamaConfig, comp: CompressionConfig, opt: SGD, groups,
                guard_cfg=None, chaos=None):
     """The LM step (no pipeline) on ``groups``."""
@@ -356,7 +366,24 @@ def _run(args, device: torch.device, comp: CompressionConfig, launch,
         [0.0, args.lr, args.lr * 0.1])
     opt = SGD(lr=sched, momentum=args.momentum, weight_decay=args.weight_decay)
     guard_cfg, chaos, crash = build_robustness(args, cfg.dtype)
+    ctrl_cfg = build_control(args, comp)
+    _check_adaptive(args, ctrl_cfg)
     state, train_step, n_params = _build(args, cfg, comp, opt, groups, device, guard_cfg, chaos)
+    state = dataclasses.replace(state, control=init_control_state(ctrl_cfg))
+    step_cache: Dict = {}
+
+    def step_for(state: TrainState):
+        """The step the controller's checkpointed rung builds (one a visited
+        rung, on the current groups); the static step without
+        ``--adaptive``."""
+        if ctrl_cfg is None:
+            return train_step
+        c = comp_for_rung(comp, ctrl_cfg, int(state.control.rung))
+        key = (c.ratio, c.rank)
+        if key not in step_cache:
+            step_cache[key] = _data_step(args, cfg, c, opt, groups, guard_cfg, chaos)
+        return step_cache[key]
+
     n_chips = groups.dp * groups.sp * groups.tp * groups.pp
     mesh_str = (f"dp{groups.dp}xsp{groups.sp}xpp{groups.pp}xtp{groups.tp}(mb{args.microbatches})"
                 if groups.pp > 1 else f"dp{groups.dp}xsp{groups.sp}xtp{groups.tp}")
@@ -378,8 +405,17 @@ def _run(args, device: torch.device, comp: CompressionConfig, launch,
               f"method={comp.method or 'dense'}/{comp.granularity}/{comp.mode} "
               f"device={device} dtype={cfg.dtype}")
 
+    tel = Telemetry(args, harness="lm", log_dir=args.logdir, chaos=chaos, crash=crash,
+                    ckpt=ckpt,
+                    meta=dict(preset=args.preset, mesh=mesh_str, method=comp.method or "none",
+                              compress=args.compress, mode=args.mode,
+                              transport=args.transport, seq_len=args.seq_len,
+                              global_batch=args.global_batch, steps=args.steps),
+                    flight_meta=dict(preset=args.preset, mesh=mesh_str,
+                                     method=comp.method or "none"))
     el = build_elastic(args, launch, chaos=chaos, crash=crash, device=device, ckpt=ckpt,
-                       ckpt_layout=lambda w: {"mesh": f"dp{w}xsp1xtp1"})
+                       ckpt_layout=lambda w: {"mesh": f"dp{w}xsp1xtp1"},
+                       events=tel.events, flight=tel.flight)
     # the global batch cut to the current world's data ranks
     cut = {"rows": args.global_batch}
 
@@ -390,6 +426,7 @@ def _run(args, device: torch.device, comp: CompressionConfig, launch,
         cut["rows"] = (args.global_batch // el.world) * el.world
         rows, cols = local_block(cut["rows"], args.seq_len, groups)
         train_step = _data_step(args, cfg, comp, opt, groups, guard_cfg, chaos)
+        step_cache.clear()
         n_chips = el.world
 
     if el is not None and launch.decision is not None:
@@ -398,6 +435,22 @@ def _run(args, device: torch.device, comp: CompressionConfig, launch,
         # survivors'
         state = el.join_world(state, launch.decision)
         follow_world()
+    controller, hide_frac = None, 1.0
+    if ctrl_cfg is not None:
+        controller = Controller(ctrl_cfg, events=tel.events)
+        hide_frac = hideable_fraction(tf.param_leaves(state.model), comp)
+        if rank == 0:
+            print(f"adaptive: method={ctrl_cfg.method} knob={controller.knob} "
+                  f"rungs={ctrl_cfg.rungs} window={ctrl_cfg.window} "
+                  f"signal={ctrl_cfg.signal} hideable_frac={hide_frac:.3f}")
+    timeline = tel.timeline
+    # --profile_epoch: trace the Nth log window; the ExitStack opens and
+    # closes mid-loop, and the finally stops a trace the loop raised inside
+    prof = contextlib.ExitStack()
+    prof_window = None
+    if args.profile_epoch is not None and args.logdir:
+        w0 = args.profile_epoch * args.log_every
+        prof_window = (w0, w0 + args.log_every)
     table = TableLogger()
     guard_meter = GuardMeter()
     preempt = make_preemption()
@@ -408,6 +461,8 @@ def _run(args, device: torch.device, comp: CompressionConfig, launch,
         step_i = start
         while step_i < args.steps:
             try:
+                if prof_window is not None and step_i == prof_window[0]:
+                    prof.enter_context(profile_trace(os.path.join(args.logdir, "profile")))
                 if crash is not None:
                     crash.check(step_i)
                 # after the crash check: crash=preempt signals there
@@ -415,34 +470,37 @@ def _run(args, device: torch.device, comp: CompressionConfig, launch,
                 if el is not None:
                     el.poll(step_i)
                 batch = {k: v[:cut["rows"]][rows, cols] for k, v in ds.batch(step_i).items()}
-                state, metrics = train_step(state, to_device(batch, device))
+                timeline.batch_ready()
+                state, metrics = step_for(state)(state, to_device(batch, device))
+                timeline.step_dispatched()
                 if crash is not None:
                     crash.check(step_i, phase="mid_collective")
+                if prof_window is not None and step_i + 1 == prof_window[1]:
+                    prof.close()
                 if step_i <= start + 1:
                     # steady state starts after the first two steps (allocator and
                     # library warm-up; the JAX harness excludes its two compiles)
                     device_sync(device)
                     t0, timed_from = time.perf_counter(), step_i + 1
+                    timeline.resume()  # the warm-up drain is not data wait
                 if (step_i + 1) % args.log_every == 0 or step_i == args.steps - 1:
                     def fetch():
                         return {k: float(v) for k, v in metrics.items()}  # waits for the step
 
                     m = fetch() if el is None else el.bounded_get(fetch, step=step_i + 1)
+                    # the flight rings fill BEFORE the wedge check, so a
+                    # GuardExceeded dump carries the streak history
+                    drained = tel.drain(step=step_i + 1, metrics=m)
                     if guard_cfg is not None:
                         # the wedge check at the log cadence
                         guard_meter.update(m, step_i + 1)
-                        check_guard_metrics(m, guard_cfg)
-                    if hb is not None:
-                        hb.update(step=step_i + 1,
-                                  last_good_step=(int(m["guard/last_good_step"])
-                                                  if guard_cfg is not None else step_i + 1),
-                                  **(ckpt.heartbeat_fields() if ckpt is not None else {}),
-                                  **({"elastic": el.metrics()} if el is not None else {}))
+                        check_guard_metrics(m, guard_cfg, flight=tel.flight)
                     dt = time.perf_counter() - t0
                     steps_timed = step_i + 1 - timed_from
                     tokens_done = steps_timed * cut["rows"] * args.seq_len
                     summary = {"step": step_i + 1, "loss": m["loss"], "lr": m["lr"],
                                "tok/s": round(tokens_done / dt, 1) if steps_timed > 0 else 0.0}
+                    thr: Dict[str, float] = {}
                     if steps_timed > 0:
                         # MFU: closed-form 6N + 12 L d s per token (N counts every
                         # expert, as the JAX harness's), per card of the mesh,
@@ -466,8 +524,42 @@ def _run(args, device: torch.device, comp: CompressionConfig, launch,
                         summary["loss_scale"] = gsum.get("guard/loss_scale", 1.0)
                     if el is not None:
                         summary["world"] = el.world
+                    control_stats: Dict[str, float] = {}
+                    if controller is not None:
+                        # the tick at the log cadence, on the applied updates,
+                        # before the checkpoint save below: the saved state
+                        # holds this window's accumulation
+                        wall_ms = dt * 1e3 / steps_timed if steps_timed > 0 else None
+                        if wall_ms is not None or (ctrl_cfg.signal == "modeled"
+                                                   and ctrl_cfg.budget_ms > 0):
+                            state = control_tick(
+                                controller, state, guard_cfg=guard_cfg,
+                                mean_bits=float(m.get("comm/sent_bits", 0.0)),
+                                wall_ms=wall_ms, hide_frac=hide_frac, flight=tel.flight,
+                                note={"step": step_i + 1})
+                        control_stats = controller.metrics(state.control)
+                        summary["rung"] = control_stats["control/rung"]
+                        summary[controller.knob] = control_stats["control/value"]
+                    tel.window(
+                        "step", {"step": step_i + 1}, summary=summary, loss=summary["loss"],
+                        thr=thr, comm={k: v for k, v in m.items() if k.startswith("comm/")},
+                        guard={k: v for k, v in m.items() if k.startswith("guard/")},
+                        control=control_stats, drained=drained,
+                        prom_extra={"lr": summary["lr"],
+                                    **(ckpt.metrics() if ckpt is not None else {}),
+                                    **(el.metrics() if el is not None else {})},
+                        hb=hb, hb_fields=dict(
+                            step=step_i + 1,
+                            last_good_step=(int(m["guard/last_good_step"])
+                                            if guard_cfg is not None else step_i + 1),
+                            **(ckpt.heartbeat_fields() if ckpt is not None else {}),
+                            **({"elastic": el.metrics()} if el is not None else {}),
+                            **(controller.heartbeat_fields(state.control)
+                               if controller is not None else {})))
                     if mesh.rank() == 0:
                         table.append(summary)
+                    # the window's fetch and export are not the next step's data wait
+                    timeline.resume()
                 if el is not None and (step_i + 1) % args.log_every == 0:
                     # log-cadence readmission of relaunched workers parked in the
                     # rendezvous join barrier (no-op when none is waiting)
@@ -480,25 +572,30 @@ def _run(args, device: torch.device, comp: CompressionConfig, launch,
             except Exception as err:
                 failure = el.failure_from(err) if el is not None else None
                 if failure is None or isinstance(err, resilience.Preempted):
+                    tel.observe(err, step_i)
                     raise
                 # coordinated abort: the survivors move to the new world and
                 # re-run this step index there (the JAX harness's granularity)
                 state = el.handle_failure(state, failure)
                 follow_world()
                 t0, timed_from = time.perf_counter(), step_i
+                timeline.resume()
                 continue
             step_i += 1
         if ckpt is not None:
             ckpt.save(state, {"step": state.step})
     except resilience.Preempted as err:
         # drain the write in flight, cut the emergency save, exit 75
-        raise preempt_exit(err, ckpt=ckpt, state=state, meta={"step": state.step}) from None
+        raise preempt_exit(err, ckpt=ckpt, state=state, meta={"step": state.step},
+                           events=tel.events, flight=tel.flight) from None
     finally:
         preempt.uninstall()
+        prof.close()
         if el is not None:
             el.close()
         if ckpt is not None:
-            ckpt.close()
+            ckpt.close()   # drains the background writer before the events close
+        tel.close()
     return summary
 
 

@@ -4,7 +4,11 @@ PyTorch-port counterpart of ``run_train_epoch``, ``run_eval``,
 ``train_epoch``, ``comm_summary``, ``guard_summary``, ``pad_batch`` and the
 robustness helpers (``add_robustness_args``, ``add_checkpoint_args``,
 ``build_robustness``, ``build_elastic``, ``elastic_distributed_init``,
-``make_heartbeat``, ``make_preemption``, ``preempt_exit``) of
+``make_heartbeat``, ``make_preemption``, ``preempt_exit``) and the
+telemetry and control helpers (``add_telemetry_args``,
+``add_adaptive_args``, ``make_event_stream``, ``make_flight_recorder``,
+``flight_update``, ``job_scoped``, ``prom_labels``, ``fabric_gauges``,
+``build_control``, ``control_summary``, ``profile_trace``) of
 :mod:`tpu_compressed_dp.harness.loop`, plus :func:`run_local_eval` for
 loaders that hand each process its own (possibly empty) batches,
 :func:`local_device` for the entry points and :func:`add_process_args` for
@@ -13,13 +17,17 @@ and come back in one copy (under ``--elastic`` with the peer-timeout
 deadline).  Before each dispatch :func:`run_train_epoch` runs the chaos
 crash check, then the preemption check (a ``crash=preempt`` self-SIGTERM
 is seen in the same iteration), then the elastic gossip poll; right after
-the dispatch, the ``mid_collective`` crash check.  An exception leaving the
-epoch carries the live state as ``err.train_state`` for the emergency save
-and the elastic remesh.
+the dispatch, the ``mid_collective`` crash check.  A ``timeline``
+(``obs/trace.StepTimeline``) splits each step's host time into data wait
+and dispatch; a ``flight`` recorder rings the fetched metrics before the
+guard's wedge check reads them.  An exception leaving the epoch carries the
+live state as ``err.train_state`` for the emergency save and the elastic
+remesh.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 from typing import Dict, Iterable, Optional, Tuple
@@ -33,10 +41,357 @@ from tpu_compressed_dp_torch.utils.loggers import MetricAccumulator
 from tpu_compressed_dp_torch.utils.timer import Timer
 
 __all__ = ["run_train_epoch", "run_eval", "run_local_eval", "train_epoch", "comm_summary",
-           "guard_summary", "pad_batch", "to_device", "local_device", "add_robustness_args",
-           "add_checkpoint_args", "add_process_args", "build_robustness", "build_elastic",
-           "elastic_distributed_init", "Launch", "launch_rank_world", "make_heartbeat",
-           "make_preemption", "preempt_exit"]
+           "guard_summary", "control_summary", "fabric_gauges", "pad_batch", "to_device",
+           "local_device", "add_robustness_args", "add_adaptive_args", "add_telemetry_args",
+           "job_scoped", "prom_labels", "add_checkpoint_args", "add_process_args",
+           "build_robustness", "build_control", "build_elastic", "elastic_distributed_init",
+           "Launch", "launch_rank_world", "make_heartbeat", "make_event_stream",
+           "make_flight_recorder", "flight_update", "make_preemption", "preempt_exit",
+           "profile_trace", "hideable_fraction", "Telemetry", "control_tick"]
+
+
+@contextlib.contextmanager
+def profile_trace(trace_dir: Optional[str]):
+    """A ``torch.profiler`` capture (host ranges, and the card's kernels on
+    CUDA) with a guaranteed stop: the Chrome trace is written to
+    ``<trace_dir>/trace.json`` when the block ends, by an exception too, so
+    a raise inside the profiled epoch never leaves a profiler running.
+    No-op (yields None) when ``trace_dir`` is falsy; yields the profiler."""
+    if not trace_dir:
+        yield None
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    prof = profile(activities=acts)
+    prof.start()
+    try:
+        yield prof
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+
+
+def add_telemetry_args(p) -> None:
+    """The ``--events`` / ``--prom`` / ``--job_id`` / ``--events_max_mb`` /
+    ``--flight_dir`` / ``--flight_capacity`` flags (the JAX surface)."""
+    p.add_argument("--events", type=str, default=None,
+                   help="JSONL telemetry event stream path (schema-versioned; one record per "
+                        "step/epoch/guard event — the JAX tools/trace_report.py reads it)")
+    p.add_argument("--prom", type=str, default=None,
+                   help="Prometheus textfile path, rewritten atomically at each epoch/log "
+                        "window with the latest metrics")
+    p.add_argument("--job_id", type=str, default=os.environ.get("TCDP_JOB_ID") or None,
+                   help="fleet job id (default: $TCDP_JOB_ID): prefixes the --events/--prom/"
+                        "--heartbeat file names (obs.export.job_scoped_path) and labels the "
+                        "Prometheus exposition job=\"<id>\"")
+    p.add_argument("--events_max_mb", type=float, default=0.0,
+                   help="rotate the --events JSONL when the live file would cross this many "
+                        "MB (atomic rename to <path>.<seg>; records carry their segment "
+                        "index; 0 = unbounded)")
+    p.add_argument("--flight_dir", type=str, default=None,
+                   help="shared dir for the per-rank flight recorder (obs/flight.py): "
+                        "ring-buffered telemetry, blackbox.rank<R>.json dumps on failure "
+                        "paths, live straggler/* gauges — feed the dir to "
+                        "harness/postmortem.py after a crash")
+    p.add_argument("--flight_capacity", type=int, default=256,
+                   help="flight-recorder ring capacity per channel (memory is O(channels x "
+                        "capacity))")
+
+
+def add_adaptive_args(p) -> None:
+    """The ``--adaptive*`` flags: the closed-loop compression controller
+    (``control/``).  It decides at the harness's metric-fetch cadence (the
+    epoch in the CNN harnesses, the log window in the LM); its own
+    ``--adaptive_window`` counts APPLIED updates inside those fetches."""
+    p.add_argument("--adaptive", action="store_true",
+                   help="arm the closed-loop compression controller: retune the compression "
+                        "knob (Top-K/Random-K ratio, PowerSGD rank) along a rung ladder to "
+                        "fit comm under the hideable-compute budget (control/controller.py)")
+    p.add_argument("--adaptive_window", type=int, default=8,
+                   help="applied updates per control decision window")
+    p.add_argument("--adaptive_deadband", type=float, default=0.25,
+                   help="relative comm/budget deadband before a rung move")
+    p.add_argument("--adaptive_rungs", type=str, default=None,
+                   help="comma-separated explicit rung ladder (strictly descending knob "
+                        "values; rung 0 is the static baseline).  Default: halve the "
+                        "configured ratio/rank per rung, 5 rungs deep")
+    p.add_argument("--adaptive_budget_ms", type=float, default=0.0,
+                   help="explicit per-update hideable-comm budget in ms; 0 = derive from "
+                        "measured compute x the overlap schedule's hideable byte fraction")
+    p.add_argument("--adaptive_bw_mbps", type=float, default=100.0,
+                   help="modeled interconnect bandwidth (Mbit/s) used to turn sent-bits into "
+                        "comm ms under --adaptive_signal modeled")
+    p.add_argument("--adaptive_signal", type=str, default="modeled",
+                   choices=("modeled", "measured"),
+                   help="'modeled' prices comm from sent-bits / --adaptive_bw_mbps (bitwise "
+                        "replay-deterministic); 'measured' uses harness-observed wall times "
+                        "(NOT replay-deterministic)")
+    p.add_argument("--adaptive_model", type=str, default="flat", choices=("flat", "twin"),
+                   help="how 'modeled' prices bits: 'flat' divides by --adaptive_bw_mbps; "
+                        "'twin' (the calibrated digital twin) is ROADMAP.md queue 1, item 14 "
+                        "and raises")
+    p.add_argument("--twin_records", type=str, default=".",
+                   help="records directory the twin calibrates from (--adaptive_model twin, "
+                        "ROADMAP.md queue 1, item 14: any other value raises)")
+
+
+def build_control(args, comp_cfg):
+    """The ``--adaptive*`` flags as a :class:`~tpu_compressed_dp_torch.control.ControlConfig`
+    (or None).  Raises on a non-tunable compression method (silently
+    running static under ``--adaptive`` would void the comparison the run
+    was launched for), and on the twin flags, which are ROADMAP item 14."""
+    if getattr(args, "twin_records", ".") != "." or getattr(args, "adaptive_model",
+                                                              "flat") != "flat":
+        raise NotImplementedError("--adaptive_model twin / --twin_records are not ported "
+                                  "yet: ROADMAP.md queue 1, item 14")
+    if not getattr(args, "adaptive", False):
+        return None
+    from tpu_compressed_dp_torch.control import ControlConfig, build_ladder
+    from tpu_compressed_dp_torch.control.config import TUNABLE_METHODS
+    from tpu_compressed_dp_torch.control.rungs import assert_ladder_traceable, ladder_knob
+    from tpu_compressed_dp_torch.ops.compressors import canonical_name
+
+    method = (canonical_name(comp_cfg.method)
+              if comp_cfg is not None and comp_cfg.method else None)
+    if method not in TUNABLE_METHODS:
+        raise SystemExit(f"--adaptive requires a tunable compression method "
+                         f"{TUNABLE_METHODS}, got {method!r}")
+    if args.adaptive_rungs:
+        cast = float if ladder_knob(method) == "ratio" else int
+        rungs = tuple(cast(v) for v in args.adaptive_rungs.split(","))
+    else:
+        rungs = build_ladder(method, comp_cfg.ratio, comp_cfg.rank)
+    cfg = ControlConfig(method=method, rungs=rungs, window=args.adaptive_window,
+                        deadband=args.adaptive_deadband, signal=args.adaptive_signal,
+                        model=args.adaptive_model, bandwidth_mbps=args.adaptive_bw_mbps,
+                        budget_ms=args.adaptive_budget_ms)
+    assert_ladder_traceable(cfg)
+    return cfg
+
+
+def hideable_fraction(params, comp_cfg) -> float:
+    """The overlap schedule's hideable byte fraction
+    (``overlap.hideable_byte_fraction(plan_chunks(...))``) over fp32 leaves
+    of ``params``' sizes: what scales the measured compute into the
+    controller's budget when ``--adaptive_budget_ms`` does not pin it."""
+    from tpu_compressed_dp_torch.parallel.overlap import hideable_byte_fraction, plan_chunks
+
+    return hideable_byte_fraction(plan_chunks([p.numel() * 4 for p in params.values()],
+                                              comp_cfg))
+
+
+def control_tick(controller, state: TrainState, *, guard_cfg, mean_bits: float,
+                 wall_ms: Optional[float], hide_frac: float, flight=None,
+                 note: Optional[Dict] = None) -> TrainState:
+    """One controller tick at a metric fetch, keyed to APPLIED updates
+    (``guard.schedule_step`` of the fetched state): ``state`` with the new
+    ``control``.  ``wall_ms`` (the window's per-step wall time) is the
+    measured comm signal and the compute the budget derives from; ``note``
+    names the window in the flight recorder's control ring."""
+    from tpu_compressed_dp_torch.train.guard import schedule_step
+
+    applied = (schedule_step(guard_cfg, state.guard, state.step) if guard_cfg is not None
+               else state.step)
+    new_control, _ = controller.tick(
+        state.control, applied=applied,
+        signals=controller.window_signals(mean_bits=mean_bits, measured_comm_ms=wall_ms,
+                                          compute_ms=wall_ms, hideable_fraction=hide_frac))
+    if flight is not None:
+        flight.note_control({**(note or {}), "rung": int(new_control.rung),
+                             "applied": applied})
+    return dataclasses.replace(state, control=new_control)
+
+
+def control_summary(controller, control) -> Dict[str, float]:
+    """The summary line's ``rung`` and knob-value columns (empty when the
+    controller is off)."""
+    if controller is None or control == ():
+        return {}
+    m = controller.metrics(control)
+    return {"rung": m["control/rung"], controller.knob: m["control/value"]}
+
+
+def fabric_gauges(comm_means: Dict[str, float], world: int, pods: int, steps: int,
+                  seconds: float) -> Dict[str, float]:
+    """Per-fabric ``net/`` gauges from a window's mean ``comm/*`` metrics:
+    DCN MB per step per worker and the Gb/s each fabric must sustain at the
+    measured step rate.  Empty on a flat world (``pods <= 1``)."""
+    from tpu_compressed_dp_torch.utils.meters import per_fabric_comm_bytes
+
+    if pods <= 1:
+        return {}
+    fabric = per_fabric_comm_bytes(comm_means, world, pods)
+    if fabric is None:
+        return {}
+    ici_b, dcn_b = fabric
+    out = {"net/dcn_mb_per_step": dcn_b / 1e6}
+    if seconds > 0 and steps > 0:
+        rate = steps / seconds
+        out["net/dcn_gbps_per_chip"] = dcn_b * rate * 8 / 1e9
+        out["net/ici_gbps_per_chip"] = ici_b * rate * 8 / 1e9
+    return out
+
+
+def job_scoped(args, path):
+    """Apply the ``--job_id`` namespace to one telemetry path (no-op for
+    single-job runs)."""
+    from tpu_compressed_dp_torch.obs.export import job_scoped_path
+
+    return job_scoped_path(path, getattr(args, "job_id", None))
+
+
+def prom_labels(args, **labels) -> Dict[str, str]:
+    """The harness's Prometheus label set: the caller's labels plus
+    ``job="<id>"`` under a fleet job id."""
+    job = getattr(args, "job_id", None)
+    if job:
+        labels["job"] = job
+    return labels
+
+
+def make_event_stream(args, **meta):
+    """``--events``: a started :class:`~tpu_compressed_dp_torch.obs.export.EventStream`
+    on rank 0 (metrics are world-reduced: every rank would write the same
+    records), or None.  The path and metadata are job-scoped under
+    ``--job_id``."""
+    if not getattr(args, "events", None) or mesh.rank() != 0:
+        return None
+    from tpu_compressed_dp_torch.obs.export import EventStream
+
+    if getattr(args, "job_id", None):
+        meta = dict(meta, job=args.job_id)
+    max_mb = getattr(args, "events_max_mb", 0.0) or 0.0
+    return EventStream(job_scoped(args, args.events), meta=dict(meta),
+                       max_bytes=int(max_mb * 1e6) if max_mb > 0 else None)
+
+
+def make_flight_recorder(args, **meta):
+    """``--flight_dir``: a per-rank
+    :class:`~tpu_compressed_dp_torch.obs.flight.FlightRecorder` (or None).
+    EVERY rank gets one (per-rank evidence is the point), keyed by its rank
+    when it starts (JAX's process index), writing into the job-scoped
+    shared dir."""
+    if not getattr(args, "flight_dir", None):
+        return None
+    from tpu_compressed_dp_torch.obs.flight import FlightRecorder
+
+    directory = args.flight_dir
+    if getattr(args, "job_id", None):
+        directory = os.path.join(directory, args.job_id)
+        meta = dict(meta, job=args.job_id)
+    rank, _ = launch_rank_world(args)
+    return FlightRecorder(rank=rank, capacity=getattr(args, "flight_capacity", 256),
+                          directory=directory, meta=dict(meta))
+
+
+class Telemetry:
+    """One harness run's item-13 surface, built once and closed in the
+    harness's ``finally``: the :class:`~tpu_compressed_dp_torch.obs.trace.StepTimeline`,
+    the ``--events`` stream (rank 0), the ``--flight_dir`` recorder (every
+    rank; armed with the chaos scenario, hooked into the crash injector and
+    the checkpointer), ``--prom`` and ``--tensorboard``.  :meth:`window`
+    publishes one epoch or log window everywhere at once, as the JAX
+    harnesses do inline.  ``--tensorboard`` needs the ``tensorboard``
+    package and raises at start without it."""
+
+    def __init__(self, args, *, harness: str, meta: Dict, flight_meta: Dict, log_dir=None,
+                 chaos=None, crash=None, ckpt=None):
+        from tpu_compressed_dp_torch.obs.trace import StepTimeline
+        from tpu_compressed_dp_torch.utils.loggers import TensorboardLogger
+
+        self.args, self.harness = args, harness
+        self.rank0 = mesh.rank() == 0
+        self.timeline = StepTimeline()
+        self.events = make_event_stream(args, harness=harness, **meta)
+        self.flight = make_flight_recorder(args, harness=harness, **flight_meta)
+        if self.flight is not None and chaos is not None:
+            self.flight.note_chaos(chaos)
+        if crash is not None:
+            crash.flight = self.flight
+        if ckpt is not None:
+            ckpt.events, ckpt.flight = self.events, self.flight
+        self.tb = TensorboardLogger(
+            os.path.join(log_dir, "tb") if log_dir and getattr(args, "tensorboard", False)
+            else None, is_master=self.rank0)
+        self._prev_skipped = 0.0
+
+    def observe(self, err: BaseException, step: Optional[int]) -> None:
+        """An unconverted failure about to unwind the run: the dump here is
+        the only evidence this rank leaves (preemption dumps in
+        :func:`preempt_exit`)."""
+        from tpu_compressed_dp_torch.utils.resilience import Preempted
+
+        if self.flight is not None and not isinstance(err, Preempted):
+            self.flight.observe(err, step=step)
+
+    def drain(self, *, step=None, metrics=None):
+        """Drain the timeline's spans into the flight recorder (with the
+        window's ``metrics`` at ``step``, when given): ``(spans, gauges)``,
+        the gauges the ``flight/*`` and ``straggler/*`` ones."""
+        spans = self.timeline.drain()
+        return spans, flight_update(self.flight, step=step, metrics=metrics, spans=spans)
+
+    def window(self, kind: str, ids: Dict, *, summary: Dict, loss: float, thr: Dict,
+               comm: Dict, guard: Dict, control: Dict, prom_extra: Dict, hb=None,
+               hb_fields: Optional[Dict] = None, drained=None) -> Dict[str, float]:
+        """Publish one window: refresh the heartbeat with the telemetry
+        snapshot, emit the ``kind`` record (and a ``guard`` record when the
+        skip count rose), and rewrite the Prometheus file.  ``ids`` names
+        the window (``epoch``/``step``); ``drained`` is :meth:`drain`'s
+        result when the caller drained first (the LM, whose flight rings
+        must fill before its wedge check), else this drains.  Returns the
+        flight gauges."""
+        from tpu_compressed_dp_torch.obs.export import telemetry_snapshot, write_prometheus
+
+        tl = self.timeline
+        spans, fgauges = drained if drained is not None else self.drain()
+        if hb is not None:
+            hb.update(**(hb_fields or {}), telemetry=telemetry_snapshot(tl),
+                      **({"straggler_skew_s": fgauges["straggler/skew_s"],
+                          "straggler_rank": fgauges["straggler/rank"]}
+                         if "straggler/skew_s" in fgauges else {}))
+        if self.events is not None:
+            self.events.emit(kind, **ids,
+                             metrics={k: v for k, v in summary.items()
+                                      if isinstance(v, (int, float))},
+                             throughput=thr, comm=comm, guard=guard, control=control,
+                             timeline=tl.snapshot(), step_spans=spans)
+            skipped = guard.get("guard/skipped", 0.0)
+            if skipped > self._prev_skipped:
+                self.events.emit("guard", **ids, **guard)
+            self._prev_skipped = skipped
+        if self.args.prom and self.rank0:
+            write_prometheus({"loss": loss, **thr, **comm, **guard, **control,
+                              **tl.snapshot(), **prom_extra, **fgauges},
+                             job_scoped(self.args, self.args.prom),
+                             labels=prom_labels(self.args, harness=self.harness))
+        return fgauges
+
+    def close(self) -> None:
+        """Close TensorBoard and the event stream (after the checkpointer's
+        close: its background writer may still emit a ``ckpt_save``)."""
+        self.tb.close()
+        if self.events is not None:
+            self.events.close()
+
+
+def flight_update(flight, *, step=None, metrics=None, spans=None) -> Dict[str, float]:
+    """Per-epoch/window flight upkeep: ring the drained timeline spans and
+    the window's metrics, publish this rank's phase profile, and return the
+    ``flight/*`` and ``straggler/*`` gauges ({} when the recorder is off)."""
+    if flight is None:
+        return {}
+    if spans:
+        flight.note_spans(spans)
+    if step is not None:
+        flight.note_step(step, metrics or {})
+    gauges = dict(flight.metrics())
+    gauges.update(flight.publish())
+    return gauges
 
 
 def local_device(name: str) -> torch.device:
@@ -233,7 +588,7 @@ def elastic_distributed_init(args, device) -> Launch:
 
 
 def build_elastic(args, launch: Launch, *, chaos=None, crash=None, device=None, ckpt=None,
-                  ckpt_layout=None, log=print):
+                  ckpt_layout=None, events=None, flight=None, log=print):
     """The ``--elastic*`` flags as a started
     :class:`~tpu_compressed_dp_torch.train.elastic.ElasticRuntime` (or None
     without ``--elastic``).  ``--elastic_dir`` arms the gossip and the
@@ -272,7 +627,7 @@ def build_elastic(args, launch: Launch, *, chaos=None, crash=None, device=None, 
                                 base_port=launch.base_port or DEFAULT_BASE_PORT)
     return ElasticRuntime(cfg, gossip=gossip, crash=crash, rendezvous=rendezvous,
                           ranks=ranks, device=device, ckpt=ckpt, ckpt_layout=ckpt_layout,
-                          log=log)
+                          events=events, flight=flight, log=log)
 
 
 def launch_rank_world(args) -> Tuple[int, int]:
@@ -292,7 +647,8 @@ def launch_rank_world(args) -> Tuple[int, int]:
 
 def make_heartbeat(args):
     """A started :class:`~tpu_compressed_dp_torch.utils.resilience.Heartbeat`
-    for ``--heartbeat`` (its payload names the rank), or None.  Each rank of
+    for ``--heartbeat`` (its payload names the rank, and the job under
+    ``--job_id``, which also prefixes the file name), or None.  Each rank of
     a multi-process or ``--elastic`` run writes ``<path>.rank<r>``, ``r``
     its launch rank, which a remesh never renumbers.  The entry points start
     it before they make the process group, so a relaunched worker parked in
@@ -303,8 +659,12 @@ def make_heartbeat(args):
 
     rank, world = launch_rank_world(args)
     multi = world > 1 or getattr(args, "elastic", False)
-    path = f"{args.heartbeat}.rank{rank}" if multi else args.heartbeat
-    return Heartbeat(path, interval_s=args.heartbeat_interval, payload={"rank": rank})
+    base = job_scoped(args, args.heartbeat)
+    path = f"{base}.rank{rank}" if multi else base
+    payload = {"rank": rank}
+    if getattr(args, "job_id", None):
+        payload["job"] = args.job_id
+    return Heartbeat(path, interval_s=args.heartbeat_interval, payload=payload)
 
 
 def make_preemption(log=print):
@@ -315,9 +675,11 @@ def make_preemption(log=print):
     return PreemptionHandler(log=log).install()
 
 
-def preempt_exit(err, *, ckpt=None, state=None, meta=None, log=print):
+def preempt_exit(err, *, ckpt=None, state=None, meta=None, events=None, flight=None,
+                 log=print):
     """The preemption epilogue: drain any write in flight (its failure is
-    superseded), cut a synchronous emergency checkpoint, and return the
+    superseded), cut a synchronous emergency checkpoint, dump the flight
+    recorder's blackbox, emit a ``preempt`` event, and return the
     ``SystemExit`` of :data:`~tpu_compressed_dp_torch.utils.resilience.
     PREEMPT_EXIT` for the caller to raise."""
     from tpu_compressed_dp_torch.utils.resilience import PREEMPT_EXIT
@@ -329,6 +691,16 @@ def preempt_exit(err, *, ckpt=None, state=None, meta=None, log=print):
             saved = ckpt.save(state, {**(meta or {}), "emergency": True})
         except Exception as save_err:
             log(f"preempt: emergency checkpoint FAILED: {save_err!r}")
+    if flight is not None:
+        # the last write before the process dies: the postmortem's only
+        # evidence that this rank exited on a reclaim, not a crash
+        flight.observe(err, step=getattr(err, "step", None), saved_step=saved)
+    if events is not None:
+        try:
+            events.emit("preempt", step=getattr(err, "step", None),
+                        signum=getattr(err, "signum", None), saved_step=saved)
+        except Exception:
+            pass
     log("preempt: "
         + (f"emergency checkpoint committed at step {saved}" if saved is not None
            else "no checkpoint directory — progress since the last save is lost")
@@ -347,17 +719,28 @@ def guard_summary(acc: MetricAccumulator) -> Dict[str, float]:
 
 def run_train_epoch(train_step, state: TrainState, batches: Iterable[Dict], device, *,
                     crash=None, step_offset: int = 0, guard_cfg=None, preempt=None,
-                    elastic=None) -> Tuple[TrainState, MetricAccumulator]:
+                    elastic=None, timeline=None, flight=None
+                    ) -> Tuple[TrainState, MetricAccumulator]:
     """One epoch's steps.  ``crash`` (``utils/chaos.CrashInjector``) and
     ``preempt`` (``utils/resilience.PreemptionHandler``) are checked before
     each dispatch at the attempted step ``step_offset + i``, and ``crash``
     again right after it (phase ``mid_collective``); ``elastic``
     (``train/elastic.ElasticRuntime``) polls the gossip before each
     dispatch and bounds the epoch-end metrics fetch by the peer timeout;
-    ``guard_cfg`` runs the wedge check on the epoch's last metrics."""
+    ``guard_cfg`` runs the wedge check on the epoch's last metrics;
+    ``timeline`` (``obs/trace.StepTimeline``) times each step's data wait
+    and dispatch on the host; ``flight`` (``obs/flight.FlightRecorder``)
+    rings each step's fetched metrics before the wedge check and dumps its
+    blackbox if the check raises."""
     step_metrics = []
+    if timeline is not None:
+        # what happened since the previous epoch's last dispatch (eval,
+        # checkpoint saves) is not step 0's data wait
+        timeline.resume()
     try:
         for i, batch in enumerate(batches):
+            if timeline is not None:
+                timeline.batch_ready()
             if crash is not None:
                 crash.check(step_offset + i)
             if preempt is not None:
@@ -367,6 +750,8 @@ def run_train_epoch(train_step, state: TrainState, batches: Iterable[Dict], devi
             state, metrics = train_step(state, to_device(batch, device))
             if crash is not None:
                 crash.check(step_offset + i, phase="mid_collective")
+            if timeline is not None:
+                timeline.step_dispatched()
             step_metrics.append(metrics)
     except Exception as err:
         # the steps so far replaced the caller's state: ride the live one out
@@ -387,14 +772,22 @@ def run_train_epoch(train_step, state: TrainState, batches: Iterable[Dict], devi
         except Exception as err:
             err.train_state = state
             raise
-        for row, m in zip(fetched, step_metrics):
+        for j, (row, m) in enumerate(zip(fetched, step_metrics)):
             host = dict(zip(keys, row.tolist()))
             host.update({k: v for k, v in m.items() if not isinstance(v, torch.Tensor)})
             acc.update(host)
+            if flight is not None:
+                # ringed BEFORE the wedge check: the streak history that
+                # trips it is already in the blackbox
+                flight.note_step(step_offset + j, host)
     if guard_cfg is not None and step_metrics:
         from tpu_compressed_dp_torch.train.guard import check_guard_metrics
 
-        check_guard_metrics(acc.last, guard_cfg)
+        try:
+            check_guard_metrics(acc.last, guard_cfg, flight=flight)
+        except Exception as err:
+            err.train_state = state
+            raise
     return state, acc
 
 
@@ -448,15 +841,18 @@ def comm_summary(acc: MetricAccumulator) -> Dict[str, float]:
 
 def train_epoch(train_step, eval_step, state: TrainState, train_batches, test_batches,
                 timer: Timer, batch_size: int, device, rank: int = 0, world: int = 1, *,
-                crash=None, step_offset: int = 0, guard_cfg=None, preempt=None, elastic=None
+                crash=None, step_offset: int = 0, guard_cfg=None, preempt=None, elastic=None,
+                timeline=None, flight=None
                 ) -> Tuple[TrainState, Dict[str, float], MetricAccumulator]:
     """One train + eval pass with the reference's epoch-summary shape
     (`core.py:324-331`); ``crash`` / ``step_offset`` / ``guard_cfg`` /
-    ``preempt`` / ``elastic`` pass through to :func:`run_train_epoch`.  A
-    failure in the eval carries the trained state as ``err.train_state``."""
+    ``preempt`` / ``elastic`` / ``timeline`` / ``flight`` pass through to
+    :func:`run_train_epoch`.  A failure in the eval carries the trained
+    state as ``err.train_state``."""
     state, train_acc = run_train_epoch(train_step, state, train_batches, device, crash=crash,
                                        step_offset=step_offset, guard_cfg=guard_cfg,
-                                       preempt=preempt, elastic=elastic)
+                                       preempt=preempt, elastic=elastic, timeline=timeline,
+                                       flight=flight)
     train_time = timer()
     try:
         test_stats = run_eval(eval_step, state, test_batches, batch_size, device, rank, world)

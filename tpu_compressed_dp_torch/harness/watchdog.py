@@ -1,17 +1,40 @@
-"""Heartbeat watchdog: the relaunch loop an elastic rejoin needs.
+"""Heartbeat watchdog: the check and relaunch halves.
 
-PyTorch-port counterpart of the ``--relaunch`` mode of the JAX package's
-``tools/watchdog.py``, with its CLI names, over the port's
+PyTorch-port counterpart of the JAX package's ``tools/watchdog.py``, with
+its CLI names, defaults and exit codes, over the port's
 ``utils/resilience`` (the port imports nothing of the JAX package).
 
-``--relaunch`` supervises the training command given after ``--``: every
-``--interval`` seconds (after a ``--grace`` warm-up) it reads the liveness
-file the harness writes under ``--heartbeat``; a record older than
-``--max_age`` seconds, or a missing one, kills the child (if still alive),
+``--check`` reads the liveness file a harness writes under ``--heartbeat``
+(payload: ``ts``, ``step``, ``last_good_step``, the telemetry snapshot —
+step rate, p95 step latency — and the checkpoint, control and straggler
+fields) and exits nonzero when the run is unhealthy:
+
+  exit 0  healthy
+  exit 1  unhealthy (stale / wedged / stalled / slow tail / checkpoint
+          stale / straggler; reasons on stdout)
+  exit 2  heartbeat missing or unreadable
+
+Checks (``utils/resilience.check_heartbeat``): **stale** (``ts`` older than
+``--max_age``), **wedged** (``step - last_good_step > --max_wedge``: every
+step vetoed by the step guard), **stalled** (telemetry ``steps_per_sec``
+below ``--min_step_rate``), **slow tail** (telemetry ``step_p95_ms`` above
+``--max_step_p95_ms``), **checkpoint-stale** (``ckpt_age_s`` plus the
+heartbeat's own age above ``--max_ckpt_age``) and **straggler**
+(``straggler_skew_s``, the flight recorder's live cross-rank step-time
+skew, above ``--max_straggler_skew``).  The stream-stale check reads the
+delta stream's lag, ROADMAP.md queue 1, item 14: not part of this CLI.
+
+``--relaunch`` supervises the training command given after ``--``: it runs
+the same check every ``--interval`` seconds (after a ``--grace`` warm-up)
+and on an unhealthy or missing verdict kills the child (if still alive),
 waits out an exponential backoff (``--backoff`` doubling per consecutive
 restart, capped at :data:`BACKOFF_CAP_S`) and respawns it, up to
-``--max_relaunches`` consecutive restarts (a fresh heartbeat refills the
-budget).  A clean exit (0) ends supervision.
+``--max_relaunches`` consecutive restarts (a healthy check refills the
+budget).  A clean exit (0) ends supervision.  A child that exits
+``PREEMPT_EXIT`` (75) respawns at once, with no backoff and no budget
+burnt, unless more than ``--max_preempts`` such exits fall within
+``--preempt_window`` seconds: a preempt storm, handled like an unhealthy
+verdict.
 
 With ``--elastic_dir`` every spawn exports ``TCDP_RESTART_COUNT`` (the
 child's heartbeat incarnation) and, when the rendezvous directory holds a
@@ -22,12 +45,10 @@ epoch boundary instead of forming a fresh world (``train/rendezvous.py``,
 ``train/elastic.py``).  A child that parks past its join deadline exits
 nonzero; the backoff is the retry loop.
 
-The JAX tool's ``--check`` mode, its preempt-storm guard and its other
-health thresholds read telemetry that the port does not write yet
-(ROADMAP.md queue 1, items 13-14); they are not part of this CLI.
-
 Usage::
 
+    python -m tpu_compressed_dp_torch.harness.watchdog --check --heartbeat hb.json \\
+        --max_age 120 --max_wedge 200 --min_step_rate 0.01
     python -m tpu_compressed_dp_torch.harness.watchdog --relaunch \\
         --heartbeat hb.json.rank2 --elastic_dir /shared/elastic --interval 5 \\
         --grace 60 --max_relaunches 3 -- \\
@@ -39,14 +60,15 @@ Usage::
 from __future__ import annotations
 
 import argparse
+import collections
 import os
 import subprocess
 import sys
 import time
 from typing import Callable, List, Optional
 
-from tpu_compressed_dp_torch.utils.resilience import (check_heartbeat, read_heartbeat,
-                                                      spawn_supervised)
+from tpu_compressed_dp_torch.utils.resilience import (PREEMPT_EXIT, check_heartbeat,
+                                                      read_heartbeat, spawn_supervised)
 
 __all__ = ["BACKOFF_CAP_S", "run_check", "kill_child", "supervise", "run_relaunch", "main"]
 
@@ -55,18 +77,30 @@ BACKOFF_CAP_S = 300.0
 
 
 def run_check(args) -> int:
-    """The heartbeat verdict: 0 fresh, 1 stale (older than ``args.max_age``),
-    2 missing or unreadable."""
+    """The heartbeat verdict: 0 healthy, 1 unhealthy (by the thresholds the
+    namespace carries; one it lacks or leaves ``None`` is not checked), 2
+    missing or unreadable."""
     # single read: the verdict and the printed payload agree even if the
     # harness's atomic os.replace lands mid-check
     hb = read_heartbeat(args.heartbeat)
     if hb is None:
         print(f"watchdog: MISSING {args.heartbeat}")
         return 2
-    problems = check_heartbeat(args.heartbeat, max_age_s=args.max_age, hb=hb)
+    problems = check_heartbeat(
+        args.heartbeat, max_age_s=args.max_age,
+        max_wedge_steps=getattr(args, "max_wedge", None),
+        min_steps_per_sec=getattr(args, "min_step_rate", None),
+        max_step_p95_ms=getattr(args, "max_step_p95_ms", None),
+        max_ckpt_age_s=getattr(args, "max_ckpt_age", None),
+        max_straggler_skew_s=getattr(args, "max_straggler_skew", None), hb=hb)
     for pr in problems:
         print(f"watchdog: UNHEALTHY: {pr}")
-    return 1 if problems else 0
+    if problems:
+        return 1
+    rate = (hb.get("telemetry") or {}).get("steps_per_sec")
+    print(f"watchdog: healthy (step={hb.get('step')}, last_good_step={hb.get('last_good_step')}"
+          + (f", {rate:.3g} steps/s" if isinstance(rate, (int, float)) else "") + ")")
+    return 0
 
 
 def kill_child(child, term_timeout_s: float = 10.0) -> None:
@@ -92,34 +126,65 @@ def supervise(spawn: Callable[[], "subprocess.Popen"],
               sleep: Callable[[float], None] = time.sleep,
               kill: Callable[..., None] = kill_child,
               log: Callable[[str], None] = print,
-              max_checks: Optional[int] = None) -> int:
+              max_checks: Optional[int] = None,
+              preempt_exit_code: Optional[int] = PREEMPT_EXIT,
+              max_preempts: Optional[int] = 8,
+              preempt_window_s: float = 600.0) -> int:
     """The relaunch decision loop, with every side effect injectable so the
     unit test can drive it against a fake child and a scripted check
     sequence (tests/test_torch_elastic.py).
 
     Protocol per tick: sleep ``interval_s``; a child that exited cleanly
-    (rc 0) ends supervision with 0; otherwise, past the grace period,
-    consult ``check`` (0 healthy / 1 unhealthy / 2 missing).  Healthy
-    resets the consecutive-restart counter (and so the backoff).  Unhealthy
-    or missing: if the consecutive budget is spent, give up (the child's
-    exit code, else 1); otherwise kill whatever is left of the child, back
-    off ``backoff_s * 2^consecutive`` capped at :data:`BACKOFF_CAP_S`,
-    respawn, and re-enter the grace period (no checks for ``grace_s``: a
-    fresh process needs time to write its first heartbeat)."""
+    (rc 0) ends supervision with 0; a child that exited with
+    ``preempt_exit_code`` (the harness's emergency save after a SIGTERM)
+    respawns at once, with no backoff, no budget burnt and no check spent;
+    otherwise, past the grace period, consult ``check`` (0 healthy / 1
+    unhealthy / 2 missing).  Healthy resets the consecutive-restart counter
+    (and so the backoff).  Unhealthy or missing: if the consecutive budget
+    is spent, give up (the child's exit code, else 1); otherwise kill
+    whatever is left of the child, back off ``backoff_s * 2^consecutive``
+    capped at :data:`BACKOFF_CAP_S`, respawn, and re-enter the grace period
+    (no checks for ``grace_s``: a fresh process needs time to write its
+    first heartbeat).
+
+    Preempt-storm guard: more than ``max_preempts`` preempt exits within a
+    sliding ``preempt_window_s`` (``None`` disables the cap) take the
+    unhealthy path instead, so a scheduler preempting in a tight loop
+    cannot respawn the child forever.  The window's clock is the
+    supervisor's own slept time (deterministic under an injected
+    ``sleep``)."""
     child = spawn()
     consecutive = 0
     since_launch = 0.0
+    slept = 0.0
+    preempts: "collections.deque[float]" = collections.deque()
     checks = 0
     try:
         while True:
             sleep(interval_s)
+            slept += interval_s
             since_launch += interval_s
             if child.poll() is not None and child.returncode == 0:
                 log("watchdog: child exited cleanly; supervision done")
                 return 0
-            if since_launch < grace_s:
+            storm = False
+            if (child.poll() is not None and preempt_exit_code is not None
+                    and child.returncode == preempt_exit_code):
+                preempts.append(slept)
+                while preempts and slept - preempts[0] > preempt_window_s:
+                    preempts.popleft()
+                if max_preempts is None or len(preempts) <= max_preempts:
+                    log(f"watchdog: child preempted (exit {preempt_exit_code}); relaunching "
+                        "immediately")
+                    child = spawn()
+                    since_launch = 0.0
+                    continue
+                storm = True
+                log(f"watchdog: preempt storm: {len(preempts)} preempt exits within "
+                    f"{preempt_window_s:g}s (cap {max_preempts}); treating as unhealthy")
+            if not storm and since_launch < grace_s:
                 continue  # fresh (re)launch: let the heartbeat appear
-            rc = check()
+            rc = 1 if storm else check()
             checks += 1
             if rc == 0:
                 consecutive = 0
@@ -138,6 +203,7 @@ def supervise(spawn: Callable[[], "subprocess.Popen"],
                     f"#{consecutive + 1}/{max_relaunches} after {delay:.0f}s backoff")
                 kill(child)
                 sleep(delay)
+                slept += delay
                 child = spawn()
                 consecutive += 1
                 since_launch = 0.0
@@ -176,33 +242,54 @@ def run_relaunch(args, cmd: List[str]) -> int:
 
     return supervise(spawn, lambda: run_check(args), interval_s=args.interval,
                      grace_s=args.grace, max_relaunches=args.max_relaunches,
-                     backoff_s=args.backoff)
+                     backoff_s=args.backoff,
+                     max_preempts=None if args.max_preempts <= 0 else args.max_preempts,
+                     preempt_window_s=args.preempt_window)
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--relaunch", action="store_true", required=True,
-                   help="supervise the command after `--`: restart it on a stale or missing "
-                        "heartbeat with exponential backoff")
+    mode = p.add_mutually_exclusive_group(required=True)
+    mode.add_argument("--check", action="store_true", help="one-shot health check (exit 0/1/2)")
+    mode.add_argument("--relaunch", action="store_true",
+                      help="supervise the command after `--`: restart it on an unhealthy or "
+                           "missing heartbeat with exponential backoff")
     p.add_argument("--heartbeat", type=str, required=True,
                    help="heartbeat JSON path (harness --heartbeat; <path>.rank<r> for one "
                         "rank of a multi-process or --elastic run)")
     p.add_argument("--max_age", type=float, default=60.0,
                    help="seconds before a heartbeat counts as stale (choose > the harness "
                         "--heartbeat_interval)")
+    p.add_argument("--max_wedge", type=int, default=None,
+                   help="max steps last_good_step may trail step (default: no wedge check)")
+    p.add_argument("--min_step_rate", type=float, default=None,
+                   help="min telemetry steps/s (default: no stall check)")
+    p.add_argument("--max_step_p95_ms", type=float, default=None,
+                   help="max telemetry p95 step latency in ms (default: no tail check)")
+    p.add_argument("--max_ckpt_age", type=float, default=None,
+                   help="max seconds since the last durable checkpoint (ckpt_age_s plus the "
+                        "heartbeat's age; default: no checkpoint check)")
+    p.add_argument("--max_straggler_skew", type=float, default=None,
+                   help="max cross-rank step-time skew in seconds (straggler_skew_s; "
+                        "default: no straggler check)")
     p.add_argument("--interval", type=float, default=30.0,
-                   help="seconds between health checks")
+                   help="relaunch: seconds between health checks")
     p.add_argument("--grace", type=float, default=120.0,
-                   help="seconds after a (re)launch before checks resume (first heartbeat + "
-                        "start-up time)")
+                   help="relaunch: seconds after a (re)launch before checks resume (first "
+                        "heartbeat + start-up time)")
     p.add_argument("--max_relaunches", type=int, default=5,
-                   help="consecutive restarts before giving up (a healthy check refills the "
-                        "budget)")
+                   help="relaunch: consecutive restarts before giving up (a healthy check "
+                        "refills the budget)")
     p.add_argument("--backoff", type=float, default=5.0,
-                   help="initial backoff seconds (doubles per consecutive restart)")
+                   help="relaunch: initial backoff seconds (doubles per consecutive restart)")
+    p.add_argument("--max_preempts", type=int, default=8,
+                   help="relaunch: more than this many preempt exits within "
+                        "--preempt_window seconds count as unhealthy; <= 0 disables the cap")
+    p.add_argument("--preempt_window", type=float, default=600.0,
+                   help="relaunch: the sliding window of --max_preempts, in seconds")
     p.add_argument("--elastic_dir", type=str, default=None,
-                   help="the run's shared rendezvous/gossip directory (harness "
+                   help="relaunch: the run's shared rendezvous/gossip directory (harness "
                         "--elastic_dir); exports the committed world epoch + coordinator "
                         "address to the child so a restarted worker REJOINS the running "
                         "world instead of forming a fresh one")
@@ -215,7 +302,12 @@ def main(argv: Optional[List[str]] = None) -> int:
         argv, cmd = argv[:cut], argv[cut + 1:]
     else:
         cmd = []
-    return run_relaunch(p.parse_args(argv), cmd)
+    args = p.parse_args(argv)
+    if args.check:
+        if cmd:
+            p.error("--check takes no training command (drop the `-- ...`)")
+        return run_check(args)
+    return run_relaunch(args, cmd)
 
 
 if __name__ == "__main__":

@@ -51,6 +51,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from tpu_compressed_dp_torch.obs import trace as obs_trace
 from tpu_compressed_dp_torch.ops import compressors, kernels
 from tpu_compressed_dp_torch.parallel import mesh
 
@@ -325,39 +326,43 @@ def _hier_combine(contrib: torch.Tensor, keep: int, world: int, cfg, group=None)
     P, C = plan.pods, plan.chips
     ici_group, dcn_group = mesh.hier_groups(world, P, group)
     zero_ovf = torch.zeros((), dtype=torch.int32, device=dev)
-    if C > 1:
-        pod_sum = mesh.all_reduce_sum(contrib, ici_group)
-        bits_ici = _payload_bits(contrib)
-    else:
-        pod_sum, bits_ici = contrib, 0.0
+    with obs_trace.phase("ici_reduce"):
+        if C > 1:
+            pod_sum = mesh.all_reduce_sum(contrib, ici_group)
+            bits_ici = _payload_bits(contrib)
+        else:
+            pod_sum, bits_ici = contrib, 0.0
     if P == 1:
         # one pod: the ICI sum above already reduced the whole world
         return pod_sum, torch.zeros_like(contrib), bits_ici, 0.0, 0.0, zero_ovf
 
-    cap = plan.cap_union
-    mask = pod_sum != 0
-    nnz = mask.sum(dtype=torch.int32)
-    uidx = packed_indices_from_mask(mask, cap)
-    uvalid = torch.arange(1, cap + 1, dtype=torch.int32, device=dev) <= torch.clamp(nnz, max=cap)
-    uvals = torch.where(uvalid, pod_sum.index_select(0, uidx.long()), 0.0)
-    uidx = torch.where(uvalid, uidx, 0)
-    # union coordinates past cap_union: the clip is the same on every chip
-    # of the pod, so each refunds 1/C of the pod value
-    taken = torch.zeros(n, dtype=torch.int32, device=dev).index_add_(
-        0, uidx.long(), uvalid.to(torch.int32)) > 0
-    union_clip = torch.where(mask & ~taken, pod_sum, 0.0) / C
-    c_rank = mesh.group_rank(group) % C
-    sl = slice(c_rank * plan.slab, (c_rank + 1) * plan.slab)
-    s_vals, s_idx, s_valid = uvals[sl], uidx[sl], uvalid[sl]
+    with obs_trace.phase("recompress"):
+        cap = plan.cap_union
+        mask = pod_sum != 0
+        nnz = mask.sum(dtype=torch.int32)
+        uidx = packed_indices_from_mask(mask, cap)
+        uvalid = (torch.arange(1, cap + 1, dtype=torch.int32, device=dev)
+                  <= torch.clamp(nnz, max=cap))
+        uvals = torch.where(uvalid, pod_sum.index_select(0, uidx.long()), 0.0)
+        uidx = torch.where(uvalid, uidx, 0)
+        # union coordinates past cap_union: the clip is the same on every
+        # chip of the pod, so each refunds 1/C of the pod value
+        taken = torch.zeros(n, dtype=torch.int32, device=dev).index_add_(
+            0, uidx.long(), uvalid.to(torch.int32)) > 0
+        union_clip = torch.where(mask & ~taken, pod_sum, 0.0) / C
+        c_rank = mesh.group_rank(group) % C
+        sl = slice(c_rank * plan.slab, (c_rank + 1) * plan.slab)
+        s_vals, s_idx, s_valid = uvals[sl], uidx[sl], uvalid[sl]
 
     dense_u, sent, route_bits, ret_bits, dcn_overflow = wire_sharded.sharded_combine(
         s_vals, s_idx, plan.dcn, valid=s_valid, group=dcn_group)
     partial = dense_u[:n]
-    if C > 1:
-        total = mesh.all_reduce_sum(partial, ici_group)
-        bits_ici += _payload_bits(partial)
-    else:
-        total = partial
+    with obs_trace.phase("ici_reduce"):
+        if C > 1:
+            total = mesh.all_reduce_sum(partial, ici_group)
+            bits_ici += _payload_bits(partial)
+        else:
+            total = partial
     # DCN clips: only this chip's slab carried these units for its pod
     slice_refund = torch.zeros(n, dtype=contrib.dtype, device=dev).index_add_(
         0, s_idx.long(), torch.where(s_valid & ~sent, s_vals, 0.0))
@@ -717,11 +722,16 @@ def make_wire_grad_sync(cfg, group_offset: int = 0, group=None):
         bits_ici = bits_dcn = bits_dcn_route = dense_total = 0.0
         for gi, idxs in enumerate(groups):
             flat = group_concat(leaves, idxs)
-            ef_flat = group_concat(ef_leaves, idxs) if use_ef else None
-            (dense, new_ef_flat, sent_leaf, bits_leaf, bits_route, agree,
-             leaf_overflows, fabric) = sync_flat(flat, ef_flat,
-                                                 compressors.leaf_seed(seed, group_offset + gi,
-                                                                       rank), world)
+            with obs_trace.phase("ef"):
+                ef_flat = group_concat(ef_leaves, idxs) if use_ef else None
+            # one range over the whole wire group sync (select + pack +
+            # combine): the sharded transport's route/reduce/return ranges
+            # nest inside it
+            with obs_trace.phase("compress"):
+                (dense, new_ef_flat, sent_leaf, bits_leaf, bits_route, agree,
+                 leaf_overflows, fabric) = sync_flat(
+                    flat, ef_flat, compressors.leaf_seed(seed, group_offset + gi, rank),
+                    world)
             # the collectives this group's payload rode: a sharded group's
             # route on the all_to_all and its return on an all_gather; a
             # hierarchical group's bits per fabric only
@@ -738,9 +748,11 @@ def make_wire_grad_sync(cfg, group_offset: int = 0, group=None):
                 bits_ag += bits_leaf - bits_route
             else:
                 bits_ag += bits_leaf
-            group_split(dense, leaves, idxs, out_leaves)
-            if use_ef:
-                group_split(new_ef_flat, leaves, idxs, new_ef_leaves, dtype=torch.float32)
+            with obs_trace.phase("return"):
+                group_split(dense, leaves, idxs, out_leaves)
+                if use_ef:
+                    group_split(new_ef_flat, leaves, idxs, new_ef_leaves,
+                                dtype=torch.float32)
             if agree is not None:
                 agrees.append(agree)
             for k, v in leaf_overflows.items():

@@ -60,6 +60,8 @@ import torch
 import torch.distributed as dist
 
 from tpu_compressed_dp_torch.models.common import to_flax_layout, to_torch_layout
+from tpu_compressed_dp_torch.obs import registry as obs_registry
+from tpu_compressed_dp_torch.obs import trace as obs_trace
 from tpu_compressed_dp_torch.ops import compressors, kernels
 from tpu_compressed_dp_torch.parallel import mesh
 
@@ -419,34 +421,40 @@ def _make_stateless_issue(cfg: CompressionConfig, group_offset: int, group=None)
         in_flight = []   # (work or None, payload, idxs) per group
         for gi, idxs in enumerate(groups):
             flat = group_concat(leaves, idxs)
-            if use_ef:
-                # a group of several leaves is a fresh concatenation: add the
-                # residual into it (the same bits; one group-sized buffer
-                # fewer at the LM's ~1 G-element groups)
-                ef_flat = group_concat(ef_leaves, idxs)
-                acc = flat.add_(ef_flat) if len(idxs) > 1 else flat + ef_flat
-                del ef_flat
-            else:
-                acc = flat
+            with obs_trace.phase("ef"):
+                if use_ef:
+                    # a group of several leaves is a fresh concatenation: add
+                    # the residual into it (the same bits; one group-sized
+                    # buffer fewer at the LM's ~1 G-element groups)
+                    ef_flat = group_concat(ef_leaves, idxs)
+                    acc = flat.add_(ef_flat) if len(idxs) > 1 else flat + ef_flat
+                    del ef_flat
+                else:
+                    acc = flat
             n_g = flat.shape[0]
-            fuse_t = fused_threshold(acc)
-            if fuse_t is not None:
-                comp_flat, new_ef_flat, group_sent = kernels.fused_sparsify(
-                    acc.contiguous(), fuse_t, want_ef=use_ef)
-            else:
-                comp_flat = comp.fn(acc, compressors.leaf_seed(seed, group_offset + gi, rank))
-                new_ef_flat = acc - comp_flat if use_ef else None
-                group_sent = sent_count(n_g, comp_flat)
-                if comp.name == "none":
-                    # all_reduce works in place and the dense payload may
-                    # alias the caller's gradient
-                    comp_flat = comp_flat.clone()
+            with obs_trace.phase("compress"):
+                fuse_t = fused_threshold(acc)
+                if fuse_t is not None:
+                    comp_flat, new_ef_flat, group_sent = kernels.fused_sparsify(
+                        acc.contiguous(), fuse_t, want_ef=use_ef)
+                else:
+                    comp_flat = comp.fn(acc, compressors.leaf_seed(seed, group_offset + gi,
+                                                                   rank))
+                    new_ef_flat = acc - comp_flat if use_ef else None
+                    group_sent = sent_count(n_g, comp_flat)
+                    if comp.name == "none":
+                        # all_reduce works in place and the dense payload may
+                        # alias the caller's gradient
+                        comp_flat = comp_flat.clone()
             group_bits = group_sent * bits_width(n_g)
-            work = (dist.all_reduce(comp_flat, group=group, async_op=True) if world > 1
-                    else None)
+            with obs_trace.phase("reduce"):
+                work = (dist.all_reduce(comp_flat, group=group, async_op=True) if world > 1
+                        else None)
             in_flight.append((work, comp_flat, idxs))
             if use_ef:
-                group_split(new_ef_flat, leaves, idxs, new_ef_leaves, dtype=torch.float32)
+                with obs_trace.phase("return"):
+                    group_split(new_ef_flat, leaves, idxs, new_ef_leaves,
+                                dtype=torch.float32)
             transport = wire_transport(comp.name, n_g, cfg)
             if transport == "sharded" and world > 1:
                 # the counterfactual: the fixed-capacity route and return
@@ -492,10 +500,12 @@ def _make_stateless_issue(cfg: CompressionConfig, group_offset: int, group=None)
         def finish():
             for work, comp_flat, idxs in in_flight:
                 if work is not None:
-                    work.wait()
-                # the payload is this sync's own buffer: divide it in place
-                group_split(comp_flat.div_(world) if world > 1 else comp_flat, leaves, idxs,
-                            out_leaves)
+                    with obs_trace.phase("reduce"):
+                        work.wait()
+                with obs_trace.phase("return"):
+                    # the payload is this sync's own buffer: divide it in place
+                    group_split(comp_flat.div_(world) if world > 1 else comp_flat, leaves,
+                                idxs, out_leaves)
             return dict(zip(names, out_leaves)), new_ef, stats
 
         return finish
@@ -594,16 +604,18 @@ def _make_powersgd_sync(cfg: CompressionConfig, group_offset: int = 0, group=Non
         agrees = []
         for gi, idxs in enumerate(groups):
             flat = torch.cat([_flax_order(names[i], leaves[i]) for i in idxs])
-            acc = (flat + torch.cat([_flax_order(names[i], ef_leaves[i]) for i in idxs])
-                   if use_ef else flat)
-            acc = acc.to(torch.float32)
+            with obs_trace.phase("ef"):
+                acc = (flat + torch.cat([_flax_order(names[i], ef_leaves[i]) for i in idxs])
+                       if use_ef else flat)
+                acc = acc.to(torch.float32)
             n_g = acc.shape[0]
             if lowrank.powersgd_dims(n_g, cfg.rank) is None:
                 # factors would cost >= the dense vector: all-reduce dense
                 # (torch.cat made acc a copy, so in place is safe)
-                if world > 1:
-                    dist.all_reduce(acc, group=group)
-                recon = acc / world
+                with obs_trace.phase("reduce"):
+                    if world > 1:
+                        dist.all_reduce(acc, group=group)
+                    recon = acc / world
                 new_ef_flat = torch.zeros_like(acc) if use_ef else None
                 group_sent, group_bits = float(n_g), 32.0 * n_g
                 n_coll += 1
@@ -619,20 +631,24 @@ def _make_powersgd_sync(cfg: CompressionConfig, group_offset: int = 0, group=Non
                         dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=group)
                         dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=group)
                     agrees.append(((hi - lo).abs().max() == 0.0).to(torch.float32))
-                recon, q_new, group_sent, group_bits = lowrank.powersgd_group_sync(
-                    acc, q_in, cfg.rank, world, group)
+                # the factor iteration interleaves compression (matmuls
+                # against Q) with its two all-reduces: one range covers both
+                with obs_trace.phase("compress"):
+                    recon, q_new, group_sent, group_bits = lowrank.powersgd_group_sync(
+                        acc, q_in, cfg.rank, world, group)
                 new_comp[qk] = q_new
                 new_ef_flat = acc - recon if use_ef else None
                 n_coll += 2  # the P and the Q all-reduce
-            off = 0
-            for i in idxs:
-                n = leaves[i].numel()
-                out_leaves[i] = _from_flax_order(names[i], recon[off:off + n],
-                                                 leaves[i]).to(leaves[i].dtype)
-                if use_ef:
-                    new_ef_leaves[i] = _from_flax_order(names[i], new_ef_flat[off:off + n],
-                                                        leaves[i])
-                off += n
+            with obs_trace.phase("return"):
+                off = 0
+                for i in idxs:
+                    n = leaves[i].numel()
+                    out_leaves[i] = _from_flax_order(names[i], recon[off:off + n],
+                                                     leaves[i]).to(leaves[i].dtype)
+                    if use_ef:
+                        new_ef_leaves[i] = _from_flax_order(
+                            names[i], new_ef_flat[off:off + n], leaves[i])
+                    off += n
             sent_total += group_sent
             bits_total += group_bits
             dense_total += float(n_g)
@@ -666,9 +682,12 @@ def _make_powersgd_sync(cfg: CompressionConfig, group_offset: int = 0, group=Non
 # ---------------------------------------------------------------------------
 
 # 0/1 diagnostics, combined across signature groups by their own reduction
-# instead of summed (the JAX engine's _DIAG_STATS): key -> (collective, combine)
-_DIAG_COMBINE = {"sync_agree": (dist.ReduceOp.MIN, torch.minimum),
-                 "guard/nonfinite": (dist.ReduceOp.MAX, torch.maximum)}
+# instead of summed (the JAX engine's _DIAG_STATS): key -> (collective,
+# combine), derived from the metric registry's declared min/max reductions
+_DIAG_COLLECTIVES = {"min": (dist.ReduceOp.MIN, torch.minimum),
+                     "max": (dist.ReduceOp.MAX, torch.maximum)}
+_DIAG_COMBINE = {key: _DIAG_COLLECTIVES[red]
+                 for key, red in obs_registry.engine_diag_reductions().items()}
 
 
 def merge_stat_dicts(a: Dict[str, Any], b: Dict[str, Any]) -> Dict[str, Any]:

@@ -41,6 +41,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from tpu_compressed_dp_torch.obs import trace as obs_trace
 from tpu_compressed_dp_torch.parallel import dp
 
 __all__ = ["ChunkPlan", "plan_chunks", "hideable_byte_fraction", "issue_order",
@@ -200,8 +201,10 @@ class _Round:
         keys = self.names[plan.leaf_lo:plan.leaf_hi]
         sub = dict(zip(keys, self.grads[plan.leaf_lo:plan.leaf_hi]))
         sub_ef = {k: self.ef[k] for k in keys} if self.c.cfg.error_feedback else ()
-        fin = self.c.issues[ci](sub, sub_ef, _comp_slice(self.comp, plan), self.seed,
-                                ok=self.ok)
+        # the chunk's range index is its issue order (0 = first issued)
+        with obs_trace.chunk(len(self.pending)):
+            fin = self.c.issues[ci](sub, sub_ef, _comp_slice(self.comp, plan), self.seed,
+                                    ok=self.ok)
         self.pending.append((plan, fin))
 
     def results(self):
@@ -210,8 +213,10 @@ class _Round:
         if len(self.pending) != len(self.c.plans):
             missing = [self.names[i] for i, g in enumerate(self.grads) if g is None]
             raise RuntimeError(f"chunked sync: no gradient landed for {missing[:4]}")
-        for plan, fin in self.pending:
-            yield plan, fin()
+        for i, (plan, fin) in enumerate(self.pending):
+            with obs_trace.chunk(i):
+                out = fin()
+            yield plan, out
 
     def _merge(self, parts):
         synced: Tree = {}
@@ -241,9 +246,10 @@ class _Round:
         ``optimizer`` (SGD, whose per-leaf update makes the slices the
         whole-tree apply); returns ``(new_ef, new_comp, stats)``."""
         parts = []
-        for plan, (out, e, c, s) in self.results():
+        for i, (plan, (out, e, c, s)) in enumerate(self.results()):
             keys = self.names[plan.leaf_lo:plan.leaf_hi]
-            optimizer.apply({k: params[k] for k in keys}, out, opt_state, step)
+            with obs_trace.chunk(i), obs_trace.phase("update"):
+                optimizer.apply({k: params[k] for k in keys}, out, opt_state, step)
             parts.append(({}, e, c, s))
         _, new_ef, new_comp, stats = self._merge(parts)
         return new_ef, new_comp, stats

@@ -62,7 +62,8 @@ The contract of a transition:
     survivors with different partial writes.  After the re-init the new
     coordinator (the lowest surviving original rank) broadcasts the
     replicated fields over the new group: parameters, BatchNorm buffers,
-    momentum, the compressor state, the guard state and the step.  EF
+    momentum, the compressor state, the guard state, the adaptive
+    controller's state and the step.  EF
     stays local.  (JAX's jitted step cannot be half-applied, so it needs no
     such broadcast after a remesh; its ``rejoin_barrier`` broadcasts to
     joiners the same way.)
@@ -72,9 +73,12 @@ The contract of a transition:
     with one collective before they vote, so a join file that appears
     while they read cannot split their views.
 
-``events`` / ``flight`` / ``stream`` (ROADMAP items 13-14) are not ported:
-the runtime takes them as ``None`` only, every readmission is cold
-(``warm=False``) and ``stream/rejoin_bytes`` stays 0.
+``events`` (``obs/export.EventStream``) gets the JAX runtime's ``remesh``,
+``remesh_cascade`` and ``readmit`` records, ``flight``
+(``obs/flight.FlightRecorder``) the same in its ``elastic`` ring plus a
+blackbox dump on every handled failure.  ``stream`` (ROADMAP item 14) is
+not ported: the runtime takes it as ``None`` only, every readmission is
+cold (``warm=False``) and ``stream/rejoin_bytes`` stays 0.
 """
 
 from __future__ import annotations
@@ -600,9 +604,9 @@ def settle_barrier(timeout_s: float) -> None:
 def broadcast_replicated(state, src: int, *, comp: bool = True, extras: Any = None):
     """Make ``state``'s replicated fields group rank ``src``'s on every rank
     of the default group: the tensors in place (one broadcast a dtype and
-    device, flattened), the step and the guard state by value.  ``extras``
-    (any picklable value) rides along from ``src``.  Returns ``(state,
-    extras)``; EF is left alone."""
+    device, flattened), the step, the guard and the controller state by
+    value.  ``extras`` (any picklable value) rides along from ``src``.
+    Returns ``(state, extras)``; EF is left alone."""
     groups: Dict[Tuple[torch.dtype, torch.device], List[torch.Tensor]] = {}
     for t in _tensors(state, comp):
         groups.setdefault((t.dtype, t.device), []).append(t)
@@ -613,9 +617,10 @@ def broadcast_replicated(state, src: int, *, comp: bool = True, extras: Any = No
         for t in ts:
             t.copy_(flat[off:off + t.numel()].view_as(t))
             off += t.numel()
-    box = [int(state.step), state.guard, extras]
+    box = [int(state.step), state.guard, state.control, extras]
     dist.broadcast_object_list(box, src=src)
-    return dataclasses.replace(state, step=int(box[0]), guard=box[1]), box[2]
+    return (dataclasses.replace(state, step=int(box[0]), guard=box[1], control=box[2]),
+            box[3])
 
 
 class ElasticRuntime:
@@ -660,12 +665,12 @@ class ElasticRuntime:
                  broadcast: Optional[Callable[..., Any]] = None,
                  events=None, flight=None, stream=None,
                  log: Callable[[str], None] = print):
-        for name, hook in (("events", events), ("flight", flight), ("stream", stream)):
-            if hook is not None:
-                raise NotImplementedError(
-                    f"ElasticRuntime({name}=...) is not ported yet: ROADMAP.md queue 1, "
-                    "items 13-14")
+        if stream is not None:
+            raise NotImplementedError(
+                "ElasticRuntime(stream=...) is not ported yet: ROADMAP.md queue 1, item 14")
         self.cfg = cfg
+        self.events = events
+        self.flight = flight
         self.gossip = gossip
         self.crash = crash
         self.rendezvous = rendezvous
@@ -820,6 +825,10 @@ class ElasticRuntime:
 
         if not failure.failed:
             raise failure
+        # dump the blackbox NOW, while the evidence is fresh: the dead
+        # peer's why/when must survive a cascade that kills us mid-remesh
+        if self.flight is not None:
+            self.flight.observe(failure, step=failure.step)
         t0 = time.monotonic()
         dead = {int(f) for f in failure.failed}
         reason = failure.reason
@@ -830,10 +839,13 @@ class ElasticRuntime:
                                  reason=f"{reason}; this rank is among the declared "
                                         "dead — exiting for the watchdog")
             if len(live) < self.cfg.min_world:
-                raise PeerFailed(
+                err = PeerFailed(
                     sorted(dead), step=failure.step,
                     reason=(f"{reason}; surviving world {len(live)} below min_world "
                             f"{self.cfg.min_world} — not remeshing"))
+                if self.flight is not None:
+                    self.flight.observe(err, step=failure.step)
+                raise err
             # a second death while we are mid-remesh: probe the chaos
             # injector's during_remesh phase BEFORE committing
             if self.crash is not None:
@@ -852,6 +864,8 @@ class ElasticRuntime:
                         self._log(f"elastic: peer(s) {sorted(more.failed)} died during "
                                   f"the remesh — re-entering failure handling over "
                                   f"{sorted(dead)}")
+                        self._record("remesh_cascade", step=failure.step,
+                                     failed=sorted(dead), added=sorted(extra))
                         continue
             break
         if self.rendezvous is None:
@@ -871,7 +885,23 @@ class ElasticRuntime:
                   f"processes {list(decision.ranks)} after {reason}; ef_unrecoverable: the "
                   f"dead peers' EF rows are lost (dropped, norm unknown); "
                   f"{self.remesh_latency_ms:.0f} ms")
+        if self.events is not None:
+            self.events.emit("remesh", step=failure.step, failed=sorted(dead),
+                             world=self.world, epoch=decision.epoch, ef_policy="drop",
+                             ef_unrecoverable=True, dropped_ef_norm=float("nan"),
+                             latency_ms=self.remesh_latency_ms, remesh_ms=self.remesh_ms)
+        if self.flight is not None:
+            self.flight.record("elastic", "remesh", step=failure.step, failed=sorted(dead),
+                               world=self.world, epoch=decision.epoch, ef_policy="drop",
+                               latency_ms=self.remesh_latency_ms)
         return state
+
+    def _record(self, kind: str, **fields) -> None:
+        """One elastic record on the event stream and the flight ring."""
+        if self.events is not None:
+            self.events.emit(kind, **fields)
+        if self.flight is not None:
+            self.flight.record("elastic", kind, **fields)
 
     def _enter(self, state, decision, *, joining: bool = False, readmit: bool = False):
         """Join the committed world and agree the replicated state from its
@@ -946,6 +976,8 @@ class ElasticRuntime:
         self.remesh_ms += self.readmit_ms
         self._log(f"elastic: epoch {decision.epoch}: readmitted process(es) {ready} -> "
                   f"world {self.world} ({self.readmit_ms:.0f} ms)")
+        self._record("readmit", ranks=ready, world=self.world, epoch=decision.epoch,
+                     warm=False)
         return state, True
 
     def join_world(self, state, decision):

@@ -236,20 +236,25 @@ def guard_metrics(gs: GuardState) -> Dict[str, float]:
     }
 
 
-def check_guard_metrics(metrics: Dict[str, Any], cfg: GuardConfig) -> None:
+def check_guard_metrics(metrics: Dict[str, Any], cfg: GuardConfig, *, flight=None) -> None:
     """Raise :class:`GuardExceeded` when the fetched metrics' skip streak has
     passed ``max_consecutive_skips`` (the harnesses check once an epoch, or
-    every ``--log_every`` in the LM harness)."""
+    every ``--log_every`` in the LM harness).  ``flight`` (an
+    ``obs/flight.FlightRecorder``) dumps this rank's blackbox bundle before
+    the raise, so the streak history and the chaos arm survive the process."""
     streak = metrics.get("guard/skip_streak")
     if streak is None:
         return
     if float(streak) > cfg.max_consecutive_skips:
-        raise GuardExceeded(
+        err = GuardExceeded(
             f"step guard: {int(float(streak))} consecutive nonfinite steps "
             f"(> max_consecutive_skips={cfg.max_consecutive_skips}); "
             f"loss_scale={float(metrics.get('guard/loss_scale', -1.0)):g}, "
             f"last_good_step={int(float(metrics.get('guard/last_good_step', -1)))}"
         )
+        if flight is not None:
+            flight.observe(err, step=int(float(metrics.get("guard/last_good_step", -1))))
+        raise err
 
 
 def scale_objective(cfg: Optional[GuardConfig], gs: Any,

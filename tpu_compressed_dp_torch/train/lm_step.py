@@ -58,6 +58,7 @@ from tpu_compressed_dp_torch.models.transformer import (
     use_fused_head_xent,
     vocab_parallel_xent,
 )
+from tpu_compressed_dp_torch.obs import trace as obs_trace
 from tpu_compressed_dp_torch.ops.compressors import canonical_name, fold_in
 from tpu_compressed_dp_torch.parallel import mesh
 from tpu_compressed_dp_torch.parallel.dp import (
@@ -175,7 +176,8 @@ def make_lm_train_step(cfg: LlamaConfig, optimizer: SGD, comp_cfg: CompressionCo
         params = param_leaves(model)
         x, y = batch["input"], batch["target"]
         # backpropagate the objective, log the cross-entropy (as JAX)
-        objective, loss = lm_loss(cfg, model, x, y, g)
+        with obs_trace.phase("grad"):
+            objective, loss = lm_loss(cfg, model, x, y, g)
         objective = guard_mod.scale_objective(guard_cfg, state.guard, objective)
         # the step's compression seed: fold_in(state.rng, step) of the JAX step
         seed = fold_in(state.seed, state.step)
@@ -186,13 +188,15 @@ def make_lm_train_step(cfg: LlamaConfig, optimizer: SGD, comp_cfg: CompressionCo
             hooks = [p.register_hook(lambda gr, i=i: rnd.land(i, gr.to(torch.float32)))
                      for i, p in enumerate(params.values())]
             try:
-                torch.autograd.grad(objective, list(params.values()))
+                with obs_trace.phase("grad"):
+                    torch.autograd.grad(objective, list(params.values()))
             finally:
                 for h in hooks:
                     h.remove()
             synced, new_ef, new_comp, comm = rnd.collect()
         else:
-            grads = torch.autograd.grad(objective, list(params.values()))
+            with obs_trace.phase("grad"):
+                grads = torch.autograd.grad(objective, list(params.values()))
             grads = {k: gr.to(torch.float32) for k, gr in zip(params, grads)}
             # every rank of the mesh votes: the tensor shards' gradients
             # differ, and every replica must branch alike
@@ -206,7 +210,8 @@ def make_lm_train_step(cfg: LlamaConfig, optimizer: SGD, comp_cfg: CompressionCo
         if ok is not False:
             if clip_sent_norm > 0.0:
                 synced = clip_tree(synced, clip_sent_norm)
-            optimizer.apply(params, synced, state.opt_state, sched_step)
+            with obs_trace.phase("update"):
+                optimizer.apply(params, synced, state.opt_state, sched_step)
         del synced
 
         workers = mesh.size(g.workers)

@@ -62,6 +62,7 @@ from tpu_compressed_dp_torch.models.transformer import (
     use_fused_head_xent,
     vocab_parallel_xent,
 )
+from tpu_compressed_dp_torch.obs import trace as obs_trace
 from tpu_compressed_dp_torch.ops.compressors import canonical_name, fold_in
 from tpu_compressed_dp_torch.parallel import mesh
 from tpu_compressed_dp_torch.parallel.dp import (
@@ -258,7 +259,8 @@ def make_pp_train_step(cfg: LlamaConfig, optimizer: SGD, comp_cfg: CompressionCo
         guard_mod.check_state(guard_cfg, state.guard)
         params = stage_leaves(state.model)
         x, y = batch["input"], batch["target"]
-        share = pp_loss(cfg, state.model, x, y, g, microbatches)
+        with obs_trace.phase("grad"):
+            share = pp_loss(cfg, state.model, x, y, g, microbatches)
         objective = guard_mod.scale_objective(guard_cfg, state.guard, share)
         with torch.no_grad():
             # the pipe-summed loss (the JAX step's psum over pipe): what the
@@ -274,13 +276,15 @@ def make_pp_train_step(cfg: LlamaConfig, optimizer: SGD, comp_cfg: CompressionCo
             hooks = [p.register_hook(lambda gr, i=i, k=k: rnd.land(i, pipe_sum(k, gr)))
                      for i, (k, p) in enumerate(params.items())]
             try:
-                torch.autograd.grad(objective, list(params.values()))
+                with obs_trace.phase("grad"):
+                    torch.autograd.grad(objective, list(params.values()))
             finally:
                 for h in hooks:
                     h.remove()
             synced, new_ef, new_comp, comm = rnd.collect()
         else:
-            grads = torch.autograd.grad(objective, list(params.values()))
+            with obs_trace.phase("grad"):
+                grads = torch.autograd.grad(objective, list(params.values()))
             grads = {k: pipe_sum(k, gr) for k, gr in zip(params, grads)}
             # every stage and tensor shard votes
             ok, loss, grads = guard_mod.vet(guard_cfg, chaos, state, loss, grads, g.workers)
@@ -293,7 +297,8 @@ def make_pp_train_step(cfg: LlamaConfig, optimizer: SGD, comp_cfg: CompressionCo
         if ok is not False:
             if clip_sent_norm > 0.0:
                 synced = clip_tree(synced, clip_sent_norm)
-            optimizer.apply(params, synced, state.opt_state, sched_step)
+            with obs_trace.phase("update"):
+                optimizer.apply(params, synced, state.opt_state, sched_step)
         del synced
 
         workers = mesh.size(g.workers)

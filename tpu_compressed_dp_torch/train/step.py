@@ -45,6 +45,7 @@ import torch
 import torch.distributed as dist
 
 from tpu_compressed_dp_torch.models.common import param_leaves
+from tpu_compressed_dp_torch.obs import trace as obs_trace
 from tpu_compressed_dp_torch.ops.compressors import fold_in
 from tpu_compressed_dp_torch.parallel import mesh
 from tpu_compressed_dp_torch.parallel.dp import CompressionConfig, make_stateful_grad_sync
@@ -112,7 +113,8 @@ def make_train_step(apply_fn: ApplyFn, optimizer: SGD, comp_cfg: CompressionConf
         ok = None
         objective = guard_mod.scale_objective(guard_cfg, state.guard, loss)
         if chunked is None or whole:
-            grads = torch.autograd.grad(objective, list(params.values()))
+            with obs_trace.phase("grad"):
+                grads = torch.autograd.grad(objective, list(params.values()))
             scaled = {k: g.to(torch.float32) * grad_scale for k, g in zip(params, grads)}
             del grads
             ok, loss, scaled = guard_mod.vet(guard_cfg, chaos, state, loss, scaled)
@@ -133,7 +135,9 @@ def make_train_step(apply_fn: ApplyFn, optimizer: SGD, comp_cfg: CompressionConf
 
                 hooks = [p.register_hook(land(i)) for i, p in enumerate(params.values())]
                 try:
-                    torch.autograd.grad(objective, list(params.values()))
+                    # the chunks' ranges nest inside the backward's
+                    with obs_trace.phase("grad"):
+                        torch.autograd.grad(objective, list(params.values()))
                 finally:
                     for h in hooks:
                         h.remove()
@@ -149,7 +153,8 @@ def make_train_step(apply_fn: ApplyFn, optimizer: SGD, comp_cfg: CompressionConf
             sfactor = torch.clamp(clip_sent_norm * grad_scale / torch.clamp(snorm, min=1e-20),
                                   max=1.0)
             synced = {k: g * sfactor for k, g in synced.items()}
-        optimizer.apply(params, synced, state.opt_state, sched_step)
+        with obs_trace.phase("update"):
+            optimizer.apply(params, synced, state.opt_state, sched_step)
         return new_ef, new_comp, comm, ok, loss
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
@@ -167,13 +172,14 @@ def make_train_step(apply_fn: ApplyFn, optimizer: SGD, comp_cfg: CompressionConf
         # a vetoed step puts them back
         bn_snapshot = ([b.detach().clone() for b in model.buffers()]
                        if guard_cfg is not None else None)
-        if getattr(model, "dropout_rate", 0.0) > 0.0:
-            gen = torch.Generator(device=x.device).manual_seed(
-                dropout_seed(state.seed, state.step, mesh.rank()))
-            logits = apply_fn(model, x, True, gen)
-        else:
-            logits = apply_fn(model, x, True)
-        loss = cross_entropy_sum(logits, y) / x.shape[0]  # local mean
+        with obs_trace.phase("grad"):
+            if getattr(model, "dropout_rate", 0.0) > 0.0:
+                gen = torch.Generator(device=x.device).manual_seed(
+                    dropout_seed(state.seed, state.step, mesh.rank()))
+                logits = apply_fn(model, x, True, gen)
+            else:
+                logits = apply_fn(model, x, True)
+            loss = cross_entropy_sum(logits, y) / x.shape[0]  # local mean
         new_step = state.step + 1
         # the step's compression seed: fold_in(state.rng, step) of the JAX step
         new_ef, new_comp, comm, ok, loss = sync_and_apply(

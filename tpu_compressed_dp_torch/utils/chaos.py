@@ -196,6 +196,20 @@ class CrashInjector:
         self.mode = mode
         self.worker = int(worker)
         self.fired = False
+        #: optional ``obs/flight.FlightRecorder``: the injector notes the
+        #: injection into the chaos ring the instant it fires — for the
+        #: preempt mode the only record the dying process gets to make
+        #: before the SIGTERM lands
+        self.flight = None
+
+    def _note_fired(self, step: int) -> None:
+        if self.flight is None:
+            return
+        try:
+            self.flight.record("chaos", "crash_fired", step=int(step), mode=self.mode,
+                               worker=self.worker, crash_at_step=self.crash_at_step)
+        except Exception:
+            pass  # forensics must never alter the injected failure
 
     def check(self, step: int, phase: str = "step") -> None:
         # >= not ==: epoch-granular callers must not miss the mark when a
@@ -204,6 +218,7 @@ class CrashInjector:
                 or phase != ("step" if self.mode == "preempt" else self.mode)):
             return
         self.fired = True
+        self._note_fired(step)
         if self.mode == "preempt":
             # what a spot-VM reclaim does, raised in this thread so the
             # handler has run when this returns; PreemptionHandler's flag,

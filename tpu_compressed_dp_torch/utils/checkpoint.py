@@ -4,11 +4,11 @@ PyTorch-port counterpart of :mod:`tpu_compressed_dp.utils.checkpoint`, with
 ``torch.save`` (loaded with ``weights_only=True``) in place of Orbax.  The
 whole train state is saved: the model's parameters and buffers, the
 momentum, each rank's EF residual, the compressor state, the guard state,
-the step and the seed (the seed and the step give every random stream,
+the adaptive controller's state, the step and the seed (the seed and the step give every random stream,
 ``train/state.py``).
 
 A step is the directory ``<dir>/<step>/`` holding ``state.pt`` (rank 0's:
-the step, seed, compressor and guard state, and the model and momentum
+the step, seed, compressor, guard and controller state, and the model and momentum
 when every rank holds the same) and one ``rank<r>.pt`` a rank (its EF
 residual, and its model shard and momentum under ``sharded_model``, the
 LM's ``--tp`` / ``--pp``).  Every rank writes its file into
@@ -34,6 +34,11 @@ directory too.
     refused (:class:`LayoutMismatch`): the JAX ``Checkpointer`` restores
     onto the target's layout too, and its EF carries the world on its
     leading axis, so neither package restores across worlds.
+  * ``events`` (``obs/export.EventStream``) gets ``ckpt_save`` and
+    ``ckpt_rollback`` records, ``flight`` (``obs/flight.FlightRecorder``)
+    the same in its ``ckpt`` ring, and a blackbox dump when a checkpoint
+    fails verification (an explicit step, or a walk-back that finds
+    nothing verifiable), as in the JAX ``Checkpointer``.
   * :meth:`Checkpointer.follow_world`: after an elastic remesh or readmit
     (``train/elastic.py``) the rank, the world and the layout follow the
     new world, so the saves after the transition are written at its size
@@ -55,6 +60,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from tpu_compressed_dp_torch.control.state import control_from_dict, control_to_dict
 from tpu_compressed_dp_torch.parallel import mesh
 from tpu_compressed_dp_torch.train.guard import guard_from_dict, guard_to_dict
 
@@ -201,8 +207,9 @@ class Checkpointer:
     ``rank`` / ``world`` default to the process group's; ``sharded_model``
     puts the model and momentum in each rank's file; ``layout`` (default
     ``{'world': world}``) is what a restore must match.  One Checkpointer
-    a rank owns the directory; ``events`` / ``flight`` / ``stream`` are
-    hooks of the telemetry layers and stay ``None`` until those are ported.
+    a rank owns the directory; ``events`` / ``flight`` are the telemetry
+    hooks (the harnesses set them under ``--events`` / ``--flight_dir``),
+    ``stream`` the delta stream's and stays ``None`` until that is ported.
     ``token`` names the pending directories without the broadcast that
     draws one (a worker joining a running world takes the survivors' from
     :meth:`follow_world`).
@@ -265,6 +272,8 @@ class Checkpointer:
             rep = {"step": int(state.step), "seed": int(state.seed),
                    "comp": _marker(_host(state.comp)),
                    "guard": _marker(guard_to_dict(state.guard) if state.guard != () else ()),
+                   "control": _marker(control_to_dict(state.control)
+                                      if state.control != () else ()),
                    "layout": dict(self.layout)}
             if not self.sharded_model:
                 rep.update(model=model, opt_state=opt)
@@ -285,7 +294,7 @@ class Checkpointer:
         pending = self._pending()
         t0 = time.monotonic()
         if self._write_payload(pending, step, rep, mine, meta):
-            self._committed(step, (time.monotonic() - t0) * 1e3)
+            self._committed(step, (time.monotonic() - t0) * 1e3, mode="sync", meta=meta)
         return step
 
     def save_async(self, state, meta: Optional[Dict[str, Any]] = None) -> int:
@@ -310,7 +319,8 @@ class Checkpointer:
                     self._bg_error = e
             else:
                 if committed:
-                    self._committed(step, (time.monotonic() - t0) * 1e3)
+                    self._committed(step, (time.monotonic() - t0) * 1e3, mode="async",
+                                    meta=meta)
             finally:
                 with self._mx:
                     self._inflight = 0
@@ -372,11 +382,15 @@ class Checkpointer:
             self._gc()
         return True
 
-    def _committed(self, step: int, ms: float) -> None:
+    def _committed(self, step: int, ms: float, *, mode: str, meta: Dict[str, Any]) -> None:
         with self._mx:
             self._save_ms = ms
             self._last_step = step
             self._mark_mono = time.monotonic()
+        fields = {"step": step, "ms": round(ms, 3), "mode": mode}
+        if meta.get("emergency"):
+            fields["emergency"] = True
+        self._emit("ckpt_save", **fields)
 
     def _gc(self) -> None:
         """Keep the newest ``max_to_keep`` steps and the pinned best; drop
@@ -471,20 +485,24 @@ class Checkpointer:
         if step is not None:
             problems = verify_step_dir(self.directory, int(step))
             if problems:
-                raise CheckpointCorrupt(f"checkpoint step {int(step)} failed verification: "
+                err = CheckpointCorrupt(f"checkpoint step {int(step)} failed verification: "
                                         + "; ".join(problems))
+                self._observe_corrupt(err, step=int(step))
+                raise err
             return self._restore_step(target_state, int(step))
         steps = sorted(list_step_dirs(self.directory), reverse=True)
         if not steps:
             raise FileNotFoundError(f"no checkpoints under {self.directory!r}")
         newest = steps[0]
         first_err: Optional[BaseException] = None
+        skipped: List[Dict[str, Any]] = []
         for s in steps:
             problems = verify_step_dir(self.directory, s)
             if problems:
                 if first_err is None:
                     first_err = CheckpointCorrupt(f"checkpoint step {s} failed verification: "
                                                   + "; ".join(problems))
+                skipped.append({"step": s, "problems": problems})
                 continue
             try:
                 out = self._restore_step(target_state, s)
@@ -493,11 +511,18 @@ class Checkpointer:
             except Exception as e:
                 if first_err is None:
                     first_err = e
+                skipped.append({"step": s, "problems": [repr(e)]})
                 continue
             if s != newest:
+                rollback = newest - s
                 with self._mx:
-                    self._rollback_steps += newest - s
+                    self._rollback_steps += rollback
+                self._emit("ckpt_rollback", from_step=newest, to_step=s,
+                           rollback_steps=rollback, skipped=skipped)
             return out
+        if isinstance(first_err, CheckpointCorrupt):
+            # the walk-back exhausted the chain: nothing on disk verifies
+            self._observe_corrupt(first_err, step=newest)
         raise first_err
 
     def _restore_step(self, target, step: int):
@@ -524,6 +549,10 @@ class Checkpointer:
         comp = (_placed(rep["comp"]["on"], target.comp) if "on" in rep["comp"]
                 and isinstance(target.comp, dict) else target.comp)
         guard = guard_from_dict(rep["guard"]["on"]) if "on" in rep["guard"] else target.guard
+        # the JAX legacy rule: a step saved without control (or before the
+        # controller existed) restores with the caller's fresh state
+        control = rep.get("control") or {}
+        control = control_from_dict(control["on"]) if "on" in control else target.control
         # every check passed: now write into the live model and momentum
         target.model.load_state_dict(sd)
         _copy_into(target.opt_state, opt)
@@ -534,7 +563,7 @@ class Checkpointer:
         if "best_step" in meta:
             self.best_step = int(meta["best_step"])
         state = dataclasses.replace(target, step=int(rep["step"]), seed=int(rep["seed"]),
-                                    ef=ef, comp=comp, guard=guard)
+                                    ef=ef, comp=comp, guard=guard, control=control)
         return state, meta
 
     # ---------------------------------------------------------- observability
@@ -558,6 +587,30 @@ class Checkpointer:
                 "last_ckpt_step": int(-1 if self._last_step is None else self._last_step),
                 "ckpt_age_s": time.monotonic() - self._mark_mono,
             }
+
+    def _emit(self, kind: str, **fields) -> None:
+        fl = self.flight
+        if fl is not None:
+            try:
+                fl.record("ckpt", kind, **fields)
+            except Exception:
+                pass  # telemetry must never fail a save/restore
+        ev = self.events
+        if ev is None:
+            return
+        try:
+            ev.emit(kind, **fields)
+        except Exception:
+            pass  # telemetry must never fail a save/restore
+
+    def _observe_corrupt(self, err: BaseException, *, step: int) -> None:
+        fl = self.flight
+        if fl is None:
+            return
+        try:
+            fl.observe(err, step=step)
+        except Exception:
+            pass  # forensics must never mask the corruption itself
 
     def close(self) -> None:
         """Drain the background writer, never raising."""
