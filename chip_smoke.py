@@ -207,7 +207,28 @@ printing no result, where either is missing or any phase fails.
      leaves a valid bundle whose postmortem names ``nan`` on rank 0, and
      ``harness/watchdog.py --check`` exits 0 on (a)'s heartbeat and 1 once
      it is stale;
- 12. prints the kernels' JSON line (18 entries), the ``nvidia-smi``
+ 12. the delta state stream (``stream/``): (a) full-width ResNet-9 through
+     ``harness.dawn.main`` (batch 512, entire-model Top-K 1 % + EF, 5
+     epochs of 4 steps) with ``--stream_dir --stream_every 1
+     --stream_keyframe_every 4``: at every window close (keyframe or flush)
+     a tailing ``StreamReader``'s reconstruction is bitwise the live
+     parameters in flax layout; the drift's search and ``select_pack``,
+     captured inside the writer's codec at the first Top-K delta, are held
+     bitwise to their plain versions; the segments and bytes by kind and
+     each append's codec and commit ms are printed; (b) the codec alone at
+     the LM's flat size (llama3_8b widths, 2 layers: 1,486,901,248
+     coordinates, keep 14,869,012) on a seeded drift of every parameter:
+     ``flatten_params``, ``topk_delta`` and ``flush_delta`` timed with
+     their copies to the host, the device memory above the resident
+     vectors, the search and ``select_pack`` held to their plain versions
+     on the drift (no keyframe is written); (c) a warm readmission at W = 2
+     gloo ranks (phase 10's worker, ``--stream_dir`` on both, rank 1 under
+     the watchdog, SIGKILLed after its second epoch, relaunched with
+     ``--stream_rejoin``): ``epoch.json`` says ``warm: true``, the joiner's
+     parameters and momentum are bitwise the survivor's and its
+     ``stream/rejoin_bytes`` is above 0; (d) ``harness/stream_serve.py
+     --once`` takes a snapshot of (a)'s stream, bitwise the reconstruction;
+ 13. prints the kernels' JSON line (18 entries), the ``nvidia-smi``
      name/power line and, last, ``{"ok": true, "device": {...}}``.
 
 ``--record FILE`` also writes the full record (every timing, the profiles)
@@ -4518,7 +4539,7 @@ def phase_robust(kernels, torch, record):
 ELASTIC_TIMEOUT = 4.0    # --peer_timeout of the phase's runs, seconds
 ELASTIC_KILL_STEP = 2    # 10a/10b: crash=mid_collective after this step
 ELASTIC_N = 2048         # synthetic training images: 4 steps of 512 an epoch
-ELASTIC_C_EPOCHS = 8     # 10c: the readmitted world trains to the end
+ELASTIC_C_EPOCHS = 5     # 10c: the readmitted world trains to the end
 ELASTIC_C_BATCH = 510    # 10c starts at W = 3, which 512 does not divide
 ELASTIC_CAPTURE = ("topk_threshold", "fused_sparsify", "fused_select_pack", "route_buckets")
 
@@ -4621,12 +4642,13 @@ def elastic_worker(what: str, out: str, edir: str, argv: list) -> int:
             flush()
         return state, grew
 
-    def join_world(self, state, decision):
-        state = jw(self, state, decision)
+    def join_world(self, state, decision, **kw):
+        state = jw(self, state, decision, **kw)
         host = _host_state(state)
         rec["joined"] = {"t": time.time(), "ranks": self.ranks, "digests": _digests(torch, host),
                          "ef_zero": all(not bool(v.any()) for v in host["ef"].values()),
-                         "step": host["step"]}
+                         "step": host["step"], "warm": bool(getattr(decision, "warm", False)),
+                         "adopted": kw.get("adopted_info"), "metrics": self.metrics()}
         flush()
         return state
 
@@ -4744,7 +4766,7 @@ def _spawn_elastic(what: str, outs, edir: str, argvs, extra_cmd=None):
             for r, cmd in enumerate(cmds)]
 
 
-def _reap(procs, label: str, timeout: float = 300.0) -> list:
+def _reap(procs, label: str, timeout: float = 300.0, phase: str = "10") -> list:
     try:
         logs = [p.communicate(timeout=timeout)[0] for p in procs]
     finally:
@@ -4754,7 +4776,7 @@ def _reap(procs, label: str, timeout: float = 300.0) -> list:
                 p.wait()
     for r, (p, text) in enumerate(zip(procs, logs)):
         for line in text.strip().splitlines()[-8:]:
-            log(f"[10{label} rank {r}] {line}")
+            log(f"[{phase}{label} rank {r}] {line}")
     return [p.returncode for p in procs]
 
 
@@ -5424,6 +5446,408 @@ def profile_checks(trace: dict) -> dict:
             "how": sorted(how)}
 
 
+STREAM_EPOCHS = 5            # 12a: a window of 4 segments, then the next keyframe
+STREAM_KEYFRAME_EVERY = 4
+STREAM_CAPTURE = ("topk_threshold", "fused_select_pack")
+STREAM_DRIFT = 1e-3          # 12b: the seeded drift's scale (an SGD step's size)
+
+
+def _stream_run(kernels, dawn, torch, sd: str) -> dict:
+    """12a: ``dawn.main`` with the stream.  Inside the writer's codec: the
+    first call of each captured kernel wrapper (inputs and outputs) and the
+    codec's own launches; at each window close (a keyframe or a flush) the
+    commit is drained and a tailing reader's reconstruction is held bitwise
+    to the flat vector just appended; each segment's codec and commit ms."""
+    from tpu_compressed_dp_torch.stream import StreamReader, StreamWriter
+    from tpu_compressed_dp_torch.stream import delta as sdelta
+
+    cap, codec, appends, closes = {}, {"on": False, "launches": {}}, [], []
+    orig = {name: getattr(kernels, name) for name in STREAM_CAPTURE}
+    det = lambda x: x.detach().clone() if isinstance(x, torch.Tensor) else x  # noqa: E731
+
+    def wrap(name):
+        def call(*a, **kw):
+            out = orig[name](*a, **kw)
+            if codec["on"] and name not in cap:
+                cap[name] = {"args": [det(x) for x in a],
+                             "out": [det(x) for x in (out if isinstance(out, tuple) else (out,))]}
+            return out
+        return call
+
+    enc, committed, app = StreamWriter._encode, StreamWriter._committed, StreamWriter.append_async
+    reader = StreamReader(sd, log=lambda *a: None)
+
+    def _encode(self, params, **kw):
+        before = dict(kernels.LAUNCHES)
+        codec["on"] = True
+        try:
+            out = enc(self, params, **kw)
+        finally:
+            codec["on"] = False
+        for k, v in kernels.LAUNCHES.items():
+            codec["launches"][k] = codec["launches"].get(k, 0) + v - before[k]
+        seq, kind, man = out
+        appends.append({"seq": seq, "kind": kind, "close": bool(man["window_close"]),
+                        "codec_ms": self.codec_ms,
+                        "vec": sdelta.flatten_params(params)[0].cpu()})
+        return out
+
+    def _committed(self, seq, kind, step, ms, man_args):
+        committed(self, seq, kind, step, ms, man_args)
+        next(a for a in appends if a["seq"] == seq)["commit_ms"] = ms
+
+    def append_async(self, params, *, step):
+        seq = app(self, params, step=step)
+        a = appends[-1]
+        if a["close"]:
+            self.drain()
+            reader.catch_up()
+            if not (reader.exact and reader.applied_seq == seq and np_equal_bits(
+                    reader._vec, a["vec"].numpy())):
+                raise AssertionError(f"12a: the reconstruction at window close seq {seq} "
+                                     "is not bitwise the live parameters")
+            closes.append(seq)
+        return seq
+
+    for name in STREAM_CAPTURE:
+        setattr(kernels, name, wrap(name))
+    StreamWriter._encode, StreamWriter._committed = _encode, _committed
+    StreamWriter.append_async = append_async
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        summary = dawn.main(adaptive_argv("entiremodel", "simulate", STREAM_EPOCHS) + [
+            "--stream_dir", sd, "--stream_every", "1", "--stream_keyframe_every",
+            str(STREAM_KEYFRAME_EVERY)])
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in orig.items():
+            setattr(kernels, name, fn)
+        StreamWriter._encode, StreamWriter._committed = enc, committed
+        StreamWriter.append_async = app
+    for a in appends:
+        del a["vec"]
+    return {"summary": summary, "launches": dict(kernels.LAUNCHES),
+            "codec_launches": codec["launches"], "captured": cap, "appends": appends,
+            "closes": closes, "wall_s": time.perf_counter() - t0}
+
+
+def np_equal_bits(a, b) -> bool:
+    import numpy as np
+
+    return a.shape == b.shape and np.array_equal(a.view(np.uint32), b.view(np.uint32))
+
+
+def hold_stream_kernels(kernels, torch, captured: dict, label: str, *, cpu_search: bool):
+    """The drift's search and select+pack held bitwise to their plain
+    versions on the captured inputs: the run's threshold against the unfused
+    glue on the plain counts (and, with ``cpu_search``, the whole
+    ``check_search``: the CPU search's state word for word), then
+    select+pack's outputs against ``fused_select_pack_plain``."""
+    mag, keep = captured["topk_threshold"]["args"]
+    if cpu_search:
+        check_search(kernels, torch, mag, int(keep), label)
+    t_plain = kernels._topk_threshold_hist(mag, int(keep), count_fn=kernels.count_ge_edges_plain)
+    t_run = captured["topk_threshold"]["out"][0]
+    if not _bits_equal(torch, t_run, t_plain):
+        raise AssertionError(f"{label}: the drift's threshold {t_run.item()} is not the plain "
+                             f"search's {t_plain.item()}")
+    kept = int((mag >= t_run).sum().item())
+    if kept < int(keep):
+        raise AssertionError(f"{label}: the threshold keeps {kept} < {keep}")
+    del mag
+    v, t, k = captured["fused_select_pack"]["args"]
+    err = _hold(torch, tuple(captured["fused_select_pack"]["out"]),
+                kernels.fused_select_pack_plain(v, t, k), "select_pack", label)
+    log(f"{label}: the drift's search (t={t_run.item():.9g}, kept {kept} of keep {keep}) and "
+        f"select_pack bitwise == their plain versions")
+    return {"count_ge": 0.0, "count_edges": 0.0, "search_init": 0.0, "select_pack": err}
+
+
+def phase_stream_lm(kernels, torch, record) -> dict:
+    """12b: the codec alone at the LM's flat size (llama3_8b widths, 2
+    layers: 1,486,901,248 coordinates): the model's flat vector, a seeded
+    drift of every parameter in place, then ``flatten_params``,
+    ``topk_delta`` (keep 14,869,012) and ``flush_delta`` timed with their
+    host copies, the peak memory, and the drift's search and select+pack
+    held to their plain versions.  No keyframe is written to disk."""
+    from tpu_compressed_dp_torch.models import transformer as tf
+    from tpu_compressed_dp_torch.stream import delta as sdelta
+
+    card = record["card"]
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def above(fn):
+        """``fn()``'s result, ms and the device bytes it held at its peak
+        above what was allocated before it (its outputs included)."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out, ms = timed(fn)
+        return out, ms, torch.cuda.max_memory_allocated() - base
+
+    cfg = dataclasses.replace(tf.llama3_8b(), n_layers=2)
+    model = tf.Llama(cfg, seed=0, device=dev)
+    n = sum(p.numel() for p in model.parameters())
+    if n != LM_PARAMS:
+        raise AssertionError(f"12b: the LM has {n} parameters, want {LM_PARAMS}")
+    keep = sdelta.keep_for_ratio(n, RATIO)
+    last, spec = sdelta.flatten_params(model)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(torch.randn(p.shape, generator=gen, device=dev) * STREAM_DRIFT)
+    flat_ms = []
+    for _ in range(3):
+        vec, ms = timed(lambda: sdelta.flatten_params(model)[0])
+        flat_ms.append(ms)
+        if len(flat_ms) < 3:
+            del vec
+    kernels.reset_launches()
+    cap, orig = {}, {name: getattr(kernels, name) for name in STREAM_CAPTURE}
+
+    def wrap(name):
+        def call(*a, **kw):
+            out = orig[name](*a, **kw)
+            if name not in cap:
+                det = lambda x: x.detach().clone() if isinstance(x, torch.Tensor) else x  # noqa
+                cap[name] = {"args": [det(x) for x in a],
+                             "out": [det(x) for x in (out if isinstance(out, tuple) else (out,))]}
+            return out
+        return call
+
+    for name in STREAM_CAPTURE:
+        setattr(kernels, name, wrap(name))
+    try:
+        (idx, vals), first_ms = timed(lambda: sdelta.topk_delta(vec, last, keep))
+    finally:
+        for name, fn in orig.items():
+            setattr(kernels, name, fn)
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    for k in ("count_ge", "search_init", "select_pack"):
+        if not launches.get(k):
+            raise AssertionError(f"12b: topk_delta never launched {k}: {launches}")
+    # the model, last_streamed and the new flat vector stay resident while
+    # the writer runs the codec
+    resident = torch.cuda.memory_allocated() - sum(
+        x.numel() * x.element_size() for c in cap.values() for x in c["args"] + c["out"]
+        if isinstance(x, torch.Tensor))
+    topk_ms, topk_extra = [], 0
+    for _ in range(3):
+        (i2, v2), ms, extra = above(lambda: sdelta.topk_delta(vec, last, keep))
+        topk_ms.append(ms)
+        topk_extra = max(topk_extra, extra)
+        if not (torch.equal(i2, idx) and _bits_equal(torch, v2, vals)):
+            raise AssertionError("12b: topk_delta differs between calls")
+        del i2, v2
+    (h_idx, h_vals), d2h_ms = timed(lambda: (idx.cpu(), vals.cpu()))
+    if h_idx.shape[0] != keep or h_idx.dtype != torch.int32:
+        raise AssertionError(f"12b: topk_delta gave {h_idx.shape[0]} {h_idx.dtype} indices, "
+                             f"want {keep} int32")
+    del idx, vals
+    (f_idx, f_vals), flush_ms, flush_extra = above(lambda: sdelta.flush_delta(vec, last))
+    (hf_idx, hf_vals), flush_d2h_ms = timed(lambda: (f_idx.cpu(), f_vals.cpu()))
+    flushed = int(f_idx.shape[0])
+    del f_idx, f_vals, hf_idx, hf_vals, h_idx, h_vals, vec, last
+    peak = (resident + max(topk_extra, flush_extra)) / 2 ** 30
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    err = hold_stream_kernels(kernels, torch, cap, "12b LM drift", cpu_search=False)
+    del cap
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = {"n": n, "keep": keep, "flatten_ms": sorted(flat_ms)[1], "topk_delta_first_ms":
+           first_ms, "topk_delta_ms": sorted(topk_ms)[1], "topk_d2h_ms": d2h_ms,
+           "flush_ms": flush_ms, "flush_d2h_ms": flush_d2h_ms, "flushed": flushed,
+           "resident_gib": resident / 2 ** 30, "topk_extra_gib": topk_extra / 2 ** 30,
+           "flush_extra_gib": flush_extra / 2 ** 30, "peak_gib": peak, "launches": launches}
+    log(f"12b LM flat n={n} keep={keep}: flatten_params {res['flatten_ms']:.2f} ms, topk_delta "
+        f"{res['topk_delta_ms']:.2f} ms (first {first_ms:.2f}) + {d2h_ms:.2f} ms to the host, "
+        f"flush_delta {flush_ms:.2f} ms ({flushed} coordinates) + {flush_d2h_ms:.2f} ms to the "
+        f"host; memory: {res['resident_gib']:.2f} GiB resident (model, last_streamed, the new "
+        f"vector), topk_delta +{res['topk_extra_gib']:.2f}, flush_delta "
+        f"+{res['flush_extra_gib']:.2f}, peak {peak:.2f} GiB; launches {launches} on {card}")
+    return res, err
+
+
+def phase_stream_rejoin(out_dir: str) -> dict:
+    """12c: W = 2 gloo ranks on the card (phase 10's worker, full-width
+    ResNet-9, 4 epochs of 4 steps), ``--stream_dir`` on both; rank 1 under
+    the watchdog is SIGKILLed after its second epoch, rank 0 remeshes to
+    W = 1 and, at its next epoch boundary, flushes the stream and commits a
+    warm readmission of the relaunched rank (``--stream_rejoin``)."""
+    import shutil
+    import signal
+
+    from tpu_compressed_dp_torch.parallel.mesh import free_port
+
+    edir = os.path.join(out_dir, "12c")
+    shutil.rmtree(edir, ignore_errors=True)
+    os.makedirs(edir)
+    port, hb, sd = free_port(), os.path.join(edir, "hb.json"), os.path.join(edir, "stream")
+    outs = [os.path.join(edir, f"run_rank{r}.json") for r in range(2)]
+    argvs = [elastic_argv(port, 2, r, os.path.join(edir, "el"),
+                          ["--batch_size", "512", "--epochs", "4", "--heartbeat", hb,
+                           "--heartbeat_interval", "0.5", "--elastic_wait_join",
+                           "--elastic_min_world", "1", "--stream_dir", sd,
+                           "--stream_keyframe_every", "3", *(["--stream_rejoin"] if r else [])])
+             for r in range(2)]
+
+    def under_watchdog(cmd):
+        # the relaunch must see the survivor's commit: the heartbeat's age
+        # (10 s) outlasts its detection (at most 2 x the 4 s peer timeout)
+        return [sys.executable, "-m", "tpu_compressed_dp_torch.harness.watchdog", "--relaunch",
+                "--heartbeat", f"{hb}.rank1", "--elastic_dir", os.path.join(edir, "el"),
+                "--interval", "0.5", "--grace", "30", "--max_age", "10", "--backoff", "1",
+                "--max_relaunches", "3", "--", *cmd]
+
+    t0 = time.perf_counter()
+    procs = _spawn_elastic("run", outs, edir, argvs, extra_cmd={1: under_watchdog})
+    victim, deadline = None, time.time() + 240
+    while victim is None:
+        if time.time() > deadline or any(p.poll() is not None for p in procs):
+            _reap(procs, "c", phase="12")
+            raise AssertionError("12c: rank 1 never finished its second epoch before the kill")
+        try:
+            with open(f"{hb}.rank1") as f:
+                if int(json.load(f).get("epoch", -1)) >= 1:
+                    victim = next(int(pid) for pid in os.listdir("/proc") if pid.isdigit()
+                                  and _ppid(pid) == procs[1].pid)
+        except (OSError, ValueError, StopIteration):
+            pass
+        time.sleep(0.05)
+    t_kill = time.time()
+    os.kill(victim, signal.SIGKILL)
+    rcs = _reap(procs, "c", timeout=400, phase="12")
+    wall = time.perf_counter() - t0
+    if any(rcs):
+        raise AssertionError(f"12c: exit codes {rcs} (the last is the watchdog's)")
+    runs = {r: json.load(open(outs[r])) for r in range(2)}
+    with open(os.path.join(edir, "el", "epoch.json")) as f:
+        epoch = json.load(f)
+    if epoch["ranks"] != [0, 1] or epoch.get("warm") is not True:
+        raise AssertionError(f"12c: the final epoch.json is {epoch}, want a warm [0, 1]")
+    surv, j = runs[0], runs[1].get("joined")
+    if surv["remesh"]["world"] != 1 or "readmit" not in surv or j is None:
+        raise AssertionError(f"12c: remesh {surv.get('remesh')}, readmit "
+                             f"{surv.get('readmit')}, joined {j}")
+    if not j["warm"] or not (j["adopted"] or {}).get("exact"):
+        raise AssertionError(f"12c: the join was not a warm, exact adoption: {j}")
+    rejoin_bytes = j["metrics"]["stream/rejoin_bytes"]
+    if not rejoin_bytes > 0:
+        raise AssertionError(f"12c: stream/rejoin_bytes {rejoin_bytes}")
+    for key in ("model", "momentum"):
+        if surv["readmit"]["digests"][key] != j["digests"][key]:
+            raise AssertionError(f"12c: the joiner's {key} is not the survivor's bitwise")
+    if not j["ef_zero"] or runs[0]["summary"]["world"] != 2:
+        raise AssertionError(f"12c: joiner EF zero {j['ef_zero']}, final world "
+                             f"{runs[0]['summary']['world']}")
+    params_bytes = 4 * FULL_MODEL
+    return {"wall_s": wall, "epoch": epoch, "rejoin_bytes": rejoin_bytes,
+            "params_bytes": params_bytes, "adopted": j["adopted"],
+            "readmit_ms": surv["readmit"]["ms"],
+            "kill_to_world2_s": surv["readmit"]["t"] - t_kill,
+            "launches": _sum_launches(run["launches"] for run in runs.values())}
+
+
+def phase_stream(kernels, dawn, torch, record):
+    """Phase 12: the delta stream (``stream/``) on the card.  Returns the
+    main-path runs' launches (12a, 12c) and the kernels' largest
+    |kernel - plain|."""
+    from tpu_compressed_dp_torch.harness import stream_serve
+    from tpu_compressed_dp_torch.stream import StreamReader, store
+
+    card = record["card"]
+    out_dir = os.path.join(HERE, "build", "chip_smoke_stream")
+    shutil_rm(out_dir)
+    os.makedirs(out_dir)
+    t_phase = time.perf_counter()
+    res = {}
+    # (a) the dawn harness with the stream
+    sd = os.path.join(out_dir, "12a")
+    run = _stream_run(kernels, dawn, torch, sd)
+    n_closes = sum(1 for a in run["appends"] if a["close"])
+    if len(run["appends"]) != STREAM_EPOCHS or len(run["closes"]) != n_closes or n_closes < 3:
+        raise AssertionError(f"12a: {len(run['appends'])} appends, window closes held "
+                             f"{run['closes']}")
+    for k in ("count_ge", "search_init", "select_pack"):
+        if run["codec_launches"].get(k, 0) < 1:
+            raise AssertionError(f"12a: the codec never launched {k}: {run['codec_launches']}")
+    err = hold_stream_kernels(kernels, torch, run["captured"], "12a first delta",
+                              cpu_search=True)
+    reader = StreamReader(sd, log=lambda *a: None)
+    reader.catch_up()
+    problems, seqs = store.verify_stream(sd)
+    if problems or not reader.exact:
+        raise AssertionError(f"12a: verify_stream {problems}, exact {reader.exact}")
+    kinds = {}
+    for q in seqs:
+        m = store.read_segment_manifest(sd, q)
+        kind = "flush" if m["kind"] == "delta" and m["window_close"] else m["kind"]
+        k = kinds.setdefault(kind, {"segments": 0, "bytes": 0, "nnz": 0})
+        k["segments"] += 1
+        k["bytes"] += m["bytes"]
+        k["nnz"] += m["nnz"]
+    codec = [round(a["codec_ms"], 3) for a in run["appends"]]
+    commit = [round(a.get("commit_ms", float("nan")), 3) for a in run["appends"]]
+    res["12a"] = {"kinds": kinds, "codec_ms": codec, "commit_ms": commit,
+                  "codec_launches": run["codec_launches"], "closes": run["closes"],
+                  "wall_s": run["wall_s"], "train_loss": run["summary"]["train loss"]}
+    log(f"12a dawn ResNet-9 Top-K 1 % + EF em with --stream_every 1 --stream_keyframe_every "
+        f"{STREAM_KEYFRAME_EVERY} over {STREAM_EPOCHS} epochs: segments and bytes by kind "
+        f"{kinds}; the reconstruction bitwise the live parameters at the window closes "
+        f"{run['closes']} and the end; append codec ms {codec}, commit ms {commit}; the "
+        f"codec's launches {run['codec_launches']}; run launches {run['launches']}; wall "
+        f"{run['wall_s']:.1f} s on {card}")
+    # (d) model push: one snapshot of 12a's stream
+    snap = os.path.join(out_dir, "12d")
+    if stream_serve.main([sd, "--once", "--snapshot_dir", snap]) != 0:
+        raise AssertionError("12d: stream_serve --once failed")
+    want = reader.params_dict()
+    import numpy as np
+
+    with np.load(os.path.join(snap, f"snapshot-{reader.applied_step}.npz")) as z:
+        got = {k: z[k] for k in z.files}
+    if set(got) != set(want) or not all(np_equal_bits(got[k], want[k]) for k in want):
+        raise AssertionError("12d: the snapshot is not bitwise the reconstruction")
+    res["12d"] = {"leaves": len(got), "step": reader.applied_step}
+    log(f"12d stream_serve --once: snapshot-{reader.applied_step}.npz ({len(got)} leaves) "
+        "bitwise the reconstruction")
+    del reader, want, got
+    # (b) the codec alone at the LM's flat size
+    res["12b"], b_err = phase_stream_lm(kernels, torch, record)
+    for k, v in b_err.items():
+        err[k] = max(err.get(k, 0.0), v)
+    # (c) a warm readmission at W = 2
+    c = phase_stream_rejoin(out_dir)
+    res["12c"] = {k: v for k, v in c.items() if k != "launches"}
+    for k in ("count_ge", "search_init", "select_pack"):
+        if c["launches"].get(k, 0) < 1:
+            raise AssertionError(f"12c: {k} never launched: {c['launches']}")
+    log(f"12c W=2 SIGKILL of rank 1, remesh to 1, warm readmission: epoch.json "
+        f"{c['epoch']}, the joiner's parameters and momentum bitwise the survivor's, "
+        f"stream/rejoin_bytes {c['rejoin_bytes']:.0f} (the parameters are "
+        f"{c['params_bytes']} bytes; {c['adopted']['segments']} segments), readmit "
+        f"{c['readmit_ms']:.1f} ms, kill to world 2 {c['kill_to_world2_s']:.2f} s, wall "
+        f"{c['wall_s']:.1f} s on {card}")
+    wall = time.perf_counter() - t_phase
+    res["wall_s"] = wall
+    log(f"phase 12 took {wall:.1f} s on {card}")
+    record["stream"] = res
+    return ({"stream a": {"launches": run["launches"]}, "stream c": {"launches": c["launches"]}},
+            err)
+
+
 def shutil_rm(path: str) -> None:
     import shutil
 
@@ -5539,6 +5963,9 @@ def main(argv=None) -> int:
     adaptive_runs, a_err = phase_adaptive(kernels, compressors, dawn, torch, record)
     for name, e in a_err.items():
         err[name] = max(err[name], e)
+    stream_runs, s_err = phase_stream(kernels, dawn, torch, record)
+    for name, e in s_err.items():
+        err[name] = max(err[name], e)
 
     replaces = {"count_ge": "tpu_compressed_dp/ops/kernels.py:173",
                 "count_edges": "tpu_compressed_dp/ops/kernels.py:206",
@@ -5582,8 +6009,9 @@ def main(argv=None) -> int:
         # of phases 7, 7c (7c's ranks summed) and 7d, the segmented-path runs,
         # phase 8's ImageNet runs, the multi-rank dawn runs and phase 9's
         # guarded runs (9a-9d's ranks summed, 9e's LM, 9f), phase 10's
-        # elastic runs (each world's ranks summed, the readmitted rank's too)
-        # and phase 11's adaptive runs
+        # elastic runs (each world's ranks summed, the readmitted rank's too),
+        # phase 11's adaptive runs and phase 12's stream runs (12a, and 12c's
+        # ranks summed)
         launches = (sum(run["launches"][name] for run in runs.values())
                     + sum(run["launches"][name] for run in cifar_runs.values())
                     + sum(run["launches"][name] for run in imagenet_runs.values())
@@ -5593,7 +6021,8 @@ def main(argv=None) -> int:
                     + sum(run["launches"].get(name, 0) for run in axes_runs.values())
                     + sum(run["launches"].get(name, 0) for run in robust_runs.values())
                     + sum(run["launches"].get(name, 0) for run in elastic_runs.values())
-                    + sum(run["launches"].get(name, 0) for run in adaptive_runs.values()))
+                    + sum(run["launches"].get(name, 0) for run in adaptive_runs.values())
+                    + sum(run["launches"].get(name, 0) for run in stream_runs.values()))
         entry = {
             "name": name, "route": "cuda", "source": source[name],
             "replaces": replaces[name], "launches": launches,

@@ -119,14 +119,36 @@ _DAWN_TINY = ["--device", "cpu", "--synthetic", "--synthetic_n", "64", "--batch_
               "--epochs", "1", "--channels_scale", "0.125"]
 
 
-@pytest.mark.parametrize("argv", [["--stream_keyframe_every", "4"], ["--twin_records", "r"],
-                                  ["--stream_every", "2"],
-                                  ["--stream_dir", "s"], ["--adaptive_model", "twin"]])
+@pytest.mark.parametrize("argv", [["--twin_records", "r"], ["--adaptive_model", "twin"]])
 def test_dawn_unported_flags_raise(argv):
     from tpu_compressed_dp_torch.harness import dawn
 
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 14"):
         dawn.main(argv + _DAWN_TINY)
+
+
+# the stream flags were cases of test_dawn_unported_flags_raise until the
+# delta stream was ported (item 14's first part)
+@pytest.mark.parametrize("flag", ["--stream_keyframe_every", "--stream_every", "--stream_dir"])
+def test_dawn_stream_flags_work(flag, tmp_path):
+    """Three epochs with the flag: the segments its cadence and window make,
+    each verifiable."""
+    from tpu_compressed_dp_torch.harness import dawn
+    from tpu_compressed_dp_torch.stream import store
+
+    sd = str(tmp_path / "s")
+    extra = {"--stream_keyframe_every": ["--stream_keyframe_every", "2"],
+             "--stream_every": ["--stream_every", "2"], "--stream_dir": []}[flag]
+    dawn.main(_DAWN_TINY + ["--epochs", "3", "--compress", "entiremodel", "--method", "topk",
+                            "--ratio", "0.05", "--error_feedback", "--log_dir", "",
+                            "--stream_dir", sd, *extra])
+    problems, seqs = store.verify_stream(sd)
+    kinds = [store.read_segment_manifest(sd, q)["kind"]
+             + ("*" if store.read_segment_manifest(sd, q)["window_close"] else "") for q in seqs]
+    assert problems == [] and kinds == {
+        "--stream_keyframe_every": ["keyframe*", "delta*", "keyframe*"],
+        "--stream_every": ["keyframe*"],
+        "--stream_dir": ["keyframe*", "delta", "delta"]}[flag], kinds
 
 
 @pytest.mark.parametrize("flag", ["--events", "--flight_dir", "--job_id"])

@@ -353,7 +353,7 @@ def _port_runtime(tmp_path, *, ranks=(0, 1, 2, 3), rank=0, crash=None, gossip=No
     calls = []
     rt = te.ElasticRuntime(cfg, ranks=ranks, crash=crash, rendezvous=rdzv, gossip=gossip,
                            reinit=lambda d: calls.append(("reinit", d)),
-                           broadcast=lambda st, src, extras=None: (calls.append(
+                           broadcast=lambda st, src, extras=None, params=True: (calls.append(
                                ("broadcast", src)) or (st, extras)),
                            log=lambda s: None)
     return rt, rdzv, calls
@@ -490,13 +490,20 @@ def test_metrics_keys_match_jax(tmp_path, mesh8):
     trt, _, _ = _port_runtime(tmp_path)
     assert set(trt.metrics()) == set(_jax_runtime(mesh8).metrics())
     assert all(v == 0.0 for v in trt.metrics().values())
-    # the telemetry hooks are ported (item 13); the delta stream is item 14
+    # the telemetry hooks are ported (item 13), and the delta stream: the warm
+    # layout keys on stream_armed, a value every rank shares, and on the
+    # survivors' agreed answer to whether one of them holds the writer (rank
+    # 0 alone holds it); a runtime made directly follows its writer
     for hook in ("events", "flight"):
         rt = te.ElasticRuntime(te.ElasticConfig(), ranks=(0,), **{hook: object()})
         assert getattr(rt, hook) is not None
         rt.close()
-    with pytest.raises(NotImplementedError, match="item 14"):
-        te.ElasticRuntime(te.ElasticConfig(), ranks=(0,), stream=object())
+    writer = object()
+    for kw, armed in (({"stream": writer}, True), ({"stream_armed": True}, True), ({}, False),
+                      ({"stream": writer, "stream_armed": False}, False)):
+        rt = te.ElasticRuntime(te.ElasticConfig(), ranks=(0,), **kw)
+        assert rt.stream is kw.get("stream") and rt.stream_armed is armed, kw
+        rt.close()
 
 
 def test_readmission_agrees_joins_and_zeroes_joiner_ef(tmp_path):
@@ -519,14 +526,62 @@ def test_readmission_agrees_joins_and_zeroes_joiner_ef(tmp_path):
     joiner, _, jcalls = _port_runtime(tmp_path / "j", ranks=(1,), rank=1)
     jstate = _State(ef={"w": torch.ones(3)}, comp=())
     jstate.model = model
-    joiner._broadcast = lambda st, src, extras=None: (st, {"ckpt": None,
-                                                           "shared": {"next_epoch": 4}})
+    joiner._broadcast = lambda st, src, extras=None, params=True: (
+        st, {"ckpt": None, "shared": {"next_epoch": 4}})
     dec = trdzv.Rendezvous(d, 1).decision_from(rec)
     out = joiner.join_world(jstate, dec)
     assert not out.ef["w"].any() and joiner.ranks == (0, 1, 2) and joiner.rank == 1
     assert joiner.shared == {"next_epoch": 4} and jcalls == []   # a joiner is already in
     with pytest.raises(trdzv.RendezvousError, match="warm"):
         joiner.join_world(jstate, dataclasses.replace(dec, warm=True))
+
+
+@pytest.mark.parametrize("writer", [True, False])
+def test_warm_readmission_needs_the_writer_among_survivors(tmp_path, writer):
+    """A joiner whose record carries ``stream`` is admitted warm only when a
+    survivor holds the stream writer, which flushes the stream at the
+    readmission's step first; with the writer's process dead the commit is
+    cold and the joiner takes the parameters from the broadcast."""
+    d = str(tmp_path)
+    state = _State(ef={}, comp=())
+    state.model = torch.nn.Linear(2, 2)
+    synced = []
+    trt, _, _ = _port_runtime(tmp_path, ranks=(0, 2))
+    trt.stream_armed = True
+    if writer:
+        trt.stream = argparse.Namespace(sync=lambda model, step: synced.append(step),
+                                        request_keyframe=lambda: None)
+    trdzv.Rendezvous(d, 1).request_join(incarnation=1, stream_seq=4)
+    _votes(d, 1, [0, 1, 2], [2])
+    _, grew = trt.rejoin_barrier(state)
+    assert grew and trdzv.read_epoch(d)["warm"] is writer
+    assert synced == ([state.step] if writer else [])
+
+
+@pytest.mark.parametrize("exact,step,ok", [(True, 3, True), (False, 3, False),
+                                           (True, 2, False)])
+def test_warm_join_refuses_an_adoption_off_the_broadcast(tmp_path, exact, step, ok):
+    """A joiner of a warm commit keeps its adoption only when the reader
+    reconstructed it exactly at the broadcast's step (the survivors'
+    parameters); otherwise it raises for the watchdog to relaunch."""
+    dec = trdzv.Rendezvous(str(tmp_path), 1).decision_from(
+        {"epoch": 1, "ranks": [0, 1], "address": "127.0.0.1:45001", "warm": True})
+    joiner, _, _ = _port_runtime(tmp_path / "j", ranks=(1,), rank=1)
+    joiner._broadcast = lambda st, src, extras=None, params=True: (
+        st, {"ckpt": None, "shared": {}})
+    jstate = _State(ef={}, comp=())
+    jstate.model = torch.nn.Linear(2, 2)
+    from tpu_compressed_dp_torch.stream.delta import param_dict
+
+    info = {"exact": exact, "step": step, "bytes": 48}
+    if ok:
+        joiner.join_world(jstate, dec, adopted_params=param_dict(jstate.model),
+                          adopted_info=info)
+        assert joiner.ranks == (0, 1) and joiner.metrics()["stream/rejoin_bytes"] == 48
+    else:
+        with pytest.raises(trdzv.RendezvousError, match="not the survivors' parameters"):
+            joiner.join_world(jstate, dec, adopted_params=param_dict(jstate.model),
+                              adopted_info=info)
 
 
 def test_watchdog_relaunch_loop_matches_jax(tmp_path):
@@ -589,9 +644,14 @@ def test_watchdog_relaunch_loop_matches_jax(tmp_path):
     assert tw.run_check(args) == 0
     hb.write_text(json.dumps({"ts": time.time() - 61.0, "step": 3}))
     assert tw.run_check(args) == 1
-    for flag in (["--check"], ["--check", "--relaunch"], ["--max_stream_lag", "5"]):
+    for flag in (["--check"], ["--check", "--relaunch"]):
         with pytest.raises(SystemExit):
             tw.main([*flag, "--heartbeat", str(hb), "--", "true"])
+    # --max_stream_lag (raised as unknown until the stream was ported) reads
+    # stream_lag_s plus the heartbeat's age
+    hb.write_text(json.dumps({"ts": time.time(), "step": 3, "stream_lag_s": 2.0}))
+    assert tw.main(["--check", "--max_stream_lag", "5", "--heartbeat", str(hb)]) == 0
+    assert tw.main(["--check", "--max_stream_lag", "1", "--heartbeat", str(hb)]) == 1
 
 
 def test_chaos_drill_elastic_rows():

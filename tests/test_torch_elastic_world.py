@@ -563,8 +563,8 @@ def rejoin_barrier(self, state):
     return state, grew
 
 
-def join_world(self, state, decision):
-    state = jw(self, state, decision)
+def join_world(self, state, decision, **kw):
+    state = jw(self, state, decision, **kw)
     rec["joined"] = {"ranks": list(self.ranks), **digests(state)}
     return state
 

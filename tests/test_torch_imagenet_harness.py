@@ -80,14 +80,39 @@ def test_first_epoch_matches_jax_harness(monkeypatch):
 
 # the elastic flags (item 12) and the telemetry and control flags (item 13)
 # were cases here until they were ported (test_elastic_* and
-# test_item13_flags_work); the flags that still raise are item 14's
+# test_item13_flags_work), and the stream flags (test_stream_flags_work); the
+# flags that still raise are item 14's twin
 @pytest.mark.parametrize("argv,item", [
-    (["--stream_every", "2"], 14), (["--twin_records", "r"], 14),
-    (["--adaptive", "--adaptive_model", "twin"], 14), (["--stream_dir", "s"], 14),
-    (["--stream_rejoin"], 14), (["--stream_keyframe_every", "4"], 14)])
+    (["--twin_records", "r"], 14), (["--adaptive", "--adaptive_model", "twin"], 14)])
 def test_unported_flags_raise(argv, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, item {item}"):
         tharness.main(FLAGS + argv + ["--device", "cpu"])
+
+
+TWO_EPOCHS = '[{"ep": 0, "sz": 64, "bs": 32}, {"ep": [0, 2], "lr": [0.1, 0.2]}]'
+
+
+@pytest.mark.parametrize("flag", ["--stream_every", "--stream_dir", "--stream_rejoin",
+                                  "--stream_keyframe_every"])
+def test_stream_flags_work(flag, tmp_path):
+    """Two synthetic epochs with the flag: the segments its cadence and
+    window make, each verifiable (``--stream_rejoin`` on a fresh launch is
+    the plain run: there is no world to rejoin)."""
+    from tpu_compressed_dp_torch.stream import store
+
+    sd = str(tmp_path / "s")
+    extra = {"--stream_every": ["--stream_every", "2"], "--stream_dir": [],
+             "--stream_rejoin": ["--stream_rejoin"],
+             "--stream_keyframe_every": ["--stream_keyframe_every", "2"]}[flag]
+    tharness.main(FLAGS + ["--phases", TWO_EPOCHS, "--synthetic_n", "64", "--device", "cpu",
+                           "--stream_dir", sd, *extra])
+    problems, seqs = store.verify_stream(sd)
+    kinds = [store.read_segment_manifest(sd, q)["kind"]
+             + ("*" if store.read_segment_manifest(sd, q)["window_close"] else "") for q in seqs]
+    assert problems == [] and kinds == {"--stream_every": ["keyframe*"],
+                                        "--stream_keyframe_every": ["keyframe*", "delta*"]}.get(
+        flag, ["keyframe*", "delta"]), kinds
+
 
 
 @pytest.mark.parametrize("flag", ["--flight_dir", "--tensorboard", "--events", "--adaptive",

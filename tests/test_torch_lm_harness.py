@@ -125,18 +125,47 @@ def test_parser_surface_matches_jax():
 
 # the elastic flags (item 12) and the telemetry and control flags (item 13)
 # were cases here until they were ported (test_elastic_lm_* and
-# test_item13_flags_work); the flags that still raise are item 14's
-_UNPORTED = [
-    (["--stream_every", "2"], 14), (["--stream_keyframe_every", "4"], 14),
-    (["--stream_ratio", "0.1"], 14), (["--stream_dir", "s"], 14), (["--stream_rejoin"], 14),
-    (["--twin_records", "r"], 14), (["--adaptive_model", "twin"], 14),
-]
+# test_item13_flags_work), and the stream flags (test_stream_flags_work); the
+# flags that still raise are item 14's twin
+_UNPORTED = [(["--twin_records", "r"], 14), (["--adaptive_model", "twin"], 14)]
 
 
 @pytest.mark.parametrize("argv,item", _UNPORTED, ids=[a[0] for a, _ in _UNPORTED])
 def test_unported_flags_raise(argv, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         tharness.main(["--device", "cpu", "--steps", "1", *argv])
+
+
+@pytest.mark.parametrize("flag", ["--stream_every", "--stream_keyframe_every", "--stream_ratio",
+                                  "--stream_dir", "--stream_rejoin"])
+def test_stream_flags_work(flag, tmp_path):
+    """Four tiny steps with the flag: the segments its cadence and window
+    make, each verifiable, and a delta of ``--stream_ratio``'s keep."""
+    from tpu_compressed_dp_torch.stream import delta, store
+
+    sd = str(tmp_path / "s")
+    extra = {"--stream_every": ["--stream_every", "2"],
+             "--stream_keyframe_every": ["--stream_keyframe_every", "2"],
+             "--stream_ratio": ["--stream_ratio", "0.1"], "--stream_dir": [],
+             "--stream_rejoin": ["--stream_rejoin"]}[flag]
+    tharness.main(["--device", "cpu", "--preset", "tiny", "--steps", "4", "--log_every", "2",
+                   "--seq_len", "32", "--global_batch", "2", "--fp32", "--compress",
+                   "entiremodel", "--method", "topk", "--ratio", "0.05", "--error_feedback",
+                   "--stream_dir", sd, *extra])
+    problems, seqs = store.verify_stream(sd)
+    mans = [store.read_segment_manifest(sd, q) for q in seqs]
+    kinds = [m["kind"] + ("*" if m["window_close"] else "") for m in mans]
+    assert problems == [] and kinds == {
+        "--stream_every": ["keyframe*", "delta"],
+        "--stream_keyframe_every": ["keyframe*", "delta*", "keyframe*", "delta*"]}.get(
+        flag, ["keyframe*", "delta", "delta", "delta"]), kinds
+    n = int(np.load(store.segment_payload_path(sd, seqs[0]))["vals"].shape[0])
+    keep = delta.keep_for_ratio(n, 0.1 if flag == "--stream_ratio" else 0.01)
+    # a Top-K delta's nnz is the keep, or fewer where fewer coordinates
+    # moved; a flush carries every moved coordinate
+    for m in mans[1:]:
+        assert 0 < m["nnz"] <= (n if m["window_close"] else keep), (m["nnz"], keep)
+
 
 
 _ITEM13 = ["--adaptive_deadband", "--adaptive_rungs", "--job_id", "--flight_dir", "--adaptive",

@@ -284,8 +284,8 @@ def test_dataclass_guard_state_is_frozen():
 def test_chaos_drill_port_rows():
     """``python -m tpu_compressed_dp_torch.harness.chaos_drill`` on 2 gloo
     processes runs every port row (the quick rows of
-    ``tools/chaos_drill.py`` that need no elastic, stream, control or fleet
-    layer, and comp_hold, ef_identity and poison_control): each rank's
+    ``tools/chaos_drill.py`` that need no elastic or fleet layer, and
+    comp_hold, ef_identity, poison_control and the control rows): each rank's
     crash injector fires at the same global step, both restore the world's
     checkpoint and replay bitwise; the poisoned worker is rank 1."""
     from tpu_compressed_dp_torch.harness import chaos_drill
@@ -304,7 +304,8 @@ def test_chaos_drill_port_rows():
     assert [ln[5:] for ln in logs[0].splitlines() if ln.startswith("PASS ")] == \
         chaos_drill.FULL
     assert chaos_drill.QUICK == ["skip_consistency", "loss_scale", "max_skips",
-                                 "crash_recovery", "ckpt_preempt", "ckpt_corrupt"]
+                                 "crash_recovery", "ckpt_preempt", "ckpt_corrupt",
+                                 "stream_corrupt"]
 
 def test_chaos_drill_lists_its_rows(capsys):
     from tpu_compressed_dp_torch.harness import chaos_drill
@@ -315,8 +316,8 @@ def test_chaos_drill_lists_its_rows(capsys):
         "control_resume", "forensics", "elastic:", "elastic_gossip", "elastic_remesh", "elastic_readmit", "elastic_cascade",
         *[f"elastic[{p},w{w},s{s}]" for p in ("fold", "drop") for w in (0, 3) for s in (0, 3)],
         "elastic[sharded-wire]"]
-    # the elastic rows are ported (tests/test_torch_elastic.py runs them), and
-    # the control and forensics rows (tests/test_torch_obs_harness.py); the
-    # stream and fleet rows are not
+    # the elastic rows are ported (tests/test_torch_elastic.py runs them), the
+    # control and forensics rows (tests/test_torch_obs_harness.py) and the
+    # stream row (tests/test_torch_stream.py); the fleet rows are not
     with pytest.raises(SystemExit):
         chaos_drill.main(["--drill", "fleet"])

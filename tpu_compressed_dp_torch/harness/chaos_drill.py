@@ -2,7 +2,7 @@
 checkpoints' and the elastic runtime's invariants end to end, on the port.
 
 PyTorch-port counterpart of the rows of ``tools/chaos_drill.py`` that need
-none of the stream or fleet layers.  Each row drives the port's
+no fleet layer.  Each row drives the port's
 guarded ResNet-9 step (channels_scale 0.125, a batch of 8 a worker, Top-K +
 EF unless the row says otherwise).  The guard and checkpoint rows run in
 this process's world: alone it is one worker; under ``torchrun`` every rank
@@ -26,6 +26,13 @@ Quick rows (``--quick``):
     run (a NaN at step 4, after the preemption, lines the replay up).
   * ``ckpt_corrupt``: one flipped byte in the newest checkpoint; restore
     walks back to the step before (``ckpt/rollback_steps`` 1).
+  * ``stream_corrupt``: the same discipline for the delta state stream
+    (``stream/``, parameters on the row's device): a flipped payload byte in
+    a mid-window delta segment fails its manifest digest, the reader walks
+    back to its stored keyframe bitwise and re-converges bitwise once the
+    next keyframe and window close land; a torn keyframe with no later
+    anchor makes the stream unusable, and ``warm_rejoin`` adopts nothing
+    (the joiner joins cold).
 
 Full rows (the default): the quick rows and ``comp_hold`` (PowerSGD's warm
 starts held bitwise on the vetoed step, moved on good ones),
@@ -119,7 +126,7 @@ __all__ = ["QUICK", "FULL", "ELASTIC", "run_drills", "run_elastic_drills", "expa
            "main"]
 
 QUICK = ["skip_consistency", "loss_scale", "max_skips", "crash_recovery", "ckpt_preempt",
-         "ckpt_corrupt"]
+         "ckpt_corrupt", "stream_corrupt"]
 FULL = QUICK + ["comp_hold", "ef_identity", "poison_control", "control_resume", "forensics"]
 ELASTIC = ["elastic_gossip", "elastic_remesh", "elastic_readmit", "elastic_cascade",
            "elastic_matrix"]
@@ -420,6 +427,103 @@ def drill_ckpt_corrupt(env: _Env, *, n_steps: int = 4) -> Dict:
     return {"rollback_steps": 1, "restored_step": n_steps - 1}
 
 
+def drill_stream_corrupt(env: _Env, *, keyframe_every: int = 4) -> Dict:
+    """The JAX row's sequence on tensors of the row's device: corrupt
+    delta -> walk-back and re-anchor; torn keyframe -> unusable, no warm
+    adoption.  Every rank runs it in a directory of its own."""
+    import copy
+    import types
+
+    from tpu_compressed_dp_torch.stream import StreamCorrupt, StreamReader, StreamWriter
+    from tpu_compressed_dp_torch.stream.rejoin import warm_rejoin
+    from tpu_compressed_dp_torch.stream.store import segment_payload_path
+
+    rng = np.random.RandomState(7)
+    dev = env.device
+    params = {"dense": {"kernel": torch.from_numpy(rng.randn(48, 8).astype(np.float32)).to(dev)},
+              "bias": torch.from_numpy(rng.randn(64).astype(np.float32)).to(dev)}
+
+    def advance():
+        params["dense"]["kernel"] = params["dense"]["kernel"] + torch.from_numpy(
+            rng.randn(48, 8).astype(np.float32) * 0.01).to(dev)
+        params["bias"] = params["bias"] + torch.from_numpy(
+            rng.randn(64).astype(np.float32) * 0.01).to(dev)
+
+    def host(tree):
+        return {"dense": {"kernel": tree["dense"]["kernel"].cpu().numpy()},
+                "bias": tree["bias"].cpu().numpy()}
+
+    def same(want, got, what):
+        for a, b in ((want["dense"]["kernel"], got["dense"]["kernel"]),
+                     (want["bias"], got["bias"])):
+            assert np.array_equal(a.view(np.uint32), b.view(np.uint32)), f"{what}: not bitwise"
+
+    def flip(path):
+        size = os.path.getsize(path)
+        with open(path, "r+b") as f:
+            f.seek(size // 2)
+            b = f.read(1)
+            f.seek(size // 2)
+            f.write(bytes([b[0] ^ 0xFF]))
+
+    def quiet(*a, **k):
+        pass
+
+    with tempfile.TemporaryDirectory() as td:
+        sd = os.path.join(td, "stream")
+        w = StreamWriter(sd, ratio=0.25, keyframe_every=keyframe_every, log=quiet)
+        w.append(params, step=1)                    # seq 0: keyframe
+        kf_params = copy.deepcopy(host(params))
+        advance(); w.append(params, step=2)         # seq 1: delta
+        advance(); w.append(params, step=3)         # seq 2: delta (mid-window)
+        flip(segment_payload_path(sd, 2))           # torn delta
+        r = StreamReader(sd, log=quiet)
+        r.catch_up()
+        # the digest notices; the reconstruction reverts to the keyframe's
+        assert r.metrics()["stream/corrupt_segments"] == 1.0
+        assert int(r.applied_seq) == 0 and int(r.applied_step) == 1
+        same(kf_params, r.params_like(kf_params), "stream_corrupt walk-back")
+        advance(); w.append(params, step=4)         # seq 3: flush (skipped)
+        advance(); w.append(params, step=5)         # seq 4: fresh keyframe
+        kf2 = host(params)
+        r.catch_up()
+        assert int(r.applied_seq) == 4, int(r.applied_seq)
+        same(kf2, r.params_like(kf2), "stream_corrupt re-anchor")
+        advance(); w.sync(params, step=6)           # window-closing flush
+        r.catch_up()
+        assert r.exact, "head not exact after sync"
+        now = host(params)
+        same(now, r.params_like(now), "stream_corrupt reconverged head")
+        w.close()
+
+        # a torn KEYFRAME with no later anchor: the reader raises and warm
+        # rejoin adopts nothing, leaving the joiner's model as it was
+        sd2 = os.path.join(td, "stream2")
+        gen = torch.Generator().manual_seed(7)
+        model = torch.nn.Linear(16, 8).to(dev)
+        w2 = StreamWriter(sd2, ratio=0.25, keyframe_every=keyframe_every, log=quiet)
+        w2.append(model, step=1)                    # seq 0: keyframe
+        with torch.no_grad():
+            model.weight.add_(0.5)
+        w2.append(model, step=2)                    # seq 1: delta
+        w2.close()
+        flip(segment_payload_path(sd2, 0))
+        try:
+            StreamReader(sd2, log=quiet).catch_up()
+            raise AssertionError("torn keyframe went unnoticed")
+        except StreamCorrupt:
+            pass
+        joiner = types.SimpleNamespace(model=torch.nn.Linear(16, 8).to(dev))
+        with torch.no_grad():
+            joiner.model.weight.copy_(torch.randn(8, 16, generator=gen).to(dev))
+        before = [p.detach().clone() for p in joiner.model.parameters()]
+        adopted, info = warm_rejoin(joiner, sd2, log=quiet)
+        assert info is None and adopted is joiner, "warm rejoin adopted from an unusable stream"
+        _assert_bitwise(before, list(joiner.model.parameters()), "stream_corrupt cold joiner")
+    return {"corrupt_segments": 1, "walkback_seq": 0, "reconverged": True,
+            "keyframe_fallback": True}
+
+
 class _Recorder:
     """An event-stream stand-in that keeps ``(kind, fields)`` in order."""
 
@@ -517,7 +621,8 @@ def drill_forensics(env: _Env) -> Dict:
             rt = ElasticRuntime(
                 ElasticConfig(rank=r, peer_timeout_s=5.0), ranks=range(ranks),
                 rendezvous=Rendezvous(rd, r), flight=fls[r], reinit=lambda d: None,
-                broadcast=lambda st, src, extras=None: (st, extras), log=lambda s: None)
+                broadcast=lambda st, src, extras=None, params=True: (st, extras),
+                log=lambda s: None)
             try:
                 rt.handle_failure(dataclasses.make_dataclass("S", ["ef"])({}),
                                   PeerFailed(dead, step=step, reason=reason))

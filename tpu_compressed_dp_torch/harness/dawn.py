@@ -19,8 +19,9 @@ flags ``--elastic --elastic_dir --elastic_ef --elastic_min_world
 telemetry flags ``--events --events_max_mb --prom --job_id --flight_dir
 --flight_capacity --tensorboard --profile_epoch``, the controller's
 ``--adaptive --adaptive_window --adaptive_deadband --adaptive_rungs
---adaptive_budget_ms --adaptive_bw_mbps --adaptive_signal``, and
-``--device``.  With ``--checkpoint_dir`` the epochs run under
+--adaptive_budget_ms --adaptive_bw_mbps --adaptive_signal``, the delta
+stream's ``--stream_dir --stream_every --stream_keyframe_every
+--stream_ratio --stream_rejoin``, and ``--device``.  With ``--checkpoint_dir`` the epochs run under
 ``utils/resilience.run_with_recovery`` (a failure restores the newest
 checkpoint and replays), each ``--ckpt_every`` epochs end in an
 asynchronous save, and a SIGTERM/SIGINT cuts an emergency save and exits
@@ -40,11 +41,15 @@ epoch publishes an ``epoch`` record (``--events``), the Prometheus file,
 the heartbeat's telemetry and the flight recorder's profile; a failure
 leaves a blackbox bundle in ``--flight_dir`` (``harness/postmortem.py``);
 ``--profile_epoch N`` writes a ``torch.profiler`` trace of epoch N to
-``<log_dir>/profile/trace.json``.  Protocol as in the JAX harness:
-``PiecewiseLinear([0, 5, epochs], [0, peak, 0])`` (or the ``step`` shape)
-at fractional epochs divided by the batch size, weight decay ``5e-4 *
-batch_size``, Nesterov when momentum > 0, Crop/FlipLR/Cutout augmentation,
-gradients compressed at summed-loss scale (``grad_scale = batch_size``).
+``<log_dir>/profile/trace.json``.  With ``--stream_dir`` rank 0 appends a
+delta segment (``stream/``) after each ``--stream_every`` epochs, after the
+epoch's checkpoint; a worker relaunched with ``--stream_rejoin`` adopts the
+parameters from the stream when the survivors commit a warm readmission.
+Protocol as in the JAX harness: ``PiecewiseLinear([0, 5, epochs], [0, peak,
+0])`` (or the ``step`` shape) at fractional epochs divided by the batch
+size, weight decay ``5e-4 * batch_size``, Nesterov when momentum > 0,
+Crop/FlipLR/Cutout augmentation, gradients compressed at summed-loss scale
+(``grad_scale = batch_size``).
 A flag of the JAX harness that this port does not carry yet raises
 ``NotImplementedError`` naming the ROADMAP item that brings it.
 
@@ -70,13 +75,15 @@ import torch
 from tpu_compressed_dp_torch.data import cifar10 as data
 from tpu_compressed_dp_torch.harness.loop import (Telemetry, add_adaptive_args,
                                                   add_checkpoint_args, add_process_args,
-                                                  add_robustness_args, add_telemetry_args,
-                                                  build_control, build_elastic,
-                                                  build_robustness, control_summary,
-                                                  control_tick, elastic_distributed_init,
-                                                  hideable_fraction, local_device,
-                                                  make_heartbeat, make_preemption,
-                                                  preempt_exit, profile_trace, train_epoch)
+                                                  add_robustness_args, add_stream_args,
+                                                  add_telemetry_args, build_control,
+                                                  build_elastic, build_robustness,
+                                                  control_summary, control_tick,
+                                                  elastic_distributed_init, hideable_fraction,
+                                                  local_device, make_heartbeat,
+                                                  make_preemption, make_stream, preempt_exit,
+                                                  profile_trace, stream_rejoin_params,
+                                                  train_epoch)
 from tpu_compressed_dp_torch.models import alexnet as alexnet_mod
 from tpu_compressed_dp_torch.models import graph as graph_mod
 from tpu_compressed_dp_torch.models import resnet9 as resnet9_mod
@@ -100,14 +107,6 @@ from tpu_compressed_dp_torch.utils import resilience
 from tpu_compressed_dp_torch.utils.checkpoint import Checkpointer
 from tpu_compressed_dp_torch.utils.loggers import TableLogger, TSVLogger
 from tpu_compressed_dp_torch.utils.timer import Timer, device_sync
-
-_ITEM = "ROADMAP.md queue 1, item {}"
-# flags of the JAX harness, by the ROADMAP item that ports them (the twin
-# flags --adaptive_model twin / --twin_records parse, and build_control
-# raises naming item 14)
-_LATER_FLAGS = dict.fromkeys(("--stream_dir", "--stream_every", "--stream_keyframe_every",
-                              "--stream_ratio", "--stream_rejoin"), 14)
-
 
 def _fixed_width(name: str, ctor, scale: float, dtype: torch.dtype, seed: int, device):
     # no width or dtype knob on these: refuse a non-default rather than
@@ -228,6 +227,8 @@ def build_parser() -> argparse.ArgumentParser:
     add_robustness_args(p, check_note="checked at epoch end")
     add_checkpoint_args(p, cadence_help="epochs between asynchronous checkpoint saves "
                                         "(requires --checkpoint_dir; 0 = emergency saves only)")
+    add_stream_args(p, cadence_help="epochs between delta-stream appends (requires "
+                                    "--stream_dir; 0 disables streaming)")
     add_process_args(p)
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises where CUDA is missing) or cpu")
@@ -235,15 +236,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
-    args, rest = build_parser().parse_known_args(argv)
-    for tok in rest:
-        flag = tok.split("=", 1)[0]
-        if flag in _LATER_FLAGS:
-            raise NotImplementedError(
-                f"{flag} is not ported yet: {_ITEM.format(_LATER_FLAGS[flag])}")
-    if rest:
-        build_parser().error(f"unrecognized arguments: {' '.join(rest)}")
-    return args
+    return build_parser().parse_args(argv)
 
 
 def default_epochs(method: str) -> int:
@@ -388,8 +381,12 @@ def _run(args, device: torch.device, comp: CompressionConfig, launch, hb) -> dic
                               devices=world, epochs=epochs),
                     flight_meta=dict(network=args.network, method=args.method,
                                      compress=args.compress, devices=world))
+    stream = make_stream(args, flight=tel.flight, events=tel.events)
+    if ckpt is not None:
+        # committed checkpoints re-anchor the delta stream's window
+        ckpt.stream = stream
     el = build_elastic(args, launch, chaos=chaos, crash=crash, device=device, ckpt=ckpt,
-                       events=tel.events, flight=tel.flight)
+                       events=tel.events, flight=tel.flight, stream=stream)
     # the current world: its size, this rank and the global batch it divides
     cur = {"rank": rank, "world": world, "bs": bs}
 
@@ -405,8 +402,12 @@ def _run(args, device: torch.device, comp: CompressionConfig, launch, hb) -> dic
     if el is not None and launch.decision is not None:
         # a watchdog-relaunched worker: adopt the running world's replicated
         # state from its coordinator's broadcast (EF starts at zero), its
-        # next epoch and its data order
-        state = el.join_world(state, launch.decision)
+        # next epoch and its data order; under --stream_rejoin and a warm
+        # commit the parameters come off the delta stream instead
+        adopted, adopted_info = stream_rejoin_params(args, state, launch.decision,
+                                                     flight=tel.flight)
+        state = el.join_world(state, launch.decision, adopted_params=adopted,
+                              adopted_info=adopted_info)
         start_epoch = int(el.shared.get("next_epoch", start_epoch))
         if "data_rng" in el.shared:
             train_batches.rng.set_state(el.shared["data_rng"])
@@ -492,6 +493,10 @@ def _run(args, device: torch.device, comp: CompressionConfig, launch, hb) -> dic
             # the write overlaps the next epoch; the next save (or a
             # preemption) waits for it
             ckpt.save_async(state, {"epoch": epoch})
+        if stream is not None and args.stream_every > 0 and (epoch + 1) % args.stream_every == 0:
+            # delta segment: codec here, on the parameters' device; commit
+            # in the background
+            stream.append_async(state.model, step=state.step)
         train_time = epoch_stats["train time"]
         examples_per_sec = acc.steps * cur["bs"] / max(train_time, 1e-9)
         thr = flops_mod.throughput_record(fwd_flops, acc.steps / max(train_time, 1e-9),
@@ -516,12 +521,14 @@ def _run(args, device: torch.device, comp: CompressionConfig, launch, hb) -> dic
             guard={k: v for k, v in acc.last.items() if k.startswith("guard/")},
             control=control_stats,
             prom_extra={"lr": summary["lr"], **(ckpt.metrics() if ckpt is not None else {}),
+                        **(stream.metrics() if stream is not None else {}),
                         **(el.metrics() if el is not None else {})},
             hb=hb, hb_fields=dict(
                 step=state.step, epoch=epoch,
                 last_good_step=(int(state.guard.last_good_step)
                                 if guard_cfg is not None else state.step),
                 **(ckpt.heartbeat_fields() if ckpt is not None else {}),
+                **(stream.heartbeat_fields() if stream is not None else {}),
                 **({"elastic": el.metrics()} if el is not None else {}),
                 **(controller.heartbeat_fields(state.control)
                    if controller is not None else {})))
@@ -552,6 +559,8 @@ def _run(args, device: torch.device, comp: CompressionConfig, launch, hb) -> dic
             el.close()
         if ckpt is not None:
             ckpt.close()   # drains the background writer before the events close
+        if stream is not None:
+            stream.close()  # drains the in-flight segment commit
         tel.close()
     return summary
 

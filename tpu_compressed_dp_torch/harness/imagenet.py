@@ -26,7 +26,13 @@ reference's ``IMAGENET/training/train_imagenet_nv.py``):
     ``--flight_dir``, ``--tensorboard``, ``--profile_epoch``) and the
     compression controller (``--adaptive*``, ticking once an epoch on the
     applied updates, before the epoch's best-checkpoint save, and pricing
-    the DCN-billed bits at ``--dp_pods > 1``).
+    the DCN-billed bits at ``--dp_pods > 1``);
+  * the delta stream (``--stream_dir --stream_every --stream_keyframe_every
+    --stream_ratio --stream_rejoin``, ``stream/``): rank 0 appends a segment
+    after each ``--stream_every`` epochs, after the epoch's readmission
+    barrier; a worker relaunched with ``--stream_rejoin`` adopts the
+    parameters from the stream when the survivors commit a warm
+    readmission.
 
 One process is one worker (``torchrun`` for several, or ``--coordinator
 --num_processes --process_id``); batches are split by process (``bs //
@@ -54,15 +60,16 @@ from tpu_compressed_dp_torch.control import (Controller, comp_for_rung, init_con
 from tpu_compressed_dp_torch.control.signals import billed_signal_bits
 from tpu_compressed_dp_torch.harness.loop import (Telemetry, add_adaptive_args,
                                                   add_process_args, add_robustness_args,
-                                                  add_telemetry_args, build_control,
-                                                  build_elastic, build_robustness,
-                                                  comm_summary, control_summary, control_tick,
+                                                  add_stream_args, add_telemetry_args,
+                                                  build_control, build_elastic,
+                                                  build_robustness, comm_summary,
+                                                  control_summary, control_tick,
                                                   elastic_distributed_init, fabric_gauges,
                                                   guard_summary, hideable_fraction,
                                                   local_device, make_heartbeat,
-                                                  make_preemption, preempt_exit,
+                                                  make_preemption, make_stream, preempt_exit,
                                                   profile_trace, run_local_eval,
-                                                  run_train_epoch)
+                                                  run_train_epoch, stream_rejoin_params)
 from tpu_compressed_dp_torch.models import resnet as resnet_mod
 from tpu_compressed_dp_torch.models.common import make_normalizing_apply_fn, param_leaves
 from tpu_compressed_dp_torch.parallel import mesh
@@ -90,14 +97,6 @@ ARCHS = {
     "resnet101": resnet_mod.resnet101,
     "resnet152": resnet_mod.resnet152,
 }
-
-_ITEM = "ROADMAP.md queue 1, item {}"
-# flags of the JAX harness, by the ROADMAP item that ports them (the twin
-# flags --adaptive_model twin / --twin_records parse, and build_control
-# raises naming item 14)
-_LATER_FLAGS = dict.fromkeys(("--stream_dir", "--stream_every", "--stream_keyframe_every",
-                              "--stream_ratio", "--stream_rejoin"), 14)
-
 
 def one_machine_phases() -> List[dict]:
     """The reference's single-machine schedule (93.00 top-5 in 109 min on 8
@@ -276,6 +275,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile_epoch", type=int, default=None,
                    help="torch.profiler-trace this epoch to <logdir>/profile/trace.json")
     add_robustness_args(p, check_note="checked at epoch end")
+    add_stream_args(p, cadence_help="epochs between delta-stream appends (requires "
+                                    "--stream_dir; 0 disables streaming)")
     add_process_args(p)
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises where CUDA is missing) or cpu")
@@ -283,15 +284,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
-    args, rest = build_parser().parse_known_args(argv)
-    for tok in rest:
-        flag = tok.split("=", 1)[0]
-        if flag in _LATER_FLAGS:
-            raise NotImplementedError(
-                f"{flag} is not ported yet: {_ITEM.format(_LATER_FLAGS[flag])}")
-    if rest:
-        build_parser().error(f"unrecognized arguments: {' '.join(rest)}")
-    return args
+    return build_parser().parse_args(argv)
 
 
 def _truncate(it, n: Optional[int]):
@@ -417,8 +410,12 @@ def _run(args, device: torch.device, comp: CompressionConfig, launch, hb) -> Dic
                               epochs=epochs),
                     flight_meta=dict(arch=args.arch, method=args.method,
                                      compress=args.compress, devices=world))
+    stream = make_stream(args, flight=tel.flight, events=tel.events)
+    if ckpt is not None:
+        # committed checkpoints re-anchor the delta stream's window
+        ckpt.stream = stream
     el = build_elastic(args, launch, chaos=chaos, crash=crash, device=device, ckpt=ckpt,
-                       events=tel.events, flight=tel.flight)
+                       events=tel.events, flight=tel.flight, stream=stream)
     cur = {"rank": rank, "world": world}
 
     def follow_world() -> None:
@@ -434,8 +431,12 @@ def _run(args, device: torch.device, comp: CompressionConfig, launch, hb) -> Dic
     fwd_cache: Dict[tuple, float] = {}
     if el is not None and launch.decision is not None:
         # a watchdog-relaunched worker: the running world's replicated state
-        # from its coordinator (EF starts at zero) and its next epoch
-        state = el.join_world(state, launch.decision)
+        # from its coordinator (EF starts at zero) and its next epoch; under
+        # --stream_rejoin and a warm commit the parameters come off the stream
+        adopted, adopted_info = stream_rejoin_params(args, state, launch.decision,
+                                                     flight=tel.flight)
+        state = el.join_world(state, launch.decision, adopted_params=adopted,
+                              adopted_info=adopted_info)
         start_epoch = int(el.shared.get("next_epoch", start_epoch))
         follow_world()
     if rank == 0:
@@ -478,6 +479,8 @@ def _run(args, device: torch.device, comp: CompressionConfig, launch, hb) -> Dic
         val = validate(state)
         if rank == 0:
             print(f"top1 {val['acc'] * 100:.2f} top5 {val['acc5'] * 100:.2f}")
+        if stream is not None:
+            stream.close()
         tel.close()
         return val
     preempt = make_preemption()
@@ -570,12 +573,14 @@ def _run(args, device: torch.device, comp: CompressionConfig, launch, hb) -> Dic
                 guard={k: v for k, v in acc.last.items() if k.startswith("guard/")},
                 control=controller.metrics(state.control) if controller is not None else {},
                 prom_extra={**fabric_g, **(ckpt.metrics() if ckpt is not None else {}),
+                            **(stream.metrics() if stream is not None else {}),
                             **(el.metrics() if el is not None else {})},
                 hb=hb, hb_fields=dict(
                     step=state.step, epoch=epoch,
                     last_good_step=(int(state.guard.last_good_step)
                                     if guard_cfg is not None else state.step),
                     **(ckpt.heartbeat_fields() if ckpt is not None else {}),
+                    **(stream.heartbeat_fields() if stream is not None else {}),
                     **({"elastic": el.metrics()} if el is not None else {}),
                     **(controller.heartbeat_fields(state.control)
                        if controller is not None else {})))
@@ -596,6 +601,10 @@ def _run(args, device: torch.device, comp: CompressionConfig, launch, hb) -> Dic
                 state, grew = el.rejoin_barrier(state)
                 if grew:
                     follow_world()
+            if (stream is not None and args.stream_every > 0
+                    and (epoch + 1) % args.stream_every == 0):
+                # delta segment: codec here, commit in the background
+                stream.append_async(state.model, step=state.step)
             if ckpt is not None:
                 ckpt.save_if_best(state, top5, floor=args.best_floor,
                                   meta={"epoch": epoch, "top1": top1, "top5": top5})
@@ -613,6 +622,8 @@ def _run(args, device: torch.device, comp: CompressionConfig, launch, hb) -> Dic
             el.close()
         if ckpt is not None:
             ckpt.close()   # drains the background writer before the events close
+        if stream is not None:
+            stream.close()  # drains the in-flight segment commit
         tel.close()
     return summary
 

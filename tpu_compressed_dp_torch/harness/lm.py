@@ -32,7 +32,12 @@ the compression controller (``--adaptive*``, ratio methods on the
 ``--log_every`` window publishes a ``step`` record, the Prometheus file and
 the heartbeat's telemetry, and the controller ticks on the applied updates
 before that window's checkpoint save; a rung switch takes effect at the
-next step.  The stream flags (ROADMAP item 14) raise.
+next step.  With ``--stream_dir`` rank 0 appends a delta segment
+(``stream/``) every ``--stream_every`` steps, after that step's checkpoint
+save, and a worker relaunched with ``--stream_rejoin`` adopts the
+parameters from the stream when the survivors commit a warm readmission;
+at ``--tp`` or ``--pp`` above 1 rank 0 holds only its shard, and the
+stream flags raise (ROADMAP item 14, the stream's model axes).
 Steady-state tokens/s excludes the first two steps (as the JAX harness
 does) and is closed by a device synchronise.
 
@@ -62,12 +67,13 @@ from tpu_compressed_dp_torch.data import lm as lm_data
 from tpu_compressed_dp_torch.control import Controller, comp_for_rung, init_control_state
 from tpu_compressed_dp_torch.control.rungs import ladder_knob
 from tpu_compressed_dp_torch.harness.loop import (Telemetry, add_adaptive_args,
-                                                  add_telemetry_args, build_control,
-                                                  build_elastic, build_robustness,
-                                                  control_tick, elastic_distributed_init,
-                                                  hideable_fraction, make_heartbeat,
-                                                  make_preemption, preempt_exit,
-                                                  profile_trace, to_device)
+                                                  add_stream_args, add_telemetry_args,
+                                                  build_control, build_elastic,
+                                                  build_robustness, control_tick,
+                                                  elastic_distributed_init, hideable_fraction,
+                                                  make_heartbeat, make_preemption,
+                                                  make_stream, preempt_exit, profile_trace,
+                                                  stream_rejoin_params, to_device)
 from tpu_compressed_dp_torch.models import transformer as tf
 from tpu_compressed_dp_torch.parallel import mesh
 from tpu_compressed_dp_torch.parallel.dp import CompressionConfig, init_ef_state
@@ -91,11 +97,6 @@ PRESETS = {
 }
 
 _ITEM = "ROADMAP.md queue 1, item {}"
-# flags of the JAX harness this port does not carry yet, by the ROADMAP item
-# that ports them: any value but the default raises (the twin flags
-# --adaptive_model twin / --twin_records raise in build_control, item 14)
-_LATER = dict.fromkeys(("stream_dir", "stream_every", "stream_keyframe_every", "stream_ratio",
-                        "stream_rejoin"), 14)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -160,7 +161,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="hierarchical transport: pod count (must divide the world size)")
     p.add_argument("--hier_route_factor_ici", type=float, default=1.25)
     p.add_argument("--hier_route_factor_dcn", type=float, default=1.25)
-    # robustness, telemetry, control and streaming (the stream flags not ported)
+    # robustness, telemetry, control and streaming
     p.add_argument("--guard", action="store_true")
     p.add_argument("--guard_init_scale", type=float, default=2.0 ** 15)
     p.add_argument("--guard_backoff", type=float, default=0.5)
@@ -174,11 +175,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--peer_timeout", type=float, default=60.0)
     p.add_argument("--elastic_ef", type=str, default="drop", choices=("fold", "drop"))
     p.add_argument("--elastic_min_world", type=int, default=2)
-    p.add_argument("--stream_dir", type=str, default=None)
-    p.add_argument("--stream_every", type=int, default=1)
-    p.add_argument("--stream_keyframe_every", type=int, default=8)
-    p.add_argument("--stream_ratio", type=float, default=0.01)
-    p.add_argument("--stream_rejoin", action="store_true")
+    add_stream_args(p, cadence_help="steps between delta-stream appends (requires "
+                                    "--stream_dir; 0 disables streaming)")
     add_adaptive_args(p)
     add_telemetry_args(p)
     p.add_argument("--logdir", type=str, default=None, help="output dir for profiler traces")
@@ -201,10 +199,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _check_ported(args) -> None:
-    defaults = build_parser().parse_args([])
-    for dest, item in _LATER.items():
-        if getattr(args, dest) != getattr(defaults, dest):
-            raise NotImplementedError(f"--{dest} is not ported yet: {_ITEM.format(item)}")
+    if args.stream_dir and (args.tp > 1 or args.pp > 1):
+        raise NotImplementedError(
+            "--stream_dir with --tp or --pp above 1 is not ported yet: rank 0, the stream's "
+            "writer, holds only its shard of the parameters, "
+            f"{_ITEM.format('14 (the stream over the model axes)')}")
     if args.elastic and args.pp > 1:
         # the JAX harness's refusal: a pipeline stage has no replica to
         # recover from
@@ -413,9 +412,13 @@ def _run(args, device: torch.device, comp: CompressionConfig, launch,
                               global_batch=args.global_batch, steps=args.steps),
                     flight_meta=dict(preset=args.preset, mesh=mesh_str,
                                      method=comp.method or "none"))
+    stream = make_stream(args, flight=tel.flight, events=tel.events)
+    if ckpt is not None:
+        # committed checkpoints re-anchor the delta stream's window
+        ckpt.stream = stream
     el = build_elastic(args, launch, chaos=chaos, crash=crash, device=device, ckpt=ckpt,
                        ckpt_layout=lambda w: {"mesh": f"dp{w}xsp1xtp1"},
-                       events=tel.events, flight=tel.flight)
+                       events=tel.events, flight=tel.flight, stream=stream)
     # the global batch cut to the current world's data ranks
     cut = {"rows": args.global_batch}
 
@@ -432,8 +435,12 @@ def _run(args, device: torch.device, comp: CompressionConfig, launch,
     if el is not None and launch.decision is not None:
         # a watchdog-relaunched worker: the running world's replicated state
         # from its coordinator (EF starts at zero); the state's step is the
-        # survivors'
-        state = el.join_world(state, launch.decision)
+        # survivors'; under --stream_rejoin and a warm commit the parameters
+        # come off the delta stream
+        adopted, adopted_info = stream_rejoin_params(args, state, launch.decision,
+                                                     flight=tel.flight)
+        state = el.join_world(state, launch.decision, adopted_params=adopted,
+                              adopted_info=adopted_info)
         follow_world()
     controller, hide_frac = None, 1.0
     if ctrl_cfg is not None:
@@ -547,12 +554,14 @@ def _run(args, device: torch.device, comp: CompressionConfig, launch,
                         control=control_stats, drained=drained,
                         prom_extra={"lr": summary["lr"],
                                     **(ckpt.metrics() if ckpt is not None else {}),
+                                    **(stream.metrics() if stream is not None else {}),
                                     **(el.metrics() if el is not None else {})},
                         hb=hb, hb_fields=dict(
                             step=step_i + 1,
                             last_good_step=(int(m["guard/last_good_step"])
                                             if guard_cfg is not None else step_i + 1),
                             **(ckpt.heartbeat_fields() if ckpt is not None else {}),
+                            **(stream.heartbeat_fields() if stream is not None else {}),
                             **({"elastic": el.metrics()} if el is not None else {}),
                             **(controller.heartbeat_fields(state.control)
                                if controller is not None else {})))
@@ -569,6 +578,11 @@ def _run(args, device: torch.device, comp: CompressionConfig, launch,
                 if ckpt is not None and args.ckpt_every and (step_i + 1) % args.ckpt_every == 0:
                     # a host copy now, the write in the background
                     ckpt.save_async(state, {"step": step_i + 1})
+                if (stream is not None and args.stream_every > 0
+                        and (step_i + 1) % args.stream_every == 0):
+                    # delta segment: Top-K of (params - last streamed) on the
+                    # card, commit in the background
+                    stream.append_async(state.model, step=state.step)
             except Exception as err:
                 failure = el.failure_from(err) if el is not None else None
                 if failure is None or isinstance(err, resilience.Preempted):
@@ -595,6 +609,8 @@ def _run(args, device: torch.device, comp: CompressionConfig, launch,
             el.close()
         if ckpt is not None:
             ckpt.close()   # drains the background writer before the events close
+        if stream is not None:
+            stream.close()  # drains the in-flight segment commit
         tel.close()
     return summary
 

@@ -8,7 +8,9 @@ robustness helpers (``add_robustness_args``, ``add_checkpoint_args``,
 telemetry and control helpers (``add_telemetry_args``,
 ``add_adaptive_args``, ``make_event_stream``, ``make_flight_recorder``,
 ``flight_update``, ``job_scoped``, ``prom_labels``, ``fabric_gauges``,
-``build_control``, ``control_summary``, ``profile_trace``) of
+``build_control``, ``control_summary``, ``profile_trace``) and the delta
+stream's (``add_stream_args``, ``make_stream``, ``stream_join_seq``,
+``stream_rejoin_params``) of
 :mod:`tpu_compressed_dp.harness.loop`, plus :func:`run_local_eval` for
 loaders that hand each process its own (possibly empty) batches,
 :func:`local_device` for the entry points and :func:`add_process_args` for
@@ -47,7 +49,8 @@ __all__ = ["run_train_epoch", "run_eval", "run_local_eval", "train_epoch", "comm
            "build_robustness", "build_control", "build_elastic", "elastic_distributed_init",
            "Launch", "launch_rank_world", "make_heartbeat", "make_event_stream",
            "make_flight_recorder", "flight_update", "make_preemption", "preempt_exit",
-           "profile_trace", "hideable_fraction", "Telemetry", "control_tick"]
+           "profile_trace", "hideable_fraction", "Telemetry", "control_tick", "add_stream_args",
+           "make_stream", "stream_join_seq", "stream_rejoin_params"]
 
 
 @contextlib.contextmanager
@@ -493,6 +496,82 @@ def add_checkpoint_args(p, *, cadence_help: str) -> None:
     p.add_argument("--ckpt_every", type=int, default=1, help=cadence_help)
 
 
+def add_stream_args(p, *, cadence_help: str) -> None:
+    """The ``--stream*`` flags: delta-compressed state streaming
+    (``stream/``: incremental checkpoints, warm rejoin, model push).
+    ``cadence_help`` names the harness's append cadence unit."""
+    p.add_argument("--stream_dir", type=str, default=None,
+                   help="delta state-stream directory (keyframe + Top-K drift segments, "
+                        "manifest-checksummed; feeds warm rejoin and harness/stream_serve.py)")
+    p.add_argument("--stream_every", type=int, default=1, help=cadence_help)
+    p.add_argument("--stream_keyframe_every", type=int, default=8,
+                   help="segments per stream window (one full keyframe, Top-K deltas, one "
+                        "window-closing flush; the flush makes keyframe+deltas == params "
+                        "bitwise)")
+    p.add_argument("--stream_ratio", type=float, default=0.01,
+                   help="Top-K density of each delta segment (fraction of model coordinates)")
+    p.add_argument("--stream_rejoin", action="store_true",
+                   help="on a watchdog relaunch, catch up from the delta stream instead of the "
+                        "survivors' parameter broadcast (falls back to the broadcast when the "
+                        "stream is absent or corrupt); requires --stream_dir on every process")
+
+
+def make_stream(args, *, flight=None, events=None, log=print):
+    """``--stream_dir`` as a :class:`~tpu_compressed_dp_torch.stream.writer.StreamWriter`
+    on rank 0 (or None): every rank holds the replicated parameters, and two
+    writers would race the segment sequence."""
+    if not getattr(args, "stream_dir", None) or mesh.rank() != 0:
+        return None
+    from tpu_compressed_dp_torch.stream import StreamWriter
+
+    return StreamWriter(args.stream_dir, ratio=getattr(args, "stream_ratio", 0.01),
+                        keyframe_every=getattr(args, "stream_keyframe_every", 8),
+                        flight=flight, events=events, log=log)
+
+
+def stream_join_seq(args) -> Optional[int]:
+    """The joiner's pre-admission stream probe: the segment seq it can catch
+    up to, or None when warm rejoin is off or unavailable.  It goes into the
+    rendezvous join record, so the survivors take the parameter-skipping
+    barrier only for joiners that really can adopt from the stream (the
+    probe runs a verifying catch-up, not just a head read)."""
+    if not (getattr(args, "stream_rejoin", False) and getattr(args, "stream_dir", None)):
+        return None
+    from tpu_compressed_dp_torch.stream import StreamCorrupt, StreamReader, is_stream_dir
+
+    if not is_stream_dir(args.stream_dir):
+        return None
+    try:
+        reader = StreamReader(args.stream_dir)
+        reader.catch_up()
+    except StreamCorrupt as e:
+        print(f"stream: rejoin probe failed ({e}); joining cold")
+        return None
+    return int(reader.applied_seq) if reader.applied_seq >= 0 else None
+
+
+def stream_rejoin_params(args, state, decision=None, *, flight=None, log=print):
+    """Joiner-side warm rejoin: ``(adopted parameters, info)`` for
+    ``ElasticRuntime.join_world`` (the parameters already copied into
+    ``state.model``), or ``(None, None)`` to take the survivors' broadcast.
+    Runs after admission, so the coordinator's barrier flush is on disk and
+    the reconstruction is bitwise the live parameters.  ``decision``'s
+    committed ``warm`` bit is the world's agreement on the broadcast's
+    layout: when it says cold the catch-up is skipped."""
+    if not (getattr(args, "stream_rejoin", False) and getattr(args, "stream_dir", None)):
+        return None, None
+    if decision is not None and not getattr(decision, "warm", False):
+        log("stream: epoch committed a cold admission — skipping the warm-rejoin catch-up")
+        return None, None
+    from tpu_compressed_dp_torch.stream import warm_rejoin
+    from tpu_compressed_dp_torch.stream.delta import param_dict
+
+    state, info = warm_rejoin(state, args.stream_dir, log=log, flight=flight)
+    if info is None:
+        return None, None
+    return param_dict(state.model), info
+
+
 def build_robustness(args, dtype):
     """``(guard_cfg, chaos, crash_injector)`` from the flags.  In-step chaos
     injection arms the guard; loss scaling follows ``dtype``
@@ -561,7 +640,8 @@ def elastic_distributed_init(args, device) -> Launch:
     if elastic:
         from tpu_compressed_dp_torch.train.rendezvous import maybe_rejoin_from_env
 
-        decision = maybe_rejoin_from_env(args.elastic_dir, rank, deadline_s=4 * timeout)
+        decision = maybe_rejoin_from_env(args.elastic_dir, rank, deadline_s=4 * timeout,
+                                         stream_seq=stream_join_seq(args))
     if decision is not None:
         base_port = int(decision.address.rsplit(":", 1)[1]) - int(decision.epoch)
         mesh.destroy()
@@ -588,7 +668,7 @@ def elastic_distributed_init(args, device) -> Launch:
 
 
 def build_elastic(args, launch: Launch, *, chaos=None, crash=None, device=None, ckpt=None,
-                  ckpt_layout=None, events=None, flight=None, log=print):
+                  ckpt_layout=None, events=None, flight=None, stream=None, log=print):
     """The ``--elastic*`` flags as a started
     :class:`~tpu_compressed_dp_torch.train.elastic.ElasticRuntime` (or None
     without ``--elastic``).  ``--elastic_dir`` arms the gossip and the
@@ -597,7 +677,9 @@ def build_elastic(args, launch: Launch, *, chaos=None, crash=None, device=None, 
     planes are always on; ``crash`` lets the runtime probe the
     ``during_remesh`` phase.  ``--elastic_ef fold`` raises: a dead
     process's EF cannot be folded.  A relaunched worker's runtime starts in the
-    world it joined (``launch.decision``)."""
+    world it joined (``launch.decision``).  ``stream`` is rank 0's
+    :func:`make_stream` writer; ``--stream_dir`` on every process arms the
+    warm readmission (``stream_armed``, a value every rank shares)."""
     if not getattr(args, "elastic", False):
         return None
     from tpu_compressed_dp_torch.train.elastic import ElasticConfig, ElasticRuntime, PeerGossip
@@ -627,7 +709,8 @@ def build_elastic(args, launch: Launch, *, chaos=None, crash=None, device=None, 
                                 base_port=launch.base_port or DEFAULT_BASE_PORT)
     return ElasticRuntime(cfg, gossip=gossip, crash=crash, rendezvous=rendezvous,
                           ranks=ranks, device=device, ckpt=ckpt, ckpt_layout=ckpt_layout,
-                          events=events, flight=flight, log=log)
+                          events=events, flight=flight, stream=stream,
+                          stream_armed=bool(getattr(args, "stream_dir", None)), log=log)
 
 
 def launch_rank_world(args) -> Tuple[int, int]:

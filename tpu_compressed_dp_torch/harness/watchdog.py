@@ -11,7 +11,7 @@ fields) and exits nonzero when the run is unhealthy:
 
   exit 0  healthy
   exit 1  unhealthy (stale / wedged / stalled / slow tail / checkpoint
-          stale / straggler; reasons on stdout)
+          stale / stream stale / straggler; reasons on stdout)
   exit 2  heartbeat missing or unreadable
 
 Checks (``utils/resilience.check_heartbeat``): **stale** (``ts`` older than
@@ -19,10 +19,12 @@ Checks (``utils/resilience.check_heartbeat``): **stale** (``ts`` older than
 step vetoed by the step guard), **stalled** (telemetry ``steps_per_sec``
 below ``--min_step_rate``), **slow tail** (telemetry ``step_p95_ms`` above
 ``--max_step_p95_ms``), **checkpoint-stale** (``ckpt_age_s`` plus the
-heartbeat's own age above ``--max_ckpt_age``) and **straggler**
+heartbeat's own age above ``--max_ckpt_age``), **stream-stale**
+(``stream_lag_s``, the delta stream's time since its last segment, written
+by the harness's ``StreamWriter`` or by ``harness/stream_serve.py``, plus
+the heartbeat's own age above ``--max_stream_lag``) and **straggler**
 (``straggler_skew_s``, the flight recorder's live cross-rank step-time
-skew, above ``--max_straggler_skew``).  The stream-stale check reads the
-delta stream's lag, ROADMAP.md queue 1, item 14: not part of this CLI.
+skew, above ``--max_straggler_skew``).
 
 ``--relaunch`` supervises the training command given after ``--``: it runs
 the same check every ``--interval`` seconds (after a ``--grace`` warm-up)
@@ -92,6 +94,7 @@ def run_check(args) -> int:
         min_steps_per_sec=getattr(args, "min_step_rate", None),
         max_step_p95_ms=getattr(args, "max_step_p95_ms", None),
         max_ckpt_age_s=getattr(args, "max_ckpt_age", None),
+        max_stream_lag_s=getattr(args, "max_stream_lag", None),
         max_straggler_skew_s=getattr(args, "max_straggler_skew", None), hb=hb)
     for pr in problems:
         print(f"watchdog: UNHEALTHY: {pr}")
@@ -270,6 +273,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--max_ckpt_age", type=float, default=None,
                    help="max seconds since the last durable checkpoint (ckpt_age_s plus the "
                         "heartbeat's age; default: no checkpoint check)")
+    p.add_argument("--max_stream_lag", type=float, default=None,
+                   help="max seconds since the last delta-stream segment (stream_lag_s plus "
+                        "the heartbeat's age; default: no stream-staleness check)")
     p.add_argument("--max_straggler_skew", type=float, default=None,
                    help="max cross-rank step-time skew in seconds (straggler_skew_s; "
                         "default: no straggler check)")

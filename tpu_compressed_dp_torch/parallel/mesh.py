@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import datetime
 import os
+import random
 import socket
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -71,7 +72,38 @@ def resolve_device(device="cuda") -> torch.device:
     return device
 
 
+#: where :func:`free_port` draws: below 32768, Linux's default start of the
+#: ephemeral range, where no bind to port 0 (another process's listener, a
+#: connection's source port) lands between the draw and the store's bind
+_LISTEN_PORTS = (20000, 32000)
+#: the ports :func:`free_port` keeps free from the one it returns up: an
+#: elastic world's epoch E listens at the launch port + E
+#: (``train/rendezvous.py``)
+_EPOCH_PORTS = 8
+
+
+def _bindable(port: int) -> bool:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        try:
+            s.bind(("localhost", port))
+        except OSError:
+            return False
+    return True
+
+
 def free_port() -> int:
+    """A localhost port for a process group's store to listen on, with the
+    :data:`_EPOCH_PORTS` - 1 ports above it free too.  Drawn at random below
+    the ephemeral range: a port the OS hands out (a bind to port 0) comes
+    from that range, and under load another process's listener (gloo's
+    transport binds port 0) could take it before the store binds it
+    (``EADDRINUSE``, or the store's clients reach the wrong listener).  The
+    OS's choice only when no drawn port is free."""
+    rng = random.SystemRandom()
+    for _ in range(64):
+        port = rng.randrange(_LISTEN_PORTS[0], _LISTEN_PORTS[1] - _EPOCH_PORTS)
+        if all(_bindable(port + i) for i in range(_EPOCH_PORTS)):
+            return port
     with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
         s.bind(("localhost", 0))
         return s.getsockname()[1]

@@ -76,9 +76,16 @@ The contract of a transition:
 ``events`` (``obs/export.EventStream``) gets the JAX runtime's ``remesh``,
 ``remesh_cascade`` and ``readmit`` records, ``flight``
 (``obs/flight.FlightRecorder``) the same in its ``elastic`` ring plus a
-blackbox dump on every handled failure.  ``stream`` (ROADMAP item 14) is
-not ported: the runtime takes it as ``None`` only, every readmission is
-cold (``warm=False``) and ``stream/rejoin_bytes`` stays 0.
+blackbox dump on every handled failure.  ``stream`` (rank 0's
+``stream/writer.StreamWriter``) gets a keyframe request after every
+committed world transition.  Warm readmission: when the delta stream is
+armed on every process (``stream_armed``), every pending joiner's join
+record carries ``stream`` (it could catch up from the stream) and a
+survivor holds the writer, the writer's rank flushes the stream
+(:meth:`StreamWriter.sync`) before the epoch commit, the commit carries ``warm``, the broadcast skips the parameters
+(buffers, momentum, compressor, guard and controller state and the step
+still travel) and the joiner adopts them from the stream
+(``stream/rejoin.py``); ``stream/rejoin_bytes`` is what it read.
 """
 
 from __future__ import annotations
@@ -575,11 +582,13 @@ def is_collective_error(exc: BaseException) -> bool:
     return isinstance(exc, RuntimeError) and any(m in str(exc) for m in _COLLECTIVE_MARKS)
 
 
-def _tensors(state, comp: bool) -> List[torch.Tensor]:
+def _tensors(state, comp: bool, params: bool = True) -> List[torch.Tensor]:
     """The replicated tensors of a state, in one order on every rank:
-    parameters and buffers (the module's ``state_dict`` order), momentum
-    and the other optimizer buffers, and the compressor state."""
-    out = [t for t in state.model.state_dict().values()]
+    parameters (unless ``params`` is false) and buffers (the module's
+    ``state_dict`` order), momentum and the other optimizer buffers, and the
+    compressor state."""
+    names = {n for n, _ in state.model.named_parameters()}
+    out = [t for n, t in state.model.state_dict().items() if params or n not in names]
     out += [t for t in _leaves(state.opt_state) if isinstance(t, torch.Tensor)]
     if comp and not _empty(state.comp):
         out += [t for t in _leaves(state.comp) if isinstance(t, torch.Tensor)]
@@ -601,14 +610,17 @@ def settle_barrier(timeout_s: float) -> None:
 
 
 @torch.no_grad()
-def broadcast_replicated(state, src: int, *, comp: bool = True, extras: Any = None):
+def broadcast_replicated(state, src: int, *, comp: bool = True, extras: Any = None,
+                         params: bool = True):
     """Make ``state``'s replicated fields group rank ``src``'s on every rank
     of the default group: the tensors in place (one broadcast a dtype and
     device, flattened), the step, the guard and the controller state by
-    value.  ``extras`` (any picklable value) rides along from ``src``.
-    Returns ``(state, extras)``; EF is left alone."""
+    value.  ``extras`` (any picklable value) rides along from ``src``;
+    ``params=False`` leaves the model's parameters out (a warm readmission:
+    the joiner adopted them from the delta stream).  Returns ``(state,
+    extras)``; EF is left alone."""
     groups: Dict[Tuple[torch.dtype, torch.device], List[torch.Tensor]] = {}
-    for t in _tensors(state, comp):
+    for t in _tensors(state, comp, params):
         groups.setdefault((t.dtype, t.device), []).append(t)
     for ts in groups.values():
         flat = torch.cat([t.reshape(-1) for t in ts])
@@ -663,11 +675,8 @@ class ElasticRuntime:
                  ckpt_layout: Optional[Callable[[int], Dict[str, Any]]] = None,
                  reinit: Optional[Callable[[Any], None]] = None,
                  broadcast: Optional[Callable[..., Any]] = None,
-                 events=None, flight=None, stream=None,
+                 events=None, flight=None, stream=None, stream_armed=None,
                  log: Callable[[str], None] = print):
-        if stream is not None:
-            raise NotImplementedError(
-                "ElasticRuntime(stream=...) is not ported yet: ROADMAP.md queue 1, item 14")
         self.cfg = cfg
         self.events = events
         self.flight = flight
@@ -693,7 +702,16 @@ class ElasticRuntime:
         self.remesh_latency_ms = 0.0       # latest remesh's host latency
         self.remesh_ms = 0.0               # cumulative remesh + readmit downtime
         self.readmit_ms = 0.0              # latest readmission's host latency
-        self.stream_rejoin_bytes = 0.0     # no delta stream: every rejoin is cold
+        # the delta StreamWriter (rank 0 only): every committed transition
+        # requests a keyframe, and a warm readmission flushes it first
+        self.stream = stream
+        # whether the stream is armed on EVERY process (--stream_dir): the
+        # warm decision keys on this shared value and on the survivors'
+        # agreed answer to whether one of them holds the writer, never on
+        # self.stream alone, which only rank 0 holds; defaults to following
+        # ``stream``
+        self.stream_armed = stream is not None if stream_armed is None else bool(stream_armed)
+        self.stream_rejoin_bytes = 0.0     # newest warm rejoin's byte cost
         # the harness's position (its next epoch, its data order's RNG state),
         # kept current by the harness and sent to joiners with the state
         self.shared: Dict[str, Any] = {}
@@ -894,7 +912,19 @@ class ElasticRuntime:
             self.flight.record("elastic", "remesh", step=failure.step, failed=sorted(dead),
                                world=self.world, epoch=decision.epoch, ef_policy="drop",
                                latency_ms=self.remesh_latency_ms)
+        self._stream_keyframe()
         return state
+
+    def _stream_keyframe(self) -> None:
+        """Re-anchor the delta stream after a committed world transition: a
+        consumer must never need segments that straddle a membership change
+        to reconstruct the state after it."""
+        st = self.stream
+        if st is not None:
+            try:
+                st.request_keyframe()
+            except Exception:
+                pass  # the stream tee must never fail a remesh
 
     def _record(self, kind: str, **fields) -> None:
         """One elastic record on the event stream and the flight ring."""
@@ -910,7 +940,9 @@ class ElasticRuntime:
         group's: a joiner builds its model and data after it entered the
         group, while the survivors are already waiting to broadcast.  A
         joiner entered the committed group when it launched
-        (``harness/loop.elastic_distributed_init``)."""
+        (``harness/loop.elastic_distributed_init``).  The committed
+        ``decision.warm`` bit, the same record on every rank, leaves the
+        parameters out of the broadcast."""
         if not joining:
             self._reinit(decision)
         if (joining or readmit) and self._broadcast is broadcast_replicated:
@@ -918,7 +950,8 @@ class ElasticRuntime:
         src = decision.ranks.index(decision.coordinator)
         extras = {"ckpt": self.ckpt.sequence() if self.ckpt is not None else None,
                   "shared": self.shared}
-        state, extras = self._broadcast(state, src, extras=extras)
+        state, extras = self._broadcast(state, src, extras=extras,
+                                        params=not getattr(decision, "warm", False))
         seq, self.shared = extras["ckpt"], dict(extras["shared"])
         if joining and not _empty(state.ef):
             with torch.no_grad():
@@ -946,13 +979,33 @@ class ElasticRuntime:
             flags = -mesh.all_reduce_max(-flags)
         return [int(r) for r in torch.nonzero(flags).flatten().tolist()]
 
+    def _agreed_warm(self, ready: Sequence[int], joins: Dict[int, dict], device) -> bool:
+        """Whether a readmission of ``ready`` can be warm, the same answer on
+        every survivor (one MAX all-reduce): the stream is armed on every
+        process, every joiner's record carries ``stream`` (it could catch
+        up), and a survivor holds the writer.  With the writer's process
+        dead no survivor can flush the stream to the live parameters, and a
+        joiner would adopt a stale reconstruction."""
+        if not self.stream_armed:
+            return False
+        can = all((joins.get(r) or {}).get("stream") is not None for r in ready)
+        # [any survivor holds the writer, -(every survivor saw records that can)]
+        flags = torch.tensor([float(self.stream is not None), -float(can)], device=device)
+        if mesh.world() > 1:
+            flags = mesh.all_reduce_max(flags)
+        return bool(flags[0] > 0 and flags[1] < 0)
+
     def rejoin_barrier(self, state):
         """Survivor half of scale-up, called at an epoch boundary: fold the
         join requests every survivor sees (watchdog-relaunched processes
         waiting in :meth:`Rendezvous.join`) into a new world epoch,
         re-initialise, and send the joiners the replicated state.  Returns
         ``(state, changed)``; the caller rebuilds its step when
-        ``changed``."""
+        ``changed``.
+
+        Warm (:meth:`_agreed_warm`): the writer's rank flushes the stream
+        first, so its head reconstructs to the live parameters bitwise, and
+        the commit carries ``warm``."""
         if self.rendezvous is None:
             return state, False
         joins = self.rendezvous.pending_joins()
@@ -963,9 +1016,13 @@ class ElasticRuntime:
             return state, False
         t0 = time.monotonic()
         new_ranks = sorted(set(self._proc_ranks) | set(ready))
+        want_warm = self._agreed_warm(ready, joins, device)
+        if want_warm and self.stream is not None:
+            self.stream.sync(state.model, step=int(state.step))
         # only survivors vote (the joiners are parked in Rendezvous.join);
         # the coordinator is therefore a survivor, the broadcast's source
         decision = self.rendezvous.propose(new_ranks, voters=self._proc_ranks,
+                                           warm=want_warm,
                                            deadline_s=self.cfg.peer_timeout_s * 4)
         state = self._enter(state, decision, readmit=True)
         self.readmit_count += len(ready)
@@ -977,25 +1034,61 @@ class ElasticRuntime:
         self._log(f"elastic: epoch {decision.epoch}: readmitted process(es) {ready} -> "
                   f"world {self.world} ({self.readmit_ms:.0f} ms)")
         self._record("readmit", ranks=ready, world=self.world, epoch=decision.epoch,
-                     warm=False)
+                     warm=bool(getattr(decision, "warm", False)))
+        self._stream_keyframe()
         return state, True
 
-    def join_world(self, state, decision):
+    def join_world(self, state, decision, *, adopted_params=None, adopted_info=None):
         """Joiner half of scale-up: called by a relaunched harness right
         after it initialised into the committed world with the
         :class:`~tpu_compressed_dp_torch.train.rendezvous.EpochDecision` its
         join returned.  The fresh-init state supplies shapes; the
         replicated values and the compressor state come from the
         coordinator's broadcast, and the EF starts at zero.  :attr:`shared`
-        then holds the survivors' position (the harness resumes there)."""
-        if getattr(decision, "warm", False):
+        then holds the survivors' position (the harness resumes there).
+
+        ``adopted_params`` (``{key: tensor}``, ``stream/rejoin.py``) is the
+        warm rejoin's reconstruction, ``adopted_info`` its accounting.  The
+        broadcast's layout follows the COMMITTED ``decision.warm`` bit, the
+        record the survivors read, never the local outcome: a warm commit
+        takes the parameters from the stream, and one with no adoption in
+        hand raises (joining the parameter-skipping broadcast with fresh-init
+        parameters would train from garbage; the watchdog relaunches and the
+        next probe re-decides), and so does an adoption that is not the
+        survivors' parameters: one the reader did not reconstruct exactly, or
+        of another step than the broadcast's; a cold commit discards any
+        catch-up."""
+        warm = bool(getattr(decision, "warm", False))
+        if warm and adopted_params is None:
             from tpu_compressed_dp_torch.train.rendezvous import RendezvousError
 
             raise RendezvousError(
                 f"epoch {decision.epoch} committed warm (the survivors skip the params "
-                "broadcast) but the port has no delta stream to adopt them from "
-                "(ROADMAP.md queue 1, item 14)")
+                "broadcast) but this joiner holds no stream reconstruction to adopt — "
+                "exiting for the watchdog to relaunch; the next join probe re-decides "
+                "warm vs cold")
+        if warm:
+            from tpu_compressed_dp_torch.stream.rejoin import adopt_params
+
+            adopt_params(state.model, adopted_params)
+            self.stream_rejoin_bytes = float((adopted_info or {}).get("bytes", 0))
+            if self.flight is not None:
+                self.flight.record("stream", "warm_join", epoch=decision.epoch,
+                                   **dict(adopted_info or {}))
+        elif adopted_params is not None:
+            self._log(f"elastic: stream catch-up unused — epoch {decision.epoch} committed a "
+                      "cold (full broadcast) admission")
         state = self._enter(state, decision, joining=True)
+        if warm:
+            info = adopted_info or {}
+            if not info.get("exact") or info.get("step") != int(state.step):
+                from tpu_compressed_dp_torch.train.rendezvous import RendezvousError
+
+                raise RendezvousError(
+                    f"epoch {decision.epoch} committed warm but the stream reconstruction "
+                    f"this joiner adopted (step {info.get('step')}, exact "
+                    f"{info.get('exact')}) is not the survivors' parameters at step "
+                    f"{int(state.step)} — exiting for the watchdog to relaunch")
         if self.gossip is not None:
             self.gossip.note_dead(set(range(self.gossip.world)) - set(decision.ranks),
                                   "not in the world this process joined")
@@ -1005,8 +1098,8 @@ class ElasticRuntime:
 
     # -- accounting ------------------------------------------------------
     def metrics(self) -> Dict[str, float]:
-        """The ``elastic/*`` keys of the JAX runtime (and its
-        ``stream/rejoin_bytes``, 0 without a delta stream)."""
+        """The ``elastic/*`` keys of the JAX runtime and its
+        ``stream/rejoin_bytes`` (the newest warm rejoin's bytes read)."""
         return {
             "elastic/peer_failures": float(self.peer_failures),
             "elastic/remesh_count": float(self.remesh_count),

@@ -209,7 +209,8 @@ class Checkpointer:
     ``{'world': world}``) is what a restore must match.  One Checkpointer
     a rank owns the directory; ``events`` / ``flight`` are the telemetry
     hooks (the harnesses set them under ``--events`` / ``--flight_dir``),
-    ``stream`` the delta stream's and stays ``None`` until that is ported.
+    ``stream`` the delta stream's ``StreamWriter`` (each committed save
+    requests a stream keyframe; a failure there never fails the save).
     ``token`` names the pending directories without the broadcast that
     draws one (a worker joining a running world takes the survivors' from
     :meth:`follow_world`).
@@ -231,6 +232,8 @@ class Checkpointer:
         self.best_step: Optional[int] = None
         self.events = None
         self.flight = None
+        #: the delta stream tee: each committed save requests a keyframe, so
+        #: a stream consumer's recovery never spans a checkpoint
         self.stream = None
         #: the last background write failure a non-raising barrier popped
         self.last_save_error: Optional[BaseException] = None
@@ -391,6 +394,12 @@ class Checkpointer:
         if meta.get("emergency"):
             fields["emergency"] = True
         self._emit("ckpt_save", **fields)
+        st = self.stream
+        if st is not None:
+            try:
+                st.request_keyframe()  # re-anchor the delta window here
+            except Exception:
+                pass  # the stream tee must never fail a save
 
     def _gc(self) -> None:
         """Keep the newest ``max_to_keep`` steps and the pinned best; drop
