@@ -138,8 +138,10 @@ printing no result, where either is missing or any phase fails.
      1 % + EF, with zeroed and read launch counters; (8b) times steady steps
      at 224 px / batch 224 from a device-resident batch (dense; Top-K 1 % +
      EF layer-wise and entire-model; Random-K 1 % + EF layer-wise at
-     ``--overlap`` 1 and 4; wire entire-model Top-K) with the sync alone,
-     peak memory, idle share, launches per step and MFU; (8c) at the
+     ``--overlap`` 1 and 4; wire entire-model Top-K), one model built for
+     all rows and reset to its initial weights for
+     each, with the sync alone, peak memory, one profiled step's idle share
+     and launches, and MFU; (8c) at the
      entire-model group's 25,557,032 elements holds the search (and the
      ``count >= keep`` contract), the fused sparsify and select+pack bitwise
      to their plain versions, and holds ``sync_overlap = 4`` bitwise to 1 on
@@ -228,7 +230,25 @@ printing no result, where either is missing or any phase fails.
      parameters and momentum are bitwise the survivor's and its
      ``stream/rejoin_bytes`` is above 0; (d) ``harness/stream_serve.py
      --once`` takes a snapshot of (a)'s stream, bitwise the reconstruction;
- 13. prints the kernels' JSON line (18 entries), the ``nvidia-smi``
+ 13. the compression sweep and the digital twin: (a) ``bench.sweep.main`` on
+     full-width ResNet-9, batch 512, fp32 with TF32 off, one rank, with
+     ``--predict``: the dense row, Top-K 1 % + EF layer-wise and
+     entire-model in simulate mode, then wire entire-model Top-K over
+     allgather with ``--phase_breakdown``; each row's launches counted (the
+     Top-K rows launch the search and ``fused_sparsify`` or
+     ``select_pack``, the dense rows none of them), each row a valid twin
+     step row, the rows written as a sweep file into a scratch directory
+     under ``build/``; (b) the wire row again at ``--pallas off --steps 5``,
+     which launches none of the Top-K kernels: its ``phase_compress_ms``
+     beside (a)'s; (c) ``harness.dawn.main`` with ``--adaptive
+     --adaptive_model twin --twin_records`` the repository root (wire
+     entire-model Top-K, a pinned budget, 3 epochs of 4 steps): the
+     ``twin/*`` gauges printed, the decisions replayed on the host's
+     Controller with a pricer built from the same flags, the search and
+     ``select_pack`` held bitwise to their plain versions on the run's
+     first inputs.  The twin is calibrated on the records' CPU runs: its
+     prices are not the card's times;
+ 14. prints the kernels' JSON line (18 entries), the ``nvidia-smi``
      name/power line and, last, ``{"ok": true, "device": {...}}``.
 
 ``--record FILE`` also writes the full record (every timing, the profiles)
@@ -2684,8 +2704,9 @@ IMAGENET_STEADY = {
 }
 
 
-def _resnet50_step(torch, cfg, dev, lr: float = 0.1):
-    """A full-width bf16 ResNet-50 (seed 0), its SGD, state and train step."""
+def _resnet50_step(torch, cfg, dev, lr: float = 0.1, model=None):
+    """A full-width bf16 ResNet-50 (seed 0; or ``model`` as given), its SGD,
+    state and train step."""
     from tpu_compressed_dp_torch.data.imagenet import IMAGENET_MEAN, IMAGENET_STD
     from tpu_compressed_dp_torch.models import resnet
     from tpu_compressed_dp_torch.models.common import make_normalizing_apply_fn, param_leaves
@@ -2694,7 +2715,8 @@ def _resnet50_step(torch, cfg, dev, lr: float = 0.1):
     from tpu_compressed_dp_torch.train.state import TrainState
     from tpu_compressed_dp_torch.train.step import make_train_step
 
-    model = resnet.resnet50(dtype=torch.bfloat16, seed=0, device=dev)
+    if model is None:
+        model = resnet.resnet50(dtype=torch.bfloat16, seed=0, device=dev)
     params = param_leaves(model)
     opt = SGD(lr=lr, momentum=0.9, weight_decay=1e-4)
     state = TrainState.create(model, opt.init(params), init_ef_state(params, cfg), seed=1,
@@ -2720,19 +2742,23 @@ def phase_steady_imagenet(kernels, torch, record):
     from tpu_compressed_dp_torch.parallel.overlap import make_chunked_grad_sync
     from tpu_compressed_dp_torch.utils import flops
 
+    from tpu_compressed_dp_torch.models import resnet
+
     card = record["card"]
     t_phase = time.perf_counter()
     dev = torch.device("cuda")
     bs, hw = 224, 224
     batch = _image_batch(torch, dev, bs, hw, 5)
     out = {}
-    fwd = None
+    # one model for every row, reset to its initial weights and statistics
+    model = resnet.resnet50(dtype=torch.bfloat16, seed=0, device=dev)
+    initial = {k: v.clone() for k, v in model.state_dict().items()}
+    fwd = flops.cnn_fwd_flops(model, (bs, hw, hw, 3), dev)
     for label, (method, gran, mode, k) in IMAGENET_STEADY.items():
         cfg = CompressionConfig(method=method, granularity=gran, mode=mode, ratio=RATIO,
                                 error_feedback=method is not None, sync_overlap=k)
-        model, params, state, step = _resnet50_step(torch, cfg, dev)
-        if fwd is None:
-            fwd = flops.cnn_fwd_flops(model, (bs, hw, hw, 3), dev)
+        model.load_state_dict(initial)
+        _, params, state, step = _resnet50_step(torch, cfg, dev, model=model)
         for _ in range(3):
             state, _ = step(state, batch)
         torch.cuda.synchronize()
@@ -2752,14 +2778,16 @@ def phase_steady_imagenet(kernels, torch, record):
             for _ in range(n):
                 holder["state"], _ = step(holder["state"], batch)
 
-        prof = device_profile(run, torch, n_steps=2)
+        # one profiled step: reading a layer-wise step's ~40,000 trace events
+        # back takes ~3 s on the card's host
+        prof = device_profile(run, torch, n_steps=1)
         state = holder["state"]
         if not math.isfinite(float(m["loss"])):
             raise AssertionError(f"steady imagenet {label}: non-finite loss")
         grads = {key: torch.randn(p.shape, device=dev) * 1e-2 for key, p in params.items()}
         sync = make_stateful_grad_sync(cfg) if k == 1 else make_chunked_grad_sync(cfg)
         ef, comp = init_ef_state(params, cfg), init_comp_state(params, cfg)
-        sync_ms = time_ms(lambda g: sync(g, ef, comp, 0), [grads], reps=5, inner=3)
+        sync_ms = time_ms(lambda g: sync(g, ef, comp, 0), [grads], reps=3, inner=3)
         mfu = 3.0 * fwd / (step_ms * 1e-3) / BF16_OPS_PER_S
         out[label] = {"step_ms": step_ms, "img_s": bs / step_ms * 1e3, "sync_ms": sync_ms,
                       "peak_gib": peak, "mfu": mfu, "port_launches_per_step": port_launches,
@@ -2770,9 +2798,10 @@ def phase_steady_imagenet(kernels, torch, record):
             f"per step {prof.get('launches_per_step', 'not measured')} (port kernels "
             f"{port_launches}), MFU {mfu:.4f} (bf16 peak), on {card}")
         log(f"profile imagenet {label}: {json.dumps(prof)}")
-        del state, model, params, grads, ef, comp, holder, step, sync
+        del state, params, grads, ef, comp, holder, step, sync
         gc.collect()
         torch.cuda.empty_cache()
+    del model, initial
     wall = time.perf_counter() - t_phase
     log(f"phase 8b wall {wall:.1f} s on {card}; forward {fwd / 1e9:.3f} GFLOP per batch of "
         f"{bs} at {hw} px")
@@ -3092,7 +3121,6 @@ LM_ARGV = ["--preset", "llama3_8b", "--layers", "2", "--seq_len", "8192", "--glo
            "1", "--warmup_steps", "1", "--steps", "4", "--log_every", "4", "--device", "cuda",
            "--seed", "0"]
 LM_TOPK = ["--method", "topk", "--ratio", str(RATIO), "--error_feedback"]
-ALEXNET_TOPK = ("count_ge", "search_init", "fused_sparsify")
 LM_RUNS = {"dense": [],
            "topk entiremodel": ["--compress", "entiremodel", *LM_TOPK],
            "topk layerwise": ["--compress", "layerwise", *LM_TOPK],
@@ -5848,6 +5876,193 @@ def phase_stream(kernels, dawn, torch, record):
             err)
 
 
+SWEEP_ARGV = ["--model", "resnet9", "--batch_size", "512", "--methods", "topk", "--ratios",
+              str(RATIO), "--error_feedback", "--granularities", "entiremodel", "--steps",
+              "10", "--device", "cuda"]
+SWEEP_TOPK = TOPK_KERNELS + ("select_pack",)
+TWIN_EPOCHS = 3              # 13c: 3 epochs of 4 steps, a window of 8 updates
+
+
+def _sweep_rows(kernels, sweep, torch, argv: list):
+    """``bench.sweep.main(argv)``: its records, and each row's launches of
+    the port's kernels (every count set to 0 just before the row's
+    ``run_point`` and read just after)."""
+    import contextlib
+    import io
+
+    launches, orig = [], sweep.run_point
+
+    def counted(**kw):
+        kernels.reset_launches()
+        rec = orig(**kw)
+        torch.cuda.synchronize()
+        launches.append(dict(kernels.LAUNCHES))
+        return rec
+
+    sweep.run_point = counted
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            recs = sweep.main(argv)
+    finally:
+        sweep.run_point = orig
+    lines = [json.loads(ln) for ln in buf.getvalue().splitlines() if ln.startswith("{")]
+    if lines != recs:
+        raise AssertionError("13: the sweep's JSON lines are not its records")
+    return recs, launches
+
+
+def _sweep_checks(rows, launches, label: str, must) -> None:
+    """Each row a valid twin step row with finite times and an MFU; the
+    Top-K rows launch ``must``, the dense rows none of the Top-K kernels."""
+    from tpu_compressed_dp_torch.twin.records import step_row
+
+    for i, (rec, ln) in enumerate(zip(rows, launches)):
+        step_row(rec, source=label, index=i)
+        if not (math.isfinite(rec["step_ms"]) and rec["step_ms"] > 0 and "mfu" in rec):
+            raise AssertionError(f"{label} row {i}: step_ms {rec['step_ms']}, mfu "
+                                 f"{rec.get('mfu')}")
+        if rec["method"] == "none":
+            if any(ln[k] for k in SWEEP_TOPK):
+                raise AssertionError(f"{label}: the dense row launched a Top-K kernel: {ln}")
+            continue
+        if abs(rec["sent_frac"] - RATIO) > 0.05 * RATIO:
+            raise AssertionError(f"{label} row {i}: sent frac {rec['sent_frac']}")
+        for k in must:
+            if ln[k] < 1:
+                raise AssertionError(f"{label} row {i}: {k} never launched: {ln}")
+
+
+def phase_sweep_twin(kernels, compressors, dawn, torch, record):
+    """Phase 13: the compression sweep's rows on the card, the off/auto row
+    pair that prices the kernels, and the twin flags through dawn."""
+    from tpu_compressed_dp_torch.bench import sweep
+    from tpu_compressed_dp_torch.control import Controller, init_control_state
+    from tpu_compressed_dp_torch.harness import loop
+    from tpu_compressed_dp_torch.obs import export
+    from tpu_compressed_dp_torch.twin import calibration_rows, load_record_file
+
+    card = record["card"]
+    out_dir = os.path.join(HERE, "build", "chip_smoke_sweep")
+    shutil_rm(out_dir)
+    os.makedirs(out_dir)
+    t_phase = time.perf_counter()
+    res, runs = {}, {}
+    twin = ["--predict", "--twin_records", HERE]
+    # (a) the dense row and Top-K 1 % + EF layer-wise and entire-model in
+    # simulate mode; then the wire entire-model row with the phase breakdown
+    sim, sim_l = _sweep_rows(kernels, sweep, torch, SWEEP_ARGV + twin + [
+        "--granularities", "layerwise,entiremodel", "--mode", "simulate"])
+    _sweep_checks(sim, sim_l, "13a simulate", ALEXNET_TOPK)
+    if [(r["method"], r["granularity"]) for r in sim] != [
+            ("none", "layerwise"), ("topk", "layerwise"), ("topk", "entiremodel")]:
+        raise AssertionError(f"13a: simulate rows {[(r['method'], r['granularity']) for r in sim]}")
+    if not sim_l[2]["count_edges"]:
+        raise AssertionError(f"13a: the entire-model search ran no sampled round: {sim_l[2]}")
+    wire_rows, wire_l = _sweep_rows(kernels, sweep, torch, SWEEP_ARGV + twin + [
+        "--mode", "wire", "--phase_breakdown"])
+    _sweep_checks(wire_rows, wire_l, "13a wire", ("count_ge", "count_edges", "search_init",
+                                                  "select_pack"))
+    auto = wire_rows[1]
+    phases = {k: v for k, v in auto.items() if k.startswith("phase_")}
+    if set(phases) != {"phase_compress_ms", "phase_reduce_ms", "phase_ef_ms",
+                       "phase_update_ms"} or auto["pallas_mode"] != "auto":
+        raise AssertionError(f"13a: the wire row's phases {sorted(phases)}, pallas mode "
+                             f"{auto.get('pallas_mode')}")
+    if any(k.startswith("phase_") for r in sim + wire_rows[:1] for k in r):
+        raise AssertionError("13a: phase columns on a row that is not Top-K wire")
+    # (b) the wire row again with every kernel's plain version
+    off_rows, off_l = _sweep_rows(kernels, sweep, torch, SWEEP_ARGV + [
+        "--mode", "wire", "--phase_breakdown", "--pallas", "off", "--steps", "5"])
+    off = off_rows[1]
+    if off["pallas_mode"] != "off" or any(off_l[1][k] for k in SWEEP_TOPK):
+        raise AssertionError(f"13b: the --pallas off row launched {off_l[1]}")
+    if kernels.pallas_mode() != "auto":
+        raise AssertionError(f"13b: the sweep left pallas mode {kernels.pallas_mode()}")
+    rows = sim + wire_rows + off_rows
+    path = os.path.join(out_dir, "sweep.json")
+    with open(path, "w") as f:
+        json.dump({"n": len(rows), "cmd": "chip_smoke.py phase 13", "rc": 0, "records": rows},
+                  f)
+    rf = load_record_file(path)
+    if rf.shape != "sweep" or sum(r.kind == "step" for r in rf.rows) != len(rows):
+        raise AssertionError(f"13: the sweep file loads as {rf.shape} with {len(rf.rows)} rows")
+    for label, rec in (("dense", sim[0]), ("topk lw", sim[1]), ("topk em", sim[2]),
+                       ("wire topk em", auto), ("wire topk em, --pallas off", off)):
+        log(f"13 sweep {label}: {rec['step_ms']} ms/step, {rec['images_per_sec']} img/s, MFU "
+            f"{rec.get('mfu')}, sent frac {rec.get('sent_frac')}, wire frac "
+            f"{rec.get('wire_frac')}, payload {rec.get('payload_mb_per_step')} MB "
+            f"({rec.get('transport')}), twin pred {rec.get('pred_step_ms')} ms (CPU-calibrated "
+            f"twin, not this card) on {card}")
+    for (label, rows_, ls) in (("13a simulate", sim, sim_l), ("13a wire", wire_rows, wire_l),
+                               ("13b off", off_rows, off_l)):
+        log(f"{label} launches by row: " + "; ".join(
+            f"{r['method']} {r['granularity']} {r['mode']}: "
+            f"{ {k: v for k, v in ln.items() if v} }" for r, ln in zip(rows_, ls)))
+        runs[f"sweep {label}"] = {"launches": {k: sum(ln[k] for ln in ls) for k in ls[0]}}
+    log(f"13b phase_compress_ms auto {auto['phase_compress_ms']} / off "
+        f"{off['phase_compress_ms']}; reduce {auto['phase_reduce_ms']} / "
+        f"{off['phase_reduce_ms']}; ef {auto['phase_ef_ms']} / {off['phase_ef_ms']}; update "
+        f"{auto['phase_update_ms']} / {off['phase_update_ms']} ms on {card}")
+    res.update(rows={"simulate": sim, "wire": wire_rows, "off": off_rows},
+               launches={"simulate": sim_l, "wire": wire_l, "off": off_l})
+
+    # (c) the twin flags through the CIFAR entry point
+    d = os.path.join(out_dir, "13c")
+    os.makedirs(d)
+    budget, window = 0.5, 8
+    flags = ["--adaptive", "--adaptive_model", "twin", "--twin_records", HERE,
+             "--adaptive_budget_ms", str(budget), "--adaptive_window", str(window),
+             "--events", f"{d}/ev.jsonl"]
+    run = _adaptive_run(kernels, dawn, torch,
+                        adaptive_argv("entiremodel", "wire", TWIN_EPOCHS) + flags)
+    for k in ("count_ge", "search_init", "select_pack"):
+        if run["launches"][k] < 1:
+            raise AssertionError(f"13c: {k} never launched: {run['launches']}")
+    err, keeps = hold_adaptive(kernels, torch, run, "13c")
+    ev = export.read_all_events(f"{d}/ev.jsonl")
+    recs = [r for r in ev if r["kind"] == "epoch"]
+    decs = [{k: v for k, v in r.items() if k not in ("v", "kind", "ts", "seg", "knob")}
+            for r in ev if r["kind"] == "control_decision"]
+    # the host's Controller, with a config and a pricer built from the same
+    # flags, on the run's own billed bits and applied counts
+    args = dawn.parse_args(adaptive_argv("entiremodel", "wire", TWIN_EPOCHS) + flags)
+    comp = dawn.comp_for_ratio(args, args.ratio)
+    cfg = loop.build_control(args, comp)
+    ctl = Controller(cfg, pricer=loop.build_twin_pricer(args, comp, world=1))
+    cs, replay, gauges = init_control_state(cfg), [], []
+    for r in recs:
+        cs, dd = ctl.tick(cs, applied=r["step"], signals=ctl.window_signals(
+            mean_bits=r["comm"]["comm/sent_bits"]))
+        replay += [x.event_fields() for x in dd]
+        want = {k: v for k, v in ctl.metrics(cs).items() if k.startswith("twin/")}
+        got = {k: v for k, v in r["control"].items() if k.startswith("twin/")}
+        if got != want:
+            raise AssertionError(f"13c: epoch {r['epoch']} twin gauges {got}, the host's {want}")
+        gauges.append(got)
+    if decs != replay or not decs:
+        raise AssertionError(f"13c: decisions {decs}, the host's Controller {replay}")
+    if not any(gauges) or any(g and g["twin/calib_rows"] != len(calibration_rows(HERE))
+                              for g in gauges):
+        raise AssertionError(f"13c: twin gauges {gauges}")
+    rungs = [0] + [int(r["control"]["control/rung"]) for r in recs[:-1]]
+    if keeps != [compressors.topk_keep_count(FULL_MODEL, cfg.rungs[r])
+                 for r in sorted(set(rungs))]:
+        raise AssertionError(f"13c: the searches ran at keeps {keeps}, rungs {rungs}")
+    runs["twin dawn"] = {"launches": run["launches"]}
+    log(f"13c dawn --adaptive_model twin, {TWIN_EPOCHS} epochs: rungs by epoch {rungs}, "
+        f"decisions {[x['direction'] for x in decs]} (replayed on the host), twin gauges by "
+        f"epoch {gauges} (the twin is calibrated on CPU records: not this card's times), "
+        f"launches {run['launches']}, run wall {run['wall_s']:.1f} s on {card}")
+    res["13c"] = {"rungs": rungs, "decisions": decs, "gauges": gauges,
+                  "launches": run["launches"], "wall_s": run["wall_s"]}
+    wall = time.perf_counter() - t_phase
+    res["wall_s"] = wall
+    log(f"phase 13 took {wall:.1f} s on {card}")
+    record["sweep_twin"] = res
+    return runs, err
+
+
 def shutil_rm(path: str) -> None:
     import shutil
 
@@ -5966,6 +6181,9 @@ def main(argv=None) -> int:
     stream_runs, s_err = phase_stream(kernels, dawn, torch, record)
     for name, e in s_err.items():
         err[name] = max(err[name], e)
+    sweep_runs, t_err = phase_sweep_twin(kernels, compressors, dawn, torch, record)
+    for name, e in t_err.items():
+        err[name] = max(err[name], e)
 
     replaces = {"count_ge": "tpu_compressed_dp/ops/kernels.py:173",
                 "count_edges": "tpu_compressed_dp/ops/kernels.py:206",
@@ -6010,8 +6228,8 @@ def main(argv=None) -> int:
         # phase 8's ImageNet runs, the multi-rank dawn runs and phase 9's
         # guarded runs (9a-9d's ranks summed, 9e's LM, 9f), phase 10's
         # elastic runs (each world's ranks summed, the readmitted rank's too),
-        # phase 11's adaptive runs and phase 12's stream runs (12a, and 12c's
-        # ranks summed)
+        # phase 11's adaptive runs, phase 12's stream runs (12a, and 12c's
+        # ranks summed) and phase 13's sweep rows and twin-priced dawn run
         launches = (sum(run["launches"][name] for run in runs.values())
                     + sum(run["launches"][name] for run in cifar_runs.values())
                     + sum(run["launches"][name] for run in imagenet_runs.values())
@@ -6022,7 +6240,8 @@ def main(argv=None) -> int:
                     + sum(run["launches"].get(name, 0) for run in robust_runs.values())
                     + sum(run["launches"].get(name, 0) for run in elastic_runs.values())
                     + sum(run["launches"].get(name, 0) for run in adaptive_runs.values())
-                    + sum(run["launches"].get(name, 0) for run in stream_runs.values()))
+                    + sum(run["launches"].get(name, 0) for run in stream_runs.values())
+                    + sum(run["launches"].get(name, 0) for run in sweep_runs.values()))
         entry = {
             "name": name, "route": "cuda", "source": source[name],
             "replaces": replaces[name], "launches": launches,

@@ -172,9 +172,89 @@ def test_signals_match_jax():
         tsignals.hideable_budget_ms(tc)
     for vals in ([], [1.0, 2.0, 4.5]):
         assert tsignals.mean_or_zero(vals) == jsignals.mean_or_zero(vals)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tcontroller.Controller(tconfig.ControlConfig(method="topk", rungs=(0.5, 0.25),
-                                                     model="twin"))
+    # the twin model needs its pricer, in both packages
+    for ctl, cfg in ((tcontroller.Controller, tconfig.ControlConfig),
+                     (jcontroller.Controller, jconfig.ControlConfig)):
+        with pytest.raises(ValueError, match="needs a TwinPricer"):
+            ctl(cfg(method="topk", rungs=(0.5, 0.25), model="twin"))
+
+
+def _pricer_args(**kw):
+    import argparse
+
+    base = dict(adaptive_model="twin", twin_records=REPO, dp_pods=1)
+    return argparse.Namespace(**{**base, **kw})
+
+
+_PRICER_CASES = [("simulate", "allgather", 1, 1), ("wire", "allgather", 4, 1),
+                 ("wire", "sharded", 8, 1), ("wire", "hierarchical", 8, 2),
+                 ("wire", "allgather", 64, 4)]
+
+
+@pytest.mark.parametrize("mode,transport,world,pods", _PRICER_CASES)
+def test_build_twin_pricer_matches_jax(mode, transport, world, pods):
+    """``harness.loop.build_twin_pricer`` from the same flags: the pricer's
+    fields are JAX's (transport mapping, world, pods, evidence rows, compute
+    anchor) and its prices are equal bit for bit."""
+    from tpu_compressed_dp.harness import loop as jloop
+    from tpu_compressed_dp_torch.harness import loop as tloop
+
+    args = _pricer_args(dp_pods=pods)
+    tp = tloop.build_twin_pricer(args, tdp.CompressionConfig(
+        method="topk", mode=mode, transport=transport), world=world)
+    jp = jloop.build_twin_pricer(args, jdp.CompressionConfig(
+        method="topk", mode=mode, transport=transport), world=world)
+    keys = ("transport", "world", "pods", "num_collectives", "route_frac", "calib_rows",
+            "compute_anchor_ms")
+    assert {k: getattr(tp, k) for k in keys} == {k: getattr(jp, k) for k in keys}
+    assert tp.calib_rows > 0
+    assert tp.model.fabrics.keys() == jp.model.fabrics.keys()
+    for bits in (0.0, 1.0, 4.2e6, 2.1e8):
+        assert tp.comm_ms(bits) == jp.comm_ms(bits)
+        assert tp.step_ms(bits) == jp.step_ms(bits)
+    assert tloop.build_twin_pricer(_pricer_args(adaptive_model="flat"), None, world=1) is None
+
+
+@pytest.mark.parametrize("transport", ["psum", "all_gather", "sharded"])
+def test_twin_tick_sequence_bitwise_jax(transport):
+    """Ticks priced through the twin (``model='twin'``) on one seeded signal
+    sequence: every state field, Decision, event record and gauge equal to
+    JAX's, the ``twin/*`` gauges included, and the rung moves."""
+    from tpu_compressed_dp.twin import calibration_rows as jrows, fit as jfit
+    from tpu_compressed_dp_torch.twin import calibration_rows as trows, fit as tfit
+
+    rows_t, rows_j = trows(REPO), jrows(REPO)
+    # two pods: the committed records calibrate the DCN fabric's terms (a
+    # flat world's ICI terms fit to zero)
+    tpr = tsignals.TwinPricer(model=tfit(rows_t).model, world=4, pods=2, transport=transport,
+                              calib_rows=len(rows_t), compute_anchor_ms=12.5)
+    jpr = jsignals.TwinPricer(model=jfit(rows_j).model, world=4, pods=2, transport=transport,
+                              calib_rows=len(rows_j), compute_anchor_ms=12.5)
+    rng = np.random.default_rng(7)
+    # a budget under the twin's price: the controller walks down the ladder
+    kw = dict(method="topk", rungs=(0.1, 0.05, 0.025, 0.0125), window=4, deadband=0.2,
+              model="twin", budget_ms=0.6 * tpr.comm_ms(1e6))
+    tc, jc = _pair(**kw)
+    trec, jrec = _Rec(), _Rec()
+    tctl = tcontroller.Controller(tc, events=trec, pricer=tpr)
+    jctl = jcontroller.Controller(jc, events=jrec, pricer=jpr)
+    ts, js = tstate.init_control_state(tc), jstate.init_control_state(jc)
+    applied, n_twin = 0, 0
+    for i in range(120):
+        applied += int(rng.choice([0, 1, 2, 3]))
+        bits = float(rng.uniform(1e5, 4e7)) * 0.5 ** int(ts.rung)
+        tsig = tctl.window_signals(mean_bits=bits)
+        jsig = jctl.window_signals(mean_bits=bits)
+        assert dataclasses.astuple(tsig) == dataclasses.astuple(jsig)
+        ts, tdec = tctl.tick(ts, applied=applied, signals=tsig)
+        js, jdec = jctl.tick(js, applied=applied, signals=jsig)
+        _same_state(ts, js)
+        assert [dataclasses.asdict(d) for d in tdec] == [dataclasses.asdict(d) for d in jdec]
+        tm, jm = tctl.metrics(ts), jctl.metrics(js)
+        assert tm == jm
+        n_twin += "twin/pred_step_ms" in tm
+    assert n_twin > 10 and trec.ev == jrec.ev
+    assert len({f["direction"] for _, f in trec.ev}) >= 2
 
 
 def test_migrate_comp_state_bitwise_jax(monkeypatch):

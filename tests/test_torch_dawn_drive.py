@@ -119,12 +119,64 @@ _DAWN_TINY = ["--device", "cpu", "--synthetic", "--synthetic_n", "64", "--batch_
               "--epochs", "1", "--channels_scale", "0.125"]
 
 
-@pytest.mark.parametrize("argv", [["--twin_records", "r"], ["--adaptive_model", "twin"]])
-def test_dawn_unported_flags_raise(argv):
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def twin_records_dir(flag: str, tmp_path) -> str:
+    """The records directory a twin-flag case calibrates from: the
+    repository root for ``--adaptive_model``, a directory holding two of
+    its sweep files for ``--twin_records`` (so the flag's directory shows
+    in ``twin/calib_rows``)."""
+    if flag == "--adaptive_model":
+        return REPO
+    d = tmp_path / "records"
+    d.mkdir()
+    for name in ("BENCH_r10.json", "BENCH_r11.json"):
+        (d / name).write_bytes(open(os.path.join(REPO, name), "rb").read())
+    return str(d)
+
+
+def twin_gauges(events_path: str, kind: str) -> list:
+    """The ``twin/*`` gauges of every ``kind`` record on an event stream."""
+    import json
+
+    with open(events_path) as f:
+        recs = [json.loads(line) for line in f]
+    return [{k: v for k, v in r["control"].items() if k.startswith("twin/")}
+            for r in recs if r["kind"] == kind]
+
+
+def check_twin_gauges(gauges: list, records: str) -> None:
+    """At least one window's ``twin/*`` gauges, each with the evidence rows
+    of ``records`` (the JAX loader's count) and finite prices."""
+    from tpu_compressed_dp.twin import calibration_rows
+
+    seen = [g for g in gauges if g]
+    assert seen, gauges
+    for g in seen:
+        assert set(g) == {"twin/pred_step_ms", "twin/pred_err_frac", "twin/calib_rows"}
+        assert g["twin/calib_rows"] == float(len(calibration_rows(records)))
+        assert np.isfinite(g["twin/pred_step_ms"]) and np.isfinite(g["twin/pred_err_frac"])
+
+
+# the twin flags were cases of test_dawn_unported_flags_raise until the
+# digital twin was ported
+@pytest.mark.parametrize("flag", ["--twin_records", "--adaptive_model"])
+def test_dawn_twin_flags_work(flag, tmp_path):
+    """Two epochs under ``--adaptive --adaptive_model twin``: the epoch
+    records carry the ``twin/*`` gauges, calibrated from the flag's records
+    directory; the run ends with finite losses."""
     from tpu_compressed_dp_torch.harness import dawn
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 14"):
-        dawn.main(argv + _DAWN_TINY)
+    records = twin_records_dir(flag, tmp_path)
+    ev = str(tmp_path / "e.jsonl")
+    summary = dawn.main(_DAWN_TINY[:-4] + [
+        "--epochs", "2", "--channels_scale", "0.125", "--log_dir", "", "--compress",
+        "entiremodel", "--method", "topk", "--ratio", "0.01", "--error_feedback", "--adaptive",
+        "--adaptive_model", "twin", "--twin_records", records, "--adaptive_budget_ms", "1.0",
+        "--events", ev])
+    assert summary["epoch"] == 2 and np.isfinite(summary["train loss"])
+    check_twin_gauges(twin_gauges(ev, "epoch"), records)
 
 
 # the stream flags were cases of test_dawn_unported_flags_raise until the

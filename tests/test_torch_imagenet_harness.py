@@ -79,14 +79,24 @@ def test_first_epoch_matches_jax_harness(monkeypatch):
 
 
 # the elastic flags (item 12) and the telemetry and control flags (item 13)
-# were cases here until they were ported (test_elastic_* and
-# test_item13_flags_work), and the stream flags (test_stream_flags_work); the
-# flags that still raise are item 14's twin
-@pytest.mark.parametrize("argv,item", [
-    (["--twin_records", "r"], 14), (["--adaptive", "--adaptive_model", "twin"], 14)])
-def test_unported_flags_raise(argv, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, item {item}"):
-        tharness.main(FLAGS + argv + ["--device", "cpu"])
+# were cases of test_unported_flags_raise until they were ported
+# (test_elastic_* and test_item13_flags_work), then the stream flags
+# (test_stream_flags_work) and the twin flags (test_twin_flags_work)
+@pytest.mark.parametrize("flag", ["--twin_records", "--adaptive_model"])
+def test_twin_flags_work(flag, tmp_path):
+    """One synthetic epoch under ``--adaptive --adaptive_model twin``: the
+    epoch record carries the ``twin/*`` gauges, calibrated from the flag's
+    records directory."""
+    from tests.test_torch_dawn_drive import check_twin_gauges, twin_gauges, twin_records_dir
+
+    records = twin_records_dir(flag, tmp_path)
+    ev = str(tmp_path / "ev.jsonl")
+    got = tharness.main(FLAGS + ["--phases", ONE_EPOCH, "--synthetic_n", "64", "--device",
+                                 "cpu", "--adaptive", "--adaptive_model", "twin",
+                                 "--twin_records", records, "--adaptive_budget_ms", "1.0",
+                                 "--events", ev])
+    assert np.isfinite(got["train loss"])
+    check_twin_gauges(twin_gauges(ev, "epoch"), records)
 
 
 TWO_EPOCHS = '[{"ep": 0, "sz": 64, "bs": 32}, {"ep": [0, 2], "lr": [0.1, 0.2]}]'

@@ -124,16 +124,26 @@ def test_parser_surface_matches_jax():
 
 
 # the elastic flags (item 12) and the telemetry and control flags (item 13)
-# were cases here until they were ported (test_elastic_lm_* and
-# test_item13_flags_work), and the stream flags (test_stream_flags_work); the
-# flags that still raise are item 14's twin
-_UNPORTED = [(["--twin_records", "r"], 14), (["--adaptive_model", "twin"], 14)]
+# were cases of test_unported_flags_raise until they were ported
+# (test_elastic_lm_* and test_item13_flags_work), then the stream flags
+# (test_stream_flags_work) and the twin flags (test_twin_flags_work)
+@pytest.mark.parametrize("flag", ["--twin_records", "--adaptive_model"])
+def test_twin_flags_work(flag, tmp_path):
+    """Four tiny steps under ``--adaptive --adaptive_model twin``, a log
+    window of 2: the step records carry the ``twin/*`` gauges, calibrated
+    from the flag's records directory."""
+    from tests.test_torch_dawn_drive import check_twin_gauges, twin_gauges, twin_records_dir
 
-
-@pytest.mark.parametrize("argv,item", _UNPORTED, ids=[a[0] for a, _ in _UNPORTED])
-def test_unported_flags_raise(argv, item):
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        tharness.main(["--device", "cpu", "--steps", "1", *argv])
+    records = twin_records_dir(flag, tmp_path)
+    ev = str(tmp_path / "e.jsonl")
+    got = tharness.main(["--device", "cpu", "--preset", "tiny", "--steps", "4", "--log_every",
+                         "2", "--seq_len", "32", "--global_batch", "2", "--fp32", "--compress",
+                         "entiremodel", "--method", "topk", "--ratio", "0.05",
+                         "--error_feedback", "--adaptive", "--adaptive_model", "twin",
+                         "--twin_records", records, "--adaptive_budget_ms", "1.0",
+                         "--events", ev])
+    assert math.isfinite(got["loss"]), got
+    check_twin_gauges(twin_gauges(ev, "step"), records)
 
 
 @pytest.mark.parametrize("flag", ["--stream_every", "--stream_keyframe_every", "--stream_ratio",

@@ -292,6 +292,8 @@ def test_port_imports_no_jax():
     for root, _, names in os.walk(os.path.join(REPO, "tpu_compressed_dp_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     banned = ("jax", "flax", "tpu_compressed_dp")
+    for sub in ("bench", "twin"):   # the sweep and the twin, with their own copies
+        assert any(os.sep + sub + os.sep in f for f in files), sub
     for path in files:
         tree = ast.parse(open(path, encoding="utf-8").read())
         for node in ast.walk(tree):

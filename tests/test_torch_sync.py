@@ -308,6 +308,32 @@ def test_leaf_groups_and_config_surface():
         tdp.CompressionConfig(granularity="per-row")
 
 
+@pytest.mark.parametrize("idxs", [[0, 1, 2], [1], [2], [0]])
+def test_groups_lay_kernels_out_as_jax(idxs):
+    """A group's flat vector is JAX's ravel of the flax leaves (conv and
+    Dense kernels in the flax layout, where positions decide Random-K's
+    draws, owner routing and capacity clips), and splitting it gives the
+    port's leaves back."""
+    import torch
+    from jax.flatten_util import ravel_pytree
+
+    from tpu_compressed_dp_torch.models.common import to_torch_layout
+    from tpu_compressed_dp_torch.parallel import dp as tdp
+
+    rng = np.random.default_rng(3)
+    names = ["bn/bias", "conv/kernel", "dense/kernel"]
+    flax = [rng.normal(size=s).astype(np.float32) for s in ((8,), (3, 3, 4, 8), (8, 5))]
+    leaves = [torch.from_numpy(np.ascontiguousarray(to_torch_layout(k, a)))
+              for k, a in zip(names, flax)]
+    flat = tdp.group_concat(names, leaves, idxs)
+    want, _ = ravel_pytree([flax[i] for i in idxs])
+    np.testing.assert_array_equal(flat.numpy(), np.asarray(want))
+    out = [None] * len(leaves)
+    tdp.group_split(flat, names, leaves, idxs, out)
+    for i in idxs:
+        assert out[i].shape == leaves[i].shape and torch.equal(out[i], leaves[i])
+
+
 def test_resolved_fields_and_wire_transport():
     from tpu_compressed_dp_torch.parallel import dp as tdp
 

@@ -54,8 +54,8 @@ class ControlConfig:
     model:          how the 'modeled' signal prices bits: 'flat' (default)
                     divides by ``bandwidth_mbps``; 'twin' prices the
                     transport's collective schedule through the calibrated
-                    per-fabric twin — the port has no twin yet (ROADMAP.md
-                    queue 1, item 14), so its Controller refuses it
+                    per-fabric twin (``twin/``); the Controller then needs a
+                    :class:`~tpu_compressed_dp_torch.control.signals.TwinPricer`
     bandwidth_mbps: modeled per-chip wire bandwidth, Mbit/s ('modeled' only)
     budget_ms:      hideable-compute budget per update, ms.  > 0 pins the
                     budget; 0 means the harness must derive it (measured

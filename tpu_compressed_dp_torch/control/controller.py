@@ -62,20 +62,27 @@ class Controller:
     run-state rides ``TrainState.control`` so resume replays decisions
     bitwise."""
 
-    def __init__(self, cfg: ControlConfig, *, events: Any = None):
-        if cfg.model == "twin":
-            raise NotImplementedError(
-                "--adaptive_model twin is not ported yet: ROADMAP.md queue 1, item 14")
+    def __init__(self, cfg: ControlConfig, *, events: Any = None, pricer: Any = None):
         self.cfg = cfg
         self.knob = ladder_knob(cfg.method)
         self.events = events
+        # the calibrated twin's bit pricer (--adaptive_model twin): still a
+        # pure function of billed bits, so decisions stay replayable
+        self.pricer = pricer
+        if cfg.model == "twin" and pricer is None:
+            raise ValueError(
+                "cfg.model='twin' needs a TwinPricer (build one from the "
+                "records dir: harness.loop.build_twin_pricer)")
 
     def window_signals(self, *, mean_bits: float, measured_comm_ms: Optional[float] = None,
                        compute_ms: Optional[float] = None,
                        hideable_fraction: float = 1.0) -> WindowSignals:
         """Assemble one tick's per-update signals per ``cfg.signal``."""
         if self.cfg.signal == "modeled":
-            comm = modeled_comm_ms(mean_bits, self.cfg.bandwidth_mbps)
+            if self.cfg.model == "twin":
+                comm = self.pricer.comm_ms(mean_bits)
+            else:
+                comm = modeled_comm_ms(mean_bits, self.cfg.bandwidth_mbps)
         else:
             if measured_comm_ms is None:
                 raise ValueError("signal='measured' needs measured_comm_ms from the "
@@ -153,13 +160,14 @@ class Controller:
             pass  # telemetry must never fail a decision
 
     def metrics(self, control: Any) -> dict:
-        """Host-emitter gauges for heartbeat/Prometheus (``control/*`` in
-        ``obs/registry.py``), derived from the checkpointed state only."""
+        """Host-emitter gauges for heartbeat/Prometheus (``control/*`` and,
+        with a twin pricer, ``twin/*`` in ``obs/registry.py``), derived
+        from the checkpointed state only."""
         if control == ():
             return {}
         rung = int(control.rung)
         n = max(1, int(control.win_updates))
-        return {
+        out = {
             "control/rung": float(rung),
             "control/value": float(rung_value(self.cfg, rung)),
             "control/decisions": float(int(control.decisions)),
@@ -167,6 +175,16 @@ class Controller:
             "control/comm_ms": float(control.win_comm_ms) / n,
             "control/budget_ms": float(control.win_budget_ms) / n,
         }
+        if self.pricer is not None and int(control.win_updates) > 0:
+            # the twin's price for the open window's mean billed bits, and
+            # its discrepancy against the flat-bandwidth price
+            mean_bits = float(control.win_bits) / n
+            twin_comm = self.pricer.comm_ms(mean_bits)
+            flat_comm = modeled_comm_ms(mean_bits, self.cfg.bandwidth_mbps)
+            out["twin/pred_step_ms"] = float(self.pricer.compute_anchor_ms) + twin_comm
+            out["twin/pred_err_frac"] = (twin_comm - flat_comm) / max(flat_comm, 1e-9)
+            out["twin/calib_rows"] = float(self.pricer.calib_rows)
+        return out
 
     def heartbeat_fields(self, control: Any) -> dict:
         if control == ():

@@ -1,7 +1,6 @@
 """Deterministic signal models feeding the controller.
 
-PyTorch-port counterpart of :mod:`tpu_compressed_dp.control.signals`
-(the digital twin's ``TwinPricer`` comes with ROADMAP.md queue 1, item 14).
+PyTorch-port counterpart of :mod:`tpu_compressed_dp.control.signals`.
 The controller equalizes two per-update quantities: **comm time** (what the
 sync costs) against the **hideable-compute budget** (how much of that cost
 the ``--overlap`` chunk schedule can bury under the remaining backward
@@ -13,12 +12,12 @@ wall-times the HARNESS observed (StepTimeline) as plain arguments.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import Any, Optional, Sequence
 
 from tpu_compressed_dp_torch.control.config import ControlConfig
 
 __all__ = ["WindowSignals", "modeled_comm_ms", "hideable_budget_ms", "billed_signal_bits",
-           "mean_or_zero"]
+           "mean_or_zero", "TwinPricer"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +48,58 @@ def billed_signal_bits(comm_means, pods: int = 1) -> float:
         return total
     ici = float(comm_means.get("comm/sent_bits_ici", 0.0))
     return total - ici
+
+
+@dataclasses.dataclass(frozen=True)
+class TwinPricer:
+    """Prices billed bits through the calibrated digital twin
+    (``--adaptive_model twin``): the bits are laid onto the run's transport
+    schedule at its (world, pods) topology and priced with the fitted
+    per-fabric alpha/beta/gamma, so a rung's comm cost carries the dispatch
+    latency and per-hop terms the flat ``bits / bandwidth`` division cannot
+    see.  At ``pods > 1`` the bits handed in are the DCN-billed share
+    (:func:`billed_signal_bits`), which is why the sharded / hierarchical
+    route and return split ``route_frac`` / ``1 - route_frac`` over one
+    fabric.  A frozen pure function of its inputs.
+
+    model:             a fitted :class:`tpu_compressed_dp_torch.twin.CostModel`
+    world / pods:      the run's dp topology
+    transport:         psum | all_gather | sharded | hierarchical
+    num_collectives:   dispatches per update (reduction-group count)
+    route_frac:        share of sparse bits riding the route all_to_all
+                       (the rest ride the shard-return all_gather)
+    calib_rows:        evidence rows behind ``model`` (``twin/calib_rows``)
+    compute_anchor_ms: calibrated non-comm step time for the run's context
+                       (the ``twin/pred_step_ms`` baseline)
+    """
+
+    model: Any
+    world: int
+    pods: int = 1
+    transport: str = "psum"
+    num_collectives: float = 1.0
+    route_frac: float = 0.888
+    calib_rows: int = 0
+    compute_anchor_ms: float = 0.0
+
+    def comm_ms(self, bits_per_update: float) -> float:
+        from tpu_compressed_dp_torch.twin.model import flat_schedule
+
+        mb = float(bits_per_update) / 8.0 / 1e6
+        kw = dict(world=self.world, pods=self.pods, count=self.num_collectives)
+        if self.transport == "all_gather":
+            sched = flat_schedule(allgather_mb=mb, **kw)
+        elif self.transport in ("sharded", "hierarchical"):
+            # route bits ride the all_to_all bucket, return bits the
+            # all_gather; hierarchical's DCN share splits the same way
+            sched = flat_schedule(alltoall_mb=mb * self.route_frac,
+                                  allgather_mb=mb * (1.0 - self.route_frac), **kw)
+        else:
+            sched = flat_schedule(psum_mb=mb, **kw)
+        return self.model.comm_ms(sched)
+
+    def step_ms(self, bits_per_update: float) -> float:
+        return self.compute_anchor_ms + self.comm_ms(bits_per_update)
 
 
 def hideable_budget_ms(cfg: ControlConfig, *, compute_ms: Optional[float] = None,

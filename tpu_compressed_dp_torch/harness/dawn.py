@@ -49,9 +49,9 @@ Protocol as in the JAX harness: ``PiecewiseLinear([0, 5, epochs], [0, peak,
 0])`` (or the ``step`` shape) at fractional epochs divided by the batch
 size, weight decay ``5e-4 * batch_size``, Nesterov when momentum > 0,
 Crop/FlipLR/Cutout augmentation, gradients compressed at summed-loss scale
-(``grad_scale = batch_size``).
-A flag of the JAX harness that this port does not carry yet raises
-``NotImplementedError`` naming the ROADMAP item that brings it.
+(``grad_scale = batch_size``).  ``--adaptive --adaptive_model twin``
+prices the controller's billed bits through the digital twin fitted from
+``--twin_records`` (``twin/``).  Every flag of the JAX harness is carried.
 
 Runs on CUDA unless ``--device cpu``; one process is one worker (launch
 several with ``torchrun``, e.g. ``torchrun --nproc_per_node 4 -m
@@ -78,6 +78,7 @@ from tpu_compressed_dp_torch.harness.loop import (Telemetry, add_adaptive_args,
                                                   add_robustness_args, add_stream_args,
                                                   add_telemetry_args, build_control,
                                                   build_elastic, build_robustness,
+                                                  build_twin_pricer,
                                                   control_summary, control_tick,
                                                   elastic_distributed_init, hideable_fraction,
                                                   local_device, make_heartbeat,
@@ -414,7 +415,8 @@ def _run(args, device: torch.device, comp: CompressionConfig, launch, hb) -> dic
         follow_world()
     controller, hide_frac = None, 1.0
     if ctrl_cfg is not None:
-        controller = Controller(ctrl_cfg, events=tel.events)
+        controller = Controller(ctrl_cfg, events=tel.events,
+                                pricer=build_twin_pricer(args, comp, world=cur["world"]))
         # the overlap schedule's hideable byte fraction scales the measured
         # compute into the per-update budget (unless --adaptive_budget_ms
         # pins it)

@@ -36,9 +36,9 @@ reference's ``IMAGENET/training/train_imagenet_nv.py``):
 
 One process is one worker (``torchrun`` for several, or ``--coordinator
 --num_processes --process_id``); batches are split by process (``bs //
-world`` each).  Runs on CUDA unless ``--device cpu``.  A flag
-of the JAX harness that this port does not carry yet raises
-``NotImplementedError`` naming the ROADMAP item that brings it.
+world`` each).  Runs on CUDA unless ``--device cpu``.  Every flag of the
+JAX harness is carried (``--adaptive_model twin`` fits the digital twin
+from ``--twin_records``).
 
 Run: ``python -m tpu_compressed_dp_torch.harness.imagenet --synthetic``
 """
@@ -62,7 +62,8 @@ from tpu_compressed_dp_torch.harness.loop import (Telemetry, add_adaptive_args,
                                                   add_process_args, add_robustness_args,
                                                   add_stream_args, add_telemetry_args,
                                                   build_control, build_elastic,
-                                                  build_robustness, comm_summary,
+                                                  build_robustness, build_twin_pricer,
+                                                  comm_summary,
                                                   control_summary, control_tick,
                                                   elastic_distributed_init, fabric_gauges,
                                                   guard_summary, hideable_fraction,
@@ -451,7 +452,8 @@ def _run(args, device: torch.device, comp: CompressionConfig, launch, hb) -> Dic
 
     controller, hide_frac = None, 1.0
     if ctrl_cfg is not None:
-        controller = Controller(ctrl_cfg, events=tel.events)
+        controller = Controller(ctrl_cfg, events=tel.events,
+                                pricer=build_twin_pricer(args, comp, world=cur["world"]))
         hide_frac = hideable_fraction(params, comp)
         if rank == 0:
             print(f"adaptive: method={ctrl_cfg.method} knob={controller.knob} "

@@ -69,7 +69,8 @@ from tpu_compressed_dp_torch.control.rungs import ladder_knob
 from tpu_compressed_dp_torch.harness.loop import (Telemetry, add_adaptive_args,
                                                   add_stream_args, add_telemetry_args,
                                                   build_control, build_elastic,
-                                                  build_robustness, control_tick,
+                                                  build_robustness, build_twin_pricer,
+                                                  control_tick,
                                                   elastic_distributed_init, hideable_fraction,
                                                   make_heartbeat, make_preemption,
                                                   make_stream, preempt_exit, profile_trace,
@@ -444,7 +445,8 @@ def _run(args, device: torch.device, comp: CompressionConfig, launch,
         follow_world()
     controller, hide_frac = None, 1.0
     if ctrl_cfg is not None:
-        controller = Controller(ctrl_cfg, events=tel.events)
+        controller = Controller(ctrl_cfg, events=tel.events,
+                                pricer=build_twin_pricer(args, comp, world=groups.dp))
         hide_frac = hideable_fraction(tf.param_leaves(state.model), comp)
         if rank == 0:
             print(f"adaptive: method={ctrl_cfg.method} knob={controller.knob} "

@@ -135,22 +135,20 @@ def add_adaptive_args(p) -> None:
                         "(NOT replay-deterministic)")
     p.add_argument("--adaptive_model", type=str, default="flat", choices=("flat", "twin"),
                    help="how 'modeled' prices bits: 'flat' divides by --adaptive_bw_mbps; "
-                        "'twin' (the calibrated digital twin) is ROADMAP.md queue 1, item 14 "
-                        "and raises")
+                        "'twin' prices the transport's collective schedule through the "
+                        "calibrated per-fabric digital twin (twin/, fitted from "
+                        "--twin_records).  Both are pure functions of billed bits "
+                        "(replay-deterministic)")
     p.add_argument("--twin_records", type=str, default=".",
-                   help="records directory the twin calibrates from (--adaptive_model twin, "
-                        "ROADMAP.md queue 1, item 14: any other value raises)")
+                   help="directory holding the BENCH_r*/MULTICHIP_r* records the twin "
+                        "calibrates from (--adaptive_model twin)")
 
 
 def build_control(args, comp_cfg):
     """The ``--adaptive*`` flags as a :class:`~tpu_compressed_dp_torch.control.ControlConfig`
     (or None).  Raises on a non-tunable compression method (silently
     running static under ``--adaptive`` would void the comparison the run
-    was launched for), and on the twin flags, which are ROADMAP item 14."""
-    if getattr(args, "twin_records", ".") != "." or getattr(args, "adaptive_model",
-                                                              "flat") != "flat":
-        raise NotImplementedError("--adaptive_model twin / --twin_records are not ported "
-                                  "yet: ROADMAP.md queue 1, item 14")
+    was launched for)."""
     if not getattr(args, "adaptive", False):
         return None
     from tpu_compressed_dp_torch.control import ControlConfig, build_ladder
@@ -174,6 +172,31 @@ def build_control(args, comp_cfg):
                         budget_ms=args.adaptive_budget_ms)
     assert_ladder_traceable(cfg)
     return cfg
+
+
+def build_twin_pricer(args, comp_cfg, *, world: int):
+    """Fit the digital twin from ``--twin_records`` and wrap it as the
+    Controller's bit pricer — None unless ``--adaptive_model twin``.  The
+    fit runs once at harness start (a least-squares over the records,
+    milliseconds of host work); every decision window then prices its
+    billed bits through the frozen result, so the loop stays
+    replay-deterministic."""
+    if getattr(args, "adaptive_model", "flat") != "twin":
+        return None
+    from tpu_compressed_dp_torch.control.signals import TwinPricer
+    from tpu_compressed_dp_torch.twin import calibration_rows, fit
+
+    rows = calibration_rows(args.twin_records)
+    calib = fit(rows)
+    mode = getattr(comp_cfg, "mode", "simulate") if comp_cfg else "simulate"
+    transport = getattr(comp_cfg, "transport", None) if comp_cfg else None
+    if mode != "wire" or not transport:
+        transport = "psum"   # simulate bills compressed payloads on psum
+    elif transport == "allgather":
+        transport = "all_gather"
+    return TwinPricer(model=calib.model, world=max(int(world), 1),
+                      pods=int(getattr(args, "dp_pods", 1) or 1), transport=transport,
+                      calib_rows=len(rows))
 
 
 def hideable_fraction(params, comp_cfg) -> float:

@@ -336,23 +336,9 @@ def _hier_combine(contrib: torch.Tensor, keep: int, world: int, cfg, group=None)
         # one pod: the ICI sum above already reduced the whole world
         return pod_sum, torch.zeros_like(contrib), bits_ici, 0.0, 0.0, zero_ovf
 
+    c_rank = mesh.group_rank(group) % C
     with obs_trace.phase("recompress"):
-        cap = plan.cap_union
-        mask = pod_sum != 0
-        nnz = mask.sum(dtype=torch.int32)
-        uidx = packed_indices_from_mask(mask, cap)
-        uvalid = (torch.arange(1, cap + 1, dtype=torch.int32, device=dev)
-                  <= torch.clamp(nnz, max=cap))
-        uvals = torch.where(uvalid, pod_sum.index_select(0, uidx.long()), 0.0)
-        uidx = torch.where(uvalid, uidx, 0)
-        # union coordinates past cap_union: the clip is the same on every
-        # chip of the pod, so each refunds 1/C of the pod value
-        taken = torch.zeros(n, dtype=torch.int32, device=dev).index_add_(
-            0, uidx.long(), uvalid.to(torch.int32)) > 0
-        union_clip = torch.where(mask & ~taken, pod_sum, 0.0) / C
-        c_rank = mesh.group_rank(group) % C
-        sl = slice(c_rank * plan.slab, (c_rank + 1) * plan.slab)
-        s_vals, s_idx, s_valid = uvals[sl], uidx[sl], uvalid[sl]
+        s_vals, s_idx, s_valid, union_clip, nnz = hier_recompress(pod_sum, plan, c_rank)
 
     dense_u, sent, route_bits, ret_bits, dcn_overflow = wire_sharded.sharded_combine(
         s_vals, s_idx, plan.dcn, valid=s_valid, group=dcn_group)
@@ -367,8 +353,31 @@ def _hier_combine(contrib: torch.Tensor, keep: int, world: int, cfg, group=None)
     slice_refund = torch.zeros(n, dtype=contrib.dtype, device=dev).index_add_(
         0, s_idx.long(), torch.where(s_valid & ~sent, s_vals, 0.0))
     ef_extra = union_clip + slice_refund
-    union_clipped = torch.clamp(nnz - cap, min=0) if c_rank == 0 else zero_ovf
+    union_clipped = torch.clamp(nnz - plan.cap_union, min=0) if c_rank == 0 else zero_ovf
     return total, ef_extra, bits_ici, route_bits, ret_bits, dcn_overflow + union_clipped
+
+
+def hier_recompress(pod_sum: torch.Tensor, plan, c_rank: int):
+    """The hierarchical transport's recompress: the pod sum's nonzero union,
+    ascending, in a ``cap_union`` buffer, and chip ``c_rank``'s slab of it.
+    Returns ``(s_vals, s_idx, s_valid, union_clip, nnz)``: the slab, this
+    chip's refund of the union coordinates past ``cap_union`` (the clip is
+    the same on every chip of the pod, so each refunds 1/C of the pod
+    value) and the union's size."""
+    n, dev = pod_sum.shape[0], pod_sum.device
+    cap = plan.cap_union
+    mask = pod_sum != 0
+    nnz = mask.sum(dtype=torch.int32)
+    uidx = packed_indices_from_mask(mask, cap)
+    uvalid = (torch.arange(1, cap + 1, dtype=torch.int32, device=dev)
+              <= torch.clamp(nnz, max=cap))
+    uvals = torch.where(uvalid, pod_sum.index_select(0, uidx.long()), 0.0)
+    uidx = torch.where(uvalid, uidx, 0)
+    taken = torch.zeros(n, dtype=torch.int32, device=dev).index_add_(
+        0, uidx.long(), uvalid.to(torch.int32)) > 0
+    union_clip = torch.where(mask & ~taken, pod_sum, 0.0) / plan.chips
+    sl = slice(c_rank * plan.slab, (c_rank + 1) * plan.slab)
+    return uvals[sl], uidx[sl], uvalid[sl], union_clip, nnz
 
 
 def _leaf_sync_topk_sharded(flat: torch.Tensor, keep: int, world: int, cfg, want_ef: bool,
@@ -721,9 +730,9 @@ def make_wire_grad_sync(cfg, group_offset: int = 0, group=None):
         bits = bits_psum = bits_ag = bits_a2a = 0.0
         bits_ici = bits_dcn = bits_dcn_route = dense_total = 0.0
         for gi, idxs in enumerate(groups):
-            flat = group_concat(leaves, idxs)
+            flat = group_concat(names, leaves, idxs)
             with obs_trace.phase("ef"):
-                ef_flat = group_concat(ef_leaves, idxs) if use_ef else None
+                ef_flat = group_concat(names, ef_leaves, idxs) if use_ef else None
             # one range over the whole wire group sync (select + pack +
             # combine): the sharded transport's route/reduce/return ranges
             # nest inside it
@@ -749,9 +758,9 @@ def make_wire_grad_sync(cfg, group_offset: int = 0, group=None):
             else:
                 bits_ag += bits_leaf
             with obs_trace.phase("return"):
-                group_split(dense, leaves, idxs, out_leaves)
+                group_split(dense, names, leaves, idxs, out_leaves)
                 if use_ef:
-                    group_split(new_ef_flat, leaves, idxs, new_ef_leaves,
+                    group_split(new_ef_flat, names, leaves, idxs, new_ef_leaves,
                                 dtype=torch.float32)
             if agree is not None:
                 agrees.append(agree)

@@ -212,75 +212,103 @@ def sharded_combine(vals: torch.Tensor, idx: torch.Tensor, plan: ShardPlan,
     unit_size)]``; ``[keep]`` bool, the slots routed AND returned (the rest
     belong in the EF residual); the measured bits handed to the
     ``all_to_all`` and the ``all_gather``; and this worker's route clips
-    plus this owner's return clips (int32, 0-d)."""
+    plus this owner's return clips (int32, 0-d).  The three stages are
+    :func:`route_stage`, :func:`reduce_stage` and :func:`return_stage`
+    (``bench/phases.py`` times them one by one)."""
+    with obs_trace.phase("route"):
+        rvals, ridx, accepted, route_bits = route_stage(vals, idx, plan, valid, group)
+    with obs_trace.phase("reduce"):
+        shard, occ = reduce_stage(rvals, ridx, plan)
+    n_valid = (valid.sum(dtype=torch.int32) if valid is not None
+               else torch.full((), idx.shape[0], dtype=torch.int32, device=vals.device))
+    route_overflow = n_valid - accepted.sum(dtype=torch.int32)
+    with obs_trace.phase("return"):
+        dense, sent, return_bits, return_clips = return_stage(shard, occ, accepted, idx, plan,
+                                                              group)
+    overflow = route_overflow if return_clips is None else route_overflow + return_clips
+    return dense, sent, route_bits, return_bits, overflow
+
+
+def route_stage(vals: torch.Tensor, idx: torch.Tensor, plan: ShardPlan,
+                valid: Optional[torch.Tensor] = None, group=None):
+    """The route: fixed ``[W, cap_dest]`` buckets, one ``all_to_all`` each
+    for values and indices.  Empty slots carry value 0 and the guard index
+    ``shard_n`` (one past the owner's range), so padding never touches a
+    real unit or the occupancy counts.  Returns ``(rvals, ridx, accepted,
+    route_bits)``: the buckets this owner received, whether each payload
+    slot was accepted, and the bits handed to the collective."""
     W, cap, shard_n = plan.world, plan.cap_dest, plan.shard_n
     row = tuple(vals.shape[1:])
     dev = vals.device
+    if not row and kernels.use_bucket_route(idx.shape[0], W, cap, dev):
+        # each destination's accepted slots are a window of the ascending
+        # payload: the windows found, copied and marked in one kernel
+        bvals, bidx, accepted = kernels.route_buckets(vals, idx, valid, W, cap, shard_n)
+    else:
+        slot, accepted, dest = _per_dest_slots(idx, valid, plan)
+        local = (idx - dest * shard_n).to(torch.int32)
+        slot = slot.long()
+        bvals = torch.zeros((W * cap + 1,) + row, dtype=vals.dtype,
+                            device=dev).index_add_(0, slot, vals)[:-1].reshape((W, cap) + row)
+        bidx = torch.full((W * cap + 1,), shard_n, dtype=torch.int32, device=dev).scatter_(
+            0, slot, local)[:-1].reshape(W, cap)
+    route_bits = wire._payload_bits(bvals, bidx)
+    rvals = mesh.all_to_all(bvals, group)             # [W, cap(, bs)]
+    ridx = mesh.all_to_all(bidx, group)
+    return rvals, ridx, accepted, route_bits
 
-    # route: fixed [W, cap_dest] buckets, one all_to_all.  Empty slots carry
-    # value 0 and the guard index shard_n (one past the owner's range), so
-    # padding never touches a real unit or the occupancy counts.
-    with obs_trace.phase("route"):
-        if not row and kernels.use_bucket_route(idx.shape[0], W, cap, dev):
-            # each destination's accepted slots are a window of the ascending
-            # payload: the windows found, copied and marked in one kernel
-            bvals, bidx, accepted = kernels.route_buckets(vals, idx, valid, W, cap, shard_n)
-        else:
-            slot, accepted, dest = _per_dest_slots(idx, valid, plan)
-            local = (idx - dest * shard_n).to(torch.int32)
-            slot = slot.long()
-            bvals = torch.zeros((W * cap + 1,) + row, dtype=vals.dtype,
-                                device=dev).index_add_(0, slot, vals)[:-1].reshape((W, cap) + row)
-            bidx = torch.full((W * cap + 1,), shard_n, dtype=torch.int32, device=dev).scatter_(
-                0, slot, local)[:-1].reshape(W, cap)
-        route_bits = wire._payload_bits(bvals, bidx)
-        rvals = mesh.all_to_all(bvals, group)             # [W, cap(, bs)]
-        ridx = mesh.all_to_all(bidx, group)
 
-    # owner reduce: shard_n + 1 rows, the last the guard row, sliced off;
-    # one rank row after another, in rank order
-    with obs_trace.phase("reduce"):
-        shard = torch.zeros((shard_n + 1,) + row, dtype=vals.dtype, device=dev)
-        occ = torch.zeros(shard_n + 1, dtype=torch.int32, device=dev)
-        ones = torch.ones(cap, dtype=torch.int32, device=dev)
-        for w in range(W):
-            r = ridx[w].long()
-            shard.index_add_(0, r, rvals[w])
-            occ.index_add_(0, r, ones)
-        shard, occ = shard[:shard_n], occ[:shard_n]
+def reduce_stage(rvals: torch.Tensor, ridx: torch.Tensor, plan: ShardPlan):
+    """The owner reduce of the received buckets: ``(shard, occ)``, the
+    owner's ``[shard_n(, unit_size)]`` sums and occupancy counts.
+    ``shard_n + 1`` rows, the last the guard row, sliced off; one rank row
+    after another, in rank order."""
+    W, cap, shard_n = plan.world, plan.cap_dest, plan.shard_n
+    row = tuple(rvals.shape[2:])
+    dev = rvals.device
+    shard = torch.zeros((shard_n + 1,) + row, dtype=rvals.dtype, device=dev)
+    occ = torch.zeros(shard_n + 1, dtype=torch.int32, device=dev)
+    ones = torch.ones(cap, dtype=torch.int32, device=dev)
+    for w in range(W):
+        r = ridx[w].long()
+        shard.index_add_(0, r, rvals[w])
+        occ.index_add_(0, r, ones)
+    return shard[:shard_n], occ[:shard_n]
 
-    n_valid = (valid.sum(dtype=torch.int32) if valid is not None
-               else torch.full((), idx.shape[0], dtype=torch.int32, device=dev))
-    route_overflow = n_valid - accepted.sum(dtype=torch.int32)
 
+def return_stage(shard: torch.Tensor, occ: torch.Tensor, accepted: torch.Tensor,
+                 idx: torch.Tensor, plan: ShardPlan, group=None):
+    """The return of every owner's shard to every worker: ``(dense, sent,
+    return_bits, return_clips)``, the sum on the padded unit space, which
+    of this worker's slots came back, the bits handed to the
+    ``all_gather``, and this owner's return clips (None for a dense
+    return, which clips nothing)."""
+    W, shard_n = plan.world, plan.shard_n
+    row = tuple(shard.shape[1:])
+    dev = shard.device
     if plan.dense_return:
-        with obs_trace.phase("return"):
-            dense = mesh.all_gather(shard, group).reshape((W * shard_n,) + row)
-        return dense, accepted, route_bits, wire._payload_bits(shard), route_overflow
-
-    with obs_trace.phase("return"):
-        cap_ret = plan.cap_ret
-        mask = occ > 0
-        nnz = mask.sum(dtype=torch.int32)
-        rix = wire.packed_indices_from_mask(mask, cap_ret)
-        rvalid = torch.arange(1, cap_ret + 1, dtype=torch.int32, device=dev) <= torch.clamp(
-            nnz, max=cap_ret)
-        sel = shard.index_select(0, rix.long())
-        sel = torch.where(rvalid.reshape((-1,) + (1,) * len(row)), sel, 0.0)
-        rix = torch.where(rvalid, rix, 0)
-        return_bits = wire._payload_bits(sel, rix)
-        g_vals = mesh.all_gather(sel, group)              # [W, cap_ret(, bs)]
-        g_rix = mesh.all_gather(rix, group)               # [W, cap_ret]
-        offs = torch.arange(W, dtype=torch.int32, device=dev)[:, None] * shard_n
-        # an underfull union pads trailing ranks with index 0: no monotone
-        # indices to rely on here
-        gidx = (g_rix + offs).reshape(-1).long()
-        dense = torch.zeros((W * shard_n,) + row, dtype=vals.dtype, device=dev).index_add_(
-            0, gidx, g_vals.reshape((-1,) + row))
-        # which of MY accepted units came back: an owner's return clips go
-        # back to every contributor's EF residual
-        returned = torch.zeros(W * shard_n, dtype=torch.uint8,
-                               device=dev).index_fill_(0, gidx, 1)
-        sent = accepted & (returned.index_select(0, idx.long()) > 0)
-    overflow = route_overflow + torch.clamp(nnz - cap_ret, min=0)
-    return dense, sent, route_bits, return_bits, overflow
+        dense = mesh.all_gather(shard, group).reshape((W * shard_n,) + row)
+        return dense, accepted, wire._payload_bits(shard), None
+    cap_ret = plan.cap_ret
+    mask = occ > 0
+    nnz = mask.sum(dtype=torch.int32)
+    rix = wire.packed_indices_from_mask(mask, cap_ret)
+    rvalid = torch.arange(1, cap_ret + 1, dtype=torch.int32, device=dev) <= torch.clamp(
+        nnz, max=cap_ret)
+    sel = shard.index_select(0, rix.long())
+    sel = torch.where(rvalid.reshape((-1,) + (1,) * len(row)), sel, 0.0)
+    rix = torch.where(rvalid, rix, 0)
+    return_bits = wire._payload_bits(sel, rix)
+    g_vals = mesh.all_gather(sel, group)              # [W, cap_ret(, bs)]
+    g_rix = mesh.all_gather(rix, group)               # [W, cap_ret]
+    offs = torch.arange(W, dtype=torch.int32, device=dev)[:, None] * shard_n
+    # an underfull union pads trailing ranks with index 0: no monotone
+    # indices to rely on here
+    gidx = (g_rix + offs).reshape(-1).long()
+    dense = torch.zeros((W * shard_n,) + row, dtype=shard.dtype, device=dev).index_add_(
+        0, gidx, g_vals.reshape((-1,) + row))
+    # which of MY accepted units came back: an owner's return clips go
+    # back to every contributor's EF residual
+    returned = torch.zeros(W * shard_n, dtype=torch.uint8, device=dev).index_fill_(0, gidx, 1)
+    sent = accepted & (returned.index_select(0, idx.long()) > 0)
+    return dense, sent, return_bits, torch.clamp(nnz - cap_ret, min=0)

@@ -257,20 +257,25 @@ def make_leaf_groups(byte_sizes, granularity: str, bucket_bytes: float):
     return groups
 
 
-def group_concat(leaves, idxs) -> torch.Tensor:
-    """Flatten-and-concatenate a group's leaves (single-leaf groups skip the
-    copy and return a view)."""
-    flats = [leaves[i].reshape(-1) for i in idxs]
+def group_concat(names, leaves, idxs) -> torch.Tensor:
+    """Flatten-and-concatenate a group's leaves, each in the flax layout's
+    element order (:func:`_flax_order`), so that a coordinate sits where the
+    JAX package puts it: Random-K's draws, owner-sharded routing and
+    capacity clips go by position.  A single leaf whose layouts agree comes
+    back as a view."""
+    flats = [_flax_order(names[i], leaves[i]) for i in idxs]
     return flats[0] if len(flats) == 1 else torch.cat(flats)
 
 
-def group_split(flat, leaves, idxs, out, dtype=None) -> None:
-    """Slice a group's flat result back into per-leaf shapes (views of
-    ``flat``), written into ``out`` at the leaves' positions."""
+def group_split(flat, names, leaves, idxs, out, dtype=None) -> None:
+    """Slice a group's flat result back into per-leaf shapes in the port's
+    layout (views of ``flat``; :func:`_from_flax_order`), written into
+    ``out`` at the leaves' positions."""
     off = 0
     for i in idxs:
         n = leaves[i].numel()
-        out[i] = flat[off:off + n].reshape(leaves[i].shape).to(dtype or leaves[i].dtype)
+        out[i] = _from_flax_order(names[i], flat[off:off + n], leaves[i]).to(
+            dtype or leaves[i].dtype)
         off += n
 
 
@@ -420,13 +425,13 @@ def _make_stateless_issue(cfg: CompressionConfig, group_offset: int, group=None)
         dense_total = 0.0
         in_flight = []   # (work or None, payload, idxs) per group
         for gi, idxs in enumerate(groups):
-            flat = group_concat(leaves, idxs)
+            flat = group_concat(names, leaves, idxs)
             with obs_trace.phase("ef"):
                 if use_ef:
                     # a group of several leaves is a fresh concatenation: add
                     # the residual into it (the same bits; one group-sized
                     # buffer fewer at the LM's ~1 G-element groups)
-                    ef_flat = group_concat(ef_leaves, idxs)
+                    ef_flat = group_concat(names, ef_leaves, idxs)
                     acc = flat.add_(ef_flat) if len(idxs) > 1 else flat + ef_flat
                     del ef_flat
                 else:
@@ -453,7 +458,7 @@ def _make_stateless_issue(cfg: CompressionConfig, group_offset: int, group=None)
             in_flight.append((work, comp_flat, idxs))
             if use_ef:
                 with obs_trace.phase("return"):
-                    group_split(new_ef_flat, leaves, idxs, new_ef_leaves,
+                    group_split(new_ef_flat, names, leaves, idxs, new_ef_leaves,
                                 dtype=torch.float32)
             transport = wire_transport(comp.name, n_g, cfg)
             if transport == "sharded" and world > 1:
@@ -504,8 +509,8 @@ def _make_stateless_issue(cfg: CompressionConfig, group_offset: int, group=None)
                         work.wait()
                 with obs_trace.phase("return"):
                     # the payload is this sync's own buffer: divide it in place
-                    group_split(comp_flat.div_(world) if world > 1 else comp_flat, leaves,
-                                idxs, out_leaves)
+                    group_split(comp_flat.div_(world) if world > 1 else comp_flat, names,
+                                leaves, idxs, out_leaves)
             return dict(zip(names, out_leaves)), new_ef, stats
 
         return finish
@@ -640,15 +645,10 @@ def _make_powersgd_sync(cfg: CompressionConfig, group_offset: int = 0, group=Non
                 new_ef_flat = acc - recon if use_ef else None
                 n_coll += 2  # the P and the Q all-reduce
             with obs_trace.phase("return"):
-                off = 0
-                for i in idxs:
-                    n = leaves[i].numel()
-                    out_leaves[i] = _from_flax_order(names[i], recon[off:off + n],
-                                                     leaves[i]).to(leaves[i].dtype)
-                    if use_ef:
-                        new_ef_leaves[i] = _from_flax_order(
-                            names[i], new_ef_flat[off:off + n], leaves[i])
-                    off += n
+                group_split(recon, names, leaves, idxs, out_leaves)
+                if use_ef:
+                    group_split(new_ef_flat, names, leaves, idxs, new_ef_leaves,
+                                dtype=torch.float32)
             sent_total += group_sent
             bits_total += group_bits
             dense_total += float(n_g)

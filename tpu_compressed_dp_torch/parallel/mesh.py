@@ -43,7 +43,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["resolve_device", "init_process_group", "backend", "port_of", "world", "rank",
-           "free_port", "all_gather", "all_reduce_sum", "all_reduce_max", "all_to_all", "hier_groups",
+           "free_port", "all_gather", "all_reduce_sum", "all_reduce_max", "more_on_any_rank",
+           "all_to_all", "hier_groups",
            "destroy", "size", "group_rank", "group_ranks", "axis_size", "LmGroups",
            "lm_groups", "ppermute", "ring_perm", "copy_to_group", "reduce_from_group",
            "sum_over_group"]
@@ -237,6 +238,16 @@ def all_reduce_max(t: torch.Tensor, group=None) -> torch.Tensor:
     if size(group) > 1:
         dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
     return out
+
+
+def more_on_any_rank(want: bool, device, group=None) -> bool:
+    """True where any rank of ``group`` wants another round: a time-based
+    loop whose rounds run collectives must run as many rounds on every
+    rank."""
+    if size(group) == 1:
+        return want
+    flag = torch.tensor([1 if want else 0], dtype=torch.int32, device=device)
+    return bool(all_reduce_max(flag, group).item())
 
 
 def _sum_exact(t: torch.Tensor, group) -> torch.Tensor:
