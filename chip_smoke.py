@@ -109,8 +109,8 @@ printing no result, where either is missing or any phase fails.
      group's size; (7c) the LM's other mesh axes as gloo ranks on the card
      (run right after the build, while the card's memory is free), 3 steps
      of entire-model Top-K 1 % + EF through ``harness.lm.main`` each:
-     ``--dp 1 --tp 2`` (2 layers, seq 8192: equal finite losses, each flash
-     kernel twice a step on each rank at 16/4 local heads, the Top-K kernels
+     ``--dp 1 --tp 2`` (1 layer, seq 8192: equal finite losses, each flash
+     kernel once a step on each rank at 16/4 local heads, the Top-K kernels
      on both signature groups, the replicated parameters bitwise equal
      across the ranks) and ``--dp 1 --sp 2 --remat`` (``LM_SP_LAYERS`` /
      ``LM_SP_SEQ``, which fit two whole models on the card; no flash launch:
@@ -248,7 +248,27 @@ printing no result, where either is missing or any phase fails.
      ``select_pack`` held bitwise to their plain versions on the run's
      first inputs.  The twin is calibrated on the records' CPU runs: its
      prices are not the card's times;
- 14. prints the kernels' JSON line (18 entries), the ``nvidia-smi``
+ 14. the convergence-grid, time-to-accuracy and transport tools and the
+     offline readers (``harness/convergence_sweep.py``,
+     ``time_to_accuracy.py``, ``validate_transport.py``, ``trace_report.py``,
+     ``control_report.py``, ``ckpt_fsck.py``), writing under ``build/``
+     only: (a) the grid's ``--quick --synthetic_n 4096`` points
+     ``GRID_ONLY`` (full-width ResNet-9, batch 512, 3 epochs each through
+     ``harness.dawn.main``), each row's sent fraction (and a wire row's wire
+     fraction) equal to the analytic billing of its config, each row's
+     launches counted; (b) the time-to-accuracy projection over (a)'s TSV
+     (``--steps 10 --warmup 3``, a measure cache under ``build/``; each
+     ``bench.sweep.run_point`` row's launches counted), its wall-clock,
+     speedup and crossover columns recomputed from the printed columns;
+     (c) the transport check at W = 2 gloo ranks on the card
+     (``TRANSPORT_CASES``, ``TRANSPORT_N`` elements, 10 steps): each rank's own
+     written bytes against the analytic ones inside 0.85-1.6, the order
+     dense > terngrad > topk kept, the ranks' launches summed; (d) the trace
+     and control reports over phase 11a's event stream, and fsck over phase
+     9's clean checkpoint tree (exit 0), its corrupted one (exit 1 naming
+     step 6, then ``--prune`` of a copy and exit 0) and phase 12's stream
+     (exit 0);
+ 15. prints the kernels' JSON line (18 entries), the ``nvidia-smi``
      name/power line and, last, ``{"ok": true, "device": {...}}``.
 
 ``--record FILE`` also writes the full record (every timing, the profiles)
@@ -3360,7 +3380,11 @@ LM_SP_LAYERS, LM_SP_SEQ = 1, 8192
 # microbatches of one sequence, ~1.27 G parameters a rank; "pp" is the pipe
 # axis, "batch" the global batch
 LM_PP_SEQ = 8192
-LM_AXES_RUNS = {"tp2": {"mesh": (1, 1, 2), "layers": 2, "seq": 8192, "flags": []},
+# tp2: 1 layer (2 before phase 14 was added): the world took 157-215 s of
+# the script's 1,200 s limit at 2 layers, and one layer exercises every
+# tensor-axis path (column / row shards, Megatron's f and g, the replicated
+# leaves' bitwise agreement) as two do
+LM_AXES_RUNS = {"tp2": {"mesh": (1, 1, 2), "layers": 1, "seq": 8192, "flags": []},
                 "sp2": {"mesh": (1, 2, 1), "layers": LM_SP_LAYERS, "seq": LM_SP_SEQ,
                         "flags": ["--remat"]},
                 "pp2": {"mesh": (1, 1, 1), "pp": 2, "batch": 2, "layers": 2, "seq": LM_PP_SEQ,
@@ -5883,30 +5907,45 @@ SWEEP_TOPK = TOPK_KERNELS + ("select_pack",)
 TWIN_EPOCHS = 3              # 13c: 3 epochs of 4 steps, a window of 8 updates
 
 
+def _counted_calls(kernels, torch, module, name: str, launches: list):
+    """Wrap ``module.name`` so each call's kernel launches are counted (every
+    count set to 0 just before the call, read just after); returns the
+    original."""
+    orig = getattr(module, name)
+
+    def counted(*a, **kw):
+        kernels.reset_launches()
+        out = orig(*a, **kw)
+        torch.cuda.synchronize()
+        launches.append(dict(kernels.LAUNCHES))
+        return out
+
+    setattr(module, name, counted)
+    return orig
+
+
+def _quiet(fn, *a, **kw):
+    """``fn(*a, **kw)`` with its standard output kept: (result, text)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*a, **kw)
+    return out, buf.getvalue()
+
+
 def _sweep_rows(kernels, sweep, torch, argv: list):
     """``bench.sweep.main(argv)``: its records, and each row's launches of
     the port's kernels (every count set to 0 just before the row's
     ``run_point`` and read just after)."""
-    import contextlib
-    import io
-
-    launches, orig = [], sweep.run_point
-
-    def counted(**kw):
-        kernels.reset_launches()
-        rec = orig(**kw)
-        torch.cuda.synchronize()
-        launches.append(dict(kernels.LAUNCHES))
-        return rec
-
-    sweep.run_point = counted
-    buf = io.StringIO()
+    launches = []
+    orig = _counted_calls(kernels, torch, sweep, "run_point", launches)
     try:
-        with contextlib.redirect_stdout(buf):
-            recs = sweep.main(argv)
+        recs, text = _quiet(sweep.main, argv)
     finally:
         sweep.run_point = orig
-    lines = [json.loads(ln) for ln in buf.getvalue().splitlines() if ln.startswith("{")]
+    lines = [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")]
     if lines != recs:
         raise AssertionError("13: the sweep's JSON lines are not its records")
     return recs, launches
@@ -6063,6 +6102,271 @@ def phase_sweep_twin(kernels, compressors, dawn, torch, record):
     return runs, err
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the convergence grid, the time-to-accuracy projection, the
+# transport check and the offline readers
+# ---------------------------------------------------------------------------
+
+GRID_ONLY = ("dense-step", "topk-em-1%-wire-EF-step", "topk-lw-1%",
+             "randomk-em-10%-wire-EF-mom9", "terngrad-em")
+GRID_N = 4096                 # 8 steps of 512 an epoch, 3 epochs (--quick)
+TRANSPORT_CASES = ("dense", "topk-1%-wire-EF", "topk-1%-wire-EF-sharded", "terngrad-wire")
+# 14c's size: each rank's gradient is full-width ResNet-9's entire model, so
+# the sharded route's payload (keep 65,732) takes the bucket-route kernel
+# (its dispatch size is 2^16 slots; the CLI's default 2,000,000 elements
+# keep 10,000 a rank)
+TRANSPORT_N = 2 * FULL_MODEL
+TRANSPORT_BAND = (0.85, 1.6)  # the reference test's band
+
+
+def grid_billing(compressors, dp, extra) -> tuple:
+    """(sent fraction, wire fraction or None) that the reference bills for a
+    grid point on full-width ResNet-9: the keep counts of its groups over
+    the dense count (Top-K, Random-K), every element (dense, TernGrad); a
+    wire point's bits are its payload layout's (values and indices for
+    Top-K, values for Random-K, whose indices follow from the shared
+    seed)."""
+    from tpu_compressed_dp_torch.harness.time_to_accuracy import arg_val
+
+    method = arg_val(extra, "--method")
+    if method is None or method == "terngrad":
+        return 1.0, None
+    ratio = float(arg_val(extra, "--ratio"))
+    ns = _group_sizes(dp, arg_val(extra, "--compress", "layerwise"))
+    keep = {"topk": compressors.topk_keep_count,
+            "randomk": compressors.randomk_keep_count}[method]
+    k = sum(keep(n, ratio) for n in ns)
+    wire = None
+    if arg_val(extra, "--mode") == "wire":
+        wire = (64 if method == "topk" else 32) * k / (32 * sum(ns))
+    return k / sum(ns), wire
+
+
+def _recompute_projection(row: dict, dense: dict, bandwidths, worlds, steps_pe: int) -> list:
+    """The headline row's wall-clock, speedup and crossover columns
+    recomputed from its printed columns (and the dense row's): a list of
+    (column, printed, recomputed, tolerance)."""
+    from tpu_compressed_dp_torch.utils.meters import per_chip_traffic_bytes
+
+    def totals(r, w):
+        ratio = float(r["ratio"]) if r["ratio"] else 1.0
+        scale = float(r["effective_sent_frac"]) / ratio if r["effective_sent_frac"] else 1.0
+        per_step = per_chip_traffic_bytes(float(r["payload_mb_psum"]) * 1e6,
+                                          float(r["payload_mb_allgather"]) * 1e6, w,
+                                          float(r["payload_mb_alltoall"]) * 1e6)
+        epochs = int(r["epochs"])
+        return (epochs * steps_pe * float(r["step_ms_1chip"]) / 1e3 / w,
+                epochs * steps_pe * per_step * scale)
+
+    out = []
+    for w in worlds:
+        a_m, b_m = totals(row, w)
+        a_d, b_d = totals(dense, w)
+        for name, bw in bandwidths:
+            wall, wall_d = a_m + b_m / bw, a_d + b_d / bw
+            # the printed payloads carry 4 decimals of a MB, the
+            # effective fraction 5 digits: recomputed within 0.2 %
+            out.append((f"wall_min_w{w}_{name}", float(row[f"wall_min_w{w}_{name}"]),
+                        wall / 60.0, 0.005 + 2e-3 * wall / 60.0))
+            out.append((f"speedup_w{w}_{name}", float(row[f"speedup_w{w}_{name}"]),
+                        wall_d / wall, 0.0005 + 2e-3 * wall_d / wall))
+        cross = row[f"crossover_gbps_w{w}"]
+        if row is dense:
+            want = ""
+        elif a_m > a_d and b_m < b_d:
+            want = (b_d - b_m) / (a_m - a_d) * 8 / 1e9
+        elif a_m <= a_d and b_m <= b_d:
+            want = "always"
+        else:
+            want = "never"
+        if isinstance(want, float) and cross not in ("", "always", "never"):
+            out.append((f"crossover_gbps_w{w}", float(cross), want, 0.0005 + 5e-3 * want))
+        elif cross != want:
+            out.append((f"crossover_gbps_w{w}", cross, want, None))
+    return out
+
+
+def phase_tools(kernels, compressors, torch, record):
+    """Phase 14: the convergence grid, the time-to-accuracy projection over
+    it, the measured-vs-analytic transport check, and the trace, control and
+    checkpoint reports over the files phases 9, 11a and 12 left under
+    ``build/``.  Returns the main-path runs' launches."""
+    from tpu_compressed_dp_torch.bench import sweep
+    from tpu_compressed_dp_torch.harness import (ckpt_fsck, control_report, convergence_sweep,
+                                                 dawn, time_to_accuracy, trace_report,
+                                                 validate_transport)
+    from tpu_compressed_dp_torch.parallel import dp
+
+    card = record["card"]
+    out_dir = os.path.join(HERE, "build", "chip_smoke_tools")
+    shutil_rm(out_dir)
+    os.makedirs(out_dir)
+    t_phase = time.perf_counter()
+    res, runs = {}, {}
+    # (a) the grid's quick points, each dawn run's launches counted
+    conv = os.path.join(out_dir, "convergence.tsv")
+    grid_l = []
+    orig = _counted_calls(kernels, torch, dawn, "main", grid_l)
+    try:
+        rows, text = _quiet(convergence_sweep.main, [
+            "--quick", "--synthetic_n", str(GRID_N), "--only", ",".join(GRID_ONLY), "--out",
+            conv, "--device", "cuda"])
+    finally:
+        dawn.main = orig
+    with open(os.path.join(out_dir, "convergence.log"), "w") as f:
+        f.write(text)
+    grid = dict(convergence_sweep.GRID)
+    if [r["label"] for r in rows] != [lb for lb in grid if lb in GRID_ONLY] or len(grid_l) != 5:
+        raise AssertionError(f"14a: rows {[r['label'] for r in rows]}, {len(grid_l)} runs")
+    if time_to_accuracy.parse_tsv(conv) != [{c: str(r[c]) for c in convergence_sweep.COLS}
+                                            for r in rows]:
+        raise AssertionError("14a: the TSV is not the rows")
+    for r, ln in zip(rows, grid_l):
+        extra = grid[r["label"]]
+        sent, wire = grid_billing(compressors, dp, extra)
+        if r["epochs"] != 3 or not all(math.isfinite(r[k]) for k in (
+                "train_loss", "test_loss", "test_acc")):
+            raise AssertionError(f"14a {r['label']}: {r}")
+        # the TSV's 5 decimals: within half of the last one
+        if abs(r["sent_frac"] - sent) > 5e-6 + 1e-12:
+            raise AssertionError(f"14a {r['label']}: sent frac {r['sent_frac']}, the billing "
+                                 f"gives {sent}")
+        if wire is not None and abs(r["wire_frac"] - wire) > 5e-6 + 1e-12:
+            raise AssertionError(f"14a {r['label']}: wire frac {r['wire_frac']}, the layout "
+                                 f"gives {wire}")
+        method = time_to_accuracy.arg_val(extra, "--method")
+        must = {None: (), "terngrad": ("terngrad",), "randomk": ("uniform", "select_pack"),
+                "topk": TOPK_KERNELS[:3] + (("select_pack",) if wire is not None
+                                            else ("fused_sparsify",))}[method]
+        if any(ln[k] < 1 for k in must) or (method is None and any(ln.values())):
+            raise AssertionError(f"14a {r['label']}: launches {ln}")
+        log(f"14a grid {r['label']} (--quick, {GRID_N} images, 3 epochs of {GRID_N // 512} "
+            f"steps): test acc {r['test_acc']}, train acc {r['train_acc']}, sent frac "
+            f"{r['sent_frac']} (billed {sent:.7f}), wire frac {r['wire_frac']}, total_s "
+            f"{r['total_s']} on {card}; launches { {k: v for k, v in ln.items() if v} }")
+    runs["grid"] = {"launches": _sum_launches(grid_l)}
+    res["14a"] = {"rows": rows, "launches": grid_l}
+    # (b) the projection over (a)'s TSV, each run_point row's launches counted
+    proj_l = []
+    orig = _counted_calls(kernels, torch, sweep, "run_point", proj_l)
+    head, sens = os.path.join(out_dir, "tta.tsv"), os.path.join(out_dir, "tta_sens.tsv")
+    try:
+        rc, text = _quiet(time_to_accuracy.main, [
+            "--convergence", conv, "--out", head, "--sensitivity_out", sens, "--dense_label",
+            "dense-step", "--steps", "10", "--warmup", "3", "--measure_cache",
+            os.path.join(out_dir, "tta_cache.json"), "--device", "cuda"])
+    finally:
+        sweep.run_point = orig
+    with open(os.path.join(out_dir, "tta.log"), "w") as f:
+        f.write(text)
+    proj = time_to_accuracy.parse_tsv(head)
+    if rc != 0 or [p["label"] for p in proj] != [r["label"] for r in rows] or len(proj_l) != 5:
+        raise AssertionError(f"14b: rc {rc}, rows {[p['label'] for p in proj]}, "
+                             f"{len(proj_l)} measurements")
+    dense = next(p for p in proj if p["label"] == "dense-step")
+    bad = []
+    for p in proj:
+        for col, got, want, tol in _recompute_projection(
+                p, dense, time_to_accuracy.BANDWIDTHS,
+                time_to_accuracy.WORLDS, time_to_accuracy.STEPS_PER_EPOCH_DEFAULT):
+            if tol is None or abs(got - want) > tol:
+                bad.append((p["label"], col, got, want))
+        if not float(p["step_ms_1chip"]) > 0:
+            bad.append((p["label"], "step_ms_1chip", p["step_ms_1chip"], "> 0"))
+    if bad:
+        raise AssertionError(f"14b: printed columns the recomputation does not give: {bad}")
+    n_sens = sum(1 for ln in open(sens) if ln.strip() and not ln.startswith("#")) - 1
+    if n_sens != (len(proj) - 1) * len(time_to_accuracy.WORLDS) * len(
+            time_to_accuracy.BANDWIDTHS):
+        raise AssertionError(f"14b: {n_sens} sensitivity rows")
+    for p, ln in zip(proj, proj_l):
+        log(f"14b projection {p['label']}: step_ms_1chip {p['step_ms_1chip']} (ResNet-9 b 512, "
+            f"32 px, 10 steps), payload MB psum / allgather / alltoall {p['payload_mb_psum']} / "
+            f"{p['payload_mb_allgather']} / {p['payload_mb_alltoall']}, effective sent frac "
+            f"{p['effective_sent_frac'] or '-'}; speedup vs dense W=8 "
+            + " / ".join(f"{p[f'speedup_w8_{n}']}" for n, _ in time_to_accuracy.BANDWIDTHS)
+            + ", W=32 " + " / ".join(f"{p[f'speedup_w32_{n}']}"
+                                     for n, _ in time_to_accuracy.BANDWIDTHS)
+            + f" ({', '.join(n for n, _ in time_to_accuracy.BANDWIDTHS)}, projected from this "
+            f"card's step and the data-sheet links), crossover Gbit/s W=8 / 32 "
+            f"{p['crossover_gbps_w8'] or '-'} / {p['crossover_gbps_w32'] or '-'} on {card}; "
+            f"launches { {k: v for k, v in ln.items() if v} }")
+    runs["projection"] = {"launches": _sum_launches(proj_l)}
+    res["14b"] = {"rows": proj, "launches": proj_l}
+    # (c) the transport check: W = 2 gloo ranks on the card, each counting
+    # its own written bytes
+    t0 = time.perf_counter()
+    (trows, recs), text = _quiet(validate_transport.validate, n_param=TRANSPORT_N, steps=10,
+                                 procs=2, device="cuda", cases=TRANSPORT_CASES)
+    validate_transport.write_tsv(os.path.join(out_dir, "transport.tsv"), trows, 2)
+    if [r["case"] for r in trows] != list(TRANSPORT_CASES):
+        raise AssertionError(f"14c: cases {[r['case'] for r in trows]}:\n{text[-3000:]}")
+    meas = {r["case"]: r["measured_lo_tx_bytes_per_step"] for r in trows}
+    for r in trows:
+        if not TRANSPORT_BAND[0] < r["ratio_measured_over_analytic"] < TRANSPORT_BAND[1]:
+            raise AssertionError(f"14c {r['case']}: measured / analytic {r}")
+    if not meas["dense"] > meas["terngrad-wire"] > meas["topk-1%-wire-EF"]:
+        raise AssertionError(f"14c: the order dense > terngrad > topk broke: {meas}")
+    for r, rec in zip(trows, recs):
+        log(f"14c transport {r['case']} W=2 gloo ranks on cuda:0 ({TRANSPORT_N:,} elements, "
+            f"10 steps): measured {r['measured_lo_tx_bytes_per_step']:.1f} B a step "
+            f"(both ranks' own written bytes; idle window {r['idle_window_bytes']:.0f} B), "
+            f"analytic {r['analytic_bytes_per_step_all_ranks']:.1f}, ratio "
+            f"{r['ratio_measured_over_analytic']}; launches summed over the ranks "
+            f"{ {k: v for k, v in rec['launches'].items() if v} } (host memory, no link timed) "
+            f"on {card}")
+    for k in ("select_pack", "bucket_route"):
+        if not sum(rec["launches"][k] for rec in recs):
+            raise AssertionError(f"14c: {k} never launched: {[rec['launches'] for rec in recs]}")
+    runs["transport"] = {"launches": _sum_launches(rec["launches"] for rec in recs)}
+    res["14c"] = {"rows": trows, "records": recs, "wall_s": time.perf_counter() - t0}
+    # (d) the readers over the earlier phases' files
+    ev = os.path.join(HERE, "build", "chip_smoke_adaptive", "11a", "smoke.ev.jsonl")
+    checks = []
+    for tool, argv, rc_want, must in (
+            (trace_report, [ev], 0, ("per-phase step-time breakdown", "throughput trajectory")),
+            (trace_report, [ev, "--control", "--chrome", os.path.join(out_dir, "trace.json")],
+             0, ("rung trajectory", "chrome trace:")),
+            (control_report, [ev], 0, ("rung trajectory", "per-window balance", "summary:")),
+            (control_report, [ev, "--twin_records", HERE], 0, ("twin ms", "calib_rows="))):
+        rc, text = _quiet(tool.main, argv)
+        checks.append((tool.__name__.rsplit(".", 1)[1], argv, rc, text))
+        if rc != rc_want or not all(m in text for m in must):
+            raise AssertionError(f"14d {tool.__name__} {argv}: rc {rc}\n{text[-2000:]}")
+    robust = os.path.join(HERE, "build", "chip_smoke_robust")
+    stream = os.path.join(HERE, "build", "chip_smoke_stream", "12a")
+    pruned = os.path.join(out_dir, "ck_w2")
+    import shutil
+
+    shutil.copytree(os.path.join(robust, "ck_w2"), pruned)
+    for argv, rc_want, must in (
+            ([os.path.join(robust, "ck_w1")], 0, ("step 2: OK", "step 4: OK")),
+            ([os.path.join(robust, "ck_w1"), "--list"], 0, ("step 2: ", "step 4: ", " files, ")),
+            ([os.path.join(robust, "ck_w2")], 1, ("step 3: OK", "step 6: CORRUPT")),
+            ([pruned, "--prune"], 0, ("pruned step 6",)),
+            ([pruned], 0, ("step 3: OK",)),
+            ([stream], 0, ("seg 0: OK",)),
+            ([stream, "--list"], 0, ("seg 0: keyframe",))):
+        rc, text = _quiet(ckpt_fsck.main, argv)
+        checks.append(("ckpt_fsck", argv, rc, text))
+        if rc != rc_want or not all(m in text for m in must) or (
+                rc_want == 0 and "--prune" not in argv and "CORRUPT" in text):
+            raise AssertionError(f"14d ckpt_fsck {argv}: rc {rc} (want {rc_want})\n"
+                                 f"{text[-2000:]}")
+    for name, argv, rc, text in checks:
+        log(f"14d {name} {' '.join(os.path.relpath(a, HERE) if os.sep in a else a for a in argv)}"
+            f": exit {rc}, {len(text.splitlines())} lines; " + " | ".join(
+                ln.strip() for ln in text.splitlines()
+                if ln.startswith(("summary:", "step ", "seg ", "stream:", "pruned", "twin:",
+                                  "  total", "  device", "  dispatch")))[:600])
+    res["14d"] = [{"tool": n, "argv": a, "rc": rc} for n, a, rc, _ in checks]
+    wall = time.perf_counter() - t_phase
+    res["wall_s"] = wall
+    log(f"phase 14 took {wall:.1f} s on {card} (14c {res['14c']['wall_s']:.1f} s)")
+    record["tools"] = res
+    return runs
+
+
 def shutil_rm(path: str) -> None:
     import shutil
 
@@ -6184,6 +6488,7 @@ def main(argv=None) -> int:
     sweep_runs, t_err = phase_sweep_twin(kernels, compressors, dawn, torch, record)
     for name, e in t_err.items():
         err[name] = max(err[name], e)
+    tool_runs = phase_tools(kernels, compressors, torch, record)
 
     replaces = {"count_ge": "tpu_compressed_dp/ops/kernels.py:173",
                 "count_edges": "tpu_compressed_dp/ops/kernels.py:206",
@@ -6229,7 +6534,8 @@ def main(argv=None) -> int:
         # guarded runs (9a-9d's ranks summed, 9e's LM, 9f), phase 10's
         # elastic runs (each world's ranks summed, the readmitted rank's too),
         # phase 11's adaptive runs, phase 12's stream runs (12a, and 12c's
-        # ranks summed) and phase 13's sweep rows and twin-priced dawn run
+        # ranks summed), phase 13's sweep rows and twin-priced dawn run, and
+        # phase 14's grid points, projection rows and transport ranks
         launches = (sum(run["launches"][name] for run in runs.values())
                     + sum(run["launches"][name] for run in cifar_runs.values())
                     + sum(run["launches"][name] for run in imagenet_runs.values())
@@ -6241,7 +6547,8 @@ def main(argv=None) -> int:
                     + sum(run["launches"].get(name, 0) for run in elastic_runs.values())
                     + sum(run["launches"].get(name, 0) for run in adaptive_runs.values())
                     + sum(run["launches"].get(name, 0) for run in stream_runs.values())
-                    + sum(run["launches"].get(name, 0) for run in sweep_runs.values()))
+                    + sum(run["launches"].get(name, 0) for run in sweep_runs.values())
+                    + sum(run["launches"].get(name, 0) for run in tool_runs.values()))
         entry = {
             "name": name, "route": "cuda", "source": source[name],
             "replaces": replaces[name], "launches": launches,

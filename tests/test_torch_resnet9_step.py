@@ -294,6 +294,10 @@ def test_port_imports_no_jax():
     banned = ("jax", "flax", "tpu_compressed_dp")
     for sub in ("bench", "twin"):   # the sweep and the twin, with their own copies
         assert any(os.sep + sub + os.sep in f for f in files), sub
+    # the ports of the reference's tools/ scripts, with their own copies
+    for name in ("convergence_sweep", "time_to_accuracy", "validate_transport",
+                 "trace_report", "control_report", "ckpt_fsck"):
+        assert os.path.join(REPO, "tpu_compressed_dp_torch", "harness", f"{name}.py") in files
     for path in files:
         tree = ast.parse(open(path, encoding="utf-8").read())
         for node in ast.walk(tree):
